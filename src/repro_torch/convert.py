@@ -1,0 +1,61 @@
+"""Carry a DistCLUB state across the two packages as numpy arrays.
+
+``state_from_numpy`` takes a ``repro`` ``DistCLUBState`` whose leaves are
+numpy arrays (``jax.tree.map(np.asarray, state)``) and builds the port's
+state; ``state_to_numpy`` goes the other way, so both packages can compute
+from the same state.  The records have the same fields; the only change
+is the packed adjacency, uint32 in the reference and an int32 view of the
+same bits here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .core.types import (ClusterStats, DistCLUBState, GraphState,
+                         LinUCBState)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def state_from_numpy(state, device=None) -> DistCLUBState:
+    dev = resolve_device(device)
+
+    def conv(record, cls):
+        return cls(*(_tensor(getattr(record, f), dev) for f in cls._fields))
+
+    return DistCLUBState(
+        lin=conv(state.lin, LinUCBState),
+        graph=conv(state.graph, GraphState),
+        clusters=conv(state.clusters, ClusterStats),
+        u_rounds=_tensor(state.u_rounds, dev),
+        c_rounds=_tensor(state.c_rounds, dev),
+        comm_bytes=_tensor(state.comm_bytes, dev),
+    )
+
+
+def state_to_numpy(state: DistCLUBState) -> DistCLUBState:
+    """The port's state with numpy leaves; the adjacency as uint32."""
+
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    def conv(record):
+        return type(record)(*(arr(t) for t in record))
+
+    graph = state.graph
+    return DistCLUBState(
+        lin=conv(state.lin),
+        graph=GraphState(adj=arr(graph.adj).view(np.uint32),
+                         labels=arr(graph.labels)),
+        clusters=conv(state.clusters),
+        u_rounds=arr(state.u_rounds),
+        c_rounds=arr(state.c_rounds),
+        comm_bytes=arr(state.comm_bytes),
+    )

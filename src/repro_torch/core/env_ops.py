@@ -1,0 +1,146 @@
+"""Shard-aware environment protocol for the stage engine.
+
+An environment is two functions:
+
+  contexts_fn(seed, step, occ, row0=0)                  -> [n_local, K, d]
+  rewards_fn(seed, step, occ, contexts, choice, row0=0) -> (realized,
+                                                           expected, best,
+                                                           rand)
+
+``seed`` is the run's seed and ``step`` the run's global round id (epoch
+``e``, stage ``s`` in {0: stage 1, 1: stage 3}, round ``t`` ->
+``(2 e + s) * max_rounds + t``); together they take the place of the JAX
+package's PRNG key.  ``occ`` is the per-user interaction count of a LOCAL
+user slice and ``row0`` the global id of the slice's first user.
+
+Determinism under slicing: every draw of ``synthetic_ops`` is keyed by
+(seed, step, GLOBAL user id, slot) through a stateless counter hash
+(splitmix64 in int64 tensor arithmetic, then Box-Muller for normals),
+computed on the device.  So user ``u`` sees the same contexts and the same
+Bernoulli draw whatever slice of the user axis it is computed in.
+``tape_ops`` replays given per-round contexts and uniforms instead; the
+parity tests feed it the reference's own draws.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from . import env as synth_env
+
+_MASK64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+_MUL1 = 0xBF58476D1CE4E5B9
+_MUL2 = 0x94D049BB133111EB
+_STREAM_CONTEXTS = 1
+_STREAM_REWARDS = 2
+
+
+class EnvOps(NamedTuple):
+    contexts_fn: Callable
+    rewards_fn: Callable
+    n_users: int
+    d: int
+    n_candidates: int
+
+
+def _signed(v: int) -> int:
+    """A 64-bit pattern as the int64 value torch stores for it."""
+    v &= _MASK64
+    return v - (1 << 64) if v >> 63 else v
+
+
+def _splitmix(z: int) -> int:
+    """splitmix64 finalizer on a Python int (mod 2**64)."""
+    z &= _MASK64
+    z = ((z ^ (z >> 30)) * _MUL1) & _MASK64
+    z = ((z ^ (z >> 27)) * _MUL2) & _MASK64
+    return z ^ (z >> 31)
+
+
+def _srl(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _hash(seed: int, stream: int, step: int,
+          counter: torch.Tensor) -> torch.Tensor:
+    """64 random bits per int64 counter (splitmix64 of key + i * golden;
+    int64 products wrap, which is the mod-2**64 arithmetic it needs)."""
+    key = _splitmix(_splitmix(_splitmix(seed) ^ stream) ^ step)
+    z = counter * _signed(_GOLDEN) + _signed(key)
+    z = (z ^ _srl(z, 30)) * _signed(_MUL1)
+    z = (z ^ _srl(z, 27)) * _signed(_MUL2)
+    return z ^ _srl(z, 31)
+
+
+def _counters(row0: int, n_local: int, slots: int, device) -> torch.Tensor:
+    """[n_local, slots] int64 global (user, slot) counters."""
+    users = torch.arange(row0, row0 + n_local, dtype=torch.int64,
+                         device=device)
+    return users[:, None] * slots + torch.arange(slots, dtype=torch.int64,
+                                                 device=device)
+
+
+def _unit_contexts(seed, step, n_local, K, d, row0, device):
+    z = _hash(seed, _STREAM_CONTEXTS, step,
+              _counters(row0, n_local, K * d, device))
+    u1 = (_srl(z, 40) + 1).float() * 2.0**-24        # (0, 1]
+    u2 = (z & 0xFFFFFF).float() * 2.0**-24           # [0, 1)
+    x = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2 * math.pi) * u2)
+    x = x.reshape(n_local, K, d)
+    return x / torch.linalg.norm(x, dim=-1, keepdim=True)
+
+
+def _uniforms(seed, step, n_local, row0, device):
+    z = _hash(seed, _STREAM_REWARDS, step, _counters(row0, n_local, 1, device))
+    return _srl(z[:, 0], 40).float() * 2.0**-24      # [0, 1)
+
+
+def _bernoulli_metrics(u, p_all, choice):
+    """(realized, expected, best, rand) from per-candidate click probs."""
+    p_choice = torch.take_along_dim(p_all, choice.long()[:, None], dim=1)[:, 0]
+    best = p_all.max(dim=-1).values
+    rand = p_all.mean(dim=-1)
+    realized = (u < p_choice).to(p_all.dtype)
+    return realized, p_choice, best, rand
+
+
+def synthetic_ops(env: synth_env.SyntheticEnv) -> EnvOps:
+    n, d, K = env.n_users, env.d, env.n_candidates
+    theta = env.theta
+
+    def contexts_fn(seed, step, occ, row0=0):
+        return _unit_contexts(seed, step, occ.shape[0], K, d, row0,
+                              occ.device)
+
+    def rewards_fn(seed, step, occ, contexts, choice, row0=0):
+        th = theta[row0:row0 + occ.shape[0]]
+        p_all = synth_env.expected_reward(th[:, None, :], contexts)
+        u = _uniforms(seed, step, occ.shape[0], row0, occ.device)
+        return _bernoulli_metrics(u, p_all, choice)
+
+    return EnvOps(contexts_fn, rewards_fn, n, d, K)
+
+
+def tape_ops(theta: torch.Tensor, contexts: torch.Tensor,
+             uniforms: torch.Tensor) -> EnvOps:
+    """Replay recorded draws: ``contexts [S, n, K, d]`` and Bernoulli
+    ``uniforms [S, n]`` for global rounds ``0..S-1``, rewarded against
+    ``theta [n, d]``; the seed is ignored.  Synthetic contexts do not
+    depend on the choices, so a tape of another run's draws replays that
+    run exactly."""
+    S, n, K, d = contexts.shape
+
+    def contexts_fn(seed, step, occ, row0=0):
+        return contexts[step, row0:row0 + occ.shape[0]]
+
+    def rewards_fn(seed, step, occ, ctx, choice, row0=0):
+        th = theta[row0:row0 + occ.shape[0]]
+        p_all = synth_env.expected_reward(th[:, None, :], ctx)
+        return _bernoulli_metrics(uniforms[step, row0:row0 + occ.shape[0]],
+                                  p_all, choice)
+
+    return EnvOps(contexts_fn, rewards_fn, n, d, K)

@@ -1,0 +1,96 @@
+// Masked M-free Sherman-Morrison update of the bandit state, IN PLACE.
+//
+// Replaces: src/repro/kernels/rank1/rank1.py, rank1_update_inv_pallas
+//           (body _rank1_inv_kernel).
+//
+// For every user u with mask[u] != 0:
+//   Mx      = Minv[u] x[u]
+//   denom   = 1 + x[u].Mx
+//   Minv[u] = Minv[u] - Mx Mx^T / denom
+//   b[u]    = b[u] + r[u] x[u]
+// A user with mask[u] == 0 is an identity update, and the kernel does not
+// touch its rows at all, so they stay bit-identical.  Minv and b are
+// updated in place: the caller hands over the state and gets it back
+// modified (the wrapper returns the same tensors).
+//
+// Bound on an H100: memory.  The update reads and writes Minv once (2 d^2
+// floats per live user) plus b, x and r; about 4 d^2 flops per user is
+// nothing beside that.  At n=20480, d=25, all users live: ~109 MB, ~32 us
+// at 3.35 TB/s.
+//
+// Design: one warp per user, eight users per block.  The warp copies the
+// user's Minv (d^2 contiguous floats) and x into shared memory with
+// coalesced loads; lane i forms (Minv x)_i from shared memory, a warp
+// shuffle sums x.Mx, and the warp writes the downdated Minv back with
+// coalesced stores.  The division and subtraction are rounded as the
+// reference rounds them (outer product, then / denom, then subtract).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+
+__global__ void rank1_update_inv_kernel(float* __restrict__ Minv,
+                                        float* __restrict__ b,
+                                        const float* __restrict__ x,
+                                        const float* __restrict__ r,
+                                        const unsigned char* __restrict__ mask,
+                                        int n, int d) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int u = blockIdx.x * kWarps + warp;
+  if (u >= n || mask[u] == 0) return;  // the whole warp leaves together
+
+  const int dd = d * d;
+  float* m_s = smem + warp * (dd + 2 * d);
+  float* x_s = m_s + dd;
+  float* mx_s = x_s + d;
+  float* Mu = Minv + (size_t)u * dd;
+  for (int e = lane; e < dd; e += 32) m_s[e] = Mu[e];
+  for (int i = lane; i < d; i += 32) x_s[i] = x[(size_t)u * d + i];
+  __syncwarp();
+
+  float part = 0.f;
+  for (int i = lane; i < d; i += 32) {
+    const float* mrow = m_s + i * d;
+    float t = 0.f;
+    for (int j = 0; j < d; ++j) t = fmaf(mrow[j], x_s[j], t);
+    mx_s[i] = t;
+    part = fmaf(x_s[i], t, part);
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  const float denom = 1.f + part;
+  __syncwarp();
+
+  for (int e = lane; e < dd; e += 32) {
+    const int i = e / d;
+    const int j = e - i * d;
+    Mu[e] = __fsub_rn(m_s[e], __fdiv_rn(__fmul_rn(mx_s[i], mx_s[j]), denom));
+  }
+  const float ru = r[u];
+  float* bu = b + (size_t)u * d;
+  for (int j = lane; j < d; j += 32)
+    bu[j] = __fadd_rn(bu[j], __fmul_rn(ru, x_s[j]));
+}
+
+}  // namespace
+
+extern "C" int rank1_update_inv_launch(float* Minv, float* b, const float* x,
+                                       const float* r,
+                                       const unsigned char* mask, int n, int d,
+                                       cudaStream_t stream) {
+  const size_t smem = (size_t)kWarps * (d * d + 2 * d) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        rank1_update_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (n + kWarps - 1) / kWarps;
+  rank1_update_inv_kernel<<<blocks, 32 * kWarps, smem, stream>>>(
+      Minv, b, x, r, mask, n, d);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,141 @@
+"""Build and load the hand-written CUDA kernels of ``repro_torch/csrc``.
+
+Each source is compiled by ``nvcc`` into its own shared library with a
+plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds).  Libraries land in ``build/kernels/`` at the root
+of the checkout, named by a hash of their source so an edited kernel is
+never served stale; they are built at first use, and ``build_all`` starts
+one ``nvcc`` per source at once.
+
+``LAUNCHES`` counts launches per kernel: each wrapper in
+``kernels/*/ops.py`` adds one where it launches its kernel and nowhere
+else, so a run can show which kernels its path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
+
+# kernel name -> (source, C entry point, argtypes)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNELS = {
+    "choose": ("choose.cu", "choose_launch",
+               [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P]),
+    "rank1_update_inv": ("rank1.cu", "rank1_update_inv_launch",
+                         [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "prune": ("prune.cu", "prune_launch",
+              [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P]),
+    "cc_hop": ("cc_hop.cu", "cc_hop_launch",
+               [_P, _P, _P, _I, _I, _I, _P, _P]),
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return str(path)
+
+
+def library_path(source: str) -> Path:
+    text = (CSRC / source).read_bytes()
+    digest = hashlib.sha256(text).hexdigest()[:12]
+    return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every (or the named) kernel that is not built yet, one
+    ``nvcc`` per source, all started together.  Returns ``{name: ptxas
+    report}`` for the sources compiled by this call; raises with the
+    compiler's output if any build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        source = KERNELS[name][0]
+        out = library_path(source)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built on first use, with argtypes set."""
+    lib = _loaded.get(name)
+    if lib is None:
+        source, entry, argtypes = KERNELS[name]
+        path = library_path(source)
+        if not path.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def check(t, name: str, dtype, shape: tuple, device) -> int:
+    """Validate a tensor handed to a kernel; return its data pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t.data_ptr()
+
+
+def launch(name: str, *args) -> None:
+    """Call the kernel's C launcher on the current stream; raise if the
+    launch was refused, count it otherwise."""
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = getattr(load(name), KERNELS[name][1])
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1

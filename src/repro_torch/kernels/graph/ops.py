@@ -1,0 +1,75 @@
+"""Device dispatch for the stage-2 graph engine: plain versions for CPU
+tensors, the CUDA kernels (``csrc/prune.cu``, ``csrc/cc_hop.cu``) for
+CUDA tensors.  Callers hold the packed adjacency at its logical shape
+``[n_rows, ceil(n_cols/32)]`` int32; the kernels mask their own ragged
+edges, so nothing is padded."""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .ref import (BIG_LABEL, cc_hop_packed_ref, init_packed_adj, pack_bits,
+                  packed_words, prune_packed_ref, unpack_bits)
+
+__all__ = [
+    "BIG_LABEL", "init_packed_adj", "pack_bits", "packed_words",
+    "unpack_bits", "prune_packed", "cc_hop_packed",
+]
+
+
+def prune_packed(
+    packed: torch.Tensor,   # [R, W] int32
+    v_i: torch.Tensor,      # [R, d] f32
+    cb_i: torch.Tensor,     # [R] f32 confidence widths
+    v_j: torch.Tensor,      # [C, d] f32, C <= 32 W
+    cb_j: torch.Tensor,     # [C] f32
+    gamma: float,
+) -> torch.Tensor:
+    """packed & (dist(v_i, v_j) < gamma (cb_i + cb_j)), a new [R, W]."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return prune_packed_ref(packed, v_i, cb_i, v_j, cb_j, gamma)
+    if dev.type != "cuda":
+        raise ValueError(f"prune_packed runs on cpu or cuda, not {dev}")
+    R, W = packed.shape
+    C, d = v_j.shape
+    if C > 32 * W:
+        raise ValueError(f"{C} columns do not fit in {W} words")
+    args = [
+        _build.check(packed, "packed", torch.int32, (R, W), dev),
+        _build.check(v_i, "v_i", torch.float32, (R, d), dev),
+        _build.check(cb_i, "cb_i", torch.float32, (R,), dev),
+        _build.check(v_j, "v_j", torch.float32, (C, d), dev),
+        _build.check(cb_j, "cb_j", torch.float32, (C,), dev),
+    ]
+    out = torch.empty_like(packed)
+    if R and W:
+        _build.launch("prune", *args, float(gamma), R, W, C, d,
+                      out.data_ptr())
+    return out
+
+
+def cc_hop_packed(
+    packed: torch.Tensor,        # [R, W] int32
+    labels_self: torch.Tensor,   # [R] i32
+    labels_j: torch.Tensor,      # [C] i32, C <= 32 W
+) -> torch.Tensor:
+    """min(labels_self, neighbour-min of labels_j over set bits), [R] i32."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return cc_hop_packed_ref(packed, labels_self, labels_j)
+    if dev.type != "cuda":
+        raise ValueError(f"cc_hop_packed runs on cpu or cuda, not {dev}")
+    R, W = packed.shape
+    C = labels_j.shape[0]
+    if C > 32 * W:
+        raise ValueError(f"{C} columns do not fit in {W} words")
+    args = [
+        _build.check(packed, "packed", torch.int32, (R, W), dev),
+        _build.check(labels_self, "labels_self", torch.int32, (R,), dev),
+        _build.check(labels_j, "labels_j", torch.int32, (C,), dev),
+    ]
+    out = torch.empty(R, dtype=torch.int32, device=dev)
+    if R:
+        _build.launch("cc_hop", *args, R, W, C, out.data_ptr())
+    return out

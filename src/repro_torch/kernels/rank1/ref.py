@@ -1,0 +1,28 @@
+"""Plain PyTorch version of the fused M-free rank-1 update
+(``csrc/rank1.cu``)."""
+from __future__ import annotations
+
+import torch
+
+
+def rank1_update_inv_ref(
+    Minv: torch.Tensor,   # [n, d, d]
+    b: torch.Tensor,      # [n, d]
+    x: torch.Tensor,      # [n, d]
+    r: torch.Tensor,      # [n]
+    mask: torch.Tensor,   # [n] bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Minv', b') after one masked interaction per user.
+
+    Minv' is the Sherman-Morrison inverse of ``M + (m x)(m x)^T`` and
+    ``b' = b + r m x``; a masked-out user (m = 0) is an identity update.
+    ``Minv`` and ``b`` are updated IN PLACE and returned, as the kernel
+    does, so both devices share one aliasing contract.
+    """
+    m = mask.to(x.dtype)
+    xm = x * m[:, None]
+    Mx = torch.einsum("nij,nj->ni", Minv, xm)
+    denom = 1.0 + torch.einsum("ni,ni->n", xm, Mx)
+    Minv.sub_((Mx[:, :, None] * Mx[:, None, :]) / denom[:, None, None])
+    b.add_((r * m)[:, None] * x)
+    return Minv, b

@@ -1,0 +1,140 @@
+"""The port's bit-packed graph engine (``repro_torch.kernels.graph``,
+``core.clustering``, ``runtime.stages.connected_components``) against
+the reference's packing, its Pallas prune / CC-hop kernels in interpret
+mode and its dense oracles, on the CPU.  Packed words are compared as
+uint32 through ``numpy.view``; everything here is exact."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import clustering as jclustering  # noqa: E402
+from repro.kernels.graph import ops as jgraph  # noqa: E402
+from repro_torch.core import clustering  # noqa: E402
+from repro_torch.core.backend import BackendConfig  # noqa: E402
+from repro_torch.kernels.graph import ops  # noqa: E402
+from repro_torch.runtime import stages  # noqa: E402
+from repro_torch.runtime.collectives import NullCollectives  # noqa: E402
+
+
+def random_sym_adj(rng, n, p):
+    a = np.triu(rng.random((n, n)) < p, 1)
+    return a | a.T
+
+
+def chain_adj(n):
+    a = np.zeros((n, n), bool)
+    i = np.arange(n - 1)
+    a[i, i + 1] = a[i + 1, i] = True
+    return a
+
+
+def as_u32(t):
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("n", [31, 32, 33, 37, 64])
+def test_packing_is_bit_equal_to_reference(n):
+    rng = np.random.default_rng(n)
+    dense = random_sym_adj(rng, n, 0.5)
+    dense[0, :] = True                      # bit 31 set in full words
+    packed = ops.pack_bits(torch.from_numpy(dense))
+    assert packed.dtype == torch.int32
+    np.testing.assert_array_equal(as_u32(packed),
+                                  np.asarray(jgraph.pack_bits(
+                                      jnp.asarray(dense))))
+    np.testing.assert_array_equal(ops.unpack_bits(packed, n).numpy(), dense)
+    np.testing.assert_array_equal(as_u32(ops.init_packed_adj(n, n)),
+                                  np.asarray(jgraph.init_packed_adj(n, n)))
+
+
+def test_init_packed_adj_row_offset_matches_reference():
+    n, n_local, off = 64, 16, 16
+    np.testing.assert_array_equal(
+        as_u32(ops.init_packed_adj(n_local, n, row_offset=off)),
+        np.asarray(jgraph.init_packed_adj(n_local, n, row_offset=off)))
+
+
+@pytest.mark.parametrize("n,d", [(37, 5), (70, 8), (33, 19)])
+def test_prune_is_bit_equal_to_pallas_interpret(n, d):
+    rng = np.random.default_rng(n * 10 + d)
+    v = rng.normal(size=(n, d)).astype(np.float32)
+    occ = rng.integers(0, 100, n).astype(np.int32)
+    gamma = 1.2
+    dense = random_sym_adj(rng, n, 0.7)
+    cb = clustering.cb_width(torch.from_numpy(occ)).numpy()
+    # XLA and torch may round |vi|^2 + |vj|^2 - 2 vi.vj differently: keep
+    # every pair well away from the dist < thresh boundary
+    v64 = v.astype(np.float64)
+    dist = np.linalg.norm(v64[:, None] - v64[None, :], axis=-1)
+    thresh = gamma * (cb[:, None] + cb[None, :])
+    margin = np.abs(dist - thresh)[~np.eye(n, dtype=bool)].min()
+    assert margin > 1e-4, margin
+
+    packed = jgraph.pack_bits(jnp.asarray(dense))
+    want = jgraph.prune_packed(packed, jnp.asarray(v), jnp.asarray(cb),
+                               jnp.asarray(v), jnp.asarray(cb), gamma,
+                               use_pallas=True, interpret=True, block_i=8,
+                               block_j=32)
+    tp = torch.from_numpy(np.array(packed).view(np.int32))
+    tv, tcb = torch.from_numpy(v), torch.from_numpy(cb)
+    got = ops.prune_packed(tp, tv, tcb, tv, tcb, gamma)
+    np.testing.assert_array_equal(as_u32(got), np.asarray(want))
+    assert not bool((got & ~tp).any())      # pruning only clears bits
+    # the backend computes the widths itself; the dense oracle agrees
+    gb = BackendConfig.create().graph(n)
+    tocc = torch.from_numpy(occ)
+    got_gb = gb.prune_rows(tp, tv, tocc, tv, tocc, gamma)
+    np.testing.assert_array_equal(got_gb.numpy(), got.numpy())
+    np.testing.assert_array_equal(
+        gb.unpack(got_gb).numpy(),
+        clustering.prune_edges(torch.from_numpy(dense), tv,
+                               torch.from_numpy(occ), gamma).numpy())
+
+
+@pytest.mark.parametrize("n,p,seed", [(60, 0.02, 0), (96, 0.05, 1),
+                                      (33, 0.3, 2)])
+def test_cc_hop_is_label_equal_to_pallas_interpret(n, p, seed):
+    rng = np.random.default_rng(seed)
+    dense = random_sym_adj(rng, n, p)
+    labels = rng.permutation(n).astype(np.int32)
+    packed = jgraph.pack_bits(jnp.asarray(dense))
+    want = jgraph.cc_hop_packed(packed, jnp.asarray(labels),
+                                jnp.asarray(labels), use_pallas=True,
+                                interpret=True, block_i=8, block_j=32)
+    tp = torch.from_numpy(np.array(packed).view(np.int32))
+    got = ops.cc_hop_packed(tp, torch.from_numpy(labels),
+                            torch.from_numpy(labels))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # a row shard against the full label vector (bipartite rows)
+    off, n_local = 16, 16
+    got_rows = ops.cc_hop_packed(tp[off:off + n_local],
+                                 torch.from_numpy(labels[off:off + n_local]),
+                                 torch.from_numpy(labels))
+    np.testing.assert_array_equal(got_rows.numpy(),
+                                  np.asarray(want)[off:off + n_local])
+
+
+@pytest.mark.parametrize("maker,n", [
+    ("random_sparse", 60), ("random_dense", 75), ("chain", 300),
+    ("chain", 64), ("empty", 40),
+])
+def test_connected_components_match_dense_oracle(maker, n):
+    rng = np.random.default_rng(n)
+    dense = {"random_sparse": lambda: random_sym_adj(rng, n, 0.02),
+             "random_dense": lambda: random_sym_adj(rng, n, 0.3),
+             "chain": lambda: chain_adj(n),
+             "empty": lambda: np.zeros((n, n), bool)}[maker]()
+    want = np.asarray(jclustering.connected_components(jnp.asarray(dense)))
+    gb = BackendConfig.create().graph(n)
+    packed = gb.pack(torch.from_numpy(dense))
+    got = stages.connected_components(NullCollectives(), gb, packed, n, 0, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        clustering.connected_components(torch.from_numpy(dense)).numpy(),
+        want)
+    assert int(clustering.num_clusters(got)) == int(
+        jclustering.num_clusters(jnp.asarray(want)))

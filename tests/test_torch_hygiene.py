@@ -1,0 +1,109 @@
+"""Package rules of the PyTorch port: no JAX and nothing of ``repro``
+inside ``repro_torch``; entry points default to CUDA and never fall back
+to the CPU quietly; plain versions on the CPU launch no kernel; the
+synthetic environment's draws do not depend on how the users are sliced;
+states convert across without loss."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import distclub_paper  # noqa: E402
+from repro_torch.core import distclub, env, env_ops  # noqa: E402
+from repro_torch.core.types import BanditHyper  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def test_package_imports_neither_jax_nor_repro():
+    env_vars = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env_vars,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split(maxsplit=1)
+    assert int(out[0]) >= 15, out
+    assert out[1].strip() == "[]", out[1]
+
+
+def test_entry_points_need_a_device_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hyper = BanditHyper(sigma=2, max_rounds=2, n_candidates=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distclub.init_state(8, 3, hyper)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        env.make_synthetic_env(0, 8, 3, 2, 3)
+    e, _ = env.make_synthetic_env(0, 8, 3, 2, 3, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distclub.run(env_ops.synthetic_ops(e), 0, hyper, 1, 3)
+
+
+def test_cpu_run_launches_no_kernel_and_learns():
+    n, d, K = 48, 6, 10
+    hyper = BanditHyper(sigma=6, max_rounds=12, gamma=0.8, n_candidates=K)
+    e, _ = env.make_synthetic_env(0, n, d, 4, K, 0.05, device="cpu")
+    _build.reset_launches()
+    state, m, n_clusters = distclub.run(env_ops.synthetic_ops(e), 0, hyper,
+                                        2, d, device="cpu")
+    assert all(v == 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
+    assert m.reward.shape == (2 * 2 * hyper.max_rounds,)
+    assert n_clusters.shape == (2,)
+    assert int(m.interactions.sum()) > 0
+    assert float(m.reward.sum()) > float(m.rand_reward.sum())
+    for t in (state.lin.M, state.lin.Minv, state.lin.b):
+        assert bool(torch.isfinite(t).all())
+
+
+def test_synthetic_draws_are_keyed_by_global_user_id():
+    n, d, K = 40, 7, 5
+    e, _ = env.make_synthetic_env(3, n, d, 4, K, device="cpu")
+    ops = env_ops.synthetic_ops(e)
+    occ = torch.zeros(n, dtype=torch.int32)
+    full = ops.contexts_fn(5, 11, occ)
+    part = ops.contexts_fn(5, 11, occ[16:], row0=16)
+    assert full.shape == (n, K, d)
+    assert torch.equal(full[16:], part)
+    torch.testing.assert_close(torch.linalg.norm(full, dim=-1),
+                               torch.ones(n, K), rtol=0, atol=1e-6)
+    choice = torch.zeros(n, dtype=torch.int32)
+    r_full = ops.rewards_fn(5, 11, occ, full, choice)
+    r_part = ops.rewards_fn(5, 11, occ[16:], part, choice[16:], row0=16)
+    for a, b in zip(r_full, r_part):
+        assert torch.equal(a[16:], b)
+    # another round or another seed draws afresh
+    assert not torch.equal(full, ops.contexts_fn(5, 12, occ))
+    assert not torch.equal(full, ops.contexts_fn(6, 11, occ))
+
+
+def test_state_round_trips_through_numpy():
+    hyper = distclub_paper.CONFIG._replace(max_rounds=2, sigma=1)
+    n, d = 40, 4
+    e, _ = env.make_synthetic_env(1, n, d, 3, hyper.n_candidates,
+                                  device="cpu")
+    state, _, _ = distclub.run(env_ops.synthetic_ops(e), 0, hyper, 1, d,
+                               device="cpu")
+    arrays = convert.state_to_numpy(state)
+    assert arrays.graph.adj.dtype == np.uint32
+    back = convert.state_from_numpy(arrays, device="cpu")
+    for rec_a, rec_b in zip(state, back):
+        for a, b in zip(*(r if isinstance(r, tuple) else (r,)
+                          for r in (rec_a, rec_b))):
+            assert a.shape == b.shape and torch.equal(a, b)
