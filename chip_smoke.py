@@ -20,8 +20,22 @@ Phases, in order; any failure raises and the script exits non-zero:
            version, on the same CUDA tensors: no kernel may launch, and
            its clusters per epoch and reward/random must agree with the
            kernel path's within the bands of ``compare_paths``.
+4s. serve  ``repro_torch.serve`` at full width: a distclub session warm-
+           started from that run's state (``OnlineBandit.from_offline``)
+           serves 16 batches of 256 distinct users against a 2^18-item
+           catalog (``make_catalog_env`` with the same seed: 100 regions,
+           item noise 0.05), k_short=64, stage 2 every 2048 interactions;
+           once unpruned, once from the same start cluster-pruned
+           (``build_clusters``, 512-item tiles, 512 anchors).  Both runs
+           must serve identical items in every batch; counters set to 0
+           before the two runs and read after; one more batch of each
+           under torch.profiler.
+   plain   the unpruned run through the plain versions on the card: no
+           kernel may launch, reward/random within 1% of the kernel run's
+           and at least 95% of the served items identical.
 5. full    each kernel against its plain version on the state that run
-           left (and on the full first-epoch adjacency for prune).
+           left (and on the full first-epoch adjacency for prune), and the
+           two top-K kernels on one serving batch's users at full width.
 6. times   median of 25 launches (CUDA events, L2 flushed before each) of
            every kernel and its plain version at the main path's shapes,
            beside the least time the card could take (bytes over 3.35 TB/s
@@ -60,7 +74,16 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
               "src/repro/kernels/graph/graph.py:65"),
     "cc_hop": ("src/repro_torch/csrc/cc_hop.cu",
                "src/repro/kernels/graph/graph.py:123"),
+    "topk": ("src/repro_torch/csrc/topk.cu",
+             "src/repro/kernels/topk/topk.py:114"),
+    "topk_pruned": ("src/repro_torch/csrc/topk.cu",
+                    "src/repro/kernels/topk/topk.py:229"),
 }
+SERVE_ITEMS = 2**18          # the gate row of benchmarks/bench_retrieval.py
+SERVE_BATCH = 256            # BENCH_serve.json's request batch
+SERVE_BATCHES = 16
+K_SHORT = 64
+REFRESH_EVERY = 2048
 
 
 def log(msg: str) -> None:
@@ -140,6 +163,65 @@ def check_prune(adj, v_i, cb_i, v_j, cb_j, gamma):
     return {"max_abs_err": err, "near_ties": int(ij.shape[0])}
 
 
+def check_topk(w, Minv, occ, items, live, alpha, k, got=None, plain=None):
+    """The kernel's shortlist (``got``, else a fresh launch) against the
+    plain version's (``plain``, else computed here): the finite pattern
+    equal; scores at each position within 1e-5 (1 + |s|); ids equal
+    except near ties, where the plain score of the kernel's item at that
+    position is within the same tolerance of the plain score there
+    (counted)."""
+    import torch
+    from repro_torch.kernels.interact import ref as iref
+    from repro_torch.kernels.topk import ops, ref
+    s_k, i_k = got if got is not None else ops.topk(w, Minv, occ, items,
+                                                    live, alpha, k)
+    s_p, i_p = plain if plain is not None else ref.topk_ref(
+        w, Minv, occ, items, live, alpha, k)
+    fin = torch.isfinite(s_p)
+    assert torch.equal(fin, torch.isfinite(s_k)), "topk: -inf pattern"
+    assert torch.equal(i_k[~fin], i_p[~fin]), "topk: underfull ids"
+    tol = 1e-5 * (1 + s_p.abs())
+    err = torch.where(fin, (s_k - s_p).abs(), torch.zeros_like(s_p))
+    assert bool((err[fin] <= tol[fin]).all()), "topk: scores differ"
+    diff = (i_k != i_p) & fin
+    if bool(diff.any()):
+        x = items[i_k.clamp_min(0).long()]
+        s_of_k = iref.ucb_scores_ref(w, Minv, x, occ, alpha)
+        near = (s_of_k - s_p).abs() <= tol
+        assert bool(near[diff].all()), "topk: ids differ beyond near ties"
+    return {"max_abs_err": float(err.max()), "near_ties": int(diff.sum())}
+
+
+def check_topk_pruned(w, Minv, occ, cat, clusters, alpha, k):
+    """Both sides bit-equal across the layouts: the pruned kernel to the
+    unpruned kernel over the unsorted catalog, the pruned plain version
+    to the unpruned plain version; then the pruned kernel against its
+    plain version on the same inputs, by ``check_topk``'s bands.  Returns
+    the error dict with the kernel's and the plain version's skip
+    ratios."""
+    import torch
+    from repro_torch.kernels.topk import ops, ref
+    bank = cat.serving
+    tb = ref.tile_bounds(w, Minv, occ, alpha, clusters.tile_mu,
+                         clusters.tile_r, clusters.tile_xn, clusters.tile_n)
+    s_u, i_u = ops.topk(w, Minv, occ, bank.emb, bank.live, alpha, k)
+    s_k, i_k, sk, tot = ops.topk_pruned(
+        w, Minv, occ, clusters.emb_sorted, clusters.live_sorted,
+        clusters.perm, alpha, k, tb)
+    assert torch.equal(s_k, s_u) and torch.equal(i_k, i_u), (
+        "topk_pruned is not bit-equal to topk")
+    s_p, i_p, sk_p, tot_p = ref.topk_ref_pruned(
+        w, Minv, occ, clusters.emb_sorted, clusters.live_sorted,
+        clusters.perm, alpha, k, tb)
+    s_r, i_r = ref.topk_ref(w, Minv, occ, bank.emb, bank.live, alpha, k)
+    assert torch.equal(s_p, s_r) and torch.equal(i_p, i_r), (
+        "topk_ref_pruned is not bit-equal to topk_ref")
+    res = check_topk(w, Minv, occ, bank.emb, bank.live, alpha, k,
+                     got=(s_k, i_k), plain=(s_p, i_p))
+    res.update(skip=sk / tot, plain_skip=sk_p / tot_p)
+    return res
+
+
 def check_cc_hop(adj, labels_self, labels_j):
     """Integer-exact."""
     import torch
@@ -195,6 +277,15 @@ def small_checks(dev):
     assert not bool(((choice == 5) | (choice == 9)).any()), (
         "choose: a duplicate candidate beat its first copy")
     log(f"small choose duplicates: {check_choose(w2, eye, ctx2, ones, 0.3)}")
+    # the catalog path's shortlist width: K = k_short = 64; at d=32 the
+    # kernel needs 49,664 B of shared memory, past the 48 KB default
+    for dk in (25, 32):
+        Mk = spd_inverse(g, n, dk, dev)
+        wk = 0.5 * torch.randn(n, dk, generator=g, device=dev)
+        ck = unit(torch.randn(n, K_SHORT, dk, generator=g,
+                              device=dev)).contiguous()
+        log(f"small choose (n={n}, d={dk}, K={K_SHORT}): "
+            f"{check_choose(wk, Mk, ck, occ, 0.3)}")
 
     b = torch.randn(n, d, generator=g, device=dev)
     x = torch.randn(n, d, generator=g, device=dev)
@@ -217,6 +308,55 @@ def small_checks(dev):
     labels = torch.randperm(ng, generator=g, device=dev).to(torch.int32)
     log(f"small cc_hop (n={ng}): "
         f"{check_cc_hop(gref.pack_bits(sparse | sparse.T), labels, labels)}")
+    small_topk_checks(g, dev, n, d, w, Minv, occ)
+
+
+def small_topk_checks(g, dev, n, d, w, Minv, occ):
+    """Both top-K kernels on ragged shapes: copies of one item at chunk
+    edges and in other chunks (they must tie bit-exactly, smaller id
+    first), an all-dead 512-item chunk, N < k_short, the d=64 / k=128
+    limits, and the pruned kernel on a region catalog, where it must skip
+    and stay bit-equal to the unpruned kernel."""
+    import torch
+    from repro_torch.core import catalog, itemclub
+    from repro_torch.kernels.topk import ops
+    N, k = 1300, 13
+    items = unit(torch.randn(N, d, generator=g, device=dev))
+    copies = [3, 511, 512, 1024, 1299]
+    items[copies] = items[3].clone()
+    live = (torch.rand(N, generator=g, device=dev) < 0.9).float()
+    live[512:1024] = 0.0                 # one whole chunk dead ...
+    live[[3, 511, 1024, 1299]] = 1.0     # ... 512 included
+    live[512] = 0.0
+    w_dup = w.clone()
+    w_dup[:8] = 3.0 * items[3]           # 8 users rank the copies first
+    log(f"small topk (n={n}, d={d}, N={N}, k={k}): "
+        f"{check_topk(w_dup, Minv, occ, items, live, 0.3, k)}")
+    _, ids = ops.topk(w_dup, Minv, occ, items, live, 0.3, k)
+    assert bool((ids[:8, :4] == torch.tensor(
+        [3, 511, 1024, 1299], device=dev, dtype=torch.int32)).all()), (
+        "topk: copies of one item do not tie in id order")
+    log(f"small topk N < k (N=9, k={k}): "
+        f"{check_topk(w, Minv, occ, items[:9], live[:9], 0.3, k)}")
+    n64 = 20
+    log("small topk d=64 k=128: " + str(check_topk(
+        torch.randn(n64, 64, generator=g, device=dev),
+        spd_inverse(g, n64, 64, dev), occ[:n64],
+        unit(torch.randn(3000, 64, generator=g, device=dev)),
+        torch.ones(3000, device=dev), 0.3, 128)))
+
+    R, N2 = 8, 8192
+    cent = unit(torch.randn(R, d, generator=g, device=dev))
+    reg = torch.randint(0, R, (N2,), generator=g, device=dev)
+    emb = unit(cent[reg] + 0.01 * torch.randn(N2, d, generator=g,
+                                              device=dev))
+    cat = catalog.make_catalog(emb)
+    clusters = itemclub.build_clusters(cat, tile_items=128, n_anchors=256)
+    w_reg = 0.8 * cent[torch.randint(0, R, (n,), generator=g, device=dev)]
+    res = check_topk_pruned(w_reg, Minv, occ, cat, clusters, 0.3, k)
+    log(f"small topk_pruned (n={n}, d={d}, N={N2}, {R} regions, tile 128, "
+        f"clusters={int(clusters.n_clusters)}): {res}")
+    assert res["skip"] > 0, "topk_pruned skipped no tile"
 
 
 @contextlib.contextmanager
@@ -229,12 +369,16 @@ def plain_path():
     from repro_torch.kernels.interact import ref as iref
     from repro_torch.kernels.rank1 import ops as rops
     from repro_torch.kernels.rank1 import ref as rref
+    from repro_torch.kernels.topk import ops as tops
+    from repro_torch.kernels.topk import ref as tref
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
                 (iops, "choose", iref.choose_ref),
                 (rops, "rank1_update_inv", rref.rank1_update_inv_ref),
                 (gops, "prune_packed", gref.prune_packed_ref),
-                (gops, "cc_hop_packed", gref.cc_hop_packed_ref)):
+                (gops, "cc_hop_packed", gref.cc_hop_packed_ref),
+                (tops, "topk", tref.topk_ref),
+                (tops, "topk_pruned", tref.topk_ref_pruned)):
             stack.enter_context(mock.patch.object(module, name, plain))
         yield
 
@@ -255,14 +399,14 @@ def compare_paths(kernel, plain, n: int) -> None:
         "clusters per epoch: paths disagree")
 
 
-def cuda_ms(fn, flush) -> float:
-    """Median milliseconds of ``fn`` over REPS launches (CUDA events), the
-    L2 cache flushed before each."""
+def cuda_ms(fn, flush, reps=REPS, warmup=3) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` launches (CUDA events),
+    the L2 cache flushed before each."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -295,6 +439,161 @@ def profile_epoch(distclub, state, ops, hyper, d, steady_s) -> None:
     for ev in kernels[:25]:
         log(f"  {ev.self_device_time_total / 1e3:10.3f} ms "
             f"{ev.count:6d}x  {ev.key[:90]}")
+
+
+def profile_batch(label, fn, steady_s) -> None:
+    """Device time by kernel of one serving batch (torch.profiler), and its
+    share of ``steady_s``, a batch's wall time without the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda ev: -ev.self_device_time_total)
+    busy_us = sum(ev.self_device_time_total for ev in kernels)
+    log(f"profile {label}: device busy {busy_us / 1e3} ms in a batch of "
+        f"{steady_s * 1e3} ms wall ({busy_us / (steady_s * 1e6)} busy)")
+    for ev in kernels[:15]:
+        log(f"  {ev.self_device_time_total / 1e3:10.3f} ms "
+            f"{ev.count:6d}x  {ev.key[:90]}")
+
+
+class ServeRun:
+    """The serving workload of phase 4s: users, catalog, traffic and the
+    Bernoulli draws, all made once on the card from the seed."""
+
+    def __init__(self, dev, state, theta, hyper):
+        import torch
+        from repro_torch import serve
+        from repro_torch.configs import distclub_paper as paper
+        from repro_torch.core import env
+        cenv, _ = env.make_catalog_env(
+            SEED, paper.N_USERS, paper.D_FEAT, paper.N_CLUSTERS, SERVE_ITEMS,
+            n_regions=100, n_candidates=hyper.n_candidates,
+            within_cluster_noise=paper.WITHIN_CLUSTER_NOISE,
+            item_noise_scale=0.05, device=dev)
+        assert torch.equal(cenv.theta, theta), "catalog env: other users"
+        self.theta = theta
+        self.catalog = serve.make_catalog(env.catalog_embeddings(cenv))
+        self.start = serve.OnlineBandit.from_offline(
+            state, hyper, refresh_every=REFRESH_EVERY)
+        g = torch.Generator(device=dev).manual_seed(SEED + 2)
+        self.users = torch.randperm(paper.N_USERS, generator=g, device=dev)[
+            :(SERVE_BATCHES + 1) * SERVE_BATCH].to(torch.int32).view(
+                SERVE_BATCHES + 1, SERVE_BATCH)
+        self.uniforms = torch.rand(SERVE_BATCHES + 1, SERVE_BATCH,
+                                   generator=g, device=dev)
+
+    def reward_fn(self, key, uids, ctx, slot):
+        from repro_torch.core import env
+        return env.step_rewards(self.uniforms[key], self.theta[uids.long()],
+                                ctx, slot)
+
+    def run(self, clusters=None, batches=SERVE_BATCHES):
+        """Serve the batches from the start state: ``(session, items per
+        batch, reward/random, seconds per batch, clusters after each
+        refresh, (tiles skipped, tile visits))``."""
+        import torch
+        from repro_torch import serve
+        from repro_torch.core import clustering
+        sess, items, secs, n_clu = self.start, [], [], []
+        reward = rand = 0.0
+        skipped = total = 0
+        for t in range(batches):
+            t0 = time.perf_counter()
+            out = serve.step_catalog(sess, t, self.users[t], self.catalog,
+                                     self.reward_fn, k_short=K_SHORT,
+                                     clusters=clusters)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            sess, item, metrics = out[:3]
+            if clusters is not None:
+                skipped += out[3].tiles_skipped
+                total += out[3].tiles_total
+            items.append(item)
+            reward += float(metrics.reward)
+            rand += float(metrics.rand_reward)
+            if int(sess.state.since_refresh) == 0:
+                n_clu.append(int(clustering.num_clusters(sess.state.labels)))
+        return sess, items, reward / rand, secs, n_clu, (skipped, total)
+
+
+def serve_phase(dev, state, theta, hyper):
+    """Phase 4s and its plain run; returns what phases 5 and 6 need."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    work = ServeRun(dev, state, theta, hyper)
+    torch.cuda.synchronize()
+    log(f"serve setup: {SERVE_ITEMS} items, d={work.catalog.d}, "
+        f"{time.perf_counter() - t0} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    sess_u, items_u, rr_u, secs_u, clu_u, _ = work.run()
+    t0 = time.perf_counter()
+    clusters = serve.build_clusters(work.catalog, tile_items=512,
+                                    n_anchors=512)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sess_p, items_p, rr_p, secs_p, clu_p, (sk, tot) = work.run(clusters)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    same = [bool(torch.equal(a, b)) for a, b in zip(items_u, items_p)]
+    n_req = SERVE_BATCH * (SERVE_BATCHES - 1)
+    log(f"serve unpruned: reward/random={rr_u} clusters after each "
+        f"refresh={clu_u} warm requests/s={n_req / sum(secs_u[1:])} "
+        f"median batch ms={1e3 * statistics.median(secs_u)}")
+    log(f"serve pruned: reward/random={rr_p} clusters after each "
+        f"refresh={clu_p} warm requests/s={n_req / sum(secs_p[1:])} "
+        f"median batch ms={1e3 * statistics.median(secs_p)} skip "
+        f"ratio={sk / tot} ({sk} of {tot} tile visits) item clusters="
+        f"{int(clusters.n_clusters)} build_clusters s={build_s}")
+    log(f"serve launches: {launches} max_memory_allocated={peak}")
+    assert all(same), f"pruned and unpruned served other items: {same}"
+    assert len(clu_u) == 2 and clu_u == clu_p, (clu_u, clu_p)
+    assert rr_u > 1.0, "serving does no better than random"
+    for it in items_u:
+        assert it.shape == (SERVE_BATCH,) and bool((it >= 0).all())
+        assert bool((it < SERVE_ITEMS).all())
+    for t in (sess_u.state.Minv, sess_u.state.b, sess_u.state.uMcinv):
+        assert bool(torch.isfinite(t).all()), "non-finite serving state"
+    assert launches["topk"] == SERVE_BATCHES, launches
+    assert launches["topk_pruned"] == SERVE_BATCHES, launches
+    assert launches["choose"] == 2 * SERVE_BATCHES, launches
+    assert launches["rank1_update_inv"] == 2 * SERVE_BATCHES, launches
+    assert launches["prune"] == 2 * len(clu_u) + 1, launches
+    assert launches["cc_hop"] >= 2 * len(clu_u) + 1, launches
+
+    extra = SERVE_BATCHES    # a batch outside both runs, for the profiles
+    for label, cl, secs in (("unpruned", None, secs_u),
+                            ("pruned", clusters, secs_p)):
+        profile_batch(label, lambda: serve.step_catalog(
+            sess_u, extra, work.users[extra], work.catalog, work.reward_fn,
+            k_short=K_SHORT, clusters=cl), statistics.median(secs))
+
+    # ---- phase 4s, plain ---------------------------------------------------
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with plain_path():
+        _, items_q, rr_q, _, clu_q, _ = work.run()
+    torch.cuda.synchronize()
+    share = float(torch.mean(torch.cat(
+        [(a == b).float() for a, b in zip(items_u, items_q)])))
+    log(f"serve plain: {time.perf_counter() - t0} s for "
+        f"{SERVE_BATCHES} batches, reward/random={rr_q} clusters after "
+        f"each refresh={clu_q} identical items={share}")
+    assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
+    assert abs(rr_q - rr_u) <= 0.01 * rr_u, "serve reward/random: paths part"
+    assert share >= 0.95, "serve: the plain path served other items"
+    return work, sess_u, clusters, launches, sk / tot
 
 
 def popcount(words):
@@ -342,6 +641,8 @@ def main() -> int:
     from repro_torch.kernels.interact import ref as iref
     from repro_torch.kernels.rank1 import ops as rops
     from repro_torch.kernels.rank1 import ref as rref
+    from repro_torch.kernels.topk import ops as tops
+    from repro_torch.kernels.topk import ref as tref
 
     # ---- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
@@ -418,6 +719,10 @@ def main() -> int:
         (float(p_metrics.reward.sum()) / float(p_metrics.rand_reward.sum()),
          p_clusters.tolist()), n)
 
+    # ---- phase 4s: serving at full width, and its plain run -----------------
+    serving, sess, item_clusters, serve_launches, _ = serve_phase(
+        dev, state, e.theta, hyper)
+
     # ---- phase 5: kernels against plain versions at full width --------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     Minv, b, occ = state.lin.Minv, state.lin.b, state.lin.occ
@@ -437,6 +742,16 @@ def main() -> int:
     errs["cc_hop"] = check_cc_hop(state.graph.adj, ids, ids)
     log(f"full cc_hop on the labels: "
         f"{check_cc_hop(state.graph.adj, state.graph.labels, state.graph.labels)}")
+    # one serving batch's users with the statistics the catalog path
+    # scores with, after the unpruned run
+    idx = serving.users[0].long()
+    w_s, M_s, occ_s = sess.policy.gather_score(sess.state, idx)
+    bank = serving.catalog.serving
+    errs["topk"] = check_topk(w_s, M_s, occ_s, bank.emb, bank.live,
+                              hyper.alpha, K_SHORT)
+    errs["topk_pruned"] = check_topk_pruned(w_s, M_s, occ_s, serving.catalog,
+                                            item_clusters, hyper.alpha,
+                                            K_SHORT)
     for kname, res in errs.items():
         log(f"full {kname}: {res}")
 
@@ -470,19 +785,53 @@ def main() -> int:
             4 * (n * W + 3 * n),
             0),
     }
+    # the top-K pair: every (user, live item) pair scored, 4d + 2d^2 + 6
+    # f32 operations each (the count used for choose); the pruned kernel's
+    # bound is scaled by the tiles it need not score
+    B, N_live = w_s.shape[0], bank.live.shape[0]
+    tk_bytes = 4 * (B * d + B * d * d + B + N_live * d + N_live) \
+        + 8 * B * K_SHORT
+    tk_ops = B * N_live * (4 * d + 2 * d * d + 6)
+    tb = tref.tile_bounds(w_s, M_s, occ_s, hyper.alpha, item_clusters.tile_mu,
+                          item_clusters.tile_r, item_clusters.tile_xn,
+                          item_clusters.tile_n)
+    pruned_args = (w_s, M_s, occ_s, item_clusters.emb_sorted,
+                   item_clusters.live_sorted, item_clusters.perm,
+                   hyper.alpha, K_SHORT, tb)
+    keep = 1.0 - max(errs["topk_pruned"]["skip"],
+                     errs["topk_pruned"]["plain_skip"])
+    work.update({
+        "topk": (
+            lambda: tops.topk(w_s, M_s, occ_s, bank.emb, bank.live,
+                              hyper.alpha, K_SHORT),
+            lambda: tref.topk_ref(w_s, M_s, occ_s, bank.emb, bank.live,
+                                  hyper.alpha, K_SHORT),
+            tk_bytes, tk_ops),
+        "topk_pruned": (
+            lambda: tops.topk_pruned(*pruned_args),
+            lambda: tref.topk_ref_pruned(*pruned_args),
+            keep * (tk_bytes + 4 * (N_live + B * tb.shape[1])),
+            keep * tk_ops),
+    })
     rows = []
     for kname, (kern, plain, n_bytes, flops) in work.items():
         ms = cuda_ms(kern, flush)
-        plain_ms = cuda_ms(plain, flush)
+        # the plain top-K versions take a second or more a call: 3 reps
+        slow = kname.startswith("topk")
+        plain_ms = cuda_ms(plain, flush, reps=3 if slow else REPS,
+                           warmup=1 if slow else 3)
         bms, by = bound_ms(n_bytes, flops)
         source, replaces = KERNEL_INFO[kname]
+        on_path = launches if kname in launches and not slow \
+            else serve_launches
         rows.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces, "launches": on_path[kname],
             "max_abs_err": errs[kname]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
             "near_ties": errs[kname].get("near_ties", 0),
+            "serve_launches": serve_launches[kname],
         })
         log(f"time {kname}: kernel {ms} ms, plain {plain_ms} ms, "
             f"bound {bms} ms ({by}; {n_bytes} bytes, {flops} f32 ops), "

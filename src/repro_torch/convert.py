@@ -1,4 +1,4 @@
-"""Carry a DistCLUB state across the two packages as numpy arrays.
+"""Carry states across the two packages as numpy arrays.
 
 ``state_from_numpy`` takes a ``repro`` ``DistCLUBState`` whose leaves are
 numpy arrays (``jax.tree.map(np.asarray, state)``) and builds the port's
@@ -6,8 +6,17 @@ state; ``state_to_numpy`` goes the other way, so both packages can compute
 from the same state.  The records have the same fields; the only change
 is the packed adjacency, uint32 in the reference and an int32 view of the
 same bits here.
+
+``record_from_numpy`` / ``record_to_numpy`` do the same for the serving
+records, field by field by name: ``ClusteredState``, ``LinUCBServeState``,
+``PendingBuffer``, ``Catalog`` and ``ItemClusters``.  Fields the port does
+not keep (the f32 banks' all-ones dequant ``scale``) are dropped; fields
+the port keeps on the host (``Catalog.active``/``epoch``,
+``ItemClusters.epoch``) become Python ints.
 """
 from __future__ import annotations
+
+import typing
 
 import numpy as np
 import torch
@@ -59,3 +68,33 @@ def state_to_numpy(state: DistCLUBState) -> DistCLUBState:
         c_rounds=arr(state.c_rounds),
         comm_bytes=arr(state.comm_bytes),
     )
+
+
+def record_from_numpy(record, cls, device=None):
+    """The port's ``cls`` built from a reference record of the same field
+    names whose leaves are numpy arrays."""
+    dev = resolve_device(device)
+    hints = typing.get_type_hints(cls)
+    if "scale" in record._fields:
+        scale = np.asarray(record.scale)
+        if np.any(scale != 1.0):
+            raise ValueError("only f32 catalog banks are ported")
+    vals = {}
+    for f in cls._fields:
+        v = getattr(record, f)
+        vals[f] = int(np.asarray(v)) if hints[f] is int else _tensor(v, dev)
+    return cls(**vals)
+
+
+def record_to_numpy(record):
+    """The port's serving record with numpy leaves (packed adjacency as
+    uint32, host ints as they are)."""
+    vals = {}
+    for f in record._fields:
+        v = getattr(record, f)
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+            if f == "adj":
+                v = v.view(np.uint32)
+        vals[f] = v
+    return type(record)(**vals)

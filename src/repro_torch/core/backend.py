@@ -7,6 +7,9 @@ round and two graph sweeps per stage 2.
                                  (``kernels/rank1``)
   ``GraphBackend.prune_rows``    CLUB edge pruning on the packed rows
   ``GraphBackend.cc_hop``        one min-label hop    (``kernels/graph``)
+  ``RetrievalBackend.shortlist`` streaming UCB top-K over a catalog,
+                                 unpruned or cluster-pruned
+                                 (``kernels/topk``)
 
 There is no kind flag: the tensors' device decides.  CPU tensors go
 through the plain PyTorch versions, CUDA tensors through the hand-written
@@ -22,9 +25,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import torch
+
 from ..kernels.graph import ops as graph_ops
 from ..kernels.interact import ops as interact_ops
 from ..kernels.rank1 import ops as rank1_ops
+from ..kernels.topk import ops as topk_ops
+from ..kernels.topk.ref import tile_bounds
 from . import clustering
 
 
@@ -73,6 +80,38 @@ class GraphBackend(NamedTuple):
         return graph_ops.cc_hop_packed(adj, labels_self, labels_j)
 
 
+class RetrievalBackend(NamedTuple):
+    """Catalog-scale retrieval engine: each user's ``K_short`` best items
+    by UCB score, (score desc, id asc), without the ``[n, N_items]``
+    score matrix.  The feature width comes from the tensors."""
+
+    K_short: int
+
+    def shortlist(self, w, Minv, occ, items, live, alpha, row0_items=0):
+        """(scores [n, K_short], ids [n, K_short] i32 GLOBAL item ids);
+        ``row0_items`` is the global id of the catalog slice's first row.
+        Entries that hold no live item keep score -inf and id -1."""
+        s, i = topk_ops.topk(w, Minv, occ, items, live, alpha, self.K_short)
+        return s, torch.where(torch.isfinite(s), i + row0_items, -1)
+
+    def shortlist_pruned(self, w, Minv, occ, items_sorted, live_sorted,
+                         ids_sorted, tile_mu, tile_r, tile_xn, tile_n,
+                         alpha):
+        """Cluster-pruned shortlist over a SORTED catalog (``core.itemclub``
+        lays it out): per-(user, tile) UCB upper bounds, then only the
+        tiles that can still beat a user's running floor.  Returns
+        ``(scores, ids, tiles_skipped, tile_visits)`` with the shortlist
+        BIT-EQUAL to :meth:`shortlist` over the unsorted catalog.  The
+        caller keeps the tables fresh: ``serve`` falls back to
+        :meth:`shortlist` when the cluster epoch is not the catalog's."""
+        tb = tile_bounds(w, Minv, occ, alpha, tile_mu, tile_r, tile_xn,
+                         tile_n)
+        s, i, skipped, total = topk_ops.topk_pruned(
+            w, Minv, occ, items_sorted, live_sorted, ids_sorted, alpha,
+            self.K_short, tb)
+        return s, torch.where(torch.isfinite(s), i, -1), skipped, total
+
+
 class BackendConfig(NamedTuple):
     """Builds the engines; f32 state is the only precision ported."""
 
@@ -92,3 +131,6 @@ class BackendConfig(NamedTuple):
     def graph(self, n_rows: int, n_cols: int | None = None) -> GraphBackend:
         return GraphBackend(n_rows=n_rows,
                             n_cols=n_rows if n_cols is None else n_cols)
+
+    def retrieval(self, K_short: int) -> RetrievalBackend:
+        return RetrievalBackend(K_short=K_short)

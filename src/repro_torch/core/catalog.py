@@ -1,0 +1,176 @@
+"""The persistent item catalog the retrieval engine serves against,
+epoch-numbered and DOUBLE-BUFFERED for live churn (``repro.core.catalog``
+for f32 banks).
+
+A :class:`Catalog` holds TWO slot banks of item embeddings with liveness
+masks.  ``active`` is the serving bank; the other is the shadow staging
+area.  :func:`add_items` / :func:`retire_items` stage into the shadow bank
+only; :func:`publish` flips ``active`` and bumps ``epoch``.  The port runs
+eagerly, so a mutator returns a new record and the flip happens in one
+call: no reader ever sees a half-published bank.
+
+Slots, not items, are the unit of storage: retiring clears a slot's
+``live`` bit, adding claims the lowest dead shadow slot, so every array
+keeps its shape through churn.  ``born[bank, slot]`` is the epoch from
+which the slot's current item serves (staged adds are stamped
+``epoch + 1``), which lets ``serve`` tell a re-claimed slot from the item
+a stale decision chose.
+
+``active`` and ``epoch`` are Python ints (host-side control values);
+the banks are tensors on the catalog's device.  Banks hold f32
+embeddings only: reduced-precision banks are not ported.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import resolve_device
+
+
+class Bank(NamedTuple):
+    """One bank's view, what the retrieval kernels consume."""
+
+    emb: torch.Tensor    # [capacity, d] f32 (dead slots: zeros)
+    live: torch.Tensor   # [capacity] f32 liveness (1 = servable)
+    born: torch.Tensor   # [capacity] i32 epoch the resident item arrived
+
+
+class Catalog(NamedTuple):
+    emb: torch.Tensor    # [2, capacity, d] f32 per-bank embeddings
+    live: torch.Tensor   # [2, capacity] f32 per-bank liveness
+    born: torch.Tensor   # [2, capacity] i32 per-bank arrival epoch
+    active: int          # which bank serves (0/1)
+    epoch: int           # publish counter
+
+    @property
+    def capacity(self) -> int:
+        return self.live.shape[1]
+
+    @property
+    def d(self) -> int:
+        return self.emb.shape[2]
+
+    def _bank(self, b: int) -> Bank:
+        return Bank(emb=self.emb[b], live=self.live[b], born=self.born[b])
+
+    @property
+    def serving(self) -> Bank:
+        """The active bank: the only state serving reads."""
+        return self._bank(self.active)
+
+    @property
+    def staged(self) -> Bank:
+        """The shadow bank, where churn accumulates until :func:`publish`."""
+        return self._bank(1 - self.active)
+
+    def n_live(self) -> int:
+        """Servable items of the ACTIVE bank."""
+        return int(self.live[self.active].sum())
+
+
+def make_catalog(emb: torch.Tensor, capacity: int | None = None) -> Catalog:
+    """Catalog over ``emb [N, d]`` (all live, born at epoch 0) with
+    ``capacity - N`` spare dead slots.  Both banks start identical."""
+    N, d = emb.shape
+    capacity = N if capacity is None else capacity
+    if capacity < N:
+        raise ValueError(f"capacity {capacity} < {N} items")
+    dev = emb.device
+    full = torch.zeros(capacity, d, dtype=torch.float32, device=dev)
+    full[:N] = emb
+    live = torch.zeros(capacity, dtype=torch.float32, device=dev)
+    live[:N] = 1.0
+    return Catalog(
+        emb=torch.stack([full, full]), live=torch.stack([live, live]),
+        born=torch.zeros(2, capacity, dtype=torch.int32, device=dev),
+        active=0, epoch=0)
+
+
+def random_catalog(generator: torch.Generator, n_items: int, d: int,
+                   capacity: int | None = None, device=None) -> Catalog:
+    """Unit-norm random embeddings drawn from ``generator`` (on
+    ``device``, default cuda)."""
+    dev = resolve_device(device)
+    e = torch.randn(n_items, d, generator=generator, device=dev)
+    e = e / torch.linalg.norm(e, dim=-1, keepdim=True)
+    return make_catalog(e, capacity=capacity)
+
+
+def _with_bank(cat: Catalog, b: int, emb, live, born) -> Catalog:
+    E, L, Bn = cat.emb.clone(), cat.live.clone(), cat.born.clone()
+    E[b], L[b], Bn[b] = emb, live, born
+    return cat._replace(emb=E, live=L, born=Bn)
+
+
+def retire_items(cat: Catalog, ids: torch.Tensor) -> tuple[Catalog, int]:
+    """STAGE the retirement of ``ids`` into the shadow bank; returns
+    ``(catalog, n_retired)``, the shadow slots that went live -> dead.
+    Negative, out-of-range, duplicate and already-dead ids are no-ops."""
+    shadow = 1 - cat.active
+    live_s = cat.live[shadow]
+    ok = (ids >= 0) & (ids < cat.capacity)
+    new_live = live_s.clone()
+    new_live[ids[ok].long()] = 0.0
+    n_retired = int((live_s - new_live).sum())
+    L = cat.live.clone()
+    L[shadow] = new_live
+    return cat._replace(live=L), n_retired
+
+
+def add_items(cat: Catalog, emb_new: torch.Tensor
+              ) -> tuple[Catalog, torch.Tensor, int]:
+    """STAGE ``emb_new [m, d]`` into the lowest dead SHADOW slots; returns
+    ``(catalog, slot_ids [m] i32, n_added)``.  Staged items are stamped
+    ``born = epoch + 1``.  When fewer than ``m`` slots are free the first
+    rows claim them in ascending slot order and the overflow gets slot -1:
+    live items are never overwritten."""
+    m = emb_new.shape[0]
+    shadow = 1 - cat.active
+    emb_s, live_s, born_s = (cat.emb[shadow], cat.live[shadow],
+                             cat.born[shadow])
+    # dead slots first, ascending id (a stable sort of the 0/1 mask)
+    order = torch.argsort(live_s, stable=True)
+    n_free = cat.capacity - int(live_s.sum())
+    n_added = min(m, n_free)
+    slots = order[:n_added]
+    emb2, live2, born2 = emb_s.clone(), live_s.clone(), born_s.clone()
+    emb2[slots] = emb_new[:n_added].float()
+    live2[slots] = 1.0
+    born2[slots] = cat.epoch + 1
+    out = torch.full((m,), -1, dtype=torch.int32, device=emb_s.device)
+    out[:n_added] = slots.to(torch.int32)
+    return _with_bank(cat, shadow, emb2, live2, born2), out, n_added
+
+
+def staged_churn(cat: Catalog) -> int:
+    """Slots whose staged state differs from the serving state."""
+    a, s = cat.active, 1 - cat.active
+    diff = ((cat.live[a] != cat.live[s]) | (cat.born[a] != cat.born[s])
+            | torch.any(cat.emb[a] != cat.emb[s], dim=-1))
+    return int(diff.sum())
+
+
+def publish(cat: Catalog) -> Catalog:
+    """Flip the staged bank live: the shadow becomes the serving bank,
+    ``epoch`` bumps, and the retiring bank is re-seeded as a copy of the
+    newly published one (the next staging starts from what serves)."""
+    new_active = 1 - cat.active
+    cat = _with_bank(cat, cat.active, cat.emb[new_active],
+                     cat.live[new_active], cat.born[new_active])
+    return cat._replace(active=new_active, epoch=cat.epoch + 1)
+
+
+def torn_publish(cat: Catalog, keep_mask: torch.Tensor) -> Catalog:
+    """FAULT INJECTION ONLY: a publish where only ``keep_mask [capacity]``
+    slots' staged changes land (the rest revert to the serving state)
+    before the flip; the epoch still bumps."""
+    shadow, a = 1 - cat.active, cat.active
+    keep = keep_mask.bool()
+    cat = _with_bank(
+        cat, shadow,
+        torch.where(keep[:, None], cat.emb[shadow], cat.emb[a]),
+        torch.where(keep, cat.live[shadow], cat.live[a]),
+        torch.where(keep, cat.born[shadow], cat.born[a]))
+    return publish(cat)

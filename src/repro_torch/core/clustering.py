@@ -56,10 +56,14 @@ def connected_components(adj: torch.Tensor) -> torch.Tensor:
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_sum`` as one ``index_add_``."""
+    """``jax.ops.segment_sum`` as an accumulating ``index_put_``.  On CUDA
+    that sorts the ids (stably) and sums each segment in row order, where
+    ``index_add_`` sums with atomics in an order that changes from run to
+    run, and the cluster statistics would then differ in the last bit
+    between two runs of the same traffic."""
     out = torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
                       device=data.device)
-    return out.index_add_(0, segment_ids.long(), data)
+    return out.index_put_((segment_ids.long(),), data, accumulate=True)
 
 
 def cluster_stats(labels: torch.Tensor, M: torch.Tensor, b: torch.Tensor,

@@ -99,15 +99,6 @@ def _uniforms(seed, step, n_local, row0, device):
     return _srl(z[:, 0], 40).float() * 2.0**-24      # [0, 1)
 
 
-def _bernoulli_metrics(u, p_all, choice):
-    """(realized, expected, best, rand) from per-candidate click probs."""
-    p_choice = torch.take_along_dim(p_all, choice.long()[:, None], dim=1)[:, 0]
-    best = p_all.max(dim=-1).values
-    rand = p_all.mean(dim=-1)
-    realized = (u < p_choice).to(p_all.dtype)
-    return realized, p_choice, best, rand
-
-
 def synthetic_ops(env: synth_env.SyntheticEnv) -> EnvOps:
     n, d, K = env.n_users, env.d, env.n_candidates
     theta = env.theta
@@ -118,9 +109,8 @@ def synthetic_ops(env: synth_env.SyntheticEnv) -> EnvOps:
 
     def rewards_fn(seed, step, occ, contexts, choice, row0=0):
         th = theta[row0:row0 + occ.shape[0]]
-        p_all = synth_env.expected_reward(th[:, None, :], contexts)
         u = _uniforms(seed, step, occ.shape[0], row0, occ.device)
-        return _bernoulli_metrics(u, p_all, choice)
+        return synth_env.step_rewards(u, th, contexts, choice)
 
     return EnvOps(contexts_fn, rewards_fn, n, d, K)
 
@@ -139,8 +129,7 @@ def tape_ops(theta: torch.Tensor, contexts: torch.Tensor,
 
     def rewards_fn(seed, step, occ, ctx, choice, row0=0):
         th = theta[row0:row0 + occ.shape[0]]
-        p_all = synth_env.expected_reward(th[:, None, :], ctx)
-        return _bernoulli_metrics(uniforms[step, row0:row0 + occ.shape[0]],
-                                  p_all, choice)
+        return synth_env.step_rewards(
+            uniforms[step, row0:row0 + occ.shape[0]], th, ctx, choice)
 
     return EnvOps(contexts_fn, rewards_fn, n, d, K)

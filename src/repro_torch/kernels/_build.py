@@ -37,6 +37,12 @@ KERNELS = {
               [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P]),
     "cc_hop": ("cc_hop.cu", "cc_hop_launch",
                [_P, _P, _P, _I, _I, _I, _P, _P]),
+    "topk": ("topk.cu", "topk_launch",
+             [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+              _P]),
+    "topk_pruned": ("topk.cu", "topk_pruned_launch",
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
+                     _I, _I, _P, _P, _P, _P, _P, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -71,17 +77,20 @@ def library_path(source: str) -> Path:
 
 def build_all(names=None) -> dict[str, str]:
     """Compile every (or the named) kernel that is not built yet, one
-    ``nvcc`` per source, all started together.  Returns ``{name: ptxas
-    report}`` for the sources compiled by this call; raises with the
-    compiler's output if any build fails."""
+    ``nvcc`` per source (kernels that share a source share its build),
+    all started together.  Returns ``{name: ptxas report}`` for the
+    sources compiled by this call; raises with the compiler's output if
+    any build fails."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    sources = set()
     for name in names:
         source = KERNELS[name][0]
         out = library_path(source)
-        if out.exists():
+        if out.exists() or source in sources:
             continue
+        sources.add(source)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -1,0 +1,53 @@
+"""Online serving on the port: policy-pluggable ``OnlineBandit`` sessions
+bound to the stage engine (``repro.serve``, single host).
+
+    from repro_torch import serve
+
+    session = serve.OnlineBandit.create(n_users, d, hyper,
+                                        policy="distclub",
+                                        refresh_every=n_users * 4)
+    session, choices, metrics = serve.step(session, key, user_ids,
+                                           contexts, reward_fn)
+
+Against a persistent catalog, unpruned or cluster-pruned (bit-equal)::
+
+    cat = serve.make_catalog(item_embeddings)
+    session, item_ids, metrics = serve.step_catalog(
+        session, key, user_ids, cat, reward_fn, k_short=64)
+    clusters = serve.build_clusters(cat)
+    session, item_ids, metrics, rmet = serve.step_catalog(
+        session, key, user_ids, cat, reward_fn, clusters=clusters)
+
+Delayed feedback: ``pending_capacity > 0`` makes ``recommend`` issue
+decision ids and ``observe_delayed`` fold feedback by id.
+
+Policies: ``distclub`` | ``club`` | ``linucb``.
+"""
+from ..core.catalog import (Bank, Catalog, add_items, make_catalog,
+                            publish, random_catalog, retire_items,
+                            staged_churn, torn_publish)
+from ..core.itemclub import (ItemClusters, ItemStats, RetrievalMetrics,
+                             build_clusters, init_stats, observe_served,
+                             refresh_clusters, reset_new_slots)
+from .pending import PendingBuffer
+from .policies import (POLICIES, ClusteredPolicy, ClusteredState,
+                       LinUCBPolicy, LinUCBServeState, ServeCfg,
+                       from_distclub_state, get_policy, make_cfg,
+                       to_distclub_state)
+from .session import (OnlineBandit, embed_candidates, observe,
+                      observe_delayed, pending_stats, recommend,
+                      recommend_catalog, refresh, reset_pending, step,
+                      step_catalog)
+
+__all__ = [
+    "Bank", "Catalog", "POLICIES", "ClusteredPolicy", "ClusteredState",
+    "ItemClusters", "ItemStats", "LinUCBPolicy", "LinUCBServeState",
+    "OnlineBandit", "PendingBuffer", "RetrievalMetrics", "ServeCfg",
+    "add_items", "build_clusters", "embed_candidates",
+    "from_distclub_state", "get_policy", "init_stats", "make_catalog",
+    "make_cfg", "observe", "observe_delayed", "observe_served",
+    "pending_stats", "publish", "random_catalog", "recommend",
+    "recommend_catalog", "refresh", "refresh_clusters", "reset_new_slots",
+    "reset_pending", "retire_items", "staged_churn", "step", "step_catalog",
+    "to_distclub_state", "torn_publish",
+]

@@ -1,0 +1,258 @@
+"""The serving ``Policy`` protocol and its ported implementations
+(``repro.serve.policies``).
+
+A policy is what an ``OnlineBandit`` session needs to turn a request
+batch into choices and fold feedback back, four hooks over a state
+record:
+
+  init(device)                    -> state
+  gather_score(state, idx)        -> (w, minv_eff, occ) rows for the
+                                     fused choose, gathered per request
+  apply_pass(state, idx, x, r, live, be)
+                                  -> state    one masked feedback pass;
+                                     ``live`` rows are DISTINCT users
+  refresh(state)                  -> state    the periodic stage
+
+| policy     | scores with                      | refresh                    |
+|------------|----------------------------------|----------------------------|
+| `distclub` | beta gate: own vs cluster stats  | stage 2 (prune+CC+reduce)  |
+| `club`     | cluster stats always             | stage 2 (prune+CC+reduce)  |
+| `linucb`   | own stats always                 | none                       |
+
+``dccb`` needs ``core/dccb``, which is not ported.  The clustered
+policies read the stage-2 per-user snapshots (``uMcinv``/``ubc``/
+``umean_occ``) frozen until the next refresh, as stages 3 and 4 do.
+``gather_score`` is also what catalog retrieval scores the catalog with.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core import distclub, linucb
+from ..core.backend import BackendConfig
+from ..core.clustering import segment_sum
+from ..core.types import (BanditHyper, ClusterStats, DistCLUBState,
+                          GraphState, LinUCBState)
+from ..kernels.graph import ops as graph_ops
+from ..runtime import stages
+from ..runtime.collectives import NullCollectives
+
+POLICIES = ("distclub", "club", "linucb")
+_NULL = NullCollectives()
+
+
+class ServeCfg(NamedTuple):
+    """Static facts of one serving session."""
+
+    n_users: int
+    d: int
+    hyper: BanditHyper
+    refresh_every: int      # interactions between refreshes; <= 0 = never
+
+
+def _rank1_pass(Minv, b, occ, idx, x, r, live, be):
+    """One fused masked Sherman-Morrison pass over gathered rows (the
+    in-place kernel works on the gathered copy), scattered back for the
+    live (distinct-user) rows only; new tensors, the inputs untouched."""
+    Minv2, b2 = be.update_inv(Minv[idx], b[idx], x, r, live)
+    rows = idx[live]
+    Minv, b, occ = Minv.clone(), b.clone(), occ.clone()
+    Minv[rows] = Minv2[live]
+    b[rows] = b2[live]
+    occ[rows] += 1
+    return Minv, b, occ
+
+
+def _eye_rows(n, d, device):
+    return torch.eye(d, dtype=torch.float32, device=device).expand(
+        n, d, d).clone()
+
+
+def _zero():
+    return torch.zeros((), dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# distclub / club: the clustered policies (stage-2 refresh)
+# ---------------------------------------------------------------------------
+
+
+class ClusteredState(NamedTuple):
+    """DistCLUB/CLUB serving state: LinUCB rows, the packed graph and the
+    frozen per-user stage-2 snapshots."""
+
+    Minv: torch.Tensor          # [n, d, d]
+    b: torch.Tensor             # [n, d]
+    occ: torch.Tensor           # [n] i32
+    adj: torch.Tensor           # [n, ceil(n/32)] i32 packed rows
+    labels: torch.Tensor        # [n] i32
+    uMcinv: torch.Tensor        # [n, d, d]  frozen cluster snapshot
+    ubc: torch.Tensor           # [n, d]
+    umean_occ: torch.Tensor     # [n] f32
+    since_refresh: torch.Tensor  # [] i32
+    comm_bytes: torch.Tensor     # [] f32 modeled stage-2 traffic
+
+
+class ClusteredPolicy(NamedTuple):
+    cfg: ServeCfg
+    use_beta: bool            # True = distclub (beta gate), False = club
+
+    @property
+    def name(self) -> str:
+        return "distclub" if self.use_beta else "club"
+
+    @property
+    def has_refresh(self) -> bool:
+        return True
+
+    def init(self, device) -> ClusteredState:
+        n, d = self.cfg.n_users, self.cfg.d
+        return ClusteredState(
+            Minv=_eye_rows(n, d, device),
+            b=torch.zeros(n, d, dtype=torch.float32, device=device),
+            occ=torch.zeros(n, dtype=torch.int32, device=device),
+            adj=graph_ops.init_packed_adj(n, n, device=device),
+            labels=torch.zeros(n, dtype=torch.int32, device=device),
+            uMcinv=_eye_rows(n, d, device),
+            ubc=torch.zeros(n, d, dtype=torch.float32, device=device),
+            umean_occ=torch.zeros(n, dtype=torch.float32, device=device),
+            since_refresh=_zero().to(device),
+            comm_bytes=torch.zeros((), dtype=torch.float32, device=device))
+
+    def occ_of(self, state):
+        return state.occ
+
+    def gather_score(self, state: ClusteredState, idx):
+        Minv, b, occ = state.Minv[idx], state.b[idx], state.occ[idx]
+        uMcinv = state.uMcinv[idx]
+        v_own = linucb.user_vector(Minv, b)
+        v_clu = linucb.user_vector(uMcinv, state.ubc[idx])
+        if self.use_beta:
+            use_own = stages.beta_gate(self.cfg.hyper, occ,
+                                       state.umean_occ[idx])
+        else:
+            use_own = torch.zeros(occ.shape, dtype=torch.bool,
+                                  device=occ.device)   # CLUB: cluster always
+        w, minv_eff = stages.mix_scores(use_own, v_own, v_clu, Minv, uMcinv)
+        return w, minv_eff, occ
+
+    def apply_pass(self, state: ClusteredState, idx, x, r, live, be):
+        Minv, b, occ = _rank1_pass(state.Minv, state.b, state.occ, idx, x, r,
+                                   live, be)
+        return state._replace(Minv=Minv, b=b, occ=occ)
+
+    def refresh(self, state: ClusteredState) -> ClusteredState:
+        cfg = self.cfg
+        gb = BackendConfig.create().graph(cfg.n_users)
+        res = stages.stage2_refresh(_NULL, gb, cfg.hyper, cfg.d, state.Minv,
+                                    state.b, state.occ, state.adj)
+        return state._replace(
+            adj=res.adj, labels=res.labels, uMcinv=res.uMcinv, ubc=res.ubc,
+            umean_occ=res.umean_occ,
+            comm_bytes=state.comm_bytes + res.comm_bytes)
+
+
+# ---------------------------------------------------------------------------
+# linucb: the per-user baseline (no clustering, no refresh)
+# ---------------------------------------------------------------------------
+
+
+class LinUCBServeState(NamedTuple):
+    Minv: torch.Tensor           # [n, d, d]
+    b: torch.Tensor              # [n, d]
+    occ: torch.Tensor            # [n] i32
+    since_refresh: torch.Tensor  # [] i32 (counted; never fires)
+
+
+class LinUCBPolicy(NamedTuple):
+    cfg: ServeCfg
+
+    @property
+    def name(self) -> str:
+        return "linucb"
+
+    @property
+    def has_refresh(self) -> bool:
+        return False
+
+    def init(self, device) -> LinUCBServeState:
+        n, d = self.cfg.n_users, self.cfg.d
+        return LinUCBServeState(
+            Minv=_eye_rows(n, d, device),
+            b=torch.zeros(n, d, dtype=torch.float32, device=device),
+            occ=torch.zeros(n, dtype=torch.int32, device=device),
+            since_refresh=_zero().to(device))
+
+    def occ_of(self, state):
+        return state.occ
+
+    def gather_score(self, state: LinUCBServeState, idx):
+        Minv = state.Minv[idx]
+        return linucb.user_vector(Minv, state.b[idx]), Minv, state.occ[idx]
+
+    def apply_pass(self, state: LinUCBServeState, idx, x, r, live, be):
+        Minv, b, occ = _rank1_pass(state.Minv, state.b, state.occ, idx, x, r,
+                                   live, be)
+        return state._replace(Minv=Minv, b=b, occ=occ)
+
+    def refresh(self, state):
+        return state
+
+
+# ---------------------------------------------------------------------------
+# construction + offline interop
+# ---------------------------------------------------------------------------
+
+
+def make_cfg(n_users: int, d: int, hyper: BanditHyper, *,
+             refresh_every: int = 0) -> ServeCfg:
+    return ServeCfg(n_users=n_users, d=d, hyper=hyper,
+                    refresh_every=refresh_every)
+
+
+def get_policy(name: str, cfg: ServeCfg):
+    if name == "distclub":
+        return ClusteredPolicy(cfg, use_beta=True)
+    if name == "club":
+        return ClusteredPolicy(cfg, use_beta=False)
+    if name == "linucb":
+        return LinUCBPolicy(cfg)
+    if name == "dccb":
+        raise ValueError("the dccb policy is not ported: it needs core/dccb")
+    raise ValueError(f"unknown policy {name!r}; want one of {POLICIES}")
+
+
+def from_distclub_state(state: DistCLUBState) -> ClusteredState:
+    """Warm-start serving state from an offline ``distclub.run`` state:
+    the per-user snapshots are gathered as stage 3 would."""
+    uMcinv, ubc, umean_occ = distclub.serving_snapshot(state)
+    return ClusteredState(
+        Minv=state.lin.Minv, b=state.lin.b, occ=state.lin.occ,
+        adj=state.graph.adj, labels=state.graph.labels,
+        uMcinv=uMcinv, ubc=ubc, umean_occ=umean_occ,
+        since_refresh=_zero().to(state.lin.b.device),
+        comm_bytes=state.comm_bytes)
+
+
+def to_distclub_state(state: ClusteredState, hyper: BanditHyper,
+                      d: int) -> DistCLUBState:
+    """The offline record from a serving state (label tables rebuilt from
+    the per-user rows; M recovered from Minv)."""
+    n = state.occ.shape[0]
+    M = torch.linalg.inv(state.Minv)
+    lin = LinUCBState(M=M, Minv=state.Minv, b=state.b, occ=state.occ)
+    eye = torch.eye(d, dtype=torch.float32, device=M.device)
+    labels = state.labels
+    Mc = segment_sum(M - eye, labels, n) + eye
+    stats = ClusterStats(
+        Mc=Mc, Mcinv=torch.linalg.inv(Mc), bc=segment_sum(state.b, labels, n),
+        size=segment_sum(torch.ones_like(labels), labels, n),
+        seen=segment_sum(state.occ, labels, n))
+    rounds = torch.full((n,), hyper.sigma, dtype=torch.int32,
+                        device=M.device)
+    return DistCLUBState(
+        lin=lin, graph=GraphState(adj=state.adj, labels=labels),
+        clusters=stats, u_rounds=rounds, c_rounds=rounds.clone(),
+        comm_bytes=state.comm_bytes)

@@ -56,6 +56,26 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         distclub.run(env_ops.synthetic_ops(e), 0, hyper, 1, 3)
 
 
+def test_serving_entry_points_need_a_device_without_cuda(monkeypatch):
+    from repro_torch import serve
+    from repro_torch.core import catalog
+    from repro_torch.serve import pending
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hyper = BanditHyper(n_candidates=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.OnlineBandit.create(8, 3, hyper)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        env.make_catalog_env(0, 8, 3, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        catalog.random_catalog(torch.Generator(), 16, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.init_stats(16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pending.init(4, 3)
+    sess = serve.OnlineBandit.create(8, 3, hyper, device="cpu")
+    assert sess.state.Minv.device.type == "cpu"
+
+
 def test_cpu_run_launches_no_kernel_and_learns():
     n, d, K = 48, 6, 10
     hyper = BanditHyper(sigma=6, max_rounds=12, gamma=0.8, n_candidates=K)
