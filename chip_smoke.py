@@ -33,13 +33,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain   the unpruned run through the plain versions on the card: no
            kernel may launch, reward/random within 1% of the kernel run's
            and at least 95% of the served items identical.
+4r. recsys the recsys models at their published configs
+           (``repro_torch.configs``): DCN-v2 (26 x 2^20 x 16 f32 tables,
+           d_interact 429, 3 cross layers) scores 16 serve_p99 batches of
+           512 rows and 2 serve_bulk batches of 262144 on the JAX
+           package's synthetic traffic (after one uncounted batch of
+           each size), counters set to 0 before and read after (3 cross
+           launches a batch); the same batches through the
+           plain versions on the card, logits within 2e-5 of each logit's
+           term scale; ``embedding.bag_lookup`` over a field's table with
+           512 and 262144 bags of 50 ids, its own counted run; SASRec,
+           BERT4Rec and MIND score 4 serve_p99 batches (512 users x 1000
+           candidates) and one retrieval_cand call (2^20 candidates) each,
+           no kernel; ``launch.serve.serve_recsys`` at its defaults
+           (reward/random > 1, within 1% of the same run on the CPU).
 5. full    each kernel against its plain version on the state that run
-           left (and on the full first-epoch adjacency for prune), and the
-           two top-K kernels on one serving batch's users at full width.
+           left (and on the full first-epoch adjacency for prune), the
+           two top-K kernels on one serving batch's users at full width,
+           cross on a serve_bulk batch's layers 1 and 2, and embedding_bag
+           on the two bag batches of phase 4r.
 6. times   median of 25 launches (CUDA events, L2 flushed before each) of
            every kernel and its plain version at the main path's shapes,
            beside the least time the card could take (bytes over 3.35 TB/s
-           or f32 operations over 67 TFLOP/s, counted from these inputs).
+           or f32 operations over 67 TFLOP/s, counted from these inputs)
+           and, for embedding_bag, ``F.embedding_bag`` on the same inputs;
+           for cross, cuBLAS ``addmm`` (its GEMM and bias alone).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -78,12 +96,20 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
              "src/repro/kernels/topk/topk.py:114"),
     "topk_pruned": ("src/repro_torch/csrc/topk.cu",
                     "src/repro/kernels/topk/topk.py:229"),
+    "cross": ("src/repro_torch/csrc/cross.cu",
+              "src/repro/kernels/cross/cross.py:37"),
+    "embedding_bag": ("src/repro_torch/csrc/embag.cu",
+                      "src/repro/kernels/embag/embag.py:39"),
 }
 SERVE_ITEMS = 2**18          # the gate row of benchmarks/bench_retrieval.py
 SERVE_BATCH = 256            # BENCH_serve.json's request batch
 SERVE_BATCHES = 16
 K_SHORT = 64
 REFRESH_EVERY = 2048
+P99_BATCHES = 16             # DCN-v2 serve_p99 batches of 512 rows
+BULK_BATCHES = 2             # and serve_bulk batches of 262144
+SEQ_BATCHES = 4              # serve_p99 batches of each sequence model
+BAG_L = 50                   # ids per bag; the last 20% are 0-weight pads
 
 
 def log(msg: str) -> None:
@@ -233,6 +259,30 @@ def check_cc_hop(adj, labels_self, labels_j):
     return {"max_abs_err": err}
 
 
+def check_cross(x0, xl, W, bias):
+    """Within rtol = atol = 2e-5 of the plain version, the reference's own
+    tolerance for this kernel (tests/test_kernels.py): each element is a
+    d-term f32 dot product that cuBLAS sums in another order."""
+    import torch
+    from repro_torch.kernels.cross import ops, ref
+    out_k = ops.cross_layer(x0, xl, W, bias)
+    out_p = ref.cross_layer_ref(x0, xl, W, bias)
+    torch.testing.assert_close(out_k, out_p, rtol=2e-5, atol=2e-5)
+    return {"max_abs_err": float((out_k - out_p).abs().max())}
+
+
+def check_embag(table, idx, wt):
+    """Within rtol = atol = 1e-5 of the plain version, the reference's own
+    tolerance for this kernel: an L-term f32 sum in another order."""
+    import torch
+    from repro_torch.kernels.embag import ops, ref
+    out_k = ops.embedding_bag(table, idx, wt)
+    ones = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+    out_p = ref.embedding_bag_ref(table, idx, ones if wt is None else wt)
+    torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-5)
+    return {"max_abs_err": float((out_k - out_p).abs().max())}
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -309,6 +359,7 @@ def small_checks(dev):
     log(f"small cc_hop (n={ng}): "
         f"{check_cc_hop(gref.pack_bits(sparse | sparse.T), labels, labels)}")
     small_topk_checks(g, dev, n, d, w, Minv, occ)
+    small_recsys_checks(g, dev)
 
 
 def small_topk_checks(g, dev, n, d, w, Minv, occ):
@@ -359,10 +410,41 @@ def small_topk_checks(g, dev, n, d, w, Minv, occ):
     assert res["skip"] > 0, "topk_pruned skipped no tile"
 
 
+def small_recsys_checks(g, dev):
+    """cross on ragged shapes, both tile shapes (B=5000 at d=429 takes the
+    128x64 tiles); embedding_bag at the reference's test shapes, then with
+    pad slots, ids out of range, no weights and D=6 (the 4-byte path)."""
+    import torch
+    for B, d in ((16, 16), (37, 24), (100, 64), (37, 429), (5000, 429)):
+        x0 = torch.randn(B, d, generator=g, device=dev)
+        xl = torch.randn(B, d, generator=g, device=dev)
+        W = torch.randn(d, d, generator=g, device=dev) / math.sqrt(d)
+        bias = torch.randn(d, generator=g, device=dev)
+        log(f"small cross (B={B}, d={d}): {check_cross(x0, xl, W, bias)}")
+    for V, D, B, L in ((50, 8, 4, 3), (1000, 64, 16, 10), (128, 128, 8, 1),
+                       (77, 6, 33, 7)):
+        table = torch.randn(V, D, generator=g, device=dev)
+        idx = torch.randint(0, V, (B, L), generator=g, device=dev,
+                            dtype=torch.int32)
+        wt = torch.rand(B, L, generator=g, device=dev)
+        log(f"small embedding_bag (V={V}, D={D}, B={B}, L={L}): "
+            f"{check_embag(table, idx, wt)}")
+        odd = torch.randint(-V - 9, V + 9, (B, L), generator=g, device=dev,
+                            dtype=torch.int32)
+        wt[:, L // 2:] = 0.0
+        log(f"  pads, ids out of range: {check_embag(table, odd, wt)}; "
+            f"no weights: {check_embag(table, odd, None)}")
+
+
 @contextlib.contextmanager
 def plain_path():
     """Every kernel wrapper swapped for its plain version, so that the
-    engines run the plain PyTorch path on the CUDA tensors."""
+    engines and models run the plain PyTorch path on the CUDA tensors."""
+    import torch
+    from repro_torch.kernels.cross import ops as cops
+    from repro_torch.kernels.cross import ref as cref
+    from repro_torch.kernels.embag import ops as eops
+    from repro_torch.kernels.embag import ref as eref
     from repro_torch.kernels.graph import ops as gops
     from repro_torch.kernels.graph import ref as gref
     from repro_torch.kernels.interact import ops as iops
@@ -371,6 +453,11 @@ def plain_path():
     from repro_torch.kernels.rank1 import ref as rref
     from repro_torch.kernels.topk import ops as tops
     from repro_torch.kernels.topk import ref as tref
+
+    def embag_plain(table, idx, wt=None):
+        ones = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+        return eref.embedding_bag_ref(table, idx, ones if wt is None else wt)
+
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
                 (iops, "choose", iref.choose_ref),
@@ -378,7 +465,9 @@ def plain_path():
                 (gops, "prune_packed", gref.prune_packed_ref),
                 (gops, "cc_hop_packed", gref.cc_hop_packed_ref),
                 (tops, "topk", tref.topk_ref),
-                (tops, "topk_pruned", tref.topk_ref_pruned)):
+                (tops, "topk_pruned", tref.topk_ref_pruned),
+                (cops, "cross_layer", cref.cross_layer_ref),
+                (eops, "embedding_bag", embag_plain)):
             stack.enter_context(mock.patch.object(module, name, plain))
         yield
 
@@ -596,6 +685,232 @@ def serve_phase(dev, state, theta, hyper):
     return work, sess_u, clusters, launches, sk / tot
 
 
+def dcn_traffic(g, cfg, batch, dev):
+    """The JAX package's synthetic DCN-v2 traffic (``repro.launch.train``):
+    dense features N(0, 1), sparse ids uniform over each field's vocab."""
+    import torch
+    return (torch.randn(batch, cfg.n_dense, generator=g, device=dev),
+            torch.randint(0, cfg.vocab_per_field, (batch, cfg.n_sparse),
+                          generator=g, device=dev, dtype=torch.int32))
+
+
+def dcn_term_scale(model, dense, sparse):
+    """Per logit, sum_j |both_j final_j| through the plain versions: the
+    size of the terms the logit adds up, against which its rounding is
+    measured (a logit can cancel to near 0 while its terms are large)."""
+    import torch
+    from repro_torch.kernels.cross import ref as cref
+    from repro_torch.models import layers
+    from repro_torch.models.recsys import dcn_v2
+    x0 = dcn_v2.interaction_input(model, dense, sparse)
+    xl = x0
+    for lyr in model.cross:
+        xl = cref.cross_layer_ref(x0, xl, lyr.W, lyr.b)
+    deep = layers.mlp([(lyr.w, lyr.b) for lyr in model.deep], x0,
+                      final_act=True)
+    return (torch.cat([xl, deep], dim=-1).abs() @ model.final.abs())[:, 0]
+
+
+def timed(fn):
+    """``(fn(), seconds)``, the host clock around a synchronised call."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def recsys_phase(dev):
+    """Phase 4r; returns what phases 5 and 6 need."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import recsys_shapes
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.recsys import dcn_v2, embedding, mind, seqrec
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    # ---- DCN-v2 at its published config ----------------------------------
+    spec = configs.get("dcn-v2")
+    cfg = spec.cfg
+    torch.cuda.reset_peak_memory_stats()
+    model, secs = timed(lambda: dcn_v2.DCNv2(cfg, seed=SEED, device=dev))
+    log(f"dcn-v2: {sum(p.numel() for p in model.parameters())} parameters "
+        f"(tables {tuple(model.tables.shape)}), d_interact={cfg.d_interact}, "
+        f"init {secs} s")
+    batches = [("serve_p99", dcn_traffic(g, cfg, recsys_shapes.P99_B, dev))
+               for _ in range(P99_BATCHES)]
+    batches += [("serve_bulk", dcn_traffic(g, cfg, recsys_shapes.BULK_B, dev))
+                for _ in range(BULK_BATCHES)]
+    for shape, (dense, sparse) in batches[P99_BATCHES - 1:P99_BATCHES + 1]:
+        want = spec.input_specs(shape)
+        assert (tuple(dense.shape), dense.dtype) == want["dense_feats"]
+        assert (tuple(sparse.shape), sparse.dtype) == want["sparse_ids"]
+    # one uncounted batch of each size first: cuBLAS's and the caching
+    # allocator's first-call costs stay out of the times
+    for i in (0, P99_BATCHES):
+        dcn_v2.dcn_fwd(model, *batches[i][1])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    logits, secs = [], {"serve_p99": [], "serve_bulk": []}
+    for shape, (dense, sparse) in batches:
+        out, s = timed(lambda: dcn_v2.dcn_fwd(model, dense, sparse))
+        logits.append(out)
+        secs[shape].append(s)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for shape, s in secs.items():
+        log(f"dcn-v2 {shape}: ms per batch {[1e3 * x for x in s]} "
+            f"median {1e3 * statistics.median(s)}")
+    log(f"dcn-v2 launches: {launches} max_memory_allocated={peak}")
+    assert launches["cross"] == cfg.n_cross_layers * len(batches), launches
+    assert sum(launches.values()) == launches["cross"], launches
+    for out, (_, (dense, _)) in zip(logits, batches):
+        assert out.shape == (dense.shape[0],) and out.dtype == torch.float32
+        assert bool(torch.isfinite(out).all()), "non-finite DCN logits"
+    for shape in ("serve_p99", "serve_bulk"):
+        bs = [b for b in batches if b[0] == shape]
+        profile_batch(f"dcn-v2 {shape}",
+                      lambda: dcn_v2.dcn_fwd(model, *bs[0][1]),
+                      statistics.median(secs[shape]))
+
+    # ---- the same batches through the plain versions ------------------------
+    # Each cross element is a 429-term f32 dot product and each logit a
+    # 941-term one; cuBLAS and the kernel sum them in other orders, an
+    # error of ~sqrt(n) 2^-24 (~1e-6) of the terms' absolute sum per
+    # product, compounded over 3 layers and the head: 2e-5 of the logit's
+    # term scale, the kernel's own tolerance, bounds it with room.
+    _build.reset_launches()
+    worst = 0.0
+    with plain_path():
+        for out, (_, (dense, sparse)) in zip(logits, batches):
+            plain = dcn_v2.dcn_fwd(model, dense, sparse)
+            scale = dcn_term_scale(model, dense, sparse)
+            ratio = float(((out - plain).abs() / (1 + scale)).max())
+            worst = max(worst, ratio)
+    assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
+    log(f"dcn-v2 kernel vs plain logits: max |d| / (1 + term scale) = "
+        f"{worst} over {len(batches)} batches (limit 2e-5)")
+    assert worst <= 2e-5, "DCN logits: kernel and plain paths disagree"
+
+    # ---- EmbeddingBag through the embedding module's entry point ----------
+    table = model.tables[0]                   # one field's [2^20, 16] table
+    bags = {}
+    for n_bags in (recsys_shapes.P99_B, recsys_shapes.BULK_B):
+        idx = torch.randint(0, cfg.vocab_per_field, (n_bags, BAG_L),
+                            generator=g, device=dev, dtype=torch.int32)
+        wt = torch.rand(n_bags, BAG_L, generator=g, device=dev)
+        wt[:, int(0.8 * BAG_L):] = 0.0
+        bags[n_bags] = (idx, wt)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for n_bags, (idx, wt) in bags.items():
+        out, s = timed(lambda: embedding.bag_lookup(table, idx, wt))
+        assert out.shape == (n_bags, cfg.embed_dim)
+        assert bool(torch.isfinite(out).all())
+        log(f"bag_lookup: {n_bags} bags of {BAG_L}: {1e3 * s} ms")
+    bag_launches = dict(_build.LAUNCHES)
+    log(f"bag_lookup launches: {bag_launches}")
+    assert bag_launches["embedding_bag"] == len(bags), bag_launches
+
+    # ---- SASRec, BERT4Rec, MIND: serve_p99 and retrieval_cand -------------
+    x0_bulk = dcn_v2.interaction_input(model, *batches[-1][1])
+    run = {"model": model, "x0_bulk": x0_bulk,
+           "x0_p99": dcn_v2.interaction_input(model, *batches[0][1]),
+           "bags": bags, "launches": launches, "bag_launches": bag_launches}
+    fns = {"sasrec": (seqrec.SeqRec, seqrec.score_candidates,
+                      seqrec.retrieval_scores),
+           "bert4rec": (seqrec.SeqRec, seqrec.score_candidates,
+                        seqrec.retrieval_scores),
+           "mind": (mind.MIND, mind.mind_serve, mind.mind_retrieval)}
+    _build.reset_launches()
+    for arch, (cls, serve_fn, retr_fn) in fns.items():
+        spec = configs.get(arch)
+        torch.cuda.reset_peak_memory_stats()
+        m = cls(spec.cfg, seed=SEED, device=dev)
+
+        def inputs(shape):
+            (hs, hd), (cs, cd) = (spec.input_specs(shape)[k]
+                                  for k in ("hist", "cand"))
+            return (torch.randint(1, spec.cfg.n_items, hs, generator=g,
+                                  device=dev, dtype=hd),
+                    torch.randint(0, spec.cfg.n_items, cs, generator=g,
+                                  device=dev, dtype=cd))
+        s_p99 = []
+        for _ in range(SEQ_BATCHES):
+            hist, cand = inputs("serve_p99")
+            scores, s = timed(lambda: serve_fn(m, hist, cand))
+            s_p99.append(s)
+            assert scores.shape == cand.shape, scores.shape
+            assert bool(torch.isfinite(scores).all()), f"{arch}: non-finite"
+        hist, cand = inputs("retrieval_cand")
+        scores, s_retr = timed(lambda: retr_fn(m, hist, cand))
+        assert scores.shape == cand.shape and scores.dtype == torch.float32
+        assert bool(torch.isfinite(scores).all()), f"{arch}: non-finite"
+        log(f"{arch}: serve_p99 ms per batch {[1e3 * x for x in s_p99]} "
+            f"median {1e3 * statistics.median(s_p99)}; retrieval_cand "
+            f"({cand.shape[0]} candidates) {1e3 * s_retr} ms; "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+        del m
+    assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
+
+    # ---- the serving CLI's recsys path at its defaults --------------------
+    # The CLI draws its world on the host, so the card serves the requests
+    # of the CPU run: reward/random must be > 1 and within 1% of the CPU's
+    # (choices part only where the two devices round a near tie apart).
+    args = serve_cli.parse_args([])
+    spec = configs.get(args.arch)
+    ratio, s = timed(lambda: serve_cli.serve_recsys(spec, args, device=dev))
+    cli_launches = dict(_build.LAUNCHES)
+    ratio_cpu = serve_cli.serve_recsys(spec, args, device="cpu")
+    log(f"serve_recsys ({args.arch}, {args.policy}, {args.steps} x "
+        f"{args.batch}): reward/random={ratio} in {s} s (CPU run: "
+        f"{ratio_cpu}), launches {cli_launches}")
+    assert ratio > 1.0, "serve_recsys does no better than random"
+    assert abs(ratio - ratio_cpu) <= 0.01 * ratio_cpu, (
+        "serve_recsys: the card and the CPU part")
+    assert cli_launches["choose"] == args.steps, cli_launches
+    return run
+
+
+def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
+    """Beside the kernel line: cross's yardstick, cuBLAS ``addmm`` (the
+    GEMM and bias alone, which the port never calls), on the serve_bulk
+    layer-2 inputs; both kernels, their plain versions and yardsticks at
+    serve_p99's 512 rows (layer 2) and 512 bags.  Returns the extra keys
+    of the cross and embedding_bag lines."""
+    import torch
+    from repro_torch.kernels.cross import ops as cops
+    from repro_torch.kernels.cross import ref as cref
+    from repro_torch.kernels.embag import ops as eops
+    from repro_torch.kernels.embag import ref as eref
+    model = recsys["model"]
+    x0p, c0 = recsys["x0_p99"], model.cross[0]
+    xl1p = cops.cross_layer(x0p, x0p, c0.W, c0.b)
+    table = model.tables[0]
+    idx, wt = bags_p99
+    cross = {
+        "gemm_ms": cuda_ms(lambda: torch.addmm(c1.b, xl1, c1.W.T), flush),
+        "ms_p99": cuda_ms(lambda: cops.cross_layer(x0p, xl1p, c1.W, c1.b),
+                          flush),
+        "plain_ms_p99": cuda_ms(
+            lambda: cref.cross_layer_ref(x0p, xl1p, c1.W, c1.b), flush),
+        "gemm_ms_p99": cuda_ms(lambda: torch.addmm(c1.b, xl1p, c1.W.T),
+                               flush),
+    }
+    embag = {
+        "ms_p99": cuda_ms(lambda: eops.embedding_bag(table, idx, wt), flush),
+        "plain_ms_p99": cuda_ms(
+            lambda: eref.embedding_bag_ref(table, idx, wt), flush),
+        "library_ms_p99": cuda_ms(
+            lambda: torch.nn.functional.embedding_bag(
+                idx, table, per_sample_weights=wt, mode="sum"), flush),
+    }
+    log(f"time cross, yardsticks and serve_p99: {cross}")
+    log(f"time embedding_bag at 512 bags: {embag}")
+    return cross, embag
+
+
 def popcount(words):
     """Set bits in an int32 tensor of packed words."""
     x = words.long() & 0xFFFFFFFF
@@ -635,6 +950,10 @@ def main() -> int:
     from repro_torch.configs import distclub_paper as paper
     from repro_torch.core import clustering, distclub, env, env_ops, linucb
     from repro_torch.kernels import _build
+    from repro_torch.kernels.cross import ops as cops
+    from repro_torch.kernels.cross import ref as cref
+    from repro_torch.kernels.embag import ops as eops
+    from repro_torch.kernels.embag import ref as eref
     from repro_torch.kernels.graph import ops as gops
     from repro_torch.kernels.graph import ref as gref
     from repro_torch.kernels.interact import ops as iops
@@ -723,6 +1042,9 @@ def main() -> int:
     serving, sess, item_clusters, serve_launches, _ = serve_phase(
         dev, state, e.theta, hyper)
 
+    # ---- phase 4r: the recsys models at their published configs -------------
+    recsys = recsys_phase(dev)
+
     # ---- phase 5: kernels against plain versions at full width --------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     Minv, b, occ = state.lin.Minv, state.lin.b, state.lin.occ
@@ -752,6 +1074,18 @@ def main() -> int:
     errs["topk_pruned"] = check_topk_pruned(w_s, M_s, occ_s, serving.catalog,
                                             item_clusters, hyper.alpha,
                                             K_SHORT)
+    # DCN-v2's layers 1 and 2 on a serve_bulk batch; EmbeddingBag on the
+    # bags of phase 4r
+    x0b = recsys["x0_bulk"]
+    c0, c1 = recsys["model"].cross[0], recsys["model"].cross[1]
+    errs["cross"] = check_cross(x0b, x0b, c0.W, c0.b)
+    xl1 = cops.cross_layer(x0b, x0b, c0.W, c0.b)
+    log(f"full cross, layer 2: {check_cross(x0b, xl1, c1.W, c1.b)}")
+    table = recsys["model"].tables[0]
+    bags_p99, bags_bulk = (recsys["bags"][nb] for nb in sorted(recsys["bags"]))
+    log(f"full embedding_bag, {bags_p99[0].shape[0]} bags: "
+        f"{check_embag(table, *bags_p99)}")
+    errs["embedding_bag"] = check_embag(table, *bags_bulk)
     for kname, res in errs.items():
         log(f"full {kname}: {res}")
 
@@ -813,6 +1147,34 @@ def main() -> int:
             keep * (tk_bytes + 4 * (N_live + B * tb.shape[1])),
             keep * tk_ops),
     })
+    # cross: layer 2 of a serve_bulk batch (x0 and xl distinct inputs);
+    # embedding_bag: the 262144 bags, pads' rows not counted (not read)
+    Bb, dI = x0b.shape
+    idx_b, wt_b = bags_bulk
+    nonpad = int((wt_b != 0).sum())
+    dE = table.shape[1]
+    work.update({
+        "cross": (
+            lambda: cops.cross_layer(x0b, xl1, c1.W, c1.b),
+            lambda: cref.cross_layer_ref(x0b, xl1, c1.W, c1.b),
+            4 * (3 * Bb * dI + dI * dI + dI),
+            2 * Bb * dI * dI + 3 * Bb * dI),
+        "embedding_bag": (
+            lambda: eops.embedding_bag(table, idx_b, wt_b),
+            lambda: eref.embedding_bag_ref(table, idx_b, wt_b),
+            8 * idx_b.numel() + 4 * dE * (nonpad + idx_b.shape[0]),
+            2 * dE * nonpad),
+    })
+    # one PyTorch call of the same function, timed here and used nowhere
+    # in the port: F.embedding_bag (ids in range: it does not clamp)
+    library = {"embedding_bag": lambda: torch.nn.functional.embedding_bag(
+        idx_b, table, per_sample_weights=wt_b, mode="sum")}
+    on_path = {k: launches[k] for k in ("choose", "rank1_update_inv",
+                                        "prune", "cc_hop")}
+    on_path.update(topk=serve_launches["topk"],
+                   topk_pruned=serve_launches["topk_pruned"],
+                   cross=recsys["launches"]["cross"],
+                   embedding_bag=recsys["bag_launches"]["embedding_bag"])
     rows = []
     for kname, (kern, plain, n_bytes, flops) in work.items():
         ms = cuda_ms(kern, flush)
@@ -820,22 +1182,24 @@ def main() -> int:
         slow = kname.startswith("topk")
         plain_ms = cuda_ms(plain, flush, reps=3 if slow else REPS,
                            warmup=1 if slow else 3)
+        lib_ms = cuda_ms(library[kname], flush) if kname in library else None
         bms, by = bound_ms(n_bytes, flops)
         source, replaces = KERNEL_INFO[kname]
-        on_path = launches if kname in launches and not slow \
-            else serve_launches
         rows.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": on_path[kname],
             "max_abs_err": errs[kname]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
+            "library_ms": lib_ms,
             "near_ties": errs[kname].get("near_ties", 0),
             "serve_launches": serve_launches[kname],
         })
         log(f"time {kname}: kernel {ms} ms, plain {plain_ms} ms, "
-            f"bound {bms} ms ({by}; {n_bytes} bytes, {flops} f32 ops), "
-            f"{math.ceil(ms / bms)}x the bound")
+            f"library {lib_ms} ms, bound {bms} ms ({by}; {n_bytes} bytes, "
+            f"{flops} f32 ops), {math.ceil(ms / bms)}x the bound")
+    for row, extra in zip(rows[-2:], recsys_extra_times(
+            recsys, flush, x0b, xl1, c1, bags_p99)):
+        row.update(extra)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": rows}))

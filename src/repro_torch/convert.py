@@ -13,6 +13,12 @@ records, field by field by name: ``ClusteredState``, ``LinUCBServeState``,
 not keep (the f32 banks' all-ones dequant ``scale``) are dropped; fields
 the port keeps on the host (``Catalog.active``/``epoch``,
 ``ItemClusters.epoch``) become Python ints.
+
+``dcn_from_numpy`` / ``seqrec_from_numpy`` / ``mind_from_numpy`` take a
+``repro`` model parameter tree with numpy leaves and return the port's
+module holding those weights: the module's parameters carry the tree's
+paths as names (``cross.0.W``, ``blocks.ffn.1.b``), and each leaf must
+match its parameter's shape.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from . import resolve_device
 from .core.types import (ClusterStats, DistCLUBState, GraphState,
                          LinUCBState)
+from .models.recsys import dcn_v2, mind, seqrec
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -98,3 +105,46 @@ def record_to_numpy(record):
                 v = v.view(np.uint32)
         vals[f] = v
     return type(record)(**vals)
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from _flatten(v, f"{prefix}.{k}" if prefix else str(k))
+
+
+def load_params(module: torch.nn.Module, params) -> torch.nn.Module:
+    """Copy a parameter tree with numpy leaves into ``module``, leaf by
+    leaf by path; raises unless paths and shapes agree exactly."""
+    own = dict(module.named_parameters())
+    flat = dict(_flatten(params))
+    if own.keys() != flat.keys():
+        raise ValueError(f"parameter paths differ: only in the module "
+                         f"{sorted(own.keys() - flat.keys())}, only in the "
+                         f"tree {sorted(flat.keys() - own.keys())}")
+    with torch.no_grad():
+        for name, p in own.items():
+            a = np.asarray(flat[name])
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{name}: shape {a.shape}, expected "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(a.astype(np.float32)))
+    return module
+
+
+def dcn_from_numpy(params, cfg: dcn_v2.DCNConfig, device=None):
+    return load_params(dcn_v2.DCNv2(cfg, device=device), params)
+
+
+def seqrec_from_numpy(params, cfg: seqrec.SeqRecConfig, device=None):
+    return load_params(seqrec.SeqRec(cfg, device=device), params)
+
+
+def mind_from_numpy(params, cfg: mind.MINDConfig, device=None):
+    return load_params(mind.MIND(cfg, device=device), params)

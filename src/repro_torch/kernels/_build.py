@@ -43,6 +43,9 @@ KERNELS = {
     "topk_pruned": ("topk.cu", "topk_pruned_launch",
                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                      _I, _I, _P, _P, _P, _P, _P, _P]),
+    "cross": ("cross.cu", "cross_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "embedding_bag": ("embag.cu", "embedding_bag_launch",
+                      [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

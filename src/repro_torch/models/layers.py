@@ -1,0 +1,89 @@
+"""Shared model layers (``repro.models.layers``): initialisers, the relu
+MLP and layer norm, plus the parameter-tree module the models are built
+from.
+
+Initialisers return plain tensors drawn from the caller's
+``torch.Generator`` on that generator's device, from the same
+distributions as the JAX package (not the same bits: parity goes through
+``repro_torch.convert``).  A model's ``init_*`` builds a nested dict of
+tensors shaped like the JAX parameter tree and wraps it in
+:class:`Params`, so ``named_parameters()`` yields the JAX paths
+(``cross.0.W``, ``blocks.ffn.1.b``).  Parameters are frozen
+(``requires_grad=False``): this slice serves; training, with gradients
+for the kernels, is a later one.
+
+RMSNorm, RoPE and SwiGLU come with the LM models.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class Params(nn.Module):
+    """A parameter tree as a module: dict keys become attribute names,
+    lists ``nn.ModuleList``s, tensors frozen parameters."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            setattr(self, name, _node(value))
+
+
+def _node(value):
+    if isinstance(value, dict):
+        return Params(value)
+    if isinstance(value, (list, tuple)):
+        return nn.ModuleList(_node(v) for v in value)
+    return nn.Parameter(value, requires_grad=False)
+
+
+def tree_stack(trees: list):
+    """Trees of one structure -> one tree whose leaves are stacked on a
+    new leading axis (what ``jax.vmap`` of an init gives)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [tree_stack([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack(trees)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-6):
+    """``repro``'s layer norm: statistics in f32, eps 1e-6 (not torch's
+    1e-5 default), population variance."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
+
+
+def init_layer_norm(d: int, device) -> dict:
+    return {"scale": torch.ones(d, device=device),
+            "bias": torch.zeros(d, device=device)}
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
+    """[d_in, d_out] ~ N(0, 2 / (d_in + d_out))."""
+    scale = (2.0 / (d_in + d_out)) ** 0.5
+    return torch.randn(d_in, d_out, generator=gen, device=gen.device) * scale
+
+
+def init_mlp(gen: torch.Generator, d_in: int, hidden: tuple[int, ...],
+             d_out: int | None = None) -> list[dict]:
+    """Plain relu MLP (recsys towers): a list of ``{w, b}``."""
+    dims = [d_in, *hidden] + ([d_out] if d_out is not None else [])
+    return [{"w": dense_init(gen, a, b),
+             "b": torch.zeros(b, device=gen.device)}
+            for a, b in zip(dims[:-1], dims[1:])]
+
+
+def mlp(params, x, final_act: bool = False):
+    """``params``: a sequence of ``(w, b)``; relu after every layer but
+    the last (and after the last too with ``final_act``)."""
+    params = list(params)
+    for i, (w, b) in enumerate(params):
+        x = x @ w + b
+        if i < len(params) - 1 or final_act:
+            x = torch.relu(x)
+    return x

@@ -1,0 +1,119 @@
+"""Sequential recommenders: SASRec (arXiv:1808.09781) and BERT4Rec
+(arXiv:1904.06690) share one transformer-over-item-history backbone
+(``repro.models.recsys.seqrec``).
+
+  * SASRec: causal self-attention, learned absolute positions, scores
+    through the tied item embeddings.
+  * BERT4Rec: the same with bidirectional attention.
+
+Serving entry points:
+  * ``score_candidates`` (serve_p99 / serve_bulk): the last position's
+    user state against each user's candidate embeddings;
+  * ``retrieval_scores`` (retrieval_cand): one user against a candidate
+    slab, a [N, d] x [d] product.
+
+Parameters keep ``repro``'s tree: ``item_embed`` [n_items, d],
+``pos_embed`` [seq_len, d], ``blocks.*`` with every leaf stacked on a
+leading [n_blocks] axis (``ln1``, ``wqkv`` [nb, d, 3d], ``wo``, ``ln2``,
+``ffn.{0,1}``), ``final_ln``.  No kernel runs here.  The sampled-softmax
+training loss comes with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ... import resolve_device
+from .. import layers
+from ..attention import chunked_attention
+from . import embedding
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqRecConfig:
+    name: str = "sasrec"
+    n_items: int = 1 << 20
+    embed_dim: int = 50
+    n_blocks: int = 2
+    n_heads: int = 1
+    seq_len: int = 50
+    causal: bool = True          # False -> BERT4Rec
+    n_negatives: int = 127
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def d_head(self) -> int:
+        return self.embed_dim // self.n_heads
+
+
+def init_seqrec(gen: torch.Generator, cfg: SeqRecConfig) -> dict:
+    d = cfg.embed_dim
+    dev = gen.device
+
+    def init_block():
+        return {
+            "ln1": layers.init_layer_norm(d, dev),
+            "wqkv": layers.dense_init(gen, d, 3 * d),
+            "wo": layers.dense_init(gen, d, d),
+            "ln2": layers.init_layer_norm(d, dev),
+            "ffn": layers.init_mlp(gen, d, (4 * d,), d),
+        }
+
+    return {
+        "item_embed": embedding.init_table(gen, cfg.n_items, d),
+        "pos_embed": torch.randn(cfg.seq_len, d, generator=gen,
+                                 device=dev) * 0.02,
+        "blocks": layers.tree_stack([init_block()
+                                     for _ in range(cfg.n_blocks)]),
+        "final_ln": layers.init_layer_norm(d, dev),
+    }
+
+
+class SeqRec(layers.Params):
+    """SASRec / BERT4Rec with random weights from ``seed``, on ``device``
+    (default cuda; raises without a card unless ``device="cpu"``)."""
+
+    def __init__(self, cfg: SeqRecConfig = SeqRecConfig(), *, seed: int = 0,
+                 device=None):
+        dev = resolve_device(device)
+        super().__init__(init_seqrec(
+            torch.Generator(device=dev).manual_seed(seed), cfg))
+        self.cfg = cfg
+
+
+def _block_fwd(p, i: int, cfg: SeqRecConfig, x):
+    """Block ``i`` of the stacked block parameters ``p``."""
+    B, S, d = x.shape
+    H, Dh = cfg.n_heads, cfg.d_head
+    z = layers.layer_norm(x, p.ln1.scale[i], p.ln1.bias[i])
+    qkv = (z @ p.wqkv[i]).reshape(B, S, 3, H, Dh)
+    q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+    o = chunked_attention(q, k, v, causal=cfg.causal,
+                          chunk=min(1024, S)).transpose(1, 2)
+    x = x + o.reshape(B, S, d) @ p.wo[i]
+    z = layers.layer_norm(x, p.ln2.scale[i], p.ln2.bias[i])
+    return x + layers.mlp([(f.w[i], f.b[i]) for f in p.ffn], z)
+
+
+def user_states(model: SeqRec, item_ids):
+    """item_ids [B, S] -> per-position user states [B, S, d]."""
+    cfg = model.cfg
+    x = embedding.lookup(model.item_embed, item_ids) + model.pos_embed
+    for i in range(cfg.n_blocks):
+        x = _block_fwd(model.blocks, i, cfg, x)
+    return layers.layer_norm(x, model.final_ln.scale, model.final_ln.bias)
+
+
+def score_candidates(model: SeqRec, item_ids, cand_ids):
+    """item_ids [B, S], cand_ids [B, C] -> scores [B, C] (online serving)."""
+    h = user_states(model, item_ids)[:, -1]                   # [B, d]
+    ce = embedding.lookup(model.item_embed, cand_ids)         # [B, C, d]
+    return torch.einsum("bd,bcd->bc", h, ce)
+
+
+def retrieval_scores(model: SeqRec, item_ids, cand_ids):
+    """One user against a candidate slab: [1, S] x [N] -> [N] scores."""
+    h = user_states(model, item_ids)[:, -1]                   # [1, d]
+    ce = embedding.lookup(model.item_embed, cand_ids)         # [N, d]
+    return (ce @ h[0]).float()

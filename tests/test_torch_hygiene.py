@@ -32,6 +32,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
+print(" ".join(names))
 """
 
 
@@ -39,9 +40,15 @@ def test_package_imports_neither_jax_nor_repro():
     env_vars = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env_vars,
                          capture_output=True, text=True, timeout=120,
-                         check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 15, out
-    assert out[1].strip() == "[]", out[1]
+                         check=True).stdout.splitlines()
+    count, bad = out[0].split(maxsplit=1)
+    assert int(count) >= 30, out
+    assert bad.strip() == "[]", bad
+    names = set(out[1].split())
+    for mod in ("models.recsys.dcn_v2", "models.recsys.seqrec",
+                "models.recsys.mind", "models.attention", "launch.serve",
+                "kernels.cross.ops", "kernels.embag.ops", "configs.dcn_v2"):
+        assert f"repro_torch.{mod}" in names, mod
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
@@ -74,6 +81,41 @@ def test_serving_entry_points_need_a_device_without_cuda(monkeypatch):
         pending.init(4, 3)
     sess = serve.OnlineBandit.create(8, 3, hyper, device="cpu")
     assert sess.state.Minv.device.type == "cpu"
+
+
+def test_recsys_entry_points_need_a_device_without_cuda(monkeypatch):
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.recsys import dcn_v2, mind, seqrec
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = (dcn_v2.DCNv2, dcn_v2.DCNConfig(vocab_per_field=8, embed_dim=2,
+                                            mlp_dims=(4,))), \
+        (seqrec.SeqRec, seqrec.SeqRecConfig(n_items=8, embed_dim=4,
+                                            seq_len=4)), \
+        (mind.MIND, mind.MINDConfig(n_items=8, embed_dim=4))
+    for cls, cfg in small:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(cfg)
+        assert next(cls(cfg, device="cpu").parameters()).device.type == "cpu"
+    args = serve_cli.parse_args(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.serve_recsys(None, args)
+
+
+def test_cpu_recsys_calls_launch_no_kernel():
+    from repro_torch.models.recsys import dcn_v2, embedding
+    cfg = dcn_v2.DCNConfig(vocab_per_field=16, embed_dim=4, mlp_dims=(8,))
+    model = dcn_v2.DCNv2(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    _build.reset_launches()
+    logits = dcn_v2.dcn_fwd(model, torch.randn(5, 13, generator=g),
+                            torch.randint(0, 16, (5, 26), generator=g,
+                                          dtype=torch.int32))
+    bags = embedding.bag_lookup(model.tables[0],
+                                torch.randint(0, 16, (3, 4), generator=g,
+                                              dtype=torch.int32))
+    assert logits.shape == (5,) and bags.shape == (3, 4)
+    assert _build.LAUNCHES["cross"] == 0
+    assert _build.LAUNCHES["embedding_bag"] == 0
 
 
 def test_cpu_run_launches_no_kernel_and_learns():
