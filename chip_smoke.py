@@ -20,6 +20,19 @@ Phases, in order; any failure raises and the script exits non-zero:
            version, on the same CUDA tensors: no kernel may launch, and
            its clusters per epoch and reward/random must agree with the
            kernel path's within the bands of ``compare_paths``.
+4b. base   the paper's baselines at the same width on the same
+           environment: ``core.club.run`` for 2048 interactions
+           (``bench_paper.py``'s CLUB slice; network update every 64),
+           counters set to 0 before (2048 ucb and 4096 rank1_update
+           launches, one prune per update); ``core.dccb.run`` with
+           L = ``CONFIG.buffer_size`` = 32 for as many epochs as phase 4
+           had interactions (``choose`` launches = epochs x L).  Prints, for
+           DistCLUB (phase 4), DCCB and CLUB: us per interaction,
+           reward/random, comm bytes per interaction, clusters, peak
+           memory.  Both rerun through the plain versions on the card (no
+           kernel may launch; ``compare_paths``'s bands); then a CLUB
+           window of 64 interactions and a network update, and a DCCB
+           epoch, under torch.profiler.
 4s. serve  ``repro_torch.serve`` at full width: a distclub session warm-
            started from that run's state (``OnlineBandit.from_offline``)
            serves 16 batches of 256 distinct users against a 2^18-item
@@ -33,6 +46,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain   the unpruned run through the plain versions on the card: no
            kernel may launch, reward/random within 1% of the kernel run's
            and at least 95% of the served items identical.
+   dccb    a dccb session (``get_policy("dccb")``) on phase 4b's DCCB
+           state serves the same 16 batches unpruned, gossip every 2048
+           interactions, counted on its own (one topk and one choose
+           launch a batch, nothing else), ms per batch; topk and choose
+           against their plain versions on the first and the next batch's
+           inputs (``check_topk``/``check_choose`` near-tie bands); one
+           more batch under torch.profiler; then through the plain
+           versions: no kernel may launch, clusters within 1% of n.  The
+           served items are not compared: DCCB's users score with w = 0,
+           Minv = I (a gossip cut resets both its users, and at the
+           paper's gamma nearly every user is cut), so the items tie and
+           the two paths round the tied scores 1 ulp apart.
 4r. recsys the recsys models at their published configs
            (``repro_torch.configs``): DCN-v2 (26 x 2^20 x 16 f32 tables,
            d_interact 429, 3 cross layers) scores 16 serve_p99 batches of
@@ -48,7 +73,9 @@ Phases, in order; any failure raises and the script exits non-zero:
            no kernel; ``launch.serve.serve_recsys`` at its defaults
            (reward/random > 1, within 1% of the same run on the CPU).
 5. full    each kernel against its plain version on the state that run
-           left (and on the full first-epoch adjacency for prune), the
+           left (and on the full first-epoch adjacency for prune; ucb's
+           argmax must equal choose's choice for every user; ucb and
+           rank1_update also at CLUB's n = 1 on its state's rows), the
            two top-K kernels on one serving batch's users at full width,
            cross on a serve_bulk batch's layers 1 and 2, and embedding_bag
            on the two bag batches of phase 4r.
@@ -57,7 +84,8 @@ Phases, in order; any failure raises and the script exits non-zero:
            beside the least time the card could take (bytes over 3.35 TB/s
            or f32 operations over 67 TFLOP/s, counted from these inputs)
            and, for embedding_bag, ``F.embedding_bag`` on the same inputs;
-           for cross, cuBLAS ``addmm`` (its GEMM and bias alone).
+           for cross, cuBLAS ``addmm`` (its GEMM and bias alone); ucb and
+           rank1_update also at n = 1.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -100,6 +128,10 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
               "src/repro/kernels/cross/cross.py:37"),
     "embedding_bag": ("src/repro_torch/csrc/embag.cu",
                       "src/repro/kernels/embag/embag.py:39"),
+    "rank1_update": ("src/repro_torch/csrc/rank1.cu",
+                     "src/repro/kernels/rank1/rank1.py:102"),
+    "ucb": ("src/repro_torch/csrc/ucb.cu",
+            "src/repro/kernels/ucb/ucb.py:59"),
 }
 SERVE_ITEMS = 2**18          # the gate row of benchmarks/bench_retrieval.py
 SERVE_BATCH = 256            # BENCH_serve.json's request batch
@@ -110,6 +142,7 @@ P99_BATCHES = 16             # DCN-v2 serve_p99 batches of 512 rows
 BULK_BATCHES = 2             # and serve_bulk batches of 262144
 SEQ_BATCHES = 4              # serve_p99 batches of each sequence model
 BAG_L = 50                   # ids per bag; the last 20% are 0-weight pads
+CLUB_T = 2048                # benchmarks/bench_paper.py's CLUB slice
 
 
 def log(msg: str) -> None:
@@ -159,6 +192,66 @@ def check_rank1(Minv, b, x, r, mask):
     err = max(float((Minv_k - Minv_p).abs().max()),
               float((b_k - b_p).abs().max()))
     return {"max_abs_err": err}
+
+
+def check_ucb(w, Minv, ctx, occ, alpha):
+    """Scores within 1e-5 (1 + |s|) of the plain version's (the kernel
+    fuses each multiply-add, the plain version rounds twice); the
+    first-index argmax of each row equal to the fused choose kernel's
+    choice, bit for bit (both run ucb_score.cuh)."""
+    import torch
+    from repro_torch.kernels.interact import ops as iops
+    from repro_torch.kernels.ucb import ops, ref
+    s_k = ops.ucb_scores(w, Minv, ctx, occ, alpha)
+    s_p = ref.ucb_scores_ref(w, Minv, ctx, occ, alpha)
+    err = (s_k - s_p).abs()
+    assert bool((err <= 1e-5 * (1 + s_p.abs())).all()), "ucb: scores differ"
+    choice, _ = iops.choose(w, Minv, ctx, occ, alpha)
+    first = torch.argmax(s_k, dim=-1).to(torch.int32)
+    assert torch.equal(first, choice), (
+        f"ucb: argmax differs from choose for {int((first != choice).sum())}"
+        " users")
+    return {"max_abs_err": float(err.max())}
+
+
+def check_rank1_mful(M, Minv, b, x, r, mask):
+    """On copies: M, Minv and b within rtol = atol = 1e-5 of the plain
+    version; masked rows bit-identical; the kernel writes through the
+    tensors it is given."""
+    import torch
+    from repro_torch.kernels.rank1 import ops, ref
+    plain = ref.rank1_update_ref(M.clone(), Minv.clone(), b.clone(), x, r,
+                                 mask)
+    given = (M.clone(), Minv.clone(), b.clone())
+    got = ops.rank1_update(*given, x, r, mask)
+    assert all(g is t for g, t in zip(got, given)), "rank1_update: copies"
+    for g, p_ in zip(got, plain):
+        torch.testing.assert_close(g, p_, rtol=1e-5, atol=1e-5)
+    off = ~mask
+    for g, a in zip(got, (M, Minv, b)):
+        assert torch.equal(g[off], a[off]), "rank1_update: masked row moved"
+    return {"max_abs_err": max(float((g - p_).abs().max())
+                               for g, p_ in zip(got, plain))}
+
+
+def check_rank1_row_view(M, Minv, b, x, r, u):
+    """CLUB's call: user ``u``'s row views of the full state, updated in
+    place through the views with ``x [1, d]``, ``r [1]``; every other row
+    left bit-identical."""
+    import torch
+    from repro_torch.kernels.rank1 import ops, ref
+    full = (M.clone(), Minv.clone(), b.clone())
+    live = torch.ones(1, dtype=torch.bool, device=M.device)
+    ops.rank1_update(*(t[u:u + 1] for t in full), x, r, live)
+    plain = ref.rank1_update_ref(*(t[u:u + 1].clone() for t in (M, Minv, b)),
+                                 x, r, live)
+    for g, p_, a in zip(full, plain, (M, Minv, b)):
+        torch.testing.assert_close(g[u:u + 1], p_, rtol=1e-5, atol=1e-5)
+        rest = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+        rest[u] = False
+        assert torch.equal(g[rest], a[rest]), "rank1_update: other rows moved"
+    return {"max_abs_err": max(float((g[u:u + 1] - p_).abs().max())
+                               for g, p_ in zip(full, plain))}
 
 
 def check_prune(adj, v_i, cb_i, v_j, cb_j, gamma):
@@ -337,11 +430,25 @@ def small_checks(dev):
         log(f"small choose (n={n}, d={dk}, K={K_SHORT}): "
             f"{check_choose(wk, Mk, ck, occ, 0.3)}")
 
+    log(f"small ucb (n={n}, d={d}, K={K}): "
+        f"{check_ucb(w, Minv, ctx, occ, 0.3)}")
+    log(f"small ucb duplicates: {check_ucb(w2, eye, ctx2, ones, 0.3)}")
+    from repro_torch.kernels.ucb import ops as uops
+    s_dup = uops.ucb_scores(w2, eye, ctx2, ones, 0.3)
+    assert torch.equal(s_dup[:, 5], s_dup[:, 2]), "ucb: duplicates differ"
+    log(f"small ucb n=1 row view (d={d}, K={K}): " + str(check_ucb(
+        w[5:6], Minv[5:6], ctx[5:6], occ[5:6], 0.3)))
+
     b = torch.randn(n, d, generator=g, device=dev)
     x = torch.randn(n, d, generator=g, device=dev)
     r = torch.rand(n, generator=g, device=dev)
     mask = torch.rand(n, generator=g, device=dev) < 0.7
     log(f"small rank1 (n={n}, d={d}): {check_rank1(Minv, b, x, r, mask)}")
+    M = torch.linalg.inv(Minv).contiguous()
+    log(f"small rank1_update (n={n}, d={d}): "
+        f"{check_rank1_mful(M, Minv, b, x, r, mask)}")
+    log(f"small rank1_update n=1 row view (d={d}): "
+        f"{check_rank1_row_view(M, Minv, b, x[5:6], r[5:6], 5)}")
 
     ng = 33
     dense = torch.rand(ng, ng, generator=g, device=dev) < 0.7
@@ -453,6 +560,8 @@ def plain_path():
     from repro_torch.kernels.rank1 import ref as rref
     from repro_torch.kernels.topk import ops as tops
     from repro_torch.kernels.topk import ref as tref
+    from repro_torch.kernels.ucb import ops as uops
+    from repro_torch.kernels.ucb import ref as uref
 
     def embag_plain(table, idx, wt=None):
         ones = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
@@ -462,6 +571,8 @@ def plain_path():
         for module, name, plain in (
                 (iops, "choose", iref.choose_ref),
                 (rops, "rank1_update_inv", rref.rank1_update_inv_ref),
+                (rops, "rank1_update", rref.rank1_update_ref),
+                (uops, "ucb_scores", uref.ucb_scores_ref),
                 (gops, "prune_packed", gref.prune_packed_ref),
                 (gops, "cc_hop_packed", gref.cc_hop_packed_ref),
                 (tops, "topk", tref.topk_ref),
@@ -552,6 +663,16 @@ def profile_batch(label, fn, steady_s) -> None:
             f"{ev.count:6d}x  {ev.key[:90]}")
 
 
+def serve_clusters(state) -> int:
+    """Clusters of a serving state: the labels of the last stage 2, or the
+    components of dccb's dense gossip graph."""
+    from repro_torch.core import clustering
+    if hasattr(state, "core"):
+        return int(clustering.num_clusters(
+            clustering.connected_components(state.core.adj)))
+    return int(clustering.num_clusters(state.labels))
+
+
 class ServeRun:
     """The serving workload of phase 4s: users, catalog, traffic and the
     Bernoulli draws, all made once on the card from the seed."""
@@ -583,14 +704,15 @@ class ServeRun:
         return env.step_rewards(self.uniforms[key], self.theta[uids.long()],
                                 ctx, slot)
 
-    def run(self, clusters=None, batches=SERVE_BATCHES):
-        """Serve the batches from the start state: ``(session, items per
-        batch, reward/random, seconds per batch, clusters after each
-        refresh, (tiles skipped, tile visits))``."""
+    def run(self, clusters=None, batches=SERVE_BATCHES, start=None):
+        """Serve the batches from ``start`` (default the warm distclub
+        session): ``(session, items per batch, reward/random, seconds per
+        batch, clusters after each refresh, (tiles skipped, tile
+        visits))``."""
         import torch
         from repro_torch import serve
-        from repro_torch.core import clustering
-        sess, items, secs, n_clu = self.start, [], [], []
+        sess = self.start if start is None else start
+        items, secs, n_clu = [], [], []
         reward = rand = 0.0
         skipped = total = 0
         for t in range(batches):
@@ -608,12 +730,14 @@ class ServeRun:
             reward += float(metrics.reward)
             rand += float(metrics.rand_reward)
             if int(sess.state.since_refresh) == 0:
-                n_clu.append(int(clustering.num_clusters(sess.state.labels)))
+                n_clu.append(serve_clusters(sess.state))
         return sess, items, reward / rand, secs, n_clu, (skipped, total)
 
 
-def serve_phase(dev, state, theta, hyper):
-    """Phase 4s and its plain run; returns what phases 5 and 6 need."""
+def serve_phase(dev, state, theta, hyper, dccb_state):
+    """Phase 4s and its plain run, then the dccb policy on phase 4b's
+    DCCB state; returns what phases 5 and 6 need (the launches summed
+    over the counted runs)."""
     import torch
     from repro_torch import serve
     from repro_torch.kernels import _build
@@ -682,7 +806,191 @@ def serve_phase(dev, state, theta, hyper):
     assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
     assert abs(rr_q - rr_u) <= 0.01 * rr_u, "serve reward/random: paths part"
     assert share >= 0.95, "serve: the plain path served other items"
+    d_launch = serve_dccb(dev, work, hyper, dccb_state)
+    launches = {k: v + d_launch[k] for k, v in launches.items()}
     return work, sess_u, clusters, launches, sk / tot
+
+
+def serve_dccb(dev, work, hyper, core):
+    """Phase 4s, dccb: the policy's session on the offline DCCB state
+    serves the unpruned batches, counted; profiled; then plain."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.topk import ref as tref
+    n, d = work.theta.shape
+    cfg = serve.make_cfg(n, d, hyper, refresh_every=REFRESH_EVERY,
+                         seed=SEED)
+    start = serve.OnlineBandit(
+        policy=serve.get_policy("dccb", cfg),
+        state=serve.DCCBServeState(core=core, since_refresh=torch.zeros(
+            (), dtype=torch.int32, device=dev)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    sess, items, rr, secs, n_clu, _ = work.run(start=start)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_req = SERVE_BATCH * (SERVE_BATCHES - 1)
+    log(f"serve dccb: reward/random={rr} clusters after each refresh="
+        f"{n_clu} warm requests/s={n_req / sum(secs[1:])} median batch "
+        f"ms={1e3 * statistics.median(secs)} ms per batch="
+        f"{[1e3 * s for s in secs]}")
+    log(f"serve dccb launches: {launches} max_memory_allocated={peak}")
+    assert len(n_clu) == 2, n_clu
+    assert launches["topk"] == SERVE_BATCHES, launches
+    assert launches["choose"] == SERVE_BATCHES, launches
+    assert sum(launches.values()) == 2 * SERVE_BATCHES, launches
+    assert int(sess.state.core.occ.sum()) == (
+        int(core.occ.sum()) + SERVE_BATCH * SERVE_BATCHES)
+    for it in items:
+        assert it.shape == (SERVE_BATCH,) and bool((it >= 0).all())
+        assert bool((it < SERVE_ITEMS).all())
+    for t in (sess.state.core.Mw, sess.state.core.bw, sess.state.core.Mbuf):
+        assert bool(torch.isfinite(t).all()), "non-finite dccb serving state"
+
+    # topk and choose against their plain versions on this path's inputs:
+    # the first batch's users on the start state, the next batch's on the
+    # last state (uncounted)
+    extra = SERVE_BATCHES
+    bank = work.catalog.serving
+    for label, st, t in (("start", start.state, 0),
+                         ("end", sess.state, extra)):
+        w, Minv, occ = sess.policy.gather_score(st, work.users[t].long())
+        e_t = check_topk(w, Minv, occ, bank.emb, bank.live, hyper.alpha,
+                         K_SHORT)
+        _, ids = tref.topk_ref(w, Minv, occ, bank.emb, bank.live,
+                               hyper.alpha, K_SHORT)
+        e_c = check_choose(w, Minv, bank.emb[ids.long()].contiguous(), occ,
+                           hyper.alpha)
+        log(f"serve dccb {label} batch: users at w = 0 "
+            f"{int((w.abs().amax(dim=1) == 0).sum())} of {SERVE_BATCH}; "
+            f"topk {e_t}; choose {e_c}")
+
+    profile_batch("dccb", lambda: serve.step_catalog(
+        sess, extra, work.users[extra], work.catalog, work.reward_fn,
+        k_short=K_SHORT), statistics.median(secs))
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with plain_path():
+        _, items_q, rr_q, _, clu_q, _ = work.run(start=start)
+    torch.cuda.synchronize()
+    share = float(torch.mean(torch.cat(
+        [(a == b).float() for a, b in zip(items, items_q)])))
+    log(f"serve dccb plain: {time.perf_counter() - t0} s for "
+        f"{SERVE_BATCHES} batches, reward/random={rr_q} clusters after "
+        f"each refresh={clu_q} identical items={share}")
+    assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
+    assert len(clu_q) == len(n_clu) and all(
+        abs(a - b) <= 0.01 * n for a, b in zip(n_clu, clu_q)), (n_clu, clu_q)
+    for it in items_q:
+        assert it.shape == (SERVE_BATCH,) and bool((it >= 0).all())
+    return launches
+
+
+def algo_line(name, secs, inter, rr, comm, clusters, peak):
+    """One line of the paper's comparison (bench_paper.py's columns)."""
+    per = None if comm is None else comm / inter
+    log(f"baseline {name}: us/interaction={1e6 * secs / inter} "
+        f"interactions={inter} reward/random={rr} "
+        f"comm_bytes/interaction={per} clusters={clusters} "
+        f"max_memory_allocated={peak}")
+
+
+def baselines_phase(dev, ops, hyper, d, distclub_inter):
+    """Phase 4b: CLUB and DCCB at the paper configuration's full width on
+    the phase-4 environment, counted, then through the plain versions on
+    the card, then profiled.  Returns what phases 5 and 6 need."""
+    import torch
+    from repro_torch.core import club, clustering, dccb
+    from repro_torch.kernels import _build
+    n = ops.n_users
+    L = hyper.buffer_size
+
+    # ---- CLUB: CLUB_T sequential interactions ------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    (c_state, c_m), c_s = timed(lambda: club.run(ops, SEED, hyper, CLUB_T, d,
+                                                 device=dev))
+    c_launch = dict(_build.LAUNCHES)
+    c_peak = torch.cuda.max_memory_allocated()
+    c_rr = float(c_m.reward.sum()) / float(c_m.rand_reward.sum())
+    c_clu = int(clustering.num_clusters(c_state.graph.labels))
+    algo_line("club", c_s, CLUB_T, c_rr, None, c_clu, c_peak)
+    log(f"club launches: {c_launch}")
+    updates = CLUB_T // hyper.delta_net
+    assert c_launch["ucb"] == CLUB_T, c_launch
+    assert c_launch["rank1_update"] == 2 * CLUB_T, c_launch
+    assert c_launch["prune"] == updates, c_launch
+    assert updates <= c_launch["cc_hop"] <= updates * n, c_launch
+    assert sum(c_launch.values()) == (3 * CLUB_T + updates
+                                      + c_launch["cc_hop"]), c_launch
+    assert int(c_state.lin.occ.sum()) == CLUB_T
+    for t in (*c_state.lin, *c_state.clusters[:3], c_m.reward):
+        assert bool(torch.isfinite(t.float()).all()), "club: non-finite"
+
+    # ---- DCCB: epochs of L rounds, as many interactions as phase 4 ---------
+    epochs = max(1, round(distclub_inter / (n * L)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    (b_state, b_m, b_clu), b_s = timed(lambda: dccb.run(
+        ops, SEED, hyper, epochs, d, L, device=dev))
+    b_launch = dict(_build.LAUNCHES)
+    b_peak = torch.cuda.max_memory_allocated()
+    b_inter = int(b_m.interactions.sum())
+    b_rr = float(b_m.reward.sum()) / float(b_m.rand_reward.sum())
+    algo_line("dccb", b_s, b_inter, b_rr, float(b_state.comm_bytes),
+              b_clu.tolist(), b_peak)
+    log(f"dccb: L={L} epochs={epochs} launches: {b_launch}")
+    at_init = int((b_state.bw.abs().amax(dim=1) == 0).sum())
+    log(f"dccb users at w = 0 after the run (reset by a gossip cut or "
+        f"never popped): {at_init} of {n}")
+    assert b_inter == epochs * L * n
+    assert b_launch["choose"] == epochs * L, b_launch
+    assert sum(b_launch.values()) == b_launch["choose"], b_launch
+    acc = torch.zeros((), dtype=torch.float32)      # the f32 accumulator
+    for _ in range(epochs):
+        acc = acc + torch.tensor(float(n * (L + 1) * (d * d + d) * 4))
+    assert float(b_state.comm_bytes) == float(acc), float(b_state.comm_bytes)
+    for t in (b_state.Mw, b_state.bw, b_state.Mbuf, b_m.reward):
+        assert bool(torch.isfinite(t).all()), "dccb: non-finite"
+
+    # ---- both through the plain versions on the card -----------------------
+    _build.reset_launches()
+    with plain_path():
+        (cp_state, cp_m), cp_s = timed(lambda: club.run(
+            ops, SEED, hyper, CLUB_T, d, device=dev))
+        (_, bp_m, bp_clu), bp_s = timed(lambda: dccb.run(
+            ops, SEED, hyper, epochs, d, L, device=dev))
+    assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
+    log(f"baselines plain: club {cp_s} s, dccb {bp_s} s")
+    compare_paths(
+        (c_rr, [c_clu]),
+        (float(cp_m.reward.sum()) / float(cp_m.rand_reward.sum()),
+         [int(clustering.num_clusters(cp_state.graph.labels))]), n)
+    compare_paths(
+        (b_rr, b_clu.tolist()),
+        (float(bp_m.reward.sum()) / float(bp_m.rand_reward.sum()),
+         bp_clu.tolist()), n)
+
+    # ---- profiles: a CLUB window ending in a network update, a DCCB epoch --
+    def club_window():
+        return club.run(ops, SEED, hyper, hyper.delta_net, d, device=dev,
+                        state=c_state, t0=CLUB_T)
+    _, w_s = timed(club_window)
+    profile_batch(f"club window of {hyper.delta_net} interactions and one "
+                  "network update", club_window, w_s)
+
+    def dccb_epoch():
+        return dccb.epoch(dccb.clone(b_state), ops, SEED, epochs, hyper, d,
+                          L)
+    _, e_s = timed(dccb_epoch)
+    profile_batch("dccb epoch", dccb_epoch, e_s)
+    return {"club": c_state, "dccb": b_state, "club_launches": c_launch,
+            "dccb_launches": b_launch}
 
 
 def dcn_traffic(g, cfg, batch, dev):
@@ -962,6 +1270,8 @@ def main() -> int:
     from repro_torch.kernels.rank1 import ref as rref
     from repro_torch.kernels.topk import ops as tops
     from repro_torch.kernels.topk import ref as tref
+    from repro_torch.kernels.ucb import ops as uops
+    from repro_torch.kernels.ucb import ref as uref
 
     # ---- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
@@ -1038,9 +1348,14 @@ def main() -> int:
         (float(p_metrics.reward.sum()) / float(p_metrics.rand_reward.sum()),
          p_clusters.tolist()), n)
 
+    # ---- phase 4b: the paper's baselines at full width ----------------------
+    algo_line("distclub", wall, inter, reward / rand,
+              float(state.comm_bytes), n_clusters.tolist(), peak)
+    baselines = baselines_phase(dev, ops, hyper, d, inter)
+
     # ---- phase 4s: serving at full width, and its plain run -----------------
     serving, sess, item_clusters, serve_launches, _ = serve_phase(
-        dev, state, e.theta, hyper)
+        dev, state, e.theta, hyper, baselines.pop("dccb"))
 
     # ---- phase 4r: the recsys models at their published configs -------------
     recsys = recsys_phase(dev)
@@ -1055,6 +1370,25 @@ def main() -> int:
     r = (torch.rand(n, generator=g, device=dev) < 0.5).float()
     mask = 0 < state.u_rounds
     errs["rank1_update_inv"] = check_rank1(Minv, b, x, r, mask)
+    # the baselines' two kernels at full width on the same inputs (the
+    # M-ful update with the run's M = inv(Minv)), then at CLUB's n = 1:
+    # the next CLUB interaction's user, its cluster's row and its own rows
+    M = state.lin.M
+    errs["ucb"] = check_ucb(w, Minv, ctx, occ, hyper.alpha)
+    errs["rank1_update"] = check_rank1_mful(M, Minv, b, x, r, mask)
+    cs = baselines["club"]
+    u = ops.user_fn(SEED, CLUB_T)
+    lab = int(cs.graph.labels[u])
+    occ1 = cs.lin.occ[u:u + 1]
+    ctx1 = ops.contexts_fn(SEED, CLUB_T, occ1, row0=u)
+    Mc1, bc1 = cs.clusters.Mcinv[lab:lab + 1], cs.clusters.bc[lab:lab + 1]
+    w1 = linucb.user_vector(Mc1, bc1)
+    x1, r1 = ctx1[0, :1].contiguous(), torch.ones(1, device=dev)
+    live1 = torch.ones(1, dtype=torch.bool, device=dev)
+    log(f"full ucb at n=1 (CLUB's call, K={K}): "
+        f"{check_ucb(w1, Mc1, ctx1, occ1, hyper.alpha)}")
+    log(f"full rank1_update at n=1 (CLUB's user row views): "
+        f"{check_rank1_row_view(cs.lin.M, cs.lin.Minv, cs.lin.b, x1, r1, u)}")
     cb = clustering.cb_width(occ)
     full = gref.init_packed_adj(n, n, device=dev)
     errs["prune"] = check_prune(full, w, cb, w, cb, hyper.gamma)
@@ -1165,6 +1499,38 @@ def main() -> int:
             8 * idx_b.numel() + 4 * dE * (nonpad + idx_b.shape[0]),
             2 * dE * nonpad),
     })
+    # ucb and the M-ful update at n=20480 on phase 5's inputs, each update
+    # on its own copies; and at CLUB's n = 1 (one user's row views)
+    ucb_bytes = lambda m: 4 * m * (K * d + d * d + d + 1 + K)  # noqa: E731
+    ucb_ops_ = lambda m: m * K * (4 * d + 2 * d * d + 6)  # noqa: E731
+    r1u_bytes = lambda m, k: 4 * m * (4 * d * d + 3 * d + 1) + k  # noqa: E731
+    r1u_ops = lambda m: m * (7 * d * d + 4 * d + 2)  # noqa: E731
+    mful_k = (M.clone(), Minv.clone(), b.clone())
+    mful_p = (M.clone(), Minv.clone(), b.clone())
+    row_k = tuple(t.clone() for t in (cs.lin.M, cs.lin.Minv, cs.lin.b))
+    row_p = tuple(t.clone() for t in (cs.lin.M, cs.lin.Minv, cs.lin.b))
+    work.update({
+        "rank1_update": (
+            lambda: rops.rank1_update(*mful_k, x, r, mask),
+            lambda: rref.rank1_update_ref(*mful_p, x, r, mask),
+            r1u_bytes(live, n), r1u_ops(live)),
+        "ucb": (
+            lambda: uops.ucb_scores(w, Minv, ctx, occ, hyper.alpha),
+            lambda: uref.ucb_scores_ref(w, Minv, ctx, occ, hyper.alpha),
+            ucb_bytes(n), ucb_ops_(n)),
+    })
+    at_n1 = {
+        "rank1_update": (
+            lambda: rops.rank1_update(*(t[u:u + 1] for t in row_k), x1, r1,
+                                      live1),
+            lambda: rref.rank1_update_ref(*(t[u:u + 1] for t in row_p), x1,
+                                          r1, live1),
+            r1u_bytes(1, 1), r1u_ops(1)),
+        "ucb": (
+            lambda: uops.ucb_scores(w1, Mc1, ctx1, occ1, hyper.alpha),
+            lambda: uref.ucb_scores_ref(w1, Mc1, ctx1, occ1, hyper.alpha),
+            ucb_bytes(1), ucb_ops_(1)),
+    }
     # one PyTorch call of the same function, timed here and used nowhere
     # in the port: F.embedding_bag (ids in range: it does not clamp)
     library = {"embedding_bag": lambda: torch.nn.functional.embedding_bag(
@@ -1174,7 +1540,12 @@ def main() -> int:
     on_path.update(topk=serve_launches["topk"],
                    topk_pruned=serve_launches["topk_pruned"],
                    cross=recsys["launches"]["cross"],
-                   embedding_bag=recsys["bag_launches"]["embedding_bag"])
+                   embedding_bag=recsys["bag_launches"]["embedding_bag"],
+                   ucb=baselines["club_launches"]["ucb"],
+                   rank1_update=baselines["club_launches"]["rank1_update"])
+    # launches of every kernel in phase 4b's two counted runs
+    on_baselines = {k: baselines["club_launches"][k]
+                    + baselines["dccb_launches"][k] for k in KERNEL_INFO}
     rows = []
     for kname, (kern, plain, n_bytes, flops) in work.items():
         ms = cuda_ms(kern, flush)
@@ -1193,13 +1564,22 @@ def main() -> int:
             "library_ms": lib_ms,
             "near_ties": errs[kname].get("near_ties", 0),
             "serve_launches": serve_launches[kname],
+            "baseline_launches": on_baselines[kname],
         })
         log(f"time {kname}: kernel {ms} ms, plain {plain_ms} ms, "
             f"library {lib_ms} ms, bound {bms} ms ({by}; {n_bytes} bytes, "
             f"{flops} f32 ops), {math.ceil(ms / bms)}x the bound")
-    for row, extra in zip(rows[-2:], recsys_extra_times(
-            recsys, flush, x0b, xl1, c1, bags_p99)):
-        row.update(extra)
+    by_name = {row["name"]: row for row in rows}
+    for kname, (kern, plain, n_bytes, flops) in at_n1.items():
+        bms, by = bound_ms(n_bytes, flops)
+        extra = {"ms_n1": cuda_ms(kern, flush),
+                 "plain_ms_n1": cuda_ms(plain, flush), "bound_ms_n1": bms}
+        by_name[kname].update(extra)
+        log(f"time {kname} at n=1: {extra} ({by})")
+    cross_x, embag_x = recsys_extra_times(recsys, flush, x0b, xl1, c1,
+                                          bags_p99)
+    by_name["cross"].update(cross_x)
+    by_name["embedding_bag"].update(embag_x)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": rows}))

@@ -7,11 +7,17 @@ from the same state.  The records have the same fields; the only change
 is the packed adjacency, uint32 in the reference and an int32 view of the
 same bits here.
 
+``club_state_{from,to}_numpy`` and ``dccb_state_{from,to}_numpy`` do
+the same for the baselines' ``CLUBState`` (packed adjacency as above)
+and ``DCCBState`` (dense bool adjacency; the buffer cursor ``slot`` a
+Python int here).
+
 ``record_from_numpy`` / ``record_to_numpy`` do the same for the serving
 records, field by field by name: ``ClusteredState``, ``LinUCBServeState``,
-``PendingBuffer``, ``Catalog`` and ``ItemClusters``.  Fields the port does
-not keep (the f32 banks' all-ones dequant ``scale``) are dropped; fields
-the port keeps on the host (``Catalog.active``/``epoch``,
+``PendingBuffer``, ``Catalog`` and ``ItemClusters`` (``record_to_numpy``
+also takes records that nest records, as ``DCCBServeState``).  Fields
+the port does not keep (the f32 banks' all-ones dequant ``scale``) are
+dropped; fields the port keeps on the host (``Catalog.active``/``epoch``,
 ``ItemClusters.epoch``) become Python ints.
 
 ``dcn_from_numpy`` / ``seqrec_from_numpy`` / ``mind_from_numpy`` take a
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .core import club, dccb
 from .core.types import (ClusterStats, DistCLUBState, GraphState,
                          LinUCBState)
 from .models.recsys import dcn_v2, mind, seqrec
@@ -40,16 +47,16 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+def _conv(record, cls, dev):
+    return cls(*(_tensor(getattr(record, f), dev) for f in cls._fields))
+
+
 def state_from_numpy(state, device=None) -> DistCLUBState:
     dev = resolve_device(device)
-
-    def conv(record, cls):
-        return cls(*(_tensor(getattr(record, f), dev) for f in cls._fields))
-
     return DistCLUBState(
-        lin=conv(state.lin, LinUCBState),
-        graph=conv(state.graph, GraphState),
-        clusters=conv(state.clusters, ClusterStats),
+        lin=_conv(state.lin, LinUCBState, dev),
+        graph=_conv(state.graph, GraphState, dev),
+        clusters=_conv(state.clusters, ClusterStats, dev),
         u_rounds=_tensor(state.u_rounds, dev),
         c_rounds=_tensor(state.c_rounds, dev),
         comm_bytes=_tensor(state.comm_bytes, dev),
@@ -77,6 +84,30 @@ def state_to_numpy(state: DistCLUBState) -> DistCLUBState:
     )
 
 
+def club_state_from_numpy(state, device=None) -> club.CLUBState:
+    """The port's ``CLUBState`` from a reference ``CLUBState`` with numpy
+    leaves (the uint32 adjacency as an int32 view of its bits)."""
+    dev = resolve_device(device)
+    return club.CLUBState(lin=_conv(state.lin, LinUCBState, dev),
+                          graph=_conv(state.graph, GraphState, dev),
+                          clusters=_conv(state.clusters, ClusterStats, dev))
+
+
+def club_state_to_numpy(state: club.CLUBState) -> club.CLUBState:
+    """The port's ``CLUBState`` with numpy leaves; the adjacency uint32."""
+    return club.CLUBState(*(record_to_numpy(rec) for rec in state))
+
+
+def dccb_state_from_numpy(state, device=None) -> dccb.DCCBState:
+    """The port's ``DCCBState`` from a reference one with numpy leaves."""
+    return record_from_numpy(state, dccb.DCCBState, device=device)
+
+
+def dccb_state_to_numpy(state: dccb.DCCBState) -> dccb.DCCBState:
+    """The port's ``DCCBState`` with numpy leaves (``slot`` an int)."""
+    return record_to_numpy(state)
+
+
 def record_from_numpy(record, cls, device=None):
     """The port's ``cls`` built from a reference record of the same field
     names whose leaves are numpy arrays."""
@@ -94,15 +125,17 @@ def record_from_numpy(record, cls, device=None):
 
 
 def record_to_numpy(record):
-    """The port's serving record with numpy leaves (packed adjacency as
-    uint32, host ints as they are)."""
+    """The port's record with numpy leaves (packed int32 adjacency as
+    uint32, host ints as they are, nested records converted too)."""
     vals = {}
     for f in record._fields:
         v = getattr(record, f)
         if isinstance(v, torch.Tensor):
             v = v.detach().cpu().numpy()
-            if f == "adj":
+            if f == "adj" and v.dtype == np.int32:
                 v = v.view(np.uint32)
+        elif hasattr(v, "_fields"):
+            v = record_to_numpy(v)
         vals[f] = v
     return type(record)(**vals)
 

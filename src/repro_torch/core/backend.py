@@ -5,6 +5,7 @@ round and two graph sweeps per stage 2.
                                  chosen context (``kernels/interact``)
   ``InteractBackend.update_inv`` masked M-free Sherman-Morrison
                                  (``kernels/rank1``)
+  ``InteractBackend.update_lin`` the same with M (CLUB's user rows)
   ``GraphBackend.prune_rows``    CLUB edge pruning on the packed rows
   ``GraphBackend.cc_hop``        one min-label hop    (``kernels/graph``)
   ``RetrievalBackend.shortlist`` streaming UCB top-K over a catalog,
@@ -33,6 +34,7 @@ from ..kernels.rank1 import ops as rank1_ops
 from ..kernels.topk import ops as topk_ops
 from ..kernels.topk.ref import tile_bounds
 from . import clustering
+from .types import LinUCBState
 
 
 class InteractBackend(NamedTuple):
@@ -46,6 +48,15 @@ class InteractBackend(NamedTuple):
     def update_inv(self, Minv, b, x, r, mask):
         """(Minv', b'), updated in place on either device."""
         return rank1_ops.rank1_update_inv(Minv, b, x, r, mask)
+
+    def update_lin(self, lin: LinUCBState, x, r, mask) -> LinUCBState:
+        """One masked interaction for every user of ``lin``: M, Minv and b
+        in one kernel, then ``occ + mask``.  All four tensors are updated
+        IN PLACE and returned; they may be one user's row views
+        (``lin.M[u:u+1]`` ...)."""
+        M, Minv, b = rank1_ops.rank1_update(lin.M, lin.Minv, lin.b, x, r,
+                                            mask)
+        return LinUCBState(M, Minv, b, lin.occ.add_(mask.to(torch.int32)))
 
 
 class GraphBackend(NamedTuple):

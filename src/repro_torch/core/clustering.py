@@ -1,11 +1,12 @@
 """User-graph maintenance: confidence widths, the packed graph, cluster
 aggregates, and the dense oracles the tests hold the packed engine to.
 
-The DistCLUB epoch carries the adjacency bit-packed (``[n, ceil(n/32)]``
-int32, layout in ``kernels/graph/ref.py``) and runs stage 2 through the
-``GraphBackend`` engine.  The dense ``prune_edges`` /
-``connected_components`` below materialize ``[n, n]`` and exist only as
-numerical oracles for small graphs.
+The DistCLUB and CLUB drivers carry the adjacency bit-packed
+(``[n, ceil(n/32)]`` int32, layout in ``kernels/graph/ref.py``) and run
+stage 2 through the ``GraphBackend`` engine.  The dense ``prune_edges``
+/ ``connected_components`` below materialize ``[n, n]``: numerical
+oracles for small graphs, and DCCB's components at full width (its
+gossip cuts single edges of a dense ``[n, n]`` bool graph).
 """
 from __future__ import annotations
 
@@ -13,6 +14,12 @@ import torch
 
 from ..kernels.graph import ops as graph_ops
 from .types import ClusterStats, GraphState
+
+
+def dense_adj(n_users: int, device=None) -> torch.Tensor:
+    """[n, n] bool fully-connected adjacency minus self edges (DCCB's
+    graph and the dense oracles')."""
+    return ~torch.eye(n_users, dtype=torch.bool, device=device)
 
 
 def init_graph(n_users: int, device=None) -> GraphState:
@@ -75,7 +82,9 @@ def cluster_stats(labels: torch.Tensor, M: torch.Tensor, b: torch.Tensor,
     Mc = segment_sum(M - eye, labels, n) + eye
     return ClusterStats(
         Mc=Mc,
-        Mcinv=torch.linalg.inv(Mc),
+        # row-major: CLUB's kernels update rows of it in place (a batched
+        # inverse on CUDA comes back column-major)
+        Mcinv=torch.linalg.inv(Mc).contiguous(),
         bc=segment_sum(b, labels, n),
         size=segment_sum(torch.ones_like(labels), labels, n),
         seen=torch.zeros(n, dtype=torch.int32, device=labels.device),

@@ -63,9 +63,10 @@ def serving_snapshot(state: DistCLUBState):
 
 
 def refresh_gram(state: DistCLUBState) -> DistCLUBState:
-    """Recover ``lin.M = inv(lin.Minv)``."""
+    """Recover ``lin.M = inv(lin.Minv)``, row-major like the rest of the
+    state (a batched inverse on CUDA comes back column-major)."""
     return state._replace(lin=state.lin._replace(
-        M=torch.linalg.inv(state.lin.Minv)))
+        M=torch.linalg.inv(state.lin.Minv).contiguous()))
 
 
 def stage1(state: DistCLUBState, ops: EnvOps, seed: int, step0: int,

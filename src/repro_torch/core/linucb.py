@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.interact.ref import choose_ref, ucb_scores_ref
+from ..kernels.interact.ref import choose_ref
+from ..kernels.ucb.ref import ucb_scores_ref
 from .types import LinUCBState
 
 

@@ -19,8 +19,9 @@
 // coalesced loads (the rows of ctx are d floats apart; d odd keeps the
 // per-lane row reads free of bank conflicts), then each lane scores the
 // candidates k = lane, lane + 32, ... in registers.  Every candidate goes
-// through the same loop in the same order, so identical candidate rows get
-// bit-identical scores.  A warp-shuffle reduction over (score, k), where
+// through the same loop in the same order (ucb_score.cuh, shared with
+// ucb.cu), so identical candidate rows get bit-identical scores.  A
+// warp-shuffle reduction over (score, k), where
 // an equal score takes the smaller k, gives the first-index argmax; the
 // [n, K] scores never reach device memory.  The chosen row is copied from
 // shared memory into x.  Shapes are logical: no padding of K or d.
@@ -28,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <climits>
 #include <math.h>
+
+#include "ucb_score.cuh"
 
 namespace {
 
@@ -58,23 +61,11 @@ __global__ void choose_kernel(const float* __restrict__ w,
   for (int i = lane; i < Kd; i += 32) c_s[i] = cu[i];
   __syncwarp();
 
-  const float explore = sqrtf(log1pf((float)occ[u]));
+  const float explore = ucb_explore(occ[u]);
   float best = -INFINITY;
   int best_k = INT_MAX;
   for (int k = lane; k < K; k += 32) {
-    const float* c = c_s + k * d;
-    float est = 0.f;
-    float quad = 0.f;
-    for (int i = 0; i < d; ++i) {
-      est = fmaf(c[i], w_s[i], est);
-      float t = 0.f;
-      const float* mrow = m_s + i * d;
-      for (int j = 0; j < d; ++j) t = fmaf(mrow[j], c[j], t);
-      quad = fmaf(c[i], t, quad);
-    }
-    const float bonus =
-        __fmul_rn(__fmul_rn(alpha, sqrtf(fmaxf(quad, 0.f))), explore);
-    const float s = __fadd_rn(est, bonus);
+    const float s = ucb_score(c_s + k * d, w_s, m_s, d, alpha, explore);
     if (best_k == INT_MAX || s > best) {  // k rises: ties keep the first
       best = s;
       best_k = k;

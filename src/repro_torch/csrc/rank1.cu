@@ -1,29 +1,38 @@
-// Masked M-free Sherman-Morrison update of the bandit state, IN PLACE.
+// Masked Sherman-Morrison rank-1 updates of the bandit state, IN PLACE.
 //
-// Replaces: src/repro/kernels/rank1/rank1.py, rank1_update_inv_pallas
-//           (body _rank1_inv_kernel).
+// Replaces: src/repro/kernels/rank1/rank1.py
+//   rank1_update_inv_pallas (body _rank1_inv_kernel): the M-free update
+//   of DistCLUB's rounds (rank1_update_inv_launch);
+//   rank1_update_pallas (body _rank1_kernel): the M-ful update of CLUB's
+//   user and cluster rows (rank1_update_launch).
 //
 // For every user u with mask[u] != 0:
 //   Mx      = Minv[u] x[u]
 //   denom   = 1 + x[u].Mx
 //   Minv[u] = Minv[u] - Mx Mx^T / denom
+//   M[u]    = M[u] + x[u] x[u]^T            (M-ful variant only)
 //   b[u]    = b[u] + r[u] x[u]
 // A user with mask[u] == 0 is an identity update, and the kernel does not
-// touch its rows at all, so they stay bit-identical.  Minv and b are
-// updated in place: the caller hands over the state and gets it back
-// modified (the wrapper returns the same tensors).
+// touch its rows at all, so they stay bit-identical.  The state is updated
+// in place: the caller hands it over and gets it back modified (the
+// wrapper returns the same tensors).  A leading-dim slice of a state
+// tensor (one user's row, as CLUB updates) is a valid argument.
 //
-// Bound on an H100: memory.  The update reads and writes Minv once (2 d^2
-// floats per live user) plus b, x and r; about 4 d^2 flops per user is
-// nothing beside that.  At n=20480, d=25, all users live: ~109 MB, ~32 us
-// at 3.35 TB/s.
+// Bound on an H100: memory.  The M-free update reads and writes Minv once
+// (2 d^2 floats per live user) plus b, x and r; the M-ful one also reads
+// and writes M (4 d^2 floats per live user).  About 4-7 d^2 flops per user
+// is nothing beside that.  At n=20480, d=25, all users live: ~109 MB,
+// ~32 us (M-free) and ~211 MB, ~63 us (M-ful) at 3.35 TB/s.  On CLUB's
+// path n = 1, and the launch itself is the cost.
 //
 // Design: one warp per user, eight users per block.  The warp copies the
 // user's Minv (d^2 contiguous floats) and x into shared memory with
 // coalesced loads; lane i forms (Minv x)_i from shared memory, a warp
 // shuffle sums x.Mx, and the warp writes the downdated Minv back with
-// coalesced stores.  The division and subtraction are rounded as the
-// reference rounds them (outer product, then / denom, then subtract).
+// coalesced stores; M is read, updated and written in one coalesced pass
+// (its new value needs only x).  The division and subtraction are rounded
+// as the plain version rounds them (outer product, then / denom, then
+// subtract; x_i x_j, then add).
 
 #include <cuda_runtime.h>
 
@@ -31,12 +40,13 @@ namespace {
 
 constexpr int kWarps = 8;
 
-__global__ void rank1_update_inv_kernel(float* __restrict__ Minv,
-                                        float* __restrict__ b,
-                                        const float* __restrict__ x,
-                                        const float* __restrict__ r,
-                                        const unsigned char* __restrict__ mask,
-                                        int n, int d) {
+template <bool kWithM>
+__global__ void rank1_kernel(float* __restrict__ M, float* __restrict__ Minv,
+                             float* __restrict__ b,
+                             const float* __restrict__ x,
+                             const float* __restrict__ r,
+                             const unsigned char* __restrict__ mask, int n,
+                             int d) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -70,10 +80,34 @@ __global__ void rank1_update_inv_kernel(float* __restrict__ Minv,
     const int j = e - i * d;
     Mu[e] = __fsub_rn(m_s[e], __fdiv_rn(__fmul_rn(mx_s[i], mx_s[j]), denom));
   }
+  if (kWithM) {
+    float* Gu = M + (size_t)u * dd;
+    for (int e = lane; e < dd; e += 32) {
+      const int i = e / d;
+      const int j = e - i * d;
+      Gu[e] = __fadd_rn(Gu[e], __fmul_rn(x_s[i], x_s[j]));
+    }
+  }
   const float ru = r[u];
   float* bu = b + (size_t)u * d;
   for (int j = lane; j < d; j += 32)
     bu[j] = __fadd_rn(bu[j], __fmul_rn(ru, x_s[j]));
+}
+
+template <bool kWithM>
+int launch(float* M, float* Minv, float* b, const float* x, const float* r,
+           const unsigned char* mask, int n, int d, cudaStream_t stream) {
+  const size_t smem = (size_t)kWarps * (d * d + 2 * d) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        rank1_kernel<kWithM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (n + kWarps - 1) / kWarps;
+  rank1_kernel<kWithM><<<blocks, 32 * kWarps, smem, stream>>>(
+      M, Minv, b, x, r, mask, n, d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -82,15 +116,12 @@ extern "C" int rank1_update_inv_launch(float* Minv, float* b, const float* x,
                                        const float* r,
                                        const unsigned char* mask, int n, int d,
                                        cudaStream_t stream) {
-  const size_t smem = (size_t)kWarps * (d * d + 2 * d) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rank1_update_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (n + kWarps - 1) / kWarps;
-  rank1_update_inv_kernel<<<blocks, 32 * kWarps, smem, stream>>>(
-      Minv, b, x, r, mask, n, d);
-  return (int)cudaGetLastError();
+  return launch<false>(nullptr, Minv, b, x, r, mask, n, d, stream);
+}
+
+extern "C" int rank1_update_launch(float* M, float* Minv, float* b,
+                                   const float* x, const float* r,
+                                   const unsigned char* mask, int n, int d,
+                                   cudaStream_t stream) {
+  return launch<true>(M, Minv, b, x, r, mask, n, d, stream);
 }

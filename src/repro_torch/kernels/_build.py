@@ -3,9 +3,10 @@
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  Libraries land in ``build/kernels/`` at the root
-of the checkout, named by a hash of their source so an edited kernel is
-never served stale; they are built at first use, and ``build_all`` starts
-one ``nvcc`` per source at once.
+of the checkout, named by a hash of their source and of the shared
+``csrc/*.cuh`` headers, so an edited kernel is never served stale; they
+are built at first use, and ``build_all`` starts one ``nvcc`` per source
+at once.
 
 ``LAUNCHES`` counts launches per kernel: each wrapper in
 ``kernels/*/ops.py`` adds one where it launches its kernel and nowhere
@@ -33,6 +34,9 @@ KERNELS = {
                [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P]),
     "rank1_update_inv": ("rank1.cu", "rank1_update_inv_launch",
                          [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "rank1_update": ("rank1.cu", "rank1_update_launch",
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "ucb": ("ucb.cu", "ucb_launch", [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P]),
     "prune": ("prune.cu", "prune_launch",
               [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P]),
     "cc_hop": ("cc_hop.cu", "cc_hop_launch",
@@ -73,8 +77,12 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(text).hexdigest()[:12]
+    """The source's library, named by a hash of the source and of every
+    shared header in ``csrc`` (a source may include any of them)."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 
 

@@ -1,11 +1,55 @@
-"""Device dispatch for the M-free rank-1 update: plain version for CPU
-tensors, the CUDA kernel (``csrc/rank1.cu``) for CUDA tensors."""
+"""Device dispatch for the rank-1 updates: plain versions for CPU
+tensors, the CUDA kernels (``csrc/rank1.cu``) for CUDA tensors."""
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .ref import rank1_update_inv_ref
+from .ref import rank1_update_inv_ref, rank1_update_ref
+
+
+def _state_args(Minv, b, x, r, mask):
+    dev = Minv.device
+    n, d = b.shape
+    return [
+        _build.check(Minv, "Minv", torch.float32, (n, d, d), dev),
+        _build.check(b, "b", torch.float32, (n, d), dev),
+        _build.check(x, "x", torch.float32, (n, d), dev),
+        _build.check(r, "r", torch.float32, (n,), dev),
+        _build.check(mask, "mask", torch.bool, (n,), dev),
+    ]
+
+
+def _on_cuda(name, t) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    return True
+
+
+def rank1_update(
+    M: torch.Tensor,      # [n, d, d] f32
+    Minv: torch.Tensor,   # [n, d, d] f32
+    b: torch.Tensor,      # [n, d] f32
+    x: torch.Tensor,      # [n, d] f32
+    r: torch.Tensor,      # [n] f32
+    mask: torch.Tensor,   # [n] bool
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(M', Minv', b') after one masked interaction per user.
+
+    On either device ``M``, ``Minv`` and ``b`` are updated IN PLACE and
+    returned.  They may be leading-dim slices of larger tensors (one
+    user's row ``M[u:u+1]``): the kernel writes through the views.
+    """
+    if not _on_cuda("rank1_update", Minv):
+        return rank1_update_ref(M, Minv, b, x, r, mask)
+    n, d = b.shape
+    args = _state_args(Minv, b, x, r, mask)
+    mp = _build.check(M, "M", torch.float32, (n, d, d), Minv.device)
+    if n:
+        _build.launch("rank1_update", mp, *args, n, d)
+    return M, Minv, b
 
 
 def rank1_update_inv(
@@ -20,19 +64,10 @@ def rank1_update_inv(
     On either device ``Minv`` and ``b`` are updated IN PLACE (by the
     kernel on CUDA, by the plain version on the CPU) and returned.
     """
-    dev = Minv.device
-    if dev.type == "cpu":
+    if not _on_cuda("rank1_update_inv", Minv):
         return rank1_update_inv_ref(Minv, b, x, r, mask)
-    if dev.type != "cuda":
-        raise ValueError(f"rank1_update_inv runs on cpu or cuda, not {dev}")
     n, d = b.shape
-    args = [
-        _build.check(Minv, "Minv", torch.float32, (n, d, d), dev),
-        _build.check(b, "b", torch.float32, (n, d), dev),
-        _build.check(x, "x", torch.float32, (n, d), dev),
-        _build.check(r, "r", torch.float32, (n,), dev),
-        _build.check(mask, "mask", torch.bool, (n,), dev),
-    ]
+    args = _state_args(Minv, b, x, r, mask)
     if n:
         _build.launch("rank1_update_inv", *args, n, d)
     return Minv, b

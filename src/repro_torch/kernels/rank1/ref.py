@@ -1,8 +1,33 @@
-"""Plain PyTorch version of the fused M-free rank-1 update
-(``csrc/rank1.cu``)."""
+"""Plain PyTorch versions of the fused rank-1 updates (``csrc/rank1.cu``):
+the M-free one of DistCLUB's rounds and the M-ful one of CLUB."""
 from __future__ import annotations
 
 import torch
+
+
+def rank1_update_ref(
+    M: torch.Tensor,      # [n, d, d]
+    Minv: torch.Tensor,   # [n, d, d]
+    b: torch.Tensor,      # [n, d]
+    x: torch.Tensor,      # [n, d]
+    r: torch.Tensor,      # [n]
+    mask: torch.Tensor,   # [n] bool
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(M', Minv', b') after one masked interaction per user.
+
+    ``M' = M + (m x)(m x)^T``, Minv' its Sherman-Morrison inverse and
+    ``b' = b + r m x``; a masked-out user (m = 0) is an identity update.
+    ``M``, ``Minv`` and ``b`` are updated IN PLACE and returned, as the
+    kernel does, so both devices share one aliasing contract.
+    """
+    m = mask.to(x.dtype)
+    xm = x * m[:, None]
+    Mx = torch.einsum("nij,nj->ni", Minv, xm)
+    denom = 1.0 + torch.einsum("ni,ni->n", xm, Mx)
+    Minv.sub_((Mx[:, :, None] * Mx[:, None, :]) / denom[:, None, None])
+    M.add_(xm[:, :, None] * xm[:, None, :])
+    b.add_((r * m)[:, None] * x)
+    return M, Minv, b
 
 
 def rank1_update_inv_ref(

@@ -9,7 +9,7 @@ Semantics (shared with the kernels and with ``repro.kernels.topk``):
                   score -inf and can only fill an underfull shortlist.
 
 Every (user, item) pair is scored by :func:`ucb_scores_ref` of
-``kernels/interact/ref.py``: fixed-order loops of elementwise products
+``kernels/ucb/ref.py``: fixed-order loops of elementwise products
 over ``d``, never a matrix product, whose rounding may depend on where a
 row sits in its operand.  So an item's score does not depend on the tile
 it is streamed in, identical items tie bit-exactly wherever they sit, and
@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ..interact.ref import ucb_scores_ref
+from ..ucb.ref import ucb_scores_ref
 
 NEG_INF = float("-inf")
 

@@ -6,8 +6,8 @@ Runs batched online recommendation with a policy-pluggable
 reduced scale: each request batch draws candidates from the catalog,
 embeds them as unit-norm bandit contexts and serves them through one
 session transaction.  Reports reward against the random policy and
-throughput.  ``--policy`` takes distclub, club or linucb; dccb, and LM
-archs (KV-cache decode), are not ported yet and raise.
+throughput.  ``--policy`` takes distclub, club, linucb or dccb; LM
+archs (KV-cache decode) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -95,8 +95,6 @@ def main(argv=None):
         raise NotImplementedError(
             f"serving {args.arch!r} is not ported; the ported archs are "
             f"{sorted(configs.REGISTRY)}")
-    if args.policy == "dccb":
-        raise NotImplementedError("the dccb policy is not ported")
     serve_recsys(configs.get(args.arch), args)
 
 

@@ -32,7 +32,7 @@ from ..core.clustering import num_clusters, segment_sum
 from ..core.types import Metrics
 
 # ---------------------------------------------------------------------------
-# the shared interaction loop (stage 1, stage 3)
+# the shared interaction loop (stage 1, stage 3, DCCB's rounds)
 # ---------------------------------------------------------------------------
 
 
@@ -56,15 +56,17 @@ def interaction_rounds(be, ops, hyper, seed, step0, carry0, *, row0, n_steps,
       carry     = update_fn(carry, t, x, realized, mask)
 
     ``budget`` (``[n_local] i32``) masks users whose budget is spent at
-    round ``t``.  Returns ``(carry, Metrics)`` with one row per
-    round, ``[n_steps]`` (local sums).
+    round ``t``; ``None`` keeps every user live every round (DCCB).
+    Returns ``(carry, Metrics)`` with one row per round, ``[n_steps]``
+    (local sums).
     """
     carry = carry0
     rows = []
     for t in range(n_steps):
         step = step0 + t
         occ = occ_of(carry)
-        mask = t < budget
+        mask = (torch.ones(occ.shape, dtype=torch.bool, device=occ.device)
+                if budget is None else t < budget)
         contexts = ops.contexts_fn(seed, step, occ, row0)
         w, minv_eff = score_fn(carry)
         x, choice = be.choose(w, minv_eff, contexts, occ, hyper.alpha)

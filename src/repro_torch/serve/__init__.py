@@ -21,7 +21,7 @@ Against a persistent catalog, unpruned or cluster-pruned (bit-equal)::
 Delayed feedback: ``pending_capacity > 0`` makes ``recommend`` issue
 decision ids and ``observe_delayed`` fold feedback by id.
 
-Policies: ``distclub`` | ``club`` | ``linucb``.
+Policies: ``distclub`` | ``club`` | ``linucb`` | ``dccb``.
 """
 from ..core.catalog import (Bank, Catalog, add_items, make_catalog,
                             publish, random_catalog, retire_items,
@@ -31,7 +31,7 @@ from ..core.itemclub import (ItemClusters, ItemStats, RetrievalMetrics,
                              refresh_clusters, reset_new_slots)
 from .pending import PendingBuffer
 from .policies import (POLICIES, ClusteredPolicy, ClusteredState,
-                       LinUCBPolicy, LinUCBServeState, ServeCfg,
+                       DCCBPolicy, DCCBServeState, LinUCBPolicy, LinUCBServeState, ServeCfg,
                        from_distclub_state, get_policy, make_cfg,
                        to_distclub_state)
 from .session import (OnlineBandit, embed_candidates, observe,
@@ -41,6 +41,7 @@ from .session import (OnlineBandit, embed_candidates, observe,
 
 __all__ = [
     "Bank", "Catalog", "POLICIES", "ClusteredPolicy", "ClusteredState",
+    "DCCBPolicy", "DCCBServeState",
     "ItemClusters", "ItemStats", "LinUCBPolicy", "LinUCBServeState",
     "OnlineBandit", "PendingBuffer", "RetrievalMetrics", "ServeCfg",
     "add_items", "build_clusters", "embed_candidates",

@@ -18,19 +18,20 @@ record:
 | `distclub` | beta gate: own vs cluster stats  | stage 2 (prune+CC+reduce)  |
 | `club`     | cluster stats always             | stage 2 (prune+CC+reduce)  |
 | `linucb`   | own stats always                 | none                       |
+| `dccb`     | lagged buffered stats            | one gossip round           |
 
-``dccb`` needs ``core/dccb``, which is not ported.  The clustered
-policies read the stage-2 per-user snapshots (``uMcinv``/``ubc``/
-``umean_occ``) frozen until the next refresh, as stages 3 and 4 do.
+The clustered policies read the stage-2 per-user snapshots
+(``uMcinv``/``ubc``/``umean_occ``) frozen until the next refresh, as
+stages 3 and 4 do.
 ``gather_score`` is also what catalog retrieval scores the catalog with.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
-from ..core import distclub, linucb
+from ..core import dccb, distclub, env_ops, linucb
 from ..core.backend import BackendConfig
 from ..core.clustering import segment_sum
 from ..core.types import (BanditHyper, ClusterStats, DistCLUBState,
@@ -39,7 +40,7 @@ from ..kernels.graph import ops as graph_ops
 from ..runtime import stages
 from ..runtime.collectives import NullCollectives
 
-POLICIES = ("distclub", "club", "linucb")
+POLICIES = ("distclub", "club", "linucb", "dccb")
 _NULL = NullCollectives()
 
 
@@ -50,6 +51,7 @@ class ServeCfg(NamedTuple):
     d: int
     hyper: BanditHyper
     refresh_every: int      # interactions between refreshes; <= 0 = never
+    seed: int = 0           # keys a randomized refresh (dccb's peer draw)
 
 
 def _rank1_pass(Minv, b, occ, idx, x, r, live, be):
@@ -202,14 +204,95 @@ class LinUCBPolicy(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
+# dccb: the buffered-gossip baseline (Korda et al.)
+# ---------------------------------------------------------------------------
+
+
+class DCCBServeState(NamedTuple):
+    core: dccb.DCCBState         # the full DCCB record (dense adj, buffers)
+    since_refresh: torch.Tensor  # [] i32
+
+
+class DCCBPolicy(NamedTuple):
+    """DCCB as a serving policy: lagged buffered scoring, refresh = one
+    gossip round.  The lockstep driver adapted to requests: the buffer
+    cursor advances once per feedback pass, and inactive users keep their
+    pending entries buffered until their next active pass pops them.
+    Single host only (the gossip graph is dense).
+
+    A refresh draws each user's neighbour with ``peers_fn(seed, step,
+    adj)``, ``seed`` being the session's (``cfg.seed``) and ``step`` its
+    lifetime interaction count, so successive refreshes draw anew and
+    sessions of other seeds gossip with other peers."""
+
+    cfg: ServeCfg
+    peers_fn: Callable = env_ops.draw_peers
+
+    @property
+    def name(self) -> str:
+        return "dccb"
+
+    @property
+    def has_refresh(self) -> bool:
+        return True
+
+    @property
+    def L(self) -> int:
+        return self.cfg.hyper.buffer_size
+
+    def init(self, device) -> DCCBServeState:
+        return DCCBServeState(
+            core=dccb.init_state(self.cfg.n_users, self.cfg.d, self.L,
+                                 device=device),
+            since_refresh=_zero().to(device))
+
+    def occ_of(self, state: DCCBServeState):
+        return state.core.occ
+
+    def gather_score(self, state: DCCBServeState, idx):
+        core = state.core
+        w, Minv = dccb.lagged_score(core.Mw[idx], core.bw[idx])
+        return w, Minv, core.occ[idx]
+
+    def apply_pass(self, state: DCCBServeState, idx, x, r, live, be):
+        """Buffer pushes are plain adds, not Sherman-Morrison: ``be`` is
+        not used.  The pass scatters the live (distinct-user) rows to full
+        width and pushes on a copy of the fields the push writes (it works
+        in place, and sessions leave their input as it was): at the paper's
+        width that copy, the ``[n, L, d, d]`` buffer above all, is most of
+        a pass's cost."""
+        core = state.core
+        n = core.occ.shape[0]
+        rows = idx[live]
+        x_full = torch.zeros(n, x.shape[1], dtype=x.dtype, device=x.device)
+        r_full = torch.zeros(n, dtype=x.dtype, device=x.device)
+        m_full = torch.zeros(n, dtype=torch.bool, device=x.device)
+        x_full[rows] = x[live]
+        r_full[rows] = r[live]
+        m_full[rows] = True
+        core = core._replace(Mw=core.Mw.clone(), bw=core.bw.clone(),
+                             Mbuf=core.Mbuf.clone(), bbuf=core.bbuf.clone(),
+                             occ=core.occ.clone())
+        core = dccb.buffered_push(core, x_full, r_full, m_full, self.L)
+        return state._replace(core=core)
+
+    def refresh(self, state: DCCBServeState) -> DCCBServeState:
+        core = state.core
+        step = int(torch.sum(core.occ))
+        peer = self.peers_fn(self.cfg.seed, step, core.adj)
+        return state._replace(core=dccb.gossip_round(
+            core, peer, self.cfg.hyper, self.L, self.cfg.d))
+
+
+# ---------------------------------------------------------------------------
 # construction + offline interop
 # ---------------------------------------------------------------------------
 
 
 def make_cfg(n_users: int, d: int, hyper: BanditHyper, *,
-             refresh_every: int = 0) -> ServeCfg:
+             refresh_every: int = 0, seed: int = 0) -> ServeCfg:
     return ServeCfg(n_users=n_users, d=d, hyper=hyper,
-                    refresh_every=refresh_every)
+                    refresh_every=refresh_every, seed=seed)
 
 
 def get_policy(name: str, cfg: ServeCfg):
@@ -220,7 +303,7 @@ def get_policy(name: str, cfg: ServeCfg):
     if name == "linucb":
         return LinUCBPolicy(cfg)
     if name == "dccb":
-        raise ValueError("the dccb policy is not ported: it needs core/dccb")
+        return DCCBPolicy(cfg)
     raise ValueError(f"unknown policy {name!r}; want one of {POLICIES}")
 
 

@@ -217,14 +217,16 @@ class OnlineBandit:
     def create(cls, n_users: int, d: int, hyper: BanditHyper, *,
                policy: str = "distclub", refresh_every: int = 0,
                pending_capacity: int = 0, pending_ttl: int = 64,
-               device=None) -> "OnlineBandit":
+               seed: int = 0, device=None) -> "OnlineBandit":
         """Single-host session on ``device`` (default cuda; raises without
         a card unless ``device="cpu"``).  ``refresh_every`` is the
         interaction budget between refreshes (<= 0: only ``refresh``);
         ``pending_capacity > 0`` enables delayed feedback, where a
-        decision survives ``pending_ttl`` later issues."""
+        decision survives ``pending_ttl`` later issues; ``seed`` keys a
+        randomized refresh (dccb's gossip peers)."""
         dev = resolve_device(device)
-        cfg = pol.make_cfg(n_users, d, hyper, refresh_every=refresh_every)
+        cfg = pol.make_cfg(n_users, d, hyper, refresh_every=refresh_every,
+                           seed=seed)
         p = pol.get_policy(policy, cfg)
         pend = (pending_mod.init(pending_capacity, d, device=dev)
                 if pending_capacity > 0 else None)

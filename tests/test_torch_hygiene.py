@@ -47,7 +47,8 @@ def test_package_imports_neither_jax_nor_repro():
     names = set(out[1].split())
     for mod in ("models.recsys.dcn_v2", "models.recsys.seqrec",
                 "models.recsys.mind", "models.attention", "launch.serve",
-                "kernels.cross.ops", "kernels.embag.ops", "configs.dcn_v2"):
+                "kernels.cross.ops", "kernels.embag.ops", "configs.dcn_v2",
+                "core.club", "core.dccb", "kernels.ucb.ops"):
         assert f"repro_torch.{mod}" in names, mod
 
 
@@ -61,6 +62,53 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     e, _ = env.make_synthetic_env(0, 8, 3, 2, 3, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         distclub.run(env_ops.synthetic_ops(e), 0, hyper, 1, 3)
+
+
+def test_baseline_entry_points_need_a_device_without_cuda(monkeypatch):
+    from repro_torch.core import club, dccb
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hyper = BanditHyper(delta_net=4, buffer_size=2, n_candidates=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        club.init_state(8, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dccb.init_state(8, 3, 2)
+    e, _ = env.make_synthetic_env(0, 8, 3, 2, 3, device="cpu")
+    ops = env_ops.synthetic_ops(e)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        club.run(ops, 0, hyper, 4, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dccb.run(ops, 0, hyper, 1, 3, 2)
+
+
+def test_cpu_baseline_runs_launch_no_kernel_and_learn():
+    from repro_torch.core import club, dccb
+    n, d, K = 48, 6, 10
+    hyper = BanditHyper(gamma=0.8, delta_net=32, buffer_size=4,
+                        n_candidates=K)
+    e, _ = env.make_synthetic_env(0, n, d, 4, K, 0.05, device="cpu")
+    ops = env_ops.synthetic_ops(e)
+    _build.reset_launches()
+    s, m = club.run(ops, 0, hyper, 256, d, device="cpu")
+    assert m.reward.shape == (256,) and int(m.interactions.sum()) == 256
+    assert int(s.lin.occ.sum()) == 256
+    assert float(m.reward.sum()) > float(m.rand_reward.sum())
+    s, m, n_clu = dccb.run(ops, 0, hyper, 3, d, 4, device="cpu")
+    assert m.reward.shape == (12,) and n_clu.shape == (3,)
+    assert int(m.interactions.sum()) == 12 * n == int(s.occ.sum())
+    assert float(s.comm_bytes) == 3 * n * 5 * (d * d + d) * 4
+    # DCCB learns where gossip only averages: one planted cluster and a
+    # gamma that cuts no edge (cuts reset both users), past the first L
+    # rounds, whose w = 0, Minv = I scores tie
+    e1, _ = env.make_synthetic_env(0, n, d, 1, K, 0.05, device="cpu")
+    _, m, _ = dccb.run(env_ops.synthetic_ops(e1), 0,
+                       hyper._replace(gamma=4.0), 8, d, 4, device="cpu")
+    assert float(m.reward[4:].sum()) > 1.1 * float(m.rand_reward[4:].sum())
+    assert all(v == 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
+    # the synthetic env's baseline draws: host users, neighbours only
+    assert [ops.user_fn(0, t) for t in range(3)] == [
+        env_ops.draw_user(0, t, n) for t in range(3)]
+    peers = ops.peers_fn(0, 1, s.adj)
+    assert bool(s.adj[torch.arange(n), peers].all())
 
 
 def test_serving_entry_points_need_a_device_without_cuda(monkeypatch):

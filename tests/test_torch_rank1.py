@@ -1,5 +1,6 @@
-"""The port's M-free rank-1 update (``repro_torch.kernels.rank1``) against
-the reference's Pallas kernel in interpret mode, on the CPU."""
+"""The port's rank-1 updates (``repro_torch.kernels.rank1``), M-free and
+M-ful, against the reference's Pallas kernels in interpret mode, on the
+CPU; and ``InteractBackend.update_lin`` against the reference's engine."""
 import numpy as np
 import pytest
 
@@ -39,3 +40,84 @@ def test_rank1_update_inv_matches_pallas_interpret(n, d):
     # Minv and b are updated in place on the CPU too, as the kernel does
     assert got[0] is inputs[0] and got[1] is inputs[1]
     assert not np.array_equal(inputs[0].numpy()[mask], Minv[mask])
+
+
+def _mful_inputs(n, d, seed):
+    rng = np.random.default_rng(seed)
+    A = 0.1 * rng.normal(size=(n, d, d))
+    M = (np.eye(d) + A @ A.transpose(0, 2, 1)).astype(np.float32)
+    Minv = np.linalg.inv(M).astype(np.float32)
+    b = rng.normal(size=(n, d)).astype(np.float32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    r = rng.random(n).astype(np.float32)
+    mask = rng.random(n) < 0.7
+    mask[0], mask[-1] = True, False
+    return M, Minv, b, x, r, mask
+
+
+def _assert_mful_close(got, want):
+    """Minv: the Sherman-Morrison tolerance; M and b: one rounding of
+    ``M + x x^T`` / ``b + r x`` (XLA may contract them into FMAs)."""
+    M, Minv, b = (np.asarray(a) for a in want)
+    np.testing.assert_allclose(got[0], M, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[1], Minv, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[2], b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,d", [(37, 25), (64, 32), (5, 3), (1, 25)])
+def test_rank1_update_matches_pallas_interpret(n, d):
+    M, Minv, b, x, r, mask = _mful_inputs(n, d, seed=3 * n + d)
+    if n == 1:
+        mask[0] = True
+    want = jrank1.rank1_update(*(jnp.asarray(a) for a in
+                                 (M, Minv, b, x, r, mask)),
+                               use_pallas=True, interpret=True)
+    inputs = [torch.from_numpy(a.copy()) for a in (M, Minv, b, x, r, mask)]
+    got = ops.rank1_update(*inputs)
+    _assert_mful_close([g.numpy() for g in got], want)
+    # in place, as the kernel does
+    assert all(g is i for g, i in zip(got, inputs[:3]))
+    # masked-out users are identity updates, bit for bit
+    for g, a in zip(got, (M, Minv, b)):
+        np.testing.assert_array_equal(g.numpy()[~mask], a[~mask])
+
+
+def test_rank1_update_writes_through_a_row_view():
+    """CLUB updates one user's row of the full state: a leading-dim slice
+    is updated in place and the other rows are left as they were."""
+    n, d, u = 9, 6, 4
+    M, Minv, b, x, r, _ = _mful_inputs(n, d, seed=11)
+    state = [torch.from_numpy(a.copy()) for a in (M, Minv, b)]
+    rows = [t[u:u + 1] for t in state]
+    live = torch.ones(1, dtype=torch.bool)
+    ops.rank1_update(*rows, torch.from_numpy(x[u:u + 1]),
+                     torch.from_numpy(r[u:u + 1]), live)
+    want = jrank1.rank1_update(*(jnp.asarray(a[u:u + 1]) for a in
+                                 (M, Minv, b, x, r)), jnp.ones(1, bool),
+                               use_pallas=True, interpret=True)
+    _assert_mful_close([t.numpy()[u:u + 1] for t in state], want)
+    for t, a in zip(state, (M, Minv, b)):
+        np.testing.assert_array_equal(np.delete(t.numpy(), u, 0),
+                                      np.delete(a, u, 0))
+
+
+def test_update_lin_matches_the_reference_pallas_engine():
+    from repro.core import backend as jbackend
+    from repro.core.types import LinUCBState as JLin
+    from repro_torch.core.backend import BackendConfig
+    from repro_torch.core.types import LinUCBState
+    n, d = 37, 25
+    M, Minv, b, x, r, mask = _mful_inputs(n, d, seed=5)
+    occ = np.random.default_rng(5).integers(0, 50, n).astype(np.int32)
+    jbe = jbackend.BackendConfig.create("pallas").interact(n, d, 20,
+                                                            interpret=True)
+    want = jbe.update_lin(JLin(*(jnp.asarray(a) for a in (M, Minv, b, occ))),
+                          jnp.asarray(x), jnp.asarray(r), jnp.asarray(mask))
+    lin = LinUCBState(*(torch.from_numpy(a.copy()) for a in (M, Minv, b,
+                                                              occ)))
+    got = BackendConfig.create().interact().update_lin(
+        lin, *(torch.from_numpy(a) for a in (x, r, mask)))
+    _assert_mful_close([t.numpy() for t in got[:3]], want[:3])
+    np.testing.assert_array_equal(got.occ.numpy(), np.asarray(want.occ))
+    assert all(g is i for g, i in zip(got, lin))     # all four in place

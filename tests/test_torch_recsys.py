@@ -272,11 +272,26 @@ def test_serve_recsys_learns_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--arch", "qwen3-8b"], "not ported"),
-    (["--policy", "dccb", "--steps", "1"], "not ported"),
 ])
 def test_serve_cli_refuses_what_is_not_ported(argv, match):
     with pytest.raises((NotImplementedError, ValueError), match=match):
         serve_cli.main(argv)
+
+
+def test_serve_recsys_serves_every_request_with_the_dccb_policy_on_the_cpu(
+        capsys):
+    """17 batches of 64: past the 1024-interaction refresh, so one gossip
+    round runs.  Every request is served and the printed ratio is the one
+    returned.  No lift over random is asserted: DCCB's lagged, gossip-
+    averaged statistics do not beat random at this size (neither does the
+    JAX package's dccb serving policy in tests/test_serve.py)."""
+    args = serve_cli.parse_args(["--policy", "dccb", "--steps", "17"])
+    ratio = serve_cli.serve_recsys(configs.get(args.arch), args,
+                                   device="cpu")
+    out = capsys.readouterr().out
+    assert np.isfinite(ratio) and ratio > 0
+    assert out.startswith(f"[dccb] {17 * 64} requests in ")
+    assert out.rstrip().endswith(f"reward/random = {ratio:.3f}")
 
 
 def test_serve_cli_parses_like_the_reference():

@@ -5,7 +5,14 @@ replayed to the port as a tape of uniforms.  Choices and items must be
 equal, LinUCB statistics within 1e-5 and clusters equal after a refresh,
 for each ported policy, on the slate path, the catalog path (unpruned and
 cluster-pruned), warm-started from an offline run, and under delayed,
-duplicated and churned feedback."""
+duplicated and churned feedback.
+
+dccb: its refresh is a gossip round whose peers the port draws with the
+reference's own draw (``jax.random.categorical`` at the refresh key of
+``repro.serve.session._schedule_refresh``), and its slates and items are
+scaled per slot, because DCCB scores with ``w = 0``, ``Minv = I`` until
+a user's first buffered update is popped, and unit-norm candidates then
+tie to the last ulp (tests/test_torch_dccb.py)."""
 import dataclasses
 
 import numpy as np
@@ -31,7 +38,8 @@ from repro_torch.serve import pending  # noqa: E402
 N_USERS, D, K, B = 24, 6, 8, 12
 N_ITEMS, K_SHORT, TILE = 256, 8, 32
 REFRESH = 36                 # stage 2 fires after every third batch
-HYPER = dict(alpha=0.3, sigma=4, max_rounds=1, gamma=1.5, n_candidates=K)
+HYPER = dict(alpha=0.3, sigma=4, max_rounds=1, gamma=1.5, n_candidates=K,
+             buffer_size=3)
 JHYPER, PHYPER = JHyper(**HYPER), BanditHyper(**HYPER)
 
 
@@ -46,6 +54,7 @@ THETA = _unit(_CENT[_RNG.integers(0, 4, N_USERS)]
 ITEMS = _unit(_CENT[_RNG.integers(0, 4, N_ITEMS)]
               + 0.3 * _RNG.normal(size=(N_ITEMS, D)))
 JTHETA, PTHETA = jnp.asarray(THETA), torch.from_numpy(THETA)
+_SERVED_KEY = [0]          # the key of the batch the port serves last
 
 
 def jreward(key, uids, ctx, choice):
@@ -59,6 +68,7 @@ def uniforms(i, n=B):
 
 
 def preward(i, uids, ctx, choice):
+    _SERVED_KEY[0] = i
     th = PTHETA[uids.clamp(0, N_USERS - 1).long()]
     return env.step_rewards(uniforms(i, uids.shape[0]), th, ctx, choice)
 
@@ -74,8 +84,21 @@ def batch(i, pad=False):
     return u
 
 
-def contexts(i):
-    return _unit(np.random.default_rng(200 + i).normal(size=(B, K, D)))
+def contexts(i, policy=None):
+    c = _unit(np.random.default_rng(200 + i).normal(size=(B, K, D)))
+    if policy == "dccb":
+        c = c * (1 + np.arange(K, dtype=np.float32) / (2 * K))[:, None]
+    return c
+
+
+def _reference_peers(seed, step, adj):
+    """The dccb refresh's draw in ``repro.serve``: categorical over the
+    neighbours at ``fold_in(fold_in(key, 1), lifetime interactions)``,
+    ``key`` being the served batch's."""
+    k = jax.random.fold_in(jax.random.fold_in(
+        jax.random.PRNGKey(_SERVED_KEY[0]), 1), step)
+    logits = jnp.where(jnp.asarray(adj.numpy()), 0.0, -jnp.inf)
+    return torch.from_numpy(np.array(jax.random.categorical(k, logits)))
 
 
 def _sessions(policy, **kw):
@@ -84,30 +107,61 @@ def _sessions(policy, **kw):
                                    backend="reference", **kw)
     p = serve.OnlineBandit.create(N_USERS, D, PHYPER, policy=policy,
                                   refresh_every=REFRESH, device="cpu", **kw)
+    if policy == "dccb":
+        p = dataclasses.replace(p, policy=p.policy._replace(
+            peers_fn=_reference_peers))
     return j, p
 
 
-def _assert_state_close(p, j):
-    got = convert.record_to_numpy(p)
+_CLOSE = ("Minv", "b", "uMcinv", "ubc", "umean_occ", "comm_bytes", "Mw",
+          "bw", "Mbuf", "bbuf")
+
+
+def _assert_record_close(got, j):
     for f in got._fields:
-        want = np.asarray(getattr(j, f))
-        if f in ("Minv", "b", "uMcinv", "ubc", "umean_occ", "comm_bytes"):
-            np.testing.assert_allclose(getattr(got, f), want, rtol=0,
+        g = getattr(got, f)
+        if hasattr(g, "_fields"):            # dccb's nested core record
+            _assert_record_close(g, getattr(j, f))
+        elif f in _CLOSE:
+            np.testing.assert_allclose(g, np.asarray(getattr(j, f)), rtol=0,
                                        atol=1e-5, err_msg=f)
         else:
-            np.testing.assert_array_equal(getattr(got, f), want, err_msg=f)
+            np.testing.assert_array_equal(g, np.asarray(getattr(j, f)),
+                                          err_msg=f)
 
 
-def _catalogs():
-    jc = jserve.make_catalog(jnp.asarray(ITEMS))
+def _assert_state_close(p, j):
+    _assert_record_close(convert.record_to_numpy(p), j)
+
+
+def _leaves(record):
+    for v in record:
+        if hasattr(v, "_fields"):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _assert_states_equal(a, b):
+    for x, y in zip(_leaves(a), _leaves(b)):
+        assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else x == y)
+
+
+def _catalogs(policy=None):
+    items = ITEMS
+    if policy == "dccb":
+        items = items * (1 + np.arange(N_ITEMS, dtype=np.float32)
+                         / (2 * N_ITEMS))[:, None]
+    jc = jserve.make_catalog(jnp.asarray(items))
     return jc, convert.record_from_numpy(jc, serve.Catalog, device="cpu")
 
 
-@pytest.mark.parametrize("policy", ["distclub", "club", "linucb"])
+@pytest.mark.parametrize("policy", ["distclub", "club", "linucb", "dccb"])
 def test_slate_step_recommend_observe_match_reference(policy):
     js, ps = _sessions(policy)
     for i in range(6):
-        u, c = batch(i, pad=i % 2 == 1), contexts(i)
+        u, c = batch(i, pad=i % 2 == 1), contexts(i, policy)
         js, jch, jm = jserve.step(js, jax.random.PRNGKey(i), jnp.asarray(u),
                                   jnp.asarray(c), jreward)
         ps, pch, pm = serve.step(ps, i, torch.from_numpy(u),
@@ -117,10 +171,10 @@ def test_slate_step_recommend_observe_match_reference(policy):
         assert int(pm.interactions) == int(jm.interactions)
     _assert_state_close(ps.state, js.state)
     if policy != "linucb":          # two refreshes fired: clusters moved
-        assert float(ps.state.comm_bytes) > 0
+        assert float(getattr(ps.state, "core", ps.state).comm_bytes) > 0
 
     # the two halves: recommend (no state change) then observe
-    u, c = batch(9, pad=True), contexts(9)
+    u, c = batch(9, pad=True), contexts(9, policy)
     jch = jserve.recommend(js, jnp.asarray(u), jnp.asarray(c))
     pch = serve.recommend(ps, torch.from_numpy(u), torch.from_numpy(c))
     np.testing.assert_array_equal(pch.numpy(), np.asarray(jch))
@@ -138,13 +192,37 @@ def test_slate_step_recommend_observe_match_reference(policy):
     ps, pch, pm = serve.step(ps, 0, torch.from_numpy(u),
                              torch.from_numpy(c), preward)
     assert int(pm.interactions) == 0 and not pch.any()
-    for a, b in zip(before, ps.state):
-        assert torch.equal(a, b)
+    _assert_states_equal(before, ps.state)
 
 
-@pytest.mark.parametrize("policy", ["distclub", "club", "linucb"])
+def test_dccb_refresh_draws_peers_with_the_session_seed():
+    """The gossip peers are keyed by the session's seed and its lifetime
+    interaction count: 3 batches of 12 spend the 36-interaction budget."""
+    from repro_torch.core import env_ops
+    seen = []
+
+    def spy(seed, step, adj):
+        seen.append((seed, step))
+        return env_ops.draw_peers(seed, step, adj)
+
+    for seed in (0, 5):
+        s = serve.OnlineBandit.create(N_USERS, D, PHYPER, policy="dccb",
+                                      refresh_every=REFRESH, seed=seed,
+                                      device="cpu")
+        s = dataclasses.replace(s, policy=s.policy._replace(peers_fn=spy))
+        for i in range(3):
+            s, _, _ = serve.step(s, i, torch.from_numpy(batch(i)),
+                                 torch.from_numpy(contexts(i, "dccb")),
+                                 preward)
+    assert seen == [(0, 3 * B), (5, 3 * B)]
+    adj = torch.ones(N_USERS, N_USERS, dtype=torch.bool)
+    assert not torch.equal(env_ops.draw_peers(0, 3 * B, adj),
+                           env_ops.draw_peers(5, 3 * B, adj))
+
+
+@pytest.mark.parametrize("policy", ["distclub", "club", "linucb", "dccb"])
 def test_catalog_step_matches_reference_pruned_and_unpruned(policy):
-    jc, pc = _catalogs()
+    jc, pc = _catalogs(policy)
     pcl = serve.build_clusters(pc, tile_items=TILE)
     js, ps = _sessions(policy)
     pp = ps
@@ -164,8 +242,7 @@ def test_catalog_step_matches_reference_pruned_and_unpruned(policy):
         if i == 2:
             assert pit[5] == -1 and pit[9] == -1
     _assert_state_close(ps.state, js.state)
-    for a, b in zip(ps.state, pp.state):
-        assert torch.equal(a, b)
+    _assert_states_equal(ps.state, pp.state)
 
 
 def test_catalog_skip_counts_match_reference():
@@ -337,5 +414,3 @@ def test_pending_buffer_rejects_wide_batches_and_sync_sessions():
     with pytest.raises(ValueError, match="buffer-enabled"):
         serve.observe_delayed(sync, torch.zeros(2, dtype=torch.int32),
                               torch.zeros(2))
-    with pytest.raises(ValueError, match="not ported"):
-        serve.OnlineBandit.create(8, 3, PHYPER, policy="dccb", device="cpu")
