@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build   every CUDA kernel of the main path from ``src/repro_torch/csrc``
            (one ``nvcc`` per source, all at once), with the seconds taken.
 3. small   each kernel against its plain PyTorch version on ragged small
-           shapes.
+           shapes (flash: f32 within 1e-4; bf16 kernel and plain version
+           each within 2e-2 of the f32 plain version on upcast inputs).
 4. main    ``repro_torch.core.distclub.run`` at the paper's full width
            (20480 users, d=25, K=20, 100 planted clusters,
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
@@ -72,20 +73,39 @@ Phases, in order; any failure raises and the script exits non-zero:
            candidates) and one retrieval_cand call (2^20 candidates) each,
            no kernel; ``launch.serve.serve_recsys`` at its defaults
            (reward/random > 1, within 1% of the same run on the CPU).
+4l. lm     Qwen3-4B (``configs.get("qwen3-4b")``) at full width and
+           depth, bf16, random weights drawn on the card from the seed: 8
+           prompts of 2048 tokens (a seeded host generator) through
+           ``lm_prefill``, the cache copied into ``init_cache(cfg, 8,
+           4096)``, 64 greedy ``lm_decode_step``s, counters set to 0
+           before and read after (exactly 36 + 36 x 64 = 2340 flash
+           launches, no other kernel); prefill ms and tokens/s, decode ms
+           per step and tokens/s, peak memory; one prefill and one decode
+           step under torch.profiler.
+   plain   the same prefill and steps through the plain versions on the
+           card, teacher-forced on the kernel path's tokens: no kernel may
+           launch; last-position logits within a relative L2 error of
+           5e-2, greedy tokens equal in >= 95% of (sequence, step) pairs.
+   cli     ``launch.serve.serve_lm`` at its defaults on the card, its
+           tokens equal to the same call on the CPU at >= 99% of positions.
 5. full    each kernel against its plain version on the state that run
            left (and on the full first-epoch adjacency for prune; ucb's
            argmax must equal choose's choice for every user; ucb and
            rank1_update also at CLUB's n = 1 on its state's rows), the
            two top-K kernels on one serving batch's users at full width,
-           cross on a serve_bulk batch's layers 1 and 2, and embedding_bag
-           on the two bag batches of phase 4r.
+           cross on a serve_bulk batch's layers 1 and 2, embedding_bag
+           on the two bag batches of phase 4r, and flash on the q/k/v of
+           phase 4l's prefill layers 0 and 35 and a decode step's layer 0.
 6. times   median of 25 launches (CUDA events, L2 flushed before each) of
            every kernel and its plain version at the main path's shapes,
            beside the least time the card could take (bytes over 3.35 TB/s
            or f32 operations over 67 TFLOP/s, counted from these inputs)
            and, for embedding_bag, ``F.embedding_bag`` on the same inputs;
            for cross, cuBLAS ``addmm`` (its GEMM and bias alone); ucb and
-           rank1_update also at n = 1.
+           rank1_update also at n = 1; flash at the prefill and the decode
+           shape, with ``scaled_dot_product_attention`` as its yardstick;
+           its bf16 prefill runs on the tensor cores and is held to their
+           bf16 rate (989 TFLOP/s), its f32 bound printed beside it.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -132,6 +152,8 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
                      "src/repro/kernels/rank1/rank1.py:102"),
     "ucb": ("src/repro_torch/csrc/ucb.cu",
             "src/repro/kernels/ucb/ucb.py:59"),
+    "flash": ("src/repro_torch/csrc/flash.cu",
+              "src/repro/kernels/flash/flash.py:89"),
 }
 SERVE_ITEMS = 2**18          # the gate row of benchmarks/bench_retrieval.py
 SERVE_BATCH = 256            # BENCH_serve.json's request batch
@@ -143,6 +165,12 @@ BULK_BATCHES = 2             # and serve_bulk batches of 262144
 SEQ_BATCHES = 4              # serve_p99 batches of each sequence model
 BAG_L = 50                   # ids per bag; the last 20% are 0-weight pads
 CLUB_T = 2048                # benchmarks/bench_paper.py's CLUB slice
+LM_ARCH = "qwen3-4b"         # full width and depth, random weights
+LM_BATCH = 8                 # prefill_32k's 32 x 32768, cut to 8 x 2048
+LM_PROMPT = 2048
+LM_CACHE = 4096              # decode_32k's 128 x 32768, cut to 8 x 4096
+LM_STEPS = 64
+BF16_FLOPS_PER_S = 989e12    # H100 SXM data sheet, bf16 dense tensor cores
 
 
 def log(msg: str) -> None:
@@ -376,6 +404,36 @@ def check_embag(table, idx, wt):
     return {"max_abs_err": float((out_k - out_p).abs().max())}
 
 
+def check_flash(q, k, v, *, causal, q_offset=0, kv_len=None, chunk=None,
+                ref_chunk=None):
+    """The flash kernel against its plain version, ``chunked_attention``
+    (in one chunk unless ``chunk`` is given: the chunk only sets the
+    scan).  f32: within 1e-4 abs/rel (an f32 online softmax over the same
+    keys in another order).  bf16: the kernel and the plain version each
+    within 2e-2 abs/rel of ``chunked_attention`` run in f32 on the
+    upcast inputs (both round the output and P to bf16, the kernel's
+    tensor-core variant as the plain version does; the plain version also
+    rounds its scores).  The error reported is the kernel's largest
+    absolute difference from the f32 version, which scans ``ref_chunk``
+    keys at a time (default: the plain version's chunk)."""
+    import torch
+    from repro_torch.kernels.flash import ops, ref
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    c = k.shape[2] if chunk is None else chunk
+    out_k = ops.attention(q, k, v, **kw)
+    out_p = ref.chunked_attention(q, k, v, chunk=c, **kw)
+    assert out_k.dtype == q.dtype and out_k.shape == q.shape
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(out_k, out_p, rtol=1e-4, atol=1e-4)
+        return {"max_abs_err": float((out_k - out_p).abs().max())}
+    want = ref.chunked_attention(q.float(), k.float(), v.float(),
+                                 chunk=ref_chunk or c, **kw)
+    torch.testing.assert_close(out_k.float(), want, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out_p.float(), want, rtol=2e-2, atol=2e-2)
+    return {"max_abs_err": float((out_k.float() - want).abs().max()),
+            "plain_max_abs_err": float((out_p.float() - want).abs().max())}
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -467,6 +525,7 @@ def small_checks(dev):
         f"{check_cc_hop(gref.pack_bits(sparse | sparse.T), labels, labels)}")
     small_topk_checks(g, dev, n, d, w, Minv, occ)
     small_recsys_checks(g, dev)
+    small_flash_checks(g, dev)
 
 
 def small_topk_checks(g, dev, n, d, w, Minv, occ):
@@ -543,6 +602,39 @@ def small_recsys_checks(g, dev):
             f"no weights: {check_embag(table, odd, None)}")
 
 
+def small_flash_checks(g, dev):
+    """flash on ragged shapes, f32 and bf16: Sq and Skv off the 64-key
+    tile, Sq = 1, GQA groups 1, 4 and 8 (MQA), causal and bidirectional,
+    q_offset > 0, kv_len < Skv, rows that see no key (q_offset < 0), Dh
+    32, 64, 128 and 256."""
+    import torch
+    cases = [  # B, Hq, Hkv, Sq, Skv, Dh, causal, q_offset, kv_len
+        (2, 4, 4, 77, 77, 64, True, 0, None),
+        (1, 8, 2, 130, 200, 32, False, 0, None),
+        (2, 8, 1, 45, 300, 128, True, 255, None),
+        (3, 32, 8, 1, 1000, 128, True, 700, 701),
+        (1, 4, 1, 1, 129, 64, False, 0, 100),
+        (2, 16, 2, 100, 260, 128, True, 150, 250),
+        (1, 2, 2, 33, 50, 256, True, 17, None),
+        (1, 4, 1, 10, 64, 32, True, -5, None),
+    ]
+    for B, Hq, Hkv, Sq, Skv, Dh, causal, off, kv_len in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(B, h, s, Dh, generator=g, device=dev)
+                       .to(dtype) for h, s in ((Hq, Sq), (Hkv, Skv),
+                                               (Hkv, Skv)))
+            res = check_flash(q, k, v, causal=causal, q_offset=off,
+                              kv_len=kv_len)
+            log(f"small flash (B={B}, Hq={Hq}, Hkv={Hkv}, Sq={Sq}, "
+                f"Skv={Skv}, Dh={Dh}, causal={causal}, q_offset={off}, "
+                f"kv_len={kv_len}, {str(dtype)[6:]}): {res}")
+    # a row that sees no key comes out 0, as in chunked_attention
+    from repro_torch.kernels.flash import ops
+    q = torch.randn(1, 2, 4, 64, generator=g, device=dev)
+    out = ops.attention(q, q[:, :1], q[:, :1], causal=True, q_offset=-2)
+    assert bool((out[0, :, :2] == 0).all()), "flash: masked rows not 0"
+
+
 @contextlib.contextmanager
 def plain_path():
     """Every kernel wrapper swapped for its plain version, so that the
@@ -552,6 +644,8 @@ def plain_path():
     from repro_torch.kernels.cross import ref as cref
     from repro_torch.kernels.embag import ops as eops
     from repro_torch.kernels.embag import ref as eref
+    from repro_torch.kernels.flash import ops as fops
+    from repro_torch.kernels.flash import ref as fref
     from repro_torch.kernels.graph import ops as gops
     from repro_torch.kernels.graph import ref as gref
     from repro_torch.kernels.interact import ops as iops
@@ -578,7 +672,8 @@ def plain_path():
                 (tops, "topk", tref.topk_ref),
                 (tops, "topk_pruned", tref.topk_ref_pruned),
                 (cops, "cross_layer", cref.cross_layer_ref),
-                (eops, "embedding_bag", embag_plain)):
+                (eops, "embedding_bag", embag_plain),
+                (fops, "attention", fref.chunked_attention)):
             stack.enter_context(mock.patch.object(module, name, plain))
         yield
 
@@ -1181,6 +1276,170 @@ def recsys_phase(dev):
     return run
 
 
+def smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def capture_attention(calls):
+    """Record the arguments of the given calls (by index) of
+    ``flash_ops.attention`` while it runs as it is."""
+    from repro_torch.kernels.flash import ops as fops
+    real = fops.attention
+    seen = []
+
+    def spy(q, k, v, **kw):
+        if len(seen) in calls:
+            calls[len(seen)] = (q, k, v, kw)
+        seen.append(None)
+        return real(q, k, v, **kw)
+
+    with mock.patch.object(fops, "attention", spy):
+        yield calls
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def lm_phase(dev):
+    """Phase 4l: Qwen3-4B at full width and depth, bf16, random weights
+    drawn on the card: a prefill of 8 x 2048 tokens, its cache copied into
+    an 8 x 4096 one, 64 greedy decode steps, counted (36 flash launches a
+    pass); a prefill and a decode step profiled; the same passes through
+    the plain versions, teacher-forced on the kernel path's tokens; the
+    serving CLI's LM path against the CPU.  Returns the q/k/v of
+    prefill layers 0 and 35 and of a decode step's layer 0 for phases 5
+    and 6, and the launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer as tr
+    spec = configs.get(LM_ARCH)
+    cfg = spec.cfg
+    B, S, S_max = LM_BATCH, LM_PROMPT, LM_CACHE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = timed(lambda: tr.LM(cfg, seed=SEED, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params} parameters, "
+        f"{str(cfg.dtype)[6:]}, init {init_s} s")
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator()
+                            .manual_seed(SEED + 4)).to(dev)
+    # one short uncounted pass first: cuBLAS's and the allocator's
+    # first-call costs stay out of the times
+    _, c = tr.lm_prefill(model, prompts[:1, :64])
+    tr.lm_decode_step(model, prompts[:1, 0], c, 63)
+    torch.cuda.synchronize()
+    del c
+
+    # ---- counted: prefill, then LM_STEPS greedy decode steps -------------
+    _build.reset_launches()
+    (logits, (kp, vp)), prefill_s = timed(lambda: tr.lm_prefill(model,
+                                                                prompts))
+    cache = tr.init_cache(cfg, B, S_max, device=dev)
+    cache[0][..., :S, :] = kp
+    cache[1][..., :S, :] = vp
+    del kp, vp
+    fed, logits_k, step_s = [], [logits], []
+    tok = torch.argmax(logits, dim=-1)
+    for i in range(LM_STEPS):
+        fed.append(tok)
+        (logits, _), s_ = timed(lambda: tr.lm_decode_step(model, tok, cache,
+                                                          S + i))
+        step_s.append(s_)
+        logits_k.append(logits)
+        tok = torch.argmax(logits, dim=-1)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_med = statistics.median(step_s)
+    log(f"lm prefill: {B} x {S} tokens in {1e3 * prefill_s} ms = "
+        f"{B * S / prefill_s} tokens/s")
+    log(f"lm decode: {LM_STEPS} steps at batch {B} from position {S} of a "
+        f"{S_max}-slot cache: median {1e3 * step_med} ms per step = "
+        f"{B / step_med} tokens/s (mean {1e3 * statistics.mean(step_s)} "
+        f"ms, first {1e3 * step_s[0]} ms)")
+    log(f"lm launches: {launches} max_memory_allocated={peak} card: "
+        f"{smi_line()}")
+    want = cfg.n_layers * (1 + LM_STEPS)
+    assert launches["flash"] == want, (launches, want)
+    assert sum(launches.values()) == want, launches
+    for lg in logits_k:
+        assert lg.shape == (B, cfg.vocab) and lg.dtype == cfg.dtype
+        assert bool(torch.isfinite(lg).all()), "non-finite LM logits"
+
+    # ---- q/k/v of the path for phases 5 and 6 (uncounted) -----------------
+    with capture_attention({0: None}) as dec:
+        tr.lm_decode_step(model, tok, cache, S + LM_STEPS)
+    with capture_attention({0: None, cfg.n_layers - 1: None}) as pre:
+        tr.lm_prefill(model, prompts)
+    torch.cuda.synchronize()
+
+    # ---- profiles: one prefill, one decode step ----------------------------
+    profile_batch(f"lm prefill {B} x {S}", lambda: tr.lm_prefill(model,
+                                                                 prompts),
+                  prefill_s)
+    profile_batch(f"lm decode step at position {S + LM_STEPS + 1}",
+                  lambda: tr.lm_decode_step(model, tok, cache,
+                                            S + LM_STEPS + 1), step_med)
+
+    # ---- the same passes through the plain versions, teacher-forced --------
+    _build.reset_launches()
+    with plain_path():
+        (logits, (kp, vp)), plain_prefill_s = timed(
+            lambda: tr.lm_prefill(model, prompts))
+        pcache = tr.init_cache(cfg, B, S_max, device=dev)
+        pcache[0][..., :S, :] = kp
+        pcache[1][..., :S, :] = vp
+        del kp, vp
+        logits_p = [logits]
+        t0 = time.perf_counter()
+        for i, tok_i in enumerate(fed):
+            logits_p.append(tr.lm_decode_step(model, tok_i, pcache,
+                                              S + i)[0])
+        torch.cuda.synchronize()
+        plain_step_s = (time.perf_counter() - t0) / LM_STEPS
+    assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
+    errs = [rel_l2(a, b) for a, b in zip(logits_k, logits_p)]
+    agree = torch.cat([(torch.argmax(a, -1) == torch.argmax(b, -1)).float()
+                       for a, b in zip(logits_k, logits_p)])
+    share = float(agree.mean())
+    log(f"lm plain: prefill {1e3 * plain_prefill_s} ms, {1e3 * plain_step_s}"
+        f" ms per step; last-position logits relative L2 error against the "
+        f"kernel path: prefill {errs[0]}, steps max {max(errs[1:])} "
+        f"(limit 5e-2); greedy tokens agree in {int(agree.sum())} of "
+        f"{agree.numel()} (sequence, step) pairs = {share} (limit 0.95)")
+    assert max(errs) <= 5e-2, "LM logits: kernel and plain paths part"
+    assert share >= 0.95, "LM greedy tokens: kernel and plain paths part"
+    del pcache, logits_p
+
+    # ---- the serving CLI's LM path at its defaults, card against CPU -------
+    args = serve_cli.parse_args(["--arch", LM_ARCH])
+    _build.reset_launches()
+    toks, cli_s = timed(lambda: serve_cli.serve_lm(spec, args, device=dev))
+    cli_launches = dict(_build.LAUNCHES)
+    toks_cpu = serve_cli.serve_lm(spec, args, device="cpu")
+    same = int((toks == toks_cpu).sum())
+    log(f"serve_lm ({args.arch} reduced, {args.steps} steps x {args.batch}):"
+        f" {cli_s} s on the card; tokens equal to the CPU run's at {same} of"
+        f" {toks.numel()} positions; launches {cli_launches}")
+    assert toks.shape == (args.batch, args.steps)
+    assert same >= 0.99 * toks.numel(), "serve_lm: the card and the CPU part"
+    small = serve_cli.reduced_lm(spec)
+    assert cli_launches["flash"] == small.n_layers * (1 + args.steps)
+    return {"prefill": [pre[0], pre[cfg.n_layers - 1]], "decode": dec[0],
+            "launches": launches["flash"], "cfg": cfg}
+
+
 def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
     """Beside the kernel line: cross's yardstick, cuBLAS ``addmm`` (the
     GEMM and bias alone, which the port never calls), on the serve_bulk
@@ -1228,9 +1487,10 @@ def popcount(words):
     return int(((x * 0x01010101) >> 24 & 0xFF).sum())
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float,
+             rate: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     t_mem = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS_PER_S
+    t_ops = flops / rate
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops
                                      else "operations")
 
@@ -1243,11 +1503,7 @@ def main() -> int:
         return 2
 
     # ---- phase 1: device ---------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    log(smi_line())
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     # f32 products in full f32: TF32 would move choices and edge bits
@@ -1360,6 +1616,9 @@ def main() -> int:
     # ---- phase 4r: the recsys models at their published configs -------------
     recsys = recsys_phase(dev)
 
+    # ---- phase 4l: LM serving at full width and depth -----------------------
+    lm = lm_phase(dev)
+
     # ---- phase 5: kernels against plain versions at full width --------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     Minv, b, occ = state.lin.Minv, state.lin.b, state.lin.occ
@@ -1420,6 +1679,20 @@ def main() -> int:
     log(f"full embedding_bag, {bags_p99[0].shape[0]} bags: "
         f"{check_embag(table, *bags_p99)}")
     errs["embedding_bag"] = check_embag(table, *bags_bulk)
+    # flash on the q/k/v of the LM path: prefill layers 0 and 35 (the f32
+    # reference scans 512 keys at a time to bound its memory), a decode
+    # step's layer 0
+    chunk = lm["cfg"].attn_chunk
+    flash_errs = []
+    for label, (q, k, v, kw) in (("prefill layer 0", lm["prefill"][0]),
+                                 ("prefill layer 35", lm["prefill"][1]),
+                                 ("decode step layer 0", lm["decode"])):
+        kw = {key: kw[key] for key in ("causal", "q_offset", "kv_len")}
+        res = check_flash(q, k, v, chunk=chunk, ref_chunk=512, **kw)
+        log(f"full flash, {label} {tuple(q.shape)} x {tuple(k.shape)} "
+            f"{kw}: {res}")
+        flash_errs.append(res["max_abs_err"])
+    errs["flash"] = {"max_abs_err": max(flash_errs)}
     for kname, res in errs.items():
         log(f"full {kname}: {res}")
 
@@ -1537,6 +1810,60 @@ def main() -> int:
         idx_b, table, per_sample_weights=wt_b, mode="sum")}
     on_path = {k: launches[k] for k in ("choose", "rank1_update_inv",
                                         "prune", "cc_hop")}
+    # flash at the LM path's two shapes: prefill layer 0 (B 8, Hq 32, Hkv
+    # 8, S 2048, Dh 128, causal) and a decode step (Sq 1 against the first
+    # 2113 slots of a 4096-slot cache).  Operations: 4 Dh f32 operations
+    # per (query, visible key) pair (Q K^T and P V); bytes: q, the visible
+    # keys' k and v, out
+    from repro_torch.kernels.flash import ops as fops
+    from repro_torch.kernels.flash import ref as fref
+    qp, kp, vp, kwp = lm["prefill"][0]
+    qd, kd, vd, kwd = lm["decode"]
+
+    def flash_work(q, k, v, kw):
+        Bq, Hq, Sq, Dh = q.shape
+        Hkv, Skv = k.shape[1], k.shape[2]
+        kv = min(kw.get("kv_len") or Skv, Skv)
+        pos = kw["q_offset"] + torch.arange(Sq)
+        seen = int(torch.clamp(torch.minimum(pos + 1, torch.tensor(kv))
+                               if kw["causal"] else torch.full((Sq,), kv),
+                               min=0).sum())
+        n_bytes = q.element_size() * (2 * Bq * Hq * Sq * Dh
+                                      + 2 * Bq * Hkv * kv * Dh)
+        kw = {key: kw[key] for key in ("causal", "q_offset", "kv_len")}
+        return (lambda: fops.attention(q, k, v, **kw),
+                lambda: fref.chunked_attention(q, k, v, chunk=chunk, **kw),
+                n_bytes, 4 * Dh * Bq * Hq * seen)
+
+    work["flash"] = flash_work(qp, kp, vp, kwp)
+    dec_work = flash_work(qd, kd, vd, kwd)
+    # the yardstick: scaled_dot_product_attention, which the port never
+    # calls; the decode step on the valid cache prefix, non-causal
+    F = torch.nn.functional
+    kv_d = kwd["kv_len"]
+    try:
+        F.scaled_dot_product_attention(qd, kd[:, :, :kv_d], vd[:, :, :kv_d],
+                                       enable_gqa=True)
+        sdpa_note = "enable_gqa"
+        sdpa_pre = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qp, kp, vp, is_causal=True, enable_gqa=True)
+        sdpa_dec = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qd, kd[:, :, :kv_d], vd[:, :, :kv_d], enable_gqa=True)
+    except TypeError:
+        sdpa_note = "K/V expanded to the q heads beforehand (no enable_gqa)"
+        grp = qp.shape[1] // kp.shape[1]
+        kpx, vpx = (t.repeat_interleave(grp, 1) for t in (kp, vp))
+        kdx, vdx = (t[:, :, :kv_d].repeat_interleave(grp, 1)
+                    for t in (kd, vd))
+        sdpa_pre = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qp, kpx, vpx, is_causal=True)
+        sdpa_dec = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qd, kdx, vdx)
+    library["flash"] = sdpa_pre
+    # the bf16 prefill runs on the tensor cores: held to their bf16 rate
+    rates = {"flash": BF16_FLOPS_PER_S if qp.dtype == torch.bfloat16
+             else F32_FLOPS_PER_S}
+    on_path.update(flash=lm["launches"])
     on_path.update(topk=serve_launches["topk"],
                    topk_pruned=serve_launches["topk_pruned"],
                    cross=recsys["launches"]["cross"],
@@ -1554,7 +1881,7 @@ def main() -> int:
         plain_ms = cuda_ms(plain, flush, reps=3 if slow else REPS,
                            warmup=1 if slow else 3)
         lib_ms = cuda_ms(library[kname], flush) if kname in library else None
-        bms, by = bound_ms(n_bytes, flops)
+        bms, by = bound_ms(n_bytes, flops, rates.get(kname, F32_FLOPS_PER_S))
         source, replaces = KERNEL_INFO[kname]
         rows.append({
             "name": kname, "route": "cuda", "source": source,
@@ -1568,7 +1895,7 @@ def main() -> int:
         })
         log(f"time {kname}: kernel {ms} ms, plain {plain_ms} ms, "
             f"library {lib_ms} ms, bound {bms} ms ({by}; {n_bytes} bytes, "
-            f"{flops} f32 ops), {math.ceil(ms / bms)}x the bound")
+            f"{flops} ops), {math.ceil(ms / bms)}x the bound")
     by_name = {row["name"]: row for row in rows}
     for kname, (kern, plain, n_bytes, flops) in at_n1.items():
         bms, by = bound_ms(n_bytes, flops)
@@ -1576,6 +1903,17 @@ def main() -> int:
                  "plain_ms_n1": cuda_ms(plain, flush), "bound_ms_n1": bms}
         by_name[kname].update(extra)
         log(f"time {kname} at n=1: {extra} ({by})")
+    kern, plain, n_bytes, flops = dec_work
+    bms, by = bound_ms(n_bytes, flops)
+    extra = {"ms_decode": cuda_ms(kern, flush),
+             "plain_ms_decode": cuda_ms(plain, flush),
+             "bound_ms_decode": bms, "bound_by_decode": by,
+             "library_ms_decode": cuda_ms(sdpa_dec, flush),
+             "bound_ms_f32": bound_ms(*work["flash"][2:])[0],
+             "library": f"scaled_dot_product_attention ({sdpa_note})"}
+    by_name["flash"].update(extra)
+    log(f"time flash at decode ({n_bytes} bytes, {flops} f32 ops; the "
+        f"decode variant runs on the CUDA cores): {extra}")
     cross_x, embag_x = recsys_extra_times(recsys, flush, x0b, xl1, c1,
                                           bags_p99)
     by_name["cross"].update(cross_x)

@@ -5,19 +5,21 @@ Every ported architecture registers an ``ArchSpec`` with its published
 configuration and its own shape set.  A *cell* = (arch, shape) names one
 unit of work; ``input_specs`` describes its inputs as
 ``{name: (shape, torch.dtype)}``, allocating nothing (``repro`` uses
-``jax.ShapeDtypeStruct``).  Only the four recsys archs register so far;
-the paper's own bandit configuration (``distclub_paper``) stays a plain
-module.
+``jax.ShapeDtypeStruct``).  The four recsys archs and the three dense
+LMs register; the paper's own bandit configuration (``distclub_paper``)
+stays a plain module.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
-    kind: str                      # "train" | "serve"
+    kind: str                      # "train" | "serve" | "decode"
     make_inputs: Callable[[Any], dict]  # cfg -> {name: (shape, dtype)}
     note: str = ""
 
@@ -25,7 +27,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                    # "recsys" so far
+    family: str                    # "recsys" | "lm"
     cfg: Any
     shapes: dict[str, ShapeCell]
     source: str = ""
@@ -48,3 +50,37 @@ def get(arch_id: str) -> ArchSpec:
 
 def all_cells() -> list[tuple[str, str]]:
     return [(a, s) for a, spec in REGISTRY.items() for s in spec.shapes]
+
+
+# ---- the shared LM shape set ------------------------------------------
+
+
+def lm_shapes(cfg) -> dict[str, ShapeCell]:
+    def train_4k(c):
+        return {"tokens": ((256, 4096), torch.int32),
+                "labels": ((256, 4096), torch.int32)}
+
+    def prefill_32k(c):
+        return {"tokens": ((32, 32768), torch.int32)}
+
+    def _decode(batch, s_max):
+        def make(c):
+            cache_shape = (c.n_blocks, c.block_layers, batch, c.n_kv_heads,
+                           s_max, c.d_head)
+            return {"token": ((batch,), torch.int32),
+                    "k_cache": (cache_shape, c.dtype),
+                    "v_cache": (cache_shape, c.dtype),
+                    "pos": ((), torch.int32)}
+        return make
+
+    return {
+        "train_4k": ShapeCell("train", train_4k, "seq 4096, global batch 256"),
+        "prefill_32k": ShapeCell("serve", prefill_32k,
+                                 "inference prefill, 32 x 32768"),
+        "decode_32k": ShapeCell("decode", _decode(128, 32768),
+                                "one token vs 32k KV cache, batch 128"),
+        # decode against a 500k cache is linear in the cache length (one
+        # query token), so full-attention archs run it
+        "long_500k": ShapeCell("decode", _decode(1, 524288),
+                               "one token vs 524288 KV cache, batch 1"),
+    }

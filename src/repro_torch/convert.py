@@ -20,11 +20,12 @@ the port does not keep (the f32 banks' all-ones dequant ``scale``) are
 dropped; fields the port keeps on the host (``Catalog.active``/``epoch``,
 ``ItemClusters.epoch``) become Python ints.
 
-``dcn_from_numpy`` / ``seqrec_from_numpy`` / ``mind_from_numpy`` take a
-``repro`` model parameter tree with numpy leaves and return the port's
-module holding those weights: the module's parameters carry the tree's
-paths as names (``cross.0.W``, ``blocks.ffn.1.b``), and each leaf must
-match its parameter's shape.
+``dcn_from_numpy`` / ``seqrec_from_numpy`` / ``mind_from_numpy`` /
+``lm_from_numpy`` take a ``repro`` model parameter tree with numpy leaves
+and return the port's module holding those weights: the module's
+parameters carry the tree's paths as names (``cross.0.W``,
+``blocks.ffn.1.b``, ``blocks.l0.attn.wq``), and each leaf must match its
+parameter's shape.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from . import resolve_device
 from .core import club, dccb
 from .core.types import (ClusterStats, DistCLUBState, GraphState,
                          LinUCBState)
+from .models import transformer
 from .models.recsys import dcn_v2, mind, seqrec
 
 
@@ -181,3 +183,9 @@ def seqrec_from_numpy(params, cfg: seqrec.SeqRecConfig, device=None):
 
 def mind_from_numpy(params, cfg: mind.MINDConfig, device=None):
     return load_params(mind.MIND(cfg, device=device), params)
+
+
+def lm_from_numpy(params, cfg: transformer.LMConfig, device=None):
+    """The port's ``LM`` from ``repro``'s ``init_lm`` tree (leaves stacked
+    [n_blocks, ...]), each leaf cast to its parameter's dtype."""
+    return load_params(transformer.LM(cfg, device=device), params)

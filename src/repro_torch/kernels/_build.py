@@ -50,6 +50,9 @@ KERNELS = {
     "cross": ("cross.cu", "cross_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
     "embedding_bag": ("embag.cu", "embedding_bag_launch",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "flash": ("flash.cu", "flash_launch",
+              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+               _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -6,12 +6,14 @@ Runs batched online recommendation with a policy-pluggable
 reduced scale: each request batch draws candidates from the catalog,
 embeds them as unit-norm bandit contexts and serves them through one
 session transaction.  Reports reward against the random policy and
-throughput.  ``--policy`` takes distclub, club, linucb or dccb; LM
-archs (KV-cache decode) are not ported yet and raise.
+throughput.  ``--policy`` takes distclub, club, linucb or dccb.  For the
+dense LM archs (``--arch qwen3-4b``) it runs a reduced config: a prompt
+pass, then greedy decode steps against a KV cache.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -77,6 +79,66 @@ def serve_recsys(spec, args, device=None) -> float:
     return tot_r / tot_rand
 
 
+LM_PROMPT = 16
+LM_CACHE = 128
+
+
+def reduced_lm(spec):
+    """``repro``'s CLI config for an LM arch: 2 blocks, d_model 128, 4
+    heads of 32, d_ff 256, vocab 2048, f32, attention chunk 128."""
+    c = spec.cfg
+    return dataclasses.replace(
+        c, n_layers=2 * c.block_layers, d_model=128, n_heads=4,
+        n_kv_heads=min(4, c.n_kv_heads), d_head=32, d_ff=256, vocab=2048,
+        n_experts=min(8, c.n_experts), d_ff_expert=128 if c.is_moe else 0,
+        top_k=min(2, c.top_k), dtype=torch.float32, attn_chunk=128)
+
+
+def lm_world(cfg, batch: int):
+    """The CLI's weights (seed 0) and prompt [batch, 16] (seed 1), drawn
+    on the host."""
+    from ..models import transformer
+    model = transformer.LM(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab, (batch, LM_PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    return model, prompt
+
+
+def serve_lm(spec, args, device=None):
+    """Prefill ``args.batch`` prompts of 16 tokens, copy the cache into a
+    128-slot one, then ``args.steps`` greedy decode steps, the first fed
+    the prompt's last token (as ``repro``'s CLI does); returns the decoded
+    tokens [batch, steps] on the host.  Runs on ``device`` (default cuda;
+    raises without a card unless ``device="cpu"``).  Weights and prompt
+    are drawn on the host and moved, so the card decodes the CPU's
+    requests."""
+    from ..models import transformer as tr
+    dev = resolve_device(device)
+    if LM_PROMPT + args.steps > LM_CACHE:
+        raise ValueError(f"{args.steps} steps overrun the {LM_CACHE}-slot "
+                         "cache")
+    cfg = reduced_lm(spec)
+    model, prompt = lm_world(cfg, args.batch)
+    model, prompt = model.to(dev), prompt.to(dev)
+    _, (k0, v0) = tr.lm_prefill(model, prompt)
+    kc, vc = tr.init_cache(cfg, args.batch, LM_CACHE, device=dev)
+    kc[..., :LM_PROMPT, :] = k0
+    vc[..., :LM_PROMPT, :] = v0
+
+    tok = prompt[:, -1]
+    out = []
+    t0 = time.perf_counter()
+    for pos in range(LM_PROMPT, LM_PROMPT + args.steps):
+        logits, _ = tr.lm_decode_step(model, tok, (kc, vc), pos)
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+    tokens = torch.stack(out, dim=1).cpu()
+    dt = time.perf_counter() - t0
+    print(f"decoded {args.steps} tokens x {args.batch} seqs in {dt:.1f}s = "
+          f"{args.steps * args.batch / dt:.0f} tok/s (reduced config)")
+    return tokens
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="sasrec")
@@ -95,7 +157,11 @@ def main(argv=None):
         raise NotImplementedError(
             f"serving {args.arch!r} is not ported; the ported archs are "
             f"{sorted(configs.REGISTRY)}")
-    serve_recsys(configs.get(args.arch), args)
+    spec = configs.get(args.arch)
+    if spec.family == "lm":
+        serve_lm(spec, args)
+    else:
+        serve_recsys(spec, args)
 
 
 if __name__ == "__main__":

@@ -1,66 +1,78 @@
-"""Chunked online-softmax attention (``repro.models.attention``
-``chunked_attention``), in plain torch ops.
+"""GQA attention with RoPE, optional qk-norm and a KV cache
+(``repro.models.attention``).
 
-The KV sequence is scanned in chunks with a running max, normaliser and
-accumulator, so the [Sq, Skv] score matrix never exists beyond one
-chunk.  It follows the reference step for step: the fully-masked-row
-guard, the correction of the running sums, and the final
-``max(l, 1e-30)`` divide.  It is not ``scaled_dot_product_attention``:
-that is another algorithm, and the flash kernel's port will hold itself
-to this function as its plain version.
+Attention itself goes through ``kernels.flash.ops.attention``: the flash
+kernel (``csrc/flash.cu``) for CUDA tensors, ``chunked_attention`` (the
+kernel's plain version, in ``kernels/flash/ref.py`` and re-exported here)
+for CPU tensors.  This is the split ``repro``'s module names: the Pallas
+kernel is the TPU target of the same semantics, ``chunked_attention`` the
+XLA-level equivalent that its CPU lowers.
 
-The RoPE/GQA attention block and the KV cache come with the LM models.
+The KV cache is laid out [B, Hkv, S_max, Dh] per layer; a step writes its
+S positions at ``cache_pos`` and attends to the first ``cache_pos + S``.
+Unlike ``repro``'s ``dynamic_update_slice``, the write is a slice
+assignment *in place*: the cache tensors handed in are the ones returned.
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.flash import ops as flash_ops
+from ..kernels.flash.ref import chunked_attention  # noqa: F401
+from . import layers
 
-def chunked_attention(
-    q: torch.Tensor,        # [B, Hq, Sq, Dh]
-    k: torch.Tensor,        # [B, Hkv, Skv, Dh]
-    v: torch.Tensor,        # [B, Hkv, Skv, Dh]
+
+def init_attention(gen: torch.Generator, cfg,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+    """cfg needs: d_model, n_heads, n_kv_heads, d_head, qk_norm."""
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = {"wq": layers.dense_init(gen, d, H * Dh, dtype),
+         "wk": layers.dense_init(gen, d, Hkv * Dh, dtype),
+         "wv": layers.dense_init(gen, d, Hkv * Dh, dtype),
+         "wo": layers.dense_init(gen, H * Dh, d, dtype)}
+    if cfg.qk_norm:
+        p["q_norm"] = layers.init_rms_norm(Dh, gen.device)
+        p["k_norm"] = layers.init_rms_norm(Dh, gen.device)
+    return p
+
+
+def attention_fwd(
+    params, cfg, x: torch.Tensor,
     *,
-    causal: bool,
-    q_offset=0,             # int or 0-d tensor: position of q's first row
-    kv_len=None,            # int or 0-d tensor: valid cache length
-    chunk: int = 1024,
-) -> torch.Tensor:
-    """Online-softmax attention, scanning KV in chunks; [B, Hq, Sq, Dh]."""
-    B, Hq, Sq, Dh = q.shape
-    _, Hkv, Skv, _ = k.shape
-    group = Hq // Hkv
-    scale = Dh ** -0.5
-    chunk = min(chunk, Skv)
-    if Skv % chunk:
-        raise ValueError(f"{Skv} keys do not split into chunks of {chunk}")
+    positions: torch.Tensor,         # [S] absolute positions of x's tokens
+    cache: tuple | None = None,      # (k_cache, v_cache) [B, Hkv, Smax, Dh]
+    cache_pos: int = 0,              # write offset into the cache
+    causal: bool = True,
+    attn_chunk: int = 1024,
+):
+    """``params``: a mapping with ``wq``, ``wk``, ``wv``, ``wo`` (and
+    ``q_norm``/``k_norm`` mappings with ``scale`` under qk-norm).  Returns
+    ``(out [B, S, d], cache)``; the cache, when given, is written in
+    place and returned."""
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
-    qg = q.reshape(B, Hkv, group, Sq, Dh)       # q heads folded on kv heads
-    qpos = torch.arange(Sq, device=q.device) + q_offset
-    acc = torch.zeros(B, Hkv, group, Sq, Dh, dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((B, Hkv, group, Sq), float("-inf"), device=q.device)
-    l = torch.zeros(B, Hkv, group, Sq, device=q.device)
-    for j in range(Skv // chunk):
-        kj = k[:, :, j * chunk:(j + 1) * chunk]
-        vj = v[:, :, j * chunk:(j + 1) * chunk]
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kj) * scale
-        kpos = j * chunk + torch.arange(chunk, device=q.device)
-        mask = torch.ones(Sq, chunk, dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= qpos[:, None] >= kpos[None, :]
-        if kv_len is not None:
-            mask &= kpos[None, :] < kv_len
-        s = torch.where(mask, s, float("-inf"))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        # guard fully-masked rows (m_new = -inf)
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        p = torch.exp(s - m_safe[..., None])
-        p = torch.where(mask, p, 0.0)
-        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-        l = corr * l + p.sum(dim=-1)
-        acc = corr[..., None] * acc + torch.einsum(
-            "bhgqk,bhkd->bhgqd", p.to(vj.dtype), vj).float()
-        m = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.reshape(B, Hq, Sq, Dh).to(q.dtype)
+    q = (x @ params["wq"]).reshape(B, S, H, Dh)
+    k = (x @ params["wk"]).reshape(B, S, Hkv, Dh)
+    v = (x @ params["wv"]).reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, params["q_norm"]["scale"]).to(q.dtype)
+        k = layers.rms_norm(k, params["k_norm"]["scale"]).to(k.dtype)
+    q = layers.apply_rope(q.transpose(1, 2), positions,
+                          cfg.rope_base).contiguous()
+    k = layers.apply_rope(k.transpose(1, 2), positions, cfg.rope_base)
+    v = v.transpose(1, 2)
+
+    if cache is None:
+        out = flash_ops.attention(q, k.contiguous(), v.contiguous(),
+                                  causal=causal, q_offset=0,
+                                  chunk=attn_chunk)
+    else:
+        kc, vc = cache
+        kc[:, :, cache_pos:cache_pos + S] = k
+        vc[:, :, cache_pos:cache_pos + S] = v
+        out = flash_ops.attention(q, kc, vc, causal=causal,
+                                  q_offset=cache_pos, kv_len=cache_pos + S,
+                                  chunk=attn_chunk)
+    out = out.transpose(1, 2).reshape(B, S, H * Dh)
+    return out @ params["wo"], cache

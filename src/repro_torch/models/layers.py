@@ -1,6 +1,6 @@
 """Shared model layers (``repro.models.layers``): initialisers, the relu
-MLP and layer norm, plus the parameter-tree module the models are built
-from.
+MLP, layer norm, RMSNorm, rotary embeddings and SwiGLU, plus the
+parameter-tree module the models are built from.
 
 Initialisers return plain tensors drawn from the caller's
 ``torch.Generator`` on that generator's device, from the same
@@ -11,8 +11,6 @@ tensors shaped like the JAX parameter tree and wraps it in
 (``cross.0.W``, ``blocks.ffn.1.b``).  Parameters are frozen
 (``requires_grad=False``): this slice serves; training, with gradients
 for the kernels, is a later one.
-
-RMSNorm, RoPE and SwiGLU come with the LM models.
 """
 from __future__ import annotations
 
@@ -58,15 +56,65 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
 
 
+def rms_norm(x, scale, eps: float = 1e-6):
+    """``repro``'s RMSNorm: the mean square in f32, the normalised x cast
+    back to x's dtype *before* the (f32) scale multiplies, so a bf16
+    input comes back f32 and callers cast it again, as ``repro``'s do."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def init_rms_norm(d: int, device) -> dict:
+    return {"scale": torch.ones(d, device=device)}
+
+
 def init_layer_norm(d: int, device) -> dict:
     return {"scale": torch.ones(d, device=device),
             "bias": torch.zeros(d, device=device)}
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
-    """[d_in, d_out] ~ N(0, 2 / (d_in + d_out))."""
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[d_in, d_out] ~ N(0, 2 / (d_in + d_out)), drawn in f32 and cast."""
     scale = (2.0 / (d_in + d_out)) ** 0.5
-    return torch.randn(d_in, d_out, generator=gen, device=gen.device) * scale
+    w = torch.randn(d_in, d_out, generator=gen, device=gen.device) * scale
+    return w.to(dtype)
+
+
+# --- rotary position embedding ---------------------------------------------
+
+
+def rope_freqs(d_head: int, base: float = 10000.0, device=None):
+    return 1.0 / (base ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                        device=device) / d_head))
+
+
+def apply_rope(x, positions, base: float = 10000.0):
+    """x [..., S, Dh], positions [S]: rotates the split halves (x1, x2) of
+    the last axis, not interleaved pairs, by f32 angles of the absolute
+    positions; returns x's dtype."""
+    freqs = rope_freqs(x.shape[-1], base, x.device)             # [Dh/2]
+    angles = positions[..., :, None].float() * freqs             # [S, Dh/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.chunk(2, dim=-1)
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rot.to(x.dtype)
+
+
+# --- MLPs --------------------------------------------------------------------
+
+
+def init_swiglu(gen: torch.Generator, d: int, f: int,
+                dtype: torch.dtype = torch.float32) -> dict:
+    return {"gate": dense_init(gen, d, f, dtype),
+            "up": dense_init(gen, d, f, dtype),
+            "down": dense_init(gen, f, d, dtype)}
+
+
+def swiglu(params, x):
+    """``params``: a mapping with ``gate``, ``up`` [d, f], ``down`` [f, d]."""
+    h = torch.nn.functional.silu(x @ params["gate"]) * (x @ params["up"])
+    return h @ params["down"]
 
 
 def init_mlp(gen: torch.Generator, d_in: int, hidden: tuple[int, ...],

@@ -1,0 +1,256 @@
+"""Decoder-only transformer LM, dense, with KV-cache decode
+(``repro.models.transformer``).
+
+Parameters keep ``repro``'s tree: ``embed`` [V, d], ``blocks.l{i}.*``
+with every leaf stacked on a leading [n_blocks] axis (``ln1.scale``,
+``attn.{wq,wk,wv,wo}``, ``attn.{q,k}_norm.scale`` under qk-norm,
+``ln2.scale``, ``ffn.{gate,up,down}``), ``final_norm.scale``, ``lm_head``
+[d, V].  ``repro`` scans over the blocks; here a Python loop walks them
+through cached per-layer views of the stacked parameters.
+
+Serving only: ``lm_fwd``, ``lm_prefill`` (the prompt pass that fills the
+cache), ``init_cache`` and ``lm_decode_step``.  Attention runs the flash
+kernel on the card (``models.attention``).  Where ``repro`` takes a
+traced scalar position, ``pos`` is a host int here; the cache is written
+in place.  MoE configs (``n_experts > 0``) raise: ``models/moe.py`` comes
+with its own slice.  Training (``lm_loss`` and its gradients) is a later
+slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import resolve_device
+from . import attention, layers
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str = "lm"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_head: int = 64
+    d_ff: int = 1024
+    vocab: int = 1024
+    qk_norm: bool = False
+    rope_base: float = 10000.0
+    # MoE (n_experts=0 -> dense)
+    n_experts: int = 0
+    top_k: int = 1
+    n_shared: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    moe_every: int = 1          # MoE on every k-th layer (llama4: 2)
+    dtype: torch.dtype = torch.bfloat16
+    attn_chunk: int = 1024
+    remat: bool = True
+    microbatches: int = 1       # grad-accumulation splits of the global batch
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def block_layers(self) -> int:
+        """Layers per block (dense layers + optional trailing MoE)."""
+        return self.moe_every if self.is_moe else 1
+
+    @property
+    def n_blocks(self) -> int:
+        assert self.n_layers % self.block_layers == 0
+        return self.n_layers // self.block_layers
+
+    def param_count(self) -> int:
+        """Analytic parameter count."""
+        d, Dh = self.d_model, self.d_head
+        attn = d * (self.n_heads + 2 * self.n_kv_heads) * Dh \
+            + self.n_heads * Dh * d
+        dense_ffn = 3 * d * self.d_ff
+        n_moe = self.n_layers // self.moe_every if self.is_moe else 0
+        n_dense = self.n_layers - n_moe
+        moe_ffn = n_moe * (
+            self.n_experts * 3 * d * self.d_ff_expert
+            + self.n_shared * 3 * d * self.d_ff_expert
+            + d * self.n_experts
+        )
+        return (self.vocab * d * 2 + self.n_layers * attn
+                + n_dense * dense_ffn + moe_ffn)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        n_moe = self.n_layers // self.moe_every
+        all_experts = n_moe * self.n_experts * 3 * d * self.d_ff_expert
+        active = n_moe * (self.top_k + self.n_shared) * 3 * d \
+            * self.d_ff_expert
+        return self.param_count() - all_experts + active
+
+
+# --- single layer ------------------------------------------------------------
+
+
+def _init_layer(gen: torch.Generator, cfg: LMConfig) -> dict:
+    dev = gen.device
+    return {"ln1": layers.init_rms_norm(cfg.d_model, dev),
+            "attn": attention.init_attention(gen, cfg, cfg.dtype),
+            "ln2": layers.init_rms_norm(cfg.d_model, dev),
+            "ffn": layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype)}
+
+
+def _layer_fwd(p, cfg: LMConfig, x, *, positions, cache=None, cache_pos=0):
+    """One dense layer; ``p`` a mapping of one layer's parameters."""
+    h, cache = attention.attention_fwd(
+        p["attn"], cfg, layers.rms_norm(x, p["ln1"]["scale"]).to(x.dtype),
+        positions=positions, cache=cache, cache_pos=cache_pos,
+        attn_chunk=cfg.attn_chunk)
+    x = x + h
+    z = layers.rms_norm(x, p["ln2"]["scale"]).to(x.dtype)
+    return x + layers.swiglu(p["ffn"], z), cache
+
+
+# --- full model --------------------------------------------------------------
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_set(dst, i: int, src) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _tree_set(dst[k], i, src[k])
+    else:
+        dst[i] = src
+
+
+def init_lm(gen: torch.Generator, cfg: LMConfig) -> dict:
+    """The parameter tree, drawn on the generator's device: the embedding,
+    then block by block (each drawn, then copied into its slot of the
+    stacked leaves, so the stack never exists twice), then the head."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name} is a MoE config (n_experts={cfg.n_experts}); "
+            "models/moe.py is not ported yet: it comes with the MoE slice")
+    dev = gen.device
+    embed = (torch.randn(cfg.vocab, cfg.d_model, generator=gen, device=dev)
+             * 0.02).to(cfg.dtype)
+
+    def init_block():
+        return {f"l{i}": _init_layer(gen, cfg)
+                for i in range(cfg.block_layers)}
+
+    first = init_block()
+    blocks = _tree_map(lambda t: torch.empty((cfg.n_blocks, *t.shape),
+                                             dtype=t.dtype, device=dev),
+                       first)
+    _tree_set(blocks, 0, first)
+    del first
+    for i in range(1, cfg.n_blocks):
+        _tree_set(blocks, i, init_block())
+    return {"embed": embed, "blocks": blocks,
+            "final_norm": layers.init_rms_norm(cfg.d_model, dev),
+            "lm_head": layers.dense_init(gen, cfg.d_model, cfg.vocab,
+                                         cfg.dtype)}
+
+
+def _views(module, i: int) -> dict:
+    """Block ``i`` of a stacked parameter module, as nested dicts of
+    views."""
+    out = {name: p[i] for name, p in module._parameters.items()}
+    out.update({name: _views(m, i) for name, m in module._modules.items()})
+    return out
+
+
+class LM(layers.Params):
+    """A dense decoder LM with random weights from ``seed``, on
+    ``device`` (default cuda; raises without a card unless
+    ``device="cpu"``)."""
+
+    def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None):
+        dev = resolve_device(device)
+        super().__init__(init_lm(
+            torch.Generator(device=dev).manual_seed(seed), cfg))
+        self.cfg = cfg
+        self._layer_views = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._layer_views = None      # .to() makes new parameters
+        return super()._apply(fn, *args, **kwargs)
+
+    def layer_params(self) -> list[list[dict]]:
+        """[block][layer in block] -> that layer's parameters (views into
+        the stacked leaves, made once)."""
+        if self._layer_views is None:
+            self._layer_views = [
+                [_views(getattr(self.blocks, f"l{i}"), b)
+                 for i in range(self.cfg.block_layers)]
+                for b in range(self.cfg.n_blocks)]
+        return self._layer_views
+
+
+def _head(model: LM, x):
+    x = layers.rms_norm(x, model.final_norm.scale).to(x.dtype)
+    return x @ model.lm_head
+
+
+def lm_fwd(model: LM, tokens: torch.Tensor):
+    """tokens [B, S] -> (logits [B, S, V] in the model's dtype, aux loss 0
+    as an f32 scalar: dense layers have none)."""
+    cfg = model.cfg
+    x = model.embed[tokens]
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    for block in model.layer_params():
+        for p in block:
+            x, _ = _layer_fwd(p, cfg, x, positions=positions)
+    return _head(model, x), torch.zeros((), device=x.device)
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
+    """Zero (k, v) caches [n_blocks, block_layers, batch, Hkv, max_len,
+    Dh] in the config's dtype, on ``device`` (default cuda; raises without
+    a card unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    shape = (cfg.n_blocks, cfg.block_layers, batch, cfg.n_kv_heads,
+             max_len, cfg.d_head)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            torch.zeros(shape, dtype=cfg.dtype, device=dev))
+
+
+def lm_prefill(model: LM, tokens: torch.Tensor):
+    """Prompt pass that also builds the KV cache: tokens [B, S] ->
+    (last-position logits [B, V], cache ([nb, bl, B, Hkv, S, Dh] k, same
+    v)).  Attention runs through the cache branch on a zero cache of the
+    prompt's length, as ``repro``'s does (so with ``kv_len = S``)."""
+    cfg = model.cfg
+    B, S = tokens.shape
+    x = model.embed[tokens]
+    positions = torch.arange(S, device=x.device)
+    kc, vc = init_cache(cfg, B, S, device=x.device)
+    for b, block in enumerate(model.layer_params()):
+        for i, p in enumerate(block):
+            x, _ = _layer_fwd(p, cfg, x, positions=positions,
+                              cache=(kc[b, i], vc[b, i]), cache_pos=0)
+    return _head(model, x[:, -1:])[:, 0], (kc, vc)
+
+
+def lm_decode_step(model: LM, token: torch.Tensor, cache, pos: int):
+    """One decode step: token [B] at position ``pos`` (a host int) against
+    ``cache`` as ``init_cache`` lays it out, which is written in place.
+    Returns (logits [B, V], cache)."""
+    cfg = model.cfg
+    x = model.embed[token][:, None, :]                  # [B, 1, d]
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    kc, vc = cache
+    for b, block in enumerate(model.layer_params()):
+        for i, p in enumerate(block):
+            x, _ = _layer_fwd(p, cfg, x, positions=positions,
+                              cache=(kc[b, i], vc[b, i]), cache_pos=pos)
+    return _head(model, x)[:, 0], (kc, vc)

@@ -48,7 +48,10 @@ def test_package_imports_neither_jax_nor_repro():
     for mod in ("models.recsys.dcn_v2", "models.recsys.seqrec",
                 "models.recsys.mind", "models.attention", "launch.serve",
                 "kernels.cross.ops", "kernels.embag.ops", "configs.dcn_v2",
-                "core.club", "core.dccb", "kernels.ucb.ops"):
+                "core.club", "core.dccb", "kernels.ucb.ops",
+                "kernels.flash.ops", "kernels.flash.ref",
+                "models.transformer", "configs.qwen3_4b",
+                "configs.llama3_8b", "configs.yi_34b"):
         assert f"repro_torch.{mod}" in names, mod
 
 
@@ -147,6 +150,36 @@ def test_recsys_entry_points_need_a_device_without_cuda(monkeypatch):
     args = serve_cli.parse_args(["--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_cli.serve_recsys(None, args)
+
+
+def test_lm_entry_points_need_a_device_without_cuda(monkeypatch):
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = transformer.LMConfig(n_layers=1, d_model=16, n_heads=2,
+                               n_kv_heads=1, d_head=8, d_ff=32, vocab=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.LM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_cache(cfg, 2, 8)
+    model = transformer.LM(cfg, device="cpu")
+    params = {name: p.detach().float().numpy()
+              for name, p in model.named_parameters()}
+    tree = {}
+    for name, a in params.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = a
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lm_from_numpy(tree, cfg)
+    assert convert.lm_from_numpy(tree, cfg, device="cpu").embed.device.type \
+        == "cpu"
+    args = serve_cli.parse_args(["--arch", "qwen3-4b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.serve_lm(configs.get("qwen3-4b"), args)
 
 
 def test_cpu_recsys_calls_launch_no_kernel():

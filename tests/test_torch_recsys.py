@@ -242,9 +242,13 @@ def test_mind_scoring_matches_reference():
 
 
 def test_registry_holds_the_four_recsys_archs_at_published_widths():
-    assert sorted(configs.REGISTRY) == ["bert4rec", "dcn-v2", "mind",
-                                        "sasrec"]
-    assert len(configs.all_cells()) == 16
+    recsys = sorted(a for a, spec in configs.REGISTRY.items()
+                    if spec.family == "recsys")
+    assert recsys == ["bert4rec", "dcn-v2", "mind", "sasrec"]
+    assert len([c for c in configs.all_cells() if c[0] in recsys]) == 16
+    # the rest of the registry is the dense LMs (tests/test_torch_lm.py)
+    assert sorted(set(configs.REGISTRY) - set(recsys)) == [
+        "llama3-8b", "qwen3-4b", "yi-34b"]
     dcn = configs.get("dcn-v2")
     assert dcn.cfg.d_interact == 429 and dcn.cfg.n_cross_layers == 3
     assert dcn.cfg.mlp_dims == (1024, 1024, 512)
