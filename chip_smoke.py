@@ -7,10 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  the card's name and power limit (``nvidia-smi``); no CUDA, exit.
 2. build   every CUDA kernel of the main path from ``src/repro_torch/csrc``
-           (one ``nvcc`` per source, all at once), with the seconds taken.
+           (one ``nvcc`` per source, all at once), with the seconds taken;
+           the count of HGMMA (wgmma) instructions in the flash library's
+           SASS (``cuobjdump -sass``), which must not be 0.
 3. small   each kernel against its plain PyTorch version on ragged small
            shapes (flash: f32 within 1e-4; bf16 kernel and plain version
-           each within 2e-2 of the f32 plain version on upcast inputs).
+           each within 2e-2 of the f32 plain version on upcast inputs;
+           the bf16 cases reach the split-KV decode variant and the wgmma
+           prefill variant at their edges).
 4. main    ``repro_torch.core.distclub.run`` at the paper's full width
            (20480 users, d=25, K=20, 100 planted clusters,
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
@@ -102,10 +106,12 @@ Phases, in order; any failure raises and the script exits non-zero:
            or f32 operations over 67 TFLOP/s, counted from these inputs)
            and, for embedding_bag, ``F.embedding_bag`` on the same inputs;
            for cross, cuBLAS ``addmm`` (its GEMM and bias alone); ucb and
-           rank1_update also at n = 1; flash at the prefill and the decode
-           shape, with ``scaled_dot_product_attention`` as its yardstick;
-           its bf16 prefill runs on the tensor cores and is held to their
-           bf16 rate (989 TFLOP/s), its f32 bound printed beside it.
+           rank1_update also at n = 1; embedding_bag and F.embedding_bag
+           at 512 bags over 200 launches each, in turns; flash at the
+           prefill and the decode shape, with
+           ``scaled_dot_product_attention`` as its yardstick; bf16 flash
+           runs on the tensor cores and is held to their bf16 rate (989
+           TFLOP/s), its f32 bound printed beside it.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -130,6 +136,7 @@ F32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside tensor cores
 EPOCHS = 2
 SEED = 0
 REPS = 25
+EMBAG_REPS = 200             # embedding_bag against F.embedding_bag, 512 bags
 
 KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "choose": ("src/repro_torch/csrc/choose.cu",
@@ -604,9 +611,13 @@ def small_recsys_checks(g, dev):
 
 def small_flash_checks(g, dev):
     """flash on ragged shapes, f32 and bf16: Sq and Skv off the 64-key
-    tile, Sq = 1, GQA groups 1, 4 and 8 (MQA), causal and bidirectional,
-    q_offset > 0, kv_len < Skv, rows that see no key (q_offset < 0), Dh
-    32, 64, 128 and 256."""
+    tile, Sq = 1, GQA groups 1, 3, 4 and 8 (MQA), causal and
+    bidirectional, q_offset > 0, kv_len < Skv, rows that see no key
+    (q_offset < 0), Dh 32, 64, 128 and 256.  In bf16 the cases reach the
+    split-KV decode variant at its edges (kv_len off the split, below one
+    split, Sq 2-4 at group 4: 8 and 16 rows) and the wgmma prefill
+    variant at its (Sq off the 128-row tile and off its positions, Dh
+    32, 64 and 128, group 3)."""
     import torch
     cases = [  # B, Hq, Hkv, Sq, Skv, Dh, causal, q_offset, kv_len
         (2, 4, 4, 77, 77, 64, True, 0, None),
@@ -617,6 +628,20 @@ def small_flash_checks(g, dev):
         (2, 16, 2, 100, 260, 128, True, 150, 250),
         (1, 2, 2, 33, 50, 256, True, 17, None),
         (1, 4, 1, 10, 64, 32, True, -5, None),
+        # split-KV decode: kv_len off the split (8 splits of 128), below
+        # one split, Sq 2 and 4 at group 4, group 8, a row before key 0
+        (2, 32, 8, 1, 3000, 128, True, 1000, 1001),
+        (2, 8, 2, 1, 512, 64, True, 40, 41),
+        (2, 16, 4, 2, 300, 128, True, 200, 202),
+        (1, 8, 2, 4, 257, 64, True, 250, 254),
+        (2, 8, 1, 1, 700, 128, True, 600, 650),
+        (1, 4, 1, 3, 64, 128, True, -1, None),
+        # wgmma prefill: Sq off the 128-row tile and off the 32 positions
+        # a tile holds at group 4, Dh 64, group 3 (42 positions a tile)
+        (2, 32, 8, 200, 200, 128, True, 0, None),
+        (1, 4, 4, 300, 300, 128, True, 0, None),
+        (2, 8, 2, 150, 150, 64, True, 0, None),
+        (1, 6, 2, 70, 90, 64, True, 20, None),
     ]
     for B, Hq, Hkv, Sq, Skv, Dh, causal, off, kv_len in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -628,11 +653,33 @@ def small_flash_checks(g, dev):
             log(f"small flash (B={B}, Hq={Hq}, Hkv={Hkv}, Sq={Sq}, "
                 f"Skv={Skv}, Dh={Dh}, causal={causal}, q_offset={off}, "
                 f"kv_len={kv_len}, {str(dtype)[6:]}): {res}")
-    # a row that sees no key comes out 0, as in chunked_attention
+    # a row that sees no key comes out 0, as in chunked_attention: on the
+    # SIMT variant (f32), the split-KV one (bf16, 8 rows) and the wgmma
+    # one (bf16, 80 rows)
     from repro_torch.kernels.flash import ops
-    q = torch.randn(1, 2, 4, 64, generator=g, device=dev)
-    out = ops.attention(q, q[:, :1], q[:, :1], causal=True, q_offset=-2)
-    assert bool((out[0, :, :2] == 0).all()), "flash: masked rows not 0"
+    for Sq, dtype in ((4, torch.float32), (4, torch.bfloat16),
+                      (40, torch.bfloat16)):
+        q = torch.randn(1, 2, Sq, 64, generator=g, device=dev).to(dtype)
+        out = ops.attention(q, q[:, :1], q[:, :1], causal=True, q_offset=-2)
+        assert bool((out[0, :, :2] == 0).all()), (
+            f"flash: masked rows not 0 (Sq {Sq}, {dtype})")
+
+
+def sass_check() -> int:
+    """Count the HGMMA (wgmma) instructions in the SASS of the flash
+    library (``cuobjdump -sass``); raise if there are none, or if the
+    retired ``flash_mma_kernel`` is still in it."""
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = _build.library_path(_build.KERNELS["flash"][0])
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"sass {lib.name}: {n} HGMMA instructions")
+    assert n > 0, "flash: no HGMMA in the compiled library"
+    assert "flash_mma_kernel" not in sass, "flash: flash_mma_kernel is built"
+    return n
 
 
 @contextlib.contextmanager
@@ -697,6 +744,12 @@ def compare_paths(kernel, plain, n: int) -> None:
 def cuda_ms(fn, flush, reps=REPS, warmup=3) -> float:
     """Median milliseconds of ``fn`` over ``reps`` launches (CUDA events),
     the L2 cache flushed before each."""
+    return statistics.median(cuda_times(fn, flush, reps, warmup))
+
+
+def cuda_times(fn, flush, reps, warmup=3) -> list[float]:
+    """Milliseconds of each of ``reps`` launches of ``fn`` (CUDA events),
+    the L2 cache flushed before each."""
     import torch
     for _ in range(warmup):
         fn()
@@ -710,7 +763,7 @@ def cuda_ms(fn, flush, reps=REPS, warmup=3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
 
 
 def profile_epoch(distclub, state, ops, hyper, d, steady_s) -> None:
@@ -1465,16 +1518,24 @@ def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
         "gemm_ms_p99": cuda_ms(lambda: torch.addmm(c1.b, xl1p, c1.W.T),
                                flush),
     }
-    embag = {
-        "ms_p99": cuda_ms(lambda: eops.embedding_bag(table, idx, wt), flush),
-        "plain_ms_p99": cuda_ms(
-            lambda: eref.embedding_bag_ref(table, idx, wt), flush),
-        "library_ms_p99": cuda_ms(
-            lambda: torch.nn.functional.embedding_bag(
-                idx, table, per_sample_weights=wt, mode="sum"), flush),
-    }
+    # embedding_bag against F.embedding_bag at 512 bags, whose order two
+    # runs of 25 disagreed on: EMBAG_REPS launches each, taken in turns
+    # (kernel, library, kernel, library) of EMBAG_REPS / 2
+    kern = lambda: eops.embedding_bag(table, idx, wt)  # noqa: E731
+    lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        idx, table, per_sample_weights=wt, mode="sum")
+    turns = {"ms_p99": [], "library_ms_p99": []}
+    for _ in range(2):
+        for key, fn in (("ms_p99", kern), ("library_ms_p99", lib)):
+            turns[key] += cuda_times(fn, flush, EMBAG_REPS // 2)
+    embag = {key: statistics.median(t) for key, t in turns.items()}
+    embag["plain_ms_p99"] = cuda_ms(
+        lambda: eref.embedding_bag_ref(table, idx, wt), flush)
+    embag["reps_p99"] = EMBAG_REPS
     log(f"time cross, yardsticks and serve_p99: {cross}")
-    log(f"time embedding_bag at 512 bags: {embag}")
+    log(f"time embedding_bag at 512 bags, median of {EMBAG_REPS} launches "
+        f"each, in turns: kernel {embag['ms_p99']} ms, F.embedding_bag "
+        f"{embag['library_ms_p99']} ms; {embag}")
     return cross, embag
 
 
@@ -1537,6 +1598,7 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {kname}: {line.strip()}")
+    sass_check()
 
     # ---- phase 3: small shapes -----------------------------------------------
     small_checks(dev)
@@ -1860,7 +1922,7 @@ def main() -> int:
         sdpa_dec = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qd, kdx, vdx)
     library["flash"] = sdpa_pre
-    # the bf16 prefill runs on the tensor cores: held to their bf16 rate
+    # bf16 flash runs on the tensor cores: held to their bf16 rate
     rates = {"flash": BF16_FLOPS_PER_S if qp.dtype == torch.bfloat16
              else F32_FLOPS_PER_S}
     on_path.update(flash=lm["launches"])
@@ -1904,7 +1966,7 @@ def main() -> int:
         by_name[kname].update(extra)
         log(f"time {kname} at n=1: {extra} ({by})")
     kern, plain, n_bytes, flops = dec_work
-    bms, by = bound_ms(n_bytes, flops)
+    bms, by = bound_ms(n_bytes, flops, rates["flash"])
     extra = {"ms_decode": cuda_ms(kern, flush),
              "plain_ms_decode": cuda_ms(plain, flush),
              "bound_ms_decode": bms, "bound_by_decode": by,
@@ -1912,8 +1974,8 @@ def main() -> int:
              "bound_ms_f32": bound_ms(*work["flash"][2:])[0],
              "library": f"scaled_dot_product_attention ({sdpa_note})"}
     by_name["flash"].update(extra)
-    log(f"time flash at decode ({n_bytes} bytes, {flops} f32 ops; the "
-        f"decode variant runs on the CUDA cores): {extra}")
+    log(f"time flash at decode ({n_bytes} bytes, {flops} ops; the split-KV "
+        f"variant, both products on the tensor cores): {extra}")
     cross_x, embag_x = recsys_extra_times(recsys, flush, x0b, xl1, c1,
                                           bags_p99)
     by_name["cross"].update(cross_x)

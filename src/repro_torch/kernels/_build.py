@@ -51,8 +51,8 @@ KERNELS = {
     "embedding_bag": ("embag.cu", "embedding_bag_launch",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "flash": ("flash.cu", "flash_launch",
-              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-               _P]),
+              [_P, _P, _P, _P, _P, ctypes.c_size_t, _I, _I, _I, _I, _I, _I,
+               _I, _I, _I, _I, _I, _F, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -5,8 +5,16 @@ The kernel computes what ``chunked_attention`` computes, whatever the
 chunk: the chunk only sets the plain version's scan.  It takes f32 or
 bf16, Dh of 32, 64, 128 or 256, contiguous 16-byte-aligned tensors in
 ``repro``'s [B, H, S, Dh] layout, and raises on anything else; nothing
-falls back to the plain version on the card."""
+falls back to the plain version on the card.
+
+Its split-KV decode variant (bf16, at most 16 q rows a (batch, kv head),
+Dh <= 128) cuts the keys into splits; this wrapper picks their number
+(``n_splits``) and allocates the f32 workspace of the splits' partials,
+since the kernel allocates nothing.  One call counts one launch, though
+that variant runs two CUDA kernels (the splits, then their merge)."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -14,6 +22,24 @@ from .. import _build
 from .ref import chunked_attention
 
 HEAD_DIMS = (32, 64, 128, 256)
+SPLIT_ROWS = 16          # the split-KV variant's most rows a (b, kv head)
+SPLIT_MIN_KEYS = 128     # fewest keys worth a split of their own
+SPLIT_PER_SM = 2         # split blocks a multiprocessor holds at once
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def n_splits(B: int, Hkv: int, kv: int, n_sm: int) -> int:
+    """Splits of the keys ``[0, kv)`` for the split-KV variant: as many
+    blocks (splits x B x Hkv) as the card holds at once, ``SPLIT_PER_SM``
+    a multiprocessor, so all run in one wave, and no split under
+    ``SPLIT_MIN_KEYS`` keys (4 at the LM decode shape: B 8, Hkv 8, 2113
+    keys, 132 multiprocessors, 256 blocks)."""
+    want = SPLIT_PER_SM * n_sm // max(B * Hkv, 1)
+    return max(1, min(want, -(-kv // SPLIT_MIN_KEYS)))
 
 
 def attention(
@@ -52,7 +78,17 @@ def attention(
     out = torch.empty_like(q)
     if out.numel():
         kv = Skv if kv_len is None else min(int(kv_len), Skv)
-        _build.launch("flash", *args, out.data_ptr(), B, Hq, Hkv, Sq, Skv,
-                      Dh, int(q_offset), kv, int(causal),
-                      int(q.dtype == torch.bfloat16), Dh ** -0.5)
+        bf16 = q.dtype == torch.bfloat16
+        rows = Hq // Hkv * Sq
+        splits, ws, ws_bytes = 0, 0, 0
+        if bf16 and rows <= SPLIT_ROWS and Dh <= 128:
+            splits = n_splits(B, Hkv, kv, _sm_count(dev.index or 0))
+            # freed when this returns: the caching allocator hands it out
+            # again only in this stream's order, after the kernel
+            part = torch.empty(B * Hkv * splits * rows * (Dh + 2),
+                               dtype=torch.float32, device=dev)
+            ws, ws_bytes = part.data_ptr(), 4 * part.numel()
+        _build.launch("flash", *args, out.data_ptr(), ws, ws_bytes, B, Hq,
+                      Hkv, Sq, Skv, Dh, int(q_offset), kv, int(causal),
+                      int(bf16), splits, Dh ** -0.5)
     return out

@@ -10,6 +10,9 @@
   correction of the running sums, and the final ``max(l, 1e-30)``
   divide.  It is not ``scaled_dot_product_attention``: that is another
   algorithm.
+* ``split_kv_attention``: the split-KV decode variant's arithmetic.  The
+  keys are cut into splits; each split's softmax partial ``(m, l, acc)``
+  is taken on its own, in f32, and the partials merge by log-sum-exp.
 """
 from __future__ import annotations
 
@@ -91,4 +94,53 @@ def chunked_attention(
             "bhgqk,bhkd->bhgqd", p.to(vj.dtype), vj).float()
         m = m_new
     out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(B, Hq, Sq, Dh).to(q.dtype)
+
+
+def split_kv_attention(
+    q: torch.Tensor,        # [B, Hq, Sq, Dh]
+    k: torch.Tensor,        # [B, Hkv, Skv, Dh]
+    v: torch.Tensor,        # [B, Hkv, Skv, Dh]
+    *,
+    causal: bool,
+    q_offset: int = 0,
+    kv_len: int | None = None,
+    split: int,             # keys per split
+) -> torch.Tensor:
+    """What ``chunked_attention`` computes, taken as the split-KV kernel
+    takes it: split ``s`` holds keys ``[s * split, (s + 1) * split)`` and
+    gives the partial ``m`` (its rows' max score), ``l`` (the sum of
+    ``exp(score - m)``) and ``acc`` (those weights times v), all f32; a
+    split with no valid key for a row gives ``m = -inf, l = 0, acc = 0``.
+    The merge weighs split ``s`` by ``exp(m_s - M)``, ``M`` the max over
+    splits (0 where ``m_s = -inf``), and divides by ``max(L, 1e-30)``: a
+    row with no valid key anywhere comes out 0."""
+    B, Hq, Sq, Dh = q.shape
+    _, Hkv, Skv, _ = k.shape
+    group = Hq // Hkv
+    kv = Skv if kv_len is None else min(int(kv_len), Skv)
+    qg = q.float().reshape(B, Hkv, group, Sq, Dh)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    ms, ls, accs = [], [], []
+    for k0 in range(0, Skv, split):
+        kj = k[:, :, k0:k0 + split].float()
+        vj = v[:, :, k0:k0 + split].float()
+        kpos = k0 + torch.arange(kj.shape[2], device=q.device)
+        mask = (kpos[None, :] < kv).expand(Sq, -1)
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kj) * Dh ** -0.5
+        s = torch.where(mask, s, float("-inf"))
+        m = s.amax(dim=-1)
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vj))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    M = m.amax(dim=0)
+    M_safe = torch.where(torch.isfinite(M), M, 0.0)
+    w = torch.where(torch.isfinite(m), torch.exp(m - M_safe), 0.0)
+    out = (w[..., None] * acc).sum(dim=0) / torch.clamp_min(
+        (w * l).sum(dim=0)[..., None], 1e-30)
     return out.reshape(B, Hq, Sq, Dh).to(q.dtype)

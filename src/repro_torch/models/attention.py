@@ -10,8 +10,10 @@ XLA-level equivalent that its CPU lowers.
 
 The KV cache is laid out [B, Hkv, S_max, Dh] per layer; a step writes its
 S positions at ``cache_pos`` and attends to the first ``cache_pos + S``.
-Unlike ``repro``'s ``dynamic_update_slice``, the write is a slice
-assignment *in place*: the cache tensors handed in are the ones returned.
+The write start clamps as ``repro``'s ``dynamic_update_slice`` clamps it,
+to ``[0, S_max - S]``: past the cache's end the new K/V overwrite its last
+S slots.  Unlike ``repro``'s, the write is a slice assignment *in place*:
+the cache tensors handed in are the ones returned.
 """
 from __future__ import annotations
 
@@ -69,8 +71,9 @@ def attention_fwd(
                                   chunk=attn_chunk)
     else:
         kc, vc = cache
-        kc[:, :, cache_pos:cache_pos + S] = k
-        vc[:, :, cache_pos:cache_pos + S] = v
+        start = max(0, min(cache_pos, kc.shape[2] - S))
+        kc[:, :, start:start + S] = k
+        vc[:, :, start:start + S] = v
         out = flash_ops.attention(q, kc, vc, causal=causal,
                                   q_offset=cache_pos, kv_len=cache_pos + S,
                                   chunk=attn_chunk)

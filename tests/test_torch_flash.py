@@ -109,6 +109,44 @@ def test_attention_kv_len_matches_reference_chunked(Sq, Skv, off, kv_len,
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,Dh,causal,off,kv_len,split", [
+    (2, 8, 2, 1, 96, 16, True, 40, 41, 16),    # splits past 41 see no key
+    (1, 4, 1, 1, 64, 16, True, 9, 10, 32),     # kv_len below one split
+    (1, 4, 1, 3, 32, 16, True, -2, None, 8),   # rows before the first key
+    (2, 8, 1, 1, 80, 32, True, 70, 71, 16),    # group 8 (MQA)
+    (2, 8, 2, 2, 64, 16, True, 30, 32, 16),    # Sq 2 at group 4
+    (1, 4, 1, 4, 48, 16, True, 20, 24, 16),    # Sq 4 at group 4: 16 rows
+    (1, 4, 2, 3, 40, 16, False, 0, 33, 16),    # bidirectional, ragged split
+], ids=["empty_split", "kv_below_split", "negative_offset", "mqa_group8",
+        "sq2_group4", "sq4_group4", "bidir"])
+def test_split_kv_merge_matches_chunked_attention(B, Hq, Hkv, Sq, Skv, Dh,
+                                                  causal, off, kv_len,
+                                                  split):
+    """The split-KV variant's per-split partials merged by log-sum-exp
+    give ``chunked_attention``'s result within 1e-5 (f32 sums of at most a
+    hundred terms, merged in another order); a row with no valid key
+    comes out exactly 0."""
+    q, k, v = (torch.from_numpy(a) for a in
+               _qkv(B, Hq, Hkv, Sq, Skv, Dh, Skv + split))
+    kw = dict(causal=causal, q_offset=off, kv_len=kv_len)
+    got = ref.split_kv_attention(q, k, v, split=split, **kw)
+    want = ref.chunked_attention(q, k, v, chunk=Skv, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    if off < 0:
+        assert bool((got[:, :, :-off] == 0).all())
+
+
+def test_n_splits_fill_the_card_in_one_wave():
+    """The split-KV variant's split count: at the LM decode shape (B 8,
+    Hkv 8, 2113 keys, 132 multiprocessors) 4 splits, 256 blocks, two a
+    multiprocessor; never a split under 128 keys, never fewer than one."""
+    assert flash_ops.n_splits(8, 8, 2113, 132) == 4
+    assert flash_ops.n_splits(2, 2, 41, 132) == 1
+    assert flash_ops.n_splits(64, 32, 4096, 132) == 1
+    assert flash_ops.n_splits(1, 1, 100000, 132) == 264
+
+
 def test_chunked_attention_moved_and_re_exported():
     """``chunked_attention`` lives with the flash plain versions; the
     models' module re-exports the same function."""

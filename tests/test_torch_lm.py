@@ -136,6 +136,35 @@ def test_attention_fwd_matches_reference(qk_norm, cached):
                                atol=1e-5)
 
 
+def test_attention_fwd_write_past_the_end_matches_reference():
+    """3 tokens written at slot Smax - 1 of a 16-slot cache: the write
+    start clamps to Smax - 3, as ``repro``'s ``dynamic_update_slice``
+    clamps it, and the block attends with ``q_offset = Smax - 1``."""
+    cfg = _attn_cfg(True)
+    params = jattention.init_attention(jax.random.PRNGKey(4), cfg,
+                                       jnp.float32)
+    rng = np.random.default_rng(4)
+    B, S, Smax = 2, 3, 16
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    kc = rng.normal(size=(B, cfg.n_kv_heads, Smax, cfg.d_head)).astype(
+        np.float32)
+    vc = rng.normal(size=kc.shape).astype(np.float32)
+    positions = np.arange(S) + Smax - 1
+    kw = dict(causal=True, attn_chunk=4, cache_pos=Smax - 1)
+    want, (wk, wv) = jattention.attention_fwd(
+        params, cfg, jnp.asarray(x), positions=jnp.asarray(positions),
+        cache=(jnp.asarray(kc), jnp.asarray(vc)), **kw)
+    cache = (_t(kc), _t(vc))
+    got, _ = attention.attention_fwd(
+        _torch_tree(params), cfg, _t(x),
+        positions=torch.from_numpy(positions), cache=cache, **kw)
+    for a, b in zip(cache, (wk, wv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 # --- the whole LM ----------------------------------------------------------------
 
 
@@ -223,6 +252,28 @@ def test_lm_decode_steps_match_reference(arch):
         for a, b in zip(cache, jcache):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
                                        atol=2e-4)
+
+
+@pytest.mark.parametrize("past", [0, 2], ids=["at_max_len", "max_len_plus_2"])
+def test_lm_decode_step_past_the_cache_end_matches_reference(past):
+    """An 8-token prompt fills an 8-slot cache; a decode step at pos =
+    max_len + ``past`` overwrites the last slot, as ``repro``'s clamped
+    ``dynamic_update_slice`` does, and attends to all 8 slots."""
+    jcfg, params, cfg, model = _pair("qwen3-4b")
+    S = 8
+    tokens = _tokens((2, S + 1), cfg.vocab, 5)
+    _, jcache = jtr.lm_prefill(params, jcfg, jnp.asarray(tokens[:, :S]))
+    _, cache = tr.lm_prefill(model, torch.from_numpy(tokens[:, :S]))
+    pos = S + past
+    want, jcache = jtr.lm_decode_step(
+        params, jcfg, jnp.asarray(tokens[:, S]), jcache, jnp.int32(pos))
+    got, _ = tr.lm_decode_step(model, torch.from_numpy(tokens[:, S]), cache,
+                               pos)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    for a, b in zip(cache, jcache):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
+                                   atol=2e-4)
 
 
 def test_lm_bf16_reduced_matches_reference():
