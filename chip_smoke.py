@@ -14,7 +14,12 @@ Phases, in order; any failure raises and the script exits non-zero:
            shapes (flash: f32 within 1e-4; bf16 kernel and plain version
            each within 2e-2 of the f32 plain version on upcast inputs;
            the bf16 cases reach the split-KV decode variant and the wgmma
-           prefill variant at their edges).
+           prefill variant at their edges; embedding_bag at L = 1, 31,
+           32, 33, 100 over D = 8, 16, 25, 129 and on a table 4 bytes off
+           a 16-byte boundary; both rank-1 kernels' block-per-user and
+           warp-per-user variants bit-equal on the same rows: a row view
+           against the whole state with one user live, and 264 users
+           against 265, the variants' limit).
 4. main    ``repro_torch.core.distclub.run`` at the paper's full width
            (20480 users, d=25, K=20, 100 planted clusters,
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
@@ -95,7 +100,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. full    each kernel against its plain version on the state that run
            left (and on the full first-epoch adjacency for prune; ucb's
            argmax must equal choose's choice for every user; ucb and
-           rank1_update also at CLUB's n = 1 on its state's rows), the
+           rank1_update also at CLUB's n = 1 on its state's rows, and
+           both rank-1 kernels there bit-equal to the whole state's
+           warp-per-user variant with only that user live), the
            two top-K kernels on one serving batch's users at full width,
            cross on a serve_bulk batch's layers 1 and 2, embedding_bag
            on the two bag batches of phase 4r, and flash on the q/k/v of
@@ -106,12 +113,15 @@ Phases, in order; any failure raises and the script exits non-zero:
            or f32 operations over 67 TFLOP/s, counted from these inputs)
            and, for embedding_bag, ``F.embedding_bag`` on the same inputs;
            for cross, cuBLAS ``addmm`` (its GEMM and bias alone); ucb and
-           rank1_update also at n = 1; embedding_bag and F.embedding_bag
-           at 512 bags over 200 launches each, in turns; flash at the
-           prefill and the decode shape, with
-           ``scaled_dot_product_attention`` as its yardstick; bf16 flash
-           runs on the tensor cores and is held to their bf16 rate (989
-           TFLOP/s), its f32 bound printed beside it.
+           rank1_update also at n = 1, kernel and plain version over 200
+           launches each, in turns (rank1_update also beside its warp-per-
+           user variant on the same row); embedding_bag and
+           F.embedding_bag at 512 bags likewise; the launch floor, a
+           one-element in-place op's median over 200 launches, beside the
+           n = 1 and 512-bag times; flash at the prefill and the decode
+           shape, with ``scaled_dot_product_attention`` as its yardstick;
+           bf16 flash runs on the tensor cores and is held to their bf16
+           rate (989 TFLOP/s), its f32 bound printed beside it.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -136,7 +146,8 @@ F32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside tensor cores
 EPOCHS = 2
 SEED = 0
 REPS = 25
-EMBAG_REPS = 200             # embedding_bag against F.embedding_bag, 512 bags
+TURN_REPS = 200              # launches of each, in turns: n = 1 kernels
+                             # and 512 bags against their yardsticks
 
 KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "choose": ("src/repro_torch/csrc/choose.cu",
@@ -287,6 +298,65 @@ def check_rank1_row_view(M, Minv, b, x, r, u):
         assert torch.equal(g[rest], a[rest]), "rank1_update: other rows moved"
     return {"max_abs_err": max(float((g[u:u + 1] - p_).abs().max())
                                for g, p_ in zip(full, plain))}
+
+
+def check_rank1_variants(M, Minv, b, x, r, u):
+    """Both rank-1 kernels' two variants on one user's row, bit for bit:
+    user ``u``'s row views (n = 1: a block per user) against the whole
+    state with only ``u`` live (more users than a block per user takes: a
+    warp per user); every other row bit-identical to the input."""
+    import torch
+    from repro_torch.kernels.rank1 import ops
+    n, d = b.shape
+    assert ops.variant(1, d) == ops.BLOCK_PER_USER
+    assert ops.variant(n, d) == ops.WARP_PER_USER
+    live = torch.ones(1, dtype=torch.bool, device=b.device)
+    only_u = torch.zeros(n, dtype=torch.bool, device=b.device)
+    only_u[u] = True
+    xs, rs = torch.zeros_like(b), torch.zeros(n, device=b.device)
+    xs[u], rs[u] = x[0], r[0]
+    for name, state in (("rank1_update", (M, Minv, b)),
+                        ("rank1_update_inv", (Minv, b))):
+        fn = getattr(ops, name)
+        row = tuple(t.clone() for t in state)
+        whole = tuple(t.clone() for t in state)
+        fn(*(t[u:u + 1] for t in row), x, r, live)
+        fn(*whole, xs, rs, only_u)
+        for a, c, t in zip(row, whole, state):
+            assert torch.equal(a, c), f"{name}: the variants differ"
+            assert torch.equal(a[:u], t[:u]) and torch.equal(a[u + 1:],
+                                                             t[u + 1:])
+    return {"bit_equal": True}
+
+
+def check_rank1_threshold(M, Minv, b, x, r, mask):
+    """A state of one user past the block-per-user limit: all of it (a
+    warp per user) and its first users as a leading view (a block per
+    user) within 1e-5 of the plain version and bit-equal on the rows they
+    share, the view leaving the last row as it was; for both kernels."""
+    import torch
+    from repro_torch.kernels.rank1 import ops
+    n, d = b.shape
+    nt = ops.BLOCK_PER_USER_MAX_N
+    assert n == nt + 1 and ops.variant(nt, d) == ops.BLOCK_PER_USER
+    assert ops.variant(n, d) == ops.WARP_PER_USER
+    err = 0.0
+    for m in (nt, n):
+        err = max(err, check_rank1_mful(M[:m], Minv[:m], b[:m], x[:m],
+                                        r[:m], mask[:m])["max_abs_err"],
+                  check_rank1(Minv[:m], b[:m], x[:m], r[:m],
+                              mask[:m])["max_abs_err"])
+    for name, state in (("rank1_update", (M, Minv, b)),
+                        ("rank1_update_inv", (Minv, b))):
+        fn = getattr(ops, name)
+        head = tuple(t.clone() for t in state)
+        whole = tuple(t.clone() for t in state)
+        fn(*(t[:nt] for t in head), x[:nt], r[:nt], mask[:nt])
+        fn(*whole, x, r, mask)
+        for a, c, t in zip(head, whole, state):
+            assert torch.equal(a[:nt], c[:nt]), f"{name}: the variants differ"
+            assert torch.equal(a[nt:], t[nt:]), f"{name}: the view spilled"
+    return {"max_abs_err": err, "bit_equal": True}
 
 
 def check_prune(adj, v_i, cb_i, v_j, cb_j, gamma):
@@ -514,6 +584,21 @@ def small_checks(dev):
         f"{check_rank1_mful(M, Minv, b, x, r, mask)}")
     log(f"small rank1_update n=1 row view (d={d}): "
         f"{check_rank1_row_view(M, Minv, b, x[5:6], r[5:6], 5)}")
+    # the two variants: at CLUB's d, one user past the block-per-user
+    # limit, so that the whole state takes a warp per user
+    from repro_torch.kernels.rank1 import ops as rops
+    nv, dv = rops.BLOCK_PER_USER_MAX_N + 1, 25
+    Minv_v = spd_inverse(g, nv, dv, dev)
+    M_v = torch.linalg.inv(Minv_v).contiguous()
+    b_v = torch.randn(nv, dv, generator=g, device=dev)
+    x_v = unit(torch.randn(nv, dv, generator=g, device=dev))
+    r_v = torch.rand(nv, generator=g, device=dev)
+    mask_v = torch.rand(nv, generator=g, device=dev) < 0.7
+    mask_v[-1] = True
+    log(f"small rank1 variants, n=1 row view against n={nv} (d={dv}): "
+        f"{check_rank1_variants(M_v, Minv_v, b_v, x_v[7:8], r_v[7:8], 7)}")
+    log(f"small rank1 variants at n={nv - 1} and n={nv} (d={dv}): "
+        f"{check_rank1_threshold(M_v, Minv_v, b_v, x_v, r_v, mask_v)}")
 
     ng = 33
     dense = torch.rand(ng, ng, generator=g, device=dev) < 0.7
@@ -607,6 +692,30 @@ def small_recsys_checks(g, dev):
         wt[:, L // 2:] = 0.0
         log(f"  pads, ids out of range: {check_embag(table, odd, wt)}; "
             f"no weights: {check_embag(table, odd, None)}")
+    # the kernel's step edges (a step covers 8 S slots: 64 at D=16) and
+    # each lane geometry, with pads and ids out of range; then a table 4
+    # bytes off a 16-byte boundary (the 4-byte path at D=16)
+    from repro_torch.kernels.embag import ops as eops
+    V, B = 300, 37
+    for D in (8, 16, 25, 129):
+        for L in (1, 31, 32, 33, 100):
+            table = torch.randn(V, D, generator=g, device=dev)
+            odd = torch.randint(-V - 9, V + 9, (B, L), generator=g,
+                                device=dev, dtype=torch.int32)
+            wt = torch.rand(B, L, generator=g, device=dev)
+            wt[torch.rand(B, L, generator=g, device=dev) < 0.2] = 0.0
+            log(f"small embedding_bag (D={D}, L={L}, "
+                f"{eops.launch_geometry(D, B, True)}): "
+                f"{check_embag(table, odd, wt)}")
+    D, L = 16, 50
+    table = torch.randn(V * D + 1, generator=g, device=dev)[1:].view(V, D)
+    assert table.data_ptr() % 16 == 4
+    idx = torch.randint(0, V, (B, L), generator=g, device=dev,
+                        dtype=torch.int32)
+    wt = torch.rand(B, L, generator=g, device=dev)
+    log(f"small embedding_bag, table 4 bytes off (D={D}, L={L}, "
+        f"{eops.launch_geometry(D, B, False)}): "
+        f"{check_embag(table, idx, wt)}")
 
 
 def small_flash_checks(g, dev):
@@ -745,6 +854,17 @@ def cuda_ms(fn, flush, reps=REPS, warmup=3) -> float:
     """Median milliseconds of ``fn`` over ``reps`` launches (CUDA events),
     the L2 cache flushed before each."""
     return statistics.median(cuda_times(fn, flush, reps, warmup))
+
+
+def turn_ms(fns: dict, flush, reps=TURN_REPS) -> dict:
+    """Median milliseconds of each of ``fns`` over ``reps`` launches
+    (``cuda_times``), taken in turns: each in order, ``reps / 2`` launches,
+    then each again, so that a drift of the card touches all alike."""
+    times = {key: [] for key in fns}
+    for _ in range(2):
+        for key, fn in fns.items():
+            times[key] += cuda_times(fn, flush, reps // 2)
+    return {key: statistics.median(t) for key, t in times.items()}
 
 
 def cuda_times(fn, flush, reps, warmup=3) -> list[float]:
@@ -1519,21 +1639,20 @@ def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
                                flush),
     }
     # embedding_bag against F.embedding_bag at 512 bags, whose order two
-    # runs of 25 disagreed on: EMBAG_REPS launches each, taken in turns
-    # (kernel, library, kernel, library) of EMBAG_REPS / 2
-    kern = lambda: eops.embedding_bag(table, idx, wt)  # noqa: E731
-    lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
-        idx, table, per_sample_weights=wt, mode="sum")
-    turns = {"ms_p99": [], "library_ms_p99": []}
-    for _ in range(2):
-        for key, fn in (("ms_p99", kern), ("library_ms_p99", lib)):
-            turns[key] += cuda_times(fn, flush, EMBAG_REPS // 2)
-    embag = {key: statistics.median(t) for key, t in turns.items()}
+    # runs of 25 disagreed on: TURN_REPS launches each, in turns
+    embag = turn_ms({
+        "ms_p99": lambda: eops.embedding_bag(table, idx, wt),
+        "library_ms_p99": lambda: torch.nn.functional.embedding_bag(
+            idx, table, per_sample_weights=wt, mode="sum")}, flush)
     embag["plain_ms_p99"] = cuda_ms(
         lambda: eref.embedding_bag_ref(table, idx, wt), flush)
-    embag["reps_p99"] = EMBAG_REPS
+    embag["reps_p99"] = TURN_REPS
+    nonpad = int((wt != 0).sum())
+    embag["bound_ms_p99"] = bound_ms(
+        8 * idx.numel() + 4 * table.shape[1] * (nonpad + idx.shape[0]),
+        2 * table.shape[1] * nonpad)[0]
     log(f"time cross, yardsticks and serve_p99: {cross}")
-    log(f"time embedding_bag at 512 bags, median of {EMBAG_REPS} launches "
+    log(f"time embedding_bag at 512 bags, median of {TURN_REPS} launches "
         f"each, in turns: kernel {embag['ms_p99']} ms, F.embedding_bag "
         f"{embag['library_ms_p99']} ms; {embag}")
     return cross, embag
@@ -1710,6 +1829,8 @@ def main() -> int:
         f"{check_ucb(w1, Mc1, ctx1, occ1, hyper.alpha)}")
     log(f"full rank1_update at n=1 (CLUB's user row views): "
         f"{check_rank1_row_view(cs.lin.M, cs.lin.Minv, cs.lin.b, x1, r1, u)}")
+    log(f"full rank1 variants at n=1 against n={n} (CLUB's state): "
+        f"{check_rank1_variants(cs.lin.M, cs.lin.Minv, cs.lin.b, x1, r1, u)}")
     cb = clustering.cb_width(occ)
     full = gref.init_packed_adj(n, n, device=dev)
     errs["prune"] = check_prune(full, w, cb, w, cb, hyper.gamma)
@@ -1844,6 +1965,15 @@ def main() -> int:
     mful_p = (M.clone(), Minv.clone(), b.clone())
     row_k = tuple(t.clone() for t in (cs.lin.M, cs.lin.Minv, cs.lin.b))
     row_p = tuple(t.clone() for t in (cs.lin.M, cs.lin.Minv, cs.lin.b))
+    # the warp-per-user variant (the design the block variant replaced)
+    # launched at n = 1 on the same row, past the wrapper's choice, timed
+    # in the same turns
+    row_w = tuple(t.clone() for t in (cs.lin.M, cs.lin.Minv, cs.lin.b))
+    warp_n1 = [t[u:u + 1].data_ptr() for t in row_w] + [
+        x1.data_ptr(), r1.data_ptr(), live1.data_ptr(), 1, d,
+        rops.WARP_PER_USER]
+    n1_yardsticks = {"rank1_update": {
+        "warp_ms_n1": lambda: _build.launch("rank1_update", *warp_n1)}}
     work.update({
         "rank1_update": (
             lambda: rops.rank1_update(*mful_k, x, r, mask),
@@ -1959,10 +2089,20 @@ def main() -> int:
             f"library {lib_ms} ms, bound {bms} ms ({by}; {n_bytes} bytes, "
             f"{flops} ops), {math.ceil(ms / bms)}x the bound")
     by_name = {row["name"]: row for row in rows}
+    # what any launch costs under this method: a one-element in-place op
+    one = torch.zeros(1, device=dev)
+    floor_ms = statistics.median(cuda_times(lambda: one.add_(1.0), flush,
+                                            TURN_REPS))
+    log(f"time launch floor (one-element add_, median of {TURN_REPS} "
+        f"launches): {floor_ms} ms")
+    # at n = 1 (a block per user for rank1_update): TURN_REPS launches of
+    # the kernel and of its plain version, in turns
     for kname, (kern, plain, n_bytes, flops) in at_n1.items():
         bms, by = bound_ms(n_bytes, flops)
-        extra = {"ms_n1": cuda_ms(kern, flush),
-                 "plain_ms_n1": cuda_ms(plain, flush), "bound_ms_n1": bms}
+        extra = turn_ms({"ms_n1": kern, "plain_ms_n1": plain,
+                         **n1_yardsticks.get(kname, {})}, flush)
+        extra.update(bound_ms_n1=bms, floor_ms_n1=floor_ms,
+                     reps_n1=TURN_REPS)
         by_name[kname].update(extra)
         log(f"time {kname} at n=1: {extra} ({by})")
     kern, plain, n_bytes, flops = dec_work
@@ -1979,7 +2119,7 @@ def main() -> int:
     cross_x, embag_x = recsys_extra_times(recsys, flush, x0b, xl1, c1,
                                           bags_p99)
     by_name["cross"].update(cross_x)
-    by_name["embedding_bag"].update(embag_x)
+    by_name["embedding_bag"].update(embag_x, floor_ms_p99=floor_ms)
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": rows}))

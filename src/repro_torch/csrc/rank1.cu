@@ -12,8 +12,8 @@
 //   Minv[u] = Minv[u] - Mx Mx^T / denom
 //   M[u]    = M[u] + x[u] x[u]^T            (M-ful variant only)
 //   b[u]    = b[u] + r[u] x[u]
-// A user with mask[u] == 0 is an identity update, and the kernel does not
-// touch its rows at all, so they stay bit-identical.  The state is updated
+// A user with mask[u] == 0 is an identity update, and the kernel writes
+// none of its rows, so they stay bit-identical.  The state is updated
 // in place: the caller hands it over and gets it back modified (the
 // wrapper returns the same tensors).  A leading-dim slice of a state
 // tensor (one user's row, as CLUB updates) is a valid argument.
@@ -25,20 +25,56 @@
 // ~32 us (M-free) and ~211 MB, ~63 us (M-ful) at 3.35 TB/s.  On CLUB's
 // path n = 1, and the launch itself is the cost.
 //
-// Design: one warp per user, eight users per block.  The warp copies the
-// user's Minv (d^2 contiguous floats) and x into shared memory with
-// coalesced loads; lane i forms (Minv x)_i from shared memory, a warp
-// shuffle sums x.Mx, and the warp writes the downdated Minv back with
-// coalesced stores; M is read, updated and written in one coalesced pass
-// (its new value needs only x).  The division and subtraction are rounded
-// as the plain version rounds them (outer product, then / denom, then
-// subtract; x_i x_j, then add).
+// Two variants; the wrapper picks one (kernels/rank1/ops.py, variant) and
+// passes it to the launch as an int.
+//
+// Warp per user (variant 0), eight users per block, for many users: the
+// warp copies the user's Minv (d^2 contiguous floats) and x into shared
+// memory with coalesced loads; lane i forms (Minv x)_i from shared memory,
+// a warp shuffle sums x.Mx, and the warp writes the downdated Minv back
+// with coalesced stores; M is read, updated and written in one coalesced
+// pass (its new value needs only x).
+//
+// Block per user (variant 1), for fewer users than the card has room for
+// (CLUB's n = 1) and d <= 32.  There a warp per user is one warp's chain
+// of dependent trips to memory (mask, then Minv, then M, then r); here
+// the block's 256 threads start every load of the user's state in one
+// round: each its <= 4 elements of Minv and of M, threads < d x and b,
+// and r and mask.  The mask gates the stores, not the loads.  M' needs
+// only x and is stored first; Minv goes to shared memory, where warp 0
+// forms Mx and the denominator by the same FMA chain and shuffle tree as
+// variant 0 (warp_denom), so the two variants give the same bits.
+//
+// Both round the division and subtraction as the plain version rounds
+// them (outer product, then / denom, then subtract; x_i x_j, then add).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;           // users a block, warp per user
+constexpr int kBlockThreads = 256;  // block per user
+constexpr int kBlockMaxD = 32;
+constexpr int kPerThread = kBlockMaxD * kBlockMaxD / kBlockThreads;
+
+// 1 + x.Minv x for one user, by one warp: lane i forms Mx_i = (Minv x)_i
+// into mx_s as an in-order FMA chain over j, and a shuffle tree sums the
+// lanes' parts of x.Mx.  Both variants call it, so they round alike.
+__device__ __forceinline__ float warp_denom(const float* m_s,
+                                            const float* x_s, float* mx_s,
+                                            int d, int lane) {
+  float part = 0.f;
+  for (int i = lane; i < d; i += 32) {
+    const float* mrow = m_s + i * d;
+    float t = 0.f;
+    for (int j = 0; j < d; ++j) t = fmaf(mrow[j], x_s[j], t);
+    mx_s[i] = t;
+    part = fmaf(x_s[i], t, part);
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  return 1.f + part;
+}
 
 template <bool kWithM>
 __global__ void rank1_kernel(float* __restrict__ M, float* __restrict__ Minv,
@@ -62,17 +98,7 @@ __global__ void rank1_kernel(float* __restrict__ M, float* __restrict__ Minv,
   for (int i = lane; i < d; i += 32) x_s[i] = x[(size_t)u * d + i];
   __syncwarp();
 
-  float part = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    const float* mrow = m_s + i * d;
-    float t = 0.f;
-    for (int j = 0; j < d; ++j) t = fmaf(mrow[j], x_s[j], t);
-    mx_s[i] = t;
-    part = fmaf(x_s[i], t, part);
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    part += __shfl_xor_sync(0xffffffffu, part, off);
-  const float denom = 1.f + part;
+  const float denom = warp_denom(m_s, x_s, mx_s, d, lane);
   __syncwarp();
 
   for (int e = lane; e < dd; e += 32) {
@@ -95,8 +121,87 @@ __global__ void rank1_kernel(float* __restrict__ M, float* __restrict__ Minv,
 }
 
 template <bool kWithM>
+__global__ void __launch_bounds__(kBlockThreads)
+    rank1_block_kernel(float* __restrict__ M, float* __restrict__ Minv,
+                       float* __restrict__ b, const float* __restrict__ x,
+                       const float* __restrict__ r,
+                       const unsigned char* __restrict__ mask, int d) {
+  __shared__ float m_s[kBlockMaxD * kBlockMaxD];
+  __shared__ float x_s[kBlockMaxD];
+  __shared__ float mx_s[kBlockMaxD];
+  __shared__ float denom_s;
+  const int u = blockIdx.x;
+  const int t = threadIdx.x;
+  const int dd = d * d;
+  float* Mu = Minv + (size_t)u * dd;
+  float* Gu = kWithM ? M + (size_t)u * dd : nullptr;
+  float* bu = b + (size_t)u * d;
+
+  // one round of loads: everything the block reads
+  const bool live = mask[u] != 0;
+  const float ru = r[u];
+  float mi[kPerThread], g[kPerThread];
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const int e = t + k * kBlockThreads;
+    if (e < dd) {
+      mi[k] = Mu[e];
+      if (kWithM) g[k] = Gu[e];
+    }
+  }
+  float xv = 0.f, bv = 0.f;
+  if (t < d) {
+    xv = x[(size_t)u * d + t];
+    bv = bu[t];
+    x_s[t] = xv;
+  }
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const int e = t + k * kBlockThreads;
+    if (e < dd) m_s[e] = mi[k];
+  }
+  __syncthreads();
+  if (!live) return;  // the whole block leaves: nothing is written
+
+  if (kWithM) {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int e = t + k * kBlockThreads;
+      if (e < dd) {
+        const int i = e / d;
+        Gu[e] = __fadd_rn(g[k], __fmul_rn(x_s[i], x_s[e - i * d]));
+      }
+    }
+  }
+  if (t < 32) {
+    const float denom = warp_denom(m_s, x_s, mx_s, d, t);
+    if (t == 0) denom_s = denom;
+  }
+  __syncthreads();
+  const float denom = denom_s;
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const int e = t + k * kBlockThreads;
+    if (e < dd) {
+      const int i = e / d;
+      Mu[e] = __fsub_rn(mi[k],
+                        __fdiv_rn(__fmul_rn(mx_s[i], mx_s[e - i * d]), denom));
+    }
+  }
+  if (t < d) bu[t] = __fadd_rn(bv, __fmul_rn(ru, xv));
+}
+
+template <bool kWithM>
 int launch(float* M, float* Minv, float* b, const float* x, const float* r,
-           const unsigned char* mask, int n, int d, cudaStream_t stream) {
+           const unsigned char* mask, int n, int d, int variant,
+           cudaStream_t stream) {
+  if (variant == 1) {
+    if (d > kBlockMaxD) return (int)cudaErrorInvalidValue;
+    rank1_block_kernel<kWithM><<<n, kBlockThreads, 0, stream>>>(
+        M, Minv, b, x, r, mask, d);
+    return (int)cudaGetLastError();
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)kWarps * (d * d + 2 * d) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -115,13 +220,13 @@ int launch(float* M, float* Minv, float* b, const float* x, const float* r,
 extern "C" int rank1_update_inv_launch(float* Minv, float* b, const float* x,
                                        const float* r,
                                        const unsigned char* mask, int n, int d,
-                                       cudaStream_t stream) {
-  return launch<false>(nullptr, Minv, b, x, r, mask, n, d, stream);
+                                       int variant, cudaStream_t stream) {
+  return launch<false>(nullptr, Minv, b, x, r, mask, n, d, variant, stream);
 }
 
 extern "C" int rank1_update_launch(float* M, float* Minv, float* b,
                                    const float* x, const float* r,
                                    const unsigned char* mask, int n, int d,
-                                   cudaStream_t stream) {
-  return launch<true>(M, Minv, b, x, r, mask, n, d, stream);
+                                   int variant, cudaStream_t stream) {
+  return launch<true>(M, Minv, b, x, r, mask, n, d, variant, stream);
 }

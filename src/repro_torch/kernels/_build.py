@@ -33,9 +33,9 @@ KERNELS = {
     "choose": ("choose.cu", "choose_launch",
                [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P]),
     "rank1_update_inv": ("rank1.cu", "rank1_update_inv_launch",
-                         [_P, _P, _P, _P, _P, _I, _I, _P]),
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "rank1_update": ("rank1.cu", "rank1_update_launch",
-                     [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "ucb": ("ucb.cu", "ucb_launch", [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P]),
     "prune": ("prune.cu", "prune_launch",
               [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P]),
@@ -49,7 +49,7 @@ KERNELS = {
                      _I, _I, _P, _P, _P, _P, _P, _P]),
     "cross": ("cross.cu", "cross_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
     "embedding_bag": ("embag.cu", "embedding_bag_launch",
-                      [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash": ("flash.cu", "flash_launch",
               [_P, _P, _P, _P, _P, ctypes.c_size_t, _I, _I, _I, _I, _I, _I,
                _I, _I, _I, _I, _I, _F, _P]),

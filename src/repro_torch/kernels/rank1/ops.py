@@ -7,6 +7,20 @@ import torch
 from .. import _build
 from .ref import rank1_update_inv_ref, rank1_update_ref
 
+WARP_PER_USER, BLOCK_PER_USER = 0, 1
+BLOCK_PER_USER_MAX_N = 2 * 132   # two blocks on each of the H100's SMs
+BLOCK_PER_USER_MAX_D = 32        # a user's d^2 elements, <= 4 a thread
+
+
+def variant(n: int, d: int) -> int:
+    """The kernel variant for ``n`` users of dimension ``d``: a block per
+    user (its 256 threads load the user's whole state in one round) for
+    at most two blocks on each of the H100's 132 SMs and ``d <= 32``,
+    else a warp per user.  Both give the same bits for the same row."""
+    if n <= BLOCK_PER_USER_MAX_N and d <= BLOCK_PER_USER_MAX_D:
+        return BLOCK_PER_USER
+    return WARP_PER_USER
+
 
 def _state_args(Minv, b, x, r, mask):
     dev = Minv.device
@@ -48,7 +62,7 @@ def rank1_update(
     args = _state_args(Minv, b, x, r, mask)
     mp = _build.check(M, "M", torch.float32, (n, d, d), Minv.device)
     if n:
-        _build.launch("rank1_update", mp, *args, n, d)
+        _build.launch("rank1_update", mp, *args, n, d, variant(n, d))
     return M, Minv, b
 
 
@@ -69,5 +83,5 @@ def rank1_update_inv(
     n, d = b.shape
     args = _state_args(Minv, b, x, r, mask)
     if n:
-        _build.launch("rank1_update_inv", *args, n, d)
+        _build.launch("rank1_update_inv", *args, n, d, variant(n, d))
     return Minv, b

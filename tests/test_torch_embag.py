@@ -96,3 +96,70 @@ def test_init_table_scale():
     t = embedding.init_table(g, 4096, 16)
     assert t.shape == (4096, 16) and t.device.type == "cpu"
     assert abs(float(t.std()) - 16 ** -0.5) < 0.01
+
+
+@pytest.mark.parametrize("B", [1, 512, 262144])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("D", [1, 8, 16, 25, 64, 128, 129])
+def test_launch_geometry(D, aligned, B):
+    """A warp per bag: G chunk lanes in each of S slot groups (G S = 32,
+    G a power of two), 16-byte chunks only where D and the table allow;
+    the chunks covered (in turn past 32); 512 bags in >= 128 blocks."""
+    geo = ops.launch_geometry(D, B, aligned)
+    assert geo.vec == (4 if D % 4 == 0 and aligned else 1)
+    chunks = D // geo.vec
+    assert geo.vec * chunks == D
+    assert geo.g & (geo.g - 1) == 0 and 1 <= geo.g <= 32
+    assert geo.g * geo.s == 32
+    assert geo.g >= min(chunks, 32)
+    assert geo.g == 1 or geo.g // 2 < chunks       # the least that covers
+    passes = -(-chunks // geo.g)
+    covered = {p * geo.g + lane for p in range(passes)
+               for lane in range(geo.g)}
+    assert set(range(chunks)) <= covered
+    assert 1 <= geo.warps <= 8
+    assert geo.blocks * geo.warps >= B > (geo.blocks - 1) * geo.warps
+    if B == 512:
+        assert geo.blocks >= 128
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32])
+def test_step_slots_cover_each_slot_once(G):
+    """The kernel's step (csrc/embag.cu): with kRows = 8 row loads a lane,
+    slot group s takes slots s + k S of the step, whose id and weight lane
+    s + S (k % G) holds in register k / G, the lane that loaded slot
+    l + 32 i into register i.  Every slot of the step is taken once, by
+    the G lanes of one group, from the lane that holds it."""
+    k_rows, S = 8, 32 // G
+    k_slots = k_rows * S
+    k_ids = -(-k_slots // 32)
+    held = {(lane, i): lane + 32 * i for lane in range(32)
+            for i in range(k_ids) if lane + 32 * i < k_slots}
+    taken = {}
+    for lane in range(32):
+        s = lane // G
+        for k in range(k_rows):
+            slot = held[(s + S * (k % G), k // G)]
+            assert slot == s + k * S
+            taken.setdefault(slot, set()).add(lane % G)
+    assert sorted(taken) == list(range(k_slots))
+    assert all(lanes == set(range(G)) for lanes in taken.values())
+
+
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 50, 100])
+def test_embedding_bag_step_edges(L):
+    """Bags around the kernel's step and id-window edges (32 ids a pass,
+    64 slots a step at D = 16), with pads and ids out of range, against
+    the reference's oracle and its Pallas kernel in interpret mode."""
+    V, D, B = 40, 16, 3
+    rng = np.random.default_rng(L)
+    table = rng.normal(size=(V, D)).astype(np.float32)
+    idx = rng.integers(-V - 5, V + 5, (B, L)).astype(np.int32)
+    wt = rng.random((B, L)).astype(np.float32)
+    wt[rng.random((B, L)) < 0.25] = 0.0
+    j = [jnp.asarray(a) for a in (table, idx, wt)]
+    got = ops.embedding_bag(*(torch.from_numpy(a) for a in (table, idx, wt)))
+    for want in (jembag_ref(*j), jembag.embedding_bag(*j, use_pallas=True,
+                                                      interpret=True)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)

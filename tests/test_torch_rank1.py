@@ -121,3 +121,24 @@ def test_update_lin_matches_the_reference_pallas_engine():
     _assert_mful_close([t.numpy() for t in got[:3]], want[:3])
     np.testing.assert_array_equal(got.occ.numpy(), np.asarray(want.occ))
     assert all(g is i for g, i in zip(got, lin))     # all four in place
+
+
+@pytest.mark.parametrize("n,d,want", [
+    (1, 25, ops.BLOCK_PER_USER),                 # CLUB's user and cluster rows
+    (1, 32, ops.BLOCK_PER_USER),
+    (ops.BLOCK_PER_USER_MAX_N, 25, ops.BLOCK_PER_USER),
+    (ops.BLOCK_PER_USER_MAX_N + 1, 25, ops.WARP_PER_USER),
+    (20480, 25, ops.WARP_PER_USER),              # DistCLUB's rounds
+    (1, 33, ops.WARP_PER_USER),                  # d^2 > 4 a thread
+])
+def test_variant_choice(n, d, want):
+    assert ops.variant(n, d) == want
+
+
+def test_club_row_views_take_the_block_variant():
+    """CLUB's two updates an interaction: the user's row views of the
+    full state and the cluster's, both n = 1 at the paper's d = 25."""
+    n, d, u = 20480, 25, 4321
+    b = torch.zeros(n, d)
+    assert ops.variant(*b[u:u + 1].shape) == ops.BLOCK_PER_USER
+    assert ops.variant(*b.shape) == ops.WARP_PER_USER
