@@ -8,8 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device  the card's name and power limit (``nvidia-smi``); no CUDA, exit.
 2. build   every CUDA kernel of the main path from ``src/repro_torch/csrc``
            (one ``nvcc`` per source, all at once), with the seconds taken;
-           the count of HGMMA (wgmma) instructions in the flash library's
-           SASS (``cuobjdump -sass``), which must not be 0.
+           the registers and spill bytes ptxas reports for prune_kernel,
+           topk_kernel and topk_pruned_kernel (any spill fails); the count
+           of HGMMA (wgmma) instructions in the flash library's SASS
+           (``cuobjdump -sass``), which must not be 0.
 3. small   each kernel against its plain PyTorch version on ragged small
            shapes (flash: f32 within 1e-4; bf16 kernel and plain version
            each within 2e-2 of the f32 plain version on upcast inputs;
@@ -19,7 +21,13 @@ Phases, in order; any failure raises and the script exits non-zero:
            a 16-byte boundary; both rank-1 kernels' block-per-user and
            warp-per-user variants bit-equal on the same rows: a row view
            against the whole state with one user live, and 264 users
-           against 265, the variants' limit).
+           against 265, the variants' limit; prune on ragged rows, words
+           and feature slabs, dense and sparse words, equal vectors and
+           pairs on the threshold; its dense and sparse branches forced
+           and bit-equal on words whose every warp tile the walk takes
+           (256 bits a tile, the cap, among them); the branch-free square root of prune and topk
+           against sqrtf on every non-negative float; topk at d = 1, 8,
+           24, 31, 32, 33, 48, 64).
 4. main    ``repro_torch.core.distclub.run`` at the paper's full width
            (20480 users, d=25, K=20, 100 planted clusters,
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
@@ -98,12 +106,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    cli     ``launch.serve.serve_lm`` at its defaults on the card, its
            tokens equal to the same call on the CPU at >= 99% of positions.
 5. full    each kernel against its plain version on the state that run
-           left (and on the full first-epoch adjacency for prune; ucb's
+           left (and on the full first-epoch adjacency for prune, whose
+           words on the learned graph must equal its words on the full
+           graph ANDed with the learned one; ucb's
            argmax must equal choose's choice for every user; ucb and
            rank1_update also at CLUB's n = 1 on its state's rows, and
            both rank-1 kernels there bit-equal to the whole state's
            warp-per-user variant with only that user live), the
-           two top-K kernels on one serving batch's users at full width,
+           two top-K kernels on one serving batch's users at full width
+           (topk's shortlist scores ``torch.equal`` to ``ucb_scores`` of the
+           shortlisted items),
            cross on a serve_bulk batch's layers 1 and 2, embedding_bag
            on the two bag batches of phase 4r, and flash on the q/k/v of
            phase 4l's prefill layers 0 and 35 and a decode step's layer 0.
@@ -121,7 +133,12 @@ Phases, in order; any failure raises and the script exits non-zero:
            n = 1 and 512-bag times; flash at the prefill and the decode
            shape, with ``scaled_dot_product_attention`` as its yardstick;
            bf16 flash runs on the tensor cores and is held to their bf16
-           rate (989 TFLOP/s), its f32 bound printed beside it.
+           rate (989 TFLOP/s), its f32 bound printed beside it; prune also
+           on phase 4's learned graph (its density, and a bound of its set
+           bits x (2d + 8) operations), on random graphs of rising
+           density, and on graphs with the same bits in every warp tile
+           (the sparse threshold's measurement), each branch forced too
+           (the walk only where no warp tile holds more than it takes).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -387,6 +404,88 @@ def check_prune(adj, v_i, cb_i, v_j, cb_j, gamma):
     return {"max_abs_err": err, "near_ties": int(ij.shape[0])}
 
 
+def prune_branch(adj, v_i, cb_i, v_j, cb_j, gamma, sparse_max):
+    """prune's kernel with its sparse threshold set by the caller (0: every
+    warp with a set bit takes the dense branch; ``SPARSE_CAP``: every warp
+    with at most that many bits walks them), past the wrapper."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.graph import ops
+    R, W = adj.shape
+    C, d = v_j.shape
+    out = torch.empty_like(adj)
+    work = torch.empty(ops.prune_work_floats(R, W, d), dtype=torch.float32,
+                       device=adj.device)
+    _build.launch("prune", adj.data_ptr(), v_i.data_ptr(), cb_i.data_ptr(),
+                  v_j.data_ptr(), cb_j.data_ptr(), float(gamma), R, W, C, d,
+                  sparse_max, work.data_ptr(), out.data_ptr())
+    return out
+
+
+def check_prune_branches(adj, v_i, cb_i, v_j, cb_j, gamma):
+    """Both branches of the prune kernel forced on the same words, each
+    bit-equal to the wrapper's words.  ``adj`` must hold at most
+    SPARSE_CAP set bits in every warp tile, so that no block of the forced
+    walk goes dense; returns the most bits a warp tile holds."""
+    import torch
+    from repro_torch.kernels.graph import ops
+    most = int(ops.warp_tile_bits(adj).max())
+    assert most <= ops.SPARSE_CAP, (
+        f"prune: a warp tile holds {most} bits, more than the walk takes")
+    out = ops.prune_packed(adj, v_i, cb_i, v_j, cb_j, gamma)
+    for sparse_max in (0, ops.SPARSE_CAP):
+        got = prune_branch(adj, v_i, cb_i, v_j, cb_j, gamma, sparse_max)
+        assert torch.equal(got, out), (
+            f"prune: the branch at sparse_max={sparse_max} differs")
+    return most
+
+
+def sqrt_check() -> int:
+    """The branch-free square root of prune's and topk's epilogues
+    (``csrc/sqrt_rn.cuh``) against sqrtf on every non-negative float, on
+    the card (``prune_sqrt_check``); raises on any mismatch."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    fn = _build.load("prune").prune_sqrt_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    count = torch.zeros(1, dtype=torch.int64, device="cuda")
+    err = fn(count.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"prune_sqrt_check: CUDA error {err}"
+    n = int(count)
+    assert n == 0, f"sqrt_rn differs from sqrtf on {n} floats"
+    return n
+
+
+def tile_adj(g, R, C, k, dev, rows=2048):
+    """A packed [R, ceil(C/32)] adjacency with k set bits at random
+    columns in each row's every 128 columns (fewer in a ragged last 128,
+    whose columns past C are dropped), so that a full warp tile of prune
+    (16 rows by 128 columns) holds 16 k; drawn ``rows`` rows at a time."""
+    import torch
+    from repro_torch.kernels.graph import ref as gref
+    segs = -(-C // 128)
+    parts = []
+    for r0 in range(0, R, rows):
+        m = min(rows, R - r0)
+        key = torch.rand(m, segs, 128, generator=g, device=dev)
+        bits = torch.zeros(m, segs, 128, dtype=torch.bool, device=dev)
+        bits.scatter_(-1, key.topk(k, dim=-1).indices, True)
+        parts.append(gref.pack_bits(bits.reshape(m, -1)[:, :C]))
+    return torch.cat(parts)
+
+
+def random_adj(g, R, C, p, dev, rows=2048):
+    """A packed [R, ceil(C/32)] adjacency with each bit set with
+    probability p, drawn on the card ``rows`` rows at a time."""
+    import torch
+    from repro_torch.kernels.graph import ref as gref
+    return torch.cat([gref.pack_bits(
+        torch.rand(min(rows, R - r0), C, generator=g, device=dev) < p)
+        for r0 in range(0, R, rows)])
+
+
 def check_topk(w, Minv, occ, items, live, alpha, k, got=None, plain=None):
     """The kernel's shortlist (``got``, else a fresh launch) against the
     plain version's (``plain``, else computed here): the finite pattern
@@ -610,6 +709,51 @@ def small_checks(dev):
                                            device=dev))
     log(f"small prune (n={ng}, d={d}): "
         f"{check_prune(adj, v, cb, v, cb, 1.2)}")
+    # ragged rows and words, one and several slabs of features, dense and
+    # sparse words: within the plain version's near-tie band; both
+    # branches bit-equal where every warp tile fits the walk (p = 0.02,
+    # and 16 bits in every row's 128 columns: 256 a tile, the cap)
+    for R, C, dp in ((200, 300, 17), (130, 1000, 40), (257, 64, 5),
+                     (129, 33, 16), (300, 70, 1), (140, 130, 33)):
+        v_r = torch.randn(R, dp, generator=g, device=dev)
+        v_c = torch.randn(C, dp, generator=g, device=dev)
+        cb_r = 0.3 * torch.rand(R, generator=g, device=dev) + 0.1
+        cb_c = 0.3 * torch.rand(C, generator=g, device=dev) + 0.1
+        gam = 2.0 * math.sqrt(dp)
+        for p in (0.7, 0.02):
+            a = random_adj(g, R, C, p, dev)
+            log(f"small prune (R={R}, C={C}, d={dp}, p={p}): "
+                f"{check_prune(a, v_r, cb_r, v_c, cb_c, gam)}")
+            if p < 0.1:
+                log(f"  branches, most bits in a warp tile: "
+                    f"{check_prune_branches(a, v_r, cb_r, v_c, cb_c, gam)}")
+        a = tile_adj(g, R, C, 16, dev)
+        log(f"small prune (R={R}, C={C}, d={dp}, 16 bits a row's 128 "
+            f"columns): {check_prune(a, v_r, cb_r, v_c, cb_c, gam)}, "
+            f"branches, most bits in a warp tile: "
+            f"{check_prune_branches(a, v_r, cb_r, v_c, cb_c, gam)}")
+    # equal vectors (distance 0, below sqrtf's fast range) and widths that
+    # put pairs on the threshold: the near-tie band on the full graph
+    # (dense); both branches equal on a band of it that holds the
+    # diagonal, the equal pairs (i, i +- 200) and the pair (0, 1) on the
+    # threshold, ~100 bits a warp tile
+    nt, dt = 600, 25
+    v_t = unit(torch.randn(nt, dt, generator=g, device=dev))
+    v_t[300:350] = v_t[100:150]
+    cb_t = torch.full((nt,), 0.3, device=dev)
+    gam_t = float(torch.linalg.norm(v_t[0] - v_t[1])) / 0.6
+    full_t = gref.init_packed_adj(nt, nt, device=dev)
+    ii = torch.arange(nt, device=dev)
+    band = (ii[None, :] - ii[:, None]) % 20 == 0
+    band[0, 1] = band[1, 0] = True
+    band_t = gref.pack_bits(band)
+    log(f"small prune on the threshold (n={nt}, d={dt}): "
+        f"{check_prune(full_t, v_t, cb_t, v_t, cb_t, gam_t)}; on its band: "
+        f"{check_prune(band_t, v_t, cb_t, v_t, cb_t, gam_t)}, branches, "
+        f"most bits in a warp tile: "
+        f"{check_prune_branches(band_t, v_t, cb_t, v_t, cb_t, gam_t)}")
+    log(f"sqrt_rn against sqrtf on every non-negative float: "
+        f"{sqrt_check()} mismatches")
     sparse = torch.rand(ng, ng, generator=g, device=dev) < 0.08
     sparse = torch.triu(sparse, 1)
     labels = torch.randperm(ng, generator=g, device=dev).to(torch.int32)
@@ -647,6 +791,14 @@ def small_topk_checks(g, dev, n, d, w, Minv, occ):
         "topk: copies of one item do not tie in id order")
     log(f"small topk N < k (N=9, k={k}): "
         f"{check_topk(w, Minv, occ, items[:9], live[:9], 0.3, k)}")
+    # each side of the features-in-registers buckets (d <= 32: 4 items a
+    # thread; above: 1) and of the blocks of 8 steps
+    for dd in (1, 8, 24, 31, 32, 33, 48):
+        w_d = 0.5 * torch.randn(n, dd, generator=g, device=dev)
+        it_d = unit(torch.randn(2000, dd, generator=g, device=dev))
+        lv_d = (torch.rand(2000, generator=g, device=dev) < 0.9).float()
+        log(f"small topk d={dd} (n={n}, N=2000, k=64): " + str(check_topk(
+            w_d, spd_inverse(g, n, dd, dev), occ, it_d, lv_d, 0.3, 64)))
     n64 = 20
     log("small topk d=64 k=128: " + str(check_topk(
         torch.randn(n64, 64, generator=g, device=dev),
@@ -774,6 +926,32 @@ def small_flash_checks(g, dev):
             f"flash: masked rows not 0 (Sq {Sq}, {dtype})")
 
 
+def spill_check() -> dict:
+    """Registers and spills of the prune and top-K kernels, from the ptxas
+    report of their builds; raise if any of them spills."""
+    import re
+    from repro_torch.kernels import _build
+    usage = {**_build.ptxas_usage(_build.build_report("prune")),
+             **_build.ptxas_usage(_build.build_report("topk"))}
+    seen = {}
+    for func, (regs, st, ld) in sorted(usage.items()):
+        m = re.search(r"\d+(prune_kernel|topk_kernel|topk_pruned_kernel)",
+                      func)
+        if m is None:
+            continue
+        args = re.findall(r"Li(\d+)E", func)
+        label = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+        seen[label] = (regs, st, ld)
+        log(f"ptxas {label}: {regs} registers, {st} bytes spill stores, "
+            f"{ld} bytes spill loads")
+    for kname in ("prune_kernel", "topk_kernel", "topk_pruned_kernel"):
+        assert any(label.split("<")[0] == kname for label in seen), (
+            f"ptxas: no report for {kname}")
+    spilled = [label for label, (_, st, ld) in seen.items() if st or ld]
+    assert not spilled, f"ptxas: {spilled} spill"
+    return seen
+
+
 def sass_check() -> int:
     """Count the HGMMA (wgmma) instructions in the SASS of the flash
     library (``cuobjdump -sass``); raise if there are none, or if the
@@ -884,6 +1062,45 @@ def cuda_times(fn, flush, reps, warmup=3) -> list[float]:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+PRUNE_DENSITIES = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.02, 0.05, 0.08,
+                   0.12)
+# set bits in each row's every 128 columns: 16 x as many in a warp tile
+PRUNE_ROW_BITS = (6, 8, 10, 11, 12, 13, 14, 15, 16)
+
+
+def prune_sweep(dev, v, cb, gamma, flush) -> list[dict]:
+    """prune over ``v`` (all rows against all columns), median of REPS
+    launches each: the wrapper's time and each branch of the kernel
+    forced, on seeded random adjacencies of rising density (a warp
+    tile's mean bits 2048 x density; the forced walk only where no tile
+    holds more than it takes) and on adjacencies with the same bits in
+    every warp tile (the sparse threshold's measurement)."""
+    import torch
+    from repro_torch.kernels.graph import ops as gops
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n = v.shape[0]
+    cases = [({"density": p}, random_adj(g, n, n, p, dev))
+             for p in PRUNE_DENSITIES]
+    cases += [({"row_bits": k}, tile_adj(g, n, n, k, dev))
+              for k in PRUNE_ROW_BITS]
+    rows = []
+    for row, a in cases:
+        tiles = gops.warp_tile_bits(a)
+        most = int(tiles.max())
+        row.update(tile_bits_mean=float(tiles.float().mean()),
+                   tile_bits_max=most,
+                   ms=cuda_ms(lambda: gops.prune_packed(a, v, cb, v, cb,
+                                                        gamma), flush),
+                   dense_ms=cuda_ms(lambda: prune_branch(
+                       a, v, cb, v, cb, gamma, 0), flush),
+                   sparse_ms=cuda_ms(lambda: prune_branch(
+                       a, v, cb, v, cb, gamma, gops.SPARSE_CAP), flush)
+                   if most <= gops.SPARSE_CAP else None)
+        rows.append(row)
+        log(f"time prune: {row}")
+    return rows
 
 
 def profile_epoch(distclub, state, ops, hyper, d, steady_s) -> None:
@@ -1660,11 +1877,8 @@ def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
 
 def popcount(words):
     """Set bits in an int32 tensor of packed words."""
-    x = words.long() & 0xFFFFFFFF
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return int(((x * 0x01010101) >> 24 & 0xFF).sum())
+    from repro_torch.kernels.graph import ops as gops
+    return int(gops.warp_tile_bits(words).sum())
 
 
 def bound_ms(n_bytes: float, flops: float,
@@ -1717,6 +1931,7 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {kname}: {line.strip()}")
+    spill_check()
     sass_check()
 
     # ---- phase 3: small shapes -----------------------------------------------
@@ -1836,6 +2051,15 @@ def main() -> int:
     errs["prune"] = check_prune(full, w, cb, w, cb, hyper.gamma)
     log(f"full prune on the epoch's pruned graph: "
         f"{check_prune(state.graph.adj, w, cb, w, cb, hyper.gamma)}")
+    # the kernel's sparse and dense branches agree: its words on the
+    # learned graph are its words on the full graph ANDed with it
+    learned = state.graph.adj
+    same = torch.equal(
+        gops.prune_packed(learned, w, cb, w, cb, hyper.gamma),
+        gops.prune_packed(full, w, cb, w, cb, hyper.gamma) & learned)
+    log(f"full prune on the learned graph equals prune on the full graph "
+        f"AND the learned graph: {same}")
+    assert same, "prune: the sparse and the dense branch disagree"
     ids = torch.arange(n, dtype=torch.int32, device=dev)
     errs["cc_hop"] = check_cc_hop(state.graph.adj, ids, ids)
     log(f"full cc_hop on the labels: "
@@ -1847,6 +2071,18 @@ def main() -> int:
     bank = serving.catalog.serving
     errs["topk"] = check_topk(w_s, M_s, occ_s, bank.emb, bank.live,
                               hyper.alpha, K_SHORT)
+    # the shortlist's scores are the bits of the ucb kernel's chain
+    # (csrc/ucb_score.cuh) on the same users and items
+    s_k, i_k = tops.topk(w_s, M_s, occ_s, bank.emb, bank.live, hyper.alpha,
+                         K_SHORT)
+    held = i_k >= 0
+    s_u = uops.ucb_scores(w_s, M_s, bank.emb[i_k.clamp_min(0).long()],
+                          occ_s, hyper.alpha)
+    log(f"full topk scores against ucb_scores of the shortlisted items: "
+        f"{int(held.sum())} entries, bit-equal "
+        f"{torch.equal(s_k[held], s_u[held])}")
+    assert torch.equal(s_k[held], s_u[held]), (
+        "topk: shortlist scores differ from ucb_scores")
     errs["topk_pruned"] = check_topk_pruned(w_s, M_s, occ_s, serving.catalog,
                                             item_clusters, hyper.alpha,
                                             K_SHORT)
@@ -2105,6 +2341,21 @@ def main() -> int:
                      reps_n1=TURN_REPS)
         by_name[kname].update(extra)
         log(f"time {kname} at n=1: {extra} ({by})")
+    # prune on the learned graph of phase 4: set bits only
+    set_bits = popcount(adj)
+    bms, by = bound_ms(work["prune"][2], set_bits * (2 * d + 8))
+    extra = {
+        "ms_sparse": cuda_ms(lambda: gops.prune_packed(
+            adj, w, cb, w, cb, hyper.gamma), flush),
+        "plain_ms_sparse": cuda_ms(lambda: gref.prune_packed_ref(
+            adj, w, cb, w, cb, hyper.gamma), flush),
+        "bound_ms_sparse": bms, "bound_by_sparse": by,
+        "density_sparse": set_bits / (n * n)}
+    by_name["prune"].update(extra)
+    log(f"time prune on the learned graph ({set_bits} set bits of {n * n}, "
+        f"{set_bits * (2 * d + 8)} ops): {extra}")
+    by_name["prune"]["density_sweep"] = prune_sweep(dev, w, cb, hyper.gamma,
+                                                    flush)
     kern, plain, n_bytes, flops = dec_work
     bms, by = bound_ms(n_bytes, flops, rates["flash"])
     extra = {"ms_decode": cuda_ms(kern, flush),

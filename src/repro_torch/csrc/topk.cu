@@ -19,24 +19,39 @@
 // - The users' Minv, w and widen factor are staged once in shared memory,
 //   Minv as [(i d + j) * 8 + u], so one float4 pair broadcasts the 8 users'
 //   M_ij to the whole block.
-// - The catalog streams through shared memory in chunks of 256*TK items,
-//   stored transposed (feature-major, stride chunk + 2 against bank
-//   conflicts).  Each thread scores TK items for all 8 users with the same
-//   FMA chains as csrc/choose.cu (est over j; t_i over j; quad over i), in
-//   registers: every (user, item) pair is scored by one fixed-order loop
-//   wherever it sits, so identical items tie bit-exactly and a score here
-//   equals choose's score of the same item.  Scores go to a [8, chunk]
-//   shared tile.
+// - The catalog streams through shared memory in chunks of 256*TK items
+//   (row-major, odd row stride against bank conflicts; one contiguous
+//   16-byte cp.async copy where d is odd) with their live flags (and,
+//   pruned, their ids).  Thread t owns items t, t + 256, ... of the chunk
+//   and first loads their features into registers (DMAX = 32 or 64, a
+//   compile-time bucket of d): TK = 4 items at d <= 32 in the unpruned
+//   kernel (128 registers), 2 in the pruned one, whose chunk is one
+//   512-item tile; 1 above d = 32.  The unpruned kernel then stages the
+//   next chunk into the same buffer (the live flags alternate between
+//   two) while it scores this one.
+// - Scoring (score_items, the one routine of both kernels): for each i
+//   the j loop runs in straight-line blocks of 8 steps (the loads of a
+//   block are scheduled ahead of its FMAs) and a tail guarded by d; a
+//   step reads only the 8 users' M_ij from shared memory, two broadcast
+//   float4s for 8 TK FMAs; x_i comes from the registers through a jump
+//   table (unpruned: the buffer is being restaged) or from the buffer.
+//   The FMA chains are those of csrc/ucb_score.cuh (t over j from 0,
+//   quad over i, est over j; sqrt_rn is sqrtf bit for bit), so a score
+//   here is bit-equal to ucb's and choose's score of the same item, and
+//   identical items tie bit-exactly.  Scores go to a [8, chunk] shared
+//   tile.
 // - Selection: one warp per user keeps a sorted list of k (score, id) in
-//   shared memory.  Lanes test 32 items at a time against the list's floor
-//   (the k-th entry) by value (>, ==: -0.0 and 0.0 tie); the few that beat
-//   it are inserted one by one (ballot, then a warp-parallel rank and
-//   shift).  Insertion order does not change the result: the list is the
+//   shared memory.  Lanes test 128 items at a time (4 each) against the
+//   list's floor (the k-th entry) by value (>, ==: -0.0 and 0.0 tie); the
+//   few that beat it are inserted one by one (ballot, then a warp-parallel
+//   rank and shift).  Insertion order does not change the result: the list is the
 //   top k of a set under a total order.
 // - The grid is (user groups, splits): each split of a group streams every
 //   S-th chunk (or tile) and writes a partial list; a merge kernel folds
 //   the S partial lists per user with the same insertion (S == 1 writes the
-//   output directly).
+//   output directly).  The wrapper sizes S from the resident blocks per SM
+//   (topk_blocks_per_sm, the occupancy API) so the grid fills whole waves
+//   or fits in one (kernels/topk/ops.py launch_plan).
 // - Pruned: the catalog arrives cluster-sorted with per-(user, tile) upper
 //   bounds tb and a per-group tile order (bound-descending, from the
 //   wrapper).  Before a tile the block skips it when every valid user has
@@ -45,17 +60,21 @@
 //   of the same users has published (atomicMax on an order-preserving int
 //   encoding): any split's full list lower-bounds the final k-th score, so
 //   skipping against it is exact.  Skip counts therefore depend on timing;
-//   the shortlist does not.  Both kernels score through score_chunk, so the
-//   pruned shortlist is bit-equal to the unpruned one.
+//   the shortlist does not.  Both kernels score through score_items, so
+//   the pruned shortlist is bit-equal to the unpruned one.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "sqrt_rn.cuh"
 
 namespace {
 
 constexpr int kUsers = 8;       // users per block: one warp each to select
 constexpr int kThreads = 256;
 constexpr int kMaxK = 128;
+constexpr int kSmallD = 32;     // d <= kSmallD: DMAX 32; else 64
+constexpr int kMaxD = 64;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 232448;  // H100: 227 KB per block
 
@@ -72,34 +91,71 @@ __device__ __forceinline__ float o2f(int o) {
   return __int_as_float(o >= 0 ? o : o ^ 0x7fffffff);
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Items a thread scores per chunk: the unpruned kernel holds 4 items'
+// features in registers up to d = 32 (128 registers), 1 above (64); the
+// pruned kernel 2 and 1, so that a chunk is one 512-item tile.
+__host__ __device__ inline int tk_unpruned(int d) {
+  return d <= kSmallD ? 4 : 1;
+}
+__host__ __device__ inline int tk_pruned(int d) {
+  return d <= kSmallD ? 2 : 1;
+}
+// The chunk's row stride in shared memory: odd, so that the 32 lanes'
+// rows fall in 32 banks.
+__host__ __device__ inline int stride_of(int d) { return d | 1; }
+
 struct Smem {
   float* Ms;  // [d*d][kUsers]
   float* ws;  // [d][kUsers]
   float* ex;  // [kUsers]
-  float* xs;  // [d][XS]  transposed chunk
+  float* xs;  // [CH][XS]   chunk rows
+  float* lv;  // [2][CH]    live flags of the chunk (two: the next's too)
+  int* id;    // [CH]       ids of the chunk (pruned)
   float* ss;  // [kUsers][CH] scores
   float* ls;  // [kUsers][k]  sorted list scores
   int* li;    // [kUsers][k]  sorted list ids
 };
 
-__host__ __device__ inline int chunk_of(int TK) { return kThreads * TK; }
-
-__host__ __device__ inline size_t score_smem_bytes(int d, int k, int TK) {
-  const size_t CH = chunk_of(TK);
+__host__ __device__ inline size_t score_smem_bytes(int d, int k, int TK,
+                                                   bool with_ids) {
+  const size_t CH = (size_t)kThreads * TK;
   return sizeof(float) * ((size_t)kUsers * d * d + (size_t)kUsers * d +
-                          kUsers + (size_t)d * (CH + 2) + kUsers * CH +
+                          kUsers + CH * stride_of(d) + 2 * CH +
+                          (with_ids ? CH : 0) + kUsers * CH +
                           (size_t)kUsers * k) +
          sizeof(int) * (size_t)kUsers * k;
 }
 
-__device__ Smem carve(float* base, int d, int k, int TK) {
-  const int CH = chunk_of(TK);
+__device__ Smem carve(float* base, int d, int k, int TK, bool with_ids) {
+  const int CH = kThreads * TK;
   Smem s;
   s.Ms = base;
   s.ws = s.Ms + kUsers * d * d;
   s.ex = s.ws + kUsers * d;
   s.xs = s.ex + kUsers;
-  s.ss = s.xs + d * (CH + 2);
+  s.lv = s.xs + CH * stride_of(d);
+  s.id = reinterpret_cast<int*>(s.lv + 2 * CH);
+  s.ss = reinterpret_cast<float*>(s.id + (with_ids ? CH : 0));
   s.ls = s.ss + kUsers * CH;
   s.li = reinterpret_cast<int*>(s.ls + kUsers * k);
   return s;
@@ -130,41 +186,142 @@ __device__ void stage_users(const float* __restrict__ w,
   }
 }
 
-// Items [first, first + cnt) of ``items`` into the transposed chunk.
-__device__ void stage_items(const float* __restrict__ items, size_t first,
-                            int cnt, int d, int XS, float* xs) {
+// n floats from src to dst (shared): 16-byte copies where both are
+// 16-byte aligned, 4-byte ones for the rest.
+__device__ __forceinline__ void stage_floats(void* dst, const void* src,
+                                             int n) {
+  int done = 0;
+  if (aligned16(dst) && aligned16(src)) {
+    done = n & ~3;
+    for (int e = 4 * threadIdx.x; e < done; e += 4 * kThreads)
+      cp_async16(static_cast<float*>(dst) + e,
+                 static_cast<const float*>(src) + e);
+  }
+  for (int e = done + threadIdx.x; e < n; e += kThreads)
+    cp_async4(static_cast<float*>(dst) + e, static_cast<const float*>(src) + e);
+}
+
+// Start copying catalog rows [first, first + cnt) into the chunk buffer,
+// their live flags into live buffer ``lb`` (and their ids), by cp.async;
+// the caller commits and waits.  Where the row stride in shared memory is
+// d itself (d odd) the rows are one contiguous copy; otherwise each float
+// goes to its padded slot.
+__device__ void stage_chunk(const float* __restrict__ items,
+                            const float* __restrict__ live,
+                            const int* __restrict__ ids, size_t first,
+                            int cnt, int d, int CH, const Smem& s, int lb) {
+  const int XS = stride_of(d);
   const float* src = items + first * d;
-  for (int e = threadIdx.x; e < cnt * d; e += kThreads) {
-    const int c = e / d, j = e - c * d;
-    xs[j * XS + c] = src[e];
+  if (XS == d) {
+    stage_floats(s.xs, src, cnt * d);
+  } else {
+    const int dc = kThreads / d, dj = kThreads - dc * d;
+    int c = threadIdx.x / d, j = threadIdx.x - c * d;
+    for (int e = threadIdx.x; e < cnt * d; e += kThreads) {
+      cp_async4(s.xs + c * XS + j, src + e);
+      c += dc;
+      j += dj;
+      if (j >= d) {
+        j -= d;
+        ++c;
+      }
+    }
+  }
+  stage_floats(s.lv + lb * CH, live + first, cnt);
+  if (ids) stage_floats(s.id, ids + first, cnt);
+}
+
+// The thread's TK items of the staged chunk (items t, t + 256, ...) into
+// registers; features past d are 0.
+template <int DMAX, int TK>
+__device__ __forceinline__ void load_items(float (&x)[TK][DMAX],
+                                           const Smem& s, int d) {
+  const int XS = stride_of(d);
+#pragma unroll
+  for (int q = 0; q < TK; ++q) {
+    const float* row = s.xs + (threadIdx.x + q * kThreads) * XS;
+#pragma unroll
+    for (int j = 0; j < DMAX; ++j) x[q][j] = j < d ? row[j] : 0.f;
   }
 }
 
-// Score the staged chunk for the 8 users into ss[u][c].  The one scoring
-// routine of both kernels.
-template <int TK>
-__device__ __forceinline__ void score_chunk(const Smem& s, int d, float alpha) {
-  constexpr int CH = kThreads * TK;
-  constexpr int XS = CH + 2;
-  const int k0 = threadIdx.x * TK;
-  float est[kUsers][TK], quad[kUsers][TK];
+// t[u][q] += M_ij x_j for one j (a constant once the caller's loop is
+// unrolled): the 8 users' M_ij as two broadcast float4s.
+template <int DMAX, int TK>
+__device__ __forceinline__ void t_step(float (&t)[kUsers][TK],
+                                       const float (&x)[TK][DMAX],
+                                       const float* mrow, int j) {
+  const float4 ma = *reinterpret_cast<const float4*>(mrow + j * kUsers);
+  const float4 mb = *reinterpret_cast<const float4*>(mrow + j * kUsers + 4);
+  const float mu[kUsers] = {ma.x, ma.y, ma.z, ma.w, mb.x, mb.y, mb.z, mb.w};
 #pragma unroll
   for (int u = 0; u < kUsers; ++u)
 #pragma unroll
-    for (int q = 0; q < TK; ++q) est[u][q] = quad[u][q] = 0.f;
+    for (int q = 0; q < TK; ++q) t[u][q] = fmaf(mu[u], x[q][j], t[u][q]);
+}
 
-  for (int j = 0; j < d; ++j) {
-    float xv[TK];
+// Steps j = J0 .. J0 + 7 (``guard``: only those below d).  Unguarded, the
+// eight steps are straight-line code, so their loads are scheduled ahead
+// of the FMAs.
+template <int J0, int DMAX, int TK>
+__device__ __forceinline__ void t_block(float (&t)[kUsers][TK],
+                                        const float (&x)[TK][DMAX],
+                                        const float* mrow, bool guard,
+                                        int d) {
+  if constexpr (J0 < DMAX) {
 #pragma unroll
-    for (int q = 0; q < TK; ++q) xv[q] = s.xs[j * XS + k0 + q];
-    const float4 wa = *reinterpret_cast<const float4*>(s.ws + j * kUsers);
-    const float4 wb = *reinterpret_cast<const float4*>(s.ws + j * kUsers + 4);
-    const float wu[kUsers] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-    for (int u = 0; u < kUsers; ++u)
-#pragma unroll
-      for (int q = 0; q < TK; ++q) est[u][q] = fmaf(xv[q], wu[u], est[u][q]);
+    for (int j8 = 0; j8 < 8; ++j8) {
+      if (guard && J0 + j8 >= d) return;
+      t_step<DMAX, TK>(t, x, mrow, J0 + j8);
+    }
   }
+}
+
+// xi[q] = x[q][i] for a runtime i < DMAX (a jump table, no memory).
+template <int DMAX, int TK>
+__device__ __forceinline__ void pick(const float (&x)[TK][DMAX], int i,
+                                     float (&xi)[TK]) {
+#define TOPK_PICK(J)                                                 \
+  case J:                                                            \
+    _Pragma("unroll") for (int q = 0; q < TK; ++q) xi[q] =           \
+        x[q][(J) < DMAX ? (J) : 0];                                  \
+    break;
+  switch (i) {
+    TOPK_PICK(0) TOPK_PICK(1) TOPK_PICK(2) TOPK_PICK(3) TOPK_PICK(4)
+    TOPK_PICK(5) TOPK_PICK(6) TOPK_PICK(7) TOPK_PICK(8) TOPK_PICK(9)
+    TOPK_PICK(10) TOPK_PICK(11) TOPK_PICK(12) TOPK_PICK(13) TOPK_PICK(14)
+    TOPK_PICK(15) TOPK_PICK(16) TOPK_PICK(17) TOPK_PICK(18) TOPK_PICK(19)
+    TOPK_PICK(20) TOPK_PICK(21) TOPK_PICK(22) TOPK_PICK(23) TOPK_PICK(24)
+    TOPK_PICK(25) TOPK_PICK(26) TOPK_PICK(27) TOPK_PICK(28) TOPK_PICK(29)
+    TOPK_PICK(30) TOPK_PICK(31) TOPK_PICK(32) TOPK_PICK(33) TOPK_PICK(34)
+    TOPK_PICK(35) TOPK_PICK(36) TOPK_PICK(37) TOPK_PICK(38) TOPK_PICK(39)
+    TOPK_PICK(40) TOPK_PICK(41) TOPK_PICK(42) TOPK_PICK(43) TOPK_PICK(44)
+    TOPK_PICK(45) TOPK_PICK(46) TOPK_PICK(47) TOPK_PICK(48) TOPK_PICK(49)
+    TOPK_PICK(50) TOPK_PICK(51) TOPK_PICK(52) TOPK_PICK(53) TOPK_PICK(54)
+    TOPK_PICK(55) TOPK_PICK(56) TOPK_PICK(57) TOPK_PICK(58) TOPK_PICK(59)
+    TOPK_PICK(60) TOPK_PICK(61) TOPK_PICK(62) TOPK_PICK(63)
+    default: break;
+  }
+#undef TOPK_PICK
+}
+
+// Score the thread's TK items (features in x) for the 8 users into
+// ss[u][c].  The one scoring routine of both kernels.  x_i comes from the
+// registers (``XI_SHARED`` false: the unpruned kernel restages the chunk
+// buffer while it scores) or from the chunk buffer (the pruned kernel).
+template <int DMAX, int TK, bool XI_SHARED>
+__device__ __forceinline__ void score_items(const Smem& s,
+                                            const float (&x)[TK][DMAX],
+                                            int d, float alpha) {
+  static_assert(DMAX % 8 == 0 && DMAX <= 64, "DMAX: 8 .. 64 by 8");
+  constexpr int CH = kThreads * TK;
+  float quad[kUsers][TK];
+#pragma unroll
+  for (int u = 0; u < kUsers; ++u)
+#pragma unroll
+    for (int q = 0; q < TK; ++q) quad[u][q] = 0.f;
+
+  const int full = d / 8;  // blocks of 8 steps below d; then the tail
   for (int i = 0; i < d; ++i) {
     float t[kUsers][TK];
 #pragma unroll
@@ -172,34 +329,63 @@ __device__ __forceinline__ void score_chunk(const Smem& s, int d, float alpha) {
 #pragma unroll
       for (int q = 0; q < TK; ++q) t[u][q] = 0.f;
     const float* mrow = s.Ms + i * d * kUsers;
-    for (int j = 0; j < d; ++j) {
-      float xv[TK];
+    // j ascending: the full blocks, then the tail block guarded by d
+    if (full > 0) t_block<0, DMAX, TK>(t, x, mrow, false, d);
+    if (full > 1) t_block<8, DMAX, TK>(t, x, mrow, false, d);
+    if (full > 2) t_block<16, DMAX, TK>(t, x, mrow, false, d);
+    if (full > 3) t_block<24, DMAX, TK>(t, x, mrow, false, d);
+    if (full > 4) t_block<32, DMAX, TK>(t, x, mrow, false, d);
+    if (full > 5) t_block<40, DMAX, TK>(t, x, mrow, false, d);
+    if (full > 6) t_block<48, DMAX, TK>(t, x, mrow, false, d);
+    if (full > 7) t_block<56, DMAX, TK>(t, x, mrow, false, d);
+    switch (full) {
+      case 0: t_block<0, DMAX, TK>(t, x, mrow, true, d); break;
+      case 1: t_block<8, DMAX, TK>(t, x, mrow, true, d); break;
+      case 2: t_block<16, DMAX, TK>(t, x, mrow, true, d); break;
+      case 3: t_block<24, DMAX, TK>(t, x, mrow, true, d); break;
+      case 4: t_block<32, DMAX, TK>(t, x, mrow, true, d); break;
+      case 5: t_block<40, DMAX, TK>(t, x, mrow, true, d); break;
+      case 6: t_block<48, DMAX, TK>(t, x, mrow, true, d); break;
+      case 7: t_block<56, DMAX, TK>(t, x, mrow, true, d); break;
+      default: break;
+    }
+    float xi[TK];
+    if (XI_SHARED) {
 #pragma unroll
-      for (int q = 0; q < TK; ++q) xv[q] = s.xs[j * XS + k0 + q];
-      const float4 ma = *reinterpret_cast<const float4*>(mrow + j * kUsers);
-      const float4 mb =
-          *reinterpret_cast<const float4*>(mrow + j * kUsers + 4);
-      const float mu[kUsers] = {ma.x, ma.y, ma.z, ma.w,
-                                mb.x, mb.y, mb.z, mb.w};
+      for (int q = 0; q < TK; ++q)
+        xi[q] = s.xs[(threadIdx.x + q * kThreads) * stride_of(d) + i];
+    } else {
+      pick<DMAX, TK>(x, i, xi);
+    }
+#pragma unroll
+    for (int q = 0; q < TK; ++q)
 #pragma unroll
       for (int u = 0; u < kUsers; ++u)
+        quad[u][q] = fmaf(xi[q], t[u][q], quad[u][q]);
+  }
+  float est[kUsers][TK];
 #pragma unroll
-        for (int q = 0; q < TK; ++q) t[u][q] = fmaf(mu[u], xv[q], t[u][q]);
-    }
+  for (int u = 0; u < kUsers; ++u)
 #pragma unroll
-    for (int q = 0; q < TK; ++q) {
-      const float xi = s.xs[i * XS + k0 + q];
+    for (int q = 0; q < TK; ++q) est[u][q] = 0.f;
 #pragma unroll
-      for (int u = 0; u < kUsers; ++u) quad[u][q] = fmaf(xi, t[u][q], quad[u][q]);
-    }
+  for (int j = 0; j < DMAX; ++j) {
+    if (j >= d) break;
+    const float4 wa = *reinterpret_cast<const float4*>(s.ws + j * kUsers);
+    const float4 wb = *reinterpret_cast<const float4*>(s.ws + j * kUsers + 4);
+    const float wu[kUsers] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+    for (int u = 0; u < kUsers; ++u)
+#pragma unroll
+      for (int q = 0; q < TK; ++q) est[u][q] = fmaf(x[q][j], wu[u], est[u][q]);
   }
 #pragma unroll
   for (int u = 0; u < kUsers; ++u)
 #pragma unroll
     for (int q = 0; q < TK; ++q) {
       const float bonus = __fmul_rn(
-          __fmul_rn(alpha, sqrtf(fmaxf(quad[u][q], 0.f))), s.ex[u]);
-      s.ss[u * CH + k0 + q] = __fadd_rn(est[u][q], bonus);
+          __fmul_rn(alpha, sqrt_rn(fmaxf(quad[u][q], 0.f))), s.ex[u]);
+      s.ss[u * CH + threadIdx.x + q * kThreads] = __fadd_rn(est[u][q], bonus);
     }
 }
 
@@ -254,23 +440,41 @@ __device__ __forceinline__ void offer(float* ls, int* li, int k, bool cand,
   }
 }
 
-// The warp's user against the scored chunk: items at catalog rows
-// [pos0, pos0 + cnt), ids from ``ids`` (sorted catalog) or the row itself.
-__device__ void scan_chunk(const float* ss_u, int cnt,
-                           const float* __restrict__ live,
-                           const int* __restrict__ ids, size_t pos0,
-                           float* ls, int* li, int k, int lane) {
-  for (int base = 0; base < cnt; base += 32) {
-    const int c = base + lane;
-    float sc = 0.f;
-    int id = 0;
-    bool cand = false;
-    if (c < cnt && live[pos0 + c] > 0.f) {
-      sc = ss_u[c];
-      id = ids ? ids[pos0 + c] : (int)(pos0 + c);
-      cand = beats(sc, id, ls[k - 1], li[k - 1]);
+// The warp's user against the scored chunk (live flags in buffer
+// ``buf``): items at catalog rows [pos0, pos0 + cnt), ids from the staged
+// ids (sorted catalog) or the row itself.  Each lane tests 4 items a
+// step against the list's floor; a step where none beats it costs two
+// float4 loads.
+__device__ void scan_chunk(const Smem& s, int buf, int cnt, bool with_ids,
+                           size_t pos0, int k, int CH, int warp, int lane) {
+  const float* ss_u = s.ss + warp * CH;
+  const float* lv = s.lv + buf * CH;
+  const int* id_s = s.id;
+  float* ls = s.ls + warp * k;
+  int* li = s.li + warp * k;
+  for (int base = 0; base < cnt; base += 128) {  // CH is a multiple of 128
+    const int c0 = base + 4 * lane;
+    const float4 sv = *reinterpret_cast<const float4*>(ss_u + c0);
+    const float4 lvv = *reinterpret_cast<const float4*>(lv + c0);
+    int4 iv = make_int4(0, 0, 0, 0);
+    if (with_ids) iv = *reinterpret_cast<const int4*>(id_s + c0);
+    const float sc[4] = {sv.x, sv.y, sv.z, sv.w};
+    const float lve[4] = {lvv.x, lvv.y, lvv.z, lvv.w};
+    const int ide[4] = {iv.x, iv.y, iv.z, iv.w};
+    const float fs = ls[k - 1];
+    const int fi = li[k - 1];
+    bool cand[4], any = false;
+    int id[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      id[e] = with_ids ? ide[e] : (int)(pos0 + c0 + e);
+      cand[e] = c0 + e < cnt && lve[e] > 0.f && beats(sc[e], id[e], fs, fi);
+      any |= cand[e];
     }
-    offer(ls, li, k, cand, sc, id, lane);
+    if (__any_sync(kFull, any)) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) offer(ls, li, k, cand[e], sc[e], id[e], lane);
+    }
   }
 }
 
@@ -286,8 +490,8 @@ __device__ void write_lists(const Smem& s, int n, int k, int u0, int split,
   }
 }
 
-template <int TK>
-__global__ void __launch_bounds__(kThreads)
+template <int DMAX, int TK>
+__global__ void __launch_bounds__(kThreads, 1)
     topk_kernel(const float* __restrict__ w, const float* __restrict__ Minv,
                 const int* __restrict__ occ, const float* __restrict__ items,
                 const float* __restrict__ live, float alpha, int n, int N,
@@ -295,29 +499,40 @@ __global__ void __launch_bounds__(kThreads)
                 int* __restrict__ out_i) {
   extern __shared__ __align__(16) float smem[];
   constexpr int CH = kThreads * TK;
-  const Smem s = carve(smem, d, k, TK);
+  const Smem s = carve(smem, d, k, TK, false);
   const int u0 = blockIdx.x * kUsers, split = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  stage_users(w, Minv, occ, n, d, k, u0, s);
   const int n_chunks = (N + CH - 1) / CH;
-  for (int c = split; c < n_chunks; c += S) {
+  auto stage = [&](int c, int lb) {
     const size_t first = (size_t)c * CH;
-    const int cnt = min(CH, N - (int)first);
+    stage_chunk(items, live, nullptr, first, min(CH, N - (int)first), d, CH,
+                s, lb);
+    cp_commit();
+  };
+  if (split < n_chunks) stage(split, 0);
+  stage_users(w, Minv, occ, n, d, k, u0, s);
+  int lb = 0;
+  for (int c = split; c < n_chunks; c += S) {
+    cp_wait_all();
+    __syncthreads();  // chunk c has arrived; the last chunk is scanned
+    float x[TK][DMAX];
+    load_items<DMAX, TK>(x, s, d);
+    __syncthreads();  // the chunk buffer is free: stage the next chunk
+    if (c + S < n_chunks) stage(c + S, lb ^ 1);
+    score_items<DMAX, TK, false>(s, x, d, alpha);
     __syncthreads();
-    stage_items(items, first, cnt, d, CH + 2, s.xs);
-    __syncthreads();
-    score_chunk<TK>(s, d, alpha);
-    __syncthreads();
+    const size_t first = (size_t)c * CH;
     if (u0 + warp < n)
-      scan_chunk(s.ss + warp * CH, cnt, live, nullptr, first,
-                 s.ls + warp * k, s.li + warp * k, k, lane);
+      scan_chunk(s, lb, min(CH, N - (int)first), false, first, k, CH, warp,
+                 lane);
+    lb ^= 1;
   }
   __syncthreads();  // lists staged by other warps when nothing streamed
   write_lists(s, n, k, u0, split, out_s, out_i);
 }
 
-template <int TK>
-__global__ void __launch_bounds__(kThreads)
+template <int DMAX, int TK>
+__global__ void __launch_bounds__(kThreads, 1)
     topk_pruned_kernel(const float* __restrict__ w,
                        const float* __restrict__ Minv,
                        const int* __restrict__ occ,
@@ -331,7 +546,7 @@ __global__ void __launch_bounds__(kThreads)
                        int* __restrict__ out_i, int* __restrict__ skipped) {
   extern __shared__ __align__(16) float smem[];
   constexpr int CH = kThreads * TK;
-  const Smem s = carve(smem, d, k, TK);
+  const Smem s = carve(smem, d, k, TK, true);
   const int g = blockIdx.x, split = blockIdx.y;
   const int u0 = g * kUsers;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -355,13 +570,15 @@ __global__ void __launch_bounds__(kThreads)
       const size_t first = (size_t)t * tile + c0;
       const int cnt = min(CH, tile - c0);
       __syncthreads();
-      stage_items(items, first, cnt, d, CH + 2, s.xs);
+      stage_chunk(items, live, ids, first, cnt, d, CH, s, 0);
+      cp_commit();
+      cp_wait_all();
       __syncthreads();
-      score_chunk<TK>(s, d, alpha);
+      float x[TK][DMAX];
+      load_items<DMAX, TK>(x, s, d);
+      score_items<DMAX, TK, true>(s, x, d, alpha);
       __syncthreads();
-      if (u0 + warp < n)
-        scan_chunk(s.ss + warp * CH, cnt, live, ids, first, s.ls + warp * k,
-                   s.li + warp * k, k, lane);
+      if (u0 + warp < n) scan_chunk(s, 0, cnt, true, first, k, CH, warp, lane);
     }
     __syncthreads();
     if (threadIdx.x < kUsers && u0 + threadIdx.x < n) {
@@ -421,14 +638,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// TK = 2 items per thread where the shared memory allows, else 1; 0 if
-// even that does not fit.
-int pick_tk(int d, int k) {
-  if (score_smem_bytes(d, k, 2) <= kMaxSmem) return 2;
-  if (score_smem_bytes(d, k, 1) <= kMaxSmem) return 1;
-  return 0;
-}
-
 cudaError_t merge(const float* part_s, const int* part_i, int n, int k,
                   int S, float* out_s, int* out_i, cudaStream_t stream) {
   const size_t bytes = (size_t)kUsers * k * (sizeof(float) + sizeof(int));
@@ -438,35 +647,73 @@ cudaError_t merge(const float* part_s, const int* part_i, int n, int k,
   return cudaGetLastError();
 }
 
+bool valid_shape(int d, int k) {
+  return d >= 1 && d <= kMaxD && k >= 1 && k <= kMaxK;
+}
+
+using TopkFn = void (*)(const float*, const float*, const int*,
+                        const float*, const float*, float, int, int, int, int,
+                        int, float*, int*);
+using PrunedFn = void (*)(const float*, const float*, const int*,
+                          const float*, const float*, const int*,
+                          const float*, const int*, int*, float, int, int,
+                          int, int, int, int, float*, int*, int*);
+
+// The kernels that serve d, and their shared memory at (d, k).
+TopkFn topk_fn(int d) {
+  return d <= kSmallD ? topk_kernel<32, 4> : topk_kernel<64, 1>;
+}
+PrunedFn pruned_fn(int d) {
+  return d <= kSmallD ? topk_pruned_kernel<32, 2> : topk_pruned_kernel<64, 1>;
+}
+size_t smem_bytes(int d, int k, bool pruned) {
+  return score_smem_bytes(d, k, pruned ? tk_pruned(d) : tk_unpruned(d),
+                          pruned);
+}
+
 }  // namespace
 
-// Up to S splits per group of 8 users, never more than there are chunks.
-// With one split the lists go straight to out_s/out_i; otherwise to
-// part_s/part_i ([splits, n, k], room for S) and then merged.
+// Resident blocks per SM of the kernel that serves (d, k) (``pruned``:
+// topk_pruned_kernel), from the occupancy API, into *blocks.
+extern "C" int topk_blocks_per_sm(int d, int k, int pruned, int* blocks) {
+  const size_t bytes = smem_bytes(d, k, pruned);
+  if (!valid_shape(d, k) || bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (pruned) {
+    if ((e = allow_smem(pruned_fn(d), bytes)) != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, pruned_fn(d),
+                                                      kThreads, bytes);
+  } else {
+    if ((e = allow_smem(topk_fn(d), bytes)) != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, topk_fn(d),
+                                                      kThreads, bytes);
+  }
+  return (int)e;
+}
+
+// S splits per group of 8 users (lowered to the chunk count).  With one
+// split the lists go straight to out_s/out_i; otherwise to part_s/part_i
+// ([splits, n, k], room for S) and then merged.
 extern "C" int topk_launch(const float* w, const float* Minv, const int* occ,
                            const float* items, const float* live, float alpha,
                            int n, int N, int d, int k, int S, float* part_s,
                            int* part_i, float* out_s, int* out_i,
                            cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || S < 1) return (int)cudaErrorInvalidValue;
-  const int TK = pick_tk(d, k);
-  if (TK == 0) return (int)cudaErrorInvalidValue;
-  const int chunks = (N + chunk_of(TK) - 1) / chunk_of(TK);
+  const size_t bytes = smem_bytes(d, k, false);
+  if (!valid_shape(d, k) || S < 1 || bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const int CH = kThreads * tk_unpruned(d);
+  const int chunks = (N + CH - 1) / CH;
   if (S > chunks) S = chunks > 0 ? chunks : 1;
-  const size_t bytes = score_smem_bytes(d, k, TK);
   const dim3 grid((n + kUsers - 1) / kUsers, S);
   float* ls = S == 1 ? out_s : part_s;
   int* li = S == 1 ? out_i : part_i;
+  const TopkFn kernel = topk_fn(d);
   cudaError_t e;
-  if (TK == 2) {
-    if ((e = allow_smem(topk_kernel<2>, bytes)) != cudaSuccess) return (int)e;
-    topk_kernel<2><<<grid, kThreads, bytes, stream>>>(
-        w, Minv, occ, items, live, alpha, n, N, d, k, S, ls, li);
-  } else {
-    if ((e = allow_smem(topk_kernel<1>, bytes)) != cudaSuccess) return (int)e;
-    topk_kernel<1><<<grid, kThreads, bytes, stream>>>(
-        w, Minv, occ, items, live, alpha, n, N, d, k, S, ls, li);
-  }
+  if ((e = allow_smem(kernel, bytes)) != cudaSuccess) return (int)e;
+  kernel<<<grid, kThreads, bytes, stream>>>(w, Minv, occ, items, live, alpha,
+                                            n, N, d, k, S, ls, li);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (S > 1) return (int)merge(part_s, part_i, n, k, S, out_s, out_i, stream);
   return 0;
@@ -481,27 +728,18 @@ extern "C" int topk_pruned_launch(
     int* gfloor, float alpha, int n, int T, int tile, int d, int k, int S,
     float* part_s, int* part_i, float* out_s, int* out_i, int* skipped,
     cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || S < 1 || tile < 1) return (int)cudaErrorInvalidValue;
-  const int TK = pick_tk(d, k);
-  if (TK == 0) return (int)cudaErrorInvalidValue;
-  const size_t bytes = score_smem_bytes(d, k, TK);
+  const size_t bytes = smem_bytes(d, k, true);
+  if (!valid_shape(d, k) || S < 1 || tile < 1 || bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kUsers - 1) / kUsers, S);
   float* ls = S == 1 ? out_s : part_s;
   int* li = S == 1 ? out_i : part_i;
+  const PrunedFn kernel = pruned_fn(d);
   cudaError_t e;
-  if (TK == 2) {
-    if ((e = allow_smem(topk_pruned_kernel<2>, bytes)) != cudaSuccess)
-      return (int)e;
-    topk_pruned_kernel<2><<<grid, kThreads, bytes, stream>>>(
-        w, Minv, occ, items, live, ids, tb, tile_order, gfloor, alpha, n, T,
-        tile, d, k, S, ls, li, skipped);
-  } else {
-    if ((e = allow_smem(topk_pruned_kernel<1>, bytes)) != cudaSuccess)
-      return (int)e;
-    topk_pruned_kernel<1><<<grid, kThreads, bytes, stream>>>(
-        w, Minv, occ, items, live, ids, tb, tile_order, gfloor, alpha, n, T,
-        tile, d, k, S, ls, li, skipped);
-  }
+  if ((e = allow_smem(kernel, bytes)) != cudaSuccess) return (int)e;
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      w, Minv, occ, items, live, ids, tb, tile_order, gfloor, alpha, n, T,
+      tile, d, k, S, ls, li, skipped);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (S > 1) return (int)merge(part_s, part_i, n, k, S, out_s, out_i, stream);
   return 0;

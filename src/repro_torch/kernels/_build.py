@@ -8,6 +8,9 @@ of the checkout, named by a hash of their source and of the shared
 are built at first use, and ``build_all`` starts one ``nvcc`` per source
 at once.
 
+Each build keeps the compiler's ``-Xptxas -v`` report beside its library
+(``<library>.log``); ``ptxas_usage`` reads registers and spills from it.
+
 ``LAUNCHES`` counts launches per kernel: each wrapper in
 ``kernels/*/ops.py`` adds one where it launches its kernel and nowhere
 else, so a run can show which kernels its path went through.
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -38,7 +42,7 @@ KERNELS = {
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "ucb": ("ucb.cu", "ucb_launch", [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P]),
     "prune": ("prune.cu", "prune_launch",
-              [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P]),
+              [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
     "cc_hop": ("cc_hop.cu", "cc_hop_launch",
                [_P, _P, _P, _I, _I, _I, _P, _P]),
     "topk": ("topk.cu", "topk_launch",
@@ -117,10 +121,32 @@ def build_all(names=None) -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def ptxas_usage(report: str) -> dict[str, tuple[int, int, int]]:
+    """``{mangled kernel: (registers, spill store bytes, spill load
+    bytes)}`` from an ``nvcc -Xptxas -v`` report."""
+    usage, func, spill = {}, None, (0, 0)
+    for line in report.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            func, spill = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and func:
+            usage[func] = (int(m.group(1)), *spill)
+            func = None
+    return usage
+
+
+def build_report(name: str) -> str:
+    """The ptxas report kept from the build of the kernel's library."""
+    return library_path(KERNELS[name][0]).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,8 +13,49 @@ from .ref import (BIG_LABEL, cc_hop_packed_ref, init_packed_adj, pack_bits,
 
 __all__ = [
     "BIG_LABEL", "init_packed_adj", "pack_bits", "packed_words",
-    "unpack_bits", "prune_packed", "cc_hop_packed",
+    "unpack_bits", "prune_packed", "cc_hop_packed", "warp_tile_bits",
 ]
+
+# csrc/prune.cu's tiles: a block owns ROWS_PER_BLOCK rows by
+# WORDS_PER_BLOCK words; each of its warps ROWS_PER_WARP of the rows.
+# Where each warp's words hold at most SPARSE_MAX set bits the warps walk
+# them; otherwise every warp of the block computes every pair of its tile
+# (SPARSE_MAX <= SPARSE_CAP, the kernel's room for listed bits).  192:
+# chip_smoke.py phase 6 times both branches forced on graphs with the
+# same set bits in every warp tile; the walk, in rounds of 32 bits, wins
+# through 192 (6 rounds) and loses from 208 (7).
+ROWS_PER_BLOCK = 128
+ROWS_PER_WARP = 16
+WORDS_PER_BLOCK = 4
+SPARSE_CAP = 256
+SPARSE_MAX = 192
+
+
+def prune_work_floats(R: int, W: int, d: int) -> int:
+    """Floats of the kernel's scratch: both vector sets transposed and
+    their squared norms, rows padded to a block's rows and columns to a
+    block's 32 WORDS_PER_BLOCK columns."""
+    Rp = -(-R // ROWS_PER_BLOCK) * ROWS_PER_BLOCK
+    Cp = -(-W // WORDS_PER_BLOCK) * 32 * WORDS_PER_BLOCK
+    return (d + 1) * (Rp + Cp)
+
+
+def warp_tile_bits(packed: torch.Tensor) -> torch.Tensor:
+    """Set bits in each warp's tile of the kernel (ROWS_PER_WARP rows by
+    WORDS_PER_BLOCK words), [ceil(R / ROWS_PER_WARP), ceil(W /
+    WORDS_PER_BLOCK)] int64.  A block walks its tiles' bits only where
+    none of its warps' tiles holds more than SPARSE_MAX."""
+    x = packed.long() & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    bits = (x * 0x01010101) >> 24 & 0xFF
+    R, W = packed.shape
+    pr, pw = -R % ROWS_PER_WARP, -W % WORDS_PER_BLOCK
+    bits = torch.nn.functional.pad(bits, (0, pw, 0, pr))
+    return bits.reshape((R + pr) // ROWS_PER_WARP, ROWS_PER_WARP,
+                        (W + pw) // WORDS_PER_BLOCK,
+                        WORDS_PER_BLOCK).sum((1, 3))
 
 
 def prune_packed(
@@ -44,8 +85,10 @@ def prune_packed(
     ]
     out = torch.empty_like(packed)
     if R and W:
+        work = torch.empty(prune_work_floats(R, W, d), dtype=torch.float32,
+                           device=dev)
         _build.launch("prune", *args, float(gamma), R, W, C, d,
-                      out.data_ptr())
+                      SPARSE_MAX, work.data_ptr(), out.data_ptr())
     return out
 
 

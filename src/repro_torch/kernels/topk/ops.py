@@ -4,14 +4,19 @@ are logical: the kernels mask ragged users, items and features, so
 nothing is padded."""
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from .. import _build
 from .ref import topk_ref, topk_ref_pruned
 
-MAX_D = 64
-MAX_K = 128
+MAX_D = 64                             # csrc/topk.cu kMaxD
+MAX_K = 128                            # csrc/topk.cu kMaxK
 USERS_PER_BLOCK = 8                    # csrc/topk.cu kUsers
+THREADS = 256                          # csrc/topk.cu kThreads
+SMALL_D = 32                           # csrc/topk.cu kSmallD
 _NEG_INF_ORDERED = -2139095041         # the kernel's int encoding of -inf
 
 
@@ -23,12 +28,56 @@ def _check_limits(d: int, k_short: int) -> None:
             f"topk kernels handle 1 <= k_short <= {MAX_K}, got {k_short}")
 
 
-def _splits(dev, groups: int, work: int) -> int:
-    """Splits per user group: about four blocks per SM in all, never more
-    than there are items (``topk``: the kernel lowers it further to its
-    chunk count) or tiles (``topk_pruned``) of work."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(work, -(-4 * sms // max(groups, 1))))
+def chunk_items(d: int) -> int:
+    """Catalog rows the unpruned kernel's block scores per chunk: four a
+    thread up to d = 32 (their features in 128 registers), one above."""
+    return THREADS * (4 if d <= SMALL_D else 1)
+
+
+def launch_plan(groups: int, work: int, sms: int, per_sm: int) -> int:
+    """Splits S per user group, each streaming every S-th of ``work``
+    chunks (or tiles), for ``per_sm`` resident blocks on each of ``sms``
+    SMs.  While the groups fit in one wave, as many splits as fit beside
+    them (one wave, no tail); otherwise the fewest splits that make the
+    grid a whole number of waves, or, where none up to ``work`` does, the
+    one that fills its last wave best.  Never more splits than work, so
+    every split has some."""
+    slots = sms * per_sm
+    work = max(work, 1)
+    if groups <= slots:
+        return max(1, min(work, slots // max(groups, 1)))
+
+    def fill(s: int) -> float:
+        blocks = groups * s
+        return blocks / (-(-blocks // slots) * slots)
+
+    return max(range(1, work + 1), key=lambda s: (fill(s), -s))
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(device_index: int, d: int, k_short: int,
+           pruned: bool) -> tuple[int, int]:
+    """(SMs, resident blocks per SM) of the kernel that serves (d,
+    k_short) on the device: ``topk_blocks_per_sm`` in csrc/topk.cu, the
+    occupancy API, queried once per device and shape."""
+    fn = _build.load("topk").topk_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(d, k_short, int(pruned), ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"topk occupancy query failed: CUDA error {err}, "
+                           f"{blocks.value} blocks per SM")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms, blocks.value
+
+
+def _splits(dev, groups: int, work: int, d: int, k_short: int,
+            pruned: bool) -> int:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return launch_plan(groups, work, *_slots(index, d, k_short, pruned))
 
 
 def _common_args(w, Minv, occ, dev, n, d):
@@ -63,7 +112,7 @@ def topk(
         _build.check(live, "live", torch.float32, (N,), dev),
     ]
     groups = -(-n // USERS_PER_BLOCK)
-    S = _splits(dev, groups, N)
+    S = _splits(dev, groups, -(-N // chunk_items(d)), d, k_short, False)
     out_s = torch.empty(n, k_short, dtype=torch.float32, device=dev)
     out_i = torch.empty(n, k_short, dtype=torch.int32, device=dev)
     part_s = torch.empty(S if S > 1 else 0, n, k_short, dtype=torch.float32,
@@ -121,7 +170,7 @@ def topk_pruned(
         _build.check(ids, "ids", torch.int32, (N,), dev),
         tb_p.data_ptr(), tile_order.data_ptr(),
     ]
-    S = _splits(dev, groups, T)
+    S = _splits(dev, groups, T, d, k_short, True)
     gfloor = torch.full((n,), _NEG_INF_ORDERED, dtype=torch.int32,
                         device=dev)
     out_s = torch.empty(n, k_short, dtype=torch.float32, device=dev)

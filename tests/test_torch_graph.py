@@ -138,3 +138,55 @@ def test_connected_components_match_dense_oracle(maker, n):
         want)
     assert int(clustering.num_clusters(got)) == int(
         jclustering.num_clusters(jnp.asarray(want)))
+
+
+def _cu_constant(name):
+    """An ``int`` constant of csrc/prune.cu, read from its source text."""
+    import re
+    from repro_torch.kernels import _build
+    text = (_build.CSRC / "prune.cu").read_text()
+    return re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
+
+
+def test_prune_geometry_matches_the_kernel_source():
+    """The wrapper's copies of csrc/prune.cu's tile and threshold
+    constants, and the sparse threshold within the kernel's list."""
+    assert int(_cu_constant("kThreads")) == 256
+    assert int(_cu_constant("kRowsPerWarp")) == ops.ROWS_PER_WARP
+    assert int(_cu_constant("kWords")) == ops.WORDS_PER_BLOCK
+    assert _cu_constant("kRows") == "kWarps * kRowsPerWarp"
+    assert 256 // 32 * ops.ROWS_PER_WARP == ops.ROWS_PER_BLOCK
+    assert _cu_constant("kSparseCap") == "32 * kSparseRounds"
+    assert 32 * int(_cu_constant("kSparseRounds")) == ops.SPARSE_CAP
+    assert 0 <= ops.SPARSE_MAX <= ops.SPARSE_CAP
+
+
+@pytest.mark.parametrize("R,W,d,want", [
+    (20480, 640, 25, 26 * (20480 + 20480)),
+    (1, 1, 1, 2 * (128 + 128)),
+    (129, 5, 3, 4 * (256 + 256)),
+    (33, 2, 40, 41 * (128 + 128)),
+])
+def test_prune_work_floats(R, W, d, want):
+    """The scratch the wrapper allocates: both vector sets transposed and
+    their squared norms, rows padded to 128 and columns to 128 (4 words),
+    as prune_launch lays it out."""
+    assert ops.prune_work_floats(R, W, d) == want
+
+
+@pytest.mark.parametrize("R,C,p,seed", [
+    (16, 128, 0.5, 0), (33, 300, 0.1, 1), (130, 1000, 0.02, 2),
+    (1, 1, 1.0, 3), (200, 64, 0.9, 4),
+])
+def test_warp_tile_bits_counts_each_warps_tile(R, C, p, seed):
+    """The set bits of each 16-row by 4-word tile, counted on the unpacked
+    bits, ragged edges padded with empty rows and words."""
+    dense = np.random.default_rng(seed).random((R, C)) < p
+    got = ops.warp_tile_bits(ops.pack_bits(torch.from_numpy(dense)))
+    rows = ops.ROWS_PER_WARP
+    cols = 32 * ops.WORDS_PER_BLOCK
+    want = np.zeros((-(-R // rows), -(-C // cols)), np.int64)
+    for i, j in zip(*np.nonzero(dense)):
+        want[i // rows, j // cols] += 1
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got.sum()) == int(dense.sum())

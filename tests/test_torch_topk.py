@@ -226,3 +226,75 @@ def test_kernel_limits_raise():
     x = torch.ones(4, 3)
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.topk(w.to("meta"), Minv, occ, x, torch.ones(4), 0.3, 2)
+
+
+def _cu_constant(name):
+    """An ``int`` constant of csrc/topk.cu, read from its source text."""
+    import re
+    text = (_build.CSRC / "topk.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("groups,work,sms,per_sm", [
+    (32, 512, 132, 1), (32, 512, 132, 2), (1, 3, 132, 1), (1, 512, 132, 1),
+    (32, 2, 132, 1), (256, 512, 132, 2), (300, 512, 132, 1),
+    (2640, 10, 132, 2), (200, 4, 132, 1), (17, 1, 132, 1), (0, 0, 132, 1),
+])
+def test_launch_plan_fills_whole_waves(groups, work, sms, per_sm):
+    """Every split has work (S <= chunks or tiles) and the grid fits in one
+    wave of the resident blocks, or fills whole waves, or, where no split
+    count up to the work makes whole waves, fills its last wave best."""
+    S = ops.launch_plan(groups, work, sms, per_sm)
+    slots = sms * per_sm
+    assert 1 <= S <= max(work, 1)
+    blocks = groups * S
+    if groups <= slots:
+        assert blocks <= slots
+        assert S == max(1, min(work, slots // max(groups, 1)))
+    else:
+        fills = [groups * s % slots == 0 for s in range(1, work + 1)]
+        if any(fills):
+            assert blocks % slots == 0 and fills.index(True) + 1 == S
+        else:
+            def fill(s):
+                return groups * s / (-(-groups * s // slots) * slots)
+            assert fill(S) == max(fill(s) for s in range(1, work + 1))
+
+
+def test_launch_plan_at_the_serving_batch():
+    """256 users (32 groups) against 2^18 items at one block per SM of
+    132: 4 splits, 128 blocks in one wave, 64 chunks each."""
+    chunks = -(-2**18 // ops.chunk_items(25))
+    assert chunks == 256
+    assert ops.launch_plan(32, chunks, 132, 1) == 4
+
+
+def test_wrapper_constants_match_the_kernel_source():
+    """The wrapper's copies of csrc/topk.cu's constants."""
+    assert ops.USERS_PER_BLOCK == _cu_constant("kUsers")
+    assert ops.THREADS == _cu_constant("kThreads")
+    assert ops.MAX_K == _cu_constant("kMaxK")
+    assert ops.MAX_D == _cu_constant("kMaxD")
+    assert ops.SMALL_D == _cu_constant("kSmallD")
+    text = (_build.CSRC / "topk.cu").read_text()
+    # chunk_items follows tk_unpruned: 4 items a thread up to SMALL_D, 1 above
+    assert "return d <= kSmallD ? 4 : 1;" in text
+    assert ops.chunk_items(ops.SMALL_D) == 4 * ops.THREADS
+    assert ops.chunk_items(ops.SMALL_D + 1) == ops.THREADS
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    """The parser behind chip_smoke.py's spill check, on a report in the
+    format ``nvcc -Xptxas -v`` prints."""
+    report = "\n".join([
+        "ptxas info    : Compiling entry function '_Z1fv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1fv",
+        "    8 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1gv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 8 bytes smem",
+    ])
+    assert _build.ptxas_usage(report) == {"_Z1fv": (64, 16, 12),
+                                          "_Z1gv": (255, 0, 0)}
