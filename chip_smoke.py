@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build   every CUDA kernel of the main path from ``src/repro_torch/csrc``
            (one ``nvcc`` per source, all at once), with the seconds taken;
            the registers and spill bytes ptxas reports for prune_kernel,
-           topk_kernel and topk_pruned_kernel (any spill fails); the count
+           topk_kernel, topk_pruned_kernel, ucb_kernel and
+           ucb_block_kernel (any spill fails); the count
            of HGMMA (wgmma) instructions in the flash library's SASS
            (``cuobjdump -sass``), which must not be 0.
 3. small   each kernel against its plain PyTorch version on ragged small
@@ -21,13 +22,19 @@ Phases, in order; any failure raises and the script exits non-zero:
            a 16-byte boundary; both rank-1 kernels' block-per-user and
            warp-per-user variants bit-equal on the same rows: a row view
            against the whole state with one user live, and 264 users
-           against 265, the variants' limit; prune on ragged rows, words
+           against 265, the variants' limit; ucb's two variants likewise
+           bit-equal: 264 users as a view of 265, and a row view at an odd
+           user (off a 16-byte boundary) against the whole state; prune on
+           ragged rows, words
            and feature slabs, dense and sparse words, equal vectors and
            pairs on the threshold; its dense and sparse branches forced
            and bit-equal on words whose every warp tile the walk takes
            (256 bits a tile, the cap, among them); the branch-free square root of prune and topk
            against sqrtf on every non-negative float; topk at d = 1, 8,
-           24, 31, 32, 33, 48, 64).
+           24, 31, 32, 33, 48, 64; topk_pruned bit-equal to topk: for 37
+           users at tile 128, where each split walks 8 tiles and must skip
+           some, for 256 users at tiles 128, 384, 512, 1024 and 2048, and
+           at d = 32 and 64 with k = 128, the shared-memory corner).
 4. main    ``repro_torch.core.distclub.run`` at the paper's full width
            (20480 users, d=25, K=20, 100 planted clusters,
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
@@ -112,10 +119,12 @@ Phases, in order; any failure raises and the script exits non-zero:
            argmax must equal choose's choice for every user; ucb and
            rank1_update also at CLUB's n = 1 on its state's rows, and
            both rank-1 kernels there bit-equal to the whole state's
-           warp-per-user variant with only that user live), the
+           warp-per-user variant with only that user live; ucb there
+           bit-equal to its warp-per-user variant forced on the row), the
            two top-K kernels on one serving batch's users at full width
            (topk's shortlist scores ``torch.equal`` to ``ucb_scores`` of the
-           shortlisted items),
+           shortlisted items, a block per user at 256 users; topk_pruned's
+           skip ratio and its plain version's),
            cross on a serve_bulk batch's layers 1 and 2, embedding_bag
            on the two bag batches of phase 4r, and flash on the q/k/v of
            phase 4l's prefill layers 0 and 35 and a decode step's layer 0.
@@ -126,8 +135,10 @@ Phases, in order; any failure raises and the script exits non-zero:
            and, for embedding_bag, ``F.embedding_bag`` on the same inputs;
            for cross, cuBLAS ``addmm`` (its GEMM and bias alone); ucb and
            rank1_update also at n = 1, kernel and plain version over 200
-           launches each, in turns (rank1_update also beside its warp-per-
-           user variant on the same row); embedding_bag and
+           launches each, in turns (both also beside their warp-per-user
+           variant on the same row); topk_pruned, its launch alone (the
+           wrapper's walk plan done once) and topk over 50 launches each
+           in turns; embedding_bag and
            F.embedding_bag at 512 bags likewise; the launch floor, a
            one-element in-place op's median over 200 launches, beside the
            n = 1 and 512-bag times; flash at the prefill and the decode
@@ -148,6 +159,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -275,6 +287,45 @@ def check_ucb(w, Minv, ctx, occ, alpha):
         f"ucb: argmax differs from choose for {int((first != choice).sum())}"
         " users")
     return {"max_abs_err": float(err.max())}
+
+
+def ucb_variant(w, Minv, ctx, occ, alpha, variant):
+    """ucb's kernel in the variant the caller names, past the wrapper."""
+    import torch
+    from repro_torch.kernels import _build
+    n, K, d = ctx.shape
+    out = torch.empty(n, K, dtype=torch.float32, device=ctx.device)
+    _build.launch("ucb", w.data_ptr(), Minv.data_ptr(), ctx.data_ptr(),
+                  occ.data_ptr(), float(alpha), n, K, d, variant,
+                  out.data_ptr())
+    return out
+
+
+def check_ucb_variants(w, Minv, ctx, occ, alpha, u):
+    """ucb's two variants on the same rows, bit for bit: the first
+    ``BLOCK_PER_USER_MAX_N`` users as a leading view (a block per user)
+    against the whole state of one user more (a warp per user), and user
+    ``u``'s row view (n = 1, a block per user) against the same; each
+    also by ``check_ucb``'s bands and argmax rule."""
+    import torch
+    from repro_torch.kernels.ucb import ops
+    n, K, d = ctx.shape
+    nt = ops.BLOCK_PER_USER_MAX_N
+    assert n == nt + 1 and ops.variant(nt, K, d) == ops.BLOCK_PER_USER
+    assert ops.variant(n, K, d) == ops.WARP_PER_USER
+    assert ops.variant(1, K, d) == ops.BLOCK_PER_USER
+    whole = ops.ucb_scores(w, Minv, ctx, occ, alpha)
+    head = ops.ucb_scores(w[:nt], Minv[:nt], ctx[:nt], occ[:nt], alpha)
+    row = (w[u:u + 1], Minv[u:u + 1], ctx[u:u + 1], occ[u:u + 1])
+    assert torch.equal(head, whole[:nt]), "ucb: the variants differ"
+    assert torch.equal(ops.ucb_scores(*row, alpha), whole[u:u + 1]), (
+        "ucb: the row view differs from the whole state")
+    err = max(check_ucb(w, Minv, ctx, occ, alpha)["max_abs_err"],
+              check_ucb(w[:nt], Minv[:nt], ctx[:nt], occ[:nt],
+                        alpha)["max_abs_err"],
+              check_ucb(*row, alpha)["max_abs_err"])
+    return {"max_abs_err": err, "bit_equal": True,
+            "row_offset_mod16": Minv[u:u + 1].data_ptr() % 16}
 
 
 def check_rank1_mful(M, Minv, b, x, r, mask):
@@ -698,6 +749,15 @@ def small_checks(dev):
         f"{check_rank1_variants(M_v, Minv_v, b_v, x_v[7:8], r_v[7:8], 7)}")
     log(f"small rank1 variants at n={nv - 1} and n={nv} (d={dv}): "
         f"{check_rank1_threshold(M_v, Minv_v, b_v, x_v, r_v, mask_v)}")
+    # ucb's two variants on the same state at CLUB's K; user 7's row view
+    # starts 7 x 625 floats in, off a 16-byte boundary
+    w_v = 0.5 * torch.randn(nv, dv, generator=g, device=dev)
+    ctx_v = unit(torch.randn(nv, 20, dv, generator=g, device=dev))
+    occ_v = torch.randint(0, 1000, (nv,), generator=g, device=dev,
+                          dtype=torch.int32)
+    log(f"small ucb variants at n={nv - 1} and n={nv}, and user 7's row "
+        f"view (d={dv}, K=20): "
+        f"{check_ucb_variants(w_v, Minv_v, ctx_v.contiguous(), occ_v, 0.3, 7)}")
 
     ng = 33
     dense = torch.rand(ng, ng, generator=g, device=dev) < 0.7
@@ -806,6 +866,9 @@ def small_topk_checks(g, dev, n, d, w, Minv, occ):
         unit(torch.randn(3000, 64, generator=g, device=dev)),
         torch.ones(3000, device=dev), 0.3, 128)))
 
+    # the pruned kernel on a region catalog, bit-equal to topk, where each
+    # of its splits walks 8 tiles of 128 items: one chunk after its first
+    # tile, which must give it floors to skip with
     R, N2 = 8, 8192
     cent = unit(torch.randn(R, d, generator=g, device=dev))
     reg = torch.randint(0, R, (N2,), generator=g, device=dev)
@@ -818,6 +881,35 @@ def small_topk_checks(g, dev, n, d, w, Minv, occ):
     log(f"small topk_pruned (n={n}, d={d}, N={N2}, {R} regions, tile 128, "
         f"clusters={int(clusters.n_clusters)}): {res}")
     assert res["skip"] > 0, "topk_pruned skipped no tile"
+
+    # on region catalogs whose tiles gather into chunks (128: 8 a
+    # 1024-row chunk; 384: 2, not dividing it; 512: 2), fill one (1024)
+    # and stream in slices (2048), for 256 users (32 groups, several
+    # chunks a split); then at the shared-memory corner, d = 32 and 64
+    # with k = 128
+    N2 = 12288
+    for dk, nk, kk, tiles in ((d, 256, k, (128, 384, 512, 1024, 2048)),
+                              (32, 20, 128, (512,)), (64, 20, 128, (512,))):
+        cent = unit(torch.randn(R, dk, generator=g, device=dev))
+        reg = torch.randint(0, R, (N2,), generator=g, device=dev)
+        emb = unit(cent[reg] + 0.01 * torch.randn(N2, dk, generator=g,
+                                                  device=dev))
+        cat = catalog.make_catalog(emb)
+        w_reg = 0.8 * cent[torch.randint(0, R, (nk,), generator=g,
+                                         device=dev)]
+        M_reg = spd_inverse(g, nk, dk, dev)
+        occ_reg = torch.randint(0, 1000, (nk,), generator=g, device=dev,
+                                dtype=torch.int32)
+        for tile in tiles:
+            clusters = itemclub.build_clusters(cat, tile_items=tile,
+                                               n_anchors=256)
+            res = check_topk_pruned(w_reg, M_reg, occ_reg, cat, clusters,
+                                    0.3, kk)
+            log(f"small topk_pruned (n={nk}, d={dk}, N={N2}, {R} regions, "
+                f"tile {tile}, k={kk}, "
+                f"clusters={int(clusters.n_clusters)}): {res}")
+            if tile == 128:
+                assert res["skip"] > 0, "topk_pruned skipped no tile"
 
 
 def small_recsys_checks(g, dev):
@@ -926,17 +1018,20 @@ def small_flash_checks(g, dev):
             f"flash: masked rows not 0 (Sq {Sq}, {dtype})")
 
 
+SPILL_CHECKED = ("prune_kernel", "topk_kernel", "topk_pruned_kernel",
+                 "ucb_kernel", "ucb_block_kernel")
+
+
 def spill_check() -> dict:
-    """Registers and spills of the prune and top-K kernels, from the ptxas
-    report of their builds; raise if any of them spills."""
-    import re
+    """Registers and spills of the prune, top-K and ucb kernels, from the
+    ptxas report of their builds; raise if any of them spills."""
     from repro_torch.kernels import _build
-    usage = {**_build.ptxas_usage(_build.build_report("prune")),
-             **_build.ptxas_usage(_build.build_report("topk"))}
+    usage = {}
+    for lib in ("prune", "topk", "ucb"):
+        usage.update(_build.ptxas_usage(_build.build_report(lib)))
     seen = {}
     for func, (regs, st, ld) in sorted(usage.items()):
-        m = re.search(r"\d+(prune_kernel|topk_kernel|topk_pruned_kernel)",
-                      func)
+        m = re.search(r"\d+(" + "|".join(SPILL_CHECKED) + ")", func)
         if m is None:
             continue
         args = re.findall(r"Li(\d+)E", func)
@@ -944,7 +1039,7 @@ def spill_check() -> dict:
         seen[label] = (regs, st, ld)
         log(f"ptxas {label}: {regs} registers, {st} bytes spill stores, "
             f"{ld} bytes spill loads")
-    for kname in ("prune_kernel", "topk_kernel", "topk_pruned_kernel"):
+    for kname in SPILL_CHECKED:
         assert any(label.split("<")[0] == kname for label in seen), (
             f"ptxas: no report for {kname}")
     spilled = [label for label, (_, st, ld) in seen.items() if st or ld]
@@ -1126,9 +1221,15 @@ def profile_epoch(distclub, state, ops, hyper, d, steady_s) -> None:
             f"{ev.count:6d}x  {ev.key[:90]}")
 
 
+# the port's own kernels (csrc/*.cu): a profile prints each of them
+PORT_KERNELS = re.compile(r"\b(cc_hop|choose|cross|embag|flash\w*|merge|prune"
+                          r"\w*|rank1\w*|topk\w*|ucb\w*)_kernel\b")
+
+
 def profile_batch(label, fn, steady_s) -> None:
     """Device time by kernel of one serving batch (torch.profiler), and its
-    share of ``steady_s``, a batch's wall time without the profiler."""
+    share of ``steady_s``, a batch's wall time without the profiler: the
+    15 longest kernels, then the port's own kernels among the rest."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1143,7 +1244,8 @@ def profile_batch(label, fn, steady_s) -> None:
     busy_us = sum(ev.self_device_time_total for ev in kernels)
     log(f"profile {label}: device busy {busy_us / 1e3} ms in a batch of "
         f"{steady_s * 1e3} ms wall ({busy_us / (steady_s * 1e6)} busy)")
-    for ev in kernels[:15]:
+    for ev in kernels[:15] + [ev for ev in kernels[15:]
+                              if PORT_KERNELS.search(ev.key)]:
         log(f"  {ev.self_device_time_total / 1e3:10.3f} ms "
             f"{ev.count:6d}x  {ev.key[:90]}")
 
@@ -2042,6 +2144,13 @@ def main() -> int:
     live1 = torch.ones(1, dtype=torch.bool, device=dev)
     log(f"full ucb at n=1 (CLUB's call, K={K}): "
         f"{check_ucb(w1, Mc1, ctx1, occ1, hyper.alpha)}")
+    same = torch.equal(uops.ucb_scores(w1, Mc1, ctx1, occ1, hyper.alpha),
+                       ucb_variant(w1, Mc1, ctx1, occ1, hyper.alpha,
+                                   uops.WARP_PER_USER))
+    log(f"full ucb at n=1, variant {uops.variant(1, K, d)} against the "
+        f"warp-per-user variant on cluster {lab}'s row (offset mod 16: "
+        f"{Mc1.data_ptr() % 16}): bit-equal {same}")
+    assert same, "ucb: the variants differ on CLUB's row"
     log(f"full rank1_update at n=1 (CLUB's user row views): "
         f"{check_rank1_row_view(cs.lin.M, cs.lin.Minv, cs.lin.b, x1, r1, u)}")
     log(f"full rank1 variants at n=1 against n={n} (CLUB's state): "
@@ -2078,7 +2187,8 @@ def main() -> int:
     held = i_k >= 0
     s_u = uops.ucb_scores(w_s, M_s, bank.emb[i_k.clamp_min(0).long()],
                           occ_s, hyper.alpha)
-    log(f"full topk scores against ucb_scores of the shortlisted items: "
+    log(f"full topk scores against ucb_scores (variant "
+        f"{uops.variant(*s_k.shape, d)}) of the shortlisted items: "
         f"{int(held.sum())} entries, bit-equal "
         f"{torch.equal(s_k[held], s_u[held])}")
     assert torch.equal(s_k[held], s_u[held]), (
@@ -2208,8 +2318,11 @@ def main() -> int:
     warp_n1 = [t[u:u + 1].data_ptr() for t in row_w] + [
         x1.data_ptr(), r1.data_ptr(), live1.data_ptr(), 1, d,
         rops.WARP_PER_USER]
-    n1_yardsticks = {"rank1_update": {
-        "warp_ms_n1": lambda: _build.launch("rank1_update", *warp_n1)}}
+    n1_yardsticks = {
+        "rank1_update": {
+            "warp_ms_n1": lambda: _build.launch("rank1_update", *warp_n1)},
+        "ucb": {"warp_ms_n1": lambda: ucb_variant(
+            w1, Mc1, ctx1, occ1, hyper.alpha, uops.WARP_PER_USER)}}
     work.update({
         "rank1_update": (
             lambda: rops.rank1_update(*mful_k, x, r, mask),
@@ -2325,6 +2438,21 @@ def main() -> int:
             f"library {lib_ms} ms, bound {bms} ms ({by}; {n_bytes} bytes, "
             f"{flops} ops), {math.ceil(ms / bms)}x the bound")
     by_name = {row["name"]: row for row in rows}
+    # topk_pruned beside topk, in turns, and the pruned kernel's launch
+    # alone (``pruned_launch``: the wrapper's walk plan, sorts and gathers
+    # done once beforehand); the skip ratios from phase 5's launch
+    kernel_only, _ = tops.pruned_launch(*pruned_args)
+    turns = turn_ms({"topk": work["topk"][0],
+                     "pruned": work["topk_pruned"][0],
+                     "launch": kernel_only}, flush, reps=2 * REPS)
+    extra = {f"ms_{key}_turns": t for key, t in turns.items()}
+    extra.update(ratio_to_topk=turns["pruned"] / turns["topk"],
+                 launch_ratio_to_topk=turns["launch"] / turns["topk"],
+                 **{key: errs["topk_pruned"][key] for key in (
+                     "skip", "plain_skip")})
+    by_name["topk_pruned"].update(extra)
+    log(f"time topk_pruned beside topk, {2 * REPS} launches each in turns: "
+        f"{extra}")
     # what any launch costs under this method: a one-element in-place op
     one = torch.zeros(1, device=dev)
     floor_ms = statistics.median(cuda_times(lambda: one.add_(1.0), flush,

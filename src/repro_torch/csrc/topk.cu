@@ -19,27 +19,23 @@
 // - The users' Minv, w and widen factor are staged once in shared memory,
 //   Minv as [(i d + j) * 8 + u], so one float4 pair broadcasts the 8 users'
 //   M_ij to the whole block.
-// - The catalog streams through shared memory in chunks of 256*TK items
-//   (row-major, odd row stride against bank conflicts; one contiguous
+// - The catalog streams through shared memory in chunks of CH = 256*TK
+//   rows (row-major, odd row stride against bank conflicts; one contiguous
 //   16-byte cp.async copy where d is odd) with their live flags (and,
-//   pruned, their ids).  Thread t owns items t, t + 256, ... of the chunk
+//   pruned, their ids).  Thread t owns rows t, t + 256, ... of the chunk
 //   and first loads their features into registers (DMAX = 32 or 64, a
-//   compile-time bucket of d): TK = 4 items at d <= 32 in the unpruned
-//   kernel (128 registers), 2 in the pruned one, whose chunk is one
-//   512-item tile; 1 above d = 32.  The unpruned kernel then stages the
-//   next chunk into the same buffer (the live flags alternate between
-//   two) while it scores this one.
+//   compile-time bucket of d): TK = 4 rows at d <= 32 (128 registers), 1
+//   above.  Then the block stages the next chunk into the same buffer (the
+//   live flags and ids alternate between two) while it scores this one.
 // - Scoring (score_items, the one routine of both kernels): for each i
 //   the j loop runs in straight-line blocks of 8 steps (the loads of a
 //   block are scheduled ahead of its FMAs) and a tail guarded by d; a
 //   step reads only the 8 users' M_ij from shared memory, two broadcast
 //   float4s for 8 TK FMAs; x_i comes from the registers through a jump
-//   table (unpruned: the buffer is being restaged) or from the buffer.
-//   The FMA chains are those of csrc/ucb_score.cuh (t over j from 0,
-//   quad over i, est over j; sqrt_rn is sqrtf bit for bit), so a score
+//   table.  The FMA chains are those of csrc/ucb_score.cuh (t over j from
+//   0, quad over i, est over j; sqrt_rn is sqrtf bit for bit), so a score
 //   here is bit-equal to ucb's and choose's score of the same item, and
-//   identical items tie bit-exactly.  Scores go to a [8, chunk] shared
-//   tile.
+//   identical items tie bit-exactly.  Scores go to a [8, CH] shared tile.
 // - Selection: one warp per user keeps a sorted list of k (score, id) in
 //   shared memory.  Lanes test 128 items at a time (4 each) against the
 //   list's floor (the k-th entry) by value (>, ==: -0.0 and 0.0 tie); the
@@ -47,21 +43,39 @@
 //   rank and shift).  Insertion order does not change the result: the list is the
 //   top k of a set under a total order.
 // - The grid is (user groups, splits): each split of a group streams every
-//   S-th chunk (or tile) and writes a partial list; a merge kernel folds
-//   the S partial lists per user with the same insertion (S == 1 writes the
-//   output directly).  The wrapper sizes S from the resident blocks per SM
-//   (topk_blocks_per_sm, the occupancy API) so the grid fills whole waves
-//   or fits in one (kernels/topk/ops.py launch_plan).
+//   S-th chunk (pruned: every S-th tile of the group's order) and writes a
+//   partial list; a merge kernel folds the S partial lists per user with
+//   the same insertion (S == 1 writes the output directly).  The wrapper
+//   sizes S from the resident blocks per SM (topk_blocks_per_sm, the
+//   occupancy API) so the grid fills whole waves or fits in one
+//   (kernels/topk/ops.py launch_plan).
 // - Pruned: the catalog arrives cluster-sorted with per-(user, tile) upper
-//   bounds tb and a per-group tile order (bound-descending, from the
-//   wrapper).  Before a tile the block skips it when every valid user has
-//   tb[u,t] strictly below its floor, and counts the skip.  A floor is the
-//   larger of the block's own k-th score and the best k-th score any split
-//   of the same users has published (atomicMax on an order-preserving int
-//   encoding): any split's full list lower-bounds the final k-th score, so
-//   skipping against it is exact.  Skip counts therefore depend on timing;
-//   the shortlist does not.  Both kernels score through score_items, so
-//   the pruned shortlist is bit-equal to the unpruned one.
+//   bounds tb and a per-group tile order (bound-descending), which the
+//   wrapper also uses to lay each group's bounds out in visit order.  A
+//   chunk gathers the next tiles_per_chunk tiles of the split's walk that
+//   pass the skip test (a tile longer than CH streams in CH-row slices,
+//   one a chunk); its rows carry their own ids and live flags, so the
+//   scan needs nothing else.  A split's first chunk is its first passing
+//   tile alone, scored and scanned before the second is picked, so that
+//   the second is tested against the block's own floors (a split that
+//   walks few tiles would otherwise take them all before any list
+//   exists).  From then on warp 0 picks chunk c + 1 (32 positions of the
+//   walk a round, one a lane: a tile id and two float4s of bounds,
+//   independent loads, then a ballot) while the other warps load chunk c
+//   into registers; the block stages it while it scores chunk c, so no
+//   copy waits on the critical path.  A tile is skipped when every valid
+//   user has tb[u,t] strictly below its floor: the larger of the block's
+//   own k-th score (before chunk c's scan) and the best k-th score any
+//   split of the same users has published (atomicMax on an
+//   order-preserving int encoding, once a chunk).  Any list's k-th score
+//   lower-bounds the final k-th score, so skipping against an older floor
+//   is exact; it only skips less.  The scan drops items strictly below
+//   the published floor too: the walk brings a user's best tiles in
+//   bursts of inserts, one warp's at a time while the block waits, and a
+//   split whose sibling has seen that user's best items skips its burst.
+//   Skip counts depend on timing; the shortlist does not.  Both kernels
+//   score through score_items, so the pruned shortlist is bit-equal to
+//   the unpruned one.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,6 +91,7 @@ constexpr int kSmallD = 32;     // d <= kSmallD: DMAX 32; else 64
 constexpr int kMaxD = 64;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 232448;  // H100: 227 KB per block
+constexpr int kMaxTiles = 32;   // tiles a pruned chunk gathers: a lane each
 
 __device__ __forceinline__ bool beats(float as, int ai, float bs, int bi) {
   return as > bs || (as == bs && ai < bi);
@@ -111,18 +126,37 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Items a thread scores per chunk: the unpruned kernel holds 4 items'
-// features in registers up to d = 32 (128 registers), 1 above (64); the
-// pruned kernel 2 and 1, so that a chunk is one 512-item tile.
-__host__ __device__ inline int tk_unpruned(int d) {
+// Items a thread scores per chunk, in both kernels: 4 items' features in
+// registers up to d = 32 (128 registers), 1 above (64).
+__host__ __device__ inline int items_per_thread(int d) {
   return d <= kSmallD ? 4 : 1;
 }
-__host__ __device__ inline int tk_pruned(int d) {
-  return d <= kSmallD ? 2 : 1;
+// Tiles a pruned chunk of CH rows gathers: as many whole tiles as fit, at
+// most kMaxTiles; a tile longer than CH is streamed a CH-row slice a chunk.
+__host__ __device__ inline int tiles_per_chunk(int tile, int CH) {
+  if (tile >= CH) return 1;
+  return CH / tile < kMaxTiles ? CH / tile : kMaxTiles;
 }
 // The chunk's row stride in shared memory: odd, so that the 32 lanes'
 // rows fall in 32 banks.
 __host__ __device__ inline int stride_of(int d) { return d | 1; }
+
+// A chunk of the pruned kernel: its tiles (where tile > CH, one tile's
+// CH-row slice ``slice``).  n_tiles 0: the split's walk has ended.
+struct Chunk {
+  int n_tiles;
+  int slice;
+  int tiles[kMaxTiles];
+};
+// The pruned kernel's walk: the next position of the split's tile order
+// to test, the tiles skipped so far, the two chunks in flight, and the
+// users' published floors as the last pick read them.
+struct Walk {
+  int next;
+  int skipped;
+  Chunk chunk[2];
+  float pub[kUsers];
+};
 
 struct Smem {
   float* Ms;  // [d*d][kUsers]
@@ -130,23 +164,24 @@ struct Smem {
   float* ex;  // [kUsers]
   float* xs;  // [CH][XS]   chunk rows
   float* lv;  // [2][CH]    live flags of the chunk (two: the next's too)
-  int* id;    // [CH]       ids of the chunk (pruned)
+  int* id;    // [2][CH]    ids of the chunk, likewise (pruned)
   float* ss;  // [kUsers][CH] scores
   float* ls;  // [kUsers][k]  sorted list scores
   int* li;    // [kUsers][k]  sorted list ids
+  Walk* walk;  // pruned
 };
 
 __host__ __device__ inline size_t score_smem_bytes(int d, int k, int TK,
-                                                   bool with_ids) {
+                                                   bool pruned) {
   const size_t CH = (size_t)kThreads * TK;
   return sizeof(float) * ((size_t)kUsers * d * d + (size_t)kUsers * d +
                           kUsers + CH * stride_of(d) + 2 * CH +
-                          (with_ids ? CH : 0) + kUsers * CH +
+                          (pruned ? 2 * CH : 0) + kUsers * CH +
                           (size_t)kUsers * k) +
-         sizeof(int) * (size_t)kUsers * k;
+         sizeof(int) * (size_t)kUsers * k + (pruned ? sizeof(Walk) : 0);
 }
 
-__device__ Smem carve(float* base, int d, int k, int TK, bool with_ids) {
+__device__ Smem carve(float* base, int d, int k, int TK, bool pruned) {
   const int CH = kThreads * TK;
   Smem s;
   s.Ms = base;
@@ -155,30 +190,40 @@ __device__ Smem carve(float* base, int d, int k, int TK, bool with_ids) {
   s.xs = s.ex + kUsers;
   s.lv = s.xs + CH * stride_of(d);
   s.id = reinterpret_cast<int*>(s.lv + 2 * CH);
-  s.ss = reinterpret_cast<float*>(s.id + (with_ids ? CH : 0));
+  s.ss = reinterpret_cast<float*>(s.id + (pruned ? 2 * CH : 0));
   s.ls = s.ss + kUsers * CH;
   s.li = reinterpret_cast<int*>(s.ls + kUsers * k);
+  s.walk = reinterpret_cast<Walk*>(s.li + kUsers * k);
   return s;
+}
+
+// The user at the block's row u0 + u: ``order``'s entry (pruned: users
+// grouped by the wrapper), else the row itself.
+__device__ __forceinline__ size_t user_of(const long long* order, int r) {
+  return order ? (size_t)order[r] : (size_t)r;
 }
 
 // Stage the block's users (rows past n are zero) and empty their lists.
 __device__ void stage_users(const float* __restrict__ w,
                             const float* __restrict__ Minv,
-                            const int* __restrict__ occ, int n, int d, int k,
-                            int u0, const Smem& s) {
+                            const int* __restrict__ occ,
+                            const long long* __restrict__ order, int n,
+                            int d, int k, int u0, const Smem& s) {
   const int dd = d * d;
   for (int e = threadIdx.x; e < kUsers * dd; e += kThreads) {
     const int u = e / dd, p = e - u * dd;
     s.Ms[p * kUsers + u] =
-        u0 + u < n ? Minv[(size_t)(u0 + u) * dd + p] : 0.f;
+        u0 + u < n ? Minv[user_of(order, u0 + u) * dd + p] : 0.f;
   }
   for (int e = threadIdx.x; e < kUsers * d; e += kThreads) {
     const int u = e / d, j = e - u * d;
-    s.ws[j * kUsers + u] = u0 + u < n ? w[(size_t)(u0 + u) * d + j] : 0.f;
+    s.ws[j * kUsers + u] =
+        u0 + u < n ? w[user_of(order, u0 + u) * d + j] : 0.f;
   }
   if (threadIdx.x < kUsers) {
     const int u = u0 + threadIdx.x;
-    s.ex[threadIdx.x] = u < n ? sqrtf(log1pf((float)occ[u])) : 0.f;
+    s.ex[threadIdx.x] =
+        u < n ? sqrtf(log1pf((float)occ[user_of(order, u)])) : 0.f;
   }
   for (int e = threadIdx.x; e < kUsers * k; e += kThreads) {
     s.ls[e] = -INFINITY;
@@ -201,24 +246,27 @@ __device__ __forceinline__ void stage_floats(void* dst, const void* src,
     cp_async4(static_cast<float*>(dst) + e, static_cast<const float*>(src) + e);
 }
 
-// Start copying catalog rows [first, first + cnt) into the chunk buffer,
-// their live flags into live buffer ``lb`` (and their ids), by cp.async;
-// the caller commits and waits.  Where the row stride in shared memory is
-// d itself (d odd) the rows are one contiguous copy; otherwise each float
-// goes to its padded slot.
+// Start copying catalog rows [first, first + cnt) into the chunk buffer
+// from row ``row0`` on, their live flags into live buffer ``lb`` (and
+// their ids into id buffer ``lb``), by cp.async; the caller commits and
+// waits.  Where the row stride in shared memory is d itself (d odd) the
+// rows are one contiguous copy; otherwise each float goes to its padded
+// slot.
 __device__ void stage_chunk(const float* __restrict__ items,
                             const float* __restrict__ live,
                             const int* __restrict__ ids, size_t first,
-                            int cnt, int d, int CH, const Smem& s, int lb) {
+                            int cnt, int row0, int d, int CH, const Smem& s,
+                            int lb) {
   const int XS = stride_of(d);
   const float* src = items + first * d;
+  float* xs = s.xs + row0 * XS;
   if (XS == d) {
-    stage_floats(s.xs, src, cnt * d);
+    stage_floats(xs, src, cnt * d);
   } else {
     const int dc = kThreads / d, dj = kThreads - dc * d;
     int c = threadIdx.x / d, j = threadIdx.x - c * d;
     for (int e = threadIdx.x; e < cnt * d; e += kThreads) {
-      cp_async4(s.xs + c * XS + j, src + e);
+      cp_async4(xs + c * XS + j, src + e);
       c += dc;
       j += dj;
       if (j >= d) {
@@ -227,8 +275,8 @@ __device__ void stage_chunk(const float* __restrict__ items,
       }
     }
   }
-  stage_floats(s.lv + lb * CH, live + first, cnt);
-  if (ids) stage_floats(s.id, ids + first, cnt);
+  stage_floats(s.lv + lb * CH + row0, live + first, cnt);
+  if (ids) stage_floats(s.id + lb * CH + row0, ids + first, cnt);
 }
 
 // The thread's TK items of the staged chunk (items t, t + 256, ...) into
@@ -306,10 +354,9 @@ __device__ __forceinline__ void pick(const float (&x)[TK][DMAX], int i,
 }
 
 // Score the thread's TK items (features in x) for the 8 users into
-// ss[u][c].  The one scoring routine of both kernels.  x_i comes from the
-// registers (``XI_SHARED`` false: the unpruned kernel restages the chunk
-// buffer while it scores) or from the chunk buffer (the pruned kernel).
-template <int DMAX, int TK, bool XI_SHARED>
+// ss[u][c].  The one scoring routine of both kernels.  Nothing is read
+// from the chunk buffer, which the block restages meanwhile.
+template <int DMAX, int TK>
 __device__ __forceinline__ void score_items(const Smem& s,
                                             const float (&x)[TK][DMAX],
                                             int d, float alpha) {
@@ -350,13 +397,7 @@ __device__ __forceinline__ void score_items(const Smem& s,
       default: break;
     }
     float xi[TK];
-    if (XI_SHARED) {
-#pragma unroll
-      for (int q = 0; q < TK; ++q)
-        xi[q] = s.xs[(threadIdx.x + q * kThreads) * stride_of(d) + i];
-    } else {
-      pick<DMAX, TK>(x, i, xi);
-    }
+    pick<DMAX, TK>(x, i, xi);
 #pragma unroll
     for (int q = 0; q < TK; ++q)
 #pragma unroll
@@ -440,16 +481,19 @@ __device__ __forceinline__ void offer(float* ls, int* li, int k, bool cand,
   }
 }
 
-// The warp's user against the scored chunk (live flags in buffer
+// The warp's user against the scored chunk (live flags and ids in buffer
 // ``buf``): items at catalog rows [pos0, pos0 + cnt), ids from the staged
 // ids (sorted catalog) or the row itself.  Each lane tests 4 items a
-// step against the list's floor; a step where none beats it costs two
+// step against the list's floor, and (pruned) against ``pub``, the
+// best k-th score another split has published: an item strictly below
+// it cannot be in the final list.  A step where none passes costs two
 // float4 loads.
 __device__ void scan_chunk(const Smem& s, int buf, int cnt, bool with_ids,
-                           size_t pos0, int k, int CH, int warp, int lane) {
+                           size_t pos0, float pub, int k, int CH, int warp,
+                           int lane) {
   const float* ss_u = s.ss + warp * CH;
   const float* lv = s.lv + buf * CH;
-  const int* id_s = s.id;
+  const int* id_s = s.id + buf * CH;
   float* ls = s.ls + warp * k;
   int* li = s.li + warp * k;
   for (int base = 0; base < cnt; base += 128) {  // CH is a multiple of 128
@@ -468,7 +512,8 @@ __device__ void scan_chunk(const Smem& s, int buf, int cnt, bool with_ids,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       id[e] = with_ids ? ide[e] : (int)(pos0 + c0 + e);
-      cand[e] = c0 + e < cnt && lve[e] > 0.f && beats(sc[e], id[e], fs, fi);
+      cand[e] = c0 + e < cnt && lve[e] > 0.f && !(sc[e] < pub) &&
+                beats(sc[e], id[e], fs, fi);
       any |= cand[e];
     }
     if (__any_sync(kFull, any)) {
@@ -478,12 +523,13 @@ __device__ void scan_chunk(const Smem& s, int buf, int cnt, bool with_ids,
   }
 }
 
-__device__ void write_lists(const Smem& s, int n, int k, int u0, int split,
-                            float* out_s, int* out_i) {
+// The block's lists into rows [split, user] (the users' own rows).
+__device__ void write_lists(const Smem& s, const long long* order, int n,
+                            int k, int u0, int split, float* out_s,
+                            int* out_i) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int u = u0 + warp;
-  if (u >= n) return;
-  const size_t row = ((size_t)split * n + u) * k;
+  if (u0 + warp >= n) return;
+  const size_t row = ((size_t)split * n + user_of(order, u0 + warp)) * k;
   for (int j = lane; j < k; j += 32) {
     out_s[row + j] = s.ls[warp * k + j];
     out_i[row + j] = s.li[warp * k + j];
@@ -505,12 +551,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_chunks = (N + CH - 1) / CH;
   auto stage = [&](int c, int lb) {
     const size_t first = (size_t)c * CH;
-    stage_chunk(items, live, nullptr, first, min(CH, N - (int)first), d, CH,
-                s, lb);
+    stage_chunk(items, live, nullptr, first, min(CH, N - (int)first), 0, d,
+                CH, s, lb);
     cp_commit();
   };
   if (split < n_chunks) stage(split, 0);
-  stage_users(w, Minv, occ, n, d, k, u0, s);
+  stage_users(w, Minv, occ, nullptr, n, d, k, u0, s);
   int lb = 0;
   for (int c = split; c < n_chunks; c += S) {
     cp_wait_all();
@@ -519,16 +565,121 @@ __global__ void __launch_bounds__(kThreads, 1)
     load_items<DMAX, TK>(x, s, d);
     __syncthreads();  // the chunk buffer is free: stage the next chunk
     if (c + S < n_chunks) stage(c + S, lb ^ 1);
-    score_items<DMAX, TK, false>(s, x, d, alpha);
+    score_items<DMAX, TK>(s, x, d, alpha);
     __syncthreads();
     const size_t first = (size_t)c * CH;
     if (u0 + warp < n)
-      scan_chunk(s, lb, min(CH, N - (int)first), false, first, k, CH, warp,
-                 lane);
+      scan_chunk(s, lb, min(CH, N - (int)first), false, first, -INFINITY, k,
+                 CH, warp, lane);
     lb ^= 1;
   }
   __syncthreads();  // lists staged by other warps when nothing streamed
-  write_lists(s, n, k, u0, split, out_s, out_i);
+  write_lists(s, nullptr, n, k, u0, split, out_s, out_i);
+}
+
+// The floors of the block's users for the skip test: the larger of the
+// list's k-th score (``own``; false before the lists exist) and the
+// published one, read from L2 (``gfloor`` holds whole groups: two 16-byte
+// loads) and kept in the walk for the scan; +inf for users past n, so
+// that they vote skip.
+__device__ __forceinline__ void floors(const Smem& s, const int* gfloor,
+                                       int n, int u0, int k, bool own,
+                                       int lane, float (&f)[kUsers]) {
+  const int4 a = __ldcg(reinterpret_cast<const int4*>(gfloor + u0));
+  const int4 b = __ldcg(reinterpret_cast<const int4*>(gfloor + u0 + 4));
+  const int g[kUsers] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int u = 0; u < kUsers; ++u) {
+    const float pub = o2f(g[u]);
+    if (lane == u) s.walk->pub[u] = pub;
+    f[u] = INFINITY;
+    if (u0 + u < n) f[u] = own ? fmaxf(s.ls[u * k + k - 1], pub) : pub;
+  }
+}
+
+// The bounds of position p of the group's walk (``tbw``: the group's
+// [T][8] bounds in walk order): two float4s.
+__device__ __forceinline__ void bounds_at(const float* __restrict__ tbw,
+                                          int p, float4& a, float4& b) {
+  a = __ldg(reinterpret_cast<const float4*>(tbw + (size_t)p * kUsers));
+  b = __ldg(reinterpret_cast<const float4*>(tbw + (size_t)p * kUsers + 4));
+}
+
+// Whether a tile with bounds (a, b) must be scored: some valid user's
+// bound is not strictly below its floor.
+__device__ __forceinline__ bool passes(const float4& a, const float4& b,
+                                       int n, int u0,
+                                       const float (&f)[kUsers]) {
+  const float bu[kUsers] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  bool pass = false;
+#pragma unroll
+  for (int u = 0; u < kUsers; ++u)
+    if (u0 + u < n && !(bu[u] < f[u])) pass = true;
+  return pass;
+}
+
+// Warp 0: the tiles of the next chunk into ``c`` (``prev``: the chunk
+// before it), tested against the floors (``own``: the lists' too; false
+// before they exist).  Where tile > CH and the previous tile has a slice
+// left, that slice; otherwise the next tiles of the split's walk
+// (positions split, split + S, ... of the group's ``order`` and bounds
+// ``tbw``) that pass the skip test, at most TPC, 32 tested a round, one
+// a lane; the tiles that fail are counted as skipped.  A round's tile ids
+// and bounds are loaded before the floors, so that their trips overlap.
+__device__ void pick_chunk(Walk& wk, Chunk& c, const Chunk& prev,
+                           const Smem& s, const int* gfloor,
+                           const long long* __restrict__ order,
+                           const float* __restrict__ tbw, int T, int S,
+                           int split, int n, int u0, int k, bool own,
+                           int TPC, int SPT, int lane) {
+  const int J = split < T ? (T - split + S - 1) / S : 0;  // the walk's tiles
+  int next = wk.next;
+  int t = 0;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+  auto load_round = [&]() {
+    if (next + lane < J) {
+      const int p = split + (next + lane) * S;
+      t = (int)__ldg(order + p);
+      bounds_at(tbw, p, a, b);
+    }
+  };
+  load_round();
+  float f[kUsers];
+  floors(s, gfloor, n, u0, k, own, lane, f);
+  if (SPT > 1 && prev.n_tiles > 0 && prev.slice + 1 < SPT) {
+    if (lane == 0) {
+      c.n_tiles = 1;
+      c.slice = prev.slice + 1;
+      c.tiles[0] = prev.tiles[0];
+    }
+    return;
+  }
+  int taken = 0, skipped = 0;
+  while (taken < TPC && next < J) {
+    const bool pass = next + lane < J && passes(a, b, n, u0, f);
+    const unsigned m = __ballot_sync(kFull, pass);
+    // lanes consumed: up to the (TPC - taken)-th pass, else all tested
+    int used = min(32, J - next);
+    if (__popc(m) >= TPC - taken) {
+      unsigned mm = m;
+      for (int r = 1; r < TPC - taken; ++r) mm &= mm - 1;
+      used = __ffs(mm);
+    }
+    const unsigned took = m & (used == 32 ? kFull : (1u << used) - 1);
+    if (pass && lane < used)
+      c.tiles[taken + __popc(took & ((1u << lane) - 1))] = t;
+    taken += __popc(took);
+    skipped += used - __popc(took);
+    next += used;
+    if (taken < TPC && next < J) load_round();
+  }
+  __syncwarp();
+  if (lane == 0) {
+    c.n_tiles = taken;
+    c.slice = 0;
+    wk.next = next;
+    wk.skipped += skipped;
+  }
 }
 
 template <int DMAX, int TK>
@@ -539,56 +690,78 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const float* __restrict__ items,
                        const float* __restrict__ live,
                        const int* __restrict__ ids,
-                       const float* __restrict__ tb,
-                       const int* __restrict__ tile_order, int* gfloor,
+                       const long long* __restrict__ user_order,
+                       const float* __restrict__ tb_walk,
+                       const long long* __restrict__ tile_order,
+                       int* gfloor,
                        float alpha, int n, int T, int tile, int d, int k,
                        int S, float* __restrict__ out_s,
                        int* __restrict__ out_i, int* __restrict__ skipped) {
   extern __shared__ __align__(16) float smem[];
   constexpr int CH = kThreads * TK;
   const Smem s = carve(smem, d, k, TK, true);
+  Walk& wk = *s.walk;
   const int g = blockIdx.x, split = blockIdx.y;
   const int u0 = g * kUsers;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  stage_users(w, Minv, occ, n, d, k, u0, s);
-  int n_skipped = 0;
-  for (int jpos = split; jpos < T; jpos += S) {
-    const int t = tile_order[(size_t)g * T + jpos];
-    bool below = true;  // threads past the block's valid users vote skip
-    __syncthreads();    // the lists of the last tile are complete
-    if (threadIdx.x < kUsers && u0 + threadIdx.x < n) {
-      const int u = u0 + threadIdx.x;
-      const float own = s.ls[threadIdx.x * k + k - 1];
-      const float shared = o2f(*(volatile int*)(gfloor + u));
-      below = tb[(size_t)u * T + t] < fmaxf(own, shared);  // STRICT
-    }
-    if (__syncthreads_and(below)) {
-      ++n_skipped;
-      continue;
-    }
-    for (int c0 = 0; c0 < tile; c0 += CH) {
-      const size_t first = (size_t)t * tile + c0;
-      const int cnt = min(CH, tile - c0);
-      __syncthreads();
-      stage_chunk(items, live, ids, first, cnt, d, CH, s, 0);
-      cp_commit();
-      cp_wait_all();
-      __syncthreads();
-      float x[TK][DMAX];
-      load_items<DMAX, TK>(x, s, d);
-      score_items<DMAX, TK, true>(s, x, d, alpha);
-      __syncthreads();
-      if (u0 + warp < n) scan_chunk(s, 0, cnt, true, first, k, CH, warp, lane);
-    }
+  const long long* order = tile_order + (size_t)g * T;
+  const float* tbw = tb_walk + (size_t)g * T * kUsers;
+  const int TPC = tiles_per_chunk(tile, CH);
+  const int SPT = tile > CH ? (tile + CH - 1) / CH : 1;  // slices a tile
+  auto rows = [&](const Chunk& c) {  // rows of a chunk
+    return SPT > 1 ? min(CH, tile - c.slice * CH) : c.n_tiles * tile;
+  };
+  auto stage = [&](int b) {
+    const Chunk& c = wk.chunk[b];
+    for (int q = 0; q < c.n_tiles; ++q)
+      stage_chunk(items, live, ids,
+                  (size_t)c.tiles[q] * tile + (size_t)c.slice * CH,
+                  SPT > 1 ? rows(c) : tile, q * tile, d, CH, s, b);
+    cp_commit();
+  };
+  // warp 0 picks chunk b, the one after chunk b ^ 1 (``own``: against the
+  // lists' floors too, at most tpc tiles), then the block stages it
+  auto next_chunk = [&](int b, bool own, int tpc) {
+    if (warp == 0)
+      pick_chunk(wk, wk.chunk[b], wk.chunk[b ^ 1], s, gfloor, order, tbw, T,
+                 S, split, n, u0, k, own, tpc, SPT, lane);
+    __syncthreads();  // the chunk buffer is free; the next chunk is picked
+    stage(b);
+  };
+  if (threadIdx.x == 0) {
+    wk.next = 0;
+    wk.skipped = 0;
+    wk.chunk[1].n_tiles = 0;
+  }
+  __syncthreads();
+  next_chunk(0, false, 1);  // the first chunk: one tile, published floors
+  stage_users(w, Minv, occ, user_order, n, d, k, u0, s);
+  int lb = 0;
+  for (bool first = true;; first = false) {
+    cp_wait_all();
+    __syncthreads();  // chunk lb has arrived; the last chunk is scanned
+    const Chunk& c = wk.chunk[lb];
+    if (c.n_tiles == 0) break;
+    float x[TK][DMAX];
+    load_items<DMAX, TK>(x, s, d);
+    if (!first) next_chunk(lb ^ 1, true, TPC);  // floors before c's scan
+    score_items<DMAX, TK>(s, x, d, alpha);
     __syncthreads();
-    if (threadIdx.x < kUsers && u0 + threadIdx.x < n) {
-      const float f = s.ls[threadIdx.x * k + k - 1];
-      if (f > -INFINITY) atomicMax(gfloor + u0 + threadIdx.x, f2o(f));
+    if (u0 + warp < n) {
+      scan_chunk(s, lb, rows(c), true, 0, wk.pub[warp], k, CH, warp, lane);
+      __syncwarp();
+      const float f = s.ls[warp * k + k - 1];  // publish once a chunk
+      if (lane == 0 && f > -INFINITY) atomicMax(gfloor + u0 + warp, f2o(f));
     }
+    if (first) {  // the second chunk, against the first one's floors
+      __syncthreads();
+      next_chunk(lb ^ 1, true, TPC);
+    }
+    lb ^= 1;
   }
   __syncthreads();  // lists staged by other warps when nothing streamed
-  write_lists(s, n, k, u0, split, out_s, out_i);
-  if (threadIdx.x == 0) skipped[(size_t)g * S + split] = n_skipped;
+  write_lists(s, user_order, n, k, u0, split, out_s, out_i);
+  if (threadIdx.x == 0) skipped[(size_t)g * S + split] = wk.skipped;
 }
 
 // Fold S partial lists per user ([S, n, k]) into the final [n, k].
@@ -656,19 +829,19 @@ using TopkFn = void (*)(const float*, const float*, const int*,
                         int, float*, int*);
 using PrunedFn = void (*)(const float*, const float*, const int*,
                           const float*, const float*, const int*,
-                          const float*, const int*, int*, float, int, int,
-                          int, int, int, int, float*, int*, int*);
+                          const long long*, const float*, const long long*,
+                          int*, float, int, int, int, int, int, int,
+                          float*, int*, int*);
 
 // The kernels that serve d, and their shared memory at (d, k).
 TopkFn topk_fn(int d) {
   return d <= kSmallD ? topk_kernel<32, 4> : topk_kernel<64, 1>;
 }
 PrunedFn pruned_fn(int d) {
-  return d <= kSmallD ? topk_pruned_kernel<32, 2> : topk_pruned_kernel<64, 1>;
+  return d <= kSmallD ? topk_pruned_kernel<32, 4> : topk_pruned_kernel<64, 1>;
 }
 size_t smem_bytes(int d, int k, bool pruned) {
-  return score_smem_bytes(d, k, pruned ? tk_pruned(d) : tk_unpruned(d),
-                          pruned);
+  return score_smem_bytes(d, k, items_per_thread(d), pruned);
 }
 
 }  // namespace
@@ -703,7 +876,7 @@ extern "C" int topk_launch(const float* w, const float* Minv, const int* occ,
   const size_t bytes = smem_bytes(d, k, false);
   if (!valid_shape(d, k) || S < 1 || bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const int CH = kThreads * tk_unpruned(d);
+  const int CH = kThreads * items_per_thread(d);
   const int chunks = (N + CH - 1) / CH;
   if (S > chunks) S = chunks > 0 ? chunks : 1;
   const dim3 grid((n + kUsers - 1) / kUsers, S);
@@ -719,12 +892,16 @@ extern "C" int topk_launch(const float* w, const float* Minv, const int* occ,
   return 0;
 }
 
-// Rows of w/Minv/occ/tb are grouped by 8 in the order the wrapper chose;
-// tile_order [groups, T] is each group's visit order; gfloor [n] holds the
-// order-encoded -inf on entry; skipped [groups, S] receives the skips.
+// user_order [n] groups the users by 8 (block row r is user
+// user_order[r]; the lists go to the users' own rows); tile_order
+// [groups, T] is each group's visit order and tb_walk [groups, T, 8] its
+// users' tile bounds in that order; gfloor [groups * 8] (by block row)
+// holds the order-encoded -inf on entry; skipped [groups, S] receives the
+// skips.
 extern "C" int topk_pruned_launch(
     const float* w, const float* Minv, const int* occ, const float* items,
-    const float* live, const int* ids, const float* tb, const int* tile_order,
+    const float* live, const int* ids, const long long* user_order,
+    const float* tb_walk, const long long* tile_order,
     int* gfloor, float alpha, int n, int T, int tile, int d, int k, int S,
     float* part_s, int* part_i, float* out_s, int* out_i, int* skipped,
     cudaStream_t stream) {
@@ -738,8 +915,8 @@ extern "C" int topk_pruned_launch(
   cudaError_t e;
   if ((e = allow_smem(kernel, bytes)) != cudaSuccess) return (int)e;
   kernel<<<grid, kThreads, bytes, stream>>>(
-      w, Minv, occ, items, live, ids, tb, tile_order, gfloor, alpha, n, T,
-      tile, d, k, S, ls, li, skipped);
+      w, Minv, occ, items, live, ids, user_order, tb_walk, tile_order, gfloor,
+      alpha, n, T, tile, d, k, S, ls, li, skipped);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (S > 1) return (int)merge(part_s, part_i, n, k, S, out_s, out_i, stream);
   return 0;

@@ -12,16 +12,35 @@
 // Bound on an H100: memory.  Per user the kernel reads ctx (K d floats),
 // Minv (d^2), w (d) and occ once and writes K scores; about 2 K d^2 flops
 // per user is far below the f32 rate for those bytes.  At n=20480, d=25,
-// K=20: ~96 MB, ~29 us at 3.35 TB/s.  On CLUB's path n = 1, and the launch
-// itself is the cost.
+// K=20: ~96 MB, ~29 us at 3.35 TB/s.  On CLUB's path n = 1: 4.6 KB and
+// 2.6e4 operations, ~1.4 ns; the launch itself (~5 us) is the cost, and
+// then the chain of dependent steps a score takes.
 //
-// Design: one warp per user, four users per block, as choose.cu.  The warp
-// stages its user's Minv, w and the K x d context block in shared memory
-// with coalesced loads; lane k scores the candidates k, k + 32, ... with
-// ucb_score (ucb_score.cuh), the FMA chain choose.cu runs, so the
-// first-index argmax of a row of these scores is bit for bit choose's pick
-// and identical candidate rows score identically.  Lanes write neighbouring
-// scores of a row.  Shapes are logical: no padding of K or d.
+// Two variants; the wrapper picks one (kernels/ucb/ops.py, variant) and
+// passes it to the launch as an int.  Both score every candidate with the
+// FMA chains of ucb_score.cuh (ucb_t, then ucb_combine), the chains
+// choose.cu runs, so the first-index argmax of a row is bit for bit
+// choose's pick, identical candidate rows score identically, and the two
+// variants give the same bits for the same row.
+//
+// Warp per user (variant 0), four users per block, for many users, as
+// choose.cu: the warp stages its user's Minv, w and the K x d context
+// block in shared memory with coalesced loads; lane k scores candidates
+// k, k + 32, ... with ucb_score, d^2 + d dependent FMAs each.  Lanes
+// write neighbouring scores of a row.
+//
+// Block per user (variant 1), for fewer users than the card has room for
+// (CLUB's n = 1) and d <= 32.  There a warp per user is one warp's
+// lane-strided staging (a load feeding a store, 20 + 16 rounds at CLUB's
+// shape) and then one lane's ~650-FMA chain a score.  Here the block's
+// 256 threads issue every load of the user's Minv, w, contexts and occ in
+// one round (kLoads a thread before any store to shared memory: 5 at
+// CLUB's shape); then the K d values t[k][i] = ucb_t(Minv row i, c_k)
+// are independent chains, one a thread, into shared memory; then thread
+// k runs ucb_combine on its t[k][.]: ~2d dependent FMAs after d, where
+// the warp variant has d^2 + d.  Loads are 4 bytes: CLUB's one-row view
+// of the cluster state starts at any multiple of d^2 floats, rarely 16-
+// byte aligned.  Shapes are logical: no padding of K or d.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -30,7 +49,11 @@
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;           // users a block, warp per user
+constexpr int kBlockThreads = 256;  // block per user
+constexpr int kBlockMaxD = 32;
+constexpr int kLoads = 8;           // loads a thread issues in one round
+constexpr size_t kMaxSmem = 232448;  // H100: 227 KB per block
 
 __global__ void ucb_kernel(const float* __restrict__ w,
                            const float* __restrict__ Minv,
@@ -61,17 +84,92 @@ __global__ void ucb_kernel(const float* __restrict__ w,
     su[k] = ucb_score(c_s + k * d, w_s, m_s, d, alpha, explore);
 }
 
+__global__ void __launch_bounds__(kBlockThreads)
+    ucb_block_kernel(const float* __restrict__ w,
+                     const float* __restrict__ Minv,
+                     const float* __restrict__ ctx,
+                     const int* __restrict__ occ, float alpha, int K, int d,
+                     float* __restrict__ scores) {
+  extern __shared__ float smem[];
+  const int u = blockIdx.x;
+  const int t = threadIdx.x;
+  const int dd = d * d;
+  const int Kd = K * d;
+  // shared: Minv | w | contexts, in the order of the loads, then t[k][i]
+  float* m_s = smem;
+  float* w_s = m_s + dd;
+  float* c_s = w_s + d;
+  float* t_s = c_s + Kd;
+  const float* Mu = Minv + (size_t)u * dd;
+  const float* wu = w + (size_t)u * d;
+  const float* cu = ctx + (size_t)u * Kd;
+
+  // every load in one round (more rounds only past kLoads a thread)
+  const int o = occ[u];
+  const int total = dd + d + Kd;
+  for (int base = 0; base < total; base += kLoads * kBlockThreads) {
+    float v[kLoads];
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int e = base + t + q * kBlockThreads;
+      if (e < dd)
+        v[q] = Mu[e];
+      else if (e < dd + d)
+        v[q] = wu[e - dd];
+      else if (e < total)
+        v[q] = cu[e - dd - d];
+    }
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int e = base + t + q * kBlockThreads;
+      if (e < total) smem[e] = v[q];
+    }
+  }
+  __syncthreads();
+
+  // t[k][i]: K d independent chains, one a thread
+  for (int e = t; e < Kd; e += kBlockThreads) {
+    const int k = e / d;
+    const int i = e - k * d;
+    t_s[e] = ucb_t(m_s + i * d, c_s + k * d, d);
+  }
+  __syncthreads();
+
+  const float explore = ucb_explore(o);
+  float* su = scores + (size_t)u * K;
+  for (int k = t; k < K; k += kBlockThreads) {
+    const float* tk = t_s + k * d;
+    su[k] = ucb_combine(c_s + k * d, w_s, d, alpha, explore,
+                        [&](int i) { return tk[i]; });
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
 }  // namespace
 
 extern "C" int ucb_launch(const float* w, const float* Minv, const float* ctx,
                           const int* occ, float alpha, int n, int K, int d,
-                          float* scores, cudaStream_t stream) {
-  const size_t smem = (size_t)kWarps * (d * d + d + K * d) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ucb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+                          int variant, float* scores, cudaStream_t stream) {
+  cudaError_t e;
+  if (variant == 1) {
+    if (d > kBlockMaxD) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)(d * d + d + 2 * K * d) * sizeof(float);
+    if ((e = allow_smem(ucb_block_kernel, smem)) != cudaSuccess) return (int)e;
+    ucb_block_kernel<<<n, kBlockThreads, smem, stream>>>(w, Minv, ctx, occ,
+                                                         alpha, K, d, scores);
+    return (int)cudaGetLastError();
   }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kWarps * (d * d + d + K * d) * sizeof(float);
+  if ((e = allow_smem(ucb_kernel, smem)) != cudaSuccess) return (int)e;
   const int blocks = (n + kWarps - 1) / kWarps;
   ucb_kernel<<<blocks, 32 * kWarps, smem, stream>>>(w, Minv, ctx, occ, alpha,
                                                     n, K, d, scores);

@@ -40,7 +40,8 @@ KERNELS = {
                          [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "rank1_update": ("rank1.cu", "rank1_update_launch",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "ucb": ("ucb.cu", "ucb_launch", [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P]),
+    "ucb": ("ucb.cu", "ucb_launch",
+            [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P]),
     "prune": ("prune.cu", "prune_launch",
               [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
     "cc_hop": ("cc_hop.cu", "cc_hop_launch",
@@ -49,8 +50,8 @@ KERNELS = {
              [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P,
               _P]),
     "topk_pruned": ("topk.cu", "topk_pruned_launch",
-                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
-                     _I, _I, _P, _P, _P, _P, _P, _P]),
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
+                     _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     "cross": ("cross.cu", "cross_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
     "embedding_bag": ("embag.cu", "embedding_bag_launch",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),

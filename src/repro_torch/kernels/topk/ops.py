@@ -17,6 +17,7 @@ MAX_K = 128                            # csrc/topk.cu kMaxK
 USERS_PER_BLOCK = 8                    # csrc/topk.cu kUsers
 THREADS = 256                          # csrc/topk.cu kThreads
 SMALL_D = 32                           # csrc/topk.cu kSmallD
+MAX_TILES = 32                         # csrc/topk.cu kMaxTiles
 _NEG_INF_ORDERED = -2139095041         # the kernel's int encoding of -inf
 
 
@@ -29,9 +30,25 @@ def _check_limits(d: int, k_short: int) -> None:
 
 
 def chunk_items(d: int) -> int:
-    """Catalog rows the unpruned kernel's block scores per chunk: four a
-    thread up to d = 32 (their features in 128 registers), one above."""
+    """Catalog rows either kernel's block scores per chunk: four a thread
+    up to d = 32 (their features in 128 registers), one above."""
     return THREADS * (4 if d <= SMALL_D else 1)
+
+
+def tiles_per_chunk(tile: int, d: int) -> int:
+    """Tiles of ``tile`` rows the pruned kernel gathers into one chunk
+    (csrc/topk.cu ``tiles_per_chunk``): as many whole tiles as fit in
+    :func:`chunk_items` rows, at most ``MAX_TILES``; a tile longer than a
+    chunk streams a chunk-long slice at a time, one tile a chunk."""
+    return max(1, min(MAX_TILES, chunk_items(d) // tile))
+
+
+def pruned_chunks(T: int, tile: int, d: int) -> int:
+    """The pruned kernel's work for :func:`launch_plan`: the chunks of
+    whole tiles a group's ``T`` tiles make (each split walks every S-th
+    tile of its group's order, ``tiles_per_chunk`` to a chunk after a
+    first chunk of one tile), before any skip."""
+    return -(-T // tiles_per_chunk(tile, d))
 
 
 def launch_plan(groups: int, work: int, sms: int, per_sm: int) -> int:
@@ -140,48 +157,92 @@ def topk_pruned(
     with the shortlist bit-equal to :func:`topk`'s over the unsorted
     catalog.  On the card the wrapper groups users by their best-bound
     tile (8 to a block) and gives each group its bound-descending tile
-    order; the skip count depends on the timing of the floors the
-    kernel's splits share, the shortlist does not."""
+    order, with the group's bounds laid out in that order; the kernel
+    gathers the tiles that pass its skip test into chunks
+    (:func:`tiles_per_chunk`; a split's first chunk is one tile, scanned
+    before the next is picked, so that its floors exist) and stages the
+    next while it scores one.  The skip count depends on the timing of the floors the kernel's
+    splits share, the shortlist does not."""
     dev = w.device
     if dev.type == "cpu":
         return topk_ref_pruned(w, Minv, occ, items, live, ids, alpha,
                                k_short, tb)
     if dev.type != "cuda":
         raise ValueError(f"topk_pruned runs on cpu or cuda, not {dev}")
+    launch, finish = pruned_launch(w, Minv, occ, items, live, ids, alpha,
+                                   k_short, tb)
+    launch()
+    return finish()
+
+
+def walk_plan(tb: torch.Tensor):
+    """The pruned kernel's walk, as the plain version takes it: users in
+    ``order`` (by their best-bound tile, stable), 8 to a group; each
+    group's ``tile_order`` [groups, T] (by the group's largest bound,
+    descending, stable); and ``tb_walk`` [groups, T, 8], the group's
+    users' bounds in that order (-inf for the rows past n), so that the
+    kernel reads a position's 8 bounds as two float4s.  The orders are
+    int64, as the kernel reads them."""
+    n, T = tb.shape
+    order = torch.argsort(torch.argmax(tb, dim=1), stable=True)
+    groups = -(-n // USERS_PER_BLOCK)
+    pad = groups * USERS_PER_BLOCK - n
+    tb_g = tb[order]
+    if pad:
+        tb_g = torch.cat([tb_g, tb.new_full((pad, T), float("-inf"))])
+    tb_g = tb_g.view(groups, USERS_PER_BLOCK, T)
+    tile_order = torch.argsort(tb_g.amax(dim=1), dim=1, descending=True,
+                               stable=True)
+    tb_walk = torch.gather(tb_g.transpose(1, 2), 1, tile_order[:, :, None]
+                           .expand(-1, -1, USERS_PER_BLOCK))
+    return order, tile_order, tb_walk
+
+
+def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb):
+    """The CUDA side of :func:`topk_pruned`, in two steps: everything up
+    to the kernel's launch, then ``(launch, finish)``: ``launch()`` runs
+    the kernel (and the merge), ``finish()`` returns what
+    :func:`topk_pruned` returns.  ``launch`` may be called again, so that
+    the kernel can be timed apart from the wrapper's work around it.  The
+    kernel reads each group's users through ``order`` and writes their
+    lists to their own rows, so nothing is gathered before or after."""
+    dev = w.device
     n, d = w.shape
     N = items.shape[0]
     T = tb.shape[1]
     _check_limits(d, k_short)
     if T < 1 or N % T:
         raise ValueError(f"{N} items do not split into {T} tiles")
+    tile = N // T
     _build.check(tb, "tb", torch.float32, (n, T), dev)
-    order = torch.argsort(torch.argmax(tb, dim=1), stable=True)
-    inv = torch.argsort(order)
-    w_p, M_p, occ_p, tb_p = (a[order].contiguous() for a in (w, Minv, occ, tb))
-    groups = -(-n // USERS_PER_BLOCK)
-    pad = groups * USERS_PER_BLOCK - n
-    tb_g = torch.cat([tb_p, tb_p.new_full((pad, T), float("-inf"))])
-    tb_g = tb_g.view(groups, USERS_PER_BLOCK, T).amax(dim=1)
-    tile_order = torch.argsort(-tb_g, dim=1, stable=True).to(
-        torch.int32).contiguous()
-    args = _common_args(w_p, M_p, occ_p, dev, n, d) + [
-        _build.check(items, "items", torch.float32, (N, d), dev),
-        _build.check(live, "live", torch.float32, (N,), dev),
-        _build.check(ids, "ids", torch.int32, (N,), dev),
-        tb_p.data_ptr(), tile_order.data_ptr(),
-    ]
-    S = _splits(dev, groups, T, d, k_short, True)
-    gfloor = torch.full((n,), _NEG_INF_ORDERED, dtype=torch.int32,
-                        device=dev)
+    order, tile_order, tb_walk = walk_plan(tb)
+    groups = tile_order.shape[0]
+    _common_args(w, Minv, occ, dev, n, d)
+    _build.check(items, "items", torch.float32, (N, d), dev)
+    _build.check(live, "live", torch.float32, (N,), dev)
+    _build.check(ids, "ids", torch.int32, (N,), dev)
+    S = _splits(dev, groups, pruned_chunks(T, tile, d), d, k_short, True)
+    gfloor = torch.empty(groups * USERS_PER_BLOCK, dtype=torch.int32,
+                         device=dev)
     out_s = torch.empty(n, k_short, dtype=torch.float32, device=dev)
     out_i = torch.empty(n, k_short, dtype=torch.int32, device=dev)
     part_s = torch.empty(S if S > 1 else 0, n, k_short, dtype=torch.float32,
                          device=dev)
     part_i = torch.empty(part_s.shape, dtype=torch.int32, device=dev)
-    skipped = torch.zeros(groups, S, dtype=torch.int32, device=dev)
-    if n:
-        _build.launch("topk_pruned", *args, gfloor.data_ptr(), float(alpha),
-                      n, T, N // T, d, k_short, S, part_s.data_ptr(),
-                      part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-                      skipped.data_ptr())
-    return (out_s[inv], out_i[inv], int(skipped.sum()), groups * T)
+    skipped = torch.empty(groups, S, dtype=torch.int32, device=dev)
+
+    def launch():
+        if not n:
+            skipped.zero_()
+            return
+        gfloor.fill_(_NEG_INF_ORDERED)
+        _build.launch("topk_pruned", *(t.data_ptr() for t in (
+            w, Minv, occ, items, live, ids, order, tb_walk, tile_order,
+            gfloor)), float(alpha), n, T, tile, d, k_short, S,
+            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), skipped.data_ptr())
+
+    def finish():
+        return out_s, out_i, int(skipped.sum()), groups * T
+
+    return launch, finish

@@ -183,12 +183,21 @@ def test_tile_bounds_match_reference_and_dominate():
     assert bool((per_tile <= tb).all())
 
 
-@pytest.mark.parametrize("kind", ["random", "ties", "regions"])
-def test_pruned_matches_reference_and_unpruned(kind):
+@pytest.mark.parametrize("kind,N,tile,seed", [
+    pytest.param("random", 512, 32, 1, id="random"),
+    pytest.param("ties", 512, 32, 2, id="ties"),
+    pytest.param("regions", 512, 32, 3, id="regions"),
+    # tiles that do not divide the pruned kernel's 1024-row chunk (384:
+    # two to a chunk) and tiles longer than it (2048: two slices each)
+    pytest.param("regions", 6144, 384, 384, id="regions-tile384"),
+    pytest.param("regions", 6144, 2048, 2048, id="regions-tile2048"),
+])
+def test_pruned_matches_reference_and_unpruned(kind, N, tile, seed):
     """Pruned plain == JAX ``topk_ref_pruned`` (ids AND skip counts) and
     bit-equal to the unpruned plain shortlist."""
-    n, d, N, T, k = 13, 8, 512, 16, 6
-    rng = np.random.default_rng({"random": 1, "ties": 2, "regions": 3}[kind])
+    n, d, k = 13, 8, 6
+    T = N // tile
+    rng = np.random.default_rng(seed)
     w, Minv, occ = _stats(rng, n, d)
     if kind == "regions":
         x, perm, c = _regions(rng, N, d, R=8, noise=0.01)
@@ -211,8 +220,50 @@ def test_pruned_matches_reference_and_unpruned(kind):
     assert (sk, tot) == (int(jsk), int(jtot))
     su, iu = ops.topk(*_t(w, Minv, occ, x, live), 0.3, k)
     assert torch.equal(s, su) and torch.equal(i, iu)
-    if kind == "regions":
+    if kind == "regions" and T > 3:     # 3 tiles span several regions each
         assert sk > 0
+
+
+@pytest.mark.parametrize("tile,d,T,per_chunk,chunks", [
+    (128, 25, 2048, 8, 256), (384, 25, 1024, 2, 512), (512, 25, 512, 2, 256),
+    (1024, 25, 256, 1, 256), (2048, 25, 128, 1, 128), (512, 64, 512, 1, 512),
+    (4, 25, 2**16, 32, 2048), (1, 25, 2**18, 32, 8192),
+])
+def test_pruned_chunk_plan(tile, d, T, per_chunk, chunks):
+    """Tiles a pruned chunk gathers: whole tiles up to the 1024-row chunk
+    (256 rows above d = 32), at most 32; one where a tile fills a chunk or
+    is longer (its slices stream one a chunk).  The work ``launch_plan``
+    sizes the splits by: the chunks of a group's T tiles."""
+    assert ops.tiles_per_chunk(tile, d) == per_chunk
+    assert per_chunk * tile <= ops.chunk_items(d) or per_chunk == 1
+    assert ops.pruned_chunks(T, tile, d) == chunks
+
+
+def test_walk_plan_is_the_plain_versions_walk():
+    """The pruned wrapper's walk: the plain version's user order and
+    per-group tile order, and each group's bounds laid out in that order
+    (-inf past the last user), on a ragged last group."""
+    n, T = 13, 16
+    tb = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(n, T)).astype(np.float32))
+    tb[3] = tb[5]                        # ties keep the stable order
+    order, tile_order, tb_walk = ops.walk_plan(tb)
+    assert torch.equal(order, torch.argsort(torch.argmax(tb, 1),
+                                            stable=True))
+    groups = -(-n // 8)
+    assert order.dtype == tile_order.dtype == torch.int64
+    assert tb_walk.is_contiguous()
+    assert tile_order.shape == (groups, T) and tb_walk.shape == (groups, T, 8)
+    for g in range(groups):
+        users = order[8 * g: 8 * g + 8]
+        best = tb[users].amax(dim=0)
+        assert torch.equal(tile_order[g].long(),
+                           torch.argsort(-best, stable=True))
+        for j in range(T):
+            t = int(tile_order[g, j])
+            want = torch.full((8,), float("-inf"))
+            want[:len(users)] = tb[users, t]
+            assert torch.equal(tb_walk[g, j], want)
 
 
 def test_kernel_limits_raise():
@@ -269,6 +320,15 @@ def test_launch_plan_at_the_serving_batch():
     assert ops.launch_plan(32, chunks, 132, 1) == 4
 
 
+def test_launch_plan_at_the_pruned_serving_batch():
+    """The pruned serving batch: 32 groups, 512 tiles of 512 items, two
+    tiles a chunk: 256 chunks a group, 4 splits at one block per SM of
+    132, 128 blocks in one wave, as the unpruned kernel's grid."""
+    chunks = ops.pruned_chunks(2**18 // 512, 512, 25)
+    assert chunks == 256
+    assert ops.launch_plan(32, chunks, 132, 1) == 4
+
+
 def test_wrapper_constants_match_the_kernel_source():
     """The wrapper's copies of csrc/topk.cu's constants."""
     assert ops.USERS_PER_BLOCK == _cu_constant("kUsers")
@@ -276,9 +336,12 @@ def test_wrapper_constants_match_the_kernel_source():
     assert ops.MAX_K == _cu_constant("kMaxK")
     assert ops.MAX_D == _cu_constant("kMaxD")
     assert ops.SMALL_D == _cu_constant("kSmallD")
+    assert ops.MAX_TILES == _cu_constant("kMaxTiles")
     text = (_build.CSRC / "topk.cu").read_text()
-    # chunk_items follows tk_unpruned: 4 items a thread up to SMALL_D, 1 above
+    # chunk_items follows items_per_thread, the one count of both kernels:
+    # 4 items a thread up to SMALL_D, 1 above
     assert "return d <= kSmallD ? 4 : 1;" in text
+    assert "tk_pruned" not in text and "XI_SHARED" not in text
     assert ops.chunk_items(ops.SMALL_D) == 4 * ops.THREADS
     assert ops.chunk_items(ops.SMALL_D + 1) == ops.THREADS
 

@@ -30,7 +30,7 @@ def _inputs(n, K, d, seed):
 
 
 @pytest.mark.parametrize("n,K,d", [(37, 20, 25), (1, 20, 25), (64, 7, 19),
-                                   (5, 33, 3)])
+                                   (5, 33, 3), (264, 20, 25), (265, 20, 25)])
 def test_ucb_scores_match_pallas_interpret_and_oracle(n, K, d):
     w, Minv, ctx, occ = _inputs(n, K, d, seed=n * 100 + K)
     j_in = [jnp.asarray(a) for a in (w, Minv, ctx, occ)]
@@ -63,3 +63,43 @@ def test_argmax_of_scores_is_the_fused_choice(n, K, d):
     choice, _ = interact_ops.choose(*t, 0.3)
     assert torch.equal(first, choice)
     assert bool((choice[: n // 2] == 2).all())
+
+
+@pytest.mark.parametrize("n,K,d,want", [
+    (1, 20, 25, ops.BLOCK_PER_USER),        # CLUB's call
+    (264, 20, 25, ops.BLOCK_PER_USER),      # two blocks on each of 132 SMs
+    (265, 20, 25, ops.WARP_PER_USER),
+    (1, 20, 32, ops.BLOCK_PER_USER),
+    (1, 20, 33, ops.WARP_PER_USER),
+    (264, 20, 32, ops.BLOCK_PER_USER),
+    (265, 20, 33, ops.WARP_PER_USER),
+    (256, 64, 25, ops.BLOCK_PER_USER),      # topk's shortlist check
+    (1, 891, 32, ops.BLOCK_PER_USER),       # the block's shared memory: full
+    (1, 892, 32, ops.WARP_PER_USER),
+])
+def test_variant_at_its_limits(n, K, d, want):
+    """A block per user up to 264 users, d = 32 and the block's shared
+    memory (Minv, w, contexts and t-values: 4 (d^2 + d + 2 K d) bytes);
+    a warp per user past any of them."""
+    assert ops.variant(n, K, d) == want
+
+
+def _cu_constant(name, kind="int"):
+    """A constant of csrc/ucb.cu, read from its source text."""
+    import re
+    text = (_build.CSRC / "ucb.cu").read_text()
+    return int(re.search(rf"constexpr {kind} {name} = (\d+);",
+                         text).group(1))
+
+
+def test_wrapper_constants_match_the_kernel_source():
+    """The wrapper's copies of csrc/ucb.cu's constants, and the launch's
+    variant numbers."""
+    assert ops.BLOCK_PER_USER_MAX_D == _cu_constant("kBlockMaxD")
+    assert ops.MAX_SMEM == _cu_constant("kMaxSmem", "size_t")
+    assert _cu_constant("kBlockThreads") == 256
+    text = (_build.CSRC / "ucb.cu").read_text()
+    assert "if (variant == 1) {" in text and "if (variant != 0)" in text
+    assert (ops.WARP_PER_USER, ops.BLOCK_PER_USER) == (0, 1)
+    # the launch takes the variant after (n, K, d)
+    assert _build.KERNELS["ucb"][2][5:9] == [_build._I] * 4
