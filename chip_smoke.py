@@ -9,12 +9,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build   every CUDA kernel of the main path from ``src/repro_torch/csrc``
            (one ``nvcc`` per source, all at once), with the seconds taken;
            the registers and spill bytes ptxas reports for prune_kernel,
-           topk_kernel, topk_pruned_kernel, ucb_kernel and
-           ucb_block_kernel (any spill fails); the count
-           of HGMMA (wgmma) instructions in the flash library's SASS
-           (``cuobjdump -sass``), which must not be 0.
+           topk_kernel, topk_pruned_kernel, ucb_kernel, ucb_block_kernel,
+           choose_tile_kernel (each width), cross_tc_kernel and
+           cross_split_kernel (any spill fails); the count of HGMMA
+           (wgmma) instructions in the flash and cross libraries' SASS
+           (``cuobjdump -sass``), neither of which may be 0.
 3. small   each kernel against its plain PyTorch version on ragged small
-           shapes (flash: f32 within 1e-4; bf16 kernel and plain version
+           shapes (choose's two variants and ucb's two, each forced past
+           its wrapper, at 37 users (K = 7, d = 19; K = 64, d = 25 and
+           32), 256 users (K = 64, d = 25 and 32: serving's shortlist) and
+           on duplicate candidates: both choose variants pick the same
+           candidates and copy the same x, bit for bit, no duplicate beats
+           its first copy, and either ucb variant's first-index argmax is
+           that pick; cross on both routes at B = 16 ... 5000 (d = 429
+           among them), each within 2e-5, and its W split bit-equal to the
+           plain version; flash: f32 within 1e-4; bf16 kernel and plain version
            each within 2e-2 of the f32 plain version on upcast inputs;
            the bf16 cases reach the split-KV decode variant and the wgmma
            prefill variant at their edges; embedding_bag at L = 1, 31,
@@ -116,7 +125,9 @@ Phases, in order; any failure raises and the script exits non-zero:
            left (and on the full first-epoch adjacency for prune, whose
            words on the learned graph must equal its words on the full
            graph ANDed with the learned one; ucb's
-           argmax must equal choose's choice for every user; ucb and
+           argmax must equal choose's choice for every user, and both
+           choose variants and both ucb variants pick the same, forced on
+           the state and on the serving batch's shortlist (256 x 64); ucb and
            rank1_update also at CLUB's n = 1 on its state's rows, and
            both rank-1 kernels there bit-equal to the whole state's
            warp-per-user variant with only that user live; ucb there
@@ -125,15 +136,21 @@ Phases, in order; any failure raises and the script exits non-zero:
            (topk's shortlist scores ``torch.equal`` to ``ucb_scores`` of the
            shortlisted items, a block per user at 256 users; topk_pruned's
            skip ratio and its plain version's),
-           cross on a serve_bulk batch's layers 1 and 2, embedding_bag
+           cross on a serve_bulk batch's layers 1 and 2 on both routes,
+           the W split of both bit-equal to its plain version, embedding_bag
            on the two bag batches of phase 4r, and flash on the q/k/v of
            phase 4l's prefill layers 0 and 35 and a decode step's layer 0.
 6. times   median of 25 launches (CUDA events, L2 flushed before each) of
            every kernel and its plain version at the main path's shapes,
            beside the least time the card could take (bytes over 3.35 TB/s
-           or f32 operations over 67 TFLOP/s, counted from these inputs)
+           or f32 operations over 67 TFLOP/s, counted from these inputs;
+           cross's tensor route: its three TF32 products over 494.7
+           TFLOP/s, the f32 bound beside it)
            and, for embedding_bag, ``F.embedding_bag`` on the same inputs;
-           for cross, cuBLAS ``addmm`` (its GEMM and bias alone); ucb and
+           choose beside its warp variant, 50 launches each in turns, on
+           the state and on the serving batch's shortlist; cross at 262144
+           and at 512 rows in turns with its other route and with cuBLAS
+           ``addmm`` (its GEMM and bias alone); ucb and
            rank1_update also at n = 1, kernel and plain version over 200
            launches each, in turns (both also beside their warp-per-user
            variant on the same row); topk_pruned, its launch alone (the
@@ -172,6 +189,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside tensor cores
+TF32_FLOPS_PER_S = 494.7e12  # H100 SXM data sheet, TF32 dense tensor cores
 EPOCHS = 2
 SEED = 0
 REPS = 25
@@ -193,6 +211,8 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
                     "src/repro/kernels/topk/topk.py:229"),
     "cross": ("src/repro_torch/csrc/cross.cu",
               "src/repro/kernels/cross/cross.py:37"),
+    "cross_split": ("src/repro_torch/csrc/cross.cu",
+                    "src/repro/kernels/cross/cross.py:37"),
     "embedding_bag": ("src/repro_torch/csrc/embag.cu",
                       "src/repro/kernels/embag/embag.py:39"),
     "rank1_update": ("src/repro_torch/csrc/rank1.cu",
@@ -326,6 +346,45 @@ def check_ucb_variants(w, Minv, ctx, occ, alpha, u):
               check_ucb(*row, alpha)["max_abs_err"])
     return {"max_abs_err": err, "bit_equal": True,
             "row_offset_mod16": Minv[u:u + 1].data_ptr() % 16}
+
+
+def choose_variant(w, Minv, ctx, occ, alpha, variant):
+    """choose's kernel in the variant the caller names, past the wrapper
+    (the register tile with the wrapper's users a block)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.interact import ops
+    n, K, d = ctx.shape
+    users = ops.geometry(n, K, d, _build.sm_count(ctx.device.index or 0))[1]
+    choice = torch.empty(n, dtype=torch.int32, device=ctx.device)
+    x = torch.empty(n, d, dtype=torch.float32, device=ctx.device)
+    _build.launch("choose", w.data_ptr(), Minv.data_ptr(), ctx.data_ptr(),
+                  occ.data_ptr(), float(alpha), n, K, d, variant,
+                  users if variant == ops.REGISTER_TILE else 4,
+                  choice.data_ptr(), x.data_ptr())
+    return choice, x
+
+
+def check_pick(w, Minv, ctx, occ, alpha):
+    """choose's two variants and ucb's two, each forced past its wrapper
+    on the same inputs (d <= 32, which all four take): the two choose
+    variants pick the same candidates and copy the same x, bit for bit,
+    and the first-index argmax of either ucb variant's scores is that
+    pick (all four run ucb_score.cuh's chains in its order)."""
+    import torch
+    from repro_torch.kernels.interact import ops as iops
+    from repro_torch.kernels.ucb import ops as uops
+    c_w, x_w = choose_variant(w, Minv, ctx, occ, alpha, iops.WARP_PER_USER)
+    c_t, x_t = choose_variant(w, Minv, ctx, occ, alpha, iops.REGISTER_TILE)
+    assert torch.equal(c_w, c_t) and torch.equal(x_w, x_t), (
+        f"choose: the variants differ for {int((c_w != c_t).sum())} users")
+    for v in (uops.WARP_PER_USER, uops.BLOCK_PER_USER):
+        first = torch.argmax(ucb_variant(w, Minv, ctx, occ, alpha, v),
+                             dim=-1).to(torch.int32)
+        assert torch.equal(first, c_t), (
+            f"ucb variant {v}: argmax differs from choose's pick for "
+            f"{int((first != c_t).sum())} users")
+    return {"pick_bit_equal": True, "users": int(c_t.shape[0])}
 
 
 def check_rank1_mful(M, Minv, b, x, r, mask):
@@ -607,16 +666,57 @@ def check_cc_hop(adj, labels_self, labels_j):
     return {"max_abs_err": err}
 
 
+def cross_route(x0, xl, W, bias, route):
+    """cross's kernel on the route the caller names, past the wrapper (the
+    tensor route after its W split, as the wrapper launches them)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cross import ops
+    B, d = x0.shape
+    out = torch.empty(B, d, dtype=torch.float32, device=x0.device)
+    split = None
+    if route == ops.TENSOR:
+        split = torch.empty(ops.split_words(d), dtype=torch.int32,
+                            device=x0.device)
+        _build.launch("cross_split", W.data_ptr(), d, split.data_ptr())
+    _build.launch("cross", x0.data_ptr(), xl.data_ptr(), W.data_ptr(),
+                  bias.data_ptr(), out.data_ptr(), B, d, route,
+                  0 if split is None else split.data_ptr())
+    return out
+
+
 def check_cross(x0, xl, W, bias):
-    """Within rtol = atol = 2e-5 of the plain version, the reference's own
-    tolerance for this kernel (tests/test_kernels.py): each element is a
-    d-term f32 dot product that cuBLAS sums in another order."""
+    """Both routes, each within rtol = atol = 2e-5 of the plain version,
+    the reference's own tolerance for this kernel (tests/test_kernels.py):
+    each element is a d-term f32 dot product that cuBLAS sums in another
+    order, and the tensor route's 3xTF32 holds it to a few ulp of its
+    terms.  The error reported is the larger of the two routes'; the
+    wrapper's route is one of them."""
     import torch
     from repro_torch.kernels.cross import ops, ref
-    out_k = ops.cross_layer(x0, xl, W, bias)
     out_p = ref.cross_layer_ref(x0, xl, W, bias)
-    torch.testing.assert_close(out_k, out_p, rtol=2e-5, atol=2e-5)
-    return {"max_abs_err": float((out_k - out_p).abs().max())}
+    errs = {}
+    for name, route in (("simt", ops.SIMT), ("tensor", ops.TENSOR)):
+        out_k = cross_route(x0, xl, W, bias, route)
+        torch.testing.assert_close(out_k, out_p, rtol=2e-5, atol=2e-5,
+                                   msg=lambda m: f"cross {name}: {m}")
+        errs[name] = float((out_k - out_p).abs().max())
+    return {"max_abs_err": max(errs.values()),
+            **{f"max_abs_err_{k}": v for k, v in errs.items()}}
+
+
+def check_cross_split(W):
+    """The W split bit-equal to its plain version, ``cross_split_ref``."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cross import ops, ref
+    d = W.shape[0]
+    split = torch.empty(ops.split_words(d), dtype=torch.int32,
+                        device=W.device)
+    _build.launch("cross_split", W.data_ptr(), d, split.data_ptr())
+    assert torch.equal(split, ref.cross_split_ref(W)), (
+        "cross_split differs from its plain version")
+    return {"max_abs_err": 0.0}
 
 
 def check_embag(table, idx, wt):
@@ -691,7 +791,8 @@ def small_checks(dev):
     occ = torch.randint(0, 1000, (n,), generator=g, device=dev,
                         dtype=torch.int32)
     log(f"small choose (n={n}, d={d}, K={K}): "
-        f"{check_choose(w, Minv, ctx, occ, 0.3)}")
+        f"{check_choose(w, Minv, ctx, occ, 0.3)}, both variants and both "
+        f"ucb variants: {check_pick(w, Minv, ctx, occ, 0.3)}")
 
     nd, Kd, dd = 16, 12, 8
     ctx2 = torch.randn(nd, Kd, dd, generator=g, device=dev)
@@ -700,20 +801,32 @@ def small_checks(dev):
     w2 = torch.randn(nd, dd, generator=g, device=dev)
     eye = torch.eye(dd, device=dev).expand(nd, dd, dd).contiguous()
     ones = torch.ones(nd, dtype=torch.int32, device=dev)
+    from repro_torch.kernels import _build
     from repro_torch.kernels.interact import ops as iops
-    choice, _ = iops.choose(w2, eye, ctx2, ones, 0.3)
-    assert not bool(((choice == 5) | (choice == 9)).any()), (
-        "choose: a duplicate candidate beat its first copy")
-    log(f"small choose duplicates: {check_choose(w2, eye, ctx2, ones, 0.3)}")
-    # the catalog path's shortlist width: K = k_short = 64; at d=32 the
-    # kernel needs 49,664 B of shared memory, past the 48 KB default
-    for dk in (25, 32):
-        Mk = spd_inverse(g, n, dk, dev)
-        wk = 0.5 * torch.randn(n, dk, generator=g, device=dev)
-        ck = unit(torch.randn(n, K_SHORT, dk, generator=g,
-                              device=dev)).contiguous()
-        log(f"small choose (n={n}, d={dk}, K={K_SHORT}): "
-            f"{check_choose(wk, Mk, ck, occ, 0.3)}")
+    for variant in (iops.WARP_PER_USER, iops.REGISTER_TILE):
+        choice, _ = choose_variant(w2, eye, ctx2, ones, 0.3, variant)
+        assert not bool(((choice == 5) | (choice == 9)).any()), (
+            f"choose variant {variant}: a duplicate beat its first copy")
+    log(f"small choose duplicates: {check_choose(w2, eye, ctx2, ones, 0.3)}"
+        f", both variants and both ucb variants: "
+        f"{check_pick(w2, eye, ctx2, ones, 0.3)}")
+    # the catalog path's shortlist width: K = k_short = 64, at 37 users
+    # and at serving's 256 (a register-tile block per user); at d=32 the
+    # warp variant needs 49,664 B of shared memory, past the 48 KB default
+    for nk in (n, SERVE_BATCH):
+        occ_k = torch.randint(0, 1000, (nk,), generator=g, device=dev,
+                              dtype=torch.int32)
+        for dk in (25, 32):
+            Mk = spd_inverse(g, nk, dk, dev)
+            wk = 0.5 * torch.randn(nk, dk, generator=g, device=dev)
+            ck = unit(torch.randn(nk, K_SHORT, dk, generator=g,
+                                  device=dev)).contiguous()
+            geo = iops.geometry(nk, K_SHORT, dk,
+                                _build.sm_count(dev.index or 0))
+            log(f"small choose (n={nk}, d={dk}, K={K_SHORT}, geometry "
+                f"{geo}): "
+                f"{check_choose(wk, Mk, ck, occ_k, 0.3)}, both variants and "
+                f"both ucb variants: {check_pick(wk, Mk, ck, occ_k, 0.3)}")
 
     log(f"small ucb (n={n}, d={d}, K={K}): "
         f"{check_ucb(w, Minv, ctx, occ, 0.3)}")
@@ -913,16 +1026,19 @@ def small_topk_checks(g, dev, n, d, w, Minv, occ):
 
 
 def small_recsys_checks(g, dev):
-    """cross on ragged shapes, both tile shapes (B=5000 at d=429 takes the
-    128x64 tiles); embedding_bag at the reference's test shapes, then with
-    pad slots, ids out of range, no weights and D=6 (the 4-byte path)."""
+    """cross on ragged shapes, both routes (the SIMT route's two tile
+    shapes: B=5000 at d=429 takes the 128x64 tiles), and the W split
+    bit-equal to its plain version; embedding_bag at the reference's test
+    shapes, then with pad slots, ids out of range, no weights and D=6 (the
+    4-byte path)."""
     import torch
     for B, d in ((16, 16), (37, 24), (100, 64), (37, 429), (5000, 429)):
         x0 = torch.randn(B, d, generator=g, device=dev)
         xl = torch.randn(B, d, generator=g, device=dev)
         W = torch.randn(d, d, generator=g, device=dev) / math.sqrt(d)
         bias = torch.randn(d, generator=g, device=dev)
-        log(f"small cross (B={B}, d={d}): {check_cross(x0, xl, W, bias)}")
+        log(f"small cross (B={B}, d={d}): {check_cross(x0, xl, W, bias)}; "
+            f"W split: {check_cross_split(W)}")
     for V, D, B, L in ((50, 8, 4, 3), (1000, 64, 16, 10), (128, 128, 8, 1),
                        (77, 6, 33, 7)):
         table = torch.randn(V, D, generator=g, device=dev)
@@ -1019,15 +1135,17 @@ def small_flash_checks(g, dev):
 
 
 SPILL_CHECKED = ("prune_kernel", "topk_kernel", "topk_pruned_kernel",
-                 "ucb_kernel", "ucb_block_kernel")
+                 "ucb_kernel", "ucb_block_kernel", "choose_tile_kernel",
+                 "cross_tc_kernel", "cross_split_kernel")
 
 
 def spill_check() -> dict:
-    """Registers and spills of the prune, top-K and ucb kernels, from the
-    ptxas report of their builds; raise if any of them spills."""
+    """Registers and spills of the prune, top-K, ucb, choose (register
+    tile, each width) and cross (tensor route and W split) kernels, from
+    the ptxas report of their builds; raise if any of them spills."""
     from repro_torch.kernels import _build
     usage = {}
-    for lib in ("prune", "topk", "ucb"):
+    for lib in ("prune", "topk", "ucb", "choose", "cross"):
         usage.update(_build.ptxas_usage(_build.build_report(lib)))
     seen = {}
     for func, (regs, st, ld) in sorted(usage.items()):
@@ -1047,21 +1165,25 @@ def spill_check() -> dict:
     return seen
 
 
-def sass_check() -> int:
-    """Count the HGMMA (wgmma) instructions in the SASS of the flash
-    library (``cuobjdump -sass``); raise if there are none, or if the
-    retired ``flash_mma_kernel`` is still in it."""
+def sass_check() -> dict:
+    """Count the HGMMA (wgmma) instructions in the SASS of the flash and
+    cross libraries (``cuobjdump -sass``); raise if either has none, or
+    if the retired ``flash_mma_kernel`` is still in flash's."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = _build.library_path(_build.KERNELS["flash"][0])
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    n = sum("HGMMA" in line for line in sass.splitlines())
-    log(f"sass {lib.name}: {n} HGMMA instructions")
-    assert n > 0, "flash: no HGMMA in the compiled library"
-    assert "flash_mma_kernel" not in sass, "flash: flash_mma_kernel is built"
-    return n
+    counts = {}
+    for name in ("flash", "cross"):
+        lib = _build.library_path(_build.KERNELS[name][0])
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        n = counts[name] = sum("HGMMA" in line for line in sass.splitlines())
+        log(f"sass {lib.name}: {n} HGMMA instructions")
+        assert n > 0, f"{name}: no HGMMA in the compiled library"
+        if name == "flash":
+            assert "flash_mma_kernel" not in sass, (
+                "flash: flash_mma_kernel is built")
+    return counts
 
 
 @contextlib.contextmanager
@@ -1222,8 +1344,8 @@ def profile_epoch(distclub, state, ops, hyper, d, steady_s) -> None:
 
 
 # the port's own kernels (csrc/*.cu): a profile prints each of them
-PORT_KERNELS = re.compile(r"\b(cc_hop|choose|cross|embag|flash\w*|merge|prune"
-                          r"\w*|rank1\w*|topk\w*|ucb\w*)_kernel\b")
+PORT_KERNELS = re.compile(r"\b(cc_hop|choose\w*|cross\w*|embag|flash\w*|merge"
+                          r"|prune\w*|rank1\w*|topk\w*|ucb\w*)_kernel\b")
 
 
 def profile_batch(label, fn, steady_s) -> None:
@@ -1658,8 +1780,16 @@ def recsys_phase(dev):
         log(f"dcn-v2 {shape}: ms per batch {[1e3 * x for x in s]} "
             f"median {1e3 * statistics.median(s)}")
     log(f"dcn-v2 launches: {launches} max_memory_allocated={peak}")
+    # three cross launches a batch; the tensor route's batches (serve_bulk)
+    # each also split three Ws; nothing else launches
+    from repro_torch.kernels.cross import ops as cops
+    sms = _build.sm_count(dev.index or 0)
+    tensor = sum(cops.route(dense.shape[0], cfg.d_interact, sms)
+                 == cops.TENSOR for _, (dense, _) in batches)
     assert launches["cross"] == cfg.n_cross_layers * len(batches), launches
-    assert sum(launches.values()) == launches["cross"], launches
+    assert launches["cross_split"] == cfg.n_cross_layers * tensor, launches
+    assert sum(launches.values()) == (launches["cross"]
+                                      + launches["cross_split"]), launches
     for out, (_, (dense, _)) in zip(logits, batches):
         assert out.shape == (dense.shape[0],) and out.dtype == torch.float32
         assert bool(torch.isfinite(out).all()), "non-finite DCN logits"
@@ -1933,10 +2063,12 @@ def lm_phase(dev):
 
 
 def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
-    """Beside the kernel line: cross's yardstick, cuBLAS ``addmm`` (the
-    GEMM and bias alone, which the port never calls), on the serve_bulk
-    layer-2 inputs; both kernels, their plain versions and yardsticks at
-    serve_p99's 512 rows (layer 2) and 512 bags.  Returns the extra keys
+    """Beside the kernel line: cross on the serve_bulk layer-2 inputs
+    (the wrapper's tensor route, its W split included) in turns with its
+    SIMT route and with its yardstick, cuBLAS ``addmm`` (the GEMM and bias
+    alone, which the port never calls); the same three at serve_p99's 512
+    rows (layer 2), where the wrapper takes the SIMT route; embedding_bag,
+    its plain version and yardstick at 512 bags.  Returns the extra keys
     of the cross and embedding_bag lines."""
     import torch
     from repro_torch.kernels.cross import ops as cops
@@ -1948,15 +2080,23 @@ def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
     xl1p = cops.cross_layer(x0p, x0p, c0.W, c0.b)
     table = model.tables[0]
     idx, wt = bags_p99
-    cross = {
-        "gemm_ms": cuda_ms(lambda: torch.addmm(c1.b, xl1, c1.W.T), flush),
-        "ms_p99": cuda_ms(lambda: cops.cross_layer(x0p, xl1p, c1.W, c1.b),
-                          flush),
-        "plain_ms_p99": cuda_ms(
+    cross = turn_ms({
+        "ms_turns": lambda: cops.cross_layer(x0b, xl1, c1.W, c1.b),
+        "simt_ms": lambda: cross_route(x0b, xl1, c1.W, c1.b, cops.SIMT),
+        "gemm_ms": lambda: torch.addmm(c1.b, xl1, c1.W.T)}, flush,
+        reps=2 * REPS)
+    cross.update(turn_ms({
+        "ms_p99": lambda: cops.cross_layer(x0p, xl1p, c1.W, c1.b),
+        "tensor_ms_p99": lambda: cross_route(x0p, xl1p, c1.W, c1.b,
+                                             cops.TENSOR),
+        "gemm_ms_p99": lambda: torch.addmm(c1.b, xl1p, c1.W.T)}, flush))
+    B, d = x0p.shape
+    cross.update(
+        plain_ms_p99=cuda_ms(
             lambda: cref.cross_layer_ref(x0p, xl1p, c1.W, c1.b), flush),
-        "gemm_ms_p99": cuda_ms(lambda: torch.addmm(c1.b, xl1p, c1.W.T),
-                               flush),
-    }
+        bound_ms_p99=bound_ms(4 * (3 * B * d + d * d + d),
+                              2 * B * d * d + 3 * B * d)[0],
+        reps_turns=2 * REPS, reps_p99=TURN_REPS)
     # embedding_bag against F.embedding_bag at 512 bags, whose order two
     # runs of 25 disagreed on: TURN_REPS launches each, in turns
     embag = turn_ms({
@@ -1970,7 +2110,8 @@ def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
     embag["bound_ms_p99"] = bound_ms(
         8 * idx.numel() + 4 * table.shape[1] * (nonpad + idx.shape[0]),
         2 * table.shape[1] * nonpad)[0]
-    log(f"time cross, yardsticks and serve_p99: {cross}")
+    log(f"time cross in turns with its SIMT route and addmm, at 262144 "
+        f"and 512 rows: {cross}")
     log(f"time embedding_bag at 512 bags, median of {TURN_REPS} launches "
         f"each, in turns: kernel {embag['ms_p99']} ms, F.embedding_bag "
         f"{embag['library_ms_p99']} ms; {embag}")
@@ -2123,6 +2264,9 @@ def main() -> int:
     w = linucb.user_vector(Minv, b)
     ctx = ops.contexts_fn(SEED, EPOCHS * 2 * R, occ)
     errs = {"choose": check_choose(w, Minv, ctx, occ, hyper.alpha)}
+    log(f"full choose, both variants and both ucb variants (n={n}, "
+        f"geometry {iops.geometry(n, K, d, _build.sm_count(0))}): "
+        f"{check_pick(w, Minv, ctx, occ, hyper.alpha)}")
     _, x = iops.choose(w, Minv, ctx, occ, hyper.alpha)
     r = (torch.rand(n, generator=g, device=dev) < 0.5).float()
     mask = 0 < state.u_rounds
@@ -2193,6 +2337,14 @@ def main() -> int:
         f"{torch.equal(s_k[held], s_u[held])}")
     assert torch.equal(s_k[held], s_u[held]), (
         "topk: shortlist scores differ from ucb_scores")
+    # serving's choose on the shortlisted items, both variants of choose
+    # and of ucb
+    ctx_s = bank.emb[i_k.clamp_min(0).long()].contiguous()
+    log(f"full choose at serving's shape {tuple(ctx_s.shape)} (geometry "
+        f"{iops.geometry(*ctx_s.shape, _build.sm_count(0))}): "
+        f"{check_choose(w_s, M_s, ctx_s, occ_s, hyper.alpha)}, both "
+        f"variants and both ucb variants: "
+        f"{check_pick(w_s, M_s, ctx_s, occ_s, hyper.alpha)}")
     errs["topk_pruned"] = check_topk_pruned(w_s, M_s, occ_s, serving.catalog,
                                             item_clusters, hyper.alpha,
                                             K_SHORT)
@@ -2203,6 +2355,9 @@ def main() -> int:
     errs["cross"] = check_cross(x0b, x0b, c0.W, c0.b)
     xl1 = cops.cross_layer(x0b, x0b, c0.W, c0.b)
     log(f"full cross, layer 2: {check_cross(x0b, xl1, c1.W, c1.b)}")
+    errs["cross_split"] = check_cross_split(c1.W)
+    log(f"full cross_split, layers 1 and 2: {check_cross_split(c0.W)}, "
+        f"{errs['cross_split']}")
     table = recsys["model"].tables[0]
     bags_p99, bags_bulk = (recsys["bags"][nb] for nb in sorted(recsys["bags"]))
     log(f"full embedding_bag, {bags_p99[0].shape[0]} bags: "
@@ -2289,12 +2444,22 @@ def main() -> int:
     idx_b, wt_b = bags_bulk
     nonpad = int((wt_b != 0).sum())
     dE = table.shape[1]
+    split_buf = torch.empty(cops.split_words(dI), dtype=torch.int32,
+                            device=dev)
     work.update({
+        # the tensor route's work: three TF32 products of 2 B d^2 flops
+        # (the f32 bound at 67 TFLOP/s goes beside it)
         "cross": (
             lambda: cops.cross_layer(x0b, xl1, c1.W, c1.b),
             lambda: cref.cross_layer_ref(x0b, xl1, c1.W, c1.b),
             4 * (3 * Bb * dI + dI * dI + dI),
-            2 * Bb * dI * dI + 3 * Bb * dI),
+            3 * 2 * Bb * dI * dI),
+        "cross_split": (
+            lambda: _build.launch("cross_split", c1.W.data_ptr(), dI,
+                                  split_buf.data_ptr()),
+            lambda: cref.cross_split_ref(c1.W),
+            4 * (dI * dI + cops.split_words(dI)),
+            0),
         "embedding_bag": (
             lambda: eops.embedding_bag(table, idx_b, wt_b),
             lambda: eref.embedding_bag_ref(table, idx_b, wt_b),
@@ -2403,11 +2568,12 @@ def main() -> int:
     library["flash"] = sdpa_pre
     # bf16 flash runs on the tensor cores: held to their bf16 rate
     rates = {"flash": BF16_FLOPS_PER_S if qp.dtype == torch.bfloat16
-             else F32_FLOPS_PER_S}
+             else F32_FLOPS_PER_S, "cross": TF32_FLOPS_PER_S}
     on_path.update(flash=lm["launches"])
     on_path.update(topk=serve_launches["topk"],
                    topk_pruned=serve_launches["topk_pruned"],
                    cross=recsys["launches"]["cross"],
+                   cross_split=recsys["launches"]["cross_split"],
                    embedding_bag=recsys["bag_launches"]["embedding_bag"],
                    ucb=baselines["club_launches"]["ucb"],
                    rank1_update=baselines["club_launches"]["rank1_update"])
@@ -2453,6 +2619,25 @@ def main() -> int:
     by_name["topk_pruned"].update(extra)
     log(f"time topk_pruned beside topk, {2 * REPS} launches each in turns: "
         f"{extra}")
+    # choose beside its warp variant (the design before the register tile)
+    # in turns: at the offline shape on phase 5's inputs, and at serving's
+    # (256 users x 64 shortlisted items) on phase 5's serving batch
+    for label, cargs in (("", (w, Minv, ctx, occ)),
+                         ("_serving", (w_s, M_s, ctx_s, occ_s))):
+        t = turn_ms({
+            "ms": lambda a=cargs: iops.choose(*a, hyper.alpha),
+            "warp_ms": lambda a=cargs: choose_variant(
+                *a, hyper.alpha, iops.WARP_PER_USER)}, flush, reps=2 * REPS)
+        m, Kc, dc = cargs[2].shape
+        extra = {f"{key}{label}_turns": v for key, v in t.items()}
+        extra[f"bound_ms{label}"] = bound_ms(
+            4 * (m * Kc * dc + m * dc * dc + 2 * m * dc + 2 * m),
+            m * Kc * (4 * dc + 2 * dc * dc + 6))[0]
+        by_name["choose"].update(extra)
+        log(f"time choose beside its warp variant, {2 * REPS} launches "
+            f"each in turns, {tuple(cargs[2].shape)}: {extra}")
+    by_name["cross"]["bound_ms_f32"] = bound_ms(
+        work["cross"][2], 2 * Bb * dI * dI + 3 * Bb * dI)[0]
     # what any launch costs under this method: a one-element in-place op
     one = torch.zeros(1, device=dev)
     floor_ms = statistics.median(cuda_times(lambda: one.add_(1.0), flush,

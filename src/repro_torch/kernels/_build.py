@@ -18,6 +18,7 @@ else, so a run can show which kernels its path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -35,7 +36,7 @@ BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "choose": ("choose.cu", "choose_launch",
-               [_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P]),
+               [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
     "rank1_update_inv": ("rank1.cu", "rank1_update_inv_launch",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "rank1_update": ("rank1.cu", "rank1_update_launch",
@@ -52,7 +53,9 @@ KERNELS = {
     "topk_pruned": ("topk.cu", "topk_pruned_launch",
                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
                      _I, _I, _I, _P, _P, _P, _P, _P, _P]),
-    "cross": ("cross.cu", "cross_launch", [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "cross": ("cross.cu", "cross_launch",
+              [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
+    "cross_split": ("cross.cu", "cross_split_launch", [_P, _I, _P, _P]),
     "embedding_bag": ("embag.cu", "embedding_bag_launch",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash": ("flash.cu", "flash_launch",
@@ -164,6 +167,12 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(t, name: str, dtype, shape: tuple, device) -> int:

@@ -1,13 +1,42 @@
 """Device dispatch for the DCN-v2 cross layer: the plain version for CPU
-tensors, the CUDA kernel (``csrc/cross.cu``) for CUDA tensors.  Nothing
-is padded: the kernel masks ragged rows, columns and depth (d = 429 at
-the published config)."""
+tensors, the CUDA kernels (``csrc/cross.cu``) for CUDA tensors.  The
+inputs are not padded: the kernels mask ragged rows, columns and depth
+(d = 429 at the published config).  The tensor route first splits W
+into TF32 hi and lo tiles (``cross_split``, its own launch, counted as
+such) into a buffer the wrapper allocates."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .. import _build
 from .ref import cross_layer_ref
+
+SIMT, TENSOR = 0, 1
+TC_BM, TC_BN, TC_BK = 64, 144, 32   # csrc/cross.cu: the tensor route's tile
+TC_BLOCKS_PER_SM = 2
+MAX_GRID_Y = 65535                  # its row tiles, at most
+
+
+def route(B: int, d: int, sms: int) -> int:
+    """The kernel's route for ``B`` rows of width ``d`` on ``sms`` SMs:
+    3xTF32 on the tensor cores where its 64 x 144 tiles fill every SM
+    (two blocks an SM) at least once; else f32 SIMT, whose smaller tiles
+    keep the SMs busy at small batch (serve_p99's B = 512 at d = 429 is
+    24 tensor tiles against 264 block slots)."""
+    rows = math.ceil(B / TC_BM)
+    tiles = rows * math.ceil(d / TC_BN)
+    if tiles >= TC_BLOCKS_PER_SM * sms and rows <= MAX_GRID_Y:
+        return TENSOR
+    return SIMT
+
+
+def split_words(d: int) -> int:
+    """int32 words of the W split the tensor route reads: hi and lo of
+    each 144-row tile and 32-column stage (``kernels.cross.ref``
+    ``cross_split_ref``)."""
+    return math.ceil(d / TC_BN) * math.ceil(d / TC_BK) * 2 * TC_BN * TC_BK
 
 
 def cross_layer(
@@ -32,5 +61,11 @@ def cross_layer(
     ]
     out = torch.empty(B, d, dtype=torch.float32, device=dev)
     if B and d:
-        _build.launch("cross", *args, out.data_ptr(), B, d)
+        r = route(B, d, _build.sm_count(dev.index or 0))
+        split = None
+        if r == TENSOR:
+            split = torch.empty(split_words(d), dtype=torch.int32, device=dev)
+            _build.launch("cross_split", args[2], d, split.data_ptr())
+        _build.launch("cross", *args, out.data_ptr(), B, d, r,
+                      0 if split is None else split.data_ptr())
     return out

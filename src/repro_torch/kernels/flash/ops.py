@@ -14,8 +14,6 @@ since the kernel allocates nothing.  One call counts one launch, though
 that variant runs two CUDA kernels (the splits, then their merge)."""
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from .. import _build
@@ -25,11 +23,6 @@ HEAD_DIMS = (32, 64, 128, 256)
 SPLIT_ROWS = 16          # the split-KV variant's most rows a (b, kv head)
 SPLIT_MIN_KEYS = 128     # fewest keys worth a split of their own
 SPLIT_PER_SM = 2         # split blocks a multiprocessor holds at once
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def n_splits(B: int, Hkv: int, kv: int, n_sm: int) -> int:
@@ -82,7 +75,7 @@ def attention(
         rows = Hq // Hkv * Sq
         splits, ws, ws_bytes = 0, 0, 0
         if bf16 and rows <= SPLIT_ROWS and Dh <= 128:
-            splits = n_splits(B, Hkv, kv, _sm_count(dev.index or 0))
+            splits = n_splits(B, Hkv, kv, _build.sm_count(dev.index or 0))
             # freed when this returns: the caching allocator hands it out
             # again only in this stream's order, after the kernel
             part = torch.empty(B * Hkv * splits * rows * (Dh + 2),

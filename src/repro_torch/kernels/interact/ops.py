@@ -7,6 +7,51 @@ import torch
 from .. import _build
 from .ref import choose_ref
 
+WARP_PER_USER, REGISTER_TILE = 0, 1
+TILE_MAX_D = 32                  # csrc/choose.cu kTileMaxD
+TILE_THREADS = 128               # csrc/choose.cu kTileThreads
+TILE_TK = 2                      # csrc/choose.cu kTK: candidates a thread
+MAX_SMEM = 232448                # csrc/choose.cu kMaxSmem
+SM_SMEM = 233472                 # an H100 SM's shared memory
+BLOCK_RESERVED = 1024            # shared memory the card keeps a block
+TILE_BLOCKS_PER_SM = 4           # blocks that must fit an SM at once
+USERS_PER_SM = 2                 # n below this many users an SM: a block
+                                 # per user, so that every SM works
+
+
+def tile_smem(users: int, K: int, d: int) -> int:
+    """Bytes of shared memory a register-tile block of ``users`` takes:
+    Minv, contexts, w and scores, each region padded to 16 bytes with
+    room for the copy's shift, as ``csrc/choose.cu`` ``tile_floats``
+    counts them."""
+    def r4(v):
+        return (v + 3) // 4 * 4
+    return 4 * (r4(users * d * d + 3) + r4(users * K * d + 3)
+                + r4(users * d + 3) + r4(users * K))
+
+
+def geometry(n: int, K: int, d: int, sms: int) -> tuple[int, int]:
+    """(variant, users a block) for ``n`` users of ``K`` candidates of
+    dimension ``d`` on a card of ``sms`` SMs.
+
+    The register tile takes d <= 32 where a user's ceil(K / TILE_TK)
+    threads fit a block of ``TILE_THREADS``.  Its users a block: as many
+    as fill the block's threads, but no more than ``n / (USERS_PER_SM
+    sms)`` (a block per user at serving's n = 256, so that every SM
+    works) and no more than leave room for ``TILE_BLOCKS_PER_SM`` blocks
+    an SM (so that some blocks copy while others compute).  Else a warp
+    per user (four users a block).  Both variants pick the same
+    candidate."""
+    per_user = -(-K // TILE_TK)
+    if (d > TILE_MAX_D or per_user > TILE_THREADS
+            or tile_smem(1, K, d) > MAX_SMEM):
+        return WARP_PER_USER, 4
+    users = max(1, min(TILE_THREADS // per_user, n // (USERS_PER_SM * sms)))
+    budget = SM_SMEM // TILE_BLOCKS_PER_SM - BLOCK_RESERVED
+    while users > 1 and tile_smem(users, K, d) > budget:
+        users -= 1
+    return REGISTER_TILE, users
+
 
 def choose(
     w: torch.Tensor,          # [n, d] f32
@@ -33,6 +78,7 @@ def choose(
     choice = torch.empty(n, dtype=torch.int32, device=dev)
     x = torch.empty(n, d, dtype=torch.float32, device=dev)
     if n:
-        _build.launch("choose", *args, float(alpha), n, K, d,
+        variant, users = geometry(n, K, d, _build.sm_count(dev.index or 0))
+        _build.launch("choose", *args, float(alpha), n, K, d, variant, users,
                       choice.data_ptr(), x.data_ptr())
     return choice, x

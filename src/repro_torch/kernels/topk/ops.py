@@ -87,7 +87,7 @@ def _slots(device_index: int, d: int, k_short: int,
     if err != 0 or blocks.value < 1:
         raise RuntimeError(f"topk occupancy query failed: CUDA error {err}, "
                            f"{blocks.value} blocks per SM")
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    sms = _build.sm_count(device_index)
     return sms, blocks.value
 
 

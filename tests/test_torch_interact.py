@@ -40,7 +40,8 @@ def _both(w, Minv, ctx, occ, alpha):
     return (np.asarray(jc), np.asarray(jx)), (c.numpy(), x.numpy())
 
 
-@pytest.mark.parametrize("n,K,d", [(37, 20, 25), (64, 7, 19), (8, 16, 8)])
+@pytest.mark.parametrize("n,K,d", [(37, 20, 25), (64, 7, 19), (8, 16, 8),
+                                   (9, 64, 32)])
 def test_choose_matches_pallas_interpret(n, K, d):
     w, Minv, ctx, occ = _inputs(n, K, d, seed=n * 1000 + K)
     (jc, jx), (c, x) = _both(w, Minv, ctx, occ, 0.3)
@@ -76,3 +77,29 @@ def test_backend_choose_returns_x_then_choice_and_launches_nothing():
     assert _build.LAUNCHES == before
     with pytest.raises(ValueError):
         BackendConfig.create("bf16")
+
+
+@pytest.mark.parametrize("n,K,d,want", [
+    (20480, 20, 25, (ops.REGISTER_TILE, 12)),   # offline and DCCB epochs
+    (256, 64, 25, (ops.REGISTER_TILE, 1)),      # serving: a block per user
+    (256, 64, 32, (ops.REGISTER_TILE, 1)),
+    (20480, 20, 33, (ops.WARP_PER_USER, 4)),    # past the tile's d
+    (256, 64, 33, (ops.WARP_PER_USER, 4)),
+    (256, 257, 25, (ops.WARP_PER_USER, 4)),     # past its threads a user
+])
+def test_geometry_at_the_path_shapes(n, K, d, want):
+    assert ops.geometry(n, K, d, 132) == want
+
+
+@pytest.mark.parametrize("n,K,d", [(20480, 20, 25), (256, 64, 32),
+                                   (100000, 7, 19), (5, 256, 32),
+                                   (20480, 20, 1)])
+def test_geometry_fits_a_block_and_four_blocks_an_sm(n, K, d):
+    variant, users = ops.geometry(n, K, d, 132)
+    assert variant == ops.REGISTER_TILE and users >= 1
+    assert users * -(-K // ops.TILE_TK) <= ops.TILE_THREADS
+    smem = ops.tile_smem(users, K, d)
+    assert smem <= ops.MAX_SMEM
+    if users > 1:
+        assert ops.TILE_BLOCKS_PER_SM * (smem + ops.BLOCK_RESERVED) \
+            <= ops.SM_SMEM
