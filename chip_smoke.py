@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
            (one ``nvcc`` per source, all at once), with the seconds taken;
            the registers and spill bytes ptxas reports for prune_kernel,
            topk_kernel, topk_pruned_kernel, ucb_kernel, ucb_block_kernel,
-           choose_tile_kernel (each width), cross_tc_kernel and
-           cross_split_kernel (any spill fails); the count of HGMMA
+           choose_tile_kernel (each width), cross_tc_kernel,
+           cross_split_kernel and cc_hop_kernel (each load width; any
+           spill fails); the count of HGMMA
            (wgmma) instructions in the flash and cross libraries' SASS
            (``cuobjdump -sass``), neither of which may be 0.
 3. small   each kernel against its plain PyTorch version on ragged small
@@ -30,11 +31,20 @@ Phases, in order; any failure raises and the script exits non-zero:
            32, 33, 100 over D = 8, 16, 25, 129 and on a table 4 bytes off
            a 16-byte boundary; both rank-1 kernels' block-per-user and
            warp-per-user variants bit-equal on the same rows: a row view
-           against the whole state with one user live, and 264 users
-           against 265, the variants' limit; ucb's two variants likewise
-           bit-equal: 264 users as a view of 265, and a row view at an odd
-           user (off a 16-byte boundary) against the whole state; prune on
-           ragged rows, words
+           against the whole state with one user live, and two users an
+           SM (264 on 132 SMs) against one more, the variants' limit;
+           ucb's two variants likewise bit-equal: two users an SM as a
+           view of one more, and a row view at an odd user (off a 16-byte
+           boundary) against the whole state; cc_hop (``check_cc_hop``:
+           the wrapper, the kernel with its dense threshold forced both
+           ways and the warp-per-row kernel, each equal to the plain
+           version) at the paper datasets' row lengths (n = 943, 1888,
+           5045, 20000; W = 30, 59, 158, 625) and at 20480, on sparse,
+           half-dense (a third of the rows empty) and full graphs, on
+           row views off a 16-byte boundary, a flat buffer's view 4
+           bytes off one, and random words (bits past C set) against a
+           labels_j shorter than 32 W and off a 16-byte boundary; prune
+           on ragged rows, words
            and feature slabs, dense and sparse words, equal vectors and
            pairs on the threshold; its dense and sparse branches forced
            and bit-equal on words whose every warp tile the walk takes
@@ -49,7 +59,10 @@ Phases, in order; any failure raises and the script exits non-zero:
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
            counters set to 0 just before and read just after; then one
            more epoch, timed warm, and once more under torch.profiler for
-           the device time by kernel.
+           the device time by kernel.  Phases 4, 4b (CLUB) and 4s log the
+           adjacency at each ``connected_components`` call of their
+           counted runs (rows, words, set bits, density, full words, hops;
+           ``cc_graphs``).
    plain   the same run with every kernel wrapper swapped for its plain
            version, on the same CUDA tensors: no kernel may launch, and
            its clusters per epoch and reward/random must agree with the
@@ -135,7 +148,9 @@ Phases, in order; any failure raises and the script exits non-zero:
            two top-K kernels on one serving batch's users at full width
            (topk's shortlist scores ``torch.equal`` to ``ucb_scores`` of the
            shortlisted items, a block per user at 256 users; topk_pruned's
-           skip ratio and its plain version's),
+           skip ratio and its plain version's), cc_hop by ``check_cc_hop``
+           on the learned graph (at the identity labels and at the run's)
+           and on the full graph,
            cross on a serve_bulk batch's layers 1 and 2 on both routes,
            the W split of both bit-equal to its plain version, embedding_bag
            on the two bag batches of phase 4r, and flash on the q/k/v of
@@ -161,7 +176,13 @@ Phases, in order; any failure raises and the script exits non-zero:
            n = 1 and 512-bag times; flash at the prefill and the decode
            shape, with ``scaled_dot_product_attention`` as its yardstick;
            bf16 flash runs on the tensor cores and is held to their bf16
-           rate (989 TFLOP/s), its f32 bound printed beside it; prune also
+           rate (989 TFLOP/s), its f32 bound printed beside it; cc_hop
+           beside its warp-per-row kernel, 50 launches each in turns, on the
+           learned graph (also after a flush that only reads 256 MB), the
+           full graph and the graph of the main path's first stage 2 at
+           its first two hops (held to the plain version there too), its
+           dense threshold forced to each of 0 ... 32 on the last three, and
+           rank1_update_inv after the read-only flush; prune also
            on phase 4's learned graph (its density, and a bound of its set
            bits x (2d + 8) operations), on random graphs of rising
            density, and on graphs with the same bits in every warp tile
@@ -322,18 +343,21 @@ def ucb_variant(w, Minv, ctx, occ, alpha, variant):
 
 
 def check_ucb_variants(w, Minv, ctx, occ, alpha, u):
-    """ucb's two variants on the same rows, bit for bit: the first
-    ``BLOCK_PER_USER_MAX_N`` users as a leading view (a block per user)
-    against the whole state of one user more (a warp per user), and user
-    ``u``'s row view (n = 1, a block per user) against the same; each
-    also by ``check_ucb``'s bands and argmax rule."""
+    """ucb's two variants on the same rows, bit for bit: the most users
+    that take a block each on this card (``BLOCK_PER_USER_PER_SM`` an SM)
+    as a leading view against the whole state of one user more (a warp
+    per user), and user ``u``'s row view (n = 1, a block per user)
+    against the same; each also by ``check_ucb``'s bands and argmax
+    rule."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ucb import ops
     n, K, d = ctx.shape
-    nt = ops.BLOCK_PER_USER_MAX_N
-    assert n == nt + 1 and ops.variant(nt, K, d) == ops.BLOCK_PER_USER
-    assert ops.variant(n, K, d) == ops.WARP_PER_USER
-    assert ops.variant(1, K, d) == ops.BLOCK_PER_USER
+    sms = _build.sm_count(ctx.device.index or 0)
+    nt = ops.BLOCK_PER_USER_PER_SM * sms
+    assert n == nt + 1 and ops.variant(nt, K, d, sms) == ops.BLOCK_PER_USER
+    assert ops.variant(n, K, d, sms) == ops.WARP_PER_USER
+    assert ops.variant(1, K, d, sms) == ops.BLOCK_PER_USER
     whole = ops.ucb_scores(w, Minv, ctx, occ, alpha)
     head = ops.ucb_scores(w[:nt], Minv[:nt], ctx[:nt], occ[:nt], alpha)
     row = (w[u:u + 1], Minv[u:u + 1], ctx[u:u + 1], occ[u:u + 1])
@@ -433,10 +457,12 @@ def check_rank1_variants(M, Minv, b, x, r, u):
     state with only ``u`` live (more users than a block per user takes: a
     warp per user); every other row bit-identical to the input."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.rank1 import ops
     n, d = b.shape
-    assert ops.variant(1, d) == ops.BLOCK_PER_USER
-    assert ops.variant(n, d) == ops.WARP_PER_USER
+    sms = _build.sm_count(b.device.index or 0)
+    assert ops.variant(1, d, sms) == ops.BLOCK_PER_USER
+    assert ops.variant(n, d, sms) == ops.WARP_PER_USER
     live = torch.ones(1, dtype=torch.bool, device=b.device)
     only_u = torch.zeros(n, dtype=torch.bool, device=b.device)
     only_u[u] = True
@@ -462,11 +488,13 @@ def check_rank1_threshold(M, Minv, b, x, r, mask):
     user) within 1e-5 of the plain version and bit-equal on the rows they
     share, the view leaving the last row as it was; for both kernels."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.rank1 import ops
     n, d = b.shape
-    nt = ops.BLOCK_PER_USER_MAX_N
-    assert n == nt + 1 and ops.variant(nt, d) == ops.BLOCK_PER_USER
-    assert ops.variant(n, d) == ops.WARP_PER_USER
+    sms = _build.sm_count(b.device.index or 0)
+    nt = ops.BLOCK_PER_USER_PER_SM * sms
+    assert n == nt + 1 and ops.variant(nt, d, sms) == ops.BLOCK_PER_USER
+    assert ops.variant(n, d, sms) == ops.WARP_PER_USER
     err = 0.0
     for m in (nt, n):
         err = max(err, check_rank1_mful(M[:m], Minv[:m], b[:m], x[:m],
@@ -655,15 +683,57 @@ def check_topk_pruned(w, Minv, occ, cat, clusters, alpha, k):
     return res
 
 
-def check_cc_hop(adj, labels_self, labels_j):
-    """Integer-exact."""
+def cc_hop_forced(adj, labels_self, labels_j, dense_min):
+    """cc_hop's kernel with the dense threshold set by the caller (0:
+    every word with a set bit takes the min over its 32 labels; 32: every
+    word is walked), the wrapper's geometry, past the wrapper."""
     import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.graph import ops
+    R, W = adj.shape
+    vec, blocks = ops.cc_hop_geometry(R, W, adj.data_ptr(),
+                                      _build.sm_count(adj.device.index or 0))
+    out = torch.empty(R, dtype=torch.int32, device=adj.device)
+    _build.launch("cc_hop", adj.data_ptr(), labels_self.data_ptr(),
+                  labels_j.data_ptr(), R, W, labels_j.shape[0], vec, blocks,
+                  dense_min, out.data_ptr())
+    return out
+
+
+def cc_hop_warp(adj, labels_self, labels_j):
+    """cc_hop's warp-per-row kernel (``cc_hop_warp_launch``, the design
+    before the streaming one), which nothing on the path launches."""
+    import torch
+    from repro_torch.kernels import _build
+    R, W = adj.shape
+    out = torch.empty(R, dtype=torch.int32, device=adj.device)
+    _build.launch("cc_hop_warp", adj.data_ptr(), labels_self.data_ptr(),
+                  labels_j.data_ptr(), R, W, labels_j.shape[0],
+                  out.data_ptr())
+    return out
+
+
+def check_cc_hop(adj, labels_self, labels_j):
+    """Integer-exact: the wrapper's labels equal to the plain version's,
+    and to the kernel's with its threshold forced both ways and to the
+    warp-per-row kernel's, each ``torch.equal``."""
+    import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.graph import ops, ref
     out_k = ops.cc_hop_packed(adj, labels_self, labels_j)
     out_p = ref.cc_hop_packed_ref(adj, labels_self, labels_j)
     err = float((out_k.long() - out_p.long()).abs().max())
     assert err == 0, "cc_hop differs from its plain version"
-    return {"max_abs_err": err}
+    for dense_min in (0, 32):
+        assert torch.equal(cc_hop_forced(adj, labels_self, labels_j,
+                                         dense_min), out_k), (
+            f"cc_hop: the kernel at dense_min={dense_min} differs")
+    assert torch.equal(cc_hop_warp(adj, labels_self, labels_j), out_k), (
+        "cc_hop: the warp-per-row kernel differs")
+    R, W = adj.shape
+    geo = ops.cc_hop_geometry(R, W, adj.data_ptr(),
+                              _build.sm_count(adj.device.index or 0))
+    return {"max_abs_err": err, "variants_equal": True, "geometry": geo}
 
 
 def cross_route(x0, xl, W, bias, route):
@@ -850,7 +920,8 @@ def small_checks(dev):
     # the two variants: at CLUB's d, one user past the block-per-user
     # limit, so that the whole state takes a warp per user
     from repro_torch.kernels.rank1 import ops as rops
-    nv, dv = rops.BLOCK_PER_USER_MAX_N + 1, 25
+    nv, dv = rops.BLOCK_PER_USER_PER_SM * _build.sm_count(dev.index or 0) \
+        + 1, 25
     Minv_v = spd_inverse(g, nv, dv, dev)
     M_v = torch.linalg.inv(Minv_v).contiguous()
     b_v = torch.randn(nv, dv, generator=g, device=dev)
@@ -932,9 +1003,66 @@ def small_checks(dev):
     labels = torch.randperm(ng, generator=g, device=dev).to(torch.int32)
     log(f"small cc_hop (n={ng}): "
         f"{check_cc_hop(gref.pack_bits(sparse | sparse.T), labels, labels)}")
+    small_cc_hop_checks(g, dev)
     small_topk_checks(g, dev, n, d, w, Minv, occ)
     small_recsys_checks(g, dev)
     small_flash_checks(g, dev)
+
+
+def small_cc_hop_checks(g, dev):
+    """cc_hop by ``check_cc_hop`` (the plain version, both thresholds
+    forced and the warp-per-row kernel) at the paper datasets' row
+    lengths (n = 943, 1888, 5045, 20000: W = 30, 59, 158, 625, 8- and
+    4-byte loads) and the main path's (20480: W = 640, 16-byte loads),
+    each on a sparse graph, a half-dense one with every third row empty
+    and the full one;
+    then row views at offsets off a 16-byte boundary, a [R, 640] view of a
+    flat buffer 4 bytes off one, and random words (bits past C set, ~16 a
+    word) against labels_j shorter than 32 W, 4 bytes off a 16-byte
+    boundary."""
+    import torch
+    from repro_torch.kernels.graph import ops as gops
+    from repro_torch.kernels.graph import ref as gref
+    for n in (943, 1888, 5045, 20000, 20480):
+        labels = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+        half = random_adj(g, n, n, 0.5, dev)
+        half[::3] = 0
+        for name, a in (("p=0.002", random_adj(g, n, n, 0.002, dev)),
+                        ("p=0.5, every third row empty", half),
+                        ("full", gref.init_packed_adj(n, n, device=dev))):
+            log(f"small cc_hop (n={n}, W={a.shape[1]}, {name}): "
+                f"{check_cc_hop(a, labels, labels)}")
+        W = half.shape[1]
+        r0 = 1 if (W * 4) % 16 else 0      # a view off a 16-byte boundary
+        if r0:
+            view = half[r0:r0 + n // 2]
+            res = check_cc_hop(view, labels[r0:r0 + n // 2], labels)
+            assert res["geometry"][0] < 4, res
+            log(f"small cc_hop rows {r0}..{r0 + n // 2} of n={n} (offset "
+                f"mod 16: {view.data_ptr() % 16}): {res}")
+    # the main path's rows at a 4-byte offset: 4-byte loads
+    n = 20480
+    W = gref.packed_words(n)
+    labels = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    buf = torch.empty(n * W + 1, dtype=torch.int32, device=dev)
+    flat = buf[1:].view(n, W)
+    flat.copy_(random_adj(g, n, n, 0.01, dev))
+    res = check_cc_hop(flat, labels, labels)
+    assert res["geometry"][0] == 1, res
+    log(f"small cc_hop (n={n}, a flat buffer's view 4 bytes off a 16-byte "
+        f"boundary, p=0.01): {res}")
+    # random words, bits past C included, against a shorter labels_j off a
+    # 16-byte boundary (the dense branch's 4-byte loads); a row shard
+    for R, C in ((1888, 1883), (700, 20000)):
+        W = gops.packed_words(C)
+        words = torch.randint(-2**31, 2**31, (R, W), generator=g,
+                              device=dev, dtype=torch.int64).to(torch.int32)
+        lbuf = torch.randperm(C + 1, generator=g, device=dev).to(torch.int32)
+        lj = lbuf[1:]
+        ls = torch.randperm(R, generator=g, device=dev).to(torch.int32)
+        res = check_cc_hop(words, ls, lj)
+        log(f"small cc_hop (R={R}, C={C}, W={W}, random words, labels_j "
+            f"offset mod 16 {lj.data_ptr() % 16}): {res}")
 
 
 def small_topk_checks(g, dev, n, d, w, Minv, occ):
@@ -1136,16 +1264,17 @@ def small_flash_checks(g, dev):
 
 SPILL_CHECKED = ("prune_kernel", "topk_kernel", "topk_pruned_kernel",
                  "ucb_kernel", "ucb_block_kernel", "choose_tile_kernel",
-                 "cross_tc_kernel", "cross_split_kernel")
+                 "cross_tc_kernel", "cross_split_kernel", "cc_hop_kernel")
 
 
 def spill_check() -> dict:
     """Registers and spills of the prune, top-K, ucb, choose (register
-    tile, each width) and cross (tensor route and W split) kernels, from
-    the ptxas report of their builds; raise if any of them spills."""
+    tile, each width), cross (tensor route and W split) and cc_hop (each
+    load width) kernels, from the ptxas report of their builds; raise if
+    any of them spills."""
     from repro_torch.kernels import _build
     usage = {}
-    for lib in ("prune", "topk", "ucb", "choose", "cross"):
+    for lib in ("prune", "topk", "ucb", "choose", "cross", "cc_hop"):
         usage.update(_build.ptxas_usage(_build.build_report(lib)))
     seen = {}
     for func, (regs, st, ld) in sorted(usage.items()):
@@ -1264,13 +1393,14 @@ def turn_ms(fns: dict, flush, reps=TURN_REPS) -> dict:
 
 def cuda_times(fn, flush, reps, warmup=3) -> list[float]:
     """Milliseconds of each of ``reps`` launches of ``fn`` (CUDA events),
-    the L2 cache flushed before each."""
+    the L2 cache flushed before each: ``flush`` is a 256 MB tensor that
+    is zeroed, or a callable (``read_flush``)."""
     import torch
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        flush() if callable(flush) else flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1279,6 +1409,81 @@ def cuda_times(fn, flush, reps, warmup=3) -> list[float]:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def read_flush(flush):
+    """A flush that only reads the 256 MB ``flush`` (its max), so that the
+    L2 lines it leaves are clean; the ``zero_`` flush leaves them dirty,
+    and a kernel that reads pays for their write-back."""
+    import torch
+    flat = flush.view(torch.int64)
+    return lambda: flat.amax()
+
+
+@contextlib.contextmanager
+def cc_graphs(label, rows, chunk=2048):
+    """Log the packed adjacency of every ``connected_components`` call made
+    inside: rows, words, set bits, density, words with all 32 bits set,
+    and hops (cc_hop launches); ``rows`` gets one dict a call.  The bits
+    are counted ``chunk`` rows at a time (a few MB of scratch) after each
+    call, inside the run."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import stages
+    real = stages.connected_components
+
+    def spy(col, gb, adj, n, row0, n_local):
+        before = _build.LAUNCHES["cc_hop"]
+        labels = real(col, gb, adj, n, row0, n_local)
+        R, W = adj.shape
+        parts = [adj[r:r + chunk] for r in range(0, R, chunk)]
+        bits = sum(popcount(p) for p in parts)
+        rows.append({"rows": R, "words": W, "set_bits": bits,
+                     "density": bits / max(1, R * n),
+                     "full_words": sum(int((p == -1).sum()) for p in parts),
+                     "hops": _build.LAUNCHES["cc_hop"] - before})
+        return labels
+
+    with mock.patch.object(stages, "connected_components", spy):
+        yield rows
+    log(f"{label}: {len(rows)} connected_components calls (rows, words, "
+        f"set bits, density, full words, hops): "
+        f"{[tuple(r.values()) for r in rows]}")
+
+
+def first_stage2_graph(ops, hyper, d, dev):
+    """The adjacency that the main path's first stage 2 runs connected
+    components on (``distclub.run`` for one epoch from the seed, the input
+    of its call)."""
+    from repro_torch.core import distclub
+    from repro_torch.runtime import stages
+    real, caught = stages.connected_components, []
+
+    def spy(col, gb, adj, *rest):
+        caught.append(adj)
+        return real(col, gb, adj, *rest)
+
+    with mock.patch.object(stages, "connected_components", spy):
+        distclub.run(ops, SEED, hyper, 1, d, device=dev)
+    return caught[0]
+
+
+CC_DENSE_MINS = (0, 4, 8, 12, 16, 20, 24, 28, 32)
+
+
+def cc_hop_sweep(graphs, flush) -> list[dict]:
+    """cc_hop with its dense threshold forced to each of CC_DENSE_MINS
+    (32: every word walked, no table), median of REPS launches on each of
+    ``graphs`` ({label: (adjacency, labels)}): the threshold's
+    measurement."""
+    out = []
+    for dense_min in CC_DENSE_MINS:
+        row = {"dense_min": dense_min}
+        for label, (a, la) in graphs.items():
+            row[f"ms{label}"] = cuda_ms(
+                lambda: cc_hop_forced(a, la, la, dense_min), flush)
+        out.append(row)
+        log(f"time cc_hop at dense_min={dense_min}: {row}")
+    return out
 
 
 PRUNE_DENSITIES = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.02, 0.05, 0.08,
@@ -1443,10 +1648,11 @@ class ServeRun:
         return sess, items, reward / rand, secs, n_clu, (skipped, total)
 
 
-def serve_phase(dev, state, theta, hyper, dccb_state):
+def serve_phase(dev, state, theta, hyper, dccb_state, graphs):
     """Phase 4s and its plain run, then the dccb policy on phase 4b's
     DCCB state; returns what phases 5 and 6 need (the launches summed
-    over the counted runs)."""
+    over the counted runs); the adjacency at each connected_components
+    call of the counted runs goes into ``graphs``."""
     import torch
     from repro_torch import serve
     from repro_torch.kernels import _build
@@ -1458,13 +1664,14 @@ def serve_phase(dev, state, theta, hyper, dccb_state):
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    sess_u, items_u, rr_u, secs_u, clu_u, _ = work.run()
-    t0 = time.perf_counter()
-    clusters = serve.build_clusters(work.catalog, tile_items=512,
-                                    n_anchors=512)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    sess_p, items_p, rr_p, secs_p, clu_p, (sk, tot) = work.run(clusters)
+    with cc_graphs("serve", graphs):
+        sess_u, items_u, rr_u, secs_u, clu_u, _ = work.run()
+        t0 = time.perf_counter()
+        clusters = serve.build_clusters(work.catalog, tile_items=512,
+                                        n_anchors=512)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        sess_p, items_p, rr_p, secs_p, clu_p, (sk, tot) = work.run(clusters)
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
@@ -1607,10 +1814,11 @@ def algo_line(name, secs, inter, rr, comm, clusters, peak):
         f"max_memory_allocated={peak}")
 
 
-def baselines_phase(dev, ops, hyper, d, distclub_inter):
+def baselines_phase(dev, ops, hyper, d, distclub_inter, graphs):
     """Phase 4b: CLUB and DCCB at the paper configuration's full width on
-    the phase-4 environment, counted, then through the plain versions on
-    the card, then profiled.  Returns what phases 5 and 6 need."""
+    the phase-4 environment, counted (CLUB's adjacency at each network
+    update into ``graphs``), then through the plain versions on the card,
+    then profiled.  Returns what phases 5 and 6 need."""
     import torch
     from repro_torch.core import club, clustering, dccb
     from repro_torch.kernels import _build
@@ -1621,8 +1829,9 @@ def baselines_phase(dev, ops, hyper, d, distclub_inter):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    (c_state, c_m), c_s = timed(lambda: club.run(ops, SEED, hyper, CLUB_T, d,
-                                                 device=dev))
+    with cc_graphs("club", graphs):
+        (c_state, c_m), c_s = timed(lambda: club.run(ops, SEED, hyper,
+                                                     CLUB_T, d, device=dev))
     c_launch = dict(_build.LAUNCHES)
     c_peak = torch.cuda.max_memory_allocated()
     c_rr = float(c_m.reward.sum()) / float(c_m.rand_reward.sum())
@@ -2190,11 +2399,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    graphs = {"offline": [], "club": [], "serve": []}
     t0 = time.perf_counter()
-    state, metrics, n_clusters = distclub.run(ops, SEED, hyper, EPOCHS, d,
-                                              device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with cc_graphs("main path", graphs["offline"]):
+        state, metrics, n_clusters = distclub.run(ops, SEED, hyper, EPOCHS,
+                                                  d, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
@@ -2246,11 +2457,11 @@ def main() -> int:
     # ---- phase 4b: the paper's baselines at full width ----------------------
     algo_line("distclub", wall, inter, reward / rand,
               float(state.comm_bytes), n_clusters.tolist(), peak)
-    baselines = baselines_phase(dev, ops, hyper, d, inter)
+    baselines = baselines_phase(dev, ops, hyper, d, inter, graphs["club"])
 
     # ---- phase 4s: serving at full width, and its plain run -----------------
     serving, sess, item_clusters, serve_launches, _ = serve_phase(
-        dev, state, e.theta, hyper, baselines.pop("dccb"))
+        dev, state, e.theta, hyper, baselines.pop("dccb"), graphs["serve"])
 
     # ---- phase 4r: the recsys models at their published configs -------------
     recsys = recsys_phase(dev)
@@ -2260,12 +2471,13 @@ def main() -> int:
 
     # ---- phase 5: kernels against plain versions at full width --------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    sms = _build.sm_count(0)
     Minv, b, occ = state.lin.Minv, state.lin.b, state.lin.occ
     w = linucb.user_vector(Minv, b)
     ctx = ops.contexts_fn(SEED, EPOCHS * 2 * R, occ)
     errs = {"choose": check_choose(w, Minv, ctx, occ, hyper.alpha)}
     log(f"full choose, both variants and both ucb variants (n={n}, "
-        f"geometry {iops.geometry(n, K, d, _build.sm_count(0))}): "
+        f"geometry {iops.geometry(n, K, d, sms)}): "
         f"{check_pick(w, Minv, ctx, occ, hyper.alpha)}")
     _, x = iops.choose(w, Minv, ctx, occ, hyper.alpha)
     r = (torch.rand(n, generator=g, device=dev) < 0.5).float()
@@ -2291,8 +2503,8 @@ def main() -> int:
     same = torch.equal(uops.ucb_scores(w1, Mc1, ctx1, occ1, hyper.alpha),
                        ucb_variant(w1, Mc1, ctx1, occ1, hyper.alpha,
                                    uops.WARP_PER_USER))
-    log(f"full ucb at n=1, variant {uops.variant(1, K, d)} against the "
-        f"warp-per-user variant on cluster {lab}'s row (offset mod 16: "
+    log(f"full ucb at n=1, variant {uops.variant(1, K, d, sms)} against "
+        f"the warp-per-user variant on cluster {lab}'s row (offset mod 16: "
         f"{Mc1.data_ptr() % 16}): bit-equal {same}")
     assert same, "ucb: the variants differ on CLUB's row"
     log(f"full rank1_update at n=1 (CLUB's user row views): "
@@ -2317,6 +2529,7 @@ def main() -> int:
     errs["cc_hop"] = check_cc_hop(state.graph.adj, ids, ids)
     log(f"full cc_hop on the labels: "
         f"{check_cc_hop(state.graph.adj, state.graph.labels, state.graph.labels)}")
+    log(f"full cc_hop on the full graph: {check_cc_hop(full, ids, ids)}")
     # one serving batch's users with the statistics the catalog path
     # scores with, after the unpruned run
     idx = serving.users[0].long()
@@ -2332,7 +2545,7 @@ def main() -> int:
     s_u = uops.ucb_scores(w_s, M_s, bank.emb[i_k.clamp_min(0).long()],
                           occ_s, hyper.alpha)
     log(f"full topk scores against ucb_scores (variant "
-        f"{uops.variant(*s_k.shape, d)}) of the shortlisted items: "
+        f"{uops.variant(*s_k.shape, d, sms)}) of the shortlisted items: "
         f"{int(held.sum())} entries, bit-equal "
         f"{torch.equal(s_k[held], s_u[held])}")
     assert torch.equal(s_k[held], s_u[held]), (
@@ -2341,7 +2554,7 @@ def main() -> int:
     # and of ucb
     ctx_s = bank.emb[i_k.clamp_min(0).long()].contiguous()
     log(f"full choose at serving's shape {tuple(ctx_s.shape)} (geometry "
-        f"{iops.geometry(*ctx_s.shape, _build.sm_count(0))}): "
+        f"{iops.geometry(*ctx_s.shape, sms)}): "
         f"{check_choose(w_s, M_s, ctx_s, occ_s, hyper.alpha)}, both "
         f"variants and both ucb variants: "
         f"{check_pick(w_s, M_s, ctx_s, occ_s, hyper.alpha)}")
@@ -2638,6 +2851,42 @@ def main() -> int:
             f"each in turns, {tuple(cargs[2].shape)}: {extra}")
     by_name["cross"]["bound_ms_f32"] = bound_ms(
         work["cross"][2], 2 * Bb * dI * dI + 3 * Bb * dI)[0]
+    # cc_hop in turns with its warp-per-row kernel: on the learned graph,
+    # the full graph and the graph of the main path's first stage 2 (at its
+    # first hop's labels and its second's), all of the same bytes and so
+    # of the same bound; on the learned graph also after a flush that only
+    # reads, as rank1_update_inv (the first redesign pass's bytes-bound
+    # rows); the dense threshold's sweep; the paths' graphs (phases 4, 4b
+    # and 4s)
+    first = first_stage2_graph(ops, hyper, d, dev)
+    hop1 = gops.cc_hop_packed(first, ids, ids)
+    hop2 = torch.minimum(hop1, hop1[hop1.long()])
+    log(f"full cc_hop on the first stage 2's graph at its second hop: "
+        f"{check_cc_hop(first, hop2, hop2)}")
+    ro = read_flush(flush)
+    extra = {}
+    for label, (a, la), fl in (
+            ("", (adj, ids), flush), ("_ro", (adj, ids), ro),
+            ("_full", (full, ids), flush), ("_first", (first, ids), flush),
+            ("_first_hop2", (first, hop2), flush)):
+        t = turn_ms({"ms": lambda a=a, la=la: gops.cc_hop_packed(a, la, la),
+                     "warp_ms": lambda a=a, la=la: cc_hop_warp(a, la, la)},
+                    fl, reps=2 * REPS)
+        extra.update({f"{key}{label}_turns": v for key, v in t.items()})
+    extra.update(ms_ro_flush=cuda_ms(work["cc_hop"][0], ro),
+                 set_bits=popcount(adj), set_bits_full=popcount(full),
+                 set_bits_first=popcount(first))
+    log(f"time cc_hop beside its warp-per-row kernel, {2 * REPS} launches "
+        f"each in turns, and after a read-only flush: {extra}")
+    extra.update(dense_min_sweep=cc_hop_sweep(
+        {"_first": (first, ids), "_first_hop2": (first, hop2),
+         "_full": (full, ids)}, flush), path_graphs=graphs)
+    by_name["cc_hop"].update(extra)
+    by_name["rank1_update_inv"]["ms_ro_flush"] = cuda_ms(
+        work["rank1_update_inv"][0], ro)
+    log(f"time rank1_update_inv after a read-only flush: "
+        f"{by_name['rank1_update_inv']['ms_ro_flush']} ms (after zero_: "
+        f"{by_name['rank1_update_inv']['ms']})")
     # what any launch costs under this method: a one-element in-place op
     one = torch.zeros(1, device=dev)
     floor_ms = statistics.median(cuda_times(lambda: one.add_(1.0), flush,

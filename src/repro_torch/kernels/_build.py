@@ -46,7 +46,9 @@ KERNELS = {
     "prune": ("prune.cu", "prune_launch",
               [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
     "cc_hop": ("cc_hop.cu", "cc_hop_launch",
-               [_P, _P, _P, _I, _I, _I, _P, _P]),
+               [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
+    "cc_hop_warp": ("cc_hop.cu", "cc_hop_warp_launch",
+                    [_P, _P, _P, _I, _I, _I, _P, _P]),
     "topk": ("topk.cu", "topk_launch",
              [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P,
               _P]),

@@ -1,8 +1,8 @@
 """Device dispatch for the stage-2 graph engine: plain versions for CPU
 tensors, the CUDA kernels (``csrc/prune.cu``, ``csrc/cc_hop.cu``) for
 CUDA tensors.  Callers hold the packed adjacency at its logical shape
-``[n_rows, ceil(n_cols/32)]`` int32; the kernels mask their own ragged
-edges, so nothing is padded."""
+``[n_rows, ceil(n_cols/32)]`` int32 (or a view of its rows); the kernels
+mask their own ragged edges, so nothing is padded."""
 from __future__ import annotations
 
 import torch
@@ -13,7 +13,8 @@ from .ref import (BIG_LABEL, cc_hop_packed_ref, init_packed_adj, pack_bits,
 
 __all__ = [
     "BIG_LABEL", "init_packed_adj", "pack_bits", "packed_words",
-    "unpack_bits", "prune_packed", "cc_hop_packed", "warp_tile_bits",
+    "unpack_bits", "prune_packed", "cc_hop_packed", "cc_hop_geometry",
+    "warp_tile_bits",
 ]
 
 # csrc/prune.cu's tiles: a block owns ROWS_PER_BLOCK rows by
@@ -29,6 +30,29 @@ ROWS_PER_WARP = 16
 WORDS_PER_BLOCK = 4
 SPARSE_CAP = 256
 SPARSE_MAX = 192
+
+# csrc/cc_hop.cu: a warp a row at a time, CC_WARPS warps a block, at most
+# CC_BLOCKS_PER_SM blocks an SM (its launch bounds) in a persistent grid.
+# A word with more than CC_DENSE_MIN set bits takes the select over all of
+# its 32 labels instead of a walk of its bits.  20: chip_smoke.py phase 6
+# times the threshold forced to each of 0 ... 32 on the graph of the main
+# path's first stage 2 (23% of its bits set) at its first two hops; 16 to
+# 28 read within 1.5% of each other, lower ones slower.
+CC_WARPS = 28
+CC_BLOCKS_PER_SM = 1
+CC_DENSE_MIN = 20
+
+
+def cc_hop_geometry(R: int, W: int, ptr: int, sms: int) -> tuple[int, int]:
+    """(words a load, blocks) of ``cc_hop_launch`` for ``R`` rows of ``W``
+    words at address ``ptr`` on a card of ``sms`` SMs.  The loads are the
+    widest of 4, 2 and 1 words that divides ``W`` and to whose bytes
+    ``ptr`` is aligned, so that every row starts on a load; a row view
+    off a 16-byte boundary takes narrower loads, not another kernel.  The
+    grid holds a warp for each row up to CC_BLOCKS_PER_SM blocks an SM,
+    whose warps then stride over the rows."""
+    vec = next(v for v in (4, 2, 1) if W % v == 0 and ptr % (4 * v) == 0)
+    return vec, max(1, min(-(-R // CC_WARPS), CC_BLOCKS_PER_SM * sms))
 
 
 def prune_work_floats(R: int, W: int, d: int) -> int:
@@ -114,5 +138,8 @@ def cc_hop_packed(
     ]
     out = torch.empty(R, dtype=torch.int32, device=dev)
     if R:
-        _build.launch("cc_hop", *args, R, W, C, out.data_ptr())
+        vec, blocks = cc_hop_geometry(R, W, packed.data_ptr(),
+                                      _build.sm_count(dev.index or 0))
+        _build.launch("cc_hop", *args, R, W, C, vec, blocks, CC_DENSE_MIN,
+                      out.data_ptr())
     return out

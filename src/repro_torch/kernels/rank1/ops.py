@@ -8,18 +8,24 @@ from .. import _build
 from .ref import rank1_update_inv_ref, rank1_update_ref
 
 WARP_PER_USER, BLOCK_PER_USER = 0, 1
-BLOCK_PER_USER_MAX_N = 2 * 132   # two blocks on each of the H100's SMs
+BLOCK_PER_USER_PER_SM = 2        # a block per user: at most two an SM
 BLOCK_PER_USER_MAX_D = 32        # a user's d^2 elements, <= 4 a thread
 
 
-def variant(n: int, d: int) -> int:
-    """The kernel variant for ``n`` users of dimension ``d``: a block per
-    user (its 256 threads load the user's whole state in one round) for
-    at most two blocks on each of the H100's 132 SMs and ``d <= 32``,
-    else a warp per user.  Both give the same bits for the same row."""
-    if n <= BLOCK_PER_USER_MAX_N and d <= BLOCK_PER_USER_MAX_D:
+def variant(n: int, d: int, sms: int) -> int:
+    """The kernel variant for ``n`` users of dimension ``d`` on a card of
+    ``sms`` SMs: a block per user (its 256 threads load the user's whole
+    state in one round) for at most two blocks on each SM and ``d <=
+    32``, else a warp per user.  Both give the same bits for the same
+    row."""
+    if n <= BLOCK_PER_USER_PER_SM * sms and d <= BLOCK_PER_USER_MAX_D:
         return BLOCK_PER_USER
     return WARP_PER_USER
+
+
+def _variant(t: torch.Tensor) -> int:
+    n, d = t.shape
+    return variant(n, d, _build.sm_count(t.device.index or 0))
 
 
 def _state_args(Minv, b, x, r, mask):
@@ -62,7 +68,7 @@ def rank1_update(
     args = _state_args(Minv, b, x, r, mask)
     mp = _build.check(M, "M", torch.float32, (n, d, d), Minv.device)
     if n:
-        _build.launch("rank1_update", mp, *args, n, d, variant(n, d))
+        _build.launch("rank1_update", mp, *args, n, d, _variant(b))
     return M, Minv, b
 
 
@@ -83,5 +89,5 @@ def rank1_update_inv(
     n, d = b.shape
     args = _state_args(Minv, b, x, r, mask)
     if n:
-        _build.launch("rank1_update_inv", *args, n, d, variant(n, d))
+        _build.launch("rank1_update_inv", *args, n, d, _variant(b))
     return Minv, b

@@ -8,23 +8,22 @@ from .. import _build
 from .ref import ucb_scores_ref
 
 WARP_PER_USER, BLOCK_PER_USER = 0, 1
-# two blocks on each of the H100's 132 SMs: rank1's crossover
-# (kernels/rank1/ops.py), not measured for ucb; its one path, CLUB, runs
-# n = 1
-BLOCK_PER_USER_MAX_N = 2 * 132
+# at most two blocks on each SM: rank1's crossover (kernels/rank1/ops.py),
+# not measured for ucb; its one path, CLUB, runs n = 1
+BLOCK_PER_USER_PER_SM = 2
 BLOCK_PER_USER_MAX_D = 32        # csrc/ucb.cu kBlockMaxD
 MAX_SMEM = 232448                # csrc/ucb.cu kMaxSmem
 
 
-def variant(n: int, K: int, d: int) -> int:
+def variant(n: int, K: int, d: int, sms: int) -> int:
     """The kernel variant for ``n`` users of ``K`` candidates of dimension
-    ``d``: a block per user (its 256 threads load the user's whole state
-    in one round and run the d-term chains side by side) for at most two
-    blocks on each of the H100's 132 SMs, ``d <= 32`` and a user's Minv,
-    w, contexts and t-values within a block's shared memory; else a warp
-    per user.  Both give the same bits for the same row."""
+    ``d`` on a card of ``sms`` SMs: a block per user (its 256 threads
+    load the user's whole state in one round and run the d-term chains
+    side by side) for at most two blocks on each SM, ``d <= 32`` and a
+    user's Minv, w, contexts and t-values within a block's shared memory;
+    else a warp per user.  Both give the same bits for the same row."""
     smem = 4 * (d * d + d + 2 * K * d)
-    if (n <= BLOCK_PER_USER_MAX_N and d <= BLOCK_PER_USER_MAX_D
+    if (n <= BLOCK_PER_USER_PER_SM * sms and d <= BLOCK_PER_USER_MAX_D
             and smem <= MAX_SMEM):
         return BLOCK_PER_USER
     return WARP_PER_USER
@@ -55,5 +54,6 @@ def ucb_scores(
     out = torch.empty(n, K, dtype=torch.float32, device=dev)
     if n and K:
         _build.launch("ucb", *args, float(alpha), n, K, d,
-                      variant(n, K, d), out.data_ptr())
+                      variant(n, K, d, _build.sm_count(dev.index or 0)),
+                      out.data_ptr())
     return out

@@ -96,26 +96,80 @@ def test_prune_is_bit_equal_to_pallas_interpret(n, d):
 
 
 @pytest.mark.parametrize("n,p,seed", [(60, 0.02, 0), (96, 0.05, 1),
-                                      (33, 0.3, 2)])
+                                      (33, 0.3, 2), (70, 1.0, 3),
+                                      (943, 0.01, 4), (1888, 0.004, 5)])
 def test_cc_hop_is_label_equal_to_pallas_interpret(n, p, seed):
+    """Full graphs (p = 1) and the paper datasets' ragged row lengths
+    (n = 943, 1888: W = 30, 59) among the cases; each graph as drawn and
+    with every third row empty; the whole rows, a row shard, and a row
+    view whose first word lies off a 16-byte boundary."""
     rng = np.random.default_rng(seed)
     dense = random_sym_adj(rng, n, p)
     labels = rng.permutation(n).astype(np.int32)
-    packed = jgraph.pack_bits(jnp.asarray(dense))
-    want = jgraph.cc_hop_packed(packed, jnp.asarray(labels),
-                                jnp.asarray(labels), use_pallas=True,
-                                interpret=True, block_i=8, block_j=32)
-    tp = torch.from_numpy(np.array(packed).view(np.int32))
-    got = ops.cc_hop_packed(tp, torch.from_numpy(labels),
-                            torch.from_numpy(labels))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    # a row shard against the full label vector (bipartite rows)
-    off, n_local = 16, 16
-    got_rows = ops.cc_hop_packed(tp[off:off + n_local],
-                                 torch.from_numpy(labels[off:off + n_local]),
-                                 torch.from_numpy(labels))
-    np.testing.assert_array_equal(got_rows.numpy(),
-                                  np.asarray(want)[off:off + n_local])
+    tl = torch.from_numpy(labels)
+    blocks = ({"block_i": 8, "block_j": 32} if n < 128
+              else {"block_i": 256, "block_j": 1024})
+    empty = np.arange(n)[:, None] % 3 == 0
+    for adj in (dense, dense & ~empty):
+        packed = jgraph.pack_bits(jnp.asarray(adj))
+        want = np.asarray(jgraph.cc_hop_packed(
+            packed, jnp.asarray(labels), jnp.asarray(labels),
+            use_pallas=True, interpret=True, **blocks))
+        tp = torch.from_numpy(np.array(packed).view(np.int32))
+        got = ops.cc_hop_packed(tp, tl, tl)
+        np.testing.assert_array_equal(got.numpy(), want)
+        # row shards against the full label vector (bipartite rows); rows
+        # from 1 start 4 W bytes in, off a 16-byte boundary (W % 4 != 0)
+        W = tp.shape[1]
+        assert W % 4
+        for off, n_local in ((16, 16), (1, n // 2)):
+            got_rows = ops.cc_hop_packed(tp[off:off + n_local],
+                                         tl[off:off + n_local], tl)
+            np.testing.assert_array_equal(got_rows.numpy(),
+                                          want[off:off + n_local])
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("R,W,ptr,vec", [
+    (20480, 640, 0, 4),             # the main path: 16-byte loads
+    (20480, 640, 3 * 4 * 640, 4),   # rows from 3: still 16-byte aligned
+    (20480, 640, 4, 1),             # a buffer's view 4 bytes off 16
+    (20480, 640, 8, 2),             # and 8
+    (943, 30, 0, 2),                # W = 30: 8-byte loads
+    (943, 30, 4 * 30, 2),           # rows from 1
+    (943, 30, 4, 1),
+    (1888, 59, 0, 1),               # W = 59: 4-byte loads
+    (5045, 158, 4 * 158, 2),
+    (20000, 625, 4 * 625, 1),
+    (512, 16, 0, 4),                # serving's item-cluster anchors
+    (700, 625, 0, 1),               # a row shard
+    (1, 1, 0, 1),
+])
+def test_cc_hop_geometry(R, W, ptr, vec, sms):
+    """The widest load that divides W and that the base address admits,
+    so that every row starts on one; a warp for each row up to
+    CC_BLOCKS_PER_SM blocks an SM, no block without a row."""
+    got_vec, blocks = ops.cc_hop_geometry(R, W, ptr, sms)
+    assert got_vec == vec
+    assert W % vec == 0 and ptr % (4 * vec) == 0
+    assert all((ptr + 4 * W * r) % (4 * vec) == 0 for r in range(4))
+    assert blocks == min(-(-R // ops.CC_WARPS), ops.CC_BLOCKS_PER_SM * sms)
+    assert 1 <= blocks <= ops.CC_BLOCKS_PER_SM * sms
+    assert (blocks - 1) * ops.CC_WARPS < R
+
+
+def test_cc_hop_geometry_matches_the_kernel_source():
+    """The wrapper's copies of csrc/cc_hop.cu's block shape and launch
+    bounds, and the launch's arguments: three pointers, R, W, C, the load
+    width, the grid and the dense threshold."""
+    from repro_torch.kernels import _build
+    assert int(_cu_constant("kWarps", "cc_hop.cu")) == ops.CC_WARPS
+    assert int(_cu_constant("kBlocksPerSm", "cc_hop.cu")) \
+        == ops.CC_BLOCKS_PER_SM
+    assert 0 <= ops.CC_DENSE_MIN < 32
+    _, entry, argtypes = _build.KERNELS["cc_hop"]
+    assert entry == "cc_hop_launch"
+    assert argtypes[3:9] == [_build._I] * 6
 
 
 @pytest.mark.parametrize("maker,n", [
@@ -140,11 +194,11 @@ def test_connected_components_match_dense_oracle(maker, n):
         jclustering.num_clusters(jnp.asarray(want)))
 
 
-def _cu_constant(name):
-    """An ``int`` constant of csrc/prune.cu, read from its source text."""
+def _cu_constant(name, source="prune.cu"):
+    """An ``int`` constant of a csrc source, read from its text."""
     import re
     from repro_torch.kernels import _build
-    text = (_build.CSRC / "prune.cu").read_text()
+    text = (_build.CSRC / source).read_text()
     return re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
 
 

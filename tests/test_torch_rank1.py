@@ -123,16 +123,20 @@ def test_update_lin_matches_the_reference_pallas_engine():
     assert all(g is i for g, i in zip(got, lin))     # all four in place
 
 
-@pytest.mark.parametrize("n,d,want", [
-    (1, 25, ops.BLOCK_PER_USER),                 # CLUB's user and cluster rows
-    (1, 32, ops.BLOCK_PER_USER),
-    (ops.BLOCK_PER_USER_MAX_N, 25, ops.BLOCK_PER_USER),
-    (ops.BLOCK_PER_USER_MAX_N + 1, 25, ops.WARP_PER_USER),
-    (20480, 25, ops.WARP_PER_USER),              # DistCLUB's rounds
-    (1, 33, ops.WARP_PER_USER),                  # d^2 > 4 a thread
+@pytest.mark.parametrize("n,d,sms,want", [
+    (1, 25, 132, ops.BLOCK_PER_USER),            # CLUB's user and cluster rows
+    (1, 32, 132, ops.BLOCK_PER_USER),
+    (264, 25, 132, ops.BLOCK_PER_USER),          # two blocks an SM, 132 SMs
+    (265, 25, 132, ops.WARP_PER_USER),
+    (228, 25, 114, ops.BLOCK_PER_USER),          # and of 114
+    (229, 25, 114, ops.WARP_PER_USER),
+    (264, 25, 114, ops.WARP_PER_USER),
+    (20480, 25, 132, ops.WARP_PER_USER),         # DistCLUB's rounds
+    (1, 33, 132, ops.WARP_PER_USER),             # d^2 > 4 a thread
+    (1, 33, 114, ops.WARP_PER_USER),
 ])
-def test_variant_choice(n, d, want):
-    assert ops.variant(n, d) == want
+def test_variant_choice(n, d, sms, want):
+    assert ops.variant(n, d, sms) == want
 
 
 def test_club_row_views_take_the_block_variant():
@@ -140,5 +144,6 @@ def test_club_row_views_take_the_block_variant():
     full state and the cluster's, both n = 1 at the paper's d = 25."""
     n, d, u = 20480, 25, 4321
     b = torch.zeros(n, d)
-    assert ops.variant(*b[u:u + 1].shape) == ops.BLOCK_PER_USER
-    assert ops.variant(*b.shape) == ops.WARP_PER_USER
+    for sms in (132, 114):
+        assert ops.variant(*b[u:u + 1].shape, sms) == ops.BLOCK_PER_USER
+        assert ops.variant(*b.shape, sms) == ops.WARP_PER_USER

@@ -65,23 +65,26 @@ def test_argmax_of_scores_is_the_fused_choice(n, K, d):
     assert bool((choice[: n // 2] == 2).all())
 
 
-@pytest.mark.parametrize("n,K,d,want", [
-    (1, 20, 25, ops.BLOCK_PER_USER),        # CLUB's call
-    (264, 20, 25, ops.BLOCK_PER_USER),      # two blocks on each of 132 SMs
-    (265, 20, 25, ops.WARP_PER_USER),
-    (1, 20, 32, ops.BLOCK_PER_USER),
-    (1, 20, 33, ops.WARP_PER_USER),
-    (264, 20, 32, ops.BLOCK_PER_USER),
-    (265, 20, 33, ops.WARP_PER_USER),
-    (256, 64, 25, ops.BLOCK_PER_USER),      # topk's shortlist check
-    (1, 891, 32, ops.BLOCK_PER_USER),       # the block's shared memory: full
-    (1, 892, 32, ops.WARP_PER_USER),
+@pytest.mark.parametrize("n,K,d,sms,want", [
+    (1, 20, 25, 132, ops.BLOCK_PER_USER),   # CLUB's call
+    (264, 20, 25, 132, ops.BLOCK_PER_USER),  # two blocks on each of 132 SMs
+    (265, 20, 25, 132, ops.WARP_PER_USER),
+    (228, 20, 25, 114, ops.BLOCK_PER_USER),  # and of 114
+    (229, 20, 25, 114, ops.WARP_PER_USER),
+    (1, 20, 32, 132, ops.BLOCK_PER_USER),
+    (1, 20, 33, 132, ops.WARP_PER_USER),
+    (264, 20, 32, 132, ops.BLOCK_PER_USER),
+    (265, 20, 33, 132, ops.WARP_PER_USER),
+    (256, 64, 25, 132, ops.BLOCK_PER_USER),  # topk's shortlist check
+    (256, 64, 25, 114, ops.WARP_PER_USER),
+    (1, 891, 32, 132, ops.BLOCK_PER_USER),  # the block's shared memory: full
+    (1, 892, 32, 132, ops.WARP_PER_USER),
 ])
-def test_variant_at_its_limits(n, K, d, want):
-    """A block per user up to 264 users, d = 32 and the block's shared
-    memory (Minv, w, contexts and t-values: 4 (d^2 + d + 2 K d) bytes);
-    a warp per user past any of them."""
-    assert ops.variant(n, K, d) == want
+def test_variant_at_its_limits(n, K, d, sms, want):
+    """A block per user up to two users an SM, d = 32 and the block's
+    shared memory (Minv, w, contexts and t-values: 4 (d^2 + d + 2 K d)
+    bytes); a warp per user past any of them."""
+    assert ops.variant(n, K, d, sms) == want
 
 
 def _cu_constant(name, kind="int"):
