@@ -22,7 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
            on duplicate candidates: both choose variants pick the same
            candidates and copy the same x, bit for bit, no duplicate beats
            its first copy, and either ucb variant's first-index argmax is
-           that pick; cross on both routes at B = 16 ... 5000 (d = 429
+           that pick; at the paper clones' shapes (phase 4d: n = 943,
+           1816, 1888, 5045; K = 20; d = 5, 19, 25) the same on slates
+           gathered from a 2047-item table with a duplicate in each, half
+           the rows' best item the duplicated one, rank1_update_inv, and
+           prune on the full graph and a sparse one, both branches
+           forced; cross on both routes at B = 16 ... 5000 (d = 429
            among them), each within 2e-5, and its W split bit-equal to the
            plain version; flash: f32 within 1e-4; bf16 kernel and plain version
            each within 2e-2 of the f32 plain version on upcast inputs;
@@ -38,9 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
            boundary) against the whole state; cc_hop (``check_cc_hop``:
            the wrapper, the kernel with its dense threshold forced both
            ways and the warp-per-row kernel, each equal to the plain
-           version) at the paper datasets' row lengths (n = 943, 1888,
-           5045, 20000; W = 30, 59, 158, 625) and at 20480, on sparse,
-           half-dense (a third of the rows empty) and full graphs, on
+           version) at the paper datasets' row lengths (n = 943, 1816,
+           1888, 5045, 20000; W = 30, 57, 59, 158, 625) and at 20480, on
+           sparse, half-dense (a third of the rows empty) and full graphs, on
            row views off a 16-byte boundary, a flat buffer's view 4
            bytes off one, and random words (bits past C set) against a
            labels_j shorter than 32 W and off a 16-byte boundary; prune
@@ -80,6 +85,21 @@ Phases, in order; any failure raises and the script exits non-zero:
            kernel may launch; ``compare_paths``'s bands); then a CLUB
            window of 64 interactions and a network update, and a DCCB
            epoch, under torch.profiler.
+4d. clones the paper's dataset clones (``data.datasets.PAPER_DATASETS``
+           less synthetic-small: movielens, lastfm, delicious, yahoo and
+           the 20000-user synthetic set) at their own n, d and K, each
+           under the four ``make_env`` kinds (synthetic, replay, drift,
+           catalog): ``distclub.run`` with ``distclub_paper.CONFIG`` for
+           ``epochs_for(spec, CONFIG)`` epochs, counters set to 0 before
+           and read after, under a spy that fails on any torch call that
+           returns a tensor on the host; reward/random must exceed 1;
+           then one more epoch timed warm and once more profiled (ms and
+           device ms per epoch, busy share); the web clones rerun through
+           the plain versions on the card (no kernel may launch;
+           ``compare_paths``' bands).  Then CLUB (2048 interactions) and
+           DCCB (L = 16, ``bench_paper.py``'s movielens budget) on the
+           movielens clone under replay, drift and catalog, counted, and
+           ``examples/quickstart_torch.py``'s ``main("cuda")``.
 4s. serve  ``repro_torch.serve`` at full width: a distclub session warm-
            started from that run's state (``OnlineBandit.from_offline``)
            serves 16 batches of 256 distinct users against a 2^18-item
@@ -259,6 +279,11 @@ LM_PROMPT = 2048
 LM_CACHE = 4096              # decode_32k's 128 x 32768, cut to 8 x 4096
 LM_STEPS = 64
 BF16_FLOPS_PER_S = 989e12    # H100 SXM data sheet, bf16 dense tensor cores
+CLONE_USERS = (943, 1816, 1888, 5045)  # the web clones' users (Table 1)
+CLONES = ("movielens", "lastfm", "delicious", "yahoo", "synthetic")
+ENV_KINDS = ("synthetic", "replay", "drift", "catalog")
+BENCH_DCCB_L = 16            # benchmarks/bench_paper.py's DCCB_L
+BENCH_MOVIELENS_BUDGET = 16_000   # and its movielens interaction budget
 
 
 def log(msg: str) -> None:
@@ -409,6 +434,26 @@ def check_pick(w, Minv, ctx, occ, alpha):
             f"ucb variant {v}: argmax differs from choose's pick for "
             f"{int((first != c_t).sum())} users")
     return {"pick_bit_equal": True, "users": int(c_t.shape[0])}
+
+
+def check_duplicates(w, Minv, ids, table, occ, alpha):
+    """Slates gathered from an item table (``ctx = table[ids]``), as the
+    replay and catalog kinds give them: both choose variants, forced,
+    pick a candidate whose item id does not occur earlier in its slate (a
+    duplicate never beats its first copy).  Returns how many rows picked
+    an item that occurs twice in their slate."""
+    import torch
+    from repro_torch.kernels.interact import ops as iops
+    ctx = table[ids.long()]
+    same = ids[:, :, None] == ids[:, None, :]                  # [n, K, K]
+    first = torch.argmax(same.to(torch.int32), dim=2)         # first copy
+    twice = same.sum(dim=2) > 1
+    for variant in (iops.WARP_PER_USER, iops.REGISTER_TILE):
+        choice, _ = choose_variant(w, Minv, ctx, occ, alpha, variant)
+        c = choice.long()[:, None]
+        assert torch.equal(first.gather(1, c), c), (
+            f"choose variant {variant}: a duplicate beat its first copy")
+    return int(twice.gather(1, c).sum())
 
 
 def check_rank1_mful(M, Minv, b, x, r, mask):
@@ -1003,17 +1048,66 @@ def small_checks(dev):
     labels = torch.randperm(ng, generator=g, device=dev).to(torch.int32)
     log(f"small cc_hop (n={ng}): "
         f"{check_cc_hop(gref.pack_bits(sparse | sparse.T), labels, labels)}")
+    small_clone_checks(g, dev)
     small_cc_hop_checks(g, dev)
     small_topk_checks(g, dev, n, d, w, Minv, occ)
     small_recsys_checks(g, dev)
     small_flash_checks(g, dev)
 
 
+def small_clone_checks(g, dev):
+    """The kernels of DistCLUB's path at the paper clones' shapes (phase
+    4d): at n = 943, 1816, 1888 and 5045, K = 20 and d = 5, 19 and 25,
+    choose's two variants forced (``check_choose``, ``check_pick``) on
+    slates gathered from a 2047-item table, each with a duplicate after
+    its first copy and, in half the rows, that item the best
+    (``check_duplicates``); rank1_update_inv; prune on the full graph and
+    on a sparse one, both branches forced on the sparse one."""
+    import torch
+    from repro_torch.core import clustering
+    from repro_torch.kernels.graph import ref as gref
+    K = 20
+    for n in CLONE_USERS:
+        occ = torch.randint(0, 1000, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+        ids = torch.randint(1, 2048, (n, K), generator=g, device=dev,
+                            dtype=torch.int32)
+        ids[:, 11] = ids[:, 4]
+        full = gref.init_packed_adj(n, n, device=dev)
+        sparse = random_adj(g, n, n, 0.02, dev)
+        cb = clustering.cb_width(occ)
+        for d in (5, 19, 25):
+            table = unit(torch.randn(2048, d, generator=g, device=dev))
+            ctx = table[ids.long()]
+            Minv = spd_inverse(g, n, d, dev)
+            w = 0.5 * torch.randn(n, d, generator=g, device=dev)
+            w[::2] = 4.0 * table[ids[::2, 4].long()]
+            log(f"small choose at a clone's shape (n={n}, d={d}, K={K}): "
+                f"{check_choose(w, Minv, ctx, occ, 0.03)}, both variants "
+                f"and both ucb variants: "
+                f"{check_pick(w, Minv, ctx, occ, 0.03)}, rows that picked "
+                f"a duplicated item, never after its first copy: "
+                f"{check_duplicates(w, Minv, ids, table, occ, 0.03)}")
+            b = torch.randn(n, d, generator=g, device=dev)
+            x = ctx[:, 3].contiguous()
+            r = (torch.rand(n, generator=g, device=dev) < 0.5).float()
+            mask = torch.rand(n, generator=g, device=dev) < 0.7
+            log(f"small rank1 at a clone's shape (n={n}, d={d}): "
+                f"{check_rank1(Minv, b, x, r, mask)}")
+            v = torch.randn(n, d, generator=g, device=dev)
+            gam = 0.5 * math.sqrt(d)
+            log(f"small prune at a clone's shape (n={n}, W={full.shape[1]}, "
+                f"d={d}): full {check_prune(full, v, cb, v, cb, gam)}, "
+                f"p=0.02 {check_prune(sparse, v, cb, v, cb, gam)}, "
+                f"branches, most bits in a warp tile: "
+                f"{check_prune_branches(sparse, v, cb, v, cb, gam)}")
+
+
 def small_cc_hop_checks(g, dev):
     """cc_hop by ``check_cc_hop`` (the plain version, both thresholds
     forced and the warp-per-row kernel) at the paper datasets' row
-    lengths (n = 943, 1888, 5045, 20000: W = 30, 59, 158, 625, 8- and
-    4-byte loads) and the main path's (20480: W = 640, 16-byte loads),
+    lengths (n = 943, 1816, 1888, 5045, 20000: W = 30, 57, 59, 158, 625,
+    8- and 4-byte loads) and the main path's (20480: W = 640, 16-byte loads),
     each on a sparse graph, a half-dense one with every third row empty
     and the full one;
     then row views at offsets off a 16-byte boundary, a [R, 640] view of a
@@ -1023,7 +1117,7 @@ def small_cc_hop_checks(g, dev):
     import torch
     from repro_torch.kernels.graph import ops as gops
     from repro_torch.kernels.graph import ref as gref
-    for n in (943, 1888, 5045, 20000, 20480):
+    for n in (943, 1816, 1888, 5045, 20000, 20480):
         labels = torch.randperm(n, generator=g, device=dev).to(torch.int32)
         half = random_adj(g, n, n, 0.5, dev)
         half[::3] = 0
@@ -1525,22 +1619,30 @@ def prune_sweep(dev, v, cb, gamma, flush) -> list[dict]:
     return rows
 
 
-def profile_epoch(distclub, state, ops, hyper, d, steady_s) -> None:
-    """Device time by kernel over one more epoch (torch.profiler), and its
-    share of ``steady_s``, the same epoch's wall time without the profiler
-    (whose own host cost inflates the wall time it sees)."""
+def device_kernels(fn) -> tuple[float, list]:
+    """``fn`` once under torch.profiler, tracing the card's activity only
+    (what is read is device time; host events would make ``key_averages``
+    slow, and phase 4d profiles 20 epochs): (device busy microseconds, its
+    kernels' events, longest first)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        distclub.epoch(state, ops, SEED, EPOCHS, hyper, d)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda ev: -ev.self_device_time_total)
-    busy_us = sum(ev.self_device_time_total for ev in kernels)
+    return sum(ev.self_device_time_total for ev in kernels), kernels
+
+
+def profile_epoch(distclub, state, ops, hyper, d, steady_s) -> None:
+    """Device time by kernel over one more epoch (torch.profiler), and its
+    share of ``steady_s``, the same epoch's wall time without the profiler
+    (whose own host cost inflates the wall time it sees)."""
+    busy_us, kernels = device_kernels(
+        lambda: distclub.epoch(state, ops, SEED, EPOCHS, hyper, d))
     log(f"profile: device busy {busy_us / 1e3} ms in an epoch of "
         f"{steady_s * 1e3} ms wall ({busy_us / (steady_s * 1e6)} busy)")
     for ev in kernels[:25]:
@@ -1557,18 +1659,7 @@ def profile_batch(label, fn, steady_s) -> None:
     """Device time by kernel of one serving batch (torch.profiler), and its
     share of ``steady_s``, a batch's wall time without the profiler: the
     15 longest kernels, then the port's own kernels among the rest."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA]
-    kernels.sort(key=lambda ev: -ev.self_device_time_total)
-    busy_us = sum(ev.self_device_time_total for ev in kernels)
+    busy_us, kernels = device_kernels(fn)
     log(f"profile {label}: device busy {busy_us / 1e3} ms in a batch of "
         f"{steady_s * 1e3} ms wall ({busy_us / (steady_s * 1e6)} busy)")
     for ev in kernels[:15] + [ev for ev in kernels[15:]
@@ -1909,6 +2000,167 @@ def baselines_phase(dev, ops, hyper, d, distclub_inter, graphs):
     profile_batch("dccb epoch", dccb_epoch, e_s)
     return {"club": c_state, "dccb": b_state, "club_launches": c_launch,
             "dccb_launches": b_launch}
+
+
+@contextlib.contextmanager
+def host_tensors():
+    """Count, by function, every torch call made inside that returns a
+    tensor on the host (``TorchFunctionMode``); yields the counts."""
+    import collections
+    import torch
+    from torch.overrides import TorchFunctionMode
+    hits = collections.Counter()
+
+    class Spy(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.device.type == "cpu":
+                    hits[getattr(func, "__name__", str(func))] += 1
+            return out
+
+    with Spy():
+        yield hits
+
+
+def distclub_counts(launches, R, epochs, n, label):
+    """The launches a DistCLUB run of ``epochs`` makes, and no other."""
+    assert launches["choose"] == 2 * R * epochs, (label, launches)
+    assert launches["rank1_update_inv"] == 2 * R * epochs, (label, launches)
+    assert launches["prune"] == epochs, (label, launches)
+    assert epochs <= launches["cc_hop"] <= epochs * n, (label, launches)
+    assert sum(launches.values()) == 4 * R * epochs + epochs \
+        + launches["cc_hop"], (label, launches)
+
+
+def clones_phase(dev) -> dict:
+    """Phase 4d: the paper's dataset clones under every environment kind,
+    then the baselines and the quickstart on them; returns the launches
+    of every kernel over the phase's counted runs."""
+    import torch
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.core import club, clustering, dccb, distclub
+    from repro_torch.data import datasets
+    from repro_torch.kernels import _build
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in KERNEL_INFO}
+    hyper = paper.CONFIG
+    R = hyper.max_rounds
+    for name in CLONES:
+        spec = datasets.PAPER_DATASETS[name]
+        assert spec.n_candidates == hyper.n_candidates
+        n, d = spec.n_users, spec.d
+        epochs = datasets.epochs_for(spec, hyper)
+        for kind in ENV_KINDS:
+            t0 = time.perf_counter()
+            ops, _ = datasets.make_env(spec, seed=SEED, kind=kind,
+                                       device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            with host_tensors() as hits:
+                state, m, clu = distclub.run(ops, SEED, hyper, epochs, d,
+                                             device=dev)
+                torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            label = f"{name} {kind}"
+            assert not hits, f"{label}: tensors on the host: {dict(hits)}"
+            distclub_counts(launches, R, epochs, n, label)
+            for t in (*state.lin, m.reward):
+                assert bool(torch.isfinite(t.float()).all()), label
+            inter = int(m.interactions.sum())
+            rr = float(m.reward.sum()) / float(m.rand_reward.sum())
+            assert rr > 1.0, f"{label}: reward/random {rr}"
+            for k in total:
+                total[k] += launches[k]
+            t_run = time.perf_counter()
+            # one more epoch from the run's state, warm; once more profiled
+            _, steady_s = timed(lambda: distclub.epoch(
+                state, ops, SEED, epochs, hyper, d))
+            busy_us, kernels = device_kernels(lambda: distclub.epoch(
+                state, ops, SEED, epochs, hyper, d))
+            t_prof = time.perf_counter()
+            if name == "synthetic":      # where the paper-scale epoch goes
+                for ev in kernels[:8]:
+                    log(f"  {label}: {ev.self_device_time_total / 1e3:10.3f} "
+                        f"ms {ev.count:6d}x  {ev.key[:80]}")
+            plain = ""
+            if name != "synthetic":
+                _build.reset_launches()
+                with plain_path():
+                    _, pm, pc = distclub.run(ops, SEED, hyper, epochs, d,
+                                             device=dev)
+                assert not any(_build.LAUNCHES.values()), (
+                    label, dict(_build.LAUNCHES))
+                prr = float(pm.reward.sum()) / float(pm.rand_reward.sum())
+                compare_paths((rr, clu.tolist()), (prr, pc.tolist()), n)
+                plain = f" plain reward/random={prr} clusters={pc.tolist()}"
+            log(f"clone {label}: n={n} d={d} K={spec.n_candidates} "
+                f"interactions={inter} epochs={epochs} "
+                f"ms/epoch={1e3 * steady_s} device_ms/epoch={busy_us / 1e3} "
+                f"busy={busy_us / (steady_s * 1e6)} reward/random={rr} "
+                f"clusters={clu.tolist()} "
+                f"comm_bytes={float(state.comm_bytes)} "
+                f"max_memory_allocated={peak} "
+                f"seconds={time.perf_counter() - t0} (build and counted run "
+                f"{t_run - t0}, warm and profiled epochs {t_prof - t_run}) "
+                f"launches={launches}" + plain)
+    # the baselines on the movielens clone, bench_paper.py's CLUB slice and
+    # DCCB buffer; DCCB for its interaction budget's epochs
+    spec = datasets.PAPER_DATASETS["movielens"]
+    n, d = spec.n_users, spec.d
+    dccb_epochs = max(1, BENCH_MOVIELENS_BUDGET // (n * BENCH_DCCB_L))
+    for kind in ENV_KINDS[1:]:
+        ops, _ = datasets.make_env(spec, seed=SEED, kind=kind, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        (cs, cm), c_s = timed(lambda: club.run(ops, SEED, hyper, CLUB_T, d,
+                                               device=dev))
+        launches = dict(_build.LAUNCHES)
+        updates = CLUB_T // hyper.delta_net
+        assert launches["ucb"] == CLUB_T and launches["prune"] == updates
+        assert launches["rank1_update"] == 2 * CLUB_T, launches
+        assert sum(launches.values()) == 3 * CLUB_T + updates \
+            + launches["cc_hop"], launches
+        assert bool(torch.isfinite(cs.lin.Minv).all())
+        algo_line(f"club movielens {kind}", c_s, CLUB_T,
+                  float(cm.reward.sum()) / float(cm.rand_reward.sum()), None,
+                  int(clustering.num_clusters(cs.graph.labels)),
+                  torch.cuda.max_memory_allocated())
+        for k in total:
+            total[k] += launches[k]
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        (bs, bm, bclu), b_s = timed(lambda: dccb.run(
+            ops, SEED, hyper, dccb_epochs, d, BENCH_DCCB_L, device=dev))
+        launches = dict(_build.LAUNCHES)
+        assert launches["choose"] == sum(launches.values()) \
+            == dccb_epochs * BENCH_DCCB_L, launches
+        assert bool(torch.isfinite(bs.Mw).all())
+        b_inter = int(bm.interactions.sum())
+        assert b_inter == dccb_epochs * BENCH_DCCB_L * n
+        algo_line(f"dccb movielens {kind}", b_s, b_inter,
+                  float(bm.reward.sum()) / float(bm.rand_reward.sum()),
+                  float(bs.comm_bytes), bclu.tolist(),
+                  torch.cuda.max_memory_allocated())
+        for k in total:
+            total[k] += launches[k]
+    # the quickstart on the card
+    sys.path.insert(0, str(ROOT / "examples"))
+    import quickstart_torch as qs
+    _build.reset_launches()
+    (q_state, q_m, q_clu), q_s = timed(lambda: qs.main("cuda"))
+    launches = dict(_build.LAUNCHES)
+    distclub_counts(launches, qs.HYPER.max_rounds, qs.N_EPOCHS, qs.N_USERS,
+                    "quickstart")
+    assert q_clu.shape == (qs.N_EPOCHS,) and q_m.reward.is_cuda
+    for k in total:
+        total[k] += launches[k]
+    log(f"quickstart: {q_s} s, launches {launches}")
+    log(f"clones phase: {time.perf_counter() - t_phase} s, launches {total}")
+    return total
 
 
 def dcn_traffic(g, cfg, batch, dev):
@@ -2459,6 +2711,9 @@ def main() -> int:
               float(state.comm_bytes), n_clusters.tolist(), peak)
     baselines = baselines_phase(dev, ops, hyper, d, inter, graphs["club"])
 
+    # ---- phase 4d: the paper's dataset clones under every env kind ----------
+    on_clones = clones_phase(dev)
+
     # ---- phase 4s: serving at full width, and its plain run -----------------
     serving, sess, item_clusters, serve_launches, _ = serve_phase(
         dev, state, e.theta, hyper, baselines.pop("dccb"), graphs["serve"])
@@ -2812,6 +3067,7 @@ def main() -> int:
             "near_ties": errs[kname].get("near_ties", 0),
             "serve_launches": serve_launches[kname],
             "baseline_launches": on_baselines[kname],
+            "clone_launches": on_clones[kname],
         })
         log(f"time {kname}: kernel {ms} ms, plain {plain_ms} ms, "
             f"library {lib_ms} ms, bound {bms} ms ({by}; {n_bytes} bytes, "

@@ -18,7 +18,12 @@ records, field by field by name: ``ClusteredState``, ``LinUCBServeState``,
 also takes records that nest records, as ``DCCBServeState``).  Fields
 the port does not keep (the f32 banks' all-ones dequant ``scale``) are
 dropped; fields the port keeps on the host (``Catalog.active``/``epoch``,
-``ItemClusters.epoch``) become Python ints.
+``ItemClusters.epoch``) become Python ints.  The same two functions carry
+the environments' tables, so both packages run on the same ones:
+``core.env``'s ``SyntheticEnv``, ``DriftEnv`` and ``CatalogEnv`` (the
+reference's records of the same names), and ``data.replay.ReplayLog``
+built from the reference's replay tables (``item_feats``, ``cand_ids``,
+``click_probs``).
 
 ``dcn_from_numpy`` / ``seqrec_from_numpy`` / ``mind_from_numpy`` /
 ``lm_from_numpy`` take a ``repro`` model parameter tree with numpy leaves

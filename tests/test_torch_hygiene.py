@@ -51,8 +51,24 @@ def test_package_imports_neither_jax_nor_repro():
                 "core.club", "core.dccb", "kernels.ucb.ops",
                 "kernels.flash.ops", "kernels.flash.ref",
                 "models.transformer", "configs.qwen3_4b",
-                "configs.llama3_8b", "configs.yi_34b"):
+                "configs.llama3_8b", "configs.yi_34b", "data.datasets",
+                "data.replay"):
         assert f"repro_torch.{mod}" in names, mod
+    for kind in ("synthetic", "drift", "catalog", "replay",
+                 "default_synthetic"):
+        assert callable(getattr(env_ops, f"{kind}_ops")), kind
+
+
+def test_quickstart_imports_neither_jax_nor_repro():
+    root = SRC.parent
+    env_vars = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC), str(root / "examples")]))
+    code = ("import sys, quickstart_torch; print(sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], env=env_vars,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]", out
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
@@ -65,6 +81,24 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     e, _ = env.make_synthetic_env(0, 8, 3, 2, 3, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         distclub.run(env_ops.synthetic_ops(e), 0, hyper, 1, 3)
+
+
+def test_dataset_entry_points_need_a_device_without_cuda(monkeypatch):
+    from repro_torch.data import datasets
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = datasets.DatasetSpec("tiny", 64, 8, 3, 2, 4)
+    for kind in ("synthetic", "replay", "drift", "catalog"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            datasets.make_env(spec, kind=kind)
+        ops, _ = datasets.make_env(spec, kind=kind, device="cpu")
+        assert ops.contexts_fn(0, 0, torch.zeros(8, dtype=torch.int32)
+                               ).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        env.make_drift_env(0, 8, 3, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        env_ops.default_synthetic_ops(8, 3, 4)
+    assert env.make_drift_env(0, 8, 3, 2, device="cpu")[0].noise.device.type \
+        == "cpu"
 
 
 def test_baseline_entry_points_need_a_device_without_cuda(monkeypatch):
