@@ -125,6 +125,42 @@ Phases, in order; any failure raises and the script exits non-zero:
            Minv = I (a gossip cut resets both its users, and at the
            paper's gamma nearly every user is cut), so the items tie and
            the two paths round the tied scores 1 ulp apart.
+4x. shard  the sharded runtime (``launch.mesh.spawn``; each group has a
+           time limit, and a rank that raises or a join past it fails the
+           script).  One NCCL rank (``cuda:0``): ``distclub_shard`` at
+           phase 4's configuration, environment and seed for ``EPOCHS``
+           epochs, counted, then one warm epoch timed; its first stage 1
+           (through the runtime's stage body), its state, metrics and
+           cluster counts bit-equal to phase 4's, its launches equal to
+           phase 4's.  Four gloo ranks sharing the card (NCCL takes one
+           rank a card; gloo stages each collective through host memory,
+           a choice the binding makes by backend): the same run, each
+           rank 5120 users; the first stage 1 and the first stage 2's
+           adjacency and labels bit-equal to phase 4's (no psum feeds a
+           decision before then); after it, clusters per epoch and
+           reward/random within ``compare_paths``' bands; the users whose
+           occ or label differ, ms per epoch, peak memory and bytes sent
+           by rank, beside the modelled ``comm_bytes``.  Then on the
+           same four: ``dccb_shard`` (L = ``CONFIG.buffer_size``, 2
+           epochs; comm bytes exactly epochs n (L + 1)(d^2 + d) 4,
+           reward/random > 0.98, the ring's bytes), and phase 4s's 16
+           batches through ``OnlineBandit.from_offline(..., col=)`` on
+           phase 4's state, each rank 2^16 items of the catalog
+           (``catalog.item_shard``), unpruned and then pruned
+           (``build_clusters(512, 512)``): items equal to phase 4s's
+           through the first refresh, and after it any difference a near
+           tie under ``check_topk``'s band, against phase 4s's session
+           rerun batch by batch; ms per batch; then phase 4s's first
+           batch through a cold ``OnlineBandit.sharded`` session, its
+           items and reward equal to a one-process
+           ``OnlineBandit.create``'s, its state within 1e-6.  Every run
+           is counted on its own, and its launches checked.  After every
+           timed run, rank 0 holds the kernels at its shard shapes to
+           their plain versions (uncounted): prune and cc_hop on the
+           first stage 2's 5120 local rows against 20480 columns, topk
+           on a served batch over its 2^16-item slice, topk_pruned on
+           its ``shard_slice`` of the sorted stream.  The four ranks
+           share one card: their times are no scaling figure.
 4r. recsys the recsys models at their published configs
            (``repro_torch.configs``): DCN-v2 (26 x 2^20 x 16 f32 tables,
            d_interact 429, 3 cross layers) scores 16 serve_p99 batches of
@@ -724,6 +760,29 @@ def check_topk_pruned(w, Minv, occ, cat, clusters, alpha, k):
         "topk_ref_pruned is not bit-equal to topk_ref")
     res = check_topk(w, Minv, occ, bank.emb, bank.live, alpha, k,
                      got=(s_k, i_k), plain=(s_p, i_p))
+    res.update(skip=sk / tot, plain_skip=sk_p / tot_p)
+    return res
+
+
+def check_topk_piece(w, Minv, occ, emb_sorted, live_sorted, ids_sorted,
+                     tile_mu, tile_r, tile_xn, tile_n, alpha, items, *, k):
+    """The pruned kernel on a shard's piece of the sorted stream (the
+    arguments of ``RetrievalBackend.shortlist_pruned``, global ids): its
+    scores bit-equal to the unpruned kernel's over the same piece, its
+    shortlist against the pruned plain version's by ``check_topk``'s
+    bands (``items``: the whole catalog, which the global ids index)."""
+    import torch
+    from repro_torch.kernels.topk import ops, ref
+    tb = ref.tile_bounds(w, Minv, occ, alpha, tile_mu, tile_r, tile_xn,
+                         tile_n)
+    s_k, i_k, sk, tot = ops.topk_pruned(w, Minv, occ, emb_sorted,
+                                        live_sorted, ids_sorted, alpha, k, tb)
+    s_u, _ = ops.topk(w, Minv, occ, emb_sorted, live_sorted, alpha, k)
+    assert torch.equal(s_k, s_u), "topk_pruned on a piece: other scores"
+    s_p, i_p, sk_p, tot_p = ref.topk_ref_pruned(
+        w, Minv, occ, emb_sorted, live_sorted, ids_sorted, alpha, k, tb)
+    res = check_topk(w, Minv, occ, items, None, alpha, k, got=(s_k, i_k),
+                     plain=(s_p, i_p))
     res.update(skip=sk / tot, plain_skip=sk_p / tot_p)
     return res
 
@@ -1561,6 +1620,26 @@ def first_stage2_graph(ops, hyper, d, dev):
     return caught[0]
 
 
+@contextlib.contextmanager
+def first_args(cls, *names):
+    """Every call of ``cls``'s methods ``names`` inside goes on as it
+    was; the dict yielded gets, by name, the arguments of each one's first
+    call."""
+    caught = {}
+
+    def spy(name, real):
+        def call(self, *args):
+            caught.setdefault(name, args)
+            return real(self, *args)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(mock.patch.object(
+                cls, name, spy(name, getattr(cls, name))))
+        yield caught
+
+
 CC_DENSE_MINS = (0, 4, 8, 12, 16, 20, 24, 28, 32)
 
 
@@ -1815,6 +1894,7 @@ def serve_phase(dev, state, theta, hyper, dccb_state, graphs):
     assert share >= 0.95, "serve: the plain path served other items"
     d_launch = serve_dccb(dev, work, hyper, dccb_state)
     launches = {k: v + d_launch[k] for k, v in launches.items()}
+    work.items = items_u      # phase 4x holds its sharded session to them
     return work, sess_u, clusters, launches, sk / tot
 
 
@@ -1894,6 +1974,465 @@ def serve_dccb(dev, work, hyper, core):
     for it in items_q:
         assert it.shape == (SERVE_BATCH,) and bool((it >= 0).all())
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4x: the sharded runtime, one NCCL rank and four gloo ranks
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 4              # gloo ranks sharing the one card
+SHARD_DCCB_EPOCHS = 2
+SHARD_TIMEOUT_S = 420        # each spawned group, its start included
+
+
+class TimedCollectives:
+    """``col`` with each primitive's wall time summed by name (the card
+    synchronised before and after each call): where a warm epoch's time
+    goes between the collectives and the rest."""
+
+    def __init__(self, col):
+        self.col, self.secs = col, {}
+        self.n_shards = col.n_shards
+        self.axis_index = col.axis_index
+
+    def _timed(self, name, x):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = getattr(self.col, name)(x)
+        torch.cuda.synchronize()
+        self.secs[name] = self.secs.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def all_gather(self, x):
+        return self._timed("all_gather", x)
+
+    def psum(self, x):
+        return self._timed("psum", x)
+
+
+def shard_distclub(col, dev, inp, caught):
+    """The paper configuration through ``distclub_shard`` on this rank:
+    the first epoch's stage 1 through the runtime's own stage body
+    (uncounted), then ``EPOCHS`` epochs counted, then one warm epoch
+    timed, and one more with its collectives timed.  ``caught`` gets the
+    arguments of the counted run's first prune and first cc_hop."""
+    import torch
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.core import env, env_ops
+    from repro_torch.core.backend import BackendConfig, GraphBackend
+    from repro_torch.core.types import Metrics
+    from repro_torch.distributed import distclub_shard
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import collectives, stages
+    n, d, hyper = paper.N_USERS, paper.D_FEAT, paper.CONFIG
+    theta = torch.from_numpy(inp["theta"]).to(dev)
+    ops = env_ops.synthetic_ops(env.SyntheticEnv(theta, hyper.n_candidates))
+    init, epoch = distclub_shard.make_runtime(col, n, d, hyper, ops,
+                                              device=dev)
+    state = init()
+    row0 = col.axis_index() * state.occ.shape[0]
+    stage1 = stages.personalized_rounds(
+        BackendConfig.create().interact(), ops, hyper, SEED, 0, state.Minv,
+        state.b, state.occ, state.u_rounds, row0)[:3]
+    stage1 = [col.all_gather(t) for t in stage1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    collectives.reset_bytes()
+    t0 = time.perf_counter()
+    metrics, n_clu = [], []
+    with first_args(GraphBackend, "prune_rows", "cc_hop") as args:
+        for e in range(EPOCHS):
+            state, m, c = epoch(state, SEED, e)
+            metrics.append(m)
+            n_clu.append(c)
+            if e == 0:   # the first stage 2's graph: stages 3, 4 keep it
+                first = state.adj, state.labels
+    torch.cuda.synchronize()
+    caught.update(args)
+    wall = time.perf_counter() - t0
+    out = dict(launches=dict(_build.LAUNCHES), sent=dict(collectives.BYTES),
+               peak=torch.cuda.max_memory_allocated(), wall=wall)
+    t0 = time.perf_counter()
+    epoch(state, SEED, EPOCHS)
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    timed = TimedCollectives(col)
+    t0 = time.perf_counter()
+    distclub_shard.build_epoch_fn(timed, n, d, hyper, ops, dev)(
+        state, SEED, EPOCHS)
+    torch.cuda.synchronize()
+    return out | dict(
+        steady=steady, timed_epoch=time.perf_counter() - t0,
+        collective_secs=timed.secs, stage1=stage1,
+        first_adj=col.all_gather(first[0]), first_labels=first[1],
+        state=distclub_shard.gather_state(state, col),
+        metrics=Metrics(*(torch.cat(v) for v in zip(*metrics))),
+        n_clusters=torch.stack(n_clu))
+
+
+def shard_dccb(col, dev, inp):
+    """``dccb_shard`` at the paper configuration, L = buffer_size,
+    ``SHARD_DCCB_EPOCHS`` epochs, counted."""
+    import torch
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.core import env, env_ops
+    from repro_torch.core.types import Metrics
+    from repro_torch.distributed import dccb_shard
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import collectives
+    n, d, hyper = paper.N_USERS, paper.D_FEAT, paper.CONFIG
+    theta = torch.from_numpy(inp["theta"]).to(dev)
+    ops = env_ops.synthetic_ops(env.SyntheticEnv(theta, hyper.n_candidates))
+    init, epoch = dccb_shard.make_runtime(col, n, d, hyper.buffer_size,
+                                          hyper, ops, device=dev)
+    state = init()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    collectives.reset_bytes()
+    t0 = time.perf_counter()
+    metrics = []
+    for e in range(SHARD_DCCB_EPOCHS):
+        state, m = epoch(state, SEED, e)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return dict(wall=time.perf_counter() - t0,
+                launches=dict(_build.LAUNCHES),
+                sent=dict(collectives.BYTES),
+                metrics=Metrics(*(torch.cat(v) for v in zip(*metrics))),
+                comm_bytes=state.comm_bytes, occ=state.occ,
+                finite=all(bool(torch.isfinite(t).all())
+                           for t in (state.Mw, state.bw, state.xbuf)))
+
+
+def shard_serve(col, dev, inp, caught):
+    """Phase 4s's traffic through ``OnlineBandit.from_offline(..., col=)``
+    on this rank's users and its item slice, unpruned and then pruned,
+    each counted (``caught`` gets the arguments of each run's first
+    shortlist); then phase 4s's first batch through a cold
+    ``OnlineBandit.sharded`` session (uncounted)."""
+    import torch
+    from repro_torch import convert, serve
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.core import catalog, env
+    from repro_torch.core.backend import RetrievalBackend
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import collectives
+    hyper = paper.CONFIG
+    state = convert.state_from_numpy(inp["state"], device=dev)
+    theta, users, uniforms, emb = (torch.from_numpy(inp[k]).to(dev) for k in
+                                   ("theta", "users", "uniforms", "emb"))
+    full = serve.make_catalog(emb)
+    cat = catalog.item_shard(full, col.axis_index(), col.n_shards)
+    clusters = serve.build_clusters(full, tile_items=512, n_anchors=512)
+
+    def reward_fn(key, uids, ctx, slot):
+        return env.step_rewards(uniforms[key], theta[uids.long()], ctx, slot)
+
+    out = {}
+    for label, cl, method in (("unpruned", None, "shortlist"),
+                              ("pruned", clusters, "shortlist_pruned")):
+        sess = serve.OnlineBandit.from_offline(
+            state, hyper, refresh_every=REFRESH_EVERY, col=col)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        collectives.reset_bytes()
+        items, secs, refreshed = [], [], []
+        with first_args(RetrievalBackend, method) as args:
+            for t in range(SERVE_BATCHES):
+                t0 = time.perf_counter()
+                res = serve.step_catalog(sess, t, users[t], cat, reward_fn,
+                                         k_short=K_SHORT, clusters=cl)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                sess, item = res[:2]
+                items.append(item)
+                if int(sess.state.since_refresh) == 0:
+                    refreshed.append(t)
+        out[label] = dict(items=torch.stack(items), secs=secs,
+                          refreshed=refreshed,
+                          launches=dict(_build.LAUNCHES),
+                          sent=dict(collectives.BYTES))
+        caught.update(args)
+
+    cold = serve.OnlineBandit.sharded(col, theta.shape[0], emb.shape[1],
+                                      hyper, refresh_every=REFRESH_EVERY,
+                                      device=dev)
+    cold, item, m = serve.step_catalog(cold, 0, users[0], cat, reward_fn,
+                                       k_short=K_SHORT)
+    out["cold"] = dict(items=item, reward=m.reward, Minv=cold.state.Minv,
+                       b=cold.state.b, occ=cold.state.occ)
+    return out
+
+
+def shard_checks(caught, inp):
+    """The kernels at this rank's shard shapes against their plain
+    versions on the same inputs: prune and cc_hop on the counted DistCLUB
+    run's first stage 2 (its local rows against every user), topk on the
+    unpruned serving run's first batch over the rank's item slice
+    (``row0_items`` past it), topk_pruned on the pruned run's first batch
+    over the rank's ``shard_slice`` of the sorted stream."""
+    import torch
+    from repro_torch.core import clustering
+    adj, v_i, occ_i, v_j, occ_j, gamma = caught["prune_rows"]
+    w, Minv, occ, items, live, alpha = caught["shortlist"][:6]
+    emb = torch.from_numpy(inp["emb"]).to(w.device)
+    return {
+        "prune": check_prune(adj, v_i, clustering.cb_width(occ_i), v_j,
+                             clustering.cb_width(occ_j), gamma),
+        "cc_hop": check_cc_hop(*caught["cc_hop"]),
+        "topk": check_topk(w, Minv, occ, items, live, alpha, K_SHORT),
+        "topk_pruned": check_topk_piece(*caught["shortlist_pruned"], emb,
+                                        k=K_SHORT),
+        "shapes": {"prune": (tuple(adj.shape), tuple(v_j.shape)),
+                   "topk": (tuple(w.shape), tuple(items.shape)),
+                   "topk_pruned": tuple(
+                       caught["shortlist_pruned"][3].shape)}}
+
+
+def shard_rank(rank, col, dev, inp):
+    """Phase 4x on one rank (``launch.mesh.spawn``): DistCLUB, then, where
+    ``inp`` asks, DCCB and serving, and on rank 0, after every timed run,
+    the kernels at its shard shapes against their plain versions."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    caught = {}
+    out = {"distclub": shard_distclub(col, dev, inp, caught)}
+    if "state" in inp:
+        out["dccb"] = shard_dccb(col, dev, inp)
+        out["serve"] = shard_serve(col, dev, inp, caught)
+        if rank == 0:
+            out["checks"] = shard_checks(caught, inp)
+    return out
+
+
+def serve_near_ties(work, items, alpha) -> int:
+    """Phase 4s's one-process session again, batch by batch: its items must
+    be phase 4s's; where the sharded run's ``items`` differ, both items'
+    plain UCB scores under the one-process statistics of that batch must
+    lie within ``check_topk``'s band.  Returns the differences."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.kernels.ucb import ref as uref
+    sess, n_diff = work.start, 0
+    emb = work.catalog.serving.emb
+    for t in range(SERVE_BATCHES):
+        uids = work.users[t]
+        w, M, occ = sess.policy.gather_score(sess.state, uids.long())
+        sess, item, _ = serve.step_catalog(sess, t, uids, work.catalog,
+                                           work.reward_fn, k_short=K_SHORT)
+        assert torch.equal(item, work.items[t]), "phase 4s: other items"
+        diff = item != torch.from_numpy(items[t]).to(item.device)
+        if bool(diff.any()):
+            got = torch.from_numpy(items[t]).to(item.device)[diff].long()
+            s_one, s_shard = (uref.ucb_scores_ref(
+                w[diff], M[diff], emb[i][:, None], occ[diff], alpha)[:, 0]
+                for i in (item[diff].long(), got))
+            assert bool(((s_one - s_shard).abs()
+                         <= 1e-5 * (1 + s_one.abs())).all()), (
+                "sharded serving: items differ beyond near ties")
+            n_diff += int(diff.sum())
+    return n_diff
+
+
+def shard_phase(dev, main, work):
+    """Phase 4x: ``distclub_shard`` at the paper configuration on one NCCL
+    rank (bit-equal to phase 4) and on four gloo ranks sharing the card
+    (bit-equal through the first stage 2, then within ``compare_paths``'
+    bands), ``dccb_shard`` and the sharded serving session on the four.
+    ``main`` holds phase 4's results.  Returns the launches summed over
+    the counted runs of every rank."""
+    import numpy as np
+    import torch
+    from repro_torch import convert, serve
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.core import distclub
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh
+    from repro_torch.runtime import stages
+    n, d, hyper = paper.N_USERS, paper.D_FEAT, paper.CONFIG
+    R, L = hyper.max_rounds, hyper.buffer_size
+    state, ops = main["state"], main["ops"]
+
+    # phase 4's first stage 1 and first stage 2, one process (uncounted)
+    s1 = distclub.stage1(distclub.init_state(n, d, hyper, device=dev), ops,
+                         SEED, 0, hyper)[0]
+    s2 = distclub.stage2(s1, hyper, d)
+    ref1 = [t.cpu().numpy() for t in (s1.lin.Minv, s1.lin.b, s1.lin.occ)]
+    ref2 = [t.cpu().numpy() for t in (s2.graph.adj, s2.graph.labels)]
+    ph4 = {"Minv": state.lin.Minv, "b": state.lin.b, "occ": state.lin.occ,
+           "adj": state.graph.adj, "labels": state.graph.labels,
+           "u_rounds": state.u_rounds, "c_rounds": state.c_rounds,
+           "comm_bytes": state.comm_bytes}
+    ph4 = {k: v.cpu().numpy() for k, v in ph4.items()}
+    rr4 = main["reward"] / main["rand"]
+    clu4 = main["n_clusters"].tolist()
+    theta = work.theta.cpu().numpy()
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    def bit_equal(got, want, what):
+        for g, w, f in zip(got, want, what):
+            assert np.array_equal(g, w), f"phase 4x: {f} differs"
+
+    # ---- one NCCL rank: bit-equal to phase 4 --------------------------------
+    t0 = time.perf_counter()
+    (one,) = mesh.spawn(shard_rank, 1, "nccl", args=({"theta": theta},),
+                        timeout=SHARD_TIMEOUT_S)
+    one = one["distclub"]
+    g = one["state"]
+    log(f"shard nccl x1: spawn+run {time.perf_counter() - t0} s; ms per "
+        f"epoch {1e3 * one['wall'] / EPOCHS} (phase 4 "
+        f"{1e3 * main['wall'] / EPOCHS}); warm epoch {1e3 * one['steady']} "
+        f"ms (phase 4 {1e3 * main['steady']}); with its collectives timed "
+        f"{1e3 * one['timed_epoch']} ms, of which "
+        f"{({k: 1e3 * v for k, v in one['collective_secs'].items()})} ms; "
+        f"bytes moved {one['sent']}; "
+        f"max_memory_allocated={one['peak']}; launches {one['launches']}")
+    bit_equal(one["stage1"], ref1, ("stage-1 Minv", "stage-1 b",
+                                    "stage-1 occ"))
+    bit_equal([getattr(g, k) for k in ph4], list(ph4.values()),
+              [f"nccl x1 {k}" for k in ph4])
+    for f in one["metrics"]._fields:
+        assert np.array_equal(getattr(one["metrics"], f), getattr(
+            main["metrics"], f).cpu().numpy()), f"nccl x1 metrics {f}"
+    assert one["n_clusters"].tolist() == clu4, (one["n_clusters"], clu4)
+    assert one["launches"] == main["launches"], (one["launches"],
+                                                 main["launches"])
+    add(one["launches"])
+
+    # ---- four gloo ranks on the one card ------------------------------------
+    serve_inp = {"theta": theta, "users": work.users.cpu().numpy(),
+                 "uniforms": work.uniforms.cpu().numpy(),
+                 "emb": work.catalog.serving.emb.cpu().numpy(),
+                 "state": convert.state_to_numpy(state)}
+    t0 = time.perf_counter()
+    outs = mesh.spawn(shard_rank, SHARD_RANKS, "gloo", dev,
+                      args=(serve_inp,), timeout=SHARD_TIMEOUT_S)
+    log(f"shard gloo x{SHARD_RANKS} on one card (not a scaling figure: the "
+        f"ranks share the card): spawn+run {time.perf_counter() - t0} s")
+    runs = [o["distclub"] for o in outs]
+    r0 = runs[0]
+    bit_equal(r0["stage1"], ref1, ("gloo stage-1 Minv", "gloo stage-1 b",
+                                   "gloo stage-1 occ"))
+    bit_equal([r0["first_adj"], r0["first_labels"]], ref2,
+              ("gloo first stage-2 adjacency", "gloo first stage-2 labels"))
+    for r in runs:
+        distclub_counts(r["launches"], R, EPOCHS, n, "gloo distclub")
+        add(r["launches"])
+        assert np.array_equal(r["state"].labels, r0["state"].labels)
+    m = r0["metrics"]
+    rr = float(m.reward.sum()) / float(m.rand_reward.sum())
+    compare_paths((rr4, clu4), (rr, r0["n_clusters"].tolist()), n)
+    gs = r0["state"]
+    sent = [sum(r["sent"].values()) for r in runs]
+    log(f"shard gloo distclub: reward/random={rr} (phase 4 {rr4}) "
+        f"clusters={r0['n_clusters'].tolist()} (phase 4 {clu4}); users "
+        f"whose occ differs from phase 4's: {int((gs.occ != ph4['occ']).sum())}"
+        f", whose label differs: "
+        f"{int((gs.labels != ph4['labels']).sum())}; ms per epoch by rank "
+        f"{[1e3 * r['wall'] / EPOCHS for r in runs]}, warm epoch ms "
+        f"{[1e3 * r['steady'] for r in runs]}; max_memory_allocated by "
+        f"rank {[r['peak'] for r in runs]}")
+    log(f"shard gloo distclub: a warm epoch with its collectives timed "
+        f"(synchronised), by rank: ms {[1e3 * r['timed_epoch'] for r in runs]}"
+        f", of which collectives ms "
+        f"{[{k: 1e3 * v for k, v in r['collective_secs'].items()} for r in runs]}")
+    log(f"shard gloo distclub bytes moved per epoch, by rank: "
+        f"{[{k: v / EPOCHS for k, v in r['sent'].items()} for r in runs]}; "
+        f"all ranks {sum(sent) / EPOCHS}; modelled comm_bytes per epoch "
+        f"{stages.stage2_comm_bytes(n, d)}")
+    assert float(gs.comm_bytes) == float(ph4["comm_bytes"])
+    for t in (gs.Minv, gs.b):
+        assert np.isfinite(t).all(), "gloo distclub: non-finite state"
+
+    # ---- dccb_shard on the four ranks ---------------------------------------
+    dc = [o["dccb"] for o in outs]
+    m = dc[0]["metrics"]
+    rr_d = float(m.reward.sum()) / float(m.rand_reward.sum())
+    want = SHARD_DCCB_EPOCHS * n * (L + 1) * (d * d + d) * 4
+    log(f"shard gloo dccb: L={L} epochs={SHARD_DCCB_EPOCHS} "
+        f"reward/random={rr_d} comm_bytes={float(dc[0]['comm_bytes'])} "
+        f"(model {want}); ring bytes by rank "
+        f"{[r['sent']['permute'] for r in dc]}; ms per epoch by rank "
+        f"{[1e3 * r['wall'] / SHARD_DCCB_EPOCHS for r in dc]}")
+    assert float(dc[0]["comm_bytes"]) == want, (dc[0]["comm_bytes"], want)
+    assert rr_d > 0.98, f"dccb_shard reward/random {rr_d}"
+    assert int(m.interactions.sum()) == n * L * SHARD_DCCB_EPOCHS
+    for r in dc:
+        assert r["finite"], "dccb_shard: non-finite state"
+        assert r["launches"]["choose"] == L * SHARD_DCCB_EPOCHS, r["launches"]
+        assert sum(r["launches"].values()) == L * SHARD_DCCB_EPOCHS
+        add(r["launches"])
+
+    # ---- the sharded serving session on the four ranks ----------------------
+    sv = [o["serve"] for o in outs]
+    u = sv[0]["unpruned"]
+    for r in sv:
+        for label in ("unpruned", "pruned"):
+            assert np.array_equal(r[label]["items"], u["items"]), label
+            assert r[label]["refreshed"] == u["refreshed"], label
+            lc = r[label]["launches"]
+            topk = "topk" if label == "unpruned" else "topk_pruned"
+            assert lc[topk] == lc["choose"] == SERVE_BATCHES, lc
+            assert lc["rank1_update_inv"] == SERVE_BATCHES, lc
+            assert lc["prune"] == len(u["refreshed"]) >= 1, lc
+            assert sum(lc.values()) == 3 * SERVE_BATCHES + lc["prune"] \
+                + lc["cc_hop"], lc
+            add(lc)
+    first = u["refreshed"][0]
+    for t in range(first + 1):
+        assert np.array_equal(u["items"][t], work.items[t].cpu().numpy()), (
+            f"sharded serving: batch {t}, before the first refresh, served "
+            "other items than phase 4s")
+    ties = serve_near_ties(work, u["items"], hyper.alpha)
+    for label in ("unpruned", "pruned"):
+        secs = [r[label]["secs"] for r in sv]
+        log(f"shard gloo serve {label}: refreshes after batches "
+            f"{u['refreshed']}; items equal to phase 4s's through batch "
+            f"{first}; items differing after it (near ties) {ties}; median "
+            f"batch ms by rank {[1e3 * statistics.median(s) for s in secs]}; "
+            f"bytes moved by rank {[r[label]['sent'] for r in sv]}; "
+            f"launches (rank 0) {sv[0][label]['launches']}")
+
+    # ---- a cold OnlineBandit.sharded session against a one-process one ------
+    cold, item, m = serve.step_catalog(
+        serve.OnlineBandit.create(n, d, hyper, refresh_every=REFRESH_EVERY,
+                                  device=dev),
+        0, work.users[0], work.catalog, work.reward_fn, k_short=K_SHORT)
+    sc = [r["cold"] for r in sv]
+    errs = {f: float(np.abs(np.concatenate([c[f] for c in sc])
+                            - getattr(cold.state, f).cpu().numpy()).max())
+            for f in ("Minv", "b")}
+    log(f"shard gloo serve, cold OnlineBandit.sharded x{SHARD_RANKS}: "
+        f"batch 0's items equal to a one-process OnlineBandit.create's "
+        f"on every rank: {all(np.array_equal(c['items'], item.cpu().numpy()) for c in sc)}; "
+        f"reward {[float(c['reward']) for c in sc]} (one process "
+        f"{float(m.reward)}); state max abs err {errs}")
+    for c in sc:
+        assert np.array_equal(c["items"], item.cpu().numpy()), (
+            "cold sharded session: other items than one process")
+        assert float(c["reward"]) == float(m.reward), "cold: other reward"
+    assert np.array_equal(np.concatenate([c["occ"] for c in sc]),
+                          cold.state.occ.cpu().numpy()), "cold: other occ"
+    assert max(errs.values()) <= 1e-6, errs
+
+    # ---- rank 0's kernels at its shard shapes against their plain versions --
+    ck = outs[0]["checks"]
+    log(f"shard gloo rank 0, kernels at its shard shapes {ck['shapes']} "
+        f"against their plain versions: prune {ck['prune']}; cc_hop "
+        f"{ck['cc_hop']}; topk {ck['topk']}; topk_pruned "
+        f"{ck['topk_pruned']}")
+    n_loc, n_items = n // SHARD_RANKS, SERVE_ITEMS // SHARD_RANKS
+    assert ck["shapes"]["prune"] == ((n_loc, -(-n // 32)), (n, d)), ck
+    assert ck["shapes"]["topk"] == ((SERVE_BATCH, d), (n_items, d)), ck
+    assert ck["shapes"]["topk_pruned"] == (n_items, d), ck
+    return total
 
 
 def algo_line(name, secs, inter, rr, comm, clusters, peak):
@@ -2718,6 +3257,12 @@ def main() -> int:
     serving, sess, item_clusters, serve_launches, _ = serve_phase(
         dev, state, e.theta, hyper, baselines.pop("dccb"), graphs["serve"])
 
+    # ---- phase 4x: the sharded runtime, one NCCL rank and four gloo ranks ---
+    shard_launches = shard_phase(torch.device("cuda", 0), dict(
+        state=state, ops=ops, metrics=metrics, n_clusters=n_clusters,
+        reward=reward, rand=rand, launches=launches, wall=wall,
+        steady=steady_s), serving)
+
     # ---- phase 4r: the recsys models at their published configs -------------
     recsys = recsys_phase(dev)
 
@@ -3068,6 +3613,7 @@ def main() -> int:
             "serve_launches": serve_launches[kname],
             "baseline_launches": on_baselines[kname],
             "clone_launches": on_clones[kname],
+            "shard_launches": shard_launches[kname],
         })
         log(f"time {kname}: kernel {ms} ms, plain {plain_ms} ms, "
             f"library {lib_ms} ms, bound {bms} ms ({by}; {n_bytes} bytes, "

@@ -88,6 +88,22 @@ def make_catalog(emb: torch.Tensor, capacity: int | None = None) -> Catalog:
         active=0, epoch=0)
 
 
+def item_shard(cat: Catalog, shard: int, n_shards: int) -> Catalog:
+    """Shard ``shard``'s slice of the slot axis of both banks, for an
+    item-sharded session (``repro`` places it with ``device_put`` and
+    ``catalog.specs``): slots ``[shard * capacity / n_shards, ...)``, the
+    bank flip and epoch as they are.  Raises unless ``n_shards`` divides
+    the capacity."""
+    if cat.capacity % n_shards:
+        raise ValueError(f"capacity {cat.capacity} does not divide evenly "
+                         f"over {n_shards} shards")
+    size = cat.capacity // n_shards
+    sl = slice(shard * size, (shard + 1) * size)
+    return cat._replace(emb=cat.emb[:, sl].contiguous(),
+                        live=cat.live[:, sl].contiguous(),
+                        born=cat.born[:, sl].contiguous())
+
+
 def random_catalog(generator: torch.Generator, n_items: int, d: int,
                    capacity: int | None = None, device=None) -> Catalog:
     """Unit-norm random embeddings drawn from ``generator`` (on

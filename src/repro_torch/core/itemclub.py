@@ -204,3 +204,28 @@ def refresh_clusters(clusters: ItemClusters, catalog,
         return clusters
     build_kw.setdefault("tile_items", clusters.tile_items)
     return build_clusters(catalog, stats, **build_kw)
+
+
+# ---------------------------------------------------------------------------
+# sharding
+# ---------------------------------------------------------------------------
+
+
+def shard_slice(clusters: ItemClusters, shard: int, n_local: int):
+    """Shard ``shard``'s piece of the sorted stream: positions ``[shard *
+    n_local, ...)`` and their whole tiles.  Returns ``(emb, live, ids,
+    tile_mu, tile_r, tile_xn, tile_n)``, ``ids`` the GLOBAL slot ids, so
+    the shards' shortlists merge bit-equal to one stream's (selection is
+    by value).  Raises unless ``tile_items`` divides ``n_local``."""
+    tile = clusters.tile_items
+    if n_local % tile:
+        raise ValueError(
+            f"shard slice {n_local} % tile_items {tile} != 0: build "
+            "clusters with tile_items dividing capacity // n_shards")
+    T_local = n_local // tile
+    rows = slice(shard * n_local, (shard + 1) * n_local)
+    tiles = slice(shard * T_local, (shard + 1) * T_local)
+    return (clusters.emb_sorted[rows], clusters.live_sorted[rows],
+            clusters.perm[rows], clusters.tile_mu[tiles],
+            clusters.tile_r[tiles], clusters.tile_xn[tiles],
+            clusters.tile_n[tiles])

@@ -2,12 +2,38 @@
 
 The DistCLUB stages need four primitives: ``axis_index()`` (which user
 shard am I), ``all_gather(x)`` over the user axis, ``psum(x)`` and
-``n_shards``.  ``NullCollectives`` is the single-process binding, every
-primitive the identity; a ``torch.distributed`` binding is not ported yet.
+``n_shards``; the sharded DCCB adds ``permute(x)``, its ring gossip.
+
+  ``NullCollectives``  one process: every primitive is the identity.
+  ``DistCollectives``  bound to a ``torch.distributed`` process group
+                       (``repro.runtime.collectives.LaxCollectives``):
+                       ``axis_index`` is the rank, a Python int, so the
+                       stage bodies' ``row0`` stays a host int.
+
+``BYTES`` counts what each process puts on the wire, by primitive (the
+counterpart of ``kernels/_build.LAUNCHES``), under the ring schedules:
+an all-gather sends this rank's piece to each of the ``S - 1`` others,
+an all-reduce ``2 (S - 1) / S`` of the tensor (reduce-scatter, then
+all-gather), a permute the whole tensor.  One process sends nothing.
+A run prints it beside the modelled ``stages.stage2_comm_bytes``.
+
+gloo moves host memory only, and refuses CUDA tensors for some of these
+primitives; so by choice of backend, a gloo group stages every primitive
+on a CUDA tensor through host memory (``host_staged``).  NCCL never does.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+
+BYTES = {"all_gather": 0, "psum": 0, "permute": 0}
+
+
+def reset_bytes() -> None:
+    for name in BYTES:
+        BYTES[name] = 0
 
 
 class NullCollectives(NamedTuple):
@@ -25,3 +51,64 @@ class NullCollectives(NamedTuple):
 
     def psum(self, x):
         return x
+
+
+class DistCollectives(NamedTuple):
+    """The primitives on a ``torch.distributed`` process group (users =
+    the group's ranks, in rank order).  Build it with :func:`bind` after
+    ``init_process_group``."""
+
+    group: object            # the ProcessGroup (None: the default group)
+    rank: int
+    shards: int
+    host_staged: bool        # gloo: CUDA tensors go through host memory
+
+    @property
+    def n_shards(self) -> int:
+        return self.shards
+
+    def axis_index(self) -> int:
+        return self.rank
+
+    def _stage(self, x):
+        return x.cpu() if self.host_staged and x.is_cuda else x
+
+    def all_gather(self, x):
+        """[S * n, ...]: every rank's ``x`` tiled on dim 0 in rank order."""
+        BYTES["all_gather"] += x.nbytes * (self.shards - 1)
+        src = self._stage(x.contiguous())
+        out = src.new_empty((self.shards * src.shape[0], *src.shape[1:]))
+        dist.all_gather_into_tensor(out, src, group=self.group)
+        return out.to(x.device)
+
+    def psum(self, x):
+        """The sum over ranks, on a copy (the caller's tensor is left as
+        it was)."""
+        BYTES["psum"] += x.nbytes * 2 * (self.shards - 1) // self.shards
+        y = self._stage(x)
+        y = y.clone() if y is x else y
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
+        return y.to(x.device)
+
+    def permute(self, x, shift: int = 1):
+        """The ring exchange: rank ``r`` sends ``x`` to ``r + shift`` and
+        returns what ``r - shift`` sent (mod S)."""
+        if self.shards == 1:
+            return x.clone()
+        BYTES["permute"] += x.nbytes
+        src = self._stage(x.contiguous())
+        out = torch.empty_like(src)
+        peer = (self.rank + shift) % self.shards
+        back = (self.rank - shift) % self.shards
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, src, peer, group=self.group),
+                dist.P2POp(dist.irecv, out, back, group=self.group)]):
+            work.wait()
+        return out.to(x.device)
+
+
+def bind(group=None) -> DistCollectives:
+    """Collectives over ``group`` (default: the world group)."""
+    return DistCollectives(group=group, rank=dist.get_rank(group),
+                           shards=dist.get_world_size(group),
+                           host_staged=dist.get_backend(group) == "gloo")

@@ -11,7 +11,8 @@ record:
   apply_pass(state, idx, x, r, live, be)
                                   -> state    one masked feedback pass;
                                      ``live`` rows are DISTINCT users
-  refresh(state)                  -> state    the periodic stage
+  refresh(state, col)             -> state    the periodic stage, over the
+                                     session's collectives
 
 | policy     | scores with                      | refresh                    |
 |------------|----------------------------------|----------------------------|
@@ -24,6 +25,11 @@ The clustered policies read the stage-2 per-user snapshots
 (``uMcinv``/``ubc``/``umean_occ``) frozen until the next refresh, as
 stages 3 and 4 do.
 ``gather_score`` is also what catalog retrieval scores the catalog with.
+
+On a sharded session (``OnlineBandit.sharded``, the ``distclub`` policy)
+the per-user rows are this rank's users only, ``idx`` indexes them, and
+the refresh is stage 2 over the session's collectives; ``labels`` stays
+replicated.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from ..core.backend import BackendConfig
 from ..core.clustering import segment_sum
 from ..core.types import (BanditHyper, ClusterStats, DistCLUBState,
                           GraphState, LinUCBState)
+from ..distributed.sharding import local_slice
 from ..kernels.graph import ops as graph_ops
 from ..runtime import stages
 from ..runtime.collectives import NullCollectives
@@ -109,17 +116,21 @@ class ClusteredPolicy(NamedTuple):
     def has_refresh(self) -> bool:
         return True
 
-    def init(self, device) -> ClusteredState:
+    def init(self, device, col=_NULL) -> ClusteredState:
+        """The initial state of this rank's users (every user on one
+        process)."""
         n, d = self.cfg.n_users, self.cfg.d
+        row0, m = local_slice(n, col.axis_index(), col.n_shards)
         return ClusteredState(
-            Minv=_eye_rows(n, d, device),
-            b=torch.zeros(n, d, dtype=torch.float32, device=device),
-            occ=torch.zeros(n, dtype=torch.int32, device=device),
-            adj=graph_ops.init_packed_adj(n, n, device=device),
+            Minv=_eye_rows(m, d, device),
+            b=torch.zeros(m, d, dtype=torch.float32, device=device),
+            occ=torch.zeros(m, dtype=torch.int32, device=device),
+            adj=graph_ops.init_packed_adj(m, n, row_offset=row0,
+                                          device=device),
             labels=torch.zeros(n, dtype=torch.int32, device=device),
-            uMcinv=_eye_rows(n, d, device),
-            ubc=torch.zeros(n, d, dtype=torch.float32, device=device),
-            umean_occ=torch.zeros(n, dtype=torch.float32, device=device),
+            uMcinv=_eye_rows(m, d, device),
+            ubc=torch.zeros(m, d, dtype=torch.float32, device=device),
+            umean_occ=torch.zeros(m, dtype=torch.float32, device=device),
             since_refresh=_zero().to(device),
             comm_bytes=torch.zeros((), dtype=torch.float32, device=device))
 
@@ -145,10 +156,10 @@ class ClusteredPolicy(NamedTuple):
                                    live, be)
         return state._replace(Minv=Minv, b=b, occ=occ)
 
-    def refresh(self, state: ClusteredState) -> ClusteredState:
+    def refresh(self, state: ClusteredState, col=_NULL) -> ClusteredState:
         cfg = self.cfg
-        gb = BackendConfig.create().graph(cfg.n_users)
-        res = stages.stage2_refresh(_NULL, gb, cfg.hyper, cfg.d, state.Minv,
+        gb = BackendConfig.create().graph(state.occ.shape[0], cfg.n_users)
+        res = stages.stage2_refresh(col, gb, cfg.hyper, cfg.d, state.Minv,
                                     state.b, state.occ, state.adj)
         return state._replace(
             adj=res.adj, labels=res.labels, uMcinv=res.uMcinv, ubc=res.ubc,
@@ -199,7 +210,7 @@ class LinUCBPolicy(NamedTuple):
                                    live, be)
         return state._replace(Minv=Minv, b=b, occ=occ)
 
-    def refresh(self, state):
+    def refresh(self, state, col=_NULL):
         return state
 
 
@@ -276,7 +287,7 @@ class DCCBPolicy(NamedTuple):
         core = dccb.buffered_push(core, x_full, r_full, m_full, self.L)
         return state._replace(core=core)
 
-    def refresh(self, state: DCCBServeState) -> DCCBServeState:
+    def refresh(self, state: DCCBServeState, col=_NULL) -> DCCBServeState:
         core = state.core
         step = int(torch.sum(core.occ))
         peer = self.peers_fn(self.cfg.seed, step, core.adj)
@@ -317,6 +328,17 @@ def from_distclub_state(state: DistCLUBState) -> ClusteredState:
         uMcinv=uMcinv, ubc=ubc, umean_occ=umean_occ,
         since_refresh=_zero().to(state.lin.b.device),
         comm_bytes=state.comm_bytes)
+
+
+def shard_rows(state: ClusteredState, col) -> ClusteredState:
+    """This rank's piece of a whole-population state: its users' rows,
+    the labels and counters as they are."""
+    row0, m = local_slice(state.occ.shape[0], col.axis_index(),
+                          col.n_shards)
+    rows = slice(row0, row0 + m)
+    per_user = ("Minv", "b", "occ", "adj", "uMcinv", "ubc", "umean_occ")
+    return state._replace(**{f: getattr(state, f)[rows].contiguous()
+                             for f in per_user})
 
 
 def to_distclub_state(state: ClusteredState, hyper: BanditHyper,

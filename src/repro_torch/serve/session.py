@@ -1,5 +1,5 @@
 """``OnlineBandit``: policy-pluggable online serving sessions on the stage
-engine, single host (``repro.serve.session``).
+engine (``repro.serve.session``).
 
 One serving transaction per request batch:
 
@@ -34,6 +34,22 @@ decisions into ``serve.pending`` on ``recommend``/``recommend_catalog``
 and ``observe_delayed`` folds feedback matched by decision id, with the
 churn quarantine when given the current catalog.
 
+Sharding: ``OnlineBandit.sharded(col, ...)`` is one rank's share of a
+session whose users are split over the ranks of ``col``
+(``runtime.collectives.DistCollectives``) in rank order.  Every rank
+sees the whole request batch; each scores and folds the users it owns,
+and the per-request results (choice and chosen context) are summed over
+the ranks, non-owners contributing zeros.  Against a catalog each rank
+holds its item slice (``core.catalog.item_shard``): the owners' request
+rows are replicated by psum, each rank shortlists its own slice
+(unpruned, or its piece of the sorted stream, ``itemclub.shard_slice``),
+the ``[S, B, K_short]`` lists are all-gathered and merged with
+``select_topk``, the kernel's own selection routine, and the chosen
+shortlist rows are summed from their owners; the merged shortlist is
+the one-process shortlist, bit for bit.  The refresh is stage 2 over
+``col``, the code path of ``distributed.distclub_shard``.  Only the
+``distclub`` policy has a sharded session, without delayed feedback.
+
 Padding: rows with ``uid < 0`` or ``uid >= n_users`` are no-ops (choice
 0 / item -1, no state change, decision id -1).  Sessions are immutable:
 every call returns a new session and leaves its input as it was.
@@ -49,10 +65,13 @@ from .. import resolve_device
 from ..core import itemclub
 from ..core.backend import BackendConfig
 from ..core.types import BanditHyper, Metrics
+from ..kernels.topk.ref import select_topk
+from ..runtime.collectives import NullCollectives
 from . import pending as pending_mod
 from . import policies as pol
 
 _ENGINE = BackendConfig.create().interact()
+_NULL = NullCollectives()
 
 
 def embed_candidates(item_embed: torch.Tensor, cand_ids: torch.Tensor):
@@ -80,51 +99,60 @@ def _normalize_rewards(out):
     return out, z, z, z
 
 
-def _request_masks(policy, user_ids):
-    """(idx, valid): clamped row index per request and its validity."""
+def _request_masks(policy, col, state, user_ids):
+    """(idx, own, valid): this rank's row per request (clamped), whether
+    this rank owns the request's user, and whether the request is a user
+    at all (on one process ``own == valid``)."""
     n = policy.cfg.n_users
+    n_local = policy.occ_of(state).shape[0]
     valid = (user_ids >= 0) & (user_ids < n)
-    return torch.clamp(user_ids, 0, n - 1).long(), valid
+    local = user_ids - col.axis_index() * n_local
+    own = valid & (local >= 0) & (local < n_local)
+    return torch.clamp(local, 0, n_local - 1).long(), own, valid
 
 
-def _choose(policy, state, user_ids, contexts):
-    idx, valid = _request_masks(policy, user_ids)
+def _choose(policy, col, state, user_ids, contexts):
+    """Score + fused choose; each request's result comes from the rank
+    that owns its user."""
+    idx, own, valid = _request_masks(policy, col, state, user_ids)
     w, minv_eff, occ_rows = policy.gather_score(state, idx)
     x, choice = _ENGINE.choose(w, minv_eff, contexts, occ_rows,
                                policy.cfg.hyper.alpha)
-    choice = torch.where(valid, choice, 0)
-    x = torch.where(valid[:, None], x, 0.0)
-    return choice, x, idx, valid
+    choice = col.psum(torch.where(own, choice, 0))
+    x = col.psum(torch.where(own[:, None], x, 0.0))
+    return choice, x, idx, own, valid
 
 
-def _fold_feedback(policy, state, idx, valid, user_ids, x, realized):
-    """One fused masked pass per occurrence rank (a distinct-user batch
-    takes exactly one)."""
+def _fold_feedback(policy, state, idx, own, valid, user_ids, x, realized):
+    """One fused masked pass per occurrence rank over the owned rows (a
+    distinct-user batch takes exactly one)."""
     if not user_ids.numel():
         return state
     ranks = _occurrence_ranks(user_ids)
     n_passes = int(torch.max(torch.where(valid, ranks, -1))) + 1
     for k in range(n_passes):
         state = policy.apply_pass(state, idx, x, realized,
-                                  valid & (ranks == k), _ENGINE)
+                                  own & (ranks == k), _ENGINE)
     return state
 
 
-def _schedule_refresh(policy, state, n_new):
+def _schedule_refresh(policy, col, state, n_new):
     """Count the batch's interactions; refresh once the budget is spent."""
     state = state._replace(since_refresh=state.since_refresh + n_new)
     every = policy.cfg.refresh_every
     if policy.has_refresh and every > 0 and int(state.since_refresh) >= every:
-        state = policy.refresh(state)._replace(
+        state = policy.refresh(state, col)._replace(
             since_refresh=torch.zeros_like(state.since_refresh))
     return state
 
 
-def _apply_feedback(policy, state, idx, valid, user_ids, x, rewards):
+def _apply_feedback(policy, col, state, idx, own, valid, user_ids, x,
+                    rewards):
     realized, expected, best, rand = rewards
-    state = _fold_feedback(policy, state, idx, valid, user_ids, x, realized)
+    state = _fold_feedback(policy, state, idx, own, valid, user_ids, x,
+                           realized)
     n_new = torch.sum(valid.to(torch.int32))
-    state = _schedule_refresh(policy, state, n_new)
+    state = _schedule_refresh(policy, col, state, n_new)
     vm = valid.to(realized.dtype)
     return state, Metrics(reward=torch.sum(realized * vm),
                           regret=torch.sum((best - expected) * vm),
@@ -137,43 +165,58 @@ def _apply_feedback(policy, state, idx, valid, user_ids, x, rewards):
 # ---------------------------------------------------------------------------
 
 
-def _catalog_choose(policy, rb, state, user_ids, catalog, clusters=None):
+def _psum_counts(col, device, *counts):
+    """Host ints summed over the ranks."""
+    if col.n_shards == 1:
+        return counts
+    return col.psum(torch.tensor(counts, dtype=torch.int64,
+                                 device=device)).tolist()
+
+
+def _catalog_choose(policy, rb, col, state, user_ids, catalog, clusters=None):
     """Shortlist each request user's ``K_short`` best live items, then
     rank the shortlist with the fused choose.  Invalid requests score with
-    zero statistics (as the reference's masked psum leaves them) and
-    return item -1.  Underfull shortlist slots are filled with the user's
-    top entry, so the filler never outranks a real candidate."""
-    idx, valid = _request_masks(policy, user_ids)
+    zero statistics and return item -1.  Underfull shortlist slots are
+    filled with the user's top entry, so the filler never outranks a real
+    candidate.  ``catalog`` is this rank's item slice."""
+    idx, own, valid = _request_masks(policy, col, state, user_ids)
     w, minv_eff, occ_rows = policy.gather_score(state, idx)
-    w = torch.where(valid[:, None], w, 0.0)
-    minv_eff = torch.where(valid[:, None, None], minv_eff, 0.0)
-    occ_rows = torch.where(valid, occ_rows, 0)
+    # exactly one rank owns each valid user: replicate the request rows
+    w = col.psum(torch.where(own[:, None], w, 0.0))
+    minv_eff = col.psum(torch.where(own[:, None, None], minv_eff, 0.0))
+    occ_rows = col.psum(torch.where(own, occ_rows, 0))
     alpha = policy.cfg.hyper.alpha
 
     bank = catalog.serving
-    rmet = None
-    if clusters is None:
-        sc, ids = rb.shortlist(w, minv_eff, occ_rows, bank.emb, bank.live,
-                               alpha)
-    elif itemclub.is_fresh(clusters, catalog):
+    n_items = catalog.capacity
+    row0_items = col.axis_index() * n_items
+    if clusters is not None and itemclub.is_fresh(clusters, catalog):
         sc, ids, skipped, total = rb.shortlist_pruned(
-            w, minv_eff, occ_rows, clusters.emb_sorted, clusters.live_sorted,
-            clusters.perm, clusters.tile_mu, clusters.tile_r,
-            clusters.tile_xn, clusters.tile_n, alpha)
-        rmet = itemclub.RetrievalMetrics(skipped, total, 1)
-    else:   # a publish landed after the last rebuild: stale bounds
+            w, minv_eff, occ_rows, *itemclub.shard_slice(
+                clusters, col.axis_index(), n_items), alpha)
+        rmet = itemclub.RetrievalMetrics(
+            *_psum_counts(col, w.device, skipped, total), 1)
+    else:   # unpruned, or a publish landed after the last rebuild
         sc, ids = rb.shortlist(w, minv_eff, occ_rows, bank.emb, bank.live,
-                               alpha)
-        rmet = itemclub.RetrievalMetrics(0, 0, 0)
-    # one shard: the shortlist is already in (score desc, id asc) order
+                               alpha, row0_items)
+        rmet = (None if clusters is None
+                else itemclub.RetrievalMetrics(0, 0, 0))
+    if col.n_shards > 1:
+        # merge the ranks' lists with the kernel's own selection routine
+        # (one rank's list is already in (score desc, id asc) order)
+        B, k = sc.shape
+        sc, ids = (col.all_gather(t).view(-1, B, k).transpose(0, 1)
+                   .reshape(B, -1) for t in (sc, ids))
+        sc, ids = select_topk(sc, ids, k)
     top_i = torch.where(torch.isfinite(sc), ids, ids[:, :1])
-    ok = (top_i >= 0) & (top_i < catalog.capacity)
-    rows = bank.emb[torch.clamp(top_i, 0, catalog.capacity - 1).long()]
-    ctx = torch.where(ok[..., None], rows, 0.0).contiguous()
+    loc = top_i - row0_items
+    ok = (loc >= 0) & (loc < n_items)
+    rows = bank.emb[torch.clamp(loc, 0, n_items - 1).long()]
+    ctx = col.psum(torch.where(ok[..., None], rows, 0.0)).contiguous()
     x, slot = _ENGINE.choose(w, minv_eff, ctx, occ_rows, alpha)
     item = torch.take_along_dim(top_i, slot.long()[:, None], dim=1)[:, 0]
     item = torch.where(valid, item, -1)
-    return item, slot, ctx, x, idx, valid, rmet
+    return item, slot, ctx, x, idx, own, valid, rmet
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +255,7 @@ class OnlineBandit:
     state: Any
     pending: Any = None     # PendingBuffer, or None = synchronous-only
     ttl: int = 0            # pending TTL in issue transactions
+    col: Any = _NULL        # the ranks the users are split over
 
     @classmethod
     def create(cls, n_users: int, d: int, hyper: BanditHyper, *,
@@ -234,19 +278,43 @@ class OnlineBandit:
                    ttl=int(pending_ttl))
 
     @classmethod
+    def sharded(cls, col, n_users: int, d: int, hyper: BanditHyper, *,
+                policy: str = "distclub", refresh_every: int = 0,
+                device=None) -> "OnlineBandit":
+        """This rank's share of a session whose ``n_users`` users are split
+        over the ranks of ``col`` in rank order, on ``device`` (default
+        cuda; raises without a card unless ``device="cpu"``; under nccl
+        the rank's own card).  Raises unless the ranks divide
+        ``n_users``.  Only ``policy="distclub"`` is sharded."""
+        if policy != "distclub":
+            raise ValueError(f"policy {policy!r} has no sharded session; "
+                             "only distclub does")
+        dev = resolve_device(device)
+        cfg = pol.make_cfg(n_users, d, hyper, refresh_every=refresh_every)
+        p = pol.get_policy(policy, cfg)
+        return cls(policy=p, state=p.init(dev, col), col=col)
+
+    @classmethod
     def from_offline(cls, state, hyper: BanditHyper, *,
                      refresh_every: int = 0, pending_capacity: int = 0,
-                     pending_ttl: int = 64) -> "OnlineBandit":
+                     pending_ttl: int = 64, col=None) -> "OnlineBandit":
         """A distclub session warm-started from an offline
-        ``core.distclub.run`` state, on that state's device."""
+        ``core.distclub.run`` state, on that state's device.  With
+        ``col``, this rank's share of a sharded session (its users' rows
+        of the state; no pending buffer)."""
         n, d = state.lin.b.shape
         cfg = pol.make_cfg(n, d, hyper, refresh_every=refresh_every)
+        st = pol.from_distclub_state(state)
+        if col is not None:
+            if pending_capacity > 0:
+                raise ValueError("a sharded session has no pending buffer")
+            return cls(policy=pol.get_policy("distclub", cfg),
+                       state=pol.shard_rows(st, col), col=col)
         pend = (pending_mod.init(pending_capacity, d,
                                  device=state.lin.b.device)
                 if pending_capacity > 0 else None)
-        return cls(policy=pol.get_policy("distclub", cfg),
-                   state=pol.from_distclub_state(state), pending=pend,
-                   ttl=int(pending_ttl))
+        return cls(policy=pol.get_policy("distclub", cfg), state=st,
+                   pending=pend, ttl=int(pending_ttl))
 
     def step(self, key, user_ids, contexts, reward_fn):
         return step(self, key, user_ids, contexts, reward_fn)
@@ -281,11 +349,12 @@ def step(session: OnlineBandit, key, user_ids, contexts,
          reward_fn: Callable):
     """One serving transaction over a caller-supplied slate ``contexts
     [B, K, d]``: ``(session, choices [B] i32, metrics)``."""
-    choice, x, idx, valid = _choose(session.policy, session.state, user_ids,
-                                    contexts)
+    choice, x, idx, own, valid = _choose(session.policy, session.col,
+                                         session.state, user_ids, contexts)
     rewards = _normalize_rewards(reward_fn(key, user_ids, contexts, choice))
-    state, metrics = _apply_feedback(session.policy, session.state, idx,
-                                     valid, user_ids, x, rewards)
+    state, metrics = _apply_feedback(session.policy, session.col,
+                                     session.state, idx, own, valid,
+                                     user_ids, x, rewards)
     return dataclasses.replace(session, state=state), choice, metrics
 
 
@@ -301,8 +370,8 @@ def recommend(session: OnlineBandit, user_ids, contexts):
     """The request half: ``choices [B]`` on a synchronous session; on a
     buffer-enabled one it ISSUES and returns ``(session, choices,
     decision_ids)`` (padding requests get id -1)."""
-    choice, x, _, valid = _choose(session.policy, session.state, user_ids,
-                                  contexts)
+    choice, x, _, _, valid = _choose(session.policy, session.col,
+                                     session.state, user_ids, contexts)
     if session.pending is None:
         return choice
     _pending_guard(session, user_ids.shape[0])
@@ -314,12 +383,13 @@ def recommend(session: OnlineBandit, user_ids, contexts):
 def observe(session: OnlineBandit, user_ids, contexts, choices, rewards):
     """The feedback half: fold a batch of (possibly duplicate-user)
     rewards and run the refresh schedule."""
-    idx, valid = _request_masks(session.policy, user_ids)
+    idx, own, valid = _request_masks(session.policy, session.col,
+                                     session.state, user_ids)
     x = torch.take_along_dim(contexts, choices.long()[:, None, None],
                              dim=1)[:, 0]
-    state = _fold_feedback(session.policy, session.state, idx, valid,
+    state = _fold_feedback(session.policy, session.state, idx, own, valid,
                            user_ids, x, rewards)
-    state = _schedule_refresh(session.policy, state,
+    state = _schedule_refresh(session.policy, session.col, state,
                               torch.sum(valid.to(torch.int32)))
     return dataclasses.replace(session, state=state)
 
@@ -332,11 +402,13 @@ def step_catalog(session: OnlineBandit, key, user_ids, catalog,
     Returns ``(session, item_ids [B] global slot ids, metrics)``, plus a
     ``RetrievalMetrics`` when ``clusters`` is given."""
     rb = BackendConfig.create().retrieval(k_short)
-    item, slot, ctx, x, idx, valid, rmet = _catalog_choose(
-        session.policy, rb, session.state, user_ids, catalog, clusters)
+    item, slot, ctx, x, idx, own, valid, rmet = _catalog_choose(
+        session.policy, rb, session.col, session.state, user_ids, catalog,
+        clusters)
     rewards = _normalize_rewards(reward_fn(key, user_ids, ctx, slot))
-    state, metrics = _apply_feedback(session.policy, session.state, idx,
-                                     valid, user_ids, x, rewards)
+    state, metrics = _apply_feedback(session.policy, session.col,
+                                     session.state, idx, own, valid,
+                                     user_ids, x, rewards)
     session = dataclasses.replace(session, state=state)
     if clusters is None:
         return session, item, metrics
@@ -351,8 +423,9 @@ def recommend_catalog(session: OnlineBandit, user_ids, catalog, *,
     decision_ids, slots, contexts)``.  ``clusters`` appends a
     ``RetrievalMetrics``."""
     rb = BackendConfig.create().retrieval(k_short)
-    item, slot, ctx, x, _, valid, rmet = _catalog_choose(
-        session.policy, rb, session.state, user_ids, catalog, clusters)
+    item, slot, ctx, x, _, _, valid, rmet = _catalog_choose(
+        session.policy, rb, session.col, session.state, user_ids, catalog,
+        clusters)
     tail = () if clusters is None else (rmet,)
     if session.pending is None:
         return (item, slot, ctx) + tail
@@ -377,10 +450,11 @@ def observe_delayed(session: OnlineBandit, decision_ids, rewards,
              else _stale_mask(session.pending, decision_ids, catalog))
     pend, uids, x = pending_mod.match(session.pending, decision_ids,
                                       stale=stale)
-    idx, valid = _request_masks(session.policy, uids)
-    state = _fold_feedback(session.policy, session.state, idx, valid, uids,
-                           x, rewards)
-    state = _schedule_refresh(session.policy, state,
+    idx, own, valid = _request_masks(session.policy, session.col,
+                                     session.state, uids)
+    state = _fold_feedback(session.policy, session.state, idx, own, valid,
+                           uids, x, rewards)
+    state = _schedule_refresh(session.policy, session.col, state,
                               torch.sum(valid.to(torch.int32)))
     return dataclasses.replace(session, state=state, pending=pend)
 
@@ -403,6 +477,6 @@ def pending_stats(session: OnlineBandit) -> dict[str, float]:
 def refresh(session: OnlineBandit) -> OnlineBandit:
     """Force one refresh now (stage 2 for the clustered policies, a no-op
     for linucb) and reset the budget."""
-    state = session.policy.refresh(session.state)
+    state = session.policy.refresh(session.state, session.col)
     return dataclasses.replace(session, state=state._replace(
         since_refresh=torch.zeros_like(state.since_refresh)))

@@ -52,7 +52,9 @@ def test_package_imports_neither_jax_nor_repro():
                 "kernels.flash.ops", "kernels.flash.ref",
                 "models.transformer", "configs.qwen3_4b",
                 "configs.llama3_8b", "configs.yi_34b", "data.datasets",
-                "data.replay"):
+                "data.replay", "distributed.distclub_shard",
+                "distributed.dccb_shard", "distributed.sharding",
+                "launch.mesh", "runtime.collectives"):
         assert f"repro_torch.{mod}" in names, mod
     for kind in ("synthetic", "drift", "catalog", "replay",
                  "default_synthetic"):
@@ -166,6 +168,43 @@ def test_serving_entry_points_need_a_device_without_cuda(monkeypatch):
         pending.init(4, 3)
     sess = serve.OnlineBandit.create(8, 3, hyper, device="cpu")
     assert sess.state.Minv.device.type == "cpu"
+
+
+def test_sharded_entry_points_need_a_device_without_cuda(monkeypatch):
+    from repro_torch import serve
+    from repro_torch.distributed import dccb_shard, distclub_shard
+    from repro_torch.runtime.collectives import DistCollectives
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hyper = BanditHyper(sigma=2, max_rounds=2, buffer_size=2, n_candidates=3)
+    col = DistCollectives(group=None, rank=1, shards=2, host_staged=False)
+    e, _ = env.make_synthetic_env(0, 8, 3, 2, 3, device="cpu")
+    ops = env_ops.synthetic_ops(e)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distclub_shard.make_runtime(col, 8, 3, hyper, ops)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dccb_shard.make_runtime(col, 8, 3, 2, hyper, ops)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.OnlineBandit.sharded(col, 8, 3, hyper)
+    init, _ = distclub_shard.make_runtime(col, 8, 3, hyper, ops,
+                                          device="cpu")
+    assert init().Minv.shape == (4, 3, 3)
+    init, _ = dccb_shard.make_runtime(col, 8, 3, 2, hyper, ops, device="cpu")
+    assert init().xbuf.shape == (4, 2, 3)
+    sess = serve.OnlineBandit.sharded(col, 8, 3, hyper, device="cpu")
+    assert sess.state.b.shape == (4, 3) and sess.col is col
+
+
+def test_mesh_refuses_more_nccl_ranks_than_cards(monkeypatch):
+    from repro_torch.launch import mesh
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert mesh.rank_devices(1, "nccl") == [torch.device("cuda", 0)]
+    for world in (2, 4):
+        with pytest.raises(ValueError, match="one rank per card"):
+            mesh.spawn(print, world, "nccl")
+    assert mesh.rank_devices(4, "gloo", "cuda:0") == [
+        torch.device("cuda", 0)] * 4
+    with pytest.raises(ValueError, match="explicit device"):
+        mesh.rank_devices(2, "gloo")
 
 
 def test_recsys_entry_points_need_a_device_without_cuda(monkeypatch):
