@@ -58,7 +58,13 @@ Phases, in order; any failure raises and the script exits non-zero:
            24, 31, 32, 33, 48, 64; topk_pruned bit-equal to topk: for 37
            users at tile 128, where each split walks 8 tiles and must skip
            some, for 256 users at tiles 128, 384, 512, 1024 and 2048, and
-           at d = 32 and 64 with k = 128, the shared-memory corner).
+           at d = 32 and 64 with k = 128, the shared-memory corner); the
+           reduced-precision variants (``small_quant_checks``): the bf16
+           rank-1 update at the clones' shapes and both its variants,
+           topk over bf16 and int8 banks at d = 1 ... 64, from a row
+           whose bytes start off a 16-byte boundary and at N < k, and
+           topk_pruned over quantized region catalogs at tiles 128, 384,
+           512 and 2048).
 4. main    ``repro_torch.core.distclub.run`` at the paper's full width
            (20480 users, d=25, K=20, 100 planted clusters,
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
@@ -161,6 +167,24 @@ Phases, in order; any failure raises and the script exits non-zero:
            on a served batch over its 2^16-item slice, topk_pruned on
            its ``shard_slice`` of the sorted stream.  The four ranks
            share one card: their times are no scaling figure.
+4p. prec   reduced-precision serving: phase 4s's 16 batches in a bf16
+           and an int8 session (``from_offline(..., precision=)``: bf16
+           ``Minv``) against phase 4s's catalog quantized to each
+           (``make_catalog(..., precision=)``), unpruned and pruned
+           (``build_clusters(512, 512)``), counted (16 topk_<p>, 16
+           topk_pruned_<p>, 32 rank1_update_inv_bf16 and 32 choose
+           launches, no f32 topk, topk_pruned or rank1_update_inv), the
+           pruned items equal to the unpruned ones in every batch; the
+           same session batch by batch through the plain versions (items
+           equal, or both within ``check_topk``'s band); the bf16
+           session saved half way (``train.checkpoint``), restored into a
+           fresh session, its second half's items equal, restores under
+           f32 and int8 refused; the counterfactual choice-flip rate of
+           ``benchmarks/bench_precision.py`` on that bench's own
+           configuration (256 cold users, 4096 structureless items, d 32,
+           batches of 64, 32 + 40 rounds), at most 0.01 each, and, not
+           gated, for phase 4s's learned users and traffic against a
+           random 2^18-item catalog and against the region catalog.
 4r. recsys the recsys models at their published configs
            (``repro_torch.configs``): DCN-v2 (26 x 2^20 x 16 f32 tables,
            d_interact 429, 3 cross layers) scores 16 serve_p99 batches of
@@ -206,7 +230,13 @@ Phases, in order; any failure raises and the script exits non-zero:
            shortlisted items, a block per user at 256 users; topk_pruned's
            skip ratio and its plain version's), cc_hop by ``check_cc_hop``
            on the learned graph (at the identity labels and at the run's)
-           and on the full graph,
+           and on the full graph, the reduced-precision variants
+           (``check_rank1_bf16``: within one bf16 ulp or 1e-5, masked
+           rows bit-identical, both variants bit-equal on 2 x SMs + 1
+           users; ``check_topk_quant`` and ``check_topk_pruned`` over
+           phase 4p's quantized banks: scores the bits of ``ucb_scores``
+           of the dequantized items, bit-equal to the f32 kernel over
+           them, pruned bit-equal to unpruned),
            cross on a serve_bulk batch's layers 1 and 2 on both routes,
            the W split of both bit-equal to its plain version, embedding_bag
            on the two bag batches of phase 4r, and flash on the q/k/v of
@@ -229,7 +259,9 @@ Phases, in order; any failure raises and the script exits non-zero:
            in turns; embedding_bag and
            F.embedding_bag at 512 bags likewise; the launch floor, a
            one-element in-place op's median over 200 launches, beside the
-           n = 1 and 512-bag times; flash at the prefill and the decode
+           n = 1 and 512-bag times; each reduced-precision variant
+           beside its f32 kernel, 50 launches each in turns, on the bf16
+           session's batch; flash at the prefill and the decode
            shape, with ``scaled_dot_product_attention`` as its yardstick;
            bf16 flash runs on the tensor cores and is held to their bf16
            rate (989 TFLOP/s), its f32 bound printed beside it; cc_hop
@@ -298,7 +330,22 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
             "src/repro/kernels/ucb/ucb.py:59"),
     "flash": ("src/repro_torch/csrc/flash.cu",
               "src/repro/kernels/flash/flash.py:89"),
+    # the reduced-precision variants (phase 4p)
+    "rank1_update_inv_bf16": ("src/repro_torch/csrc/rank1.cu",
+                              "src/repro/kernels/rank1/rank1.py:72"),
+    "topk_bf16": ("src/repro_torch/csrc/topk.cu",
+                  "src/repro/kernels/topk/topk.py:114"),
+    "topk_int8": ("src/repro_torch/csrc/topk.cu",
+                  "src/repro/kernels/topk/topk.py:114"),
+    "topk_pruned_bf16": ("src/repro_torch/csrc/topk.cu",
+                         "src/repro/kernels/topk/topk.py:229"),
+    "topk_pruned_int8": ("src/repro_torch/csrc/topk.cu",
+                         "src/repro/kernels/topk/topk.py:229"),
 }
+PRECISIONS = ("bf16", "int8")  # phase 4p's reduced-precision sessions
+FLIP_WARM = 32               # bench_precision.py's warm-up batches
+FLIP_BATCHES = 16            # counterfactual batches measured after it
+FLIP_MAX = 0.01              # bench_precision.py's choice_flip_rate gate
 SERVE_ITEMS = 2**18          # the gate row of benchmarks/bench_retrieval.py
 SERVE_BATCH = 256            # BENCH_serve.json's request batch
 SERVE_BATCHES = 16
@@ -740,25 +787,32 @@ def check_topk_pruned(w, Minv, occ, cat, clusters, alpha, k):
     to the unpruned plain version; then the pruned kernel against its
     plain version on the same inputs, by ``check_topk``'s bands.  Returns
     the error dict with the kernel's and the plain version's skip
-    ratios."""
+    ratios.  An int8 catalog's scales go with it (the pruned kernels take
+    the sorted ones)."""
     import torch
+    from repro_torch.core.catalog import dequantize
     from repro_torch.kernels.topk import ops, ref
     bank = cat.serving
+    quant = bank.emb.dtype == torch.int8
+    sc = bank.scale if quant else None
+    ss = clusters.scale_sorted if quant else None
     tb = ref.tile_bounds(w, Minv, occ, alpha, clusters.tile_mu,
                          clusters.tile_r, clusters.tile_xn, clusters.tile_n)
-    s_u, i_u = ops.topk(w, Minv, occ, bank.emb, bank.live, alpha, k)
+    s_u, i_u = ops.topk(w, Minv, occ, bank.emb, bank.live, alpha, k,
+                        scales=sc)
     s_k, i_k, sk, tot = ops.topk_pruned(
         w, Minv, occ, clusters.emb_sorted, clusters.live_sorted,
-        clusters.perm, alpha, k, tb)
+        clusters.perm, alpha, k, tb, scales=ss)
     assert torch.equal(s_k, s_u) and torch.equal(i_k, i_u), (
         "topk_pruned is not bit-equal to topk")
     s_p, i_p, sk_p, tot_p = ref.topk_ref_pruned(
         w, Minv, occ, clusters.emb_sorted, clusters.live_sorted,
-        clusters.perm, alpha, k, tb)
-    s_r, i_r = ref.topk_ref(w, Minv, occ, bank.emb, bank.live, alpha, k)
+        clusters.perm, alpha, k, tb, scales=ss)
+    s_r, i_r = ref.topk_ref(w, Minv, occ, bank.emb, bank.live, alpha, k,
+                            scales=sc)
     assert torch.equal(s_p, s_r) and torch.equal(i_p, i_r), (
         "topk_ref_pruned is not bit-equal to topk_ref")
-    res = check_topk(w, Minv, occ, bank.emb, bank.live, alpha, k,
+    res = check_topk(w, Minv, occ, dequantize(bank), bank.live, alpha, k,
                      got=(s_k, i_k), plain=(s_p, i_p))
     res.update(skip=sk / tot, plain_skip=sk_p / tot_p)
     return res
@@ -784,6 +838,98 @@ def check_topk_piece(w, Minv, occ, emb_sorted, live_sorted, ids_sorted,
     res = check_topk(w, Minv, occ, items, None, alpha, k, got=(s_k, i_k),
                      plain=(s_p, i_p))
     res.update(skip=sk / tot, plain_skip=sk_p / tot_p)
+    return res
+
+
+def bf16_ulps(a, b):
+    """The distance, in bf16 ulps, between two bf16 tensors, elementwise."""
+    import torch
+
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits >= 0, bits, -32768 - bits)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def check_rank1_bf16(Minv, b, x, r, mask):
+    """rank1_update_inv on a bf16 Minv against its plain version: each
+    element of Minv within one bf16 ulp, or within the f32 update's
+    atol of 1e-5 (the two sum Minv x in other orders, so their f32
+    values differ by a few f32 ulps before the rounding to bf16; where
+    the subtraction cancels, a value far below 1 holds that difference
+    as several of its own bf16 ulps); b within rtol = atol = 1e-5;
+    masked rows bit-identical."""
+    import torch
+    from repro_torch.kernels.rank1 import ops, ref
+    assert Minv.dtype == torch.bfloat16
+    Minv_p, b_p = ref.rank1_update_inv_ref(Minv.clone(), b.clone(), x, r,
+                                           mask)
+    Minv_k, b_k = ops.rank1_update_inv(Minv.clone(), b.clone(), x, r, mask)
+    ulps = bf16_ulps(Minv_k, Minv_p)
+    gap = (Minv_k.float() - Minv_p.float()).abs()
+    wide = ulps > 1
+    assert bool((gap[wide] <= 1e-5).all()), (
+        f"rank1_update_inv_bf16: {int((wide & (gap > 1e-5)).sum())} "
+        "elements beyond one ulp and 1e-5")
+    torch.testing.assert_close(b_k, b_p, rtol=1e-5, atol=1e-5)
+    off = ~mask
+    assert torch.equal(Minv_k[off], Minv[off]) and torch.equal(b_k[off],
+                                                                b[off])
+    err = max(float(gap.max()), float((b_k - b_p).abs().max()))
+    return {"max_abs_err": err, "max_ulps": int(ulps.max()),
+            "beyond_one_ulp": int(wide.sum()),
+            "max_abs_beyond": float(Minv_p.float()[wide].abs().max())
+            if bool(wide.any()) else 0.0,
+            "ulp_share": float((Minv_k != Minv_p).float().mean())}
+
+
+def check_rank1_bf16_variants(Minv, b, x, r, mask):
+    """The bf16 update's two variants on the same rows, bit for bit: the
+    first 2 x SMs users as a leading view (a block per user) against the
+    whole state (a warp per user, ``n`` past that limit); the rows past
+    the view as they were."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rank1 import ops
+    n, d = b.shape
+    sms = _build.sm_count(b.device.index or 0)
+    nt = ops.BLOCK_PER_USER_PER_SM * sms
+    assert ops.variant(nt, d, sms) == ops.BLOCK_PER_USER
+    assert ops.variant(n, d, sms) == ops.WARP_PER_USER
+    head = (Minv.clone(), b.clone())
+    whole = (Minv.clone(), b.clone())
+    ops.rank1_update_inv(head[0][:nt], head[1][:nt], x[:nt], r[:nt],
+                         mask[:nt])
+    ops.rank1_update_inv(*whole, x, r, mask)
+    for a, c, t in zip(head, whole, (Minv, b)):
+        assert torch.equal(a[:nt], c[:nt]), "rank1 bf16: the variants differ"
+        assert torch.equal(a[nt:], t[nt:]), "rank1 bf16: the view spilled"
+    return {"bit_equal": True, "block_rows": nt, "warp_rows": n}
+
+
+def check_topk_quant(w, Minv, occ, items, live, scales, alpha, k):
+    """A reduced catalog's top-K (bf16, or int8 with ``scales``): the
+    kernel against its plain version by ``check_topk``'s bands on the
+    dequantized items; the kernel's shortlist scores the bits of
+    ``ucb_scores`` of the dequantized items, and its shortlist bit-equal
+    to the f32 kernel's over the dequantized rows (dequantization on chip
+    is exact or one rounding, as the plain version's)."""
+    import torch
+    from repro_torch.kernels.topk import ops, ref
+    from repro_torch.kernels.ucb import ops as uops
+    deq = ref.dequantize_rows(items, scales).contiguous()
+    got = ops.topk(w, Minv, occ, items, live, alpha, k, scales=scales)
+    plain = ref.topk_ref(w, Minv, occ, items, live, alpha, k, scales=scales)
+    res = check_topk(w, Minv, occ, deq, live, alpha, k, got=got, plain=plain)
+    s_k, i_k = got
+    held = i_k >= 0
+    s_u = uops.ucb_scores(w, Minv, deq[i_k.clamp_min(0).long()], occ, alpha)
+    assert torch.equal(s_k[held], s_u[held]), (
+        "topk: reduced shortlist scores differ from ucb_scores")
+    s_f, i_f = ops.topk(w, Minv, occ, deq, live, alpha, k)
+    assert torch.equal(s_k, s_f) and torch.equal(i_k, i_f), (
+        "topk: the reduced kernel differs from the f32 one on its rows")
     return res
 
 
@@ -1110,6 +1256,7 @@ def small_checks(dev):
     small_clone_checks(g, dev)
     small_cc_hop_checks(g, dev)
     small_topk_checks(g, dev, n, d, w, Minv, occ)
+    small_quant_checks(g, dev, n, d, Minv, occ)
     small_recsys_checks(g, dev)
     small_flash_checks(g, dev)
 
@@ -1304,6 +1451,76 @@ def small_topk_checks(g, dev, n, d, w, Minv, occ):
                 f"clusters={int(clusters.n_clusters)}): {res}")
             if tile == 128:
                 assert res["skip"] > 0, "topk_pruned skipped no tile"
+
+
+def small_quant_checks(g, dev, n, d, Minv, occ):
+    """The reduced-precision variants on ragged shapes: the bf16 rank-1
+    update at the clones' shapes and on both sides of the block-per-user
+    limit (its two variants bit-equal); topk over bf16 and int8 banks at
+    d = 1 ... 64 (k = 128 at 64), over rows whose byte range starts off a
+    16-byte boundary (a view one row in) and over N < k; topk_pruned over
+    quantized region catalogs at tiles 128 (8 a chunk), 384 (not dividing
+    a chunk) and 2048 (slices), bit-equal to topk, skipping at 128."""
+    import torch
+    from repro_torch.core import catalog, itemclub
+    from repro_torch.kernels import _build
+    sms = _build.sm_count(dev.index or 0)
+    for nr, dr in ((943, 19), (5045, 5), (2 * 2 * sms + 1, 25), (37, 33),
+                   (64, 64)):
+        x = unit(torch.randn(nr, dr, generator=g, device=dev))
+        r = (torch.rand(nr, generator=g, device=dev) < 0.5).float()
+        mask = torch.rand(nr, generator=g, device=dev) < 0.8
+        Mb = spd_inverse(g, nr, dr, dev).bfloat16()
+        b = torch.randn(nr, dr, generator=g, device=dev)
+        log(f"small rank1_update_inv bf16 (n={nr}, d={dr}): "
+            f"{check_rank1_bf16(Mb, b, x, r, mask)}")
+        if nr > 2 * sms and dr <= 32:
+            log(f"small rank1_update_inv bf16 variants (d={dr}): "
+                f"{check_rank1_bf16_variants(Mb, b, x, r, mask)}")
+    for prec in PRECISIONS:
+        for dd, kk, N in ((1, 13, 2000), (5, 13, 2001), (19, 64, 2003),
+                          (25, 64, 2047), (32, 64, 2049), (33, 64, 1999),
+                          (64, 128, 3001)):
+            w_d = 0.5 * torch.randn(n, dd, generator=g, device=dev)
+            cat = catalog.make_catalog(
+                unit(torch.randn(N, dd, generator=g, device=dev)),
+                precision=prec)
+            bank = cat.serving
+            lv = (torch.rand(N, generator=g, device=dev) < 0.9).float()
+            sc = bank.scale if prec == "int8" else None
+            M_d = spd_inverse(g, n, dd, dev)
+            res = check_topk_quant(w_d, M_d, occ, bank.emb, lv, sc, 0.3, kk)
+            # one row in: the byte range starts d or 2 d bytes past the
+            # allocation's alignment
+            res1 = check_topk_quant(w_d, M_d, occ, bank.emb[1:], lv[1:],
+                                    None if sc is None else sc[1:], 0.3, kk)
+            res9 = check_topk_quant(w_d, M_d, occ, bank.emb[:9], lv[:9],
+                                    None if sc is None else sc[:9], 0.3, kk)
+            log(f"small topk {prec} d={dd} (n={n}, N={N}, k={kk}): {res}; "
+                f"one row in: {res1}; N=9: {res9}")
+        R, N2 = 8, 12288
+        for dk, nk, kk, tiles in ((d, 256, 13, (128, 384, 2048)),
+                                  (64, 20, 128, (512,))):
+            cent = unit(torch.randn(R, dk, generator=g, device=dev))
+            reg = torch.randint(0, R, (N2,), generator=g, device=dev)
+            cat = catalog.make_catalog(
+                unit(cent[reg] + 0.01 * torch.randn(N2, dk, generator=g,
+                                                    device=dev)),
+                precision=prec)
+            w_reg = 0.8 * cent[torch.randint(0, R, (nk,), generator=g,
+                                             device=dev)]
+            M_reg = spd_inverse(g, nk, dk, dev)
+            occ_reg = torch.randint(0, 1000, (nk,), generator=g, device=dev,
+                                    dtype=torch.int32)
+            for tile in tiles:
+                clusters = itemclub.build_clusters(cat, tile_items=tile,
+                                                   n_anchors=256)
+                res = check_topk_pruned(w_reg, M_reg, occ_reg, cat,
+                                        clusters, 0.3, kk)
+                log(f"small topk_pruned {prec} (n={nk}, d={dk}, N={N2}, "
+                    f"tile {tile}, k={kk}): {res}")
+                if tile == 128:
+                    assert res["skip"] > 0, "topk_pruned skipped no tile"
 
 
 def small_recsys_checks(g, dev):
@@ -1628,9 +1845,9 @@ def first_args(cls, *names):
     caught = {}
 
     def spy(name, real):
-        def call(self, *args):
+        def call(self, *args, **kw):
             caught.setdefault(name, args)
-            return real(self, *args)
+            return real(self, *args, **kw)
         return call
 
     with contextlib.ExitStack() as stack:
@@ -1788,20 +2005,22 @@ class ServeRun:
         return env.step_rewards(self.uniforms[key], self.theta[uids.long()],
                                 ctx, slot)
 
-    def run(self, clusters=None, batches=SERVE_BATCHES, start=None):
+    def run(self, clusters=None, batches=SERVE_BATCHES, start=None,
+            catalog=None):
         """Serve the batches from ``start`` (default the warm distclub
-        session): ``(session, items per batch, reward/random, seconds per
-        batch, clusters after each refresh, (tiles skipped, tile
-        visits))``."""
+        session) against ``catalog`` (default the f32 catalog):
+        ``(session, items per batch, reward/random, seconds per batch,
+        clusters after each refresh, (tiles skipped, tile visits))``."""
         import torch
         from repro_torch import serve
         sess = self.start if start is None else start
+        catalog = self.catalog if catalog is None else catalog
         items, secs, n_clu = [], [], []
         reward = rand = 0.0
         skipped = total = 0
         for t in range(batches):
             t0 = time.perf_counter()
-            out = serve.step_catalog(sess, t, self.users[t], self.catalog,
+            out = serve.step_catalog(sess, t, self.users[t], catalog,
                                      self.reward_fn, k_short=K_SHORT,
                                      clusters=clusters)
             torch.cuda.synchronize()
@@ -1974,6 +2193,289 @@ def serve_dccb(dev, work, hyper, core):
     for it in items_q:
         assert it.shape == (SERVE_BATCH,) and bool((it >= 0).all())
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4p: reduced-precision serving and checkpointing
+# ---------------------------------------------------------------------------
+
+
+def precision_lockstep(work, start, cat, items, alpha) -> int:
+    """A reduced-precision session's run against the plain versions,
+    batch by batch: the session is served again from ``start`` (its items
+    must be ``items`` again), and before each batch the plain versions
+    recommend on the same state; where an item differs, both items' plain
+    UCB scores under that state's statistics (the dequantized rows) must
+    lie within ``check_topk``'s band.  Returns the differences."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.kernels.ucb import ref as uref
+    deq = serve.dequantize(cat.serving)
+    sess, n_diff = start, 0
+    for t in range(SERVE_BATCHES):
+        uids = work.users[t]
+        with plain_path():
+            want, _, _ = serve.recommend_catalog(sess, uids, cat,
+                                                 k_short=K_SHORT)
+        w, M, occ = sess.policy.gather_score(sess.state, uids.long())
+        sess, item, _ = serve.step_catalog(sess, t, uids, cat,
+                                           work.reward_fn, k_short=K_SHORT)
+        assert torch.equal(item, items[t]), "phase 4p: a rerun served others"
+        diff = item != want
+        if bool(diff.any()):
+            s_k, s_p = (uref.ucb_scores_ref(
+                w[diff], M[diff], deq[i.long()][:, None], occ[diff],
+                alpha)[:, 0] for i in (item[diff], want[diff]))
+            assert bool(((s_k - s_p).abs()
+                         <= 1e-5 * (1 + s_p.abs())).all()), (
+                "phase 4p: the plain versions served other items beyond "
+                "near ties")
+            n_diff += int(diff.sum())
+    return n_diff
+
+
+def flip_rates(dev, oracle, theta, f32_cat, cats, *, batch=SERVE_BATCH,
+               warm=FLIP_WARM, batches=FLIP_BATCHES, seed=SEED + 3) -> dict:
+    """``benchmarks/bench_precision.py``'s counterfactual choice-flip
+    rate: the f32 session ``oracle`` drives the one trajectory over
+    ``warm + batches`` batches of ``batch`` distinct users; after the
+    warm-up each batch's f32 decision (``recommend_catalog`` on the f32
+    catalog) is compared with the decision from the same state cast down
+    to each precision's state dtype against its quantized catalog
+    (``cats``).  ``{precision: (flips, decisions)}``."""
+    import dataclasses
+
+    import torch
+    from repro_torch import serve
+    from repro_torch.core import env
+    cfg = oracle.policy.cfg
+    g = torch.Generator(device=dev).manual_seed(seed)
+    steps = warm + batches
+    users = torch.stack([torch.randperm(cfg.n_users, generator=g,
+                                        device=dev)[:batch]
+                         for _ in range(steps)]).to(torch.int32)
+    uniforms = torch.rand(steps, batch, generator=g, device=dev)
+
+    def reward_fn(key, uids, ctx, slot):
+        return env.step_rewards(uniforms[key], theta[uids.long()], ctx, slot)
+
+    probes = {p: serve.OnlineBandit.create(
+        cfg.n_users, cfg.d, cfg.hyper, precision=p, device=dev)
+        for p in cats}
+    flips = dict.fromkeys(cats, 0)
+    for t in range(steps):
+        u = users[t]
+        if t >= warm:
+            want, _, _ = serve.recommend_catalog(oracle, u, f32_cat,
+                                                 k_short=K_SHORT)
+            for p, cat in cats.items():
+                sdt = probes[p].policy.cfg.precision.torch_state
+                st = oracle.state._replace(Minv=oracle.state.Minv.to(sdt),
+                                           uMcinv=oracle.state.uMcinv.to(sdt))
+                got, _, _ = serve.recommend_catalog(
+                    dataclasses.replace(probes[p], state=st), u, cat,
+                    k_short=K_SHORT)
+                flips[p] += int((got != want).sum())
+        oracle, _, _ = serve.step_catalog(oracle, t, u, f32_cat, reward_fn,
+                                          k_short=K_SHORT)
+    return {p: (f, batches * batch) for p, f in flips.items()}
+
+
+def bench_flip_rates(dev) -> dict:
+    """``benchmarks/bench_precision.py``'s parity measurement itself,
+    through the port's kernels: a cold distclub session of 256 users (d
+    32, alpha 0.05, gamma 1.5, no refresh) against 4096 unit-norm random
+    items (structureless, so that the items are distinct and a flip is a
+    real change of ranking), batches of 64 distinct users, k_short 64,
+    32 warm-up and 40 measured rounds; users' preferences random unit
+    vectors.  Draws from the seed on the card (not the bench's JAX
+    draws).  ``{precision: (flips, decisions)}``."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.core.types import BanditHyper
+    n, d, N = 256, 32, 4096
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    emb = unit(torch.randn(N, d, generator=g, device=dev))
+    theta = unit(torch.randn(n, d, generator=g, device=dev))
+    hyper = BanditHyper(alpha=0.05, gamma=1.5, n_candidates=K_SHORT)
+    oracle = serve.OnlineBandit.create(n, d, hyper, device=dev)
+    cats = {p: serve.make_catalog(emb, precision=p) for p in PRECISIONS}
+    return flip_rates(dev, oracle, theta, serve.make_catalog(emb), cats,
+                      batch=64, warm=32, batches=40, seed=SEED + 5)
+
+
+def checkpoint_round_trip(work, start, cat, items):
+    """The bf16 session saved after half the batches
+    (``CheckpointManager`` under ``build/``, removed after), then
+    restored into a fresh bf16 session, which must serve the second half's
+    items again; a restore under the f32 and the int8 presets must raise
+    (their tags differ).  Returns the save and restore seconds."""
+    import shutil
+
+    import torch
+    from repro_torch import serve
+    from repro_torch.train.checkpoint import CheckpointManager
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = CheckpointManager(ckdir, keep=2)
+    half = SERVE_BATCHES // 2
+    sess = start
+    for t in range(half):
+        sess, _, _ = serve.step_catalog(sess, t, work.users[t], cat,
+                                        work.reward_fn, k_short=K_SHORT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.save(ck, half)
+    save_s = time.perf_counter() - t0
+    del sess                                     # the "crash"
+    fresh = fresh_session(start)
+    t0 = time.perf_counter()
+    back, step = fresh.restore(ck)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert step == half and back.state.Minv.dtype == torch.bfloat16
+    assert back.state.Minv.device == start.state.Minv.device
+    for t in range(half, SERVE_BATCHES):
+        back, item, _ = serve.step_catalog(back, t, work.users[t], cat,
+                                           work.reward_fn, k_short=K_SHORT)
+        assert torch.equal(item, items[t]), (
+            "phase 4p: the restored session served other items")
+    refused = []
+    for prec in ("f32", "int8"):
+        other = serve.OnlineBandit.create(
+            start.policy.cfg.n_users, start.policy.cfg.d,
+            start.policy.cfg.hyper, precision=prec,
+            device=start.state.Minv.device)
+        try:
+            other.restore(ck)
+        except ValueError as e:
+            assert "precision mismatch" in str(e), e
+            refused.append(prec)
+    assert refused == ["f32", "int8"], f"restored under {refused}"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return {"save_s": save_s, "restore_s": restore_s,
+            "refused": refused, "resumed_batches": SERVE_BATCHES - half}
+
+
+def fresh_session(session):
+    """A fresh session of ``session``'s policy and precision on the same
+    device (the restarted replica): identity rows, as ``create`` makes."""
+    from repro_torch import serve
+    cfg = session.policy.cfg
+    return serve.OnlineBandit.create(
+        cfg.n_users, cfg.d, cfg.hyper, refresh_every=cfg.refresh_every,
+        precision=cfg.precision, device=session.state.Minv.device)
+
+
+def precision_phase(dev, work, state, hyper, theta):
+    """Phase 4p: phase 4s's workload (the learned users from phase 4's
+    state, 2^18 items, 16 batches of 256, k_short 64, stage 2 every 2048)
+    in a session of each reduced precision against the catalog quantized
+    to it, unpruned and pruned (``build_clusters(512, 512)``), counted:
+    every launch through the variant kernels (the f32 topk, topk_pruned
+    and rank1_update_inv never), the pruned items equal to the unpruned
+    ones in every batch; the run against the plain versions
+    (``precision_lockstep``); the bf16 session's checkpoint round trip;
+    the counterfactual choice-flip rate against the f32 session
+    (``flip_rates``): at most FLIP_MAX on ``bench_precision.py``'s own
+    configuration (``bench_flip_rates``), where the method is defined,
+    and printed for phase 4s's learned users and traffic against a
+    structureless random catalog of 2^18 items and against phase 4s's
+    region catalog.  Returns what phases 5 and 6 need."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.kernels import _build
+    emb = work.catalog.serving.emb
+    out = {"cats": {}, "clusters": {}, "sessions": {}, "launches": {}}
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+    for prec in PRECISIONS:
+        t0 = time.perf_counter()
+        cat = serve.make_catalog(emb, precision=prec)
+        start = serve.OnlineBandit.from_offline(
+            state, hyper, refresh_every=REFRESH_EVERY, precision=prec)
+        clusters = serve.build_clusters(cat, tile_items=512, n_anchors=512)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        sess_u, items_u, rr_u, secs_u, clu_u, _ = work.run(start=start,
+                                                           catalog=cat)
+        sess_p, items_p, rr_p, secs_p, clu_p, (sk, tot) = work.run(
+            clusters, start=start, catalog=cat)
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        same = [bool(torch.equal(a, b)) for a, b in zip(items_u, items_p)]
+        log(f"precision {prec}: catalog {cat.emb.dtype} "
+            f"{cat.emb.element_size() * cat.emb[0].numel()} bytes a bank, "
+            f"state {sess_u.state.Minv.dtype}, setup {setup_s} s; unpruned "
+            f"reward/random={rr_u} median batch ms="
+            f"{1e3 * statistics.median(secs_u)}; pruned reward/random="
+            f"{rr_p} median batch ms={1e3 * statistics.median(secs_p)} skip "
+            f"ratio={sk / tot}; clusters after each refresh={clu_u}; "
+            f"items same as phase 4s's in "
+            f"{sum(bool(torch.equal(a, b)) for a, b in zip(items_u, work.items))}"
+            f" of {SERVE_BATCHES} batches; max_memory_allocated={peak}")
+        log(f"precision {prec} launches: {launches}")
+        assert all(same), f"{prec}: pruned and unpruned served other items"
+        assert rr_u > 1.0, f"{prec}: serving does no better than random"
+        assert len(clu_u) == 2 and clu_u == clu_p, (clu_u, clu_p)
+        for t in (sess_u.state.Minv, sess_u.state.uMcinv, sess_u.state.b):
+            assert bool(torch.isfinite(t.float()).all()), "non-finite state"
+        assert sess_u.state.Minv.dtype == torch.bfloat16
+        assert launches[f"topk_{prec}"] == SERVE_BATCHES, launches
+        assert launches[f"topk_pruned_{prec}"] == SERVE_BATCHES, launches
+        assert launches["rank1_update_inv_bf16"] == 2 * SERVE_BATCHES, (
+            launches)
+        assert launches["choose"] == 2 * SERVE_BATCHES, launches
+        for name in ("topk", "topk_pruned", "rank1_update_inv"):
+            assert launches[name] == 0, launches
+        for k, v in launches.items():
+            total[k] += v
+        t0 = time.perf_counter()
+        n_diff = precision_lockstep(work, start, cat, items_u, hyper.alpha)
+        log(f"precision {prec} plain: {time.perf_counter() - t0} s, items "
+            f"other than the kernels' (near ties): {n_diff} of "
+            f"{SERVE_BATCH * SERVE_BATCHES}")
+        out["cats"][prec], out["clusters"][prec] = cat, clusters
+        out["sessions"][prec] = sess_u
+        out["launches"][prec] = launches
+        out.setdefault("skip", {})[prec] = sk / tot
+        if prec == "bf16":
+            out["checkpoint"] = checkpoint_round_trip(work, start, cat,
+                                                      items_u)
+            log(f"precision bf16 checkpoint: {out['checkpoint']}")
+    # the counterfactual choice-flip rate (bench_precision.py's method):
+    # on the bench's own configuration (a structureless catalog), gated;
+    # on phase 4s's learned users, traffic and size against a
+    # structureless random catalog of as many items; and on phase 4s's
+    # region catalog, whose items are near-clones (100 regions, noise
+    # 0.05), so that a flip there may be one clone for another
+    oracle = serve.OnlineBandit.from_offline(state, hyper,
+                                             refresh_every=REFRESH_EVERY)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rand_emb = unit(torch.randn(emb.shape, generator=g, device=dev))
+    runs = {
+        "bench": lambda: bench_flip_rates(dev),
+        "random_catalog": lambda: flip_rates(
+            dev, oracle, theta, serve.make_catalog(rand_emb),
+            {p: serve.make_catalog(rand_emb, precision=p)
+             for p in PRECISIONS}),
+        "region_catalog": lambda: flip_rates(dev, oracle, theta,
+                                             work.catalog, out["cats"]),
+    }
+    out["flip"] = {}
+    for label, run in runs.items():
+        t0 = time.perf_counter()
+        flips = run()
+        out["flip"][label] = {p: f / m for p, (f, m) in flips.items()}
+        log(f"precision choice_flip_rate {label} "
+            f"({time.perf_counter() - t0} s): "
+            + ", ".join(f"{p} {f / m} ({f} of {m})" for p, (f, m)
+                        in flips.items()))
+    for p, rate in out["flip"]["bench"].items():
+        assert rate <= FLIP_MAX, f"{p}: choice_flip_rate {rate}"
+    out["total"] = total
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3263,6 +3765,9 @@ def main() -> int:
         reward=reward, rand=rand, launches=launches, wall=wall,
         steady=steady_s), serving)
 
+    # ---- phase 4p: reduced-precision serving and checkpointing -------------
+    precision = precision_phase(dev, serving, state, hyper, e.theta)
+
     # ---- phase 4r: the recsys models at their published configs -------------
     recsys = recsys_phase(dev)
 
@@ -3361,6 +3866,29 @@ def main() -> int:
     errs["topk_pruned"] = check_topk_pruned(w_s, M_s, occ_s, serving.catalog,
                                             item_clusters, hyper.alpha,
                                             K_SHORT)
+    # the reduced-precision variants at full width: the bf16 update on
+    # phase 4's state cast down (the same x, r and mask), both its variants
+    # on its first 2 x SMs + 1 users; the top-K variants over phase 4p's
+    # quantized catalogs for the same batch's users with the bf16
+    # session's statistics
+    Minv_bf = Minv.bfloat16()
+    errs["rank1_update_inv_bf16"] = check_rank1_bf16(Minv_bf, b, x, r, mask)
+    nv = 2 * sms + 1
+    log(f"full rank1_update_inv bf16, both variants on {nv} users: "
+        f"{check_rank1_bf16_variants(Minv_bf[:nv], b[:nv], x[:nv], r[:nv], mask[:nv])}")
+    sess_q = precision["sessions"]["bf16"]
+    w_q, M_q, occ_q = sess_q.policy.gather_score(sess_q.state, idx)
+    quant = {}
+    for prec in PRECISIONS:
+        cat_q = precision["cats"][prec]
+        bank_q = cat_q.serving
+        quant[prec] = (bank_q, bank_q.scale if prec == "int8" else None,
+                       precision["clusters"][prec])
+        errs[f"topk_{prec}"] = check_topk_quant(
+            w_q, M_q, occ_q, bank_q.emb, bank_q.live, quant[prec][1],
+            hyper.alpha, K_SHORT)
+        errs[f"topk_pruned_{prec}"] = check_topk_pruned(
+            w_q, M_q, occ_q, cat_q, quant[prec][2], hyper.alpha, K_SHORT)
     # DCN-v2's layers 1 and 2 on a serve_bulk batch; EmbeddingBag on the
     # bags of phase 4r
     x0b = recsys["x0_bulk"]
@@ -3451,6 +3979,43 @@ def main() -> int:
             keep * (tk_bytes + 4 * (N_live + B * tb.shape[1])),
             keep * tk_ops),
     })
+    # the reduced-precision variants: the bf16 update on its own copies of
+    # phase 5's bf16 state (Minv's bytes halved), the top-K variants over
+    # the quantized banks (the items' bytes halved, or a quarter plus the
+    # int8 scales; int8 adds a dequantizing multiply a feature)
+    Minv_bw, b_bw = Minv_bf.clone(), b.clone()
+    Minv_bp, b_bp = Minv_bf.clone(), b.clone()
+    work["rank1_update_inv_bf16"] = (
+        lambda: rops.rank1_update_inv(Minv_bw, b_bw, x, r, mask),
+        lambda: rref.rank1_update_inv_ref(Minv_bp, b_bp, x, r, mask),
+        live * (2 * 2 * d * d + 4 * (3 * d + 1)) + n,
+        live * (5 * d * d + 4 * d + 2))
+    for prec, (bank_q, sc_q, cl_q) in quant.items():
+        isz = bank_q.emb.element_size()
+        q_bytes = (4 * (B * d + B * d * d + B + N_live) + isz * N_live * d
+                   + (4 * N_live if sc_q is not None else 0)
+                   + 8 * B * K_SHORT)
+        q_ops = tk_ops + (N_live * d if sc_q is not None else 0)
+        tb_q = tref.tile_bounds(w_q, M_q, occ_q, hyper.alpha, cl_q.tile_mu,
+                                cl_q.tile_r, cl_q.tile_xn, cl_q.tile_n)
+        pargs_q = (w_q, M_q, occ_q, cl_q.emb_sorted, cl_q.live_sorted,
+                   cl_q.perm, hyper.alpha, K_SHORT, tb_q)
+        ss_q = cl_q.scale_sorted if sc_q is not None else None
+        keep_q = 1.0 - max(errs[f"topk_pruned_{prec}"]["skip"],
+                           errs[f"topk_pruned_{prec}"]["plain_skip"])
+        work[f"topk_{prec}"] = (
+            lambda bq=bank_q, sq=sc_q: tops.topk(
+                w_q, M_q, occ_q, bq.emb, bq.live, hyper.alpha, K_SHORT,
+                scales=sq),
+            lambda bq=bank_q, sq=sc_q: tref.topk_ref(
+                w_q, M_q, occ_q, bq.emb, bq.live, hyper.alpha, K_SHORT,
+                scales=sq),
+            q_bytes, q_ops)
+        work[f"topk_pruned_{prec}"] = (
+            lambda a=pargs_q, sq=ss_q: tops.topk_pruned(*a, scales=sq),
+            lambda a=pargs_q, sq=ss_q: tref.topk_ref_pruned(*a, scales=sq),
+            keep_q * (q_bytes + 4 * (N_live + B * tb_q.shape[1])),
+            keep_q * q_ops)
     # cross: layer 2 of a serve_bulk batch (x0 and xl distinct inputs);
     # embedding_bag: the 262144 bags, pads' rows not counted (not read)
     Bb, dI = x0b.shape
@@ -3583,6 +4148,9 @@ def main() -> int:
     rates = {"flash": BF16_FLOPS_PER_S if qp.dtype == torch.bfloat16
              else F32_FLOPS_PER_S, "cross": TF32_FLOPS_PER_S}
     on_path.update(flash=lm["launches"])
+    on_path.update({k: precision["total"][k] for k in (
+        "rank1_update_inv_bf16", "topk_bf16", "topk_int8",
+        "topk_pruned_bf16", "topk_pruned_int8")})
     on_path.update(topk=serve_launches["topk"],
                    topk_pruned=serve_launches["topk_pruned"],
                    cross=recsys["launches"]["cross"],
@@ -3634,6 +4202,44 @@ def main() -> int:
     by_name["topk_pruned"].update(extra)
     log(f"time topk_pruned beside topk, {2 * REPS} launches each in turns: "
         f"{extra}")
+    # each reduced-precision variant beside its f32 kernel, in turns, on
+    # the same users and statistics (the bf16 session's batch of phase 5):
+    # topk over the f32, bf16 and int8 banks, topk_pruned over each bank's
+    # own sorted layout, the M-free update on f32 and bf16 copies of the
+    # state
+    bank = serving.catalog.serving
+    tb_f = tref.tile_bounds(w_q, M_q, occ_q, hyper.alpha,
+                            item_clusters.tile_mu, item_clusters.tile_r,
+                            item_clusters.tile_xn, item_clusters.tile_n)
+    f32_turns = {
+        "topk": lambda: tops.topk(w_q, M_q, occ_q, bank.emb, bank.live,
+                                  hyper.alpha, K_SHORT),
+        "topk_pruned": lambda: tops.topk_pruned(
+            w_q, M_q, occ_q, item_clusters.emb_sorted,
+            item_clusters.live_sorted, item_clusters.perm, hyper.alpha,
+            K_SHORT, tb_f),
+        "rank1_update_inv": work["rank1_update_inv"][0]}
+    for base, variants in (("topk", ("topk_bf16", "topk_int8")),
+                           ("topk_pruned", ("topk_pruned_bf16",
+                                            "topk_pruned_int8")),
+                           ("rank1_update_inv", ("rank1_update_inv_bf16",))):
+        t = turn_ms({"f32": f32_turns[base],
+                     **{v: work[v][0] for v in variants}}, flush,
+                    reps=2 * REPS)
+        for v in variants:
+            by_name[v].update(ms_turns=t[v], f32_ms_turns=t["f32"],
+                              ratio_to_f32=t[v] / t["f32"])
+        log(f"time {base} beside its variants, {2 * REPS} launches each in "
+            f"turns, on the bf16 session's batch: {t}")
+    for prec in PRECISIONS:
+        by_name[f"topk_pruned_{prec}"].update(
+            skip=errs[f"topk_pruned_{prec}"]["skip"],
+            plain_skip=errs[f"topk_pruned_{prec}"]["plain_skip"])
+        by_name[f"topk_{prec}"].update(
+            {f"choice_flip_rate_{label}": rates[prec]
+             for label, rates in precision["flip"].items()})
+    by_name["rank1_update_inv_bf16"]["max_ulps"] = errs[
+        "rank1_update_inv_bf16"]["max_ulps"]
     # choose beside its warp variant (the design before the register tile)
     # in turns: at the offline shape on phase 5's inputs, and at serving's
     # (256 users x 64 shortlisted items) on phase 5's serving batch

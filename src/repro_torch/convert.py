@@ -16,9 +16,12 @@ Python int here).
 records, field by field by name: ``ClusteredState``, ``LinUCBServeState``,
 ``PendingBuffer``, ``Catalog`` and ``ItemClusters`` (``record_to_numpy``
 also takes records that nest records, as ``DCCBServeState``).  Fields
-the port does not keep (the f32 banks' all-ones dequant ``scale``) are
-dropped; fields the port keeps on the host (``Catalog.active``/``epoch``,
-``ItemClusters.epoch``) become Python ints.  The same two functions carry
+the port keeps on the host (``Catalog.active``/``epoch``,
+``ItemClusters.epoch``) become Python ints.  Reduced precision comes
+across bit for bit: a ``repro`` bfloat16 array (``ml_dtypes``) through
+its ``uint16`` bits into ``torch.bfloat16``, int8 codes and f32 scales as
+they are (``catalog_from_numpy`` for a quantized ``Catalog``);
+``record_to_numpy`` widens bf16 tensors to float32, exactly.  The same two functions carry
 the environments' tables, so both packages run on the same ones:
 ``core.env``'s ``SyntheticEnv``, ``DriftEnv`` and ``CatalogEnv`` (the
 reference's records of the same names), and ``data.replay.ReplayLog``
@@ -41,6 +44,7 @@ import torch
 
 from . import resolve_device
 from .core import club, dccb
+from .core.catalog import Catalog
 from .core.types import (ClusterStats, DistCLUBState, GraphState,
                          LinUCBState)
 from .models import transformer
@@ -49,6 +53,9 @@ from .models.recsys import dcn_v2, mind, seqrec
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: carry the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     return torch.from_numpy(a.copy()).to(device)
@@ -120,10 +127,6 @@ def record_from_numpy(record, cls, device=None):
     names whose leaves are numpy arrays."""
     dev = resolve_device(device)
     hints = typing.get_type_hints(cls)
-    if "scale" in record._fields:
-        scale = np.asarray(record.scale)
-        if np.any(scale != 1.0):
-            raise ValueError("only f32 catalog banks are ported")
     vals = {}
     for f in cls._fields:
         v = getattr(record, f)
@@ -138,13 +141,22 @@ def record_to_numpy(record):
     for f in record._fields:
         v = getattr(record, f)
         if isinstance(v, torch.Tensor):
-            v = v.detach().cpu().numpy()
+            v = v.detach().cpu()
+            v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
             if f == "adj" and v.dtype == np.int32:
                 v = v.view(np.uint32)
         elif hasattr(v, "_fields"):
             v = record_to_numpy(v)
         vals[f] = v
     return type(record)(**vals)
+
+
+def catalog_from_numpy(record, device=None):
+    """The port's ``core.catalog.Catalog`` from a ``repro`` ``Catalog``
+    with numpy leaves: both banks' embeddings (f32, bf16 or int8 codes),
+    liveness, arrival epochs and scales bit for bit, the bank flip and
+    epoch as ints."""
+    return record_from_numpy(record, Catalog, device=device)
 
 
 def _flatten(tree, prefix=""):

@@ -19,11 +19,14 @@ logical throughout (the kernels mask their own ragged edges), so the
 engines pad nothing.
 
 ``BackendConfig`` keeps the construction surface of
-``repro.core.backend`` for the f32 state this port stores; reduced
-precision is not ported yet.
+``repro.core.backend``: one resolved ``Precision`` builds every engine.
+Reduced precision changes what the tensors hold (a bf16 ``Minv``, bf16
+or int8 catalog banks with per-slot scales), and the kernels' wrappers
+pick their variant from the dtypes they are given.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -35,6 +38,79 @@ from ..kernels.topk import ops as topk_ops
 from ..kernels.topk.ref import tile_bounds
 from . import clustering
 from .types import LinUCBState
+
+
+_PRECISION_ENV_FLAG = "REPRO_PRECISION"
+
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+_STATE_DTYPES = ("f32", "bf16")             # Minv blocks (SPD: never int8)
+_CATALOG_DTYPES = ("f32", "bf16", "int8")   # embedding banks
+
+
+class Precision(NamedTuple):
+    """Storage-precision policy for the state that dominates memory
+    (``repro.core.backend.Precision``).
+
+    ``state_dtype``    per-user ``Minv`` d^2 blocks ("f32" | "bf16");
+                       ``b``/``occ`` stay f32/i32.
+    ``catalog_dtype``  catalog embedding banks ("f32" | "bf16" | "int8";
+                       int8 adds a per-slot f32 scale, ``core.catalog``).
+    ``accum_dtype``    accumulation of every contraction; always "f32".
+    ``scale_block``    int8 scale granularity at initial quantization:
+                       slots in blocks of this size share one scale
+                       (churn-added rows get their own).
+    """
+
+    state_dtype: str = "f32"
+    catalog_dtype: str = "f32"
+    accum_dtype: str = "f32"
+    scale_block: int = 512
+
+    @property
+    def torch_state(self) -> torch.dtype:
+        return _DTYPES[self.state_dtype]
+
+    @property
+    def torch_catalog(self) -> torch.dtype:
+        return _DTYPES[self.catalog_dtype]
+
+
+# presets: the names the REPRO_PRECISION env flag accepts
+Precision.f32 = Precision()
+Precision.bf16 = Precision(state_dtype="bf16", catalog_dtype="bf16")
+Precision.int8 = Precision(state_dtype="bf16", catalog_dtype="int8")
+_PRECISION_PRESETS = {"f32": Precision.f32, "bf16": Precision.bf16,
+                      "int8": Precision.int8}
+
+
+def resolve_precision(precision=None) -> Precision:
+    """The one place the precision policy is resolved: the explicit
+    argument (a :class:`Precision` or a preset name), else the
+    ``REPRO_PRECISION`` environment variable, else f32."""
+    if precision is None:
+        precision = os.environ.get(_PRECISION_ENV_FLAG) or "f32"
+    if isinstance(precision, str):
+        if precision not in _PRECISION_PRESETS:
+            raise ValueError(
+                f"unknown precision {precision!r}; want "
+                f"{'|'.join(_PRECISION_PRESETS)} or a Precision instance")
+        precision = _PRECISION_PRESETS[precision]
+    if not isinstance(precision, Precision):
+        raise TypeError(f"precision must be a Precision or preset name, "
+                        f"got {type(precision).__name__}")
+    if precision.state_dtype not in _STATE_DTYPES:
+        raise ValueError(f"state_dtype {precision.state_dtype!r}; "
+                         f"want {'|'.join(_STATE_DTYPES)}")
+    if precision.catalog_dtype not in _CATALOG_DTYPES:
+        raise ValueError(f"catalog_dtype {precision.catalog_dtype!r}; "
+                         f"want {'|'.join(_CATALOG_DTYPES)}")
+    if precision.accum_dtype != "f32":
+        raise ValueError("accum_dtype must be 'f32' (every contraction "
+                         "accumulates in f32)")
+    if precision.scale_block < 1:
+        raise ValueError(f"scale_block must be >= 1, "
+                         f"got {precision.scale_block}")
+    return precision
 
 
 class InteractBackend(NamedTuple):
@@ -98,16 +174,20 @@ class RetrievalBackend(NamedTuple):
 
     K_short: int
 
-    def shortlist(self, w, Minv, occ, items, live, alpha, row0_items=0):
+    def shortlist(self, w, Minv, occ, items, live, alpha, row0_items=0,
+                  scales=None):
         """(scores [n, K_short], ids [n, K_short] i32 GLOBAL item ids);
         ``row0_items`` is the global id of the catalog slice's first row.
-        Entries that hold no live item keep score -inf and id -1."""
-        s, i = topk_ops.topk(w, Minv, occ, items, live, alpha, self.K_short)
+        Entries that hold no live item keep score -inf and id -1.
+        ``items`` may be f32, bf16 or int8; int8 needs the per-slot
+        ``scales [N]`` f32."""
+        s, i = topk_ops.topk(w, Minv, occ, items, live, alpha, self.K_short,
+                             scales=scales)
         return s, torch.where(torch.isfinite(s), i + row0_items, -1)
 
     def shortlist_pruned(self, w, Minv, occ, items_sorted, live_sorted,
                          ids_sorted, tile_mu, tile_r, tile_xn, tile_n,
-                         alpha):
+                         alpha, scales_sorted=None):
         """Cluster-pruned shortlist over a SORTED catalog (``core.itemclub``
         lays it out): per-(user, tile) UCB upper bounds, then only the
         tiles that can still beat a user's running floor.  Returns
@@ -119,22 +199,19 @@ class RetrievalBackend(NamedTuple):
                          tile_n)
         s, i, skipped, total = topk_ops.topk_pruned(
             w, Minv, occ, items_sorted, live_sorted, ids_sorted, alpha,
-            self.K_short, tb)
+            self.K_short, tb, scales=scales_sorted)
         return s, torch.where(torch.isfinite(s), i, -1), skipped, total
 
 
 class BackendConfig(NamedTuple):
-    """Builds the engines; f32 state is the only precision ported."""
+    """Builds the engines under one resolved :class:`Precision`."""
 
-    precision: str = "f32"
+    precision: Precision = Precision.f32
 
     @classmethod
-    def create(cls, precision: str | None = None) -> "BackendConfig":
-        precision = precision or "f32"
-        if precision != "f32":
-            raise ValueError(f"precision {precision!r} is not ported; "
-                             "repro_torch stores f32 state only")
-        return cls(precision=precision)
+    def create(cls, precision=None) -> "BackendConfig":
+        """``precision`` through :func:`resolve_precision`."""
+        return cls(precision=resolve_precision(precision))
 
     def interact(self) -> InteractBackend:
         return InteractBackend()

@@ -1,6 +1,6 @@
 """Item-side CLUB clustering over the ``Catalog`` and the tile-aligned
 layout the cluster-pruned retrieval path serves from
-(``repro.core.itemclub`` for f32 banks).
+(``repro.core.itemclub``).
 
   1. ``ItemStats``: per-slot serve counts and reward sums, folded from
      served feedback (:func:`observe_served`).  Items cluster on
@@ -15,7 +15,10 @@ layout the cluster-pruned retrieval path serves from
      dead slots last, with sorted copies of the serving bank and per-tile
      summaries (centroid, radius, max norm, live count) for
      ``kernels.topk.ref.tile_bounds``, a true upper bound, so pruning is
-     exact.
+     exact.  Features and summaries are taken on the DEQUANTIZED bank
+     (``catalog.dequantize``), the values the kernels score; a bf16 or
+     int8 bank's radius and max norm are widened by the quantization
+     bound, and the sorted copies keep the stored dtype and scales.
 
 Epoch contract: the tables are stamped with the catalog epoch they were
 built from; ``serve`` falls back to the unpruned stream when the epochs
@@ -31,6 +34,7 @@ from .. import resolve_device
 from ..runtime import stages
 from ..runtime.collectives import NullCollectives
 from .backend import BackendConfig
+from .catalog import dequantize
 
 
 class ItemStats(NamedTuple):
@@ -49,6 +53,7 @@ class ItemClusters(NamedTuple):
     perm: torch.Tensor         # [capacity] i32 position -> slot id
     emb_sorted: torch.Tensor   # [capacity, d] serving bank emb[perm]
     live_sorted: torch.Tensor  # [capacity] f32 serving bank live[perm]
+    scale_sorted: torch.Tensor  # [capacity] f32 serving bank scale[perm]
     tile_mu: torch.Tensor      # [T, d] live-item centroid per tile
     tile_r: torch.Tensor       # [T] max live |x - mu| per tile
     tile_xn: torch.Tensor      # [T] max live |x| per tile
@@ -149,7 +154,10 @@ def build_clusters(catalog, stats: ItemStats | None = None, *,
     if stats is None:
         stats = init_stats(cap, device=dev)
 
-    z = _item_features(bank.emb, stats, beta)
+    # features, tile summaries and bounds on the dequantized bank: the
+    # f32 values the kernels score (an f32 bank as it is)
+    emb_f = dequantize(bank)
+    z = _item_features(emb_f, stats, beta)
     by_live = torch.argsort(-bank.live, stable=True)
     A = min(n_anchors, cap)
     anchor_ids = by_live[:A]
@@ -169,11 +177,12 @@ def build_clusters(catalog, stats: ItemStats | None = None, *,
     # pools them in the trailing tiles
     sort_key = torch.where(bank.live > 0, labels, A)
     perm = torch.argsort(sort_key, stable=True)
-    emb_sorted = bank.emb[perm].contiguous()
+    emb_sorted = bank.emb[perm].contiguous()     # the stored dtype
     live_sorted = bank.live[perm].contiguous()
+    scale_sorted = bank.scale[perm].contiguous()
 
     T = cap // tile_items
-    et = emb_sorted.reshape(T, tile_items, -1)
+    et = emb_f[perm].reshape(T, tile_items, -1)
     lt = live_sorted.reshape(T, tile_items)
     cnt = torch.sum(lt, dim=1)
     mu = (torch.sum(et * lt[..., None], dim=1)
@@ -182,10 +191,23 @@ def build_clusters(catalog, stats: ItemStats | None = None, *,
     tile_r = torch.amax(torch.where(lt > 0, dist, 0.0), dim=1)
     tile_xn = torch.amax(
         torch.where(lt > 0, torch.linalg.norm(et, dim=-1), 0.0), dim=1)
+    # quantized banks: widen the radius and max norm by the per-tile
+    # quantization bound, so the bounds hold against the dequantized rows
+    # (int8: sqrt(d) / 2 of the largest live scale; bf16: 8 mantissa bits)
+    if bank.emb.dtype == torch.int8:
+        st = scale_sorted.reshape(T, tile_items)
+        half_sqrt_d = 0.5 * float(torch.tensor(float(bank.emb.shape[1]))
+                                  .sqrt())        # f32 sqrt, as repro's
+        qeps = half_sqrt_d * torch.amax(torch.where(lt > 0, st, 0.0), dim=1)
+        tile_r, tile_xn = tile_r + qeps, tile_xn + qeps
+    elif bank.emb.dtype == torch.bfloat16:
+        qeps = tile_xn * 2.0 ** -8
+        tile_r, tile_xn = tile_r + qeps, tile_xn + qeps
     return ItemClusters(
         epoch=catalog.epoch, labels=labels.to(torch.int32),
         perm=perm.to(torch.int32), emb_sorted=emb_sorted,
-        live_sorted=live_sorted, tile_mu=mu.contiguous(),
+        live_sorted=live_sorted, scale_sorted=scale_sorted,
+        tile_mu=mu.contiguous(),
         tile_r=tile_r.contiguous(), tile_xn=tile_xn.contiguous(),
         tile_n=cnt.to(torch.int32), n_clusters=n_clusters)
 
@@ -214,7 +236,7 @@ def refresh_clusters(clusters: ItemClusters, catalog,
 def shard_slice(clusters: ItemClusters, shard: int, n_local: int):
     """Shard ``shard``'s piece of the sorted stream: positions ``[shard *
     n_local, ...)`` and their whole tiles.  Returns ``(emb, live, ids,
-    tile_mu, tile_r, tile_xn, tile_n)``, ``ids`` the GLOBAL slot ids, so
+    scale, tile_mu, tile_r, tile_xn, tile_n)``, ``ids`` the GLOBAL slot ids, so
     the shards' shortlists merge bit-equal to one stream's (selection is
     by value).  Raises unless ``tile_items`` divides ``n_local``."""
     tile = clusters.tile_items
@@ -226,6 +248,7 @@ def shard_slice(clusters: ItemClusters, shard: int, n_local: int):
     rows = slice(shard * n_local, (shard + 1) * n_local)
     tiles = slice(shard * T_local, (shard + 1) * T_local)
     return (clusters.emb_sorted[rows], clusters.live_sorted[rows],
-            clusters.perm[rows], clusters.tile_mu[tiles],
+            clusters.perm[rows], clusters.scale_sorted[rows],
+            clusters.tile_mu[tiles],
             clusters.tile_r[tiles], clusters.tile_xn[tiles],
             clusters.tile_n[tiles])

@@ -47,7 +47,19 @@
 //
 // Both round the division and subtraction as the plain version rounds
 // them (outer product, then / denom, then subtract; x_i x_j, then add).
+//
+// bf16 Minv (rank1_update_inv_bf16_launch; Precision's state dtype,
+// rank1_update_inv_pallas's bf16 case): the M-free update of both
+// variants with Minv stored in bf16.  Each element is widened to f32 as
+// it is loaded (exact), the math runs in f32 in the order above, and
+// the new value is rounded to bf16 to nearest even (__float2bfloat16_rn,
+// as the plain version's f32 -> bf16 copy and repro's astype round).  A
+// user's block is 2 d^2 bytes (1250 at d = 25), so rows are only 2-byte
+// aligned: the copies move one element a lane, never assuming wider
+// alignment.  The bound halves with Minv's bytes: at n=20480, d=25, all
+// live, ~57 MB, ~17 us.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,6 +68,22 @@ constexpr int kWarps = 8;           // users a block, warp per user
 constexpr int kBlockThreads = 256;  // block per user
 constexpr int kBlockMaxD = 32;
 constexpr int kPerThread = kBlockMaxD * kBlockMaxD / kBlockThreads;
+
+// Minv's storage type to f32 and back (round to nearest even).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename S>
+__device__ __forceinline__ S narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // 1 + x.Minv x for one user, by one warp: lane i forms Mx_i = (Minv x)_i
 // into mx_s as an in-order FMA chain over j, and a shuffle tree sums the
@@ -76,8 +104,8 @@ __device__ __forceinline__ float warp_denom(const float* m_s,
   return 1.f + part;
 }
 
-template <bool kWithM>
-__global__ void rank1_kernel(float* __restrict__ M, float* __restrict__ Minv,
+template <typename S, bool kWithM>
+__global__ void rank1_kernel(float* __restrict__ M, S* __restrict__ Minv,
                              float* __restrict__ b,
                              const float* __restrict__ x,
                              const float* __restrict__ r,
@@ -93,8 +121,8 @@ __global__ void rank1_kernel(float* __restrict__ M, float* __restrict__ Minv,
   float* m_s = smem + warp * (dd + 2 * d);
   float* x_s = m_s + dd;
   float* mx_s = x_s + d;
-  float* Mu = Minv + (size_t)u * dd;
-  for (int e = lane; e < dd; e += 32) m_s[e] = Mu[e];
+  S* Mu = Minv + (size_t)u * dd;
+  for (int e = lane; e < dd; e += 32) m_s[e] = widen(Mu[e]);
   for (int i = lane; i < d; i += 32) x_s[i] = x[(size_t)u * d + i];
   __syncwarp();
 
@@ -104,7 +132,8 @@ __global__ void rank1_kernel(float* __restrict__ M, float* __restrict__ Minv,
   for (int e = lane; e < dd; e += 32) {
     const int i = e / d;
     const int j = e - i * d;
-    Mu[e] = __fsub_rn(m_s[e], __fdiv_rn(__fmul_rn(mx_s[i], mx_s[j]), denom));
+    Mu[e] = narrow<S>(
+        __fsub_rn(m_s[e], __fdiv_rn(__fmul_rn(mx_s[i], mx_s[j]), denom)));
   }
   if (kWithM) {
     float* Gu = M + (size_t)u * dd;
@@ -120,9 +149,9 @@ __global__ void rank1_kernel(float* __restrict__ M, float* __restrict__ Minv,
     bu[j] = __fadd_rn(bu[j], __fmul_rn(ru, x_s[j]));
 }
 
-template <bool kWithM>
+template <typename S, bool kWithM>
 __global__ void __launch_bounds__(kBlockThreads)
-    rank1_block_kernel(float* __restrict__ M, float* __restrict__ Minv,
+    rank1_block_kernel(float* __restrict__ M, S* __restrict__ Minv,
                        float* __restrict__ b, const float* __restrict__ x,
                        const float* __restrict__ r,
                        const unsigned char* __restrict__ mask, int d) {
@@ -133,7 +162,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   const int u = blockIdx.x;
   const int t = threadIdx.x;
   const int dd = d * d;
-  float* Mu = Minv + (size_t)u * dd;
+  S* Mu = Minv + (size_t)u * dd;
   float* Gu = kWithM ? M + (size_t)u * dd : nullptr;
   float* bu = b + (size_t)u * d;
 
@@ -145,7 +174,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   for (int k = 0; k < kPerThread; ++k) {
     const int e = t + k * kBlockThreads;
     if (e < dd) {
-      mi[k] = Mu[e];
+      mi[k] = widen(Mu[e]);
       if (kWithM) g[k] = Gu[e];
     }
   }
@@ -184,20 +213,20 @@ __global__ void __launch_bounds__(kBlockThreads)
     const int e = t + k * kBlockThreads;
     if (e < dd) {
       const int i = e / d;
-      Mu[e] = __fsub_rn(mi[k],
-                        __fdiv_rn(__fmul_rn(mx_s[i], mx_s[e - i * d]), denom));
+      Mu[e] = narrow<S>(__fsub_rn(
+          mi[k], __fdiv_rn(__fmul_rn(mx_s[i], mx_s[e - i * d]), denom)));
     }
   }
   if (t < d) bu[t] = __fadd_rn(bv, __fmul_rn(ru, xv));
 }
 
-template <bool kWithM>
-int launch(float* M, float* Minv, float* b, const float* x, const float* r,
+template <typename S, bool kWithM>
+int launch(float* M, S* Minv, float* b, const float* x, const float* r,
            const unsigned char* mask, int n, int d, int variant,
            cudaStream_t stream) {
   if (variant == 1) {
     if (d > kBlockMaxD) return (int)cudaErrorInvalidValue;
-    rank1_block_kernel<kWithM><<<n, kBlockThreads, 0, stream>>>(
+    rank1_block_kernel<S, kWithM><<<n, kBlockThreads, 0, stream>>>(
         M, Minv, b, x, r, mask, d);
     return (int)cudaGetLastError();
   }
@@ -205,12 +234,12 @@ int launch(float* M, float* Minv, float* b, const float* x, const float* r,
   const size_t smem = (size_t)kWarps * (d * d + 2 * d) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        rank1_kernel<kWithM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rank1_kernel<S, kWithM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (n + kWarps - 1) / kWarps;
-  rank1_kernel<kWithM><<<blocks, 32 * kWarps, smem, stream>>>(
+  rank1_kernel<S, kWithM><<<blocks, 32 * kWarps, smem, stream>>>(
       M, Minv, b, x, r, mask, n, d);
   return (int)cudaGetLastError();
 }
@@ -221,12 +250,22 @@ extern "C" int rank1_update_inv_launch(float* Minv, float* b, const float* x,
                                        const float* r,
                                        const unsigned char* mask, int n, int d,
                                        int variant, cudaStream_t stream) {
-  return launch<false>(nullptr, Minv, b, x, r, mask, n, d, variant, stream);
+  return launch<float, false>(nullptr, Minv, b, x, r, mask, n, d, variant,
+                              stream);
+}
+
+extern "C" int rank1_update_inv_bf16_launch(__nv_bfloat16* Minv, float* b,
+                                            const float* x, const float* r,
+                                            const unsigned char* mask, int n,
+                                            int d, int variant,
+                                            cudaStream_t stream) {
+  return launch<__nv_bfloat16, false>(nullptr, Minv, b, x, r, mask, n, d,
+                                      variant, stream);
 }
 
 extern "C" int rank1_update_launch(float* M, float* Minv, float* b,
                                    const float* x, const float* r,
                                    const unsigned char* mask, int n, int d,
                                    int variant, cudaStream_t stream) {
-  return launch<true>(M, Minv, b, x, r, mask, n, d, variant, stream);
+  return launch<float, true>(M, Minv, b, x, r, mask, n, d, variant, stream);
 }

@@ -76,7 +76,27 @@
 //   Skip counts depend on timing; the shortlist does not.  Both kernels
 //   score through score_items, so the pruned shortlist is bit-equal to
 //   the unpruned one.
+//
+// Reduced-precision catalogs (the ITEM template code: 0 f32, 1 bf16, 2
+// int8 with a per-row f32 scale; topk_pallas's and topk_pruned_pallas's
+// bf16 and int8 cases): a row is 2d or d bytes (50 or 25 at d = 25), so
+// the f32 staging, which copies whole floats into padded rows, does not
+// apply.  The block stages the chunk's byte range instead, contiguous for
+// the unpruned kernel and per tile for the pruned one: 16-byte cp.async
+// for the aligned body, placed at the source's own offset mod 16 within
+// the region, and plain byte copies for the at most 15 bytes at each end.
+// The int8 scales are staged beside the live flags.  A thread widens its
+// rows to f32 as it loads them into registers (load_items): bf16 exactly,
+// int8 as __fmul_rn(code, scale), one rounding that nvcc cannot contract
+// into the scoring FMAs, as the plain version's items.float() * scale
+// rounds.  From there score_items and the ucb_score.cuh chains run
+// unchanged, so a shortlisted score is ucb's score of the dequantized
+// item and the pruned shortlist stays bit-equal to the unpruned one.
+// The bound stays the operations' (the dequant is d multiplies an item
+// per block of 8 users beside 2 d^2 FMAs a pair); the catalog's bytes
+// fall to a half (bf16) or about a quarter (int8).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -126,6 +146,25 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
+// The catalog's storage type of each ITEM code.
+template <int ITEM>
+struct ItemType;
+template <>
+struct ItemType<0> {
+  using T = float;
+};
+template <>
+struct ItemType<1> {
+  using T = __nv_bfloat16;
+};
+template <>
+struct ItemType<2> {
+  using T = signed char;
+};
+__host__ __device__ inline int item_bytes(int item) {
+  return item == 0 ? 4 : item == 1 ? 2 : 1;
+}
+
 // Items a thread scores per chunk, in both kernels: 4 items' features in
 // registers up to d = 32 (128 registers), 1 above (64).
 __host__ __device__ inline int items_per_thread(int d) {
@@ -162,8 +201,9 @@ struct Smem {
   float* Ms;  // [d*d][kUsers]
   float* ws;  // [d][kUsers]
   float* ex;  // [kUsers]
-  float* xs;  // [CH][XS]   chunk rows
+  float* xs;  // [CH][XS]   chunk rows (f32); reduced items: their bytes
   float* lv;  // [2][CH]    live flags of the chunk (two: the next's too)
+  float* sc;  // [2][CH]    int8 scales of the chunk, likewise
   int* id;    // [2][CH]    ids of the chunk, likewise (pruned)
   float* ss;  // [kUsers][CH] scores
   float* ls;  // [kUsers][k]  sorted list scores
@@ -171,25 +211,42 @@ struct Smem {
   Walk* walk;  // pruned
 };
 
+// Floats of the chunk buffer: padded f32 rows, or a reduced chunk's
+// bytes with room for each tile's region to start at its source's offset
+// mod 16 (a region per tile of the pruned kernel, at most kMaxTiles),
+// whole 16-byte words.
+__host__ __device__ inline size_t chunk_floats(int d, int CH, int item) {
+  if (item == 0) return (size_t)CH * stride_of(d);
+  const size_t bytes = (size_t)CH * d * item_bytes(item) + 32 * kMaxTiles + 16;
+  return (bytes + 15) / 16 * 4;
+}
+// A pruned tile's region in the reduced chunk buffer: its bytes rounded
+// up to 16, and 16 more for the offset.
+__host__ __device__ inline int region_bytes(int tile, int d, int item) {
+  return (tile * d * item_bytes(item) + 15) / 16 * 16 + 16;
+}
+
 __host__ __device__ inline size_t score_smem_bytes(int d, int k, int TK,
-                                                   bool pruned) {
+                                                   bool pruned, int item) {
   const size_t CH = (size_t)kThreads * TK;
   return sizeof(float) * ((size_t)kUsers * d * d + (size_t)kUsers * d +
-                          kUsers + CH * stride_of(d) + 2 * CH +
-                          (pruned ? 2 * CH : 0) + kUsers * CH +
-                          (size_t)kUsers * k) +
+                          kUsers + chunk_floats(d, (int)CH, item) + 2 * CH +
+                          (item == 2 ? 2 * CH : 0) + (pruned ? 2 * CH : 0) +
+                          kUsers * CH + (size_t)kUsers * k) +
          sizeof(int) * (size_t)kUsers * k + (pruned ? sizeof(Walk) : 0);
 }
 
-__device__ Smem carve(float* base, int d, int k, int TK, bool pruned) {
+__device__ Smem carve(float* base, int d, int k, int TK, bool pruned,
+                      int item) {
   const int CH = kThreads * TK;
   Smem s;
   s.Ms = base;
   s.ws = s.Ms + kUsers * d * d;
   s.ex = s.ws + kUsers * d;
   s.xs = s.ex + kUsers;
-  s.lv = s.xs + CH * stride_of(d);
-  s.id = reinterpret_cast<int*>(s.lv + 2 * CH);
+  s.lv = s.xs + chunk_floats(d, CH, item);
+  s.sc = s.lv + 2 * CH;
+  s.id = reinterpret_cast<int*>(s.sc + (item == 2 ? 2 * CH : 0));
   s.ss = reinterpret_cast<float*>(s.id + (pruned ? 2 * CH : 0));
   s.ls = s.ss + kUsers * CH;
   s.li = reinterpret_cast<int*>(s.ls + kUsers * k);
@@ -246,19 +303,61 @@ __device__ __forceinline__ void stage_floats(void* dst, const void* src,
     cp_async4(static_cast<float*>(dst) + e, static_cast<const float*>(src) + e);
 }
 
-// Start copying catalog rows [first, first + cnt) into the chunk buffer
-// from row ``row0`` on, their live flags into live buffer ``lb`` (and
-// their ids into id buffer ``lb``), by cp.async; the caller commits and
-// waits.  Where the row stride in shared memory is d itself (d odd) the
-// rows are one contiguous copy; otherwise each float goes to its padded
-// slot.
-__device__ void stage_chunk(const float* __restrict__ items,
+// n bytes from src to dst (shared), dst at the same offset mod 16 as
+// src: the aligned body by 16-byte cp.async, the at most 15 bytes before
+// and after it by plain byte copies (a reduced row's range starts and
+// ends anywhere).
+__device__ __forceinline__ void stage_bytes(unsigned char* dst,
+                                            const unsigned char* src,
+                                            int n) {
+  const int lead = (int)((16 - (reinterpret_cast<size_t>(src) & 15)) & 15);
+  const int head = lead < n ? lead : n;
+  const int body = (n - head) & ~15;
+  for (int e = head + 16 * threadIdx.x; e < head + body; e += 16 * kThreads)
+    cp_async16(dst + e, src + e);
+  const int t = threadIdx.x;
+  if (t < head) dst[t] = __ldg(src + t);
+  if (t < n - head - body) dst[head + body + t] = __ldg(src + head + body + t);
+}
+
+// Where a reduced chunk's region starts in the chunk buffer: ``region``
+// bytes in, plus the source's offset mod 16.
+__device__ __forceinline__ unsigned char* region_at(const Smem& s,
+                                                    int region,
+                                                    const void* src) {
+  return reinterpret_cast<unsigned char*>(s.xs) + region +
+         (reinterpret_cast<size_t>(src) & 15);
+}
+
+// Start copying catalog rows [first, first + cnt) into the chunk buffer,
+// their live flags into live buffer ``lb`` from row ``row0`` on (and
+// their ids into id buffer ``lb``, int8 scales into scale buffer
+// ``lb``), by cp.async; the caller commits and waits.  f32 rows go to
+// their padded slots from row ``row0`` on: where the row stride in
+// shared memory is d itself (d odd) the rows are one contiguous copy,
+// otherwise each float goes to its slot.  Reduced rows go as one byte
+// range to the region ``region`` bytes into the buffer.
+template <int ITEM>
+__device__ void stage_chunk(const void* __restrict__ items,
                             const float* __restrict__ live,
-                            const int* __restrict__ ids, size_t first,
-                            int cnt, int row0, int d, int CH, const Smem& s,
-                            int lb) {
+                            const int* __restrict__ ids,
+                            const float* __restrict__ scales, size_t first,
+                            int cnt, int row0, int region, int d, int CH,
+                            const Smem& s, int lb) {
+  if constexpr (ITEM != 0) {
+    using T = typename ItemType<ITEM>::T;
+    const T* src = static_cast<const T*>(items) + first * d;
+    stage_bytes(region_at(s, region, src),
+                reinterpret_cast<const unsigned char*>(src),
+                cnt * d * (int)sizeof(T));
+    if constexpr (ITEM == 2)
+      stage_floats(s.sc + lb * CH + row0, scales + first, cnt);
+    stage_floats(s.lv + lb * CH + row0, live + first, cnt);
+    if (ids) stage_floats(s.id + lb * CH + row0, ids + first, cnt);
+    return;
+  }
   const int XS = stride_of(d);
-  const float* src = items + first * d;
+  const float* src = static_cast<const float*>(items) + first * d;
   float* xs = s.xs + row0 * XS;
   if (XS == d) {
     stage_floats(xs, src, cnt * d);
@@ -280,16 +379,40 @@ __device__ void stage_chunk(const float* __restrict__ items,
 }
 
 // The thread's TK items of the staged chunk (items t, t + 256, ...) into
-// registers; features past d are 0.
-template <int DMAX, int TK>
+// registers; features past d are 0.  Reduced items are widened here:
+// ``row_at(c)`` is chunk row c's first byte in the chunk buffer, and an
+// int8 code is multiplied by its row's scale (scale buffer ``lb``) with
+// one rounding, as the plain version's dequantization.
+template <int DMAX, int TK, int ITEM, typename RowAt>
 __device__ __forceinline__ void load_items(float (&x)[TK][DMAX],
-                                           const Smem& s, int d) {
-  const int XS = stride_of(d);
+                                           const Smem& s, int d, int lb,
+                                           RowAt row_at) {
+  if constexpr (ITEM == 0) {
+    const int XS = stride_of(d);
 #pragma unroll
-  for (int q = 0; q < TK; ++q) {
-    const float* row = s.xs + (threadIdx.x + q * kThreads) * XS;
+    for (int q = 0; q < TK; ++q) {
+      const float* row = s.xs + (threadIdx.x + q * kThreads) * XS;
 #pragma unroll
-    for (int j = 0; j < DMAX; ++j) x[q][j] = j < d ? row[j] : 0.f;
+      for (int j = 0; j < DMAX; ++j) x[q][j] = j < d ? row[j] : 0.f;
+    }
+  } else {
+    using T = typename ItemType<ITEM>::T;
+    constexpr int CH = kThreads * TK;
+#pragma unroll
+    for (int q = 0; q < TK; ++q) {
+      const int c = threadIdx.x + q * kThreads;
+      const T* row = reinterpret_cast<const T*>(row_at(c));
+      if constexpr (ITEM == 1) {
+#pragma unroll
+        for (int j = 0; j < DMAX; ++j)
+          x[q][j] = j < d ? __bfloat162float(row[j]) : 0.f;
+      } else {
+        const float sc = s.sc[lb * CH + c];
+#pragma unroll
+        for (int j = 0; j < DMAX; ++j)
+          x[q][j] = j < d ? __fmul_rn((float)row[j], sc) : 0.f;
+      }
+    }
   }
 }
 
@@ -536,23 +659,25 @@ __device__ void write_lists(const Smem& s, const long long* order, int n,
   }
 }
 
-template <int DMAX, int TK>
+template <int DMAX, int TK, int ITEM>
 __global__ void __launch_bounds__(kThreads, 1)
     topk_kernel(const float* __restrict__ w, const float* __restrict__ Minv,
-                const int* __restrict__ occ, const float* __restrict__ items,
-                const float* __restrict__ live, float alpha, int n, int N,
+                const int* __restrict__ occ, const void* __restrict__ items,
+                const float* __restrict__ live,
+                const float* __restrict__ scales, float alpha, int n, int N,
                 int d, int k, int S, float* __restrict__ out_s,
                 int* __restrict__ out_i) {
+  using T = typename ItemType<ITEM>::T;
   extern __shared__ __align__(16) float smem[];
   constexpr int CH = kThreads * TK;
-  const Smem s = carve(smem, d, k, TK, false);
+  const Smem s = carve(smem, d, k, TK, false, ITEM);
   const int u0 = blockIdx.x * kUsers, split = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_chunks = (N + CH - 1) / CH;
   auto stage = [&](int c, int lb) {
     const size_t first = (size_t)c * CH;
-    stage_chunk(items, live, nullptr, first, min(CH, N - (int)first), 0, d,
-                CH, s, lb);
+    stage_chunk<ITEM>(items, live, nullptr, scales, first,
+                      min(CH, N - (int)first), 0, 0, d, CH, s, lb);
     cp_commit();
   };
   if (split < n_chunks) stage(split, 0);
@@ -562,7 +687,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_wait_all();
     __syncthreads();  // chunk c has arrived; the last chunk is scanned
     float x[TK][DMAX];
-    load_items<DMAX, TK>(x, s, d);
+    const T* src = static_cast<const T*>(items) + (size_t)c * CH * d;
+    load_items<DMAX, TK, ITEM>(x, s, d, lb, [&](int r) {
+      return region_at(s, 0, src) + (size_t)r * d * sizeof(T);
+    });
     __syncthreads();  // the chunk buffer is free: stage the next chunk
     if (c + S < n_chunks) stage(c + S, lb ^ 1);
     score_items<DMAX, TK>(s, x, d, alpha);
@@ -682,14 +810,15 @@ __device__ void pick_chunk(Walk& wk, Chunk& c, const Chunk& prev,
   }
 }
 
-template <int DMAX, int TK>
+template <int DMAX, int TK, int ITEM>
 __global__ void __launch_bounds__(kThreads, 1)
     topk_pruned_kernel(const float* __restrict__ w,
                        const float* __restrict__ Minv,
                        const int* __restrict__ occ,
-                       const float* __restrict__ items,
+                       const void* __restrict__ items,
                        const float* __restrict__ live,
                        const int* __restrict__ ids,
+                       const float* __restrict__ scales,
                        const long long* __restrict__ user_order,
                        const float* __restrict__ tb_walk,
                        const long long* __restrict__ tile_order,
@@ -697,9 +826,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                        float alpha, int n, int T, int tile, int d, int k,
                        int S, float* __restrict__ out_s,
                        int* __restrict__ out_i, int* __restrict__ skipped) {
+  using Item = typename ItemType<ITEM>::T;
   extern __shared__ __align__(16) float smem[];
   constexpr int CH = kThreads * TK;
-  const Smem s = carve(smem, d, k, TK, true);
+  const Smem s = carve(smem, d, k, TK, true, ITEM);
   Walk& wk = *s.walk;
   const int g = blockIdx.x, split = blockIdx.y;
   const int u0 = g * kUsers;
@@ -711,12 +841,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto rows = [&](const Chunk& c) {  // rows of a chunk
     return SPT > 1 ? min(CH, tile - c.slice * CH) : c.n_tiles * tile;
   };
+  // a reduced chunk's tiles each have a region of the chunk buffer (a
+  // tile's slice where tile > CH: one region)
+  const int R = region_bytes(tile, d, ITEM);
+  auto src_of = [&](const Chunk& c, int q) {  // the first row of tile q
+    return static_cast<const Item*>(items) +
+           ((size_t)c.tiles[q] * tile + (size_t)c.slice * CH) * d;
+  };
   auto stage = [&](int b) {
     const Chunk& c = wk.chunk[b];
     for (int q = 0; q < c.n_tiles; ++q)
-      stage_chunk(items, live, ids,
-                  (size_t)c.tiles[q] * tile + (size_t)c.slice * CH,
-                  SPT > 1 ? rows(c) : tile, q * tile, d, CH, s, b);
+      stage_chunk<ITEM>(items, live, ids, scales,
+                        (size_t)c.tiles[q] * tile + (size_t)c.slice * CH,
+                        SPT > 1 ? rows(c) : tile, q * tile, q * R, d, CH, s,
+                        b);
     cp_commit();
   };
   // warp 0 picks chunk b, the one after chunk b ^ 1 (``own``: against the
@@ -743,7 +881,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Chunk& c = wk.chunk[lb];
     if (c.n_tiles == 0) break;
     float x[TK][DMAX];
-    load_items<DMAX, TK>(x, s, d);
+    load_items<DMAX, TK, ITEM>(x, s, d, lb, [&](int r) {
+      int q = r / tile;  // 0 where tile > CH: one tile's slice
+      if (q >= c.n_tiles) q = 0;  // a row past the chunk's: never scanned
+      return region_at(s, q * R, src_of(c, q)) +
+             (size_t)(r - q * tile) * d * sizeof(Item);
+    });
     if (!first) next_chunk(lb ^ 1, true, TPC);  // floors before c's scan
     score_items<DMAX, TK>(s, x, d, alpha);
     __syncthreads();
@@ -824,56 +967,44 @@ bool valid_shape(int d, int k) {
   return d >= 1 && d <= kMaxD && k >= 1 && k <= kMaxK;
 }
 
-using TopkFn = void (*)(const float*, const float*, const int*,
+using TopkFn = void (*)(const float*, const float*, const int*, const void*,
                         const float*, const float*, float, int, int, int, int,
                         int, float*, int*);
 using PrunedFn = void (*)(const float*, const float*, const int*,
-                          const float*, const float*, const int*,
-                          const long long*, const float*, const long long*,
-                          int*, float, int, int, int, int, int, int,
-                          float*, int*, int*);
+                          const void*, const float*, const int*,
+                          const float*, const long long*, const float*,
+                          const long long*, int*, float, int, int, int, int,
+                          int, int, float*, int*, int*);
 
-// The kernels that serve d, and their shared memory at (d, k).
-TopkFn topk_fn(int d) {
-  return d <= kSmallD ? topk_kernel<32, 4> : topk_kernel<64, 1>;
+// The kernels that serve d over items of ``item``, and their shared
+// memory at (d, k).
+template <int ITEM>
+TopkFn topk_fn_of(int d) {
+  return d <= kSmallD ? topk_kernel<32, 4, ITEM> : topk_kernel<64, 1, ITEM>;
 }
-PrunedFn pruned_fn(int d) {
-  return d <= kSmallD ? topk_pruned_kernel<32, 4> : topk_pruned_kernel<64, 1>;
+template <int ITEM>
+PrunedFn pruned_fn_of(int d) {
+  return d <= kSmallD ? topk_pruned_kernel<32, 4, ITEM>
+                      : topk_pruned_kernel<64, 1, ITEM>;
 }
-size_t smem_bytes(int d, int k, bool pruned) {
-  return score_smem_bytes(d, k, items_per_thread(d), pruned);
+TopkFn topk_fn(int d, int item) {
+  return item == 0 ? topk_fn_of<0>(d)
+                   : item == 1 ? topk_fn_of<1>(d) : topk_fn_of<2>(d);
 }
-
-}  // namespace
-
-// Resident blocks per SM of the kernel that serves (d, k) (``pruned``:
-// topk_pruned_kernel), from the occupancy API, into *blocks.
-extern "C" int topk_blocks_per_sm(int d, int k, int pruned, int* blocks) {
-  const size_t bytes = smem_bytes(d, k, pruned);
-  if (!valid_shape(d, k) || bytes > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if (pruned) {
-    if ((e = allow_smem(pruned_fn(d), bytes)) != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, pruned_fn(d),
-                                                      kThreads, bytes);
-  } else {
-    if ((e = allow_smem(topk_fn(d), bytes)) != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, topk_fn(d),
-                                                      kThreads, bytes);
-  }
-  return (int)e;
+PrunedFn pruned_fn(int d, int item) {
+  return item == 0 ? pruned_fn_of<0>(d)
+                   : item == 1 ? pruned_fn_of<1>(d) : pruned_fn_of<2>(d);
+}
+size_t smem_bytes(int d, int k, bool pruned, int item) {
+  return score_smem_bytes(d, k, items_per_thread(d), pruned, item);
 }
 
-// S splits per group of 8 users (lowered to the chunk count).  With one
-// split the lists go straight to out_s/out_i; otherwise to part_s/part_i
-// ([splits, n, k], room for S) and then merged.
-extern "C" int topk_launch(const float* w, const float* Minv, const int* occ,
-                           const float* items, const float* live, float alpha,
-                           int n, int N, int d, int k, int S, float* part_s,
-                           int* part_i, float* out_s, int* out_i,
-                           cudaStream_t stream) {
-  const size_t bytes = smem_bytes(d, k, false);
+int launch_topk(const float* w, const float* Minv, const int* occ,
+                const void* items, const float* live, const float* scales,
+                int item, float alpha, int n, int N, int d, int k, int S,
+                float* part_s, int* part_i, float* out_s, int* out_i,
+                cudaStream_t stream) {
+  const size_t bytes = smem_bytes(d, k, false, item);
   if (!valid_shape(d, k) || S < 1 || bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const int CH = kThreads * items_per_thread(d);
@@ -882,14 +1013,100 @@ extern "C" int topk_launch(const float* w, const float* Minv, const int* occ,
   const dim3 grid((n + kUsers - 1) / kUsers, S);
   float* ls = S == 1 ? out_s : part_s;
   int* li = S == 1 ? out_i : part_i;
-  const TopkFn kernel = topk_fn(d);
+  const TopkFn kernel = topk_fn(d, item);
   cudaError_t e;
   if ((e = allow_smem(kernel, bytes)) != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, bytes, stream>>>(w, Minv, occ, items, live, alpha,
-                                            n, N, d, k, S, ls, li);
+  kernel<<<grid, kThreads, bytes, stream>>>(w, Minv, occ, items, live, scales,
+                                            alpha, n, N, d, k, S, ls, li);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (S > 1) return (int)merge(part_s, part_i, n, k, S, out_s, out_i, stream);
   return 0;
+}
+
+int launch_pruned(const float* w, const float* Minv, const int* occ,
+                  const void* items, const float* live, const int* ids,
+                  const float* scales, int item,
+                  const long long* user_order, const float* tb_walk,
+                  const long long* tile_order, int* gfloor, float alpha,
+                  int n, int T, int tile, int d, int k, int S, float* part_s,
+                  int* part_i, float* out_s, int* out_i, int* skipped,
+                  cudaStream_t stream) {
+  const size_t bytes = smem_bytes(d, k, true, item);
+  if (!valid_shape(d, k) || S < 1 || tile < 1 || bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kUsers - 1) / kUsers, S);
+  float* ls = S == 1 ? out_s : part_s;
+  int* li = S == 1 ? out_i : part_i;
+  const PrunedFn kernel = pruned_fn(d, item);
+  cudaError_t e;
+  if ((e = allow_smem(kernel, bytes)) != cudaSuccess) return (int)e;
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      w, Minv, occ, items, live, ids, scales, user_order, tb_walk, tile_order,
+      gfloor, alpha, n, T, tile, d, k, S, ls, li, skipped);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (S > 1) return (int)merge(part_s, part_i, n, k, S, out_s, out_i, stream);
+  return 0;
+}
+
+}  // namespace
+
+// Resident blocks per SM of the kernel that serves (d, k) (``pruned``:
+// topk_pruned_kernel) over items of ``item`` (0 f32, 1 bf16, 2 int8), from
+// the occupancy API, into *blocks.
+extern "C" int topk_blocks_per_sm(int d, int k, int pruned, int item,
+                                  int* blocks) {
+  if (item < 0 || item > 2) return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes(d, k, pruned, item);
+  if (!valid_shape(d, k) || bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (pruned) {
+    const PrunedFn fn = pruned_fn(d, item);
+    if ((e = allow_smem(fn, bytes)) != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads,
+                                                      bytes);
+  } else {
+    const TopkFn fn = topk_fn(d, item);
+    if ((e = allow_smem(fn, bytes)) != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads,
+                                                      bytes);
+  }
+  return (int)e;
+}
+
+// S splits per group of 8 users (lowered to the chunk count).  With one
+// split the lists go straight to out_s/out_i; otherwise to part_s/part_i
+// ([splits, n, k], room for S) and then merged.  Items f32 (topk_launch),
+// bf16 (topk_bf16_launch) or int8 codes with their f32 scales
+// (topk_int8_launch).
+extern "C" int topk_launch(const float* w, const float* Minv, const int* occ,
+                           const float* items, const float* live, float alpha,
+                           int n, int N, int d, int k, int S, float* part_s,
+                           int* part_i, float* out_s, int* out_i,
+                           cudaStream_t stream) {
+  return launch_topk(w, Minv, occ, items, live, nullptr, 0, alpha, n, N, d,
+                     k, S, part_s, part_i, out_s, out_i, stream);
+}
+
+extern "C" int topk_bf16_launch(const float* w, const float* Minv,
+                                const int* occ, const __nv_bfloat16* items,
+                                const float* live, float alpha, int n, int N,
+                                int d, int k, int S, float* part_s,
+                                int* part_i, float* out_s, int* out_i,
+                                cudaStream_t stream) {
+  return launch_topk(w, Minv, occ, items, live, nullptr, 1, alpha, n, N, d,
+                     k, S, part_s, part_i, out_s, out_i, stream);
+}
+
+extern "C" int topk_int8_launch(const float* w, const float* Minv,
+                                const int* occ, const signed char* items,
+                                const float* live, const float* scales,
+                                float alpha, int n, int N, int d, int k,
+                                int S, float* part_s, int* part_i,
+                                float* out_s, int* out_i,
+                                cudaStream_t stream) {
+  return launch_topk(w, Minv, occ, items, live, scales, 2, alpha, n, N, d, k,
+                     S, part_s, part_i, out_s, out_i, stream);
 }
 
 // user_order [n] groups the users by 8 (block row r is user
@@ -897,7 +1114,7 @@ extern "C" int topk_launch(const float* w, const float* Minv, const int* occ,
 // [groups, T] is each group's visit order and tb_walk [groups, T, 8] its
 // users' tile bounds in that order; gfloor [groups * 8] (by block row)
 // holds the order-encoded -inf on entry; skipped [groups, S] receives the
-// skips.
+// skips.  Items as topk's three entries.
 extern "C" int topk_pruned_launch(
     const float* w, const float* Minv, const int* occ, const float* items,
     const float* live, const int* ids, const long long* user_order,
@@ -905,19 +1122,34 @@ extern "C" int topk_pruned_launch(
     int* gfloor, float alpha, int n, int T, int tile, int d, int k, int S,
     float* part_s, int* part_i, float* out_s, int* out_i, int* skipped,
     cudaStream_t stream) {
-  const size_t bytes = smem_bytes(d, k, true);
-  if (!valid_shape(d, k) || S < 1 || tile < 1 || bytes > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kUsers - 1) / kUsers, S);
-  float* ls = S == 1 ? out_s : part_s;
-  int* li = S == 1 ? out_i : part_i;
-  const PrunedFn kernel = pruned_fn(d);
-  cudaError_t e;
-  if ((e = allow_smem(kernel, bytes)) != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      w, Minv, occ, items, live, ids, user_order, tb_walk, tile_order, gfloor,
-      alpha, n, T, tile, d, k, S, ls, li, skipped);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (S > 1) return (int)merge(part_s, part_i, n, k, S, out_s, out_i, stream);
-  return 0;
+  return launch_pruned(w, Minv, occ, items, live, ids, nullptr, 0,
+                       user_order, tb_walk, tile_order, gfloor, alpha, n, T,
+                       tile, d, k, S, part_s, part_i, out_s, out_i, skipped,
+                       stream);
+}
+
+extern "C" int topk_pruned_bf16_launch(
+    const float* w, const float* Minv, const int* occ,
+    const __nv_bfloat16* items, const float* live, const int* ids,
+    const long long* user_order, const float* tb_walk,
+    const long long* tile_order, int* gfloor, float alpha, int n, int T,
+    int tile, int d, int k, int S, float* part_s, int* part_i, float* out_s,
+    int* out_i, int* skipped, cudaStream_t stream) {
+  return launch_pruned(w, Minv, occ, items, live, ids, nullptr, 1,
+                       user_order, tb_walk, tile_order, gfloor, alpha, n, T,
+                       tile, d, k, S, part_s, part_i, out_s, out_i, skipped,
+                       stream);
+}
+
+extern "C" int topk_pruned_int8_launch(
+    const float* w, const float* Minv, const int* occ,
+    const signed char* items, const float* live, const int* ids,
+    const float* scales, const long long* user_order, const float* tb_walk,
+    const long long* tile_order, int* gfloor, float alpha, int n, int T,
+    int tile, int d, int k, int S, float* part_s, int* part_i, float* out_s,
+    int* out_i, int* skipped, cudaStream_t stream) {
+  return launch_pruned(w, Minv, occ, items, live, ids, scales, 2,
+                       user_order, tb_walk, tile_order, gfloor, alpha, n, T,
+                       tile, d, k, S, part_s, part_i, out_s, out_i, skipped,
+                       stream);
 }

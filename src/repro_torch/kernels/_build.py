@@ -39,6 +39,8 @@ KERNELS = {
                [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
     "rank1_update_inv": ("rank1.cu", "rank1_update_inv_launch",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "rank1_update_inv_bf16": ("rank1.cu", "rank1_update_inv_bf16_launch",
+                              [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "rank1_update": ("rank1.cu", "rank1_update_launch",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "ucb": ("ucb.cu", "ucb_launch",
@@ -52,9 +54,21 @@ KERNELS = {
     "topk": ("topk.cu", "topk_launch",
              [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P,
               _P]),
+    "topk_bf16": ("topk.cu", "topk_bf16_launch",
+                  [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P,
+                   _P, _P]),
+    "topk_int8": ("topk.cu", "topk_int8_launch",
+                  [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P,
+                   _P, _P, _P]),
     "topk_pruned": ("topk.cu", "topk_pruned_launch",
                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
                      _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "topk_pruned_bf16": ("topk.cu", "topk_pruned_bf16_launch",
+                         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I,
+                          _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "topk_pruned_int8": ("topk.cu", "topk_pruned_int8_launch",
+                         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I,
+                          _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     "cross": ("cross.cu", "cross_launch",
               [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
     "cross_split": ("cross.cu", "cross_split_launch", [_P, _I, _P, _P]),

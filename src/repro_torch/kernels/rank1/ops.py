@@ -28,11 +28,11 @@ def _variant(t: torch.Tensor) -> int:
     return variant(n, d, _build.sm_count(t.device.index or 0))
 
 
-def _state_args(Minv, b, x, r, mask):
+def _state_args(Minv, b, x, r, mask, minv_dtype=torch.float32):
     dev = Minv.device
     n, d = b.shape
     return [
-        _build.check(Minv, "Minv", torch.float32, (n, d, d), dev),
+        _build.check(Minv, "Minv", minv_dtype, (n, d, d), dev),
         _build.check(b, "b", torch.float32, (n, d), dev),
         _build.check(x, "x", torch.float32, (n, d), dev),
         _build.check(r, "r", torch.float32, (n,), dev),
@@ -72,8 +72,13 @@ def rank1_update(
     return M, Minv, b
 
 
+# the M-free update's kernel for each dtype of Minv (b, x, r stay f32)
+INV_KERNELS = {torch.float32: "rank1_update_inv",
+               torch.bfloat16: "rank1_update_inv_bf16"}
+
+
 def rank1_update_inv(
-    Minv: torch.Tensor,   # [n, d, d] f32
+    Minv: torch.Tensor,   # [n, d, d] f32 or bf16
     b: torch.Tensor,      # [n, d] f32
     x: torch.Tensor,      # [n, d] f32
     r: torch.Tensor,      # [n] f32
@@ -82,12 +87,17 @@ def rank1_update_inv(
     """(Minv', b') after one masked interaction per user.
 
     On either device ``Minv`` and ``b`` are updated IN PLACE (by the
-    kernel on CUDA, by the plain version on the CPU) and returned.
+    kernel on CUDA, by the plain version on the CPU) and returned.  A
+    bf16 ``Minv`` is widened to f32 for the math and rounded back to
+    nearest even (``rank1_update_inv_bf16`` on CUDA).
     """
     if not _on_cuda("rank1_update_inv", Minv):
         return rank1_update_inv_ref(Minv, b, x, r, mask)
+    if Minv.dtype not in INV_KERNELS:
+        raise TypeError(f"Minv has dtype {Minv.dtype}; rank1_update_inv "
+                        f"takes {list(INV_KERNELS)}")
     n, d = b.shape
-    args = _state_args(Minv, b, x, r, mask)
+    args = _state_args(Minv, b, x, r, mask, Minv.dtype)
     if n:
-        _build.launch("rank1_update_inv", *args, n, d, _variant(b))
+        _build.launch(INV_KERNELS[Minv.dtype], *args, n, d, _variant(b))
     return Minv, b

@@ -1,7 +1,14 @@
 """Device dispatch for the streaming top-K: plain versions for CPU
 tensors, the CUDA kernels (``csrc/topk.cu``) for CUDA tensors.  Shapes
 are logical: the kernels mask ragged users, items and features, so
-nothing is padded."""
+nothing is padded.
+
+The catalog may be f32, bf16 or int8 with per-row f32 ``scales``
+(``Precision.catalog_dtype``); each dtype has its own kernel and launch
+count (``topk``, ``topk_bf16``, ``topk_int8`` and the ``topk_pruned``
+three), which dequantize on chip as ``ref.dequantize_rows`` does.
+``w``, ``Minv`` and ``occ`` stay f32: serving upcasts a bf16 ``Minv``
+when it gathers the rows."""
 from __future__ import annotations
 
 import ctypes
@@ -10,7 +17,7 @@ import functools
 import torch
 
 from .. import _build
-from .ref import topk_ref, topk_ref_pruned
+from .ref import check_items, topk_ref, topk_ref_pruned
 
 MAX_D = 64                             # csrc/topk.cu kMaxD
 MAX_K = 128                            # csrc/topk.cu kMaxK
@@ -19,6 +26,22 @@ THREADS = 256                          # csrc/topk.cu kThreads
 SMALL_D = 32                           # csrc/topk.cu kSmallD
 MAX_TILES = 32                         # csrc/topk.cu kMaxTiles
 _NEG_INF_ORDERED = -2139095041         # the kernel's int encoding of -inf
+
+# the item dtypes the kernels take, as csrc/topk.cu's ITEM template code
+ITEM_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_SUFFIX = ("", "_bf16", "_int8")
+
+
+def item_kind(items: torch.Tensor, scales) -> int:
+    """csrc/topk.cu's item code for ``items``: 0 f32, 1 bf16, 2 int8
+    (which requires ``scales``; the other dtypes refuse them)."""
+    check_items(items, scales)
+    return ITEM_KINDS[items.dtype]
+
+
+def kernel_name(pruned: bool, kind: int) -> str:
+    """The ``_build`` name, and launch count, of a top-K kernel."""
+    return ("topk_pruned" if pruned else "topk") + _SUFFIX[kind]
 
 
 def _check_limits(d: int, k_short: int) -> None:
@@ -72,18 +95,19 @@ def launch_plan(groups: int, work: int, sms: int, per_sm: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _slots(device_index: int, d: int, k_short: int,
-           pruned: bool) -> tuple[int, int]:
+def _slots(device_index: int, d: int, k_short: int, pruned: bool,
+           kind: int) -> tuple[int, int]:
     """(SMs, resident blocks per SM) of the kernel that serves (d,
-    k_short) on the device: ``topk_blocks_per_sm`` in csrc/topk.cu, the
-    occupancy API, queried once per device and shape."""
+    k_short) over items of ``kind`` on the device: ``topk_blocks_per_sm``
+    in csrc/topk.cu, the occupancy API, queried once per device and
+    shape."""
     fn = _build.load("topk").topk_blocks_per_sm
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = fn(d, k_short, int(pruned), ctypes.byref(blocks))
+        err = fn(d, k_short, int(pruned), kind, ctypes.byref(blocks))
     if err != 0 or blocks.value < 1:
         raise RuntimeError(f"topk occupancy query failed: CUDA error {err}, "
                            f"{blocks.value} blocks per SM")
@@ -92,9 +116,20 @@ def _slots(device_index: int, d: int, k_short: int,
 
 
 def _splits(dev, groups: int, work: int, d: int, k_short: int,
-            pruned: bool) -> int:
+            pruned: bool, kind: int) -> int:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return launch_plan(groups, work, *_slots(index, d, k_short, pruned))
+    return launch_plan(groups, work, *_slots(index, d, k_short, pruned,
+                                             kind))
+
+
+def _item_args(items, live, scales, kind, dev, N, d):
+    """The item operands' pointers: items in their dtype, live, and for
+    int8 the scales."""
+    args = [_build.check(items, "items", items.dtype, (N, d), dev),
+            _build.check(live, "live", torch.float32, (N,), dev)]
+    if kind == 2:
+        args.append(_build.check(scales, "scales", torch.float32, (N,), dev))
+    return args
 
 
 def _common_args(w, Minv, occ, dev, n, d):
@@ -109,34 +144,39 @@ def topk(
     w: torch.Tensor,        # [n, d] f32
     Minv: torch.Tensor,     # [n, d, d] f32
     occ: torch.Tensor,      # [n] i32
-    items: torch.Tensor,    # [N, d] f32
+    items: torch.Tensor,    # [N, d] f32, bf16 or int8
     live: torch.Tensor,     # [N] f32
     alpha: float,
     k_short: int,
+    *,
+    scales: torch.Tensor | None = None,   # [N] f32, int8 items only
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(scores [n, k_short] f32, ids [n, k_short] i32) by (score desc, id
-    asc); entries that hold no live item have score -inf."""
+    asc); entries that hold no live item have score -inf.  Scores are
+    taken on the dequantized items (``ref.dequantize_rows``)."""
     dev = w.device
     if dev.type == "cpu":
-        return topk_ref(w, Minv, occ, items, live, alpha, k_short)
+        return topk_ref(w, Minv, occ, items, live, alpha, k_short,
+                        scales=scales)
     if dev.type != "cuda":
         raise ValueError(f"topk runs on cpu or cuda, not {dev}")
     n, d = w.shape
     N = items.shape[0]
     _check_limits(d, k_short)
-    args = _common_args(w, Minv, occ, dev, n, d) + [
-        _build.check(items, "items", torch.float32, (N, d), dev),
-        _build.check(live, "live", torch.float32, (N,), dev),
-    ]
+    kind = item_kind(items, scales)
+    args = _common_args(w, Minv, occ, dev, n, d) + _item_args(
+        items, live, scales, kind, dev, N, d)
     groups = -(-n // USERS_PER_BLOCK)
-    S = _splits(dev, groups, -(-N // chunk_items(d)), d, k_short, False)
+    S = _splits(dev, groups, -(-N // chunk_items(d)), d, k_short, False,
+                kind)
     out_s = torch.empty(n, k_short, dtype=torch.float32, device=dev)
     out_i = torch.empty(n, k_short, dtype=torch.int32, device=dev)
     part_s = torch.empty(S if S > 1 else 0, n, k_short, dtype=torch.float32,
                          device=dev)
     part_i = torch.empty(part_s.shape, dtype=torch.int32, device=dev)
     if n:
-        _build.launch("topk", *args, float(alpha), n, N, d, k_short, S,
+        _build.launch(kernel_name(False, kind), *args, float(alpha), n, N,
+                      d, k_short, S,
                       part_s.data_ptr(), part_i.data_ptr(),
                       out_s.data_ptr(), out_i.data_ptr())
     return out_s, out_i
@@ -146,12 +186,14 @@ def topk_pruned(
     w: torch.Tensor,        # [n, d] f32
     Minv: torch.Tensor,     # [n, d, d] f32
     occ: torch.Tensor,      # [n] i32
-    items: torch.Tensor,    # [N, d] f32 cluster-sorted catalog
+    items: torch.Tensor,    # [N, d] f32/bf16/int8 cluster-sorted catalog
     live: torch.Tensor,     # [N] f32 in sorted order
     ids: torch.Tensor,      # [N] i32 global slot ids of the sorted rows
     alpha: float,
     k_short: int,
     tb: torch.Tensor,       # [n, T] tile bounds; tile = N // T
+    *,
+    scales: torch.Tensor | None = None,   # [N] f32 sorted, int8 only
 ):
     """Cluster-pruned top-K: (scores, ids, tiles_skipped, tile_visits)
     with the shortlist bit-equal to :func:`topk`'s over the unsorted
@@ -166,11 +208,11 @@ def topk_pruned(
     dev = w.device
     if dev.type == "cpu":
         return topk_ref_pruned(w, Minv, occ, items, live, ids, alpha,
-                               k_short, tb)
+                               k_short, tb, scales=scales)
     if dev.type != "cuda":
         raise ValueError(f"topk_pruned runs on cpu or cuda, not {dev}")
     launch, finish = pruned_launch(w, Minv, occ, items, live, ids, alpha,
-                                   k_short, tb)
+                                   k_short, tb, scales=scales)
     launch()
     return finish()
 
@@ -198,7 +240,8 @@ def walk_plan(tb: torch.Tensor):
     return order, tile_order, tb_walk
 
 
-def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb):
+def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb, *,
+                  scales=None):
     """The CUDA side of :func:`topk_pruned`, in two steps: everything up
     to the kernel's launch, then ``(launch, finish)``: ``launch()`` runs
     the kernel (and the merge), ``finish()`` returns what
@@ -217,11 +260,14 @@ def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb):
     _build.check(tb, "tb", torch.float32, (n, T), dev)
     order, tile_order, tb_walk = walk_plan(tb)
     groups = tile_order.shape[0]
+    kind = item_kind(items, scales)
     _common_args(w, Minv, occ, dev, n, d)
-    _build.check(items, "items", torch.float32, (N, d), dev)
-    _build.check(live, "live", torch.float32, (N,), dev)
+    _item_args(items, live, scales, kind, dev, N, d)
     _build.check(ids, "ids", torch.int32, (N,), dev)
-    S = _splits(dev, groups, pruned_chunks(T, tile, d), d, k_short, True)
+    S = _splits(dev, groups, pruned_chunks(T, tile, d), d, k_short, True,
+                kind)
+    item_ptrs = [t.data_ptr() for t in (items, live, ids)] + (
+        [scales.data_ptr()] if kind == 2 else [])
     gfloor = torch.empty(groups * USERS_PER_BLOCK, dtype=torch.int32,
                          device=dev)
     out_s = torch.empty(n, k_short, dtype=torch.float32, device=dev)
@@ -236,9 +282,10 @@ def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb):
             skipped.zero_()
             return
         gfloor.fill_(_NEG_INF_ORDERED)
-        _build.launch("topk_pruned", *(t.data_ptr() for t in (
-            w, Minv, occ, items, live, ids, order, tb_walk, tile_order,
-            gfloor)), float(alpha), n, T, tile, d, k_short, S,
+        _build.launch(kernel_name(True, kind), *(t.data_ptr() for t in (
+            w, Minv, occ)), *item_ptrs, *(t.data_ptr() for t in (
+                order, tb_walk, tile_order, gfloor)), float(alpha), n, T,
+            tile, d, k_short, S,
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), skipped.data_ptr())
 

@@ -24,6 +24,12 @@ for a row block iff STRICTLY ``tb < floor`` for every user of the block,
 ``floor`` being each user's running k-th score: any item of such a tile
 scores below k items already found.  ``tb == floor`` must not skip (an
 equal-score item with a smaller id could still displace the floor entry).
+
+Reduced-precision catalogs (``Precision.catalog_dtype``): ``items`` may be
+bf16, or int8 codes with a per-row f32 ``scales``; every score is taken on
+the dequantized row ``items.float() * scales`` (:func:`dequantize_rows`,
+one f32 rounding per element, as ``repro``'s ``astype(f32) * scale``), so
+the semantics above hold on the dequantized catalog.
 """
 from __future__ import annotations
 
@@ -41,6 +47,30 @@ ROW_BLOCK = 8
 # score round differently, so without slack a ~1e-6 wiggle could put a
 # true bound under a real score.  Scores are O(1); 1e-4 costs no pruning.
 BOUND_SLACK = 1e-4
+
+
+def check_items(items: torch.Tensor, scales) -> None:
+    """Raise unless ``items`` is f32 or bf16 without ``scales``, or int8
+    with them."""
+    if items.dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise TypeError(f"items have dtype {items.dtype}; want float32, "
+                        "bfloat16 or int8 with scales")
+    if items.dtype == torch.int8 and scales is None:
+        raise ValueError("int8 items need their per-row scales")
+    if items.dtype != torch.int8 and scales is not None:
+        raise ValueError(f"{items.dtype} items take no scales; only int8 "
+                         "codes are scaled")
+
+
+def dequantize_rows(items: torch.Tensor,
+                    scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The f32 rows the scores are taken on: f32 as they are, bf16
+    widened (exact), int8 codes times their row's f32 ``scale`` (one
+    rounding).  int8 requires ``scales``; the other dtypes refuse it."""
+    check_items(items, scales)
+    if scales is None:
+        return items.float()
+    return items.float() * scales.float()[:, None]
 
 
 def select_topk(buf_s: torch.Tensor, buf_i: torch.Tensor, k: int):
@@ -83,11 +113,14 @@ def topk_ref(
     k_short: int,
     *,
     item_block: int = 4096,
+    scales: torch.Tensor | None = None,   # [N] f32, int8 items only
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(scores [n, k_short], ids [n, k_short] i32); entries that hold no
     live item keep score -inf (the caller maps them to id -1).  Every
     user row is scored against each item tile at once: results per user
-    are independent, so this row blocking changes nothing."""
+    are independent, so this row blocking changes nothing.  ``items``
+    may be f32, bf16 or int8 (with ``scales``): each tile is dequantized
+    by :func:`dequantize_rows` before it is scored."""
     n, d = w.shape
     N = items.shape[0]
     run_s = w.new_full((n, k_short), NEG_INF)
@@ -95,7 +128,8 @@ def topk_ref(
     # bound the [n, tile, d] intermediate of the score loops
     ib = max(1, min(item_block, 2**25 // max(1, n * d)))
     for t0 in range(0, N, ib):
-        x = items[t0:t0 + ib].float()
+        x = dequantize_rows(items[t0:t0 + ib],
+                            None if scales is None else scales[t0:t0 + ib])
         s = _scores(w, Minv, occ, x, live[t0:t0 + ib], alpha)
         ids = torch.arange(t0, t0 + x.shape[0], dtype=torch.int32,
                            device=w.device)
@@ -161,6 +195,8 @@ def topk_ref_pruned(
     alpha: float,
     k_short: int,
     tb: torch.Tensor,       # [n, T] tile upper bounds (tile = N // T)
+    *,
+    scales: torch.Tensor | None = None,   # [N] f32 in sorted order, int8
 ):
     """(scores [n, k_short], ids [n, k_short], tiles_skipped, tile_visits)
     with the shortlist BIT-EQUAL to the unpruned one over the unsorted
@@ -189,7 +225,7 @@ def topk_ref_pruned(
     M_b = _pad_rows(Minv[order].float(), npad).view(nb, rb, d, d)
     occ_b = _pad_rows(occ[order], npad, 0).view(nb, rb)
     tb_b = _pad_rows(tb[order], npad, NEG_INF).view(nb, rb, T)
-    items_t = items.float().view(T, ib, d)
+    items_t = dequantize_rows(items, scales).view(T, ib, d)
     live_t = live.view(T, ib)
     ids_t = ids.to(torch.int32).view(T, ib)
     tile_order = torch.argsort(-tb_b.amax(dim=1), dim=1, stable=True)

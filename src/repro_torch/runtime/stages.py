@@ -209,6 +209,9 @@ def stage2_refresh(col, gb, hyper, d, Minv, b, occ, adj) -> Stage2Refresh:
     n_local = Minv.shape[0]
     row0 = col.axis_index() * n_local
 
+    # a serving session may hold Minv in bf16 (Precision.state_dtype): the
+    # solves and inversions run in f32 (an f32 Minv is used as it is)
+    Minv = Minv.float()
     v_local = linucb.user_vector(Minv, b)
     v_all = col.all_gather(v_local)
     occ_all = col.all_gather(occ)

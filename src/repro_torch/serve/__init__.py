@@ -21,11 +21,17 @@ Against a persistent catalog, unpruned or cluster-pruned (bit-equal)::
 Delayed feedback: ``pending_capacity > 0`` makes ``recommend`` issue
 decision ids and ``observe_delayed`` fold feedback by id.
 
+Reduced precision: ``OnlineBandit.create(..., precision="bf16")`` (or
+``"int8"``, or ``REPRO_PRECISION``) keeps ``Minv`` in bf16, and
+``make_catalog(emb, precision=...)`` stores bf16 or int8 banks.
+Checkpoints: ``session.save(CheckpointManager(dir), step)`` and
+``session.restore(ckpt)`` (``train.checkpoint``).
+
 Policies: ``distclub`` | ``club`` | ``linucb`` | ``dccb``.
 """
-from ..core.catalog import (Bank, Catalog, add_items, make_catalog,
-                            publish, random_catalog, retire_items,
-                            staged_churn, torn_publish)
+from ..core.catalog import (Bank, Catalog, add_items, dequantize,
+                            make_catalog, publish, random_catalog,
+                            retire_items, staged_churn, torn_publish)
 from ..core.itemclub import (ItemClusters, ItemStats, RetrievalMetrics,
                              build_clusters, init_stats, observe_served,
                              refresh_clusters, reset_new_slots)
@@ -44,7 +50,7 @@ __all__ = [
     "DCCBPolicy", "DCCBServeState",
     "ItemClusters", "ItemStats", "LinUCBPolicy", "LinUCBServeState",
     "OnlineBandit", "PendingBuffer", "RetrievalMetrics", "ServeCfg",
-    "add_items", "build_clusters", "embed_candidates",
+    "add_items", "build_clusters", "dequantize", "embed_candidates",
     "from_distclub_state", "get_policy", "init_stats", "make_catalog",
     "make_cfg", "observe", "observe_delayed", "observe_served",
     "pending_stats", "publish", "random_catalog", "recommend",

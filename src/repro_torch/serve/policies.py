@@ -23,7 +23,10 @@ record:
 
 The clustered policies read the stage-2 per-user snapshots
 (``uMcinv``/``ubc``/``umean_occ``) frozen until the next refresh, as
-stages 3 and 4 do.
+stages 3 and 4 do.  They and linucb keep ``Minv`` and ``uMcinv`` in the
+session's ``Precision.state_dtype`` (bf16 halves the bytes of the
+``[n, d, d]`` state); ``gather_score`` upcasts the gathered rows once, so
+scoring and retrieval run in f32.  dccb keeps f32 state, as ``repro``'s.
 ``gather_score`` is also what catalog retrieval scores the catalog with.
 
 On a sharded session (``OnlineBandit.sharded``, the ``distclub`` policy)
@@ -38,7 +41,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..core import dccb, distclub, env_ops, linucb
-from ..core.backend import BackendConfig
+from ..core.backend import BackendConfig, Precision, resolve_precision
 from ..core.clustering import segment_sum
 from ..core.types import (BanditHyper, ClusterStats, DistCLUBState,
                           GraphState, LinUCBState)
@@ -59,6 +62,7 @@ class ServeCfg(NamedTuple):
     hyper: BanditHyper
     refresh_every: int      # interactions between refreshes; <= 0 = never
     seed: int = 0           # keys a randomized refresh (dccb's peer draw)
+    precision: Precision = Precision.f32   # the session's storage policy
 
 
 def _rank1_pass(Minv, b, occ, idx, x, r, live, be):
@@ -74,9 +78,8 @@ def _rank1_pass(Minv, b, occ, idx, x, r, live, be):
     return Minv, b, occ
 
 
-def _eye_rows(n, d, device):
-    return torch.eye(d, dtype=torch.float32, device=device).expand(
-        n, d, d).clone()
+def _eye_rows(n, d, device, dtype=torch.float32):
+    return torch.eye(d, dtype=dtype, device=device).expand(n, d, d).clone()
 
 
 def _zero():
@@ -120,15 +123,16 @@ class ClusteredPolicy(NamedTuple):
         """The initial state of this rank's users (every user on one
         process)."""
         n, d = self.cfg.n_users, self.cfg.d
+        sdt = self.cfg.precision.torch_state
         row0, m = local_slice(n, col.axis_index(), col.n_shards)
         return ClusteredState(
-            Minv=_eye_rows(m, d, device),
+            Minv=_eye_rows(m, d, device, sdt),
             b=torch.zeros(m, d, dtype=torch.float32, device=device),
             occ=torch.zeros(m, dtype=torch.int32, device=device),
             adj=graph_ops.init_packed_adj(m, n, row_offset=row0,
                                           device=device),
             labels=torch.zeros(n, dtype=torch.int32, device=device),
-            uMcinv=_eye_rows(m, d, device),
+            uMcinv=_eye_rows(m, d, device, sdt),
             ubc=torch.zeros(m, d, dtype=torch.float32, device=device),
             umean_occ=torch.zeros(m, dtype=torch.float32, device=device),
             since_refresh=_zero().to(device),
@@ -138,8 +142,9 @@ class ClusteredPolicy(NamedTuple):
         return state.occ
 
     def gather_score(self, state: ClusteredState, idx):
-        Minv, b, occ = state.Minv[idx], state.b[idx], state.occ[idx]
-        uMcinv = state.uMcinv[idx]
+        # reduced rows upcast once, after the gather (f32: as they are)
+        Minv, b, occ = state.Minv[idx].float(), state.b[idx], state.occ[idx]
+        uMcinv = state.uMcinv[idx].float()
         v_own = linucb.user_vector(Minv, b)
         v_clu = linucb.user_vector(uMcinv, state.ubc[idx])
         if self.use_beta:
@@ -162,7 +167,8 @@ class ClusteredPolicy(NamedTuple):
         res = stages.stage2_refresh(col, gb, cfg.hyper, cfg.d, state.Minv,
                                     state.b, state.occ, state.adj)
         return state._replace(
-            adj=res.adj, labels=res.labels, uMcinv=res.uMcinv, ubc=res.ubc,
+            adj=res.adj, labels=res.labels,
+            uMcinv=res.uMcinv.to(state.uMcinv.dtype), ubc=res.ubc,
             umean_occ=res.umean_occ,
             comm_bytes=state.comm_bytes + res.comm_bytes)
 
@@ -193,7 +199,7 @@ class LinUCBPolicy(NamedTuple):
     def init(self, device) -> LinUCBServeState:
         n, d = self.cfg.n_users, self.cfg.d
         return LinUCBServeState(
-            Minv=_eye_rows(n, d, device),
+            Minv=_eye_rows(n, d, device, self.cfg.precision.torch_state),
             b=torch.zeros(n, d, dtype=torch.float32, device=device),
             occ=torch.zeros(n, dtype=torch.int32, device=device),
             since_refresh=_zero().to(device))
@@ -202,7 +208,7 @@ class LinUCBPolicy(NamedTuple):
         return state.occ
 
     def gather_score(self, state: LinUCBServeState, idx):
-        Minv = state.Minv[idx]
+        Minv = state.Minv[idx].float()
         return linucb.user_vector(Minv, state.b[idx]), Minv, state.occ[idx]
 
     def apply_pass(self, state: LinUCBServeState, idx, x, r, live, be):
@@ -301,9 +307,14 @@ class DCCBPolicy(NamedTuple):
 
 
 def make_cfg(n_users: int, d: int, hyper: BanditHyper, *,
-             refresh_every: int = 0, seed: int = 0) -> ServeCfg:
+             refresh_every: int = 0, seed: int = 0,
+             precision=None) -> ServeCfg:
+    """``precision`` (a ``Precision``, a preset name, or None) through
+    ``core.backend.resolve_precision``: the one source of the state dtype
+    and of the checkpoint's precision tag."""
     return ServeCfg(n_users=n_users, d=d, hyper=hyper,
-                    refresh_every=refresh_every, seed=seed)
+                    refresh_every=refresh_every, seed=seed,
+                    precision=resolve_precision(precision))
 
 
 def get_policy(name: str, cfg: ServeCfg):
@@ -346,8 +357,9 @@ def to_distclub_state(state: ClusteredState, hyper: BanditHyper,
     """The offline record from a serving state (label tables rebuilt from
     the per-user rows; M recovered from Minv)."""
     n = state.occ.shape[0]
-    M = torch.linalg.inv(state.Minv)
-    lin = LinUCBState(M=M, Minv=state.Minv, b=state.b, occ=state.occ)
+    Minv = state.Minv.float()           # the offline record is f32
+    M = torch.linalg.inv(Minv)
+    lin = LinUCBState(M=M, Minv=Minv, b=state.b, occ=state.occ)
     eye = torch.eye(d, dtype=torch.float32, device=M.device)
     labels = state.labels
     Mc = segment_sum(M - eye, labels, n) + eye

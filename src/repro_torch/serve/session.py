@@ -50,6 +50,21 @@ the one-process shortlist, bit for bit.  The refresh is stage 2 over
 ``col``, the code path of ``distributed.distclub_shard``.  Only the
 ``distclub`` policy has a sharded session, without delayed feedback.
 
+Precision: ``create``, ``sharded`` and ``from_offline`` take a
+``precision`` (``core.backend.Precision``, a preset name, or None for
+``REPRO_PRECISION`` / f32).  Under bf16 the clustered and linucb states
+keep ``Minv`` in bf16 (``rank1_update_inv_bf16`` folds feedback), and a
+catalog may hold bf16 or int8 banks (``core.catalog.make_catalog(...,
+precision=)``): the shortlist dequantizes on chip, and the gathered
+shortlist rows are dequantized before the choose, so the choose and the
+caller's ``reward_fn`` always see f32.
+
+Checkpointing: ``session.save(ckpt, step)`` / ``session.restore(ckpt)``
+round-trip the policy state through ``train.checkpoint.CheckpointManager``
+with the session's precision tag beside it; ``restore`` refuses a
+checkpoint written under another precision.  A restarted session resumes
+with the same subsequent choices.  Single-host sessions only.
+
 Padding: rows with ``uid < 0`` or ``uid >= n_users`` are no-ops (choice
 0 / item -1, no state change, decision id -1).  Sessions are immutable:
 every call returns a new session and leaves its input as it was.
@@ -72,6 +87,26 @@ from . import policies as pol
 
 _ENGINE = BackendConfig.create().interact()
 _NULL = NullCollectives()
+
+# the precision policy is checkpointed as a small i32 tag (dtype codes and
+# scale block), so that restore can refuse a snapshot written under
+# another one (``repro.serve.session``'s tag, code for code)
+_PREC_NAMES = ("f32", "bf16", "int8")
+
+
+def _precision_tag(prec, device=None) -> torch.Tensor:
+    return torch.tensor([_PREC_NAMES.index(prec.state_dtype),
+                         _PREC_NAMES.index(prec.catalog_dtype),
+                         _PREC_NAMES.index(prec.accum_dtype),
+                         prec.scale_block], dtype=torch.int32, device=device)
+
+
+def _decode_precision_tag(codes) -> str:
+    def name(c):
+        return _PREC_NAMES[c] if 0 <= c < len(_PREC_NAMES) else f"?{c}"
+
+    return (f"Precision(state={name(codes[0])}, catalog={name(codes[1])}, "
+            f"accum={name(codes[2])}, scale_block={codes[3]})")
 
 
 def embed_candidates(item_embed: torch.Tensor, cand_ids: torch.Tensor):
@@ -190,15 +225,21 @@ def _catalog_choose(policy, rb, col, state, user_ids, catalog, clusters=None):
     bank = catalog.serving
     n_items = catalog.capacity
     row0_items = col.axis_index() * n_items
+    # int8 banks ship their per-slot scales into the kernels; f32 and bf16
+    # banks need none
+    quantized = bank.emb.dtype == torch.int8
     if clusters is not None and itemclub.is_fresh(clusters, catalog):
+        emb_s, live_s, ids_s, scale_s, *tabs = itemclub.shard_slice(
+            clusters, col.axis_index(), n_items)
         sc, ids, skipped, total = rb.shortlist_pruned(
-            w, minv_eff, occ_rows, *itemclub.shard_slice(
-                clusters, col.axis_index(), n_items), alpha)
+            w, minv_eff, occ_rows, emb_s, live_s, ids_s, *tabs, alpha,
+            scales_sorted=scale_s if quantized else None)
         rmet = itemclub.RetrievalMetrics(
             *_psum_counts(col, w.device, skipped, total), 1)
     else:   # unpruned, or a publish landed after the last rebuild
         sc, ids = rb.shortlist(w, minv_eff, occ_rows, bank.emb, bank.live,
-                               alpha, row0_items)
+                               alpha, row0_items,
+                               scales=bank.scale if quantized else None)
         rmet = (None if clusters is None
                 else itemclub.RetrievalMetrics(0, 0, 0))
     if col.n_shards > 1:
@@ -211,7 +252,12 @@ def _catalog_choose(policy, rb, col, state, user_ids, catalog, clusters=None):
     top_i = torch.where(torch.isfinite(sc), ids, ids[:, :1])
     loc = top_i - row0_items
     ok = (loc >= 0) & (loc < n_items)
-    rows = bank.emb[torch.clamp(loc, 0, n_items - 1).long()]
+    g = torch.clamp(loc, 0, n_items - 1).long()
+    # dequantize the gathered shortlist rows before the psum: the slate the
+    # choose (and the reward_fn) sees is always f32
+    rows = bank.emb[g].float()
+    if quantized:
+        rows = rows * bank.scale[g][..., None]
     ctx = col.psum(torch.where(ok[..., None], rows, 0.0)).contiguous()
     x, slot = _ENGINE.choose(w, minv_eff, ctx, occ_rows, alpha)
     item = torch.take_along_dim(top_i, slot.long()[:, None], dim=1)[:, 0]
@@ -261,16 +307,19 @@ class OnlineBandit:
     def create(cls, n_users: int, d: int, hyper: BanditHyper, *,
                policy: str = "distclub", refresh_every: int = 0,
                pending_capacity: int = 0, pending_ttl: int = 64,
-               seed: int = 0, device=None) -> "OnlineBandit":
+               seed: int = 0, precision=None,
+               device=None) -> "OnlineBandit":
         """Single-host session on ``device`` (default cuda; raises without
         a card unless ``device="cpu"``).  ``refresh_every`` is the
         interaction budget between refreshes (<= 0: only ``refresh``);
         ``pending_capacity > 0`` enables delayed feedback, where a
         decision survives ``pending_ttl`` later issues; ``seed`` keys a
-        randomized refresh (dccb's gossip peers)."""
+        randomized refresh (dccb's gossip peers); ``precision`` (a
+        ``Precision``, a preset name, or None: ``REPRO_PRECISION``, f32)
+        picks the state dtype, and checkpoints record it."""
         dev = resolve_device(device)
         cfg = pol.make_cfg(n_users, d, hyper, refresh_every=refresh_every,
-                           seed=seed)
+                           seed=seed, precision=precision)
         p = pol.get_policy(policy, cfg)
         pend = (pending_mod.init(pending_capacity, d, device=dev)
                 if pending_capacity > 0 else None)
@@ -280,7 +329,7 @@ class OnlineBandit:
     @classmethod
     def sharded(cls, col, n_users: int, d: int, hyper: BanditHyper, *,
                 policy: str = "distclub", refresh_every: int = 0,
-                device=None) -> "OnlineBandit":
+                precision=None, device=None) -> "OnlineBandit":
         """This rank's share of a session whose ``n_users`` users are split
         over the ranks of ``col`` in rank order, on ``device`` (default
         cuda; raises without a card unless ``device="cpu"``; under nccl
@@ -290,21 +339,27 @@ class OnlineBandit:
             raise ValueError(f"policy {policy!r} has no sharded session; "
                              "only distclub does")
         dev = resolve_device(device)
-        cfg = pol.make_cfg(n_users, d, hyper, refresh_every=refresh_every)
+        cfg = pol.make_cfg(n_users, d, hyper, refresh_every=refresh_every,
+                           precision=precision)
         p = pol.get_policy(policy, cfg)
         return cls(policy=p, state=p.init(dev, col), col=col)
 
     @classmethod
     def from_offline(cls, state, hyper: BanditHyper, *,
                      refresh_every: int = 0, pending_capacity: int = 0,
-                     pending_ttl: int = 64, col=None) -> "OnlineBandit":
+                     pending_ttl: int = 64, col=None,
+                     precision=None) -> "OnlineBandit":
         """A distclub session warm-started from an offline
         ``core.distclub.run`` state, on that state's device.  With
         ``col``, this rank's share of a sharded session (its users' rows
-        of the state; no pending buffer)."""
+        of the state; no pending buffer).  The offline state is f32; it is
+        cast down to ``precision``'s state dtype (a no-op under f32)."""
         n, d = state.lin.b.shape
-        cfg = pol.make_cfg(n, d, hyper, refresh_every=refresh_every)
+        cfg = pol.make_cfg(n, d, hyper, refresh_every=refresh_every,
+                           precision=precision)
         st = pol.from_distclub_state(state)
+        sdt = cfg.precision.torch_state
+        st = st._replace(Minv=st.Minv.to(sdt), uMcinv=st.uMcinv.to(sdt))
         if col is not None:
             if pending_capacity > 0:
                 raise ValueError("a sharded session has no pending buffer")
@@ -315,6 +370,43 @@ class OnlineBandit:
                 if pending_capacity > 0 else None)
         return cls(policy=pol.get_policy("distclub", cfg), state=st,
                    pending=pend, ttl=int(pending_ttl))
+
+    # -- checkpointing -----------------------------------------------------
+    def _payload(self, state) -> dict:
+        return {"prec": _precision_tag(self.policy.cfg.precision),
+                "state": state}
+
+    def save(self, ckpt, step: int):
+        """Snapshot the policy state with the session's precision tag
+        (atomic, keep-K: ``train.checkpoint.CheckpointManager``)."""
+        if self.col.n_shards > 1:
+            raise ValueError("a sharded session is not checkpointed; save "
+                             "and restore single-host sessions")
+        return ckpt.save(self._payload(self.state), step)
+
+    def restore(self, ckpt, step: int | None = None):
+        """``(session, step)`` restored from ``ckpt`` (the latest loadable
+        checkpoint when ``step`` is None; ``(self, None)`` when the
+        directory holds none), tensors on this session's device.  Raises
+        ``ValueError`` when the checkpoint was written under another
+        ``Precision``: bf16 state must not come back as f32, nor the
+        reverse."""
+        like = self._payload(self.state)
+        if step is None:
+            payload, step = ckpt.restore_latest(like)
+            if payload is None:
+                return self, None
+        else:
+            payload = ckpt.restore(step, like)
+        got = [int(v) for v in payload["prec"].tolist()]
+        want = [int(v) for v in like["prec"].tolist()]
+        if got != want:
+            raise ValueError(
+                f"checkpoint precision mismatch: step {step} was saved "
+                f"under {_decode_precision_tag(got)} but this session "
+                f"runs {_decode_precision_tag(want)} — recreate the "
+                "session with the matching precision= (or re-train)")
+        return dataclasses.replace(self, state=payload["state"]), step
 
     def step(self, key, user_ids, contexts, reward_fn):
         return step(self, key, user_ids, contexts, reward_fn)

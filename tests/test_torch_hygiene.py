@@ -54,22 +54,31 @@ def test_package_imports_neither_jax_nor_repro():
                 "configs.llama3_8b", "configs.yi_34b", "data.datasets",
                 "data.replay", "distributed.distclub_shard",
                 "distributed.dccb_shard", "distributed.sharding",
-                "launch.mesh", "runtime.collectives"):
+                "launch.mesh", "runtime.collectives", "train.checkpoint"):
         assert f"repro_torch.{mod}" in names, mod
     for kind in ("synthetic", "drift", "catalog", "replay",
                  "default_synthetic"):
         assert callable(getattr(env_ops, f"{kind}_ops")), kind
 
 
-def test_quickstart_imports_neither_jax_nor_repro():
+def _example_imports(example: str) -> str:
     root = SRC.parent
     env_vars = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(SRC), str(root / "examples")]))
-    code = ("import sys, quickstart_torch; print(sorted(m for m in "
+    code = (f"import sys, {example}; print(sorted(m for m in "
             "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
-    out = subprocess.run([sys.executable, "-c", code], env=env_vars,
-                         capture_output=True, text=True, timeout=120,
-                         check=True).stdout
+    return subprocess.run([sys.executable, "-c", code], env=env_vars,
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+
+
+def test_quickstart_imports_neither_jax_nor_repro():
+    out = _example_imports("quickstart_torch")
+    assert out.strip() == "[]", out
+
+
+def test_serve_bandit_example_imports_neither_jax_nor_repro():
+    out = _example_imports("serve_bandit_torch")
     assert out.strip() == "[]", out
 
 

@@ -75,8 +75,10 @@ def test_backend_choose_returns_x_then_choice_and_launches_nothing():
     c2, x2 = ops.choose(w, Minv, ctx, occ, 0.3)
     assert torch.equal(choice, c2) and torch.equal(x, x2)
     assert _build.LAUNCHES == before
+    # bf16 is a ported precision now; a name no preset has still raises
+    assert BackendConfig.create("bf16").precision.state_dtype == "bf16"
     with pytest.raises(ValueError):
-        BackendConfig.create("bf16")
+        BackendConfig.create("fp16")
 
 
 @pytest.mark.parametrize("n,K,d,want", [

@@ -381,11 +381,10 @@ def test_shard_slice_matches_reference(shards, reference):
     for s in range(shards):
         got = itemclub.shard_slice(cl, s, n_local)
         want = [reference[f"slice.{shards}.{s}.{i}"] for i in range(8)]
-        del want[3]                     # scale_sorted: f32 banks only
-        assert len(got) == len(want) == 7
+        assert len(got) == len(want) == 8      # scale_sorted at index 3
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), w)
-        assert got[0].shape == (n_local, 8) and got[4].shape == (
+        assert got[0].shape == (n_local, 8) and got[5].shape == (
             n_local // TILE,)
     with pytest.raises(ValueError, match="tile_items"):
         itemclub.shard_slice(cl, 0, TILE + TILE // 2)
