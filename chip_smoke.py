@@ -159,8 +159,13 @@ Phases, in order; any failure raises and the script exits non-zero:
            rerun batch by batch; ms per batch; then phase 4s's first
            batch through a cold ``OnlineBandit.sharded`` session, its
            items and reward equal to a one-process
-           ``OnlineBandit.create``'s, its state within 1e-6.  Every run
-           is counted on its own, and its launches checked.  After every
+           ``OnlineBandit.create``'s, its state within 1e-6; then 8 slate
+           batches through a sharded session with a pending ring
+           (``from_offline(..., col=, pending_capacity=)``), recommended
+           and observed with delay 0: bit-equal to the same ranks'
+           synchronous ``step``, the ring the same on every rank, the
+           choices a one-process session's.  Every run is counted on its
+           own, and its launches checked.  After every
            timed run, rank 0 holds the kernels at its shard shapes to
            their plain versions (uncounted): prune and cc_hop on the
            first stage 2's 5120 local rows against 20480 columns, topk
@@ -185,6 +190,48 @@ Phases, in order; any failure raises and the script exits non-zero:
            batches of 64, 32 + 40 rounds), at most 0.01 each, and, not
            gated, for phase 4s's learned users and traffic against a
            random 2^18-item catalog and against the region catalog.
+4o. ops    the operations layer (``serve.guardrails``, ``serve.faults``,
+           ``serve.experiments``) at serving's width: phase 4s's learned
+           users, batches of 256, k_short 64, rings of 4096 with TTL 16.
+           (1) ``run_faulted_catalog`` for 48 rounds against the 2^18-item
+           region catalog in 2^18 + 2^15 slots under delivery faults
+           (delay 0.3 up to 4 rounds, loss 0.05, dup 0.05) and churn
+           (2048 adds and 2048 retirements every 4 rounds, publishes a
+           round late, torn at 0.25, a 4096-item flash crowd at round 20,
+           the hot region retired at round 32), the conservation identity
+           asserted after every delivery, beside its clean control on the
+           same traffic, after a 4-round warm-up and in both orders (clean,
+           faulted, faulted, clean: tx/s and seconds of each run; matched
+           ratio, reward against clean, stale, publishes, items added and
+           retired).  (2) ``Guarded``: phase
+           4s's first 4 batches cluster-pruned with the recall probe
+           (items phase 4s's, recall 1.0); a ``run_faulted`` slate run (K
+           20) with every reward sign-flipped from round 16 and the CTR
+           floor at half the clean rate, which must roll back, then roll
+           back once more and serve 4 transactions bit-identically to a
+           session restored from the same snapshot; the ms of a snapshot,
+           a rollback and a guarded transaction beside a bare one.  (3) a
+           three-arm experiment (distclub, dccb on phase 4b's state, a
+           fresh linucb; selector epochs of 10, floor 0.05, per-arm
+           guardrails) for 60 rounds under the delivery faults with the
+           linucb arm's rewards sign-flipped from round 20: only linucb
+           is disabled and every request is still served; the report;
+           a routed transaction's ms beside its arms' plain ones; one arm
+           at fraction 1.0 bit-equal to the plain session for 8 batches.
+           Counted (``ops_launches``; choose, rank1_update_inv, prune,
+           cc_hop, topk and topk_pruned must each launch).  (4) topk
+           against its plain version (``check_topk``) on the churned bank
+           that served (1)'s last request, with that request's users; the
+           first 24 rounds of (1), every publish torn, and of (3) with the
+           plain versions in lockstep (each request served by the plain
+           versions on the same session and catalog first: equal decision
+           ids, differing picks only at near ties, and before each catalog
+           request ``check_topk`` on the serving bank of that moment), then
+           through the plain versions alone (identical items and choices
+           in at least 95% of the requests, ``compare_paths``' bands).  (5) ``launch.faultrun --scenario
+           churn --guard``, ``launch.abrun --selector --guard --faults``
+           and ``examples/ab_experiment_torch.py`` at their defaults on
+           the card, run together, each exiting 0.
 4r. recsys the recsys models at their published configs
            (``repro_torch.configs``): DCN-v2 (26 x 2^20 x 16 f32 tables,
            d_interact 429, 3 cross layers) scores 16 serve_p99 batches of
@@ -1989,6 +2036,7 @@ class ServeRun:
             within_cluster_noise=paper.WITHIN_CLUSTER_NOISE,
             item_noise_scale=0.05, device=dev)
         assert torch.equal(cenv.theta, theta), "catalog env: other users"
+        self.env = cenv
         self.theta = theta
         self.catalog = serve.make_catalog(env.catalog_embeddings(cenv))
         self.start = serve.OnlineBandit.from_offline(
@@ -2479,12 +2527,579 @@ def precision_phase(dev, work, state, hyper, theta):
 
 
 # ---------------------------------------------------------------------------
+# phase 4o: the operations layer (guardrails, faults, experiments)
+# ---------------------------------------------------------------------------
+
+OPS_PENDING = 4096           # every buffer-enabled session's ring
+OPS_TTL = 16
+OPS_ITEMS = SERVE_ITEMS + SERVE_ITEMS // 8   # 2^18 + 2^15 slots: room for adds
+OPS_CATALOG_ROUNDS = 48
+OPS_GUARD_ROUNDS = 32
+OPS_FLIP_AFTER = 16
+OPS_EXP_ROUNDS = 60
+OPS_POISON_AFTER = 20
+OPS_CTR_FLOOR = 0.2          # the arms' floor; a healthy arm serves ~0.5
+OPS_WARM_ROUNDS = 4          # item 1's warm-up before its timed runs
+OPS_PLAIN_ROUNDS = 24        # item 1's (publishes torn) and item 3's first
+                             # rounds in lockstep with the plain versions
+OPS_RESUME = 4               # transactions held bit-identical after rollback
+OPS_ONE_ARM = 8
+OPS_DELIVERY = dict(p_delay=0.3, max_delay=4, p_loss=0.05, p_dup=0.05)
+OPS_CHURN = dict(churn_every=4, churn_add=2048, churn_retire=2048,
+                 swap_stall_rounds=1, p_torn=0.25, flash_crowd_at=20,
+                 flash_crowd_size=4096, mass_retire_at=32)
+OPS_CKPT_DIR = ROOT / "build" / "chip_smoke_ops_ckpt"
+OPS_CLI_TIMEOUT_S = 300
+OPS_CLIS = (("faultrun", ["-m", "repro_torch.launch.faultrun", "--scenario",
+                          "churn", "--guard"]),
+            ("abrun", ["-m", "repro_torch.launch.abrun", "--selector",
+                       "--guard", "--faults"]),
+            ("ab_experiment", ["examples/ab_experiment_torch.py"]))
+
+
+def wall_ms(fn, reps=10) -> float:
+    """Median milliseconds of ``fn()`` on the host clock, the card
+    synchronised before and after each call."""
+    import torch
+    times = []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times[2:])
+
+
+def ops_session(state, hyper):
+    """The learned distclub users with a pending ring."""
+    from repro_torch import serve
+    return serve.OnlineBandit.from_offline(
+        state, hyper, refresh_every=REFRESH_EVERY,
+        pending_capacity=OPS_PENDING, pending_ttl=OPS_TTL)
+
+
+def ops_catalog_run(work, state, hyper, rounds, spec):
+    """Item 1: one ``run_faulted_catalog`` of the learned users on the
+    region catalog in ``OPS_ITEMS`` slots, conservation asserted after
+    every delivery; its report and the host seconds it took, the card
+    synchronised before and after."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.core import env
+    from repro_torch.serve import faults
+    sess = ops_session(state, hyper)
+    cat = serve.make_catalog(env.catalog_embeddings(work.env),
+                             capacity=OPS_ITEMS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, rep = faults.run_faulted_catalog(
+        sess, work.env, rounds, spec, catalog=cat, k_short=K_SHORT,
+        batch=SERVE_BATCH, key=SEED, assert_conservation=True)
+    torch.cuda.synchronize()
+    return rep, time.perf_counter() - t0
+
+
+def _picks_near(sess, uids, diff, x_k, x_p, label):
+    """Where the kernels' pick and the plain versions' differ (``diff``),
+    both picks' plain UCB scores (contexts ``x_k``, ``x_p``) under the
+    session's statistics for ``uids`` must lie within ``check_topk``'s
+    band.  Returns the differences."""
+    from repro_torch.kernels.ucb import ref as uref
+    from repro_torch.serve import session as smod
+    if not bool(diff.any()):
+        return 0
+    idx, _, _ = smod._request_masks(sess.policy, sess.col, sess.state, uids)
+    w, M, occ = sess.policy.gather_score(sess.state, idx)
+    s_k, s_p = (uref.ucb_scores_ref(w[diff], M[diff], x[diff][:, None],
+                                    occ[diff], sess.policy.cfg.hyper.alpha)
+                [:, 0] for x in (x_k, x_p))
+    assert bool(((s_k - s_p).abs() <= 1e-5 * (1 + s_p.abs())).all()), (
+        f"{label}: the plain versions picked otherwise beyond near ties")
+    return int(diff.sum())
+
+
+@contextlib.contextmanager
+def ops_watch(lockstep=False):
+    """Wraps ``serve.session.recommend`` and ``recommend_catalog`` where
+    the fault harness and the experiment call them, and yields a record:
+    the last catalog request (session, users, catalog), the items of
+    each catalog request, the torn publishes.  With ``lockstep`` each
+    request is also served by the plain versions on the same session
+    (and catalog) before the kernels serve it, and the kernels' result
+    carries on: the decision ids must be equal, and where a choice or an
+    item differs both picks must be near ties (``_picks_near``); each
+    catalog request first holds topk to its plain version on the serving
+    bank of that moment (``check_topk``)."""
+    import torch
+    from repro_torch.core import catalog as catalog_mod
+    from repro_torch.serve import session as smod
+    rec = {"last": None, "items": [], "torn": 0, "batches": 0,
+           "after_publish": 0, "near_ties": 0, "topk_err": 0.0,
+           "topk_ties": 0}
+    orig_rec, orig_cat = smod.recommend, smod.recommend_catalog
+    orig_torn = catalog_mod.torn_publish
+
+    def recommend(sess, uids, ctx):
+        got = orig_rec(sess, uids, ctx)
+        if lockstep:
+            with plain_path():
+                want = orig_rec(sess, uids, ctx)
+            assert torch.equal(got[2], want[2]), "lockstep: other ids"
+            ar = torch.arange(uids.shape[0], device=uids.device)
+            rec["near_ties"] += _picks_near(
+                sess, uids, got[1] != want[1], ctx[ar, got[1].long()],
+                ctx[ar, want[1].long()], "choose")
+            rec["batches"] += 1
+        return got
+
+    def recommend_catalog(sess, uids, cat, *, k_short=64, clusters=None):
+        rec["last"] = (sess, uids, cat)
+        if lockstep:
+            idx, _, _ = smod._request_masks(sess.policy, sess.col,
+                                            sess.state, uids)
+            w, M, occ = sess.policy.gather_score(sess.state, idx)
+            r = check_topk(w, M, occ, cat.serving.emb, cat.serving.live,
+                           sess.policy.cfg.hyper.alpha, k_short)
+            rec["topk_err"] = max(rec["topk_err"], r["max_abs_err"])
+            rec["topk_ties"] += r["near_ties"]
+            with plain_path():
+                want = orig_cat(sess, uids, cat, k_short=k_short,
+                                clusters=clusters)
+        got = orig_cat(sess, uids, cat, k_short=k_short, clusters=clusters)
+        rec["items"].append(got[1])
+        if lockstep:
+            assert torch.equal(got[2], want[2]), "lockstep: other ids"
+            ar = torch.arange(uids.shape[0], device=uids.device)
+            rec["near_ties"] += _picks_near(
+                sess, uids, got[1] != want[1], got[4][ar, got[3].long()],
+                want[4][ar, want[3].long()], "catalog")
+            rec["batches"] += 1
+            rec["after_publish"] += int(cat.epoch > 0)
+        return got
+
+    def torn_publish(cat, keep):
+        rec["torn"] += 1
+        return orig_torn(cat, keep)
+
+    with mock.patch.object(smod, "recommend", recommend), \
+            mock.patch.object(smod, "recommend_catalog", recommend_catalog), \
+            mock.patch.object(catalog_mod, "torn_publish", torn_publish):
+        yield rec
+
+
+def ops_guarded(dev, work, state, hyper, item_clusters):
+    """Item 2: guarded catalog batches (pruned, recall probed), then the
+    guarded sign-flip run, the bit-identical resume after a rollback and
+    the costs of a snapshot, a rollback and a guarded transaction."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch import serve
+    from repro_torch.core import env
+    from repro_torch.serve import faults, guardrails
+    from repro_torch.train.checkpoint import CheckpointManager
+    shutil.rmtree(OPS_CKPT_DIR, ignore_errors=True)
+    n, d = work.theta.shape
+    K = hyper.n_candidates
+
+    # phase 4s's first batches through a guarded, catalog-tracking session
+    # on the cluster-pruned path, each probed against the direct shortlist
+    gc = guardrails.Guarded.create(
+        serve.OnlineBandit.from_offline(state, hyper,
+                                        refresh_every=REFRESH_EVERY),
+        CheckpointManager(OPS_CKPT_DIR / "catalog", keep=1),
+        guardrails.GuardrailConfig(recall_floor=0.99, warmup=0,
+                                   snapshot_every=10**9),
+        catalog=work.catalog)
+    skipped = 0
+    for t in range(4):
+        gc, items, _, rmet = gc.step_catalog(
+            t, work.users[t], reward_fn=work.reward_fn, k_short=K_SHORT,
+            probe_recall=True, clusters=item_clusters)
+        assert torch.equal(items, work.items[t]), (
+            "guarded pruned batch: other items than phase 4s")
+        skipped += rmet.tiles_skipped
+    log(f"ops guarded catalog: 4 cluster-pruned batches, recall probe "
+        f"ema {gc.gs.ema_recall}, tiles skipped {skipped}, events "
+        f"{gc.events}")
+    assert gc.gs.ema_recall == 1.0 and not gc.gs.rollbacks
+
+    kw = dict(batch=SERVE_BATCH, key=SEED + 1)
+    _, clean = faults.run_faulted(ops_session(state, hyper), work.theta,
+                                  OPS_GUARD_ROUNDS, faults.FaultSpec(), **kw)
+    rate = clean.reward / clean.interactions
+    cfg = guardrails.GuardrailConfig(ctr_floor=rate / 2,
+                                     warmup=2 * SERVE_BATCH, ema=0.7,
+                                     snapshot_every=4, cooldown=2)
+    ckpt = CheckpointManager(OPS_CKPT_DIR / "slates", keep=2)
+    g = guardrails.Guarded.create(ops_session(state, hyper), ckpt, cfg)
+    spec = faults.FaultSpec(seed=SEED, p_flip=1.0, flip_after=OPS_FLIP_AFTER)
+    t0 = time.perf_counter()
+    g, rep = faults.run_faulted(g, work.theta, OPS_GUARD_ROUNDS, spec, **kw)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    rolls = [e for e in rep.events if e[0] == "rollback"]
+    snaps = [e for e in rep.events if e[0] == "snapshot"]
+    log(f"ops guarded sign-flip: {OPS_GUARD_ROUNDS} rounds x {SERVE_BATCH}"
+        f", flip from round {OPS_FLIP_AFTER}, ctr_floor {rate / 2} (half "
+        f"the clean rate {rate}); {len(snaps)} snapshots, {len(rolls)} "
+        f"rollbacks, first {rolls[:1]}; reward {rep.reward} (clean "
+        f"{clean.reward}); tx_per_s {rep.tx_per_s} (clean "
+        f"{clean.tx_per_s}); {run_s} s")
+    assert rolls and all(e[2] == ("ctr_floor",) for e in rolls), rep.events
+
+    # poisoned feedback until the next rollback, then the restored
+    # snapshot in a fresh session must serve what the guarded one serves
+    stream = faults.TrafficStream(SEED + 2, SERVE_BATCH, n, K=K, d=d,
+                                  device=dev)
+    before, i = g.gs.rollbacks, 0
+    while g.gs.rollbacks == before:
+        u, c, uni = stream.slate_batch(i)
+        g, ch, ids = g.recommend(u, c)
+        g = g.observe_delayed(
+            ids, -env.step_rewards(uni, work.theta[u.long()], c, ch)[0])
+        i += 1
+        assert i < 64, "the poisoned session never rolled back"
+    step = g.events[-1][3]
+    ref, got = ops_session(state, hyper).restore(ckpt, step)
+    assert got == step
+    for j in range(OPS_RESUME):
+        u, c, uni = stream.slate_batch(100 + j)
+        g, ch_g, ids_g = g.recommend(u, c)
+        ref, ch_r, ids_r = serve.recommend(ref, u, c)
+        assert torch.equal(ch_g, ch_r), "rolled-back session: other choices"
+        r = env.step_rewards(uni, work.theta[u.long()], c, ch_r)[0]
+        g = g.observe_delayed(ids_g, r)
+        ref = serve.observe_delayed(ref, ids_r, r)
+    for f in ("Minv", "b"):
+        assert torch.equal(getattr(g.session.state, f),
+                           getattr(ref.state, f)), f"rolled back: {f}"
+
+    # costs: a snapshot (state to disk), a rollback (restore included), a
+    # guarded transaction beside a bare one on the same batch
+    ck_t = CheckpointManager(OPS_CKPT_DIR / "timing", keep=1)
+    snap_ms = wall_ms(lambda: g.session.save(ck_t, 0), reps=3)
+    roll_ms = wall_ms(lambda: g._rollback(g.session, None), reps=3)
+    quiet = dataclasses.replace(g, cfg=cfg._replace(snapshot_every=10**9))
+    u, c, _ = stream.slate_batch(200)
+    guarded_ms = bare_ms = 0.0
+    for _ in range(2):          # in turns
+        guarded_ms += wall_ms(lambda: quiet.recommend(u, c)) / 2
+        bare_ms += wall_ms(lambda: serve.recommend(g.session, u, c)) / 2
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in g.session.state if torch.is_tensor(t))
+    log(f"ops guarded costs: snapshot {snap_ms} ms ({state_bytes} bytes of "
+        f"state), rollback {roll_ms} ms (restore included), guarded "
+        f"recommend {guarded_ms} ms against bare {bare_ms} ms on one batch "
+        f"of {SERVE_BATCH}; resumed {OPS_RESUME} transactions bit-identical "
+        f"to a session restored from step {step}")
+    shutil.rmtree(OPS_CKPT_DIR, ignore_errors=True)
+    return {"rollbacks": len(rolls), "snapshot_ms": snap_ms,
+            "rollback_ms": roll_ms, "guarded_ms": guarded_ms,
+            "bare_ms": bare_ms}
+
+
+def ops_arms(dev, state, hyper, dccb_core, n, d):
+    """Item 3's arms, each with its own ring: distclub on the learned
+    users, dccb on phase 4b's state, a fresh linucb."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.serve import pending
+    cfg = serve.make_cfg(n, d, hyper, refresh_every=REFRESH_EVERY, seed=SEED)
+    dccb = serve.OnlineBandit(
+        policy=serve.get_policy("dccb", cfg),
+        state=serve.DCCBServeState(core=dccb_core, since_refresh=torch.zeros(
+            (), dtype=torch.int32, device=dev)),
+        pending=pending.init(OPS_PENDING, d, device=dev), ttl=OPS_TTL)
+    linucb = serve.OnlineBandit.create(
+        n, d, hyper, policy="linucb", pending_capacity=OPS_PENDING,
+        pending_ttl=OPS_TTL, device=dev)
+    return [ops_session(state, hyper), dccb, linucb]
+
+
+def ops_experiment(dev, work, state, hyper, dccb_core, rounds, spec):
+    """Item 3: the three arms over ``rounds`` batches of the seeded slate
+    traffic, the spec's delivery faults on the merged decision stream
+    (``faults.Harness``) and its sign flips on the linucb arm's feedback
+    alone, as ``examples/ab_experiment.py`` poisons one arm: ``(exp,
+    ExperimentReport, the choices of each round)``."""
+    import numpy as np
+    from repro_torch.core import env
+    from repro_torch.serve import experiments, faults, guardrails
+    n, d = work.theta.shape
+    exp = experiments.create(
+        ops_arms(dev, state, hyper, dccb_core, n, d),
+        names=("distclub", "dccb", "linucb"), salt=SEED,
+        selector=experiments.make_selector(3, epoch_rounds=10, floor=0.05),
+        guard_cfg=guardrails.GuardrailConfig(
+            ctr_floor=OPS_CTR_FLOOR, warmup=2 * SERVE_BATCH, ema=0.7,
+            cooldown=2),
+        snapshot_every=4)
+    stream = faults.TrafficStream(SEED + 3, SERVE_BATCH, n,
+                                  K=hyper.n_candidates, d=d, device=dev)
+    h = faults.Harness(spec, SERVE_BATCH, dev)
+    poisoned = exp.names.index("linucb")
+    chosen = []
+
+    def fold(ids, rs):
+        nonlocal exp
+        exp = experiments.observe_delayed(exp, ids, rs)
+
+    t0 = guardrails.clock(exp.arms[0])
+    for i in range(rounds):
+        users, ctx, uniforms = stream.slate_batch(i)
+        exp, choices, gids = experiments.recommend(exp, users, ctx)
+        chosen.append(choices)
+        h.n_tx += 1
+        realized, expected, best, rand = env.step_rewards(
+            uniforms, work.theta[users.long()], ctx, choices)
+        gids_np = gids.cpu().numpy()
+        valid = gids_np >= 0
+        r_np = realized.cpu().numpy().astype(np.float32)
+        r_del, lost, lag, dup = h.draw_faults(i, r_np)
+        arms_np = np.where(valid, gids_np % exp.n_arms, -1)
+        r_del = np.where(arms_np == poisoned, r_del, r_np)
+        exp = experiments.record_feedback(
+            exp, users.cpu().numpy(), arms_np, r_np,
+            expected=expected.cpu().numpy(), best=best.cpu().numpy(),
+            rand=rand.cpu().numpy(), learner_rewards=r_del)
+        h.enqueue(i, gids_np, valid, r_del, lost, lag, dup)
+        h.round_end(i, fold)
+    h.drain(fold)
+    dt = guardrails.clock(exp.arms[0]) - t0
+    return exp, experiments.report(exp, rounds=rounds,
+                                   tx_per_s=h.n_tx / dt), chosen
+
+
+def ops_routing(dev, work, state, hyper, exp):
+    """Item 3's costs and the one-arm parity: ms of a routed transaction
+    beside the sum of its enabled arms' plain transactions on the same
+    masked batches; one arm at fraction 1.0 bit-equal to the plain
+    session over ``OPS_ONE_ARM`` batches."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.core import env
+    from repro_torch.serve import experiments, faults
+    n, d = work.theta.shape
+    stream = faults.TrafficStream(SEED + 4, SERVE_BATCH, n,
+                                  K=hyper.n_candidates, d=d, device=dev)
+    u, c, _ = stream.slate_batch(0)
+    arm_of = experiments.assign_arms(exp, u)
+    routed_ms = wall_ms(lambda: experiments.recommend(exp, u, c))
+    arms_ms = {exp.names[a]: wall_ms(lambda a=a: serve.recommend(
+        exp.arms[a], torch.where(arm_of == a, u, -1), c))
+        for a in range(exp.n_arms) if exp.enabled[a]}
+
+    one = experiments.create([ops_session(state, hyper)])
+    plain = ops_session(state, hyper)
+    for t in range(OPS_ONE_ARM):
+        u, c, uni = stream.slate_batch(1 + t)
+        one, c_e, ids_e = experiments.recommend(one, u, c)
+        plain, c_p, ids_p = serve.recommend(plain, u, c)
+        assert torch.equal(c_e, c_p) and torch.equal(ids_e, ids_p), (
+            "one-arm experiment: other choices or ids than the session")
+        r = env.step_rewards(uni, work.theta[u.long()], c, c_p)[0]
+        one = experiments.observe_delayed(one, ids_e, r)
+        plain = serve.observe_delayed(plain, ids_p, r)
+    for a, b in zip(list(one.arms[0].state) + list(one.arms[0].pending),
+                    list(plain.state) + list(plain.pending)):
+        assert torch.equal(a, b), "one-arm experiment: other state"
+    return routed_ms, arms_ms
+
+
+def ops_clis():
+    """Item 5: the two CLIs and the example at their defaults, on the
+    card, started together; each must exit with 0."""
+    import os
+    env_vars = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable] + argv, cwd=ROOT,
+                                    env=env_vars, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, argv in OPS_CLIS}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=OPS_CLI_TIMEOUT_S)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, p in procs.items():
+        tail = outs[name].strip().splitlines()[-4:]
+        log(f"ops cli {name}: exit {p.returncode}; last lines {tail}")
+    log(f"ops clis: {time.perf_counter() - t0} s, run together")
+    for name, p in procs.items():
+        assert p.returncode == 0, f"{name} exited {p.returncode}"
+
+
+def ops_phase(dev, work, state, hyper, dccb_core, item_clusters):
+    """Phase 4o: the operations layer at serving's full width (20480
+    learned users, d 25, batches of 256, k_short 64), counted: a catalog
+    run under churn and delivery faults beside its clean control
+    (conservation after every delivery), guarded serving (pruned batches
+    with the recall probe, a sign-flip run that must roll back and then
+    resume bit-identically), a three-arm experiment whose poisoned
+    linucb arm must be disabled, a one-arm experiment bit-equal to the
+    plain session; then uncounted: topk held to its plain version on the
+    churned bank of the catalog run's last request, the first rounds of
+    the catalog run (every publish torn) and of the experiment with the
+    plain versions in lockstep and then through the plain versions alone
+    (``compare_paths``' bands), and the CLIs and the example.  Returns
+    the launches of the counted part."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serve import faults
+    from repro_torch.serve import session as smod
+    t_phase = time.perf_counter()
+    n = work.theta.shape[0]
+    cat_spec = faults.FaultSpec(seed=SEED, **OPS_DELIVERY, **OPS_CHURN)
+    exp_spec = faults.FaultSpec(seed=SEED, **OPS_DELIVERY, p_flip=1.0,
+                                flip_after=OPS_POISON_AFTER)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+
+    # ---- 1. catalog serving under churn and delivery faults ----------------
+    # a short warm-up, then the faulted run and its clean control on the
+    # same traffic in both orders
+    ops_catalog_run(work, state, hyper, OPS_WARM_ROUNDS, cat_spec)
+    runs = {"clean": [], "faulted": []}
+    with ops_watch() as seen:
+        for label in ("clean", "faulted", "faulted", "clean"):
+            runs[label].append(ops_catalog_run(
+                work, state, hyper, OPS_CATALOG_ROUNDS,
+                cat_spec if label == "faulted" else faults.FaultSpec(
+                    seed=SEED)))
+            if label == "faulted" and len(runs[label]) == 1:
+                final = seen["last"]
+    (clean, _), (rep, _) = runs["clean"][0], runs["faulted"][0]
+    st = rep.pending
+    log(f"ops catalog churn: {OPS_CATALOG_ROUNDS} rounds x {SERVE_BATCH} "
+        f"against {SERVE_ITEMS} items in {OPS_ITEMS} slots, k_short "
+        f"{K_SHORT}, ring {OPS_PENDING} ttl {OPS_TTL}; matched_ratio "
+        f"{st['matched'] / st['issued']}; reward_vs_clean_ratio "
+        f"{rep.reward / clean.reward}; stale {st['stale']}; publishes "
+        f"{rep.publishes}; items_added {rep.items_added} items_retired "
+        f"{rep.items_retired}; pending {st}")
+    for label, order in (("clean", "first, last"),
+                         ("faulted", "second, third")):
+        log(f"ops catalog churn {label} (run {order} of clean, faulted, "
+            f"faulted, clean after a {OPS_WARM_ROUNDS}-round warm-up): "
+            f"tx_per_s {[r.tx_per_s for r, _ in runs[label]]}; "
+            f"transactions {[round(r.tx_per_s * s) for r, s in runs[label]]}"
+            f"; s {[s for _, s in runs[label]]}")
+    events = OPS_CATALOG_ROUNDS // OPS_CHURN["churn_every"] + 2
+    assert rep.publishes == events, rep.publishes
+    assert rep.items_added == (
+        OPS_CATALOG_ROUNDS // OPS_CHURN["churn_every"] * OPS_CHURN["churn_add"]
+        + OPS_CHURN["flash_crowd_size"]), rep.items_added
+    assert rep.interactions == clean.interactions == (
+        OPS_CATALOG_ROUNDS * SERVE_BATCH)
+    assert final[2].epoch == events - 1, final[2].epoch
+    assert st["stale"] > 0 and st["unmatched"] > 0, st
+    assert rep.reward > 0.8 * clean.reward > 0, (rep.reward, clean.reward)
+
+    # ---- 2. guardrails -----------------------------------------------------
+    guard = ops_guarded(dev, work, state, hyper, item_clusters)
+
+    # ---- 3. the experiment ---------------------------------------------------
+    t0 = time.perf_counter()
+    exp, er, _ = ops_experiment(dev, work, state, hyper, dccb_core,
+                                OPS_EXP_ROUNDS, exp_spec)
+    exp_s = time.perf_counter() - t0
+    log(f"ops experiment: {OPS_EXP_ROUNDS} rounds x {SERVE_BATCH}, linucb "
+        f"poisoned from round {OPS_POISON_AFTER}; {exp_s} s; enabled "
+        f"{er.enabled}; final split {er.fractions}; leader {er.leader} vs "
+        f"{er.runner_up} z {er.z_leading_pair}; events {er.events}")
+    for i, name in enumerate(er.names):
+        log(f"ops experiment arm {name}: reward {er.reward[i]} regret "
+            f"{er.regret[i]} decisions {er.interactions[i]} delivered "
+            f"{er.delivered[i]} matched_ratio {er.matched_ratio[i]}")
+    log(f"ops experiment shares over time: {er.shares}")
+    assert er.enabled == (True, True, False), er.events
+    assert [e[2] for e in er.events if e[0].startswith("disable")] == [
+        "linucb"], er.events
+    assert sum(er.interactions) == OPS_EXP_ROUNDS * SERVE_BATCH
+    routed_ms, arms_ms = ops_routing(dev, work, state, hyper, exp)
+    log(f"ops experiment routing: routed recommend {routed_ms} ms against "
+        f"the sum of its enabled arms' plain recommends "
+        f"{sum(arms_ms.values())} ms ({arms_ms}); one arm at fraction 1.0 "
+        f"bit-equal to the plain session over {OPS_ONE_ARM} batches")
+    launches = dict(_build.LAUNCHES)
+    log("ops_launches " + json.dumps(launches))
+    for name in ("choose", "rank1_update_inv", "prune", "cc_hop", "topk",
+                 "topk_pruned"):
+        assert launches[name] > 0, (name, launches)
+
+    # ---- 4. kernels against their plain versions ------------------------------
+    # topk on the churned bank that served the faulted run's last request
+    sess, uids, cat = final
+    idx, _, _ = smod._request_masks(sess.policy, sess.col, sess.state, uids)
+    w, M, occ = sess.policy.gather_score(sess.state, idx)
+    res = check_topk(w, M, occ, cat.serving.emb, cat.serving.live,
+                     hyper.alpha, K_SHORT)
+    log(f"ops topk on the churned bank (epoch {cat.epoch}, "
+        f"{int(cat.serving.live.sum())} live of {cat.capacity} slots): "
+        f"{res}")
+    # the first rounds of item 1 (every publish torn) and of item 3, the
+    # plain versions in lockstep with the kernels, then alone
+    lock_spec = cat_spec._replace(p_torn=1.0)
+    t0 = time.perf_counter()
+    with ops_watch(lockstep=True) as lk:
+        k_rep, _ = ops_catalog_run(work, state, hyper, OPS_PLAIN_ROUNDS,
+                                   lock_spec)
+        k_exp, k_ch = ops_experiment(dev, work, state, hyper, dccb_core,
+                                     OPS_PLAIN_ROUNDS, exp_spec)[1:]
+    lock_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with plain_path():
+        _build.reset_launches()
+        with ops_watch() as pw:
+            p_rep, _ = ops_catalog_run(work, state, hyper, OPS_PLAIN_ROUNDS,
+                                       lock_spec)
+            p_exp, p_ch = ops_experiment(dev, work, state, hyper, dccb_core,
+                                         OPS_PLAIN_ROUNDS, exp_spec)[1:]
+        assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
+    same_items = float(torch.mean(torch.cat(
+        [(a == b).float() for a, b in zip(lk["items"], pw["items"])])))
+    same_choices = float(torch.mean(torch.cat(
+        [(a == b).float() for a, b in zip(k_ch, p_ch)])))
+    log(f"ops lockstep: {lk['batches']} requests ({lk['after_publish']} "
+        f"catalog requests after a publish, {lk['torn']} torn publishes), "
+        f"picks differing at near ties {lk['near_ties']}; topk max_abs_err "
+        f"{lk['topk_err']} near ties {lk['topk_ties']}; {lock_s} s")
+    log(f"ops plain: {time.perf_counter() - t0} s for {OPS_PLAIN_ROUNDS} "
+        f"rounds of the catalog run and of the experiment; identical "
+        f"items {same_items}, identical choices {same_choices}")
+    assert lk["torn"] >= 1 and lk["after_publish"] >= 1, lk
+    assert pw["torn"] == lk["torn"], (pw["torn"], lk["torn"])
+    assert len(lk["items"]) == len(pw["items"]) == OPS_PLAIN_ROUNDS
+    assert same_items >= 0.95 and same_choices >= 0.95, (
+        "ops: the plain path served other items or choices")
+    compare_paths((k_rep.reward / k_rep.rand_reward, []),
+                  (p_rep.reward / p_rep.rand_reward, []), n)
+    compare_paths((sum(k_exp.reward) / sum(k_exp.rand_reward), []),
+                  (sum(p_exp.reward) / sum(p_exp.rand_reward), []), n)
+    assert p_rep.pending["issued"] == k_rep.pending["issued"]
+
+    # ---- 5. the CLIs and the example -----------------------------------------
+    ops_clis()
+    log(f"ops phase: {time.perf_counter() - t_phase} s")
+    return {"launches": launches, "guard": guard, "routed_ms": routed_ms,
+            "arms_ms": arms_ms}
+
+
+# ---------------------------------------------------------------------------
 # phase 4x: the sharded runtime, one NCCL rank and four gloo ranks
 # ---------------------------------------------------------------------------
 
 SHARD_RANKS = 4              # gloo ranks sharing the one card
 SHARD_DCCB_EPOCHS = 2
 SHARD_TIMEOUT_S = 420        # each spawned group, its start included
+SHARD_DELAYED_BATCHES = 8    # slate batches through the sharded ring
 
 
 class TimedCollectives:
@@ -2665,6 +3280,34 @@ def shard_serve(col, dev, inp, caught):
                                        k_short=K_SHORT)
     out["cold"] = dict(items=item, reward=m.reward, Minv=cold.state.Minv,
                        b=cold.state.b, occ=cold.state.occ)
+
+    # delayed feedback on the sharded session (a replicated ring): each
+    # batch recommended, then observed with delay 0, beside the
+    # synchronous step on the same slates, counted
+    slates = torch.from_numpy(inp["slates"]).to(dev)
+    sync = serve.OnlineBandit.from_offline(
+        state, hyper, refresh_every=REFRESH_EVERY, col=col)
+    split = serve.OnlineBandit.from_offline(
+        state, hyper, refresh_every=REFRESH_EVERY, col=col,
+        pending_capacity=2 * SERVE_BATCH, pending_ttl=16)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    choices = []
+    for t in range(SHARD_DELAYED_BATCHES):
+        u, c = users[t], slates[t]
+        sync, ch_a, _ = serve.step(sync, t, u, c, reward_fn)
+        split, ch_b, ids = serve.recommend(split, u, c)
+        assert torch.equal(ch_a, ch_b), "sharded split: other choices"
+        split = serve.observe_delayed(split, ids,
+                                      reward_fn(t, u, c, ch_b)[0])
+        choices.append(ch_b)
+    for a, b in zip(sync.state, split.state):
+        assert torch.equal(a, b), "sharded split: other state than step"
+    out["delayed"] = dict(choices=torch.stack(choices),
+                          launches=dict(_build.LAUNCHES),
+                          pending=serve.pending_stats(split),
+                          ring=tuple(split.pending),
+                          refreshed=int(split.state.since_refresh) == 0)
     return out
 
 
@@ -2809,10 +3452,15 @@ def shard_phase(dev, main, work):
     add(one["launches"])
 
     # ---- four gloo ranks on the one card ------------------------------------
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    slates = unit(torch.randn(SHARD_DELAYED_BATCHES, SERVE_BATCH,
+                              hyper.n_candidates, d, generator=g,
+                              device=dev))
     serve_inp = {"theta": theta, "users": work.users.cpu().numpy(),
                  "uniforms": work.uniforms.cpu().numpy(),
                  "emb": work.catalog.serving.emb.cpu().numpy(),
-                 "state": convert.state_to_numpy(state)}
+                 "state": convert.state_to_numpy(state),
+                 "slates": slates.cpu().numpy()}
     t0 = time.perf_counter()
     outs = mesh.spawn(shard_rank, SHARD_RANKS, "gloo", dev,
                       args=(serve_inp,), timeout=SHARD_TIMEOUT_S)
@@ -2923,6 +3571,35 @@ def shard_phase(dev, main, work):
     assert np.array_equal(np.concatenate([c["occ"] for c in sc]),
                           cold.state.occ.cpu().numpy()), "cold: other occ"
     assert max(errs.values()) <= 1e-6, errs
+
+    # ---- delayed feedback on the sharded session ----------------------------
+    one = serve.OnlineBandit.from_offline(state, hyper,
+                                          refresh_every=REFRESH_EVERY)
+    dl = [r["delayed"] for r in sv]
+    for t in range(SHARD_DELAYED_BATCHES):
+        one, ch, _ = serve.step(one, t, work.users[t], slates[t],
+                                work.reward_fn)
+        for r in dl:
+            assert np.array_equal(r["choices"][t], ch.cpu().numpy()), (
+                f"sharded delayed feedback: batch {t}, other choices than "
+                "one process")
+    st = dl[0]["pending"]
+    log(f"shard gloo serve, delayed feedback x{SHARD_RANKS}: "
+        f"{SHARD_DELAYED_BATCHES} slate batches recommended then observed "
+        f"(delay 0), bit-equal to the synchronous step on every rank, "
+        f"choices equal to one process; refreshed at the end "
+        f"{dl[0]['refreshed']}; ring {st}; launches (rank 0) "
+        f"{dl[0]['launches']}")
+    assert st["matched"] == SHARD_DELAYED_BATCHES * SERVE_BATCH, st
+    assert st["in_flight"] == 0 and st["unmatched"] == 0, st
+    for r in dl:
+        assert r["pending"] == st, "sharded ring: ranks differ"
+        for a, b in zip(r["ring"], dl[0]["ring"]):
+            assert np.array_equal(a, b), "sharded ring: ranks differ"
+        lc = r["launches"]
+        assert lc["choose"] == lc["rank1_update_inv"] == (
+            2 * SHARD_DELAYED_BATCHES), lc
+        add(lc)
 
     # ---- rank 0's kernels at its shard shapes against their plain versions --
     ck = outs[0]["checks"]
@@ -3756,8 +4433,9 @@ def main() -> int:
     on_clones = clones_phase(dev)
 
     # ---- phase 4s: serving at full width, and its plain run -----------------
+    dccb_core = baselines.pop("dccb")
     serving, sess, item_clusters, serve_launches, _ = serve_phase(
-        dev, state, e.theta, hyper, baselines.pop("dccb"), graphs["serve"])
+        dev, state, e.theta, hyper, dccb_core, graphs["serve"])
 
     # ---- phase 4x: the sharded runtime, one NCCL rank and four gloo ranks ---
     shard_launches = shard_phase(torch.device("cuda", 0), dict(
@@ -3767,6 +4445,10 @@ def main() -> int:
 
     # ---- phase 4p: reduced-precision serving and checkpointing -------------
     precision = precision_phase(dev, serving, state, hyper, e.theta)
+
+    # ---- phase 4o: the operations layer -------------------------------------
+    ops_launches = ops_phase(dev, serving, state, hyper, dccb_core,
+                             item_clusters)["launches"]
 
     # ---- phase 4r: the recsys models at their published configs -------------
     recsys = recsys_phase(dev)
@@ -4182,6 +4864,7 @@ def main() -> int:
             "baseline_launches": on_baselines[kname],
             "clone_launches": on_clones[kname],
             "shard_launches": shard_launches[kname],
+            "ops_launches": ops_launches[kname],
         })
         log(f"time {kname}: kernel {ms} ms, plain {plain_ms} ms, "
             f"library {lib_ms} ms, bound {bms} ms ({by}; {n_bytes} bytes, "

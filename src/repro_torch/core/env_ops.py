@@ -66,6 +66,8 @@ _STREAM_REWARDS = 2
 _STREAM_USERS = 3
 _STREAM_PEERS = 4
 _STREAM_SLATES = 5
+_STREAM_TRAFFIC = 6      # serve.faults.TrafficStream's requests
+_STREAM_CHURN = 7        # and its churn items' generator seeds
 
 
 def draw_user(seed: int, step: int, n: int) -> int:
@@ -140,26 +142,55 @@ def _counters(row0: int, n_local: int, slots: int, device) -> torch.Tensor:
                                                  device=device)
 
 
+def bits_to_normals(z: torch.Tensor) -> torch.Tensor:
+    """One standard normal per 64-bit pattern (Box-Muller on two 24-bit
+    uniforms)."""
+    u1 = (_srl(z, 40) + 1).float() * 2.0**-24        # (0, 1]
+    u2 = (z & 0xFFFFFF).float() * 2.0**-24           # [0, 1)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2 * math.pi) * u2)
+
+
+def bits_to_uniforms(z: torch.Tensor) -> torch.Tensor:
+    """One f32 uniform in ``[0, 1)`` per 64-bit pattern (its top 24
+    bits)."""
+    return _srl(z, 40).float() * 2.0**-24
+
+
+def bits_to_ints(z: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 ids in ``[0, n)``: multiply-shift of the high 32 bits."""
+    return (_srl(z, 32) * n) >> 32
+
+
+def traffic_bits(seed: int, step: int, n: int, device) -> torch.Tensor:
+    """[n] int64: the request stream's bits at (seed, step), counter
+    ``i`` for the ``i``-th drawn value (``serve.faults.TrafficStream``)."""
+    return _hash(seed, _STREAM_TRAFFIC, step,
+                 torch.arange(n, dtype=torch.int64, device=device))
+
+
+def churn_seed(seed: int, step: int) -> int:
+    """A ``torch.Generator`` seed for the churn items drawn at (seed,
+    step): 63 bits of the hash key, so ``manual_seed`` takes it as is."""
+    return _key(seed, _STREAM_CHURN, step) >> 1
+
+
 def _unit_contexts(seed, step, n_local, K, d, row0, device):
     z = _hash(seed, _STREAM_CONTEXTS, step,
               _counters(row0, n_local, K * d, device))
-    u1 = (_srl(z, 40) + 1).float() * 2.0**-24        # (0, 1]
-    u2 = (z & 0xFFFFFF).float() * 2.0**-24           # [0, 1)
-    x = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2 * math.pi) * u2)
-    x = x.reshape(n_local, K, d)
+    x = bits_to_normals(z).reshape(n_local, K, d)
     return x / torch.linalg.norm(x, dim=-1, keepdim=True)
 
 
 def _uniforms(seed, step, n_local, row0, device):
     z = _hash(seed, _STREAM_REWARDS, step, _counters(row0, n_local, 1, device))
-    return _srl(z[:, 0], 40).float() * 2.0**-24      # [0, 1)
+    return bits_to_uniforms(z[:, 0])                 # [0, 1)
 
 
 def _slate_ids(seed, step, n_local, K, N, row0, device):
     """[n_local, K] i64 item ids in ``[0, N)``: multiply-shift of the
     hash's high 32 bits."""
     z = _hash(seed, _STREAM_SLATES, step, _counters(row0, n_local, K, device))
-    return (_srl(z, 32) * N) >> 32
+    return bits_to_ints(z, N)
 
 
 class Draws(NamedTuple):

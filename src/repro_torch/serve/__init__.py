@@ -27,6 +27,19 @@ Reduced precision: ``OnlineBandit.create(..., precision="bf16")`` (or
 Checkpoints: ``session.save(CheckpointManager(dir), step)`` and
 ``session.restore(ckpt)`` (``train.checkpoint``).
 
+The operations layer: ``guardrails.Guarded`` watches CTR, recall, ring
+occupancy, latency and churn and rolls the session back to its last
+healthy checkpoint; ``faults.run_faulted`` / ``run_faulted_catalog``
+drive a session through seeded delivery faults and live catalog churn;
+``experiments`` splits live traffic over policy arms (sticky hash,
+Thompson-sampling selector, per-arm guardrails)::
+
+    from repro_torch.serve import experiments
+    exp = experiments.create([sess_a, sess_b, sess_c],
+                             selector=experiments.make_selector(3))
+    exp, choices, ids = experiments.recommend(exp, user_ids, contexts)
+    exp = experiments.observe_delayed(exp, ids, rewards)
+
 Policies: ``distclub`` | ``club`` | ``linucb`` | ``dccb``.
 """
 from ..core.catalog import (Bank, Catalog, add_items, dequantize,
@@ -35,6 +48,13 @@ from ..core.catalog import (Bank, Catalog, add_items, dequantize,
 from ..core.itemclub import (ItemClusters, ItemStats, RetrievalMetrics,
                              build_clusters, init_stats, observe_served,
                              refresh_clusters, reset_new_slots)
+from . import experiments, faults, guardrails
+from .experiments import (Experiment, ExperimentReport, TSSelector,
+                          assign_arms, make_selector, run_experiment)
+from .faults import (FaultReport, FaultSpec, TrafficStream, run_faulted,
+                     run_faulted_catalog)
+from .guardrails import (Guarded, GuardrailConfig, GuardrailState,
+                         post_rollback_state, shortlist_recall)
 from .pending import PendingBuffer
 from .policies import (POLICIES, ClusteredPolicy, ClusteredState,
                        DCCBPolicy, DCCBServeState, LinUCBPolicy, LinUCBServeState, ServeCfg,
@@ -47,14 +67,19 @@ from .session import (OnlineBandit, embed_candidates, observe,
 
 __all__ = [
     "Bank", "Catalog", "POLICIES", "ClusteredPolicy", "ClusteredState",
-    "DCCBPolicy", "DCCBServeState",
-    "ItemClusters", "ItemStats", "LinUCBPolicy", "LinUCBServeState",
-    "OnlineBandit", "PendingBuffer", "RetrievalMetrics", "ServeCfg",
-    "add_items", "build_clusters", "dequantize", "embed_candidates",
-    "from_distclub_state", "get_policy", "init_stats", "make_catalog",
-    "make_cfg", "observe", "observe_delayed", "observe_served",
-    "pending_stats", "publish", "random_catalog", "recommend",
-    "recommend_catalog", "refresh", "refresh_clusters", "reset_new_slots",
-    "reset_pending", "retire_items", "staged_churn", "step", "step_catalog",
-    "to_distclub_state", "torn_publish",
+    "DCCBPolicy", "DCCBServeState", "Experiment", "ExperimentReport",
+    "FaultReport", "FaultSpec", "Guarded", "GuardrailConfig",
+    "GuardrailState", "ItemClusters", "ItemStats", "LinUCBPolicy",
+    "LinUCBServeState", "OnlineBandit", "PendingBuffer", "RetrievalMetrics",
+    "ServeCfg", "TSSelector", "TrafficStream",
+    "add_items", "assign_arms", "build_clusters", "dequantize",
+    "embed_candidates", "experiments", "faults", "from_distclub_state",
+    "get_policy", "guardrails", "init_stats", "make_catalog", "make_cfg",
+    "make_selector", "observe", "observe_delayed", "observe_served",
+    "pending_stats", "post_rollback_state", "publish", "random_catalog",
+    "recommend", "recommend_catalog", "refresh", "refresh_clusters",
+    "reset_new_slots", "reset_pending", "retire_items", "run_experiment",
+    "run_faulted", "run_faulted_catalog", "shortlist_recall",
+    "staged_churn", "step", "step_catalog", "to_distclub_state",
+    "torn_publish",
 ]

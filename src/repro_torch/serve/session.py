@@ -48,7 +48,13 @@ the ``[S, B, K_short]`` lists are all-gathered and merged with
 shortlist rows are summed from their owners; the merged shortlist is
 the one-process shortlist, bit for bit.  The refresh is stage 2 over
 ``col``, the code path of ``distributed.distclub_shard``.  Only the
-``distclub`` policy has a sharded session, without delayed feedback.
+``distclub`` policy has a sharded session.  Its pending ring, where it
+has one, is replicated: every rank issues the psum-combined choices and
+chosen contexts, so every rank holds the same ring, and
+``observe_delayed`` matches on every rank, folds the rows the rank owns
+and runs the refresh over ``col``.  That covers slate transactions;
+catalog transactions on a sharded session with a pending ring are
+refused.
 
 Precision: ``create``, ``sharded`` and ``from_offline`` take a
 ``precision`` (``core.backend.Precision``, a preset name, or None for
@@ -329,12 +335,15 @@ class OnlineBandit:
     @classmethod
     def sharded(cls, col, n_users: int, d: int, hyper: BanditHyper, *,
                 policy: str = "distclub", refresh_every: int = 0,
+                pending_capacity: int = 0, pending_ttl: int = 64,
                 precision=None, device=None) -> "OnlineBandit":
         """This rank's share of a session whose ``n_users`` users are split
         over the ranks of ``col`` in rank order, on ``device`` (default
         cuda; raises without a card unless ``device="cpu"``; under nccl
         the rank's own card).  Raises unless the ranks divide
-        ``n_users``.  Only ``policy="distclub"`` is sharded."""
+        ``n_users``.  Only ``policy="distclub"`` is sharded.
+        ``pending_capacity > 0`` gives it a replicated pending ring for
+        delayed feedback on slate transactions."""
         if policy != "distclub":
             raise ValueError(f"policy {policy!r} has no sharded session; "
                              "only distclub does")
@@ -342,7 +351,10 @@ class OnlineBandit:
         cfg = pol.make_cfg(n_users, d, hyper, refresh_every=refresh_every,
                            precision=precision)
         p = pol.get_policy(policy, cfg)
-        return cls(policy=p, state=p.init(dev, col), col=col)
+        pend = (pending_mod.init(pending_capacity, d, device=dev)
+                if pending_capacity > 0 else None)
+        return cls(policy=p, state=p.init(dev, col), pending=pend,
+                   ttl=int(pending_ttl), col=col)
 
     @classmethod
     def from_offline(cls, state, hyper: BanditHyper, *,
@@ -352,24 +364,23 @@ class OnlineBandit:
         """A distclub session warm-started from an offline
         ``core.distclub.run`` state, on that state's device.  With
         ``col``, this rank's share of a sharded session (its users' rows
-        of the state; no pending buffer).  The offline state is f32; it is
-        cast down to ``precision``'s state dtype (a no-op under f32)."""
+        of the state; its pending ring, if any, replicated).  The offline
+        state is f32; it is cast down to ``precision``'s state dtype (a
+        no-op under f32)."""
         n, d = state.lin.b.shape
         cfg = pol.make_cfg(n, d, hyper, refresh_every=refresh_every,
                            precision=precision)
         st = pol.from_distclub_state(state)
         sdt = cfg.precision.torch_state
         st = st._replace(Minv=st.Minv.to(sdt), uMcinv=st.uMcinv.to(sdt))
-        if col is not None:
-            if pending_capacity > 0:
-                raise ValueError("a sharded session has no pending buffer")
-            return cls(policy=pol.get_policy("distclub", cfg),
-                       state=pol.shard_rows(st, col), col=col)
         pend = (pending_mod.init(pending_capacity, d,
                                  device=state.lin.b.device)
                 if pending_capacity > 0 else None)
+        if col is not None:
+            st = pol.shard_rows(st, col)
         return cls(policy=pol.get_policy("distclub", cfg), state=st,
-                   pending=pend, ttl=int(pending_ttl))
+                   pending=pend, ttl=int(pending_ttl),
+                   col=_NULL if col is None else col)
 
     # -- checkpointing -----------------------------------------------------
     def _payload(self, state) -> dict:
@@ -450,6 +461,14 @@ def step(session: OnlineBandit, key, user_ids, contexts,
     return dataclasses.replace(session, state=state), choice, metrics
 
 
+def _refuse_sharded_catalog_ring(session: OnlineBandit):
+    if session.col.n_shards > 1:
+        raise ValueError(
+            "catalog transactions with a pending ring are not supported on "
+            "a sharded session: its delayed feedback covers slate "
+            "transactions (recommend / observe_delayed without catalog=)")
+
+
 def _pending_guard(session: OnlineBandit, B: int):
     cap = session.pending.uid.shape[0]
     if B > cap:
@@ -514,6 +533,9 @@ def recommend_catalog(session: OnlineBandit, user_ids, catalog, *,
     rewards)`` to :func:`observe`.  Buffer-enabled: ``(session, item_ids,
     decision_ids, slots, contexts)``.  ``clusters`` appends a
     ``RetrievalMetrics``."""
+    if session.pending is not None:
+        _refuse_sharded_catalog_ring(session)
+        _pending_guard(session, user_ids.shape[0])
     rb = BackendConfig.create().retrieval(k_short)
     item, slot, ctx, x, _, _, valid, rmet = _catalog_choose(
         session.policy, rb, session.col, session.state, user_ids, catalog,
@@ -521,7 +543,6 @@ def recommend_catalog(session: OnlineBandit, user_ids, catalog, *,
     tail = () if clusters is None else (rmet,)
     if session.pending is None:
         return (item, slot, ctx) + tail
-    _pending_guard(session, user_ids.shape[0])
     pend, ids = pending_mod.issue(session.pending, user_ids, item, x, valid,
                                   session.ttl, epoch=catalog.epoch)
     return (dataclasses.replace(session, pending=pend), item, ids, slot,
@@ -538,6 +559,8 @@ def observe_delayed(session: OnlineBandit, decision_ids, rewards,
     if session.pending is None:
         raise ValueError("observe_delayed needs a buffer-enabled session: "
                          "create it with pending_capacity > 0")
+    if catalog is not None:
+        _refuse_sharded_catalog_ring(session)
     stale = (None if catalog is None
              else _stale_mask(session.pending, decision_ids, catalog))
     pend, uids, x = pending_mod.match(session.pending, decision_ids,

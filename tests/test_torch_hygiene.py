@@ -54,7 +54,9 @@ def test_package_imports_neither_jax_nor_repro():
                 "configs.llama3_8b", "configs.yi_34b", "data.datasets",
                 "data.replay", "distributed.distclub_shard",
                 "distributed.dccb_shard", "distributed.sharding",
-                "launch.mesh", "runtime.collectives", "train.checkpoint"):
+                "launch.mesh", "runtime.collectives", "train.checkpoint",
+                "serve.guardrails", "serve.faults", "serve.experiments",
+                "launch.faultrun", "launch.abrun"):
         assert f"repro_torch.{mod}" in names, mod
     for kind in ("synthetic", "drift", "catalog", "replay",
                  "default_synthetic"):
@@ -80,6 +82,38 @@ def test_quickstart_imports_neither_jax_nor_repro():
 def test_serve_bandit_example_imports_neither_jax_nor_repro():
     out = _example_imports("serve_bandit_torch")
     assert out.strip() == "[]", out
+
+
+def test_ab_experiment_example_imports_neither_jax_nor_repro():
+    out = _example_imports("ab_experiment_torch")
+    assert out.strip() == "[]", out
+
+
+def test_ops_entry_points_need_a_device_without_cuda(monkeypatch):
+    import importlib
+
+    from repro_torch.launch import abrun, faultrun
+    monkeypatch.syspath_prepend(str(SRC.parent / "examples"))
+    example = importlib.import_module("ab_experiment_torch")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, argv in ((faultrun.main, ["--rounds", "1"]),
+                       (faultrun.main, ["--scenario", "churn", "--guard"]),
+                       (abrun.main, ["--rounds", "1"]),
+                       (abrun.main, ["--env", "catalog"]),
+                       (example.main, [])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+
+
+def test_traffic_stream_needs_a_device_without_cuda(monkeypatch):
+    from repro_torch.serve import faults
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        faults.TrafficStream(0, 4, 8, K=2, d=2)
+    stream = faults.TrafficStream(0, 4, 8, K=2, d=2, device="cpu")
+    users, ctx, uniforms = stream.slate_batch(0)
+    assert users.device.type == ctx.device.type == "cpu"
+    assert uniforms.device.type == "cpu"
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
