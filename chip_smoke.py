@@ -164,14 +164,32 @@ Phases, in order; any failure raises and the script exits non-zero:
            (``from_offline(..., col=, pending_capacity=)``), recommended
            and observed with delay 0: bit-equal to the same ranks'
            synchronous ``step``, the ring the same on every rank, the
-           choices a one-process session's.  Every run is counted on its
-           own, and its launches checked.  After every
+           choices a one-process session's.  Then cold
+           ``OnlineBandit.sharded`` sessions of the club and linucb
+           policies through phase 4s's first 4 batches (club's stage 2
+           over the ranks after the last one): items and reward equal
+           to ``OnlineBandit.create``'s of the same policy in this
+           process, batch by batch.  Then the learned sharded session
+           saved after 8 batches (rank 0 writes the global arrays),
+           restored onto the four ranks and onto this process: the next
+           4 batches equal the unbroken run's on both; save and restore
+           ms.  Then a ``Guarded`` sharded session tracking its catalog
+           slice: the recall probe 1.0 on healthy batches, a 12.5%
+           retirement past its churn ceiling rolls state and catalog
+           back, and the restored pair serves the snapshot pair's items.
+           Then phase 4o's churn run (its fault mix, 12 of its 48
+           rounds) on the item-sharded ``OPS_ITEMS`` slots, conservation
+           after every delivery: pending counters, publishes, items
+           added and retired, reward equal to phase 4o's one-process run
+           of the same rounds; tx/s beside it.  Every run is counted on
+           its own, and its launches checked.  After every
            timed run, rank 0 holds the kernels at its shard shapes to
            their plain versions (uncounted): prune and cc_hop on the
            first stage 2's 5120 local rows against 20480 columns, topk
-           on a served batch over its 2^16-item slice, topk_pruned on
-           its ``shard_slice`` of the sorted stream.  The four ranks
-           share one card: their times are no scaling figure.
+           on a served batch over its 2^16-item slice and on the churn
+           run's last request over its churned 73728-slot slice,
+           topk_pruned on its ``shard_slice`` of the sorted stream.  The
+           four ranks share one card: their times are no scaling figure.
 4p. prec   reduced-precision serving: phase 4s's 16 batches in a bf16
            and an int8 session (``from_offline(..., precision=)``: bf16
            ``Minv``) against phase 4s's catalog quantized to each
@@ -333,6 +351,7 @@ import contextlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2678,9 +2697,9 @@ def ops_watch(lockstep=False):
             rec["after_publish"] += int(cat.epoch > 0)
         return got
 
-    def torn_publish(cat, keep):
+    def torn_publish(cat, keep, *col):
         rec["torn"] += 1
-        return orig_torn(cat, keep)
+        return orig_torn(cat, keep, *col)
 
     with mock.patch.object(smod, "recommend", recommend), \
             mock.patch.object(smod, "recommend_catalog", recommend_catalog), \
@@ -3100,6 +3119,16 @@ SHARD_RANKS = 4              # gloo ranks sharing the one card
 SHARD_DCCB_EPOCHS = 2
 SHARD_TIMEOUT_S = 420        # each spawned group, its start included
 SHARD_DELAYED_BATCHES = 8    # slate batches through the sharded ring
+SHARD_POLICY_BATCHES = 4     # phase 4s's first batches, cold club / linucb
+SHARD_POLICY_REFRESH = SHARD_POLICY_BATCHES * SERVE_BATCH   # stage 2 after
+                                                            # the last batch
+SHARD_SAVE_AT = 8            # batches before the sharded save
+SHARD_RESUME = 4             # batches held equal after it
+SHARD_CHURN_ROUNDS = 12      # phase 4o's churn run, cut from 48 rounds
+SHARD_CHURN_CEILING = 0.05   # the guarded run's churn ceiling: its 12.5%
+                             # retirement must roll back
+SHARD_CKPT_DIR = ROOT / "build" / "chip_smoke_shard_ckpt"
+SHARD_GUARD_DIR = ROOT / "build" / "chip_smoke_shard_guard"
 
 
 class TimedCollectives:
@@ -3311,6 +3340,200 @@ def shard_serve(col, dev, inp, caught):
     return out
 
 
+def _serving_inputs(col, dev, inp):
+    """Phase 4's state, phase 4s's traffic and this rank's slice of its
+    catalog, on this rank."""
+    import torch
+    from repro_torch import convert, serve
+    from repro_torch.core import catalog, env
+    state = convert.state_from_numpy(inp["state"], device=dev)
+    theta, users, uniforms, emb = (torch.from_numpy(inp[k]).to(dev) for k in
+                                   ("theta", "users", "uniforms", "emb"))
+    cat = catalog.item_shard(serve.make_catalog(emb), col.axis_index(),
+                             col.n_shards)
+
+    def reward_fn(key, uids, ctx, slot):
+        return env.step_rewards(uniforms[key], theta[uids.long()], ctx, slot)
+
+    return state, users, cat, reward_fn
+
+
+def shard_policies(col, dev, inp):
+    """Cold ``OnlineBandit.sharded`` sessions of the club and linucb
+    policies through phase 4s's first ``SHARD_POLICY_BATCHES`` batches,
+    each counted, stage 2 (club) over ``col`` after the last one."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import collectives
+    _, users, cat, reward_fn = _serving_inputs(col, dev, inp)
+    out = {}
+    for policy in ("club", "linucb"):
+        sess = serve.OnlineBandit.sharded(
+            col, paper.N_USERS, paper.D_FEAT, paper.CONFIG, policy=policy,
+            refresh_every=SHARD_POLICY_REFRESH, device=dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        collectives.reset_bytes()
+        items, rewards, secs = [], [], []
+        for t in range(SHARD_POLICY_BATCHES):
+            t0 = time.perf_counter()
+            sess, item, m = serve.step_catalog(sess, t, users[t], cat,
+                                               reward_fn, k_short=K_SHORT)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            items.append(item)
+            rewards.append(m.reward)
+        out[policy] = dict(items=torch.stack(items),
+                           reward=torch.stack(rewards), secs=secs,
+                           launches=dict(_build.LAUNCHES),
+                           sent=dict(collectives.BYTES),
+                           refreshed=int(sess.state.since_refresh) == 0,
+                           labels=getattr(sess.state, "labels", None))
+    return out
+
+
+def shard_ckpt(col, dev, inp):
+    """The learned sharded session (``from_offline(..., col=)``) serves
+    ``SHARD_SAVE_AT`` of phase 4s's batches, is saved (rank 0 writes the
+    global arrays), and serves ``SHARD_RESUME`` more; a fresh session on
+    the same ranks restores it and serves those batches again.  The
+    serving is counted."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.kernels import _build
+    from repro_torch.train.checkpoint import CheckpointManager
+    state, users, cat, reward_fn = _serving_inputs(col, dev, inp)
+    ck = CheckpointManager(SHARD_CKPT_DIR, keep=1)
+    hyper = paper.CONFIG
+
+    def run(sess, lo, hi):
+        items = []
+        for t in range(lo, hi):
+            sess, item, _ = serve.step_catalog(sess, t, users[t], cat,
+                                               reward_fn, k_short=K_SHORT)
+            items.append(item)
+        return sess, items
+
+    sess = serve.OnlineBandit.from_offline(
+        state, hyper, refresh_every=REFRESH_EVERY, col=col)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    sess, _ = run(sess, 0, SHARD_SAVE_AT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.save(ck, SHARD_SAVE_AT)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    end = SHARD_SAVE_AT + SHARD_RESUME
+    _, unbroken = run(sess, SHARD_SAVE_AT, end)
+    fresh = serve.OnlineBandit.sharded(col, paper.N_USERS, paper.D_FEAT,
+                                       hyper, refresh_every=REFRESH_EVERY,
+                                       device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, step = fresh.restore(ck)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert step == SHARD_SAVE_AT, step
+    _, again = run(restored, SHARD_SAVE_AT, end)
+    torch.cuda.synchronize()
+    return dict(save_s=save_s, restore_s=restore_s,
+                unbroken=torch.stack(unbroken), restored=torch.stack(again),
+                launches=dict(_build.LAUNCHES))
+
+
+def shard_guarded(col, dev, inp):
+    """A ``Guarded`` sharded session tracking its catalog slice: two
+    healthy batches with the recall probe (a snapshot after the second),
+    a third batch, then a retirement of 12.5% of the catalog that breaches
+    ``SHARD_CHURN_CEILING`` and rolls state and catalog back, and the
+    third batch again.  Counted."""
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.kernels import _build
+    from repro_torch.serve import guardrails
+    from repro_torch.train.checkpoint import CheckpointManager
+    state, users, cat, reward_fn = _serving_inputs(col, dev, inp)
+    sess = serve.OnlineBandit.from_offline(
+        state, paper.CONFIG, refresh_every=REFRESH_EVERY, col=col)
+    cfg = guardrails.GuardrailConfig(
+        recall_floor=0.99, warmup=0, churn_ceiling=SHARD_CHURN_CEILING,
+        snapshot_every=2, cooldown=1)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    g = guardrails.Guarded.create(sess, CheckpointManager(SHARD_GUARD_DIR,
+                                                          keep=2),
+                                  cfg, catalog=cat)
+    torch.cuda.synchronize()
+    snapshot_s = time.perf_counter() - t0
+    for t in range(3):
+        g, served, _ = g.step_catalog(t, users[t], reward_fn=reward_fn,
+                                      k_short=K_SHORT, probe_recall=True)
+    recall, snapshots = g.gs.ema_recall, g.events
+    g, _ = g.stage_churn(retire=torch.arange(SERVE_ITEMS // 8, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = g.publish()
+    torch.cuda.synchronize()
+    rollback_s = time.perf_counter() - t0
+    events = g.events
+    g, again, _ = g.step_catalog(2, users[2], reward_fn=reward_fn,
+                                 k_short=K_SHORT)
+    torch.cuda.synchronize()
+    return dict(served=served, again=again, recall=recall,
+                snapshots=snapshots, events=events, snapshot_s=snapshot_s,
+                rollback_s=rollback_s, epoch=g.catalog.epoch,
+                n_live=g.catalog.n_live(col),
+                launches=dict(_build.LAUNCHES))
+
+
+def shard_churn(col, dev, inp, caught):
+    """Phase 4o's churn run on this rank's users and its slice of the
+    ``OPS_ITEMS`` slots, ``SHARD_CHURN_ROUNDS`` rounds, conservation
+    asserted after every delivery, counted; ``caught`` gets the last
+    request's rows and churned slice for rank 0's topk check."""
+    import torch
+    from repro_torch import convert, serve
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.core import catalog, env
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import collectives
+    from repro_torch.serve import faults
+    from repro_torch.serve import session as smod
+    state = convert.state_from_numpy(inp["state"], device=dev)
+    e = convert.record_from_numpy(inp["env"], env.CatalogEnv, device=dev)
+    sess = serve.OnlineBandit.from_offline(
+        state, paper.CONFIG, refresh_every=REFRESH_EVERY, col=col,
+        pending_capacity=OPS_PENDING, pending_ttl=OPS_TTL)
+    cat = catalog.item_shard(
+        serve.make_catalog(env.catalog_embeddings(e), capacity=OPS_ITEMS),
+        col.axis_index(), col.n_shards)
+    spec = faults.FaultSpec(seed=SEED, **OPS_DELIVERY, **OPS_CHURN)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    collectives.reset_bytes()
+    with ops_watch() as seen:
+        t0 = time.perf_counter()
+        sess, rep = faults.run_faulted_catalog(
+            sess, e, SHARD_CHURN_ROUNDS, spec, catalog=cat, k_short=K_SHORT,
+            batch=SERVE_BATCH, key=SEED, assert_conservation=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches, sent = dict(_build.LAUNCHES), dict(collectives.BYTES)
+    last, uids, churned = seen["last"]
+    w, M, occ = smod._request_rows(last.policy, col, last.state, uids)[:3]
+    caught["churn"] = (w, M, occ, churned.serving.emb, churned.serving.live,
+                       paper.CONFIG.alpha)
+    return dict(report=rep, secs=secs, launches=launches, sent=sent,
+                torn=seen["torn"], epoch=churned.epoch,
+                n_live=churned.n_live(col))
+
+
 def shard_checks(caught, inp):
     """The kernels at this rank's shard shapes against their plain
     versions on the same inputs: prune and cc_hop on the counted DistCLUB
@@ -3330,16 +3553,20 @@ def shard_checks(caught, inp):
         "topk": check_topk(w, Minv, occ, items, live, alpha, K_SHORT),
         "topk_pruned": check_topk_piece(*caught["shortlist_pruned"], emb,
                                         k=K_SHORT),
+        "topk_churned": check_topk(*caught["churn"], K_SHORT),
         "shapes": {"prune": (tuple(adj.shape), tuple(v_j.shape)),
                    "topk": (tuple(w.shape), tuple(items.shape)),
                    "topk_pruned": tuple(
-                       caught["shortlist_pruned"][3].shape)}}
+                       caught["shortlist_pruned"][3].shape),
+                   "topk_churned": tuple(caught["churn"][3].shape)}}
 
 
 def shard_rank(rank, col, dev, inp):
     """Phase 4x on one rank (``launch.mesh.spawn``): DistCLUB, then, where
-    ``inp`` asks, DCCB and serving, and on rank 0, after every timed run,
-    the kernels at its shard shapes against their plain versions."""
+    ``inp`` asks, DCCB, serving, the club and linucb sessions, save and
+    restore, a guarded rollback and the churn run, and on rank 0, after
+    every timed run, the kernels at its shard shapes against their plain
+    versions."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3348,6 +3575,10 @@ def shard_rank(rank, col, dev, inp):
     if "state" in inp:
         out["dccb"] = shard_dccb(col, dev, inp)
         out["serve"] = shard_serve(col, dev, inp, caught)
+        out["policies"] = shard_policies(col, dev, inp)
+        out["ckpt"] = shard_ckpt(col, dev, inp)
+        out["guarded"] = shard_guarded(col, dev, inp)
+        out["churn"] = shard_churn(col, dev, inp, caught)
         if rank == 0:
             out["checks"] = shard_checks(caught, inp)
     return out
@@ -3460,7 +3691,10 @@ def shard_phase(dev, main, work):
                  "uniforms": work.uniforms.cpu().numpy(),
                  "emb": work.catalog.serving.emb.cpu().numpy(),
                  "state": convert.state_to_numpy(state),
-                 "slates": slates.cpu().numpy()}
+                 "slates": slates.cpu().numpy(),
+                 "env": convert.record_to_numpy(work.env)}
+    for path in (SHARD_CKPT_DIR, SHARD_GUARD_DIR):
+        shutil.rmtree(path, ignore_errors=True)
     t0 = time.perf_counter()
     outs = mesh.spawn(shard_rank, SHARD_RANKS, "gloo", dev,
                       args=(serve_inp,), timeout=SHARD_TIMEOUT_S)
@@ -3601,17 +3835,188 @@ def shard_phase(dev, main, work):
             2 * SHARD_DELAYED_BATCHES), lc
         add(lc)
 
+    shard_policies_check(dev, work, outs, add)
+    shard_ckpt_check(dev, work, state, outs, add)
+    shard_guarded_check(outs, add)
+    shard_churn_check(work, state, outs, add)
+
     # ---- rank 0's kernels at its shard shapes against their plain versions --
     ck = outs[0]["checks"]
     log(f"shard gloo rank 0, kernels at its shard shapes {ck['shapes']} "
         f"against their plain versions: prune {ck['prune']}; cc_hop "
         f"{ck['cc_hop']}; topk {ck['topk']}; topk_pruned "
-        f"{ck['topk_pruned']}")
+        f"{ck['topk_pruned']}; topk on the churned slice "
+        f"{ck['topk_churned']}")
     n_loc, n_items = n // SHARD_RANKS, SERVE_ITEMS // SHARD_RANKS
     assert ck["shapes"]["prune"] == ((n_loc, -(-n // 32)), (n, d)), ck
     assert ck["shapes"]["topk"] == ((SERVE_BATCH, d), (n_items, d)), ck
     assert ck["shapes"]["topk_pruned"] == (n_items, d), ck
+    assert ck["shapes"]["topk_churned"] == (OPS_ITEMS // SHARD_RANKS, d), ck
     return total
+
+
+def shard_policies_check(dev, work, outs, add):
+    """The cold club and linucb sessions on the four ranks against
+    ``OnlineBandit.create`` of the same policy in this process."""
+    import numpy as np
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import distclub_paper as paper
+    n, d, hyper = paper.N_USERS, paper.D_FEAT, paper.CONFIG
+    for policy in ("club", "linucb"):
+        runs = [o["policies"][policy] for o in outs]
+        one = serve.OnlineBandit.create(n, d, hyper, policy=policy,
+                                        refresh_every=SHARD_POLICY_REFRESH,
+                                        device=dev)
+        secs = []
+        for t in range(SHARD_POLICY_BATCHES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one, item, m = serve.step_catalog(one, t, work.users[t],
+                                              work.catalog, work.reward_fn,
+                                              k_short=K_SHORT)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            for r in runs:
+                assert np.array_equal(r["items"][t], item.cpu().numpy()), (
+                    f"sharded {policy}: batch {t}, other items than one "
+                    "process")
+                assert float(r["reward"][t]) == float(m.reward), (
+                    f"sharded {policy}: batch {t}, other reward")
+        same_labels = None
+        if policy == "club":
+            assert int(one.state.since_refresh) == 0
+            same_labels = all(np.array_equal(r["labels"],
+                                             one.state.labels.cpu().numpy())
+                              for r in runs)
+        for r in runs:
+            lc = r["launches"]
+            assert lc["topk"] == lc["choose"] == SHARD_POLICY_BATCHES, lc
+            assert lc["rank1_update_inv"] == SHARD_POLICY_BATCHES, lc
+            assert r["refreshed"] == (policy == "club"), policy
+            if policy == "club":
+                assert lc["prune"] >= 1 and lc["cc_hop"] >= 1, lc
+            else:
+                assert lc["prune"] == lc["cc_hop"] == 0, lc
+            add(lc)
+        log(f"shard gloo {policy} x{SHARD_RANKS}: cold "
+            f"OnlineBandit.sharded, {SHARD_POLICY_BATCHES} batches of "
+            f"{SERVE_BATCH}, items and reward equal to one process's in "
+            f"every batch; stage 2 over the ranks after the last batch: "
+            f"{runs[0]['refreshed']} (labels equal to one process's: "
+            f"{same_labels}); ms per batch by rank "
+            f"{[[1e3 * x for x in r['secs']] for r in runs]} (one process "
+            f"{[1e3 * x for x in secs]}); bytes moved by rank "
+            f"{[r['sent'] for r in runs]}; launches (rank 0) "
+            f"{runs[0]['launches']}")
+
+
+def shard_ckpt_check(dev, work, state, outs, add):
+    """The sharded save and its restores: on the four ranks, and onto
+    one process on this card, each resumes with the unbroken run's
+    items."""
+    import numpy as np
+    import torch
+    from repro_torch import serve
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.train.checkpoint import CheckpointManager
+    runs = [o["ckpt"] for o in outs]
+    want = runs[0]["unbroken"]
+    for r in runs:
+        assert np.array_equal(r["unbroken"], want), "ranks: other items"
+        assert np.array_equal(r["restored"], want), (
+            "sharded restore on the four ranks: other items than the "
+            "unbroken run")
+        lc = r["launches"]
+        assert lc["topk"] == lc["choose"] == SHARD_SAVE_AT + 2 * SHARD_RESUME
+        add(lc)
+    tmpl = serve.OnlineBandit.from_offline(state, paper.CONFIG,
+                                           refresh_every=REFRESH_EVERY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one, step = tmpl.restore(CheckpointManager(SHARD_CKPT_DIR))
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    assert step == SHARD_SAVE_AT, step
+    for j, t in enumerate(range(SHARD_SAVE_AT, SHARD_SAVE_AT + SHARD_RESUME)):
+        one, item, _ = serve.step_catalog(one, t, work.users[t],
+                                          work.catalog, work.reward_fn,
+                                          k_short=K_SHORT)
+        assert np.array_equal(item.cpu().numpy(), want[j]), (
+            f"restore onto one process: batch {t}, other items than the "
+            "unbroken sharded run")
+    nbytes = sum(t.nbytes for t in one.state)
+    as_4s = all(np.array_equal(want[j], work.items[t].cpu().numpy())
+                for j, t in enumerate(range(SHARD_SAVE_AT,
+                                            SHARD_SAVE_AT + SHARD_RESUME)))
+    log(f"shard gloo checkpoint x{SHARD_RANKS}: saved after batch "
+        f"{SHARD_SAVE_AT} ({nbytes} bytes of global state, rank 0 writing), "
+        f"restored onto the {SHARD_RANKS} ranks and onto one process: the "
+        f"next {SHARD_RESUME} batches equal the unbroken run's on both "
+        f"(and phase 4s's: {as_4s}); save ms by rank "
+        f"{[1e3 * r['save_s'] for r in runs]}, restore ms by rank "
+        f"{[1e3 * r['restore_s'] for r in runs]}, one-process restore ms "
+        f"{restore_ms} (phase 4o, one process: snapshot 269-338, rollback "
+        f"333-393)")
+
+
+def shard_guarded_check(outs, add):
+    """The guarded rollback on the four ranks: the same events on each,
+    the snapshot pair's items served again, the recall probe 1.0."""
+    import numpy as np
+    runs = [o["guarded"] for o in outs]
+    for r in runs:
+        assert r["recall"] == 1.0, f"guarded sharded: recall {r['recall']}"
+        assert np.array_equal(r["again"], r["served"]), (
+            "guarded sharded: the restored pair served other items than "
+            "the snapshot pair")
+        assert r["events"][-1][0] == "rollback", r["events"]
+        assert r["events"][-1][2] == ("churn_ceiling",), r["events"]
+        assert r["events"] == runs[0]["events"], "ranks: other events"
+        add(r["launches"])
+    log(f"shard gloo guarded x{SHARD_RANKS}: recall probe ema "
+        f"{runs[0]['recall']} on healthy batches; events "
+        f"{runs[0]['events']}; after the rollback epoch "
+        f"{runs[0]['epoch']}, live items {runs[0]['n_live']}; the restored "
+        f"pair served the snapshot pair's items; snapshot ms by rank "
+        f"{[1e3 * r['snapshot_s'] for r in runs]} (state and catalog, "
+        f"gathered), rollback ms by rank "
+        f"{[1e3 * r['rollback_s'] for r in runs]}; launches (rank 0) "
+        f"{runs[0]['launches']}")
+
+
+def shard_churn_check(work, state, outs, add):
+    """The item-sharded churn run on the four ranks against phase 4o's
+    one-process run of the same rounds on this card."""
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.serve import faults
+    spec = faults.FaultSpec(seed=SEED, **OPS_DELIVERY, **OPS_CHURN)
+    one, one_s = ops_catalog_run(work, state, paper.CONFIG,
+                                 SHARD_CHURN_ROUNDS, spec)
+    runs = [o["churn"] for o in outs]
+    for r in runs:
+        rep = r["report"]
+        for f in ("pending", "interactions", "delivered", "publishes",
+                  "items_added", "items_retired", "reward", "expected"):
+            assert getattr(rep, f) == getattr(one, f), (
+                f"sharded churn: {f} {getattr(rep, f)} against one "
+                f"process's {getattr(one, f)}")
+        assert r["launches"]["topk"] == SHARD_CHURN_ROUNDS, r["launches"]
+        add(r["launches"])
+    rep = runs[0]["report"]
+    log(f"shard gloo churn x{SHARD_RANKS}: {SHARD_CHURN_ROUNDS} rounds of "
+        f"phase 4o's mix on {OPS_ITEMS // SHARD_RANKS} slots a rank, "
+        f"conservation after every delivery; pending, publishes, items "
+        f"added and retired, reward equal to one process's: {rep.pending}; "
+        f"publishes {rep.publishes} ({runs[0]['torn']} torn); added "
+        f"{rep.items_added}, retired {rep.items_retired}; reward "
+        f"{rep.reward}; tx/s by rank {[r['report'].tx_per_s for r in runs]}"
+        f" (one process {one.tx_per_s}; not a scaling figure: the ranks "
+        f"share one card); s by rank {[r['secs'] for r in runs]} (one "
+        f"process {one_s}); final epoch {runs[0]['epoch']}, live items "
+        f"{runs[0]['n_live']}; bytes moved by rank "
+        f"{[r['sent'] for r in runs]}; launches (rank 0) "
+        f"{runs[0]['launches']}")
 
 
 def algo_line(name, secs, inter, rr, comm, clusters, peak):

@@ -18,6 +18,15 @@ a stale decision chose.
 ``active`` and ``epoch`` are Python ints (host-side control values);
 the banks are tensors on the catalog's device.
 
+Item sharding: a rank of an item-sharded session holds its slice of the
+slot axis of both banks (:func:`item_shard`; :func:`specs` is the split,
+``repro``'s ``specs``).  Each transaction takes the ranks' ``col``
+(``runtime.collectives``; one process by default) and, on a rank's
+slice, returns that rank's slice of what it returns on the global
+catalog: ids and slot ids are global, counts are summed over the ranks,
+and :func:`add_items` gathers the shadow ``live`` mask so that the slot
+allocation is the global one.
+
 Precision (``core.backend.Precision``): banks may store embeddings in
 bf16 or int8 instead of f32.  ``emb`` carries that dtype and a per-slot
 f32 ``scale`` rides along (1.0 except under int8, where the dequantized
@@ -33,7 +42,10 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
+from ..runtime.collectives import NullCollectives
 from .backend import Precision, resolve_precision
+
+_NULL = NullCollectives()
 
 
 class Bank(NamedTuple):
@@ -75,9 +87,9 @@ class Catalog(NamedTuple):
         """The shadow bank, where churn accumulates until :func:`publish`."""
         return self._bank(1 - self.active)
 
-    def n_live(self) -> int:
-        """Servable items of the ACTIVE bank."""
-        return int(self.live[self.active].sum())
+    def n_live(self, col=_NULL) -> int:
+        """Servable items of the ACTIVE bank (over the ranks of ``col``)."""
+        return int(col.psum(self.live[self.active].sum()))
 
 
 def _quantize_rows(emb: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -159,6 +171,12 @@ def item_shard(cat: Catalog, shard: int, n_shards: int) -> Catalog:
                         scale=cat.scale[:, sl].contiguous())
 
 
+def specs() -> Catalog:
+    """The split of an item-sharded catalog (``serve.policies.shard_rows``):
+    the banks on their slot axis, the flip and the epoch replicated."""
+    return Catalog(emb=1, live=1, born=1, scale=1, active=None, epoch=None)
+
+
 def random_catalog(generator: torch.Generator, n_items: int, d: int,
                    capacity: int | None = None, device=None, *,
                    precision: Precision | str | None = None) -> Catalog:
@@ -177,35 +195,47 @@ def _with_bank(cat: Catalog, b: int, emb, live, born, scale) -> Catalog:
     return cat._replace(emb=E, live=L, born=Bn, scale=Sc)
 
 
-def retire_items(cat: Catalog, ids: torch.Tensor) -> tuple[Catalog, int]:
-    """STAGE the retirement of ``ids`` into the shadow bank; returns
-    ``(catalog, n_retired)``, the shadow slots that went live -> dead.
-    Negative, out-of-range, duplicate and already-dead ids are no-ops."""
+def _slot_range(cat: Catalog, col) -> tuple[int, int]:
+    """(first global slot, slots) of this rank's slice."""
+    return col.axis_index() * cat.capacity, cat.capacity
+
+
+def retire_items(cat: Catalog, ids: torch.Tensor, col=_NULL
+                 ) -> tuple[Catalog, int]:
+    """STAGE the retirement of ``ids`` (global slot ids) into the shadow
+    bank; returns ``(catalog, n_retired)``, the shadow slots that went
+    live -> dead over all ranks.  Negative, out-of-range, duplicate and
+    already-dead ids are no-ops."""
     shadow = 1 - cat.active
     live_s = cat.live[shadow]
-    ok = (ids >= 0) & (ids < cat.capacity)
+    row0, n = _slot_range(cat, col)
+    loc = ids - row0
+    ok = (loc >= 0) & (loc < n)
     new_live = live_s.clone()
-    new_live[ids[ok].long()] = 0.0
-    n_retired = int((live_s - new_live).sum())
+    new_live[loc[ok].long()] = 0.0
+    n_retired = int(col.psum((live_s - new_live).sum()))
     L = cat.live.clone()
     L[shadow] = new_live
     return cat._replace(live=L), n_retired
 
 
-def add_items(cat: Catalog, emb_new: torch.Tensor
+def add_items(cat: Catalog, emb_new: torch.Tensor, col=_NULL
               ) -> tuple[Catalog, torch.Tensor, int]:
     """STAGE ``emb_new [m, d]`` into the lowest dead SHADOW slots; returns
-    ``(catalog, slot_ids [m] i32, n_added)``.  Staged items are stamped
-    ``born = epoch + 1``.  When fewer than ``m`` slots are free the first
-    rows claim them in ascending slot order and the overflow gets slot -1:
-    live items are never overwritten."""
+    ``(catalog, slot_ids [m] i32, n_added)``, slot ids global and the
+    same on every rank.  Staged items are stamped ``born = epoch + 1``.
+    When fewer than ``m`` slots are free the first rows claim them in
+    ascending slot order and the overflow gets slot -1: live items are
+    never overwritten.  Each rank writes the rows that land in its
+    slice."""
     m = emb_new.shape[0]
     shadow = 1 - cat.active
     emb_s, live_s, born_s, scale_s = (cat.emb[shadow], cat.live[shadow],
                                       cat.born[shadow], cat.scale[shadow])
-    # dead slots first, ascending id (a stable sort of the 0/1 mask)
-    order = torch.argsort(live_s, stable=True)
-    n_free = cat.capacity - int(live_s.sum())
+    # dead slots first, ascending global id (a stable sort of the 0/1 mask)
+    live_g = col.all_gather(live_s)
+    order = torch.argsort(live_g, stable=True)
+    n_free = live_g.shape[0] - int(live_g.sum())
     n_added = min(m, n_free)
     slots = order[:n_added]
     emb32 = emb_new[:n_added].float()
@@ -217,24 +247,29 @@ def add_items(cat: Catalog, emb_new: torch.Tensor
     else:
         sc = torch.ones(n_added, dtype=torch.float32, device=emb_s.device)
         codes = emb32.to(emb_s.dtype)
+    row0, n = _slot_range(cat, col)
+    loc = slots - row0
+    mine = (loc >= 0) & (loc < n)
+    loc = loc[mine]
     emb2, live2, born2, scale2 = (emb_s.clone(), live_s.clone(),
                                   born_s.clone(), scale_s.clone())
-    emb2[slots] = codes
-    live2[slots] = 1.0
-    born2[slots] = cat.epoch + 1
-    scale2[slots] = sc
+    emb2[loc] = codes[mine]
+    live2[loc] = 1.0
+    born2[loc] = cat.epoch + 1
+    scale2[loc] = sc[mine]
     out = torch.full((m,), -1, dtype=torch.int32, device=emb_s.device)
     out[:n_added] = slots.to(torch.int32)
     return _with_bank(cat, shadow, emb2, live2, born2, scale2), out, n_added
 
 
-def staged_churn(cat: Catalog) -> int:
-    """Slots whose staged state differs from the serving state."""
+def staged_churn(cat: Catalog, col=_NULL) -> int:
+    """Slots whose staged state differs from the serving state, over all
+    ranks."""
     a, s = cat.active, 1 - cat.active
     diff = ((cat.live[a] != cat.live[s]) | (cat.born[a] != cat.born[s])
             | (cat.scale[a] != cat.scale[s])
             | torch.any(cat.emb[a] != cat.emb[s], dim=-1))
-    return int(diff.sum())
+    return int(col.psum(diff.sum()))
 
 
 def publish(cat: Catalog) -> Catalog:
@@ -248,12 +283,14 @@ def publish(cat: Catalog) -> Catalog:
     return cat._replace(active=new_active, epoch=cat.epoch + 1)
 
 
-def torn_publish(cat: Catalog, keep_mask: torch.Tensor) -> Catalog:
-    """FAULT INJECTION ONLY: a publish where only ``keep_mask [capacity]``
-    slots' staged changes land (the rest revert to the serving state)
-    before the flip; the epoch still bumps."""
+def torn_publish(cat: Catalog, keep_mask: torch.Tensor, col=_NULL
+                 ) -> Catalog:
+    """FAULT INJECTION ONLY: a publish where only ``keep_mask`` (over the
+    global slots) slots' staged changes land (the rest revert to the
+    serving state) before the flip; the epoch still bumps."""
     shadow, a = 1 - cat.active, cat.active
-    keep = keep_mask.bool()
+    row0, n = _slot_range(cat, col)
+    keep = keep_mask[row0:row0 + n].bool()
     cat = _with_bank(
         cat, shadow,
         torch.where(keep[:, None], cat.emb[shadow], cat.emb[a]),

@@ -1,5 +1,6 @@
 """Online serving on the port: policy-pluggable ``OnlineBandit`` sessions
-bound to the stage engine (``repro.serve``, single host).
+bound to the stage engine (``repro.serve``), on one process or split
+over ranks (``OnlineBandit.sharded``).
 
     from repro_torch import serve
 

@@ -638,9 +638,13 @@ def record_feedback(exp: Experiment, user_ids, arms, realized,
 
 
 def _ckpt_payload(exp: Experiment) -> dict:
+    """The checkpoint tree: a sharded arm's state and rollback anchor as
+    their global arrays (``repro``'s ``_ckpt_shardings``), its pending
+    ring as it is (replicated)."""
     arms = {}
     for i, s in enumerate(exp.arms):
-        entry = {"state": s.state, "snap": exp.snapshots[i]}
+        entry = {"state": s.global_state(),
+                 "snap": s.global_state(exp.snapshots[i])}
         if s.pending is not None:
             entry["pending"] = s.pending
         arms[f"arm{i}"] = entry
@@ -660,17 +664,26 @@ def _ckpt_payload(exp: Experiment) -> dict:
     return {"arms": arms, "selector": sel, "meta": meta}
 
 
+def _ranks(exp: Experiment):
+    """The ranks the sharded arms are split over (one process if none
+    is)."""
+    return next((s.col for s in exp.arms if s.col.n_shards > 1),
+                exp.arms[0].col)
+
+
 def save(exp: Experiment, ckpt, step: int):
     """Snapshot the WHOLE experiment (arm states, pending rings, rollback
     anchors, selector posteriors, salt and fractions) as one atomic
-    checkpoint entry.  Single-host arms."""
-    return ckpt.save(_ckpt_payload(exp), step)
+    checkpoint entry.  Sharded arms save their global arrays, rank 0
+    writing, the files of a one-process experiment in the same state."""
+    return ckpt.save(_ckpt_payload(exp), step, col=_ranks(exp))
 
 
 def restore(exp: Experiment, ckpt, step: int | None = None):
     """``(experiment, step)`` from ``ckpt`` (the latest when ``step`` is
     None; ``(exp, None)`` on an empty directory).  Routing and every
-    arm's state and ring resume exactly; guardrail EMAs restart."""
+    arm's state and ring resume exactly, a sharded arm on its own slice
+    of the saved global arrays; guardrail EMAs restart."""
     like = _ckpt_payload(exp)
     if step is None:
         payload, step = ckpt.restore_latest(like)
@@ -681,11 +694,11 @@ def restore(exp: Experiment, ckpt, step: int | None = None):
     arms, snaps = [], []
     for i, s in enumerate(exp.arms):
         entry = payload["arms"][f"arm{i}"]
-        kw = {"state": entry["state"]}
+        kw = {"state": s.local_state(entry["state"])}
         if s.pending is not None:
             kw["pending"] = entry["pending"]
         arms.append(dataclasses.replace(s, **kw))
-        snaps.append(entry["snap"])
+        snaps.append(s.local_state(entry["snap"]))
     sel = exp.selector
     if sel is not None:
         sel = sel._replace(alpha=np.asarray(payload["selector"]["alpha"]),

@@ -40,7 +40,15 @@ the decision is made, the delivered (possibly flipped) reward is what
 the learner folds, and ``report.reward`` is the true realized reward.
 
 Pass a ``guardrails.Guarded`` wrapper instead of a bare session and every
-transaction goes through its monitors.  ``python -m
+transaction goes through its monitors.
+
+A sharded session (``OnlineBandit.sharded`` or ``from_offline(...,
+col=)``) runs on every rank with the same traffic and the same fault
+seed: its catalog is the rank's item slice, churn goes through the
+catalog transactions over the session's ranks (global ids and slots),
+the retirement draw reads the gathered live mask, and the torn-publish
+mask is drawn over the global slots.  Every draw and every counter is
+then replicated, and each rank returns the same report.  ``python -m
 repro_torch.launch.faultrun`` is the CLI.
 """
 from __future__ import annotations
@@ -334,7 +342,8 @@ def run_faulted_catalog(session, env, rounds: int, spec: FaultSpec, *,
     or a ``guardrails.Guarded`` created WITH a tracked catalog.  ``env``
     is a ``core.env.CatalogEnv``: churn items come from its planted
     regions, the flash crowd targets its hottest region, and rewards
-    score the served shortlist.  Delivery folds through
+    score the served shortlist.  On a sharded session the catalog is this
+    rank's item slice.  Delivery folds through
     ``observe_delayed(..., catalog=current)``, so feedback for churned
     items is quarantined (``stale``); with ``assert_conservation`` the
     identity issued == matched + in_flight + expired + dropped + stale is
@@ -353,6 +362,7 @@ def run_faulted_catalog(session, env, rounds: int, spec: FaultSpec, *,
         raise ValueError("run_faulted_catalog needs a buffer-enabled "
                          "session (create with pending_capacity > 0)")
     cfg = inner.policy.cfg
+    col = inner.col
     dev = guardrails_mod.session_device(inner)
     theta = env.theta
     n_regions = env.region_centroids.shape[1]
@@ -390,9 +400,9 @@ def run_faulted_catalog(session, env, rounds: int, spec: FaultSpec, *,
             session, _ = session.stage_churn(add=add, retire=retire)
         else:
             if retire is not None:
-                catalog, _ = catalog_mod.retire_items(catalog, retire)
+                catalog, _ = catalog_mod.retire_items(catalog, retire, col)
             if add is not None:
-                catalog, _, _ = catalog_mod.add_items(catalog, add)
+                catalog, _, _ = catalog_mod.add_items(catalog, add, col)
         if retire is not None:
             n_retired += int(retire.shape[0])
         if add is not None:
@@ -402,14 +412,15 @@ def run_faulted_catalog(session, env, rounds: int, spec: FaultSpec, *,
         nonlocal session, catalog, n_pub
         cat = current_cat()
         torn = rng.random() < spec.p_torn
-        keep = (torch.from_numpy(rng.random(cat.capacity) < 0.5).to(dev)
-                if torn else None)
+        keep = (torch.from_numpy(
+            rng.random(cat.capacity * col.n_shards) < 0.5).to(dev)
+            if torn else None)
         if guarded:
             session = session.publish(keep_mask=keep)
         elif keep is None:
             catalog = catalog_mod.publish(catalog)
         else:
-            catalog = catalog_mod.torn_publish(catalog, keep)
+            catalog = catalog_mod.torn_publish(catalog, keep, col)
         n_pub += 1
 
     t0 = guardrails_mod.clock(inner)
@@ -438,8 +449,8 @@ def run_faulted_catalog(session, env, rounds: int, spec: FaultSpec, *,
             staged = True
         if spec.churn_every and (i + 1) % spec.churn_every == 0:
             if spec.churn_retire > 0:
-                live_ids = np.nonzero(
-                    current_cat().serving.live.cpu().numpy() > 0)[0]
+                live_ids = np.nonzero(col.all_gather(
+                    current_cat().serving.live).cpu().numpy() > 0)[0]
                 m = min(spec.churn_retire, len(live_ids))
                 if m > 0:
                     stage(retire=torch.from_numpy(rng.choice(

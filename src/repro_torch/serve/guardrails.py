@@ -40,6 +40,13 @@ serve against a catalog they have not seen.  Churn goes through
 state-only snapshot goes through ``OnlineBandit.save``/``restore``, which
 check the precision tag.
 
+Over a sharded session (``OnlineBandit.sharded``, its catalog this
+rank's item slice) a snapshot holds the global arrays (the state's rows
+and the catalog's slots gathered over the ranks, rank 0 writing, as
+``repro``'s global arrays), and a rollback restores them and takes this
+rank's slices again; churn counts and the recall probe run over the
+ranks.
+
 Everything is functional: :class:`Guarded` methods return a new wrapper;
 ``events`` is an append-only tuple of ``("snapshot", tx, step)`` and
 ``("rollback", tx, breaches, restored_step)`` records.
@@ -55,6 +62,7 @@ import torch
 
 from ..core import catalog as catalog_mod
 from ..core.backend import BackendConfig
+from . import policies as pol
 from . import session as session_mod
 
 
@@ -170,18 +178,17 @@ def shortlist_recall(session, catalog, user_ids, served_items, *,
     (unpruned) shortlist over the whole catalog.  ``session`` must be the
     state the items were chosen FROM (the pre-transaction session).
     Healthy serving is exact, so this is 1.0; a drop means the serving
-    path left its own statistics.  Single-host sessions."""
+    path left its own statistics.  On a sharded session ``catalog`` is
+    this rank's item slice: the request rows are replicated, each slice
+    shortlisted and the lists merged, as serving does.  An int8 bank's
+    oracle scores the dequantized rows (its per-slot scales passed in),
+    as the serving shortlist does; ``repro``'s ranks the raw codes."""
     policy = session.policy
-    cfg = policy.cfg
     rb = BackendConfig.create().retrieval(k_short)
-    valid = (user_ids >= 0) & (user_ids < cfg.n_users)
-    idx = torch.clamp(user_ids, 0, cfg.n_users - 1).long()
-    w, minv_eff, occ = policy.gather_score(session.state, idx)
-    bank = catalog.serving
-    quantized = bank.emb.dtype == torch.int8
-    _, oracle_ids = rb.shortlist(w, minv_eff, occ, bank.emb, bank.live,
-                                 cfg.hyper.alpha,
-                                 scales=bank.scale if quantized else None)
+    w, minv_eff, occ, _, _, valid = session_mod._request_rows(
+        policy, session.col, session.state, user_ids)
+    _, oracle_ids = session_mod._direct_shortlist(
+        rb, session.col, w, minv_eff, occ, catalog, policy.cfg.hyper.alpha)
     hit = torch.any(oracle_ids == served_items[:, None], dim=1)
     n_valid = torch.clamp_min(torch.sum(valid.to(torch.int32)), 1)
     return float(torch.sum((hit & valid).to(torch.float32)) / n_valid)
@@ -206,8 +213,8 @@ class Guarded:
     snapshot from ``ckpt`` (and clears the pending ring) before the next
     call runs.  With ``catalog`` the wrapper owns the serving catalog
     and snapshots and restores it with the state; the catalog calls then
-    default to it.  Single-host sessions (a sharded session is not
-    checkpointed)."""
+    default to it.  Over a sharded session the snapshots are the global
+    arrays and ``catalog`` is this rank's item slice."""
 
     session: Any
     ckpt: Any
@@ -233,8 +240,11 @@ class Guarded:
         if catalog is None:
             session.save(self.ckpt, step)
         else:
-            self.ckpt.save({"state": session.state, "catalog": catalog},
-                           step)
+            col = session.col
+            self.ckpt.save({"state": session.global_state(),
+                            "catalog": pol.gather_rows(
+                                catalog, col, catalog_mod.specs())},
+                           step, col=col)
 
     def _rollback(self, session, catalog):
         """(session, catalog, step) from the latest loadable snapshot."""
@@ -245,8 +255,10 @@ class Guarded:
         payload, step = self.ckpt.restore_latest(like)
         if payload is None:     # empty directory: keep what we have
             return session, catalog, None
-        return (dataclasses.replace(session, state=payload["state"]),
-                payload["catalog"], step)
+        return (dataclasses.replace(
+                    session, state=session.local_state(payload["state"])),
+                pol.shard_rows(payload["catalog"], session.col,
+                               catalog_mod.specs()), step)
 
     # -- admission ---------------------------------------------------------
     def _admit(self, session, **sample) -> "Guarded":
@@ -373,15 +385,16 @@ class Guarded:
     # -- guarded catalog churn ---------------------------------------------
     def stage_churn(self, *, add=None, retire=None):
         """Stage churn into the tracked catalog's shadow bank (serving is
-        untouched until :meth:`publish`): ``retire`` [m] item ids, ``add``
-        [m, d] embeddings.  Returns ``(guarded, slot_ids)`` (None without
+        untouched until :meth:`publish`): ``retire`` [m] global item ids,
+        ``add`` [m, d] embeddings.  Returns ``(guarded, slot_ids)`` (None without
         ``add``)."""
         cat = self._catalog_or_tracked(None)
+        col = self.session.col
         slots = None
         if retire is not None:
-            cat, _ = catalog_mod.retire_items(cat, retire)
+            cat, _ = catalog_mod.retire_items(cat, retire, col)
         if add is not None:
-            cat, slots, _ = catalog_mod.add_items(cat, add)
+            cat, slots, _ = catalog_mod.add_items(cat, add, col)
         return dataclasses.replace(self, catalog=cat), slots
 
     def publish(self, keep_mask=None) -> "Guarded":
@@ -390,10 +403,12 @@ class Guarded:
         catalog back.  ``keep_mask`` is fault injection only, a torn
         publish (``core.catalog.torn_publish``)."""
         cat = self._catalog_or_tracked(None)
-        churn = float(catalog_mod.staged_churn(cat)) / cat.capacity
+        col = self.session.col
+        churn = (float(catalog_mod.staged_churn(cat, col))
+                 / (cat.capacity * col.n_shards))
         if keep_mask is None:
             cat = catalog_mod.publish(cat)
         else:
-            cat = catalog_mod.torn_publish(cat, keep_mask)
+            cat = catalog_mod.torn_publish(cat, keep_mask, col)
         g = dataclasses.replace(self, catalog=cat)
         return g._admit(g.session, churn=churn)

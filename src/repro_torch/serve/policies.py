@@ -29,10 +29,17 @@ session's ``Precision.state_dtype`` (bf16 halves the bytes of the
 scoring and retrieval run in f32.  dccb keeps f32 state, as ``repro``'s.
 ``gather_score`` is also what catalog retrieval scores the catalog with.
 
-On a sharded session (``OnlineBandit.sharded``, the ``distclub`` policy)
-the per-user rows are this rank's users only, ``idx`` indexes them, and
-the refresh is stage 2 over the session's collectives; ``labels`` stays
-replicated.
+On a sharded session (``OnlineBandit.sharded``: distclub, club and
+linucb) the per-user rows are this rank's users only, ``idx`` indexes
+them, and the clustered policies' refresh is stage 2 over the session's
+collectives; ``labels`` and the counters stay replicated.  Each policy's
+``state_specs()`` says which fields are split (``repro``'s
+``state_specs``, a ``PartitionSpec`` tree there): a state record holding
+0 for a field split on its user axis and None for a replicated one.
+dccb has none: its gossip graph is dense, so it is single-host only.
+:func:`shard_rows` and :func:`gather_rows` move such a record between
+its global arrays and one rank's slice of them, for checkpoints,
+snapshots and catalogs (``core.catalog.specs``) alike.
 """
 from __future__ import annotations
 
@@ -119,6 +126,11 @@ class ClusteredPolicy(NamedTuple):
     def has_refresh(self) -> bool:
         return True
 
+    def state_specs(self) -> ClusteredState:
+        return ClusteredState(Minv=0, b=0, occ=0, adj=0, labels=None,
+                              uMcinv=0, ubc=0, umean_occ=0,
+                              since_refresh=None, comm_bytes=None)
+
     def init(self, device, col=_NULL) -> ClusteredState:
         """The initial state of this rank's users (every user on one
         process)."""
@@ -196,12 +208,18 @@ class LinUCBPolicy(NamedTuple):
     def has_refresh(self) -> bool:
         return False
 
-    def init(self, device) -> LinUCBServeState:
-        n, d = self.cfg.n_users, self.cfg.d
+    def state_specs(self) -> LinUCBServeState:
+        return LinUCBServeState(Minv=0, b=0, occ=0, since_refresh=None)
+
+    def init(self, device, col=_NULL) -> LinUCBServeState:
+        """The initial state of this rank's users (every user on one
+        process)."""
+        _, m = local_slice(self.cfg.n_users, col.axis_index(), col.n_shards)
+        d = self.cfg.d
         return LinUCBServeState(
-            Minv=_eye_rows(n, d, device, self.cfg.precision.torch_state),
-            b=torch.zeros(n, d, dtype=torch.float32, device=device),
-            occ=torch.zeros(n, dtype=torch.int32, device=device),
+            Minv=_eye_rows(m, d, device, self.cfg.precision.torch_state),
+            b=torch.zeros(m, d, dtype=torch.float32, device=device),
+            occ=torch.zeros(m, dtype=torch.int32, device=device),
             since_refresh=_zero().to(device))
 
     def occ_of(self, state):
@@ -256,6 +274,10 @@ class DCCBPolicy(NamedTuple):
     @property
     def L(self) -> int:
         return self.cfg.hyper.buffer_size
+
+    def state_specs(self):
+        raise NotImplementedError(
+            "dccb serving is single-host only (dense gossip graph)")
 
     def init(self, device) -> DCCBServeState:
         return DCCBServeState(
@@ -341,15 +363,38 @@ def from_distclub_state(state: DistCLUBState) -> ClusteredState:
         comm_bytes=state.comm_bytes)
 
 
-def shard_rows(state: ClusteredState, col) -> ClusteredState:
-    """This rank's piece of a whole-population state: its users' rows,
-    the labels and counters as they are."""
-    row0, m = local_slice(state.occ.shape[0], col.axis_index(),
-                          col.n_shards)
-    rows = slice(row0, row0 + m)
-    per_user = ("Minv", "b", "occ", "adj", "uMcinv", "ubc", "umean_occ")
-    return state._replace(**{f: getattr(state, f)[rows].contiguous()
-                             for f in per_user})
+def _map_split(fn, record, specs):
+    """``fn(field, axis)`` on every tensor field of ``record`` (a state or
+    a catalog), ``axis`` its split axis in ``specs`` (None: replicated);
+    other fields (host ints) as they are."""
+    return type(record)(*(fn(v, a) if isinstance(v, torch.Tensor) else v
+                          for v, a in zip(record, specs)))
+
+
+def shard_rows(record, col, specs):
+    """This rank's slice of the global ``record``: each field split by
+    ``specs`` narrowed to rank ``col.axis_index()``'s piece of its axis,
+    the rest as it is.  Raises unless the ranks divide each split axis."""
+    def piece(x, axis):
+        if axis is None or col.n_shards == 1:
+            return x
+        row0, m = local_slice(x.shape[axis], col.axis_index(), col.n_shards)
+        return x.narrow(axis, row0, m).contiguous()
+
+    return _map_split(piece, record, specs)
+
+
+def gather_rows(record, col, specs):
+    """The global arrays of a record split over ``col`` by ``specs``: each
+    split field all-gathered in rank order along its axis (one process:
+    ``record`` as it is).  The inverse of :func:`shard_rows`."""
+    def whole(x, axis):
+        if axis is None or col.n_shards == 1:
+            return x
+        return col.all_gather(x.movedim(axis, 0)).movedim(0, axis) \
+            .contiguous()
+
+    return _map_split(whole, record, specs)
 
 
 def to_distclub_state(state: ClusteredState, hyper: BanditHyper,

@@ -46,15 +46,16 @@ rows are replicated by psum, each rank shortlists its own slice
 the ``[S, B, K_short]`` lists are all-gathered and merged with
 ``select_topk``, the kernel's own selection routine, and the chosen
 shortlist rows are summed from their owners; the merged shortlist is
-the one-process shortlist, bit for bit.  The refresh is stage 2 over
-``col``, the code path of ``distributed.distclub_shard``.  Only the
-``distclub`` policy has a sharded session.  Its pending ring, where it
-has one, is replicated: every rank issues the psum-combined choices and
-chosen contexts, so every rank holds the same ring, and
-``observe_delayed`` matches on every rank, folds the rows the rank owns
-and runs the refresh over ``col``.  That covers slate transactions;
-catalog transactions on a sharded session with a pending ring are
-refused.
+the one-process shortlist, bit for bit.  The clustered policies'
+refresh is stage 2 over ``col``, the code path of
+``distributed.distclub_shard``.  The distclub, club and linucb policies
+have sharded sessions; dccb is single-host only, as in ``repro``.  The
+pending ring, where there is one, is replicated: every rank issues the
+psum-combined choices (or items) and chosen contexts, so every rank
+holds the same ring, and ``observe_delayed`` matches on every rank,
+folds the rows the rank owns and runs the refresh over ``col``.  With
+the current catalog, the churn quarantine resolves each decision's item
+on the rank whose slice holds it and combines the verdicts by psum.
 
 Precision: ``create``, ``sharded`` and ``from_offline`` take a
 ``precision`` (``core.backend.Precision``, a preset name, or None for
@@ -69,7 +70,11 @@ Checkpointing: ``session.save(ckpt, step)`` / ``session.restore(ckpt)``
 round-trip the policy state through ``train.checkpoint.CheckpointManager``
 with the session's precision tag beside it; ``restore`` refuses a
 checkpoint written under another precision.  A restarted session resumes
-with the same subsequent choices.  Single-host sessions only.
+with the same subsequent choices.  A sharded session saves its global
+arrays (its rows gathered over the ranks; rank 0 writes), the same files
+as a one-process save of the same state, and a restore takes the
+restoring session's own slice, so a session restarted on another number
+of ranks, one included, resumes from the same bytes.
 
 Padding: rows with ``uid < 0`` or ``uid >= n_users`` are no-ops (choice
 0 / item -1, no state change, decision id -1).  Sessions are immutable:
@@ -178,8 +183,11 @@ def _fold_feedback(policy, state, idx, own, valid, user_ids, x, realized):
 
 
 def _schedule_refresh(policy, col, state, n_new):
-    """Count the batch's interactions; refresh once the budget is spent."""
-    state = state._replace(since_refresh=state.since_refresh + n_new)
+    """Count the batch's interactions; refresh once the budget is spent.
+    The counter stays i32, ``repro``'s dtype (a torch sum of i32 is
+    i64)."""
+    state = state._replace(since_refresh=state.since_refresh
+                           + n_new.to(state.since_refresh.dtype))
     every = policy.cfg.refresh_every
     if policy.has_refresh and every > 0 and int(state.since_refresh) >= every:
         state = policy.refresh(state, col)._replace(
@@ -214,18 +222,51 @@ def _psum_counts(col, device, *counts):
                                  device=device)).tolist()
 
 
+def _request_rows(policy, col, state, user_ids):
+    """``(w, minv_eff, occ, idx, own, valid)``: each request's scoring
+    rows on every rank (exactly one rank owns each valid user, and the
+    others add zeros), with :func:`_request_masks`' masks.  Invalid
+    requests score with zero statistics."""
+    idx, own, valid = _request_masks(policy, col, state, user_ids)
+    w, minv_eff, occ_rows = policy.gather_score(state, idx)
+    w = col.psum(torch.where(own[:, None], w, 0.0))
+    minv_eff = col.psum(torch.where(own[:, None, None], minv_eff, 0.0))
+    occ_rows = col.psum(torch.where(own, occ_rows, 0))
+    return w, minv_eff, occ_rows, idx, own, valid
+
+
+def _merge_shortlists(col, sc, ids):
+    """The ranks' ``[B, k]`` shortlists merged into the one-process
+    shortlist with the kernel's own selection routine (one rank's list is
+    already in (score desc, id asc) order)."""
+    if col.n_shards == 1:
+        return sc, ids
+    B, k = sc.shape
+    sc, ids = (col.all_gather(t).view(-1, B, k).transpose(0, 1)
+               .reshape(B, -1) for t in (sc, ids))
+    return select_topk(sc, ids, k)
+
+
+def _direct_shortlist(rb, col, w, minv_eff, occ_rows, catalog, alpha):
+    """The unpruned shortlist of replicated request rows over the whole
+    catalog: each rank streams its slice (``catalog``), the lists are
+    merged.  ``(scores, global slot ids)``, each ``[B, k_short]``."""
+    bank = catalog.serving
+    quantized = bank.emb.dtype == torch.int8
+    sc, ids = rb.shortlist(w, minv_eff, occ_rows, bank.emb, bank.live,
+                           alpha, col.axis_index() * catalog.capacity,
+                           scales=bank.scale if quantized else None)
+    return _merge_shortlists(col, sc, ids)
+
+
 def _catalog_choose(policy, rb, col, state, user_ids, catalog, clusters=None):
     """Shortlist each request user's ``K_short`` best live items, then
     rank the shortlist with the fused choose.  Invalid requests score with
     zero statistics and return item -1.  Underfull shortlist slots are
     filled with the user's top entry, so the filler never outranks a real
     candidate.  ``catalog`` is this rank's item slice."""
-    idx, own, valid = _request_masks(policy, col, state, user_ids)
-    w, minv_eff, occ_rows = policy.gather_score(state, idx)
-    # exactly one rank owns each valid user: replicate the request rows
-    w = col.psum(torch.where(own[:, None], w, 0.0))
-    minv_eff = col.psum(torch.where(own[:, None, None], minv_eff, 0.0))
-    occ_rows = col.psum(torch.where(own, occ_rows, 0))
+    w, minv_eff, occ_rows, idx, own, valid = _request_rows(
+        policy, col, state, user_ids)
     alpha = policy.cfg.hyper.alpha
 
     bank = catalog.serving
@@ -242,19 +283,12 @@ def _catalog_choose(policy, rb, col, state, user_ids, catalog, clusters=None):
             scales_sorted=scale_s if quantized else None)
         rmet = itemclub.RetrievalMetrics(
             *_psum_counts(col, w.device, skipped, total), 1)
+        sc, ids = _merge_shortlists(col, sc, ids)
     else:   # unpruned, or a publish landed after the last rebuild
-        sc, ids = rb.shortlist(w, minv_eff, occ_rows, bank.emb, bank.live,
-                               alpha, row0_items,
-                               scales=bank.scale if quantized else None)
+        sc, ids = _direct_shortlist(rb, col, w, minv_eff, occ_rows, catalog,
+                                   alpha)
         rmet = (None if clusters is None
                 else itemclub.RetrievalMetrics(0, 0, 0))
-    if col.n_shards > 1:
-        # merge the ranks' lists with the kernel's own selection routine
-        # (one rank's list is already in (score desc, id asc) order)
-        B, k = sc.shape
-        sc, ids = (col.all_gather(t).view(-1, B, k).transpose(0, 1)
-                   .reshape(B, -1) for t in (sc, ids))
-        sc, ids = select_topk(sc, ids, k)
     top_i = torch.where(torch.isfinite(sc), ids, ids[:, :1])
     loc = top_i - row0_items
     ok = (loc >= 0) & (loc < n_items)
@@ -276,19 +310,23 @@ def _catalog_choose(policy, rb, col, state, user_ids, catalog, clusters=None):
 # ---------------------------------------------------------------------------
 
 
-def _stale_mask(pend, decision_ids, catalog):
+def _stale_mask(col, pend, decision_ids, catalog):
     """Feedback for a decision issued at epoch ``e`` folds iff the
     published epoch is at most ``e + 1`` AND its item is still live in the
-    active bank with ``born <= e``."""
+    active bank with ``born <= e``.  The item is resolved on the rank
+    whose slice holds it and the verdicts are combined by psum."""
     C = pend.uid.shape[0]
     slot = torch.remainder(torch.where(decision_ids >= 0, decision_ids, 0),
                            C).long()
     item = pend.choice[slot]
     e_issue = pend.epoch[slot]
     bank = catalog.serving
-    in_range = (item >= 0) & (item < catalog.capacity)
-    li = torch.clamp(item, 0, catalog.capacity - 1).long()
-    item_ok = in_range & (bank.live[li] > 0) & (bank.born[li] <= e_issue)
+    n_local = catalog.capacity
+    loc = item - col.axis_index() * n_local
+    in_range = (loc >= 0) & (loc < n_local)
+    li = torch.clamp(loc, 0, n_local - 1).long()
+    ok_here = in_range & (bank.live[li] > 0) & (bank.born[li] <= e_issue)
+    item_ok = col.psum(ok_here.to(torch.int32)) > 0
     fresh = (catalog.epoch - e_issue) <= 1
     return ~(item_ok & fresh)
 
@@ -341,16 +379,15 @@ class OnlineBandit:
         over the ranks of ``col`` in rank order, on ``device`` (default
         cuda; raises without a card unless ``device="cpu"``; under nccl
         the rank's own card).  Raises unless the ranks divide
-        ``n_users``.  Only ``policy="distclub"`` is sharded.
+        ``n_users``.  ``policy`` is distclub, club or linucb (dccb raises
+        ``NotImplementedError``: it is single-host only).
         ``pending_capacity > 0`` gives it a replicated pending ring for
-        delayed feedback on slate transactions."""
-        if policy != "distclub":
-            raise ValueError(f"policy {policy!r} has no sharded session; "
-                             "only distclub does")
+        delayed feedback."""
         dev = resolve_device(device)
         cfg = pol.make_cfg(n_users, d, hyper, refresh_every=refresh_every,
                            precision=precision)
         p = pol.get_policy(policy, cfg)
+        p.state_specs()            # dccb has no sharded state
         pend = (pending_mod.init(pending_capacity, d, device=dev)
                 if pending_capacity > 0 else None)
         return cls(policy=p, state=p.init(dev, col), pending=pend,
@@ -376,9 +413,10 @@ class OnlineBandit:
         pend = (pending_mod.init(pending_capacity, d,
                                  device=state.lin.b.device)
                 if pending_capacity > 0 else None)
+        p = pol.get_policy("distclub", cfg)
         if col is not None:
-            st = pol.shard_rows(st, col)
-        return cls(policy=pol.get_policy("distclub", cfg), state=st,
+            st = pol.shard_rows(st, col, p.state_specs())
+        return cls(policy=p, state=st,
                    pending=pend, ttl=int(pending_ttl),
                    col=_NULL if col is None else col)
 
@@ -387,18 +425,35 @@ class OnlineBandit:
         return {"prec": _precision_tag(self.policy.cfg.precision),
                 "state": state}
 
+    def global_state(self, state=None):
+        """The global arrays of ``state`` (default: this session's), a
+        state of this session's layout: on a sharded session its rows
+        gathered over the ranks, in rank order."""
+        state = self.state if state is None else state
+        if self.col.n_shards == 1:
+            return state
+        return pol.gather_rows(state, self.col, self.policy.state_specs())
+
+    def local_state(self, state):
+        """This session's slice of a global ``state``."""
+        if self.col.n_shards == 1:
+            return state
+        return pol.shard_rows(state, self.col, self.policy.state_specs())
+
     def save(self, ckpt, step: int):
         """Snapshot the policy state with the session's precision tag
-        (atomic, keep-K: ``train.checkpoint.CheckpointManager``)."""
-        if self.col.n_shards > 1:
-            raise ValueError("a sharded session is not checkpointed; save "
-                             "and restore single-host sessions")
-        return ckpt.save(self._payload(self.state), step)
+        (atomic, keep-K: ``train.checkpoint.CheckpointManager``).  A
+        sharded session writes its global arrays from rank 0, and every
+        rank returns once the checkpoint is in place."""
+        return ckpt.save(self._payload(self.global_state()), step,
+                         col=self.col)
 
     def restore(self, ckpt, step: int | None = None):
         """``(session, step)`` restored from ``ckpt`` (the latest loadable
         checkpoint when ``step`` is None; ``(self, None)`` when the
-        directory holds none), tensors on this session's device.  Raises
+        directory holds none), tensors on this session's device and, on a
+        sharded session, its own slice of the saved global arrays,
+        whatever the ranks that saved them.  Raises
         ``ValueError`` when the checkpoint was written under another
         ``Precision``: bf16 state must not come back as f32, nor the
         reverse."""
@@ -417,7 +472,8 @@ class OnlineBandit:
                 f"under {_decode_precision_tag(got)} but this session "
                 f"runs {_decode_precision_tag(want)} — recreate the "
                 "session with the matching precision= (or re-train)")
-        return dataclasses.replace(self, state=payload["state"]), step
+        return dataclasses.replace(
+            self, state=self.local_state(payload["state"])), step
 
     def step(self, key, user_ids, contexts, reward_fn):
         return step(self, key, user_ids, contexts, reward_fn)
@@ -459,14 +515,6 @@ def step(session: OnlineBandit, key, user_ids, contexts,
                                      session.state, idx, own, valid,
                                      user_ids, x, rewards)
     return dataclasses.replace(session, state=state), choice, metrics
-
-
-def _refuse_sharded_catalog_ring(session: OnlineBandit):
-    if session.col.n_shards > 1:
-        raise ValueError(
-            "catalog transactions with a pending ring are not supported on "
-            "a sharded session: its delayed feedback covers slate "
-            "transactions (recommend / observe_delayed without catalog=)")
 
 
 def _pending_guard(session: OnlineBandit, B: int):
@@ -534,7 +582,6 @@ def recommend_catalog(session: OnlineBandit, user_ids, catalog, *,
     decision_ids, slots, contexts)``.  ``clusters`` appends a
     ``RetrievalMetrics``."""
     if session.pending is not None:
-        _refuse_sharded_catalog_ring(session)
         _pending_guard(session, user_ids.shape[0])
     rb = BackendConfig.create().retrieval(k_short)
     item, slot, ctx, x, _, _, valid, rmet = _catalog_choose(
@@ -559,10 +606,9 @@ def observe_delayed(session: OnlineBandit, decision_ids, rewards,
     if session.pending is None:
         raise ValueError("observe_delayed needs a buffer-enabled session: "
                          "create it with pending_capacity > 0")
-    if catalog is not None:
-        _refuse_sharded_catalog_ring(session)
     stale = (None if catalog is None
-             else _stale_mask(session.pending, decision_ids, catalog))
+             else _stale_mask(session.col, session.pending, decision_ids,
+                              catalog))
     pend, uids, x = pending_mod.match(session.pending, decision_ids,
                                       stale=stale)
     idx, own, valid = _request_masks(session.policy, session.col,

@@ -18,6 +18,12 @@
     arrays, a malformed or wrong-magic manifest, missing keys) with a
     warning and restores the next-newest; it raises only when none
     loads.
+  * Ranks: ``save(..., col=)`` on the ranks of a sharded job (each
+    holding the same global tree) writes from rank 0 alone, then waits
+    on a psum of one scalar, so that no rank reads before the rename.
+    No rank layout is stored: a tree saved by any number of ranks is the
+    tree one process would save, and a restoring job slices it as it
+    likes.
 """
 from __future__ import annotations
 
@@ -125,9 +131,21 @@ class CheckpointManager:
         return s[-1] if s else None
 
     # -- save -------------------------------------------------------------
-    def save(self, state, step: int) -> pathlib.Path:
+    def save(self, state, step: int, col=None) -> pathlib.Path:
         """Write ``state`` as checkpoint ``step``: to ``tmp-<step>``
-        first, then renamed into place; older ones past ``keep`` go."""
+        first, then renamed into place; older ones past ``keep`` go.
+        With the ranks' ``col`` (``runtime.collectives``) rank 0 writes
+        and every rank returns after the rename."""
+        if col is None or col.n_shards == 1:
+            return self._write(state, step)
+        if col.axis_index() == 0:
+            self._write(state, step)
+        dev = next(v.device for v in _flatten(state).values()
+                   if isinstance(v, torch.Tensor))
+        col.psum(torch.zeros((), dtype=torch.int32, device=dev))   # barrier
+        return self._step_dir(step)
+
+    def _write(self, state, step: int) -> pathlib.Path:
         flat = _flatten(state)
         logical = {k: (str(v.dtype).removeprefix("torch.")
                        if isinstance(v, torch.Tensor) else None)

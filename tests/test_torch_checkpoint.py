@@ -227,12 +227,40 @@ def test_checkpoint_precision_mismatch_raises(tmp_path):
             _session(other).restore(ck, step=1)
 
 
+def _save_on_ranks(rank, col, dev, directory):
+    sess = serve.OnlineBandit.sharded(col, N, D, HYPER, policy="linucb",
+                                      refresh_every=N, device=dev)
+    for i in range(3):
+        sess, _, _ = serve.step(sess, i, *_traffic(i), reward_fn)
+    sess.save(CheckpointManager(directory), 3)
+    return sess.global_state()
+
+
 def test_sharded_session_is_not_checkpointed(tmp_path):
-    from repro_torch.runtime.collectives import DistCollectives
-    col = DistCollectives(group=None, rank=0, shards=2, host_staged=False)
-    sess = serve.OnlineBandit.sharded(col, N, D, HYPER, device="cpu")
-    with pytest.raises(ValueError, match="sharded"):
-        sess.save(CheckpointManager(tmp_path / "s"), 1)
+    """A sharded session is not checkpointed rank by rank: two gloo ranks
+    leave one checkpoint, the files of a one-process save of the gathered
+    state, which a one-process session restores."""
+    from repro_torch.launch import mesh
+    runs = mesh.spawn(_save_on_ranks, 2, "gloo", "cpu",
+                      args=(tmp_path / "s",), timeout=60)
+    ck = CheckpointManager(tmp_path / "s")
+    assert ck.steps() == [3]
+    whole = type(runs[0])(*(torch.from_numpy(np.asarray(v))
+                            for v in runs[0]))
+    one = CheckpointManager(tmp_path / "one")
+    sess = _session(policy="linucb")
+    sess = type(sess)(policy=sess.policy, state=whole)
+    sess.save(one, 3)
+    got, want = ck._step_dir(3), one._step_dir(3)
+    assert ((got / "manifest.json").read_text()
+            == (want / "manifest.json").read_text())
+    with np.load(got / "arrays.npz") as a, np.load(want / "arrays.npz") as b:
+        for k in b.files:
+            np.testing.assert_array_equal(a[k], b[k])
+    restored, step = _session(policy="linucb").restore(ck)
+    assert step == 3
+    for x, y in zip(restored.state, whole):
+        assert torch.equal(x, y)
 
 
 def test_dccb_session_round_trips(tmp_path):

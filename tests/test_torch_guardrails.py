@@ -287,3 +287,56 @@ def test_shortlist_recall_matches_reference_unpruned_and_pruned(tmp_path):
         assert torch.equal(gitems, items) and rmet.pruned_active == 1
     assert g.gs.ema_recall == 1.0 and not g.gs.rollbacks
     assert g.gs.ema_tiles_skipped is not None
+
+
+def test_int8_shortlist_recall_after_churn_matches_dequantized_reference():
+    """The port departs from ``repro`` here: on an int8 bank the port's
+    oracle shortlist scores the dequantized rows (the per-slot scales
+    passed in, as the serving shortlist does), where ``repro``'s ranks the
+    raw codes.  After churn that gave the bank distinct row scales, the
+    port's recall of healthy serving is ``repro``'s ``shortlist_recall``
+    on an f32 catalog of the dequantized rows, 1.0 in every batch;
+    ``repro``'s on the int8 bank itself falls below 1.0."""
+    je, _ = jenv.make_catalog_env(jax.random.PRNGKey(5), N, D, 4, 96,
+                                  n_candidates=K)
+    theta = torch.from_numpy(np.array(je.theta))
+    jcat = jserve.make_catalog(jenv.catalog_embeddings(je), capacity=128,
+                               precision="int8")
+    pcat = convert.catalog_from_numpy(jax.tree.map(np.asarray, jcat),
+                                      device="cpu")
+    g = torch.Generator().manual_seed(11)
+    pcat, _ = serve.retire_items(pcat, torch.randperm(96, generator=g)[:48])
+    add = torch.randn(32, D, generator=g) * torch.linspace(0.5, 2.0, 32)[
+        :, None]
+    pcat, slots, n_added = serve.add_items(pcat, add)
+    pcat = serve.publish(pcat)
+    assert n_added == 32
+    live = pcat.serving.live > 0
+    assert len(torch.unique(pcat.serving.scale[live])) > 32
+    # the same catalog for repro: its int8 codes, and f32 dequantized rows
+    jint8 = jserve.Catalog(*(jnp.asarray(np.asarray(v)) for v in pcat))
+    deq = torch.stack([serve.dequantize(pcat._bank(b)) for b in (0, 1)])
+    jf32 = jint8._replace(emb=jnp.asarray(deq.numpy()),
+                          scale=jnp.ones_like(jint8.scale))
+
+    def reward_fn(k, u, c, ch):
+        return rewards(theta, k, u, c, ch)
+
+    sess = psession("distclub", capacity=0)
+    js = jsession("distclub", capacity=0)
+    repro_int8 = []
+    for i in range(12):
+        u = uids(i)
+        pre = sess
+        sess, items, _ = serve.step_catalog(sess, i, u, pcat, reward_fn,
+                                            k_short=8)
+        st = convert.record_to_numpy(pre.state)
+        jpre = dataclasses.replace(js, state=type(js.state)(
+            *(jnp.asarray(v) for v in st)))
+        ju, jitems = jnp.asarray(u.numpy()), jnp.asarray(items.numpy())
+        got = guardrails.shortlist_recall(pre, pcat, u, items, k_short=8)
+        want = jguard.shortlist_recall(jpre, jf32, ju, jitems, k_short=8)
+        assert got == want == 1.0, i
+        repro_int8.append(jguard.shortlist_recall(jpre, jint8, ju, jitems,
+                                                  k_short=8))
+    assert min(repro_int8) < 1.0

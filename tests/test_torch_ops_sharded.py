@@ -2,7 +2,9 @@
 experiment over a sharded arm, on 8 gloo CPU ranks, against ``repro``'s
 8-device runs of ``tests/test_faults.py`` (the delay-0 parity of the
 sharded split session with the synchronous sharded ``step``) and
-``tests/test_experiments.py`` (the single-arm parity on a sharded arm).
+``tests/test_experiments.py`` (the single-arm parity on a sharded arm);
+then, held to the port's one-process session, the split over an
+item-sharded catalog with the churn quarantine.
 
 ``repro``'s side runs once in a subprocess (``_run_with_devices``) and
 hands back its traffic, its Bernoulli draws and its results; the port's
@@ -173,6 +175,52 @@ def _ops_rank(rank, col, dev, t):
     for a, b in zip(exp.arms[0].state, plain.state):
         assert torch.equal(a, b)
     out["exp"].update(_gathered(col, exp.arms[0].state))
+    out["ring"] = _catalog_ring(col, dev, t)
+    return out
+
+
+def _catalog_ring(col, dev, t):
+    """The split over the catalog: a sharded session with a ring issues
+    on this rank's item slice and folds with the catalog's quarantine,
+    beside the synchronous ``step_catalog`` on the same traffic; then a
+    batch wider than the ring."""
+    from repro_torch.core import catalog
+    hyper = BanditHyper(**HYPER)
+    theta = torch.from_numpy(t["theta"])
+    full = catalog.make_catalog(torch.from_numpy(t["ring.emb"]))
+    cat = catalog.item_shard(full, col.axis_index(), col.n_shards)
+
+    def session(**kw):
+        if col.n_shards == 1:
+            return serve.OnlineBandit.create(N, D, hyper, device=dev, **kw)
+        return serve.OnlineBandit.sharded(col, N, D, hyper, device=dev,
+                                          **kw)
+
+    def reward(i, u, c, slot):
+        return _rewards(theta, t, "split", i, u, c, slot)
+
+    sync = session(refresh_every=N)
+    ring = session(refresh_every=N, pending_capacity=64, pending_ttl=8)
+    out = {"items": [], "ids": []}
+    for i in range(SPLIT_ROUNDS):
+        u = torch.from_numpy(t[f"split.uids.{i}"])
+        sync, it_a, _ = serve.step_catalog(sync, i, u, cat, reward,
+                                           k_short=8)
+        ring, it_b, ids, slots, ctx = serve.recommend_catalog(
+            ring, u, cat, k_short=8)
+        assert torch.equal(it_a, it_b)
+        ring = serve.observe_delayed(ring, ids, reward(i, u, ctx, slots)[0],
+                                     catalog=cat)
+        out["items"].append(it_b)
+        out["ids"].append(ids)
+    for a, b in zip(sync.state, ring.state):
+        assert torch.equal(a, b)
+    out["pending"] = serve.pending_stats(ring)
+    try:
+        serve.recommend_catalog(session(pending_capacity=B // 2),
+                                torch.arange(B), cat, k_short=8)
+    except ValueError as err:
+        out["refusal"] = str(err)
     return out
 
 
@@ -180,6 +228,7 @@ def _ops_rank(rank, col, dev, t):
 def port_runs(reference):
     traffic = {k: v for k, v in reference.items()
                if k == "theta" or ".state." not in k}
+    traffic["ring.emb"] = _ring_items()
     return mesh.spawn(_ops_rank, RANKS, "gloo", "cpu", args=(traffic,),
                       timeout=60)
 
@@ -214,17 +263,31 @@ def test_sharded_ops_match_reference_on_8_ranks(kind, rounds, reference,
                 np.testing.assert_array_equal(a, b)
 
 
-def test_sharded_session_refuses_a_catalog_ring():
-    """Catalog transactions with a pending ring stay single-host."""
-    from repro_torch.core import catalog
-    from repro_torch.runtime.collectives import DistCollectives
-    two = DistCollectives(group=None, rank=0, shards=2, host_staged=False)
-    s = serve.OnlineBandit.sharded(two, N, D, BanditHyper(**HYPER),
-                                   pending_capacity=32, device="cpu")
-    assert s.pending.capacity == 32 and s.state.b.shape == (N // 2, D)
-    cat = catalog.make_catalog(torch.eye(D))
-    with pytest.raises(ValueError, match="sharded session"):
-        serve.recommend_catalog(s, torch.arange(B), cat, k_short=4)
-    with pytest.raises(ValueError, match="sharded session"):
-        serve.observe_delayed(s, torch.full((B,), -1), torch.zeros(B),
-                              catalog=cat)
+def _ring_items(n_items=128):
+    """Unit items scaled per id, so that cold users' scores do not tie."""
+    e = np.random.default_rng(3).normal(size=(n_items, D))
+    e /= np.linalg.norm(e, axis=-1, keepdims=True)
+    return (e * (1 + np.arange(n_items) / (2 * n_items))[:, None]).astype(
+        np.float32)
+
+
+def test_sharded_session_refuses_a_catalog_ring(reference, port_runs):
+    """Catalog transactions with a pending ring are no longer refused on
+    a sharded session: on 8 ranks, each on its item slice, the delay-0
+    split (``recommend_catalog``, then ``observe_delayed(...,
+    catalog=)``) is bit-equal to the synchronous ``step_catalog`` on the
+    same ranks, and its items and decision ids are the one-process
+    split's.  What a sharded catalog ring still refuses is what one
+    process refuses: a batch wider than the ring."""
+    from repro_torch.runtime.collectives import NullCollectives
+    traffic = dict(reference, **{"ring.emb": _ring_items()})
+    one = _catalog_ring(NullCollectives(), "cpu", traffic)
+    for run in port_runs:
+        got = run["ring"]
+        for i in range(SPLIT_ROUNDS):
+            np.testing.assert_array_equal(got["items"][i], one["items"][i])
+            np.testing.assert_array_equal(got["ids"][i], one["ids"][i])
+        assert got["pending"] == one["pending"]
+        assert got["pending"]["matched"] == SPLIT_ROUNDS * B
+        assert got["refusal"] == one["refusal"]
+        assert "pending capacity" in got["refusal"]

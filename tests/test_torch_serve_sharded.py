@@ -241,9 +241,14 @@ def test_sharded_session_refuses_uneven_users_and_other_policies():
     hyper = BanditHyper(**HYPER)
     with pytest.raises(ValueError, match="divide evenly"):
         serve.OnlineBandit.sharded(three, N, D, hyper, device="cpu")
-    with pytest.raises(ValueError, match="only distclub"):
-        serve.OnlineBandit.sharded(three, 63, D, hyper, policy="club",
+    # dccb has no sharded session, as in ``repro``; club and linucb do
+    with pytest.raises(NotImplementedError, match="single-host only"):
+        serve.OnlineBandit.sharded(three, 63, D, hyper, policy="dccb",
                                    device="cpu")
+    for policy in ("club", "linucb"):
+        s = serve.OnlineBandit.sharded(three, 63, D, hyper, policy=policy,
+                                       device="cpu")
+        assert s.state.Minv.shape == (21, D, D)
     s = serve.OnlineBandit.sharded(three, 63, D, hyper, device="cpu")
     assert s.state.Minv.shape == (21, D, D) and s.state.labels.shape == (63,)
     # rank 1's packed rows start at user 21: its self edges are cleared
