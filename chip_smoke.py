@@ -279,6 +279,31 @@ Phases, in order; any failure raises and the script exits non-zero:
            5e-2, greedy tokens equal in >= 95% of (sequence, step) pairs.
    cli     ``launch.serve.serve_lm`` at its defaults on the card, its
            tokens equal to the same call on the CPU at >= 99% of positions.
+4t. train  training (``launch.train``), after phase 4l's model and cache
+           are freed: (a) Qwen3-4B at full width and depth, bf16
+           parameters, f32 AdamW moments, remat on, random weights from
+           the seed, 3 steps of ``train.lm_step`` at the CLI's defaults
+           (B 8, S 128, lr 3e-4) on its Zipf token stream, no checkpoint,
+           counted: every loss finite, every gradient leaf of the first
+           step finite and not all zeros in each of its blocks, exactly
+           2 x 36 flash launches a step (the forward's and the backward's
+           recompute), nothing else; seconds per step, peak memory.  (b)
+           gradients through the flash and cross kernels' autograd
+           Functions against autograd through their plain versions on one
+           random cotangent: flash bf16 at the training shape (q [8, 32,
+           128, 128], k and v [8, 8, 128, 128], causal) and f32 at Dh 32
+           with 4 q heads a kv head, within the forward's tolerances (1e-4
+           f32, 2e-2 bf16); cross at 65536 rows (tensor route) and 512
+           (SIMT), d 429, each element within 2e-5 of its term scale.  (c)
+           DCN-v2 at its published config (26 x 2^20 x 16 tables), 3
+           Adagrad steps of 65536 rows, counted (3 cross and 3 cross_split
+           launches a step), losses and the first step's gradients
+           finite.  (d) ``--arch distclub-paper --steps 2`` in this
+           process, counted (choose, rank1_update_inv, prune, cc_hop);
+           then as subprocesses, together: ``examples/train_lm_torch.py``
+           (step 0's loss above the final one; the second run resumes
+           from step 30), ``--arch distclub-paper --steps 2`` and
+           ``--arch sasrec|bert4rec|mind|dcn-v2 --reduce --steps 5``.
 5. full    each kernel against its plain version on the state that run
            left (and on the full first-epoch adjacency for prune, whose
            words on the learned graph must equal its words on the full
@@ -342,6 +367,8 @@ Phases, in order; any failure raises and the script exits non-zero:
            (the sparse threshold's measurement), each branch forced too
            (the walk only where no warp tile holds more than it takes).
 
+Each row of the ``kernels`` JSON has the launches of the main path's
+run and of each phase's counted runs (``train_launches``: phase 4t's).
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -428,6 +455,14 @@ LM_PROMPT = 2048
 LM_CACHE = 4096              # decode_32k's 128 x 32768, cut to 8 x 4096
 LM_STEPS = 64
 BF16_FLOPS_PER_S = 989e12    # H100 SXM data sheet, bf16 dense tensor cores
+TRAIN_STEPS = 3              # phase 4t: Qwen3-4B and DCN-v2 steps
+TRAIN_CLI_TIMEOUT_S = 600
+TRAIN_CLIS = (("example", ["examples/train_lm_torch.py"]),
+              ("distclub-paper", ["-m", "repro_torch.launch.train", "--arch",
+                                  "distclub-paper", "--steps", "2"]),
+              *((arch, ["-m", "repro_torch.launch.train", "--arch", arch,
+                        "--reduce", "--steps", "5"])
+                for arch in ("sasrec", "bert4rec", "mind", "dcn-v2")))
 CLONE_USERS = (943, 1816, 1888, 5045)  # the web clones' users (Table 1)
 CLONES = ("movielens", "lastfm", "delicious", "yahoo", "synthetic")
 ENV_KINDS = ("synthetic", "replay", "drift", "catalog")
@@ -2928,20 +2963,21 @@ def ops_routing(dev, work, state, hyper, exp):
     return routed_ms, arms_ms
 
 
-def ops_clis():
-    """Item 5: the two CLIs and the example at their defaults, on the
-    card, started together; each must exit with 0."""
+def run_together(clis, timeout_s, label) -> dict:
+    """Each ``(name, argv)`` of ``clis`` as ``python argv`` from the repo
+    root, all started together; each must exit with 0.  Returns each
+    one's output."""
     import os
     env_vars = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     procs = {name: subprocess.Popen([sys.executable] + argv, cwd=ROOT,
                                     env=env_vars, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
-             for name, argv in OPS_CLIS}
+             for name, argv in clis}
     outs = {}
     try:
         for name, p in procs.items():
-            outs[name] = p.communicate(timeout=OPS_CLI_TIMEOUT_S)[0]
+            outs[name] = p.communicate(timeout=timeout_s)[0]
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -2949,10 +2985,17 @@ def ops_clis():
                 p.wait()
     for name, p in procs.items():
         tail = outs[name].strip().splitlines()[-4:]
-        log(f"ops cli {name}: exit {p.returncode}; last lines {tail}")
-    log(f"ops clis: {time.perf_counter() - t0} s, run together")
+        log(f"{label} {name}: exit {p.returncode}; last lines {tail}")
+    log(f"{label}s: {time.perf_counter() - t0} s, run together")
     for name, p in procs.items():
         assert p.returncode == 0, f"{name} exited {p.returncode}"
+    return outs
+
+
+def ops_clis():
+    """Item 5: the two CLIs and the example at their defaults, on the
+    card, started together; each must exit with 0."""
+    run_together(OPS_CLIS, OPS_CLI_TIMEOUT_S, "ops cli")
 
 
 def ops_phase(dev, work, state, hyper, dccb_core, item_clusters):
@@ -4642,8 +4685,309 @@ def lm_phase(dev):
     assert same >= 0.99 * toks.numel(), "serve_lm: the card and the CPU part"
     small = serve_cli.reduced_lm(spec)
     assert cli_launches["flash"] == small.n_layers * (1 + args.steps)
-    return {"prefill": [pre[0], pre[cfg.n_layers - 1]], "decode": dec[0],
+    # the captured k and v are views of whole caches (the decode step's
+    # 4.8 GB): keep copies of the layers' slices alone, so the caches go
+    def own(q, k, v, kw):
+        return q, k.clone(), v.clone(), kw
+
+    return {"prefill": [own(*pre[0]), own(*pre[cfg.n_layers - 1])],
+            "decode": own(*dec[0]),
             "launches": launches["flash"], "cfg": cfg}
+
+
+def grad_blocks_ok(grads) -> tuple[int, int, list]:
+    """Each gradient leaf finite and not all zeros, block by block for the
+    stacked [n_blocks, ...] leaves: ``(leaves, blocks checked, failing
+    (path, block) pairs)``; one host read a leaf."""
+    import torch
+    paths, oks = [], []
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}.{k}" if prefix else k)
+            return
+        if isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}.{i}")
+            return
+        g = (tree.reshape(tree.shape[0], -1) if prefix.startswith("blocks")
+             else tree.reshape(1, -1))
+        paths.append(prefix)
+        oks.append(torch.isfinite(g).all(dim=1) & (g != 0).any(dim=1))
+
+    walk(grads, "")
+    flags = [t.tolist() for t in oks]
+    bad = [(p, b) for p, f in zip(paths, flags) for b, ok in enumerate(f)
+           if not ok]
+    return len(paths), sum(len(f) for f in flags), bad
+
+
+def check_flash_grad(q, k, v, **kw):
+    """dq, dk and dv through the flash kernel's autograd Function (the
+    kernel forward, one launch; the backward ``chunked_attention``'s,
+    recomputed) against autograd through the plain version, on one
+    random cotangent: f32 within 1e-4 abs/rel, bf16 within 2e-2 abs/rel,
+    the forward's own tolerances (``check_flash``): the backward shares
+    the plain version's arithmetic and differs only where the forward
+    does."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash import ops, ref
+    g = torch.Generator(device=q.device).manual_seed(SEED + 9)
+    w = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    _build.reset_launches()
+    out = ops.attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, w)
+    launches = dict(_build.LAUNCHES)
+    assert launches["flash"] == 1 and sum(launches.values()) == 1, launches
+    want = torch.autograd.grad(ref.chunked_attention(*leaves, **kw),
+                               leaves, w)
+    tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == q.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"flash {name}: {m}")
+        errs[name] = float((a.float() - b.float()).abs().max())
+    return errs
+
+
+def check_cross_grad(x0, xl, W, bias):
+    """dx0, dxl, dW and db through the cross kernel's autograd Function
+    (the kernel forward on the wrapper's route; the closed-form backward
+    in torch ops) against autograd through the plain version, on one
+    random cotangent g: each element within 2e-5 of its term scale, the
+    absolute sum of the terms it adds up (``|g||u|``, ``|h||W| + |g|``,
+    ``|h|^T |xl|``, ``sum |h|`` with ``u = xl W^T + b``, ``h = g x0``),
+    as phase 4r holds the logits: f32 products summed in other orders."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cross import ops, ref
+    gen = torch.Generator(device=x0.device).manual_seed(SEED + 10)
+    g = torch.randn(x0.shape, generator=gen, device=x0.device)
+    leaves = [t.detach().requires_grad_() for t in (x0, xl, W, bias)]
+    _build.reset_launches()
+    got = torch.autograd.grad(ops.cross_layer(*leaves), leaves, g)
+    launches = dict(_build.LAUNCHES)
+    want = torch.autograd.grad(ref.cross_layer_ref(*leaves), leaves, g)
+    with torch.no_grad():
+        ag, ax0, axl, aW = g.abs(), x0.abs(), xl.abs(), W.abs()
+        ah = ag * ax0
+        scales = (ag * (axl @ aW.T + bias.abs()), ah @ aW + ag, ah.T @ axl,
+                  ah.sum(dim=0))
+    errs = {}
+    for name, a, b, sc in zip(("dx0", "dxl", "dW", "db"), got, want,
+                              scales):
+        ratio = float(((a - b).abs() / sc.clamp_min(1e-30)).max())
+        errs[name] = {"max_abs_err": float((a - b).abs().max()),
+                      "max_err_over_term_scale": ratio}
+        assert ratio <= 2e-5, f"cross {name}: {ratio} of its term scale"
+    return errs, launches
+
+
+def train_phase(dev):
+    """Phase 4t: training.  (a) Qwen3-4B at full width and depth (bf16
+    parameters, f32 AdamW moments, remat on) for ``TRAIN_STEPS`` steps of
+    ``launch.train``'s step at its defaults (B 8, S 128, lr 3e-4) on its
+    Zipf stream, no checkpoint, counted: losses finite, every gradient
+    leaf finite and not all zeros block by block on the first step, 36
+    flash launches a forward and 36 more in the backward's recompute.
+    (b) the flash and cross Functions' gradients against autograd through
+    their plain versions.  (c) DCN-v2 at its published config (26 x 2^20
+    x 16 tables) for ``TRAIN_STEPS`` Adagrad steps at ``TRAIN_B`` rows,
+    counted (3 cross and 3 cross_split launches a step).  (d) the bandit
+    family in this process, counted, then the training CLI's families and
+    ``examples/train_lm_torch.py`` as subprocesses, together.  Returns
+    the launches of (a), (c) and (d)'s counted run by kernel."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import recsys_shapes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cross import ops as cops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.recsys import dcn_v2
+    from repro_torch.train import optimizer
+    from repro_torch.tree import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    counted = {}
+
+    # ---- (a) Qwen3-4B at full width and depth --------------------------------
+    spec = configs.get(LM_ARCH)
+    cfg = spec.cfg
+    args = train.parse_args(["--arch", LM_ARCH])
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = timed(lambda: tr.LM(cfg, seed=args.seed, device=dev)
+                          .requires_grad_(True))
+    params = model.tree()
+    opt = optimizer.adamw_init(params)
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    p_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    m_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves((opt.m, opt.v)))
+    log(f"train {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters ({p_bytes} bytes {str(cfg.dtype)[6:]}, "
+        f"moments {m_bytes} bytes f32), remat {cfg.remat}, B {args.batch} "
+        f"S {args.seq}, init {init_s} s; {held} bytes held by earlier "
+        f"phases")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        tokens = train.zipf_tokens(cfg.vocab, (args.batch, args.seq + 1),
+                                   args.seed, i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            # the first step in two calls, its gradients checked between
+            loss, grads = train.value_and_grad(
+                tr.lm_loss, params, model, tokens[:, :-1], tokens[:, 1:])
+            n_leaves, n_blocks, bad = grad_blocks_ok(grads)
+            params, opt = optimizer.adamw_update(grads, opt, params, lr=3e-4)
+            del grads
+        else:
+            params, opt, loss = train.lm_step(model, params, opt, tokens)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train {LM_ARCH}: losses {losses}; seconds per step {step_s} "
+        f"(after the first: median {statistics.median(step_s[1:])}); "
+        f"first step's gradients: {n_leaves} leaves, {n_blocks} "
+        f"(leaf, block) slices finite and not all zero, failing {bad}")
+    log(f"train {LM_ARCH} launches: {launches} max_memory_allocated={peak} "
+        f"card: {smi_line()}")
+    want = TRAIN_STEPS * 2 * cfg.n_layers      # forward + remat recompute
+    assert launches["flash"] == want, (launches, want)
+    assert sum(launches.values()) == want, launches
+    assert all(math.isfinite(x) for x in losses), losses
+    assert not bad, f"gradients missing or not finite: {bad}"
+    counted["flash"] = launches["flash"]
+    # uncounted: one more step in its two calls, each timed, then one
+    # under torch.profiler
+    def loss_and_grads():      # the gradients dropped on return
+        train.value_and_grad(tr.lm_loss, params, model, tokens[:, :-1],
+                             tokens[:, 1:])
+
+    _, grad_s = timed(loss_and_grads)
+    total_s = timed(lambda: train.lm_step(model, params, opt, tokens))[1]
+    log(f"train {LM_ARCH} step split: loss and gradients {grad_s} s, then "
+        f"a whole step {total_s} s: the AdamW update ~{total_s - grad_s} s")
+    profile_batch(f"train {LM_ARCH} step", lambda: train.lm_step(
+        model, params, opt, tokens), statistics.median(step_s[1:]))
+    del model, params, opt, leaves, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) the kernels' gradients against their plain versions ------------
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=dev)).to(
+            dtype)
+
+    grads = {}
+    for label, (Bq, Hq, Hkv, S, Dh, dt) in (
+            ("bf16_train", (args.batch, cfg.n_heads, cfg.n_kv_heads,
+                            args.seq, cfg.d_head, torch.bfloat16)),
+            ("f32_gqa4_dh32", (4, 8, 2, 64, 32, torch.float32))):
+        grads[f"flash_{label}"] = check_flash_grad(
+            randn(Bq, Hq, S, Dh, dtype=dt), randn(Bq, Hkv, S, Dh, dtype=dt),
+            randn(Bq, Hkv, S, Dh, dtype=dt), causal=True)
+    dI = configs.get("dcn-v2").cfg.d_interact
+    sms = _build.sm_count(dev.index or 0)
+    for B in (recsys_shapes.TRAIN_B, recsys_shapes.P99_B):
+        errs, launched = check_cross_grad(
+            randn(B, dI), randn(B, dI), randn(dI, dI, scale=dI ** -0.5),
+            randn(dI, scale=0.1))
+        tensor = cops.route(B, dI, sms) == cops.TENSOR
+        assert launched["cross"] == 1, launched
+        assert launched["cross_split"] == int(tensor), launched
+        grads[f"cross_{B}_{'tensor' if tensor else 'simt'}"] = errs
+    log(f"train gradients, kernel Function vs autograd through the plain "
+        f"version: {grads}")
+
+    # ---- (c) DCN-v2 at its published config ----------------------------------
+    dspec = configs.get("dcn-v2")
+    dcfg = dspec.cfg
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = timed(lambda: dcn_v2.DCNv2(dcfg, seed=SEED, device=dev)
+                          .requires_grad_(True))
+    params = model.tree()
+    opt = optimizer.adagrad_init(params)
+    B = recsys_shapes.TRAIN_B
+    want = dspec.input_specs("train_batch")
+    _build.reset_launches()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        batch, _ = train.recsys_batch("dcn-v2", dcfg, B, SEED, i, dev)
+        assert all((tuple(t.shape), t.dtype) == want[k] for t, k in zip(
+            batch, ("dense_feats", "sparse_ids", "labels")))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            loss, grads = train.value_and_grad(dcn_v2.dcn_loss, params,
+                                               model, *batch)
+            n_leaves, n_blocks, bad = grad_blocks_ok(grads)
+            params, opt = optimizer.adagrad_update(grads, opt, params)
+            del grads
+        else:
+            params, opt, loss = train.recsys_step(dcn_v2.dcn_loss, model,
+                                                  params, opt, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    log(f"train dcn-v2: tables {tuple(model.tables.shape)}, batch {B}, init "
+        f"{init_s} s; losses {losses}; seconds per step {step_s}; first "
+        f"step's gradients: {n_leaves} leaves finite and not all zero, "
+        f"failing {bad}; launches {launches} max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated()}")
+    n = dcfg.n_cross_layers * TRAIN_STEPS
+    split = n * (cops.route(B, dcfg.d_interact, sms) == cops.TENSOR)
+    assert launches["cross"] == n and launches["cross_split"] == split, (
+        launches)
+    assert sum(launches.values()) == n + split, launches
+    assert all(math.isfinite(x) for x in losses), losses
+    assert not bad, f"gradients missing or not finite: {bad}"
+    counted.update(cross=launches["cross"],
+                   cross_split=launches["cross_split"])
+    del model, params, opt, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the bandit family, counted; the CLIs as subprocesses ------------
+    _build.reset_launches()
+    _, secs = timed(lambda: train.main(["--arch", "distclub-paper",
+                                        "--steps", "2"]))
+    launches = dict(_build.LAUNCHES)
+    log(f"train distclub-paper (2 epochs at 20480 users): {secs} s, "
+        f"launches {launches}")
+    from repro_torch.configs import distclub_paper
+    R = distclub_paper.CONFIG.max_rounds
+    assert launches["choose"] == launches["rank1_update_inv"] == 2 * 2 * R
+    assert launches["prune"] == 2 and launches["cc_hop"] >= 2, launches
+    counted.update({k: launches[k] for k in ("choose", "rank1_update_inv",
+                                             "prune", "cc_hop")})
+    outs = run_together(TRAIN_CLIS, TRAIN_CLI_TIMEOUT_S, "train cli")
+    example = outs["example"]
+    first = float(example.split("step     0  loss ")[1].split()[0])
+    final = float(example.rsplit("done; final loss ", 1)[1].split()[0])
+    log(f"train example: loss at step 0 {first}, final {final}")
+    assert "resumed from checkpoint step 30" in example, "no resume"
+    assert first > final, "the example's loss did not fall"
+    assert "interactions, reward/random" in outs["distclub-paper"]
+    log(f"train phase: {time.perf_counter() - t_phase} s")
+    return counted
 
 
 def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
@@ -4860,6 +5204,9 @@ def main() -> int:
 
     # ---- phase 4l: LM serving at full width and depth -----------------------
     lm = lm_phase(dev)
+
+    # ---- phase 4t: training ---------------------------------------------------
+    train_launches = train_phase(dev)
 
     # ---- phase 5: kernels against plain versions at full width --------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -5270,6 +5617,7 @@ def main() -> int:
             "clone_launches": on_clones[kname],
             "shard_launches": shard_launches[kname],
             "ops_launches": ops_launches[kname],
+            "train_launches": train_launches.get(kname, 0),
         })
         log(f"time {kname}: kernel {ms} ms, plain {plain_ms} ms, "
             f"library {lib_ms} ms, bound {bms} ms ({by}; {n_bytes} bytes, "

@@ -33,7 +33,14 @@ built from the reference's replay tables (``item_feats``, ``cand_ids``,
 and return the port's module holding those weights: the module's
 parameters carry the tree's paths as names (``cross.0.W``,
 ``blocks.ffn.1.b``, ``blocks.l0.attn.wq``), and each leaf must match its
-parameter's shape.
+parameter's shape.  ``module.tree()`` gives a module's parameters back as
+``repro``'s tree, so a checkpoint of ``(module.tree(), opt_state)`` has
+``repro``'s keys.
+
+``opt_state_from_numpy`` takes a ``repro`` optimizer state
+(``AdamWState``, ``AdafactorState`` or ``AdagradState``) whose leaves are
+numpy arrays and builds the port's state of the same name, leaf for leaf
+(bf16 moments bit for bit).
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from .core.types import (ClusterStats, DistCLUBState, GraphState,
                          LinUCBState)
 from .models import transformer
 from .models.recsys import dcn_v2, mind, seqrec
+from .train import optimizer
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -206,3 +214,21 @@ def lm_from_numpy(params, cfg: transformer.LMConfig, device=None):
     """The port's ``LM`` from ``repro``'s ``init_lm`` tree (leaves stacked
     [n_blocks, ...]), each leaf cast to its parameter's dtype."""
     return load_params(transformer.LM(cfg, device=device), params)
+
+
+def _tree_from_numpy(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_from_numpy(v, dev) for v in tree)
+    return _tensor(tree, dev)
+
+
+def opt_state_from_numpy(state, device=None):
+    """The port's optimizer state of ``state``'s class name (its step an
+    int32 0-d tensor, its trees of tensors) from a ``repro`` one with
+    numpy leaves."""
+    dev = resolve_device(device)
+    cls = getattr(optimizer, type(state).__name__)
+    return cls(*(_tree_from_numpy(getattr(state, f), dev)
+                 for f in cls._fields))

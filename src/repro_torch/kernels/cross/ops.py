@@ -3,7 +3,15 @@ tensors, the CUDA kernels (``csrc/cross.cu``) for CUDA tensors.  The
 inputs are not padded: the kernels mask ragged rows, columns and depth
 (d = 429 at the published config).  The tensor route first splits W
 into TF32 hi and lo tiles (``cross_split``, its own launch, counted as
-such) into a buffer the wrapper allocates."""
+such) into a buffer the wrapper allocates.
+
+Gradients: where grad mode is on and an input requires grad, the call
+goes through an autograd Function whose forward is the same dispatch
+and whose backward is the layer's closed form in torch ops on either
+device, with ``u = xl W^T + b`` recomputed: for the output's gradient g,
+``h = g x0``, ``dx0 = g u``, ``dxl = h W + g``, ``dW = h^T xl``,
+``db = sum_rows h`` (``repro`` differentiates ``cross_layer_ref``; it
+has no backward kernel)."""
 from __future__ import annotations
 
 import math
@@ -47,6 +55,28 @@ def cross_layer(
 ) -> torch.Tensor:
     """``x0 * (xl @ W.T + bias) + xl`` as a new [B, d] tensor; the
     inputs are left as they are."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x0, xl, W, bias)):
+        return _Cross.apply(x0, xl, W, bias)
+    return _forward(x0, xl, W, bias)
+
+
+class _Cross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0, xl, W, bias):
+        ctx.save_for_backward(x0, xl, W, bias)
+        return _forward(x0, xl, W, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x0, xl, W, bias = ctx.saved_tensors
+        u = xl @ W.T + bias
+        h = g * x0
+        return g * u, h @ W + g, h.T @ xl, h.sum(dim=0)
+
+
+def _forward(x0, xl, W, bias):
+    """The kernels for CUDA tensors, the plain version for CPU ones."""
     dev = x0.device
     if dev.type == "cpu":
         return cross_layer_ref(x0, xl, W, bias)

@@ -11,7 +11,14 @@ Its split-KV decode variant (bf16, at most 16 q rows a (batch, kv head),
 Dh <= 128) cuts the keys into splits; this wrapper picks their number
 (``n_splits``) and allocates the f32 workspace of the splits' partials,
 since the kernel allocates nothing.  One call counts one launch, though
-that variant runs two CUDA kernels (the splits, then their merge)."""
+that variant runs two CUDA kernels (the splits, then their merge).
+
+Gradients: where grad mode is on and an input requires grad, the call
+goes through an autograd Function whose forward is the same dispatch
+and whose backward is ``torch.autograd.grad`` of ``chunked_attention``,
+recomputed on the saved q, k and v, on either device: ``repro`` has no
+backward kernel and differentiates ``chunked_attention`` itself.  Only
+then are q, k and v saved."""
 from __future__ import annotations
 
 import torch
@@ -49,6 +56,31 @@ def attention(
     masked past ``kv_len`` and, when causal, past the query's absolute
     position; [B, Hq, Sq, Dh] in q's dtype.  A row with no valid key is
     0."""
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, chunk=chunk)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, kw)
+    return _forward(q, k, v, **kw)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = chunked_attention(*qkv, **ctx.kw)
+            dq, dk, dv = torch.autograd.grad(out, qkv, dout)
+        return dq, dk, dv, None
+
+
+def _forward(q, k, v, *, causal, q_offset, kv_len, chunk):
+    """The kernel for CUDA tensors, ``chunked_attention`` for CPU ones."""
     dev = q.device
     if dev.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, q_offset=q_offset,

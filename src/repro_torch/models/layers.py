@@ -8,9 +8,10 @@ distributions as the JAX package (not the same bits: parity goes through
 ``repro_torch.convert``).  A model's ``init_*`` builds a nested dict of
 tensors shaped like the JAX parameter tree and wraps it in
 :class:`Params`, so ``named_parameters()`` yields the JAX paths
-(``cross.0.W``, ``blocks.ffn.1.b``).  Parameters are frozen
-(``requires_grad=False``): this slice serves; training, with gradients
-for the kernels, is a later one.
+(``cross.0.W``, ``blocks.ffn.1.b``), and ``tree()`` gives them back as
+that tree.  Parameters start frozen (``requires_grad=False``), so
+serving builds no autograd graph; training turns gradients on with the
+module's own ``requires_grad_(True)``.
 """
 from __future__ import annotations
 
@@ -27,6 +28,13 @@ class Params(nn.Module):
         for name, value in tree.items():
             setattr(self, name, _node(value))
 
+    def tree(self) -> dict:
+        """The parameters as ``repro``'s tree: nested dicts (keys sorted,
+        as a pytree flattens them) and lists of the ``nn.Parameter``s
+        themselves, so that an update of a leaf is an update of the
+        module."""
+        return _tree(self)
+
 
 def _node(value):
     if isinstance(value, dict):
@@ -34,6 +42,14 @@ def _node(value):
     if isinstance(value, (list, tuple)):
         return nn.ModuleList(_node(v) for v in value)
     return nn.Parameter(value, requires_grad=False)
+
+
+def _tree(module):
+    if isinstance(module, nn.ModuleList):
+        return [_tree(m) for m in module]
+    kids = dict(module._parameters)
+    kids.update({name: _tree(m) for name, m in module._modules.items()})
+    return {name: kids[name] for name in sorted(kids)}
 
 
 def tree_stack(trees: list):

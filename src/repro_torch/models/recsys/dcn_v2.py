@@ -3,8 +3,9 @@ network and a deep tower in parallel over Criteo-style features (13
 dense + 26 categorical fields), concatenated into one logit.
 
 The three cross layers ``x_{l+1} = x0 * (xl W^T + b) + xl`` go through
-the cross kernel (``kernels/cross``) for CUDA tensors; the deep tower and
-the final product stay ``torch.matmul``, as ``repro`` left them to XLA.
+the cross kernel (``kernels/cross``) for CUDA tensors, and back through
+its closed-form gradient in torch ops; the deep tower and the final
+product stay ``torch.matmul``, as ``repro`` left them to XLA.
 Parameters keep ``repro``'s tree and layouts: ``tables`` [F, V, D],
 ``cross.{i}.W`` [d, d] / ``.b``, ``deep.{i}.w`` [d_in, d_out] / ``.b``,
 ``final`` [d + mlp_dims[-1], 1] (no bias).
@@ -91,8 +92,10 @@ def dcn_fwd(model: DCNv2, dense_feats, sparse_ids):
 
 
 def dcn_loss(model: DCNv2, dense_feats, sparse_ids, labels):
-    """Mean binary cross-entropy of the logits (forward only: training,
-    with the kernels' gradients, is a later slice)."""
+    """Mean binary cross-entropy of the logits, as ``repro``'s.  On a
+    model turned on with ``requires_grad_(True)`` it differentiates
+    through the cross kernel's autograd Function
+    (``kernels.cross.ops``)."""
     logits = dcn_fwd(model, dense_feats, sparse_ids).float()
     return torch.mean(torch.clamp_min(logits, 0) - logits * labels
                       + torch.log1p(torch.exp(-logits.abs())))

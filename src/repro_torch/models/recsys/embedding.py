@@ -26,6 +26,14 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[wrap_ids(ids, table.shape[0])]
 
 
+def draw_negatives(gen: torch.Generator, n: int, n_items: int, device):
+    """``n`` shared uniform negatives in ``[0, n_items)`` from ``gen`` (the
+    sampled-softmax losses' draw, where ``repro`` takes a PRNG key), on
+    ``device``."""
+    return torch.randint(0, n_items, (n,), generator=gen,
+                         device=gen.device).to(device)
+
+
 def bag_lookup(table, ids, weights=None):
     """Multi-hot bag sum: ids [B, L] i32 -> [B, D] (0-weight = pad)."""
     return embag_ops.embedding_bag(table, ids, weights)

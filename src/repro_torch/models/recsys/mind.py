@@ -6,8 +6,13 @@ by B2I dynamic routing (squash nonlinearity, ``capsule_iters`` routing
 iterations from a fixed sine initialisation of the routing logits, so
 serving is reproducible) -> label-aware attention picks the interest
 for scoring.  Parameters: ``item_embed`` [n_items, d] and the shared
-bilinear routing map ``S`` [d, d].  No kernel runs here.  The sampled-
-softmax training loss comes with the training slice.
+bilinear routing map ``S`` [d, d].  No kernel runs here.
+
+Training: ``mind_loss``, a sampled softmax of the label-aware scores
+over the target and ``n_negatives`` shared uniform negatives (from the
+caller's ``torch.Generator``, or given).  As in ``repro``, the routing
+iterations see the behaviour capsules detached: the gradient flows
+through the final weighted sum only.
 """
 from __future__ import annotations
 
@@ -73,10 +78,11 @@ def interest_capsules(model: MIND, hist_ids):
     k = torch.arange(K, dtype=torch.float32, device=u.device)
     blog = (torch.sin(pos[:, None] * (1.0 + k[None, :])) * 0.1).expand(B, L,
                                                                       K)
+    ud = u.detach()
     for _ in range(cfg.capsule_iters):
         w = torch.softmax(blog, dim=-1) * mask                # [B, L, K]
-        cap = _squash(torch.einsum("blk,bld->bkd", w, u))     # [B, K, d]
-        blog = blog + torch.einsum("bld,bkd->blk", u, cap)
+        cap = _squash(torch.einsum("blk,bld->bkd", w, ud))    # [B, K, d]
+        blog = blog + torch.einsum("bld,bkd->blk", ud, cap)
     w = torch.softmax(blog, dim=-1) * mask
     return _squash(torch.einsum("blk,bld->bkd", w, u))        # [B, K, d]
 
@@ -88,6 +94,23 @@ def label_aware_scores(interests, item_e, pow_p):
                         dim=-1)
     chosen = torch.einsum("btk,bkd->btd", att, interests)
     return torch.sum(chosen * item_e, dim=-1)
+
+
+def mind_loss(model: MIND, hist_ids, target_ids, gen=None,
+              negatives=None):
+    """Sampled-softmax loss: hist [B, L], target [B]; ``negatives``
+    [n_negatives] are drawn from ``gen`` unless given."""
+    cfg = model.cfg
+    interests = interest_capsules(model, hist_ids)            # [B, K, d]
+    if negatives is None:
+        negatives = embedding.draw_negatives(gen, cfg.n_negatives,
+                                             cfg.n_items, interests.device)
+    pos_e = embedding.lookup(model.item_embed, target_ids)    # [B, d]
+    neg_e = embedding.lookup(model.item_embed, negatives)     # [N, d]
+    cand = torch.cat([pos_e[:, None, :],
+                      neg_e.expand(hist_ids.shape[0], *neg_e.shape)], dim=1)
+    logits = label_aware_scores(interests, cand, cfg.pow_p).float()
+    return torch.mean(torch.logsumexp(logits, dim=-1) - logits[:, 0])
 
 
 def mind_serve(model: MIND, hist_ids, cand_ids):

@@ -15,8 +15,13 @@ Serving entry points:
 Parameters keep ``repro``'s tree: ``item_embed`` [n_items, d],
 ``pos_embed`` [seq_len, d], ``blocks.*`` with every leaf stacked on a
 leading [n_blocks] axis (``ln1``, ``wqkv`` [nb, d, 3d], ``wo``, ``ln2``,
-``ffn.{0,1}``), ``final_ln``.  No kernel runs here.  The sampled-softmax
-training loss comes with the training slice.
+``ffn.{0,1}``), ``final_ln``.  No kernel runs here.
+
+Training: ``sampled_softmax_loss``, one positive against
+``n_negatives`` shared uniform negatives.  ``repro`` draws them from a
+PRNG key; here they come from the caller's ``torch.Generator``, or are
+given as ``negatives`` (how the tests feed ``repro``'s draws: threefry
+cannot be replayed).
 """
 from __future__ import annotations
 
@@ -117,3 +122,24 @@ def retrieval_scores(model: SeqRec, item_ids, cand_ids):
     h = user_states(model, item_ids)[:, -1]                   # [1, d]
     ce = embedding.lookup(model.item_embed, cand_ids)         # [N, d]
     return (ce @ h[0]).float()
+
+
+def sampled_softmax_loss(model: SeqRec, item_ids, targets, gen=None,
+                         negatives=None):
+    """Next-item (causal) or cloze (bidirectional) loss: item_ids,
+    targets [B, S]; positions whose target is 0 (pads) weigh nothing.
+    ``negatives`` [n_negatives] are drawn from ``gen`` unless given."""
+    cfg = model.cfg
+    h = user_states(model, item_ids)                          # [B, S, d]
+    if negatives is None:
+        negatives = embedding.draw_negatives(gen, cfg.n_negatives,
+                                             cfg.n_items, h.device)
+    pos_e = embedding.lookup(model.item_embed, targets)       # [B, S, d]
+    neg_e = embedding.lookup(model.item_embed, negatives)     # [N, d]
+    pos_logit = torch.sum(h * pos_e, dim=-1, keepdim=True)    # [B, S, 1]
+    neg_logit = torch.einsum("bsd,nd->bsn", h, neg_e)         # [B, S, N]
+    logits = torch.cat([pos_logit, neg_logit], dim=-1).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    weight = (targets > 0).float()
+    loss = (lse - logits[..., 0]) * weight
+    return torch.sum(loss) / torch.clamp_min(torch.sum(weight), 1.0)

@@ -6,21 +6,25 @@ with every leaf stacked on a leading [n_blocks] axis (``ln1.scale``,
 ``attn.{wq,wk,wv,wo}``, ``attn.{q,k}_norm.scale`` under qk-norm,
 ``ln2.scale``, ``ffn.{gate,up,down}``), ``final_norm.scale``, ``lm_head``
 [d, V].  ``repro`` scans over the blocks; here a Python loop walks them
-through cached per-layer views of the stacked parameters.
+through per-layer views of the stacked parameters.
 
-Serving only: ``lm_fwd``, ``lm_prefill`` (the prompt pass that fills the
-cache), ``init_cache`` and ``lm_decode_step``.  Attention runs the flash
-kernel on the card (``models.attention``).  Where ``repro`` takes a
+Serving: ``lm_fwd``, ``lm_prefill`` (the prompt pass that fills the
+cache), ``init_cache`` and ``lm_decode_step``.  Training: ``lm_loss``,
+on a model whose parameters were turned on with ``requires_grad_(True)``;
+with ``cfg.remat`` each block is recomputed in the backward pass
+(``torch.utils.checkpoint``), as ``repro``'s ``jax.checkpoint`` does.
+Attention runs the flash kernel on the card (``models.attention``; its
+backward is that of ``chunked_attention``).  Where ``repro`` takes a
 traced scalar position, ``pos`` is a host int here; the cache is written
 in place.  MoE configs (``n_experts > 0``) raise: ``models/moe.py`` comes
-with its own slice.  Training (``lm_loss`` and its gradients) is a later
-slice.
+with its own slice.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from .. import resolve_device
 from . import attention, layers
@@ -161,12 +165,15 @@ def init_lm(gen: torch.Generator, cfg: LMConfig) -> dict:
                                          cfg.dtype)}
 
 
-def _views(module, i: int) -> dict:
-    """Block ``i`` of a stacked parameter module, as nested dicts of
-    views."""
-    out = {name: p[i] for name, p in module._parameters.items()}
-    out.update({name: _views(m, i) for name, m in module._modules.items()})
-    return out
+def _views(module, n: int) -> list[dict]:
+    """The stacked parameters of ``module`` as ``n`` nested dicts of views,
+    one a block, made by one ``unbind`` a leaf: its backward stacks the
+    blocks' gradients once, where indexing each block would build a
+    leaf-sized gradient a block and sum them."""
+    leaves = {name: p.unbind(0) for name, p in module._parameters.items()}
+    kids = {name: _views(m, n) for name, m in module._modules.items()}
+    return [{**{k: v[b] for k, v in leaves.items()},
+             **{k: v[b] for k, v in kids.items()}} for b in range(n)]
 
 
 class LM(layers.Params):
@@ -186,14 +193,30 @@ class LM(layers.Params):
         return super()._apply(fn, *args, **kwargs)
 
     def layer_params(self) -> list[list[dict]]:
-        """[block][layer in block] -> that layer's parameters (views into
-        the stacked leaves, made once)."""
+        """[block][layer in block] -> that layer's parameters, as views
+        into the stacked leaves.  Where a gradient may be taken (grad
+        mode on and a block leaf requiring grad) the views are made anew
+        on each call, so that autograd reaches the stacked leaves through
+        them: a view made before ``requires_grad_(True)`` would report
+        ``requires_grad`` and pass no gradient back.  Otherwise they are
+        made once and kept."""
+        if self.wants_grad():
+            return self._make_views()
         if self._layer_views is None:
-            self._layer_views = [
-                [_views(getattr(self.blocks, f"l{i}"), b)
-                 for i in range(self.cfg.block_layers)]
-                for b in range(self.cfg.n_blocks)]
+            self._layer_views = self._make_views()
         return self._layer_views
+
+    def wants_grad(self) -> bool:
+        """Whether a forward pass now may be differentiated: grad mode on
+        and a block leaf requiring grad."""
+        return torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.blocks.parameters())
+
+    def _make_views(self) -> list[list[dict]]:
+        per_layer = [_views(getattr(self.blocks, f"l{i}"), self.cfg.n_blocks)
+                     for i in range(self.cfg.block_layers)]
+        return [[views[b] for views in per_layer]
+                for b in range(self.cfg.n_blocks)]
 
 
 def _head(model: LM, x):
@@ -207,10 +230,30 @@ def lm_fwd(model: LM, tokens: torch.Tensor):
     cfg = model.cfg
     x = model.embed[tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
-    for block in model.layer_params():
+
+    def block_fwd(x, block):
         for p in block:
             x, _ = _layer_fwd(p, cfg, x, positions=positions)
+        return x
+
+    remat = cfg.remat and model.wants_grad()
+    for block in model.layer_params():
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(block_fwd, x, block,
+                                                  use_reentrant=False)
+        else:
+            x = block_fwd(x, block)
     return _head(model, x), torch.zeros((), device=x.device)
+
+
+def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor):
+    """Mean next-token cross-entropy of the f32 logits (log-sum-exp less
+    the label's logit) plus 0.01 x the aux loss, as ``repro``'s."""
+    logits, aux = lm_fwd(model, tokens)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - ll) + 0.01 * aux
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
