@@ -304,6 +304,39 @@ Phases, in order; any failure raises and the script exits non-zero:
            (step 0's loss above the final one; the second run resumes
            from step 30), ``--arch distclub-paper --steps 2`` and
            ``--arch sasrec|bert4rec|mind|dcn-v2 --reduce --steps 5``.
+4m. moe   the MoE LMs, after phase 4t's models are freed.  (a)
+           deepseek-moe-16b at full width and depth, bf16, random weights
+           drawn on the card: phase 4l's prefill of 8 x 2048 tokens, its
+           cache copied into 8 x 4096 slots and 32 greedy decode steps,
+           counted (exactly 28 + 28 x 32 = 924 flash launches, nothing
+           else); ms and tokens/s, peak memory, profiles; then the plain
+           versions, teacher-forced on the kernel path's tokens, twice:
+           with their own routers (logits, tokens and the share of
+           (token, choice) routings that agree, layer by layer, printed)
+           and with the kernel run's routings forced as the tokens are
+           (logits within 5e-2 relative L2; the greedy-token share printed
+           beside phase 4l's 0.95, every differing token a near tie: its
+           margin within twice the two runs' largest logit difference at
+           that position).  (b) llama4-maverick at full width, 1 of its
+           24 blocks (a dense and a MoE layer of 128 experts; 66
+           launches), the same.  (c) deepseek-moe-16b trained at full
+           width, cut to the most layers whose step fits (12 bytes a
+           parameter beside 16 GB), 3 steps at the CLI's defaults:
+           losses and every gradient leaf (routers, experts, shared
+           experts) finite and nonzero block by block, 2 flash launches
+           a layer a step.  (d) ``serve_lm`` for both at the CLI's
+           defaults against the CPU (>= 99% tokens equal), and
+           ``launch.train --arch deepseek-moe-16b --reduce --steps 5``.
+4g. gnn    the GAT (``launch.steps.gnn_train_step``) at each gat-cora
+           cell on one NCCL rank, 3 steps on random graphs at
+           ``CELL_DIMS`` (minibatch_lg sampled by ``NeighborSampler`` from
+           a 232,965-node, 114.6 M-edge graph on the host; ogb_products'
+           edges cut to the largest 1/2^j that fits): losses finite,
+           seconds a step, peak memory, no kernel launch; full_graph_sm's
+           losses within 1e-5 of the same steps on the CPU; then
+           ``gat_loss_local`` on full_graph_sm over 4 gloo ranks sharing
+           the card against one process, exact and int8 gathers (1e-5),
+           the int8 loss within 5% of the exact one.
 5. full    each kernel against its plain version on the state that run
            left (and on the full first-epoch adjacency for prune, whose
            words on the learned graph must equal its words on the full
@@ -330,7 +363,12 @@ Phases, in order; any failure raises and the script exits non-zero:
            cross on a serve_bulk batch's layers 1 and 2 on both routes,
            the W split of both bit-equal to its plain version, embedding_bag
            on the two bag batches of phase 4r, and flash on the q/k/v of
-           phase 4l's prefill layers 0 and 35 and a decode step's layer 0.
+           phase 4l's prefill layers 0 and 35 and a decode step's layer 0,
+           and of phase 4m's: deepseek's prefill layers 0 and 27 (group
+           1) and a decode step's layer 0, llama4's two layers (group 5;
+           ``check_flash_pair``: the kernel within 2e-2 of the f32
+           version and 4e-2 of the plain version, which itself strays
+           past 2e-2 there, reported).
 6. times   median of 25 launches (CUDA events, L2 flushed before each) of
            every kernel and its plain version at the main path's shapes,
            beside the least time the card could take (bytes over 3.35 TB/s
@@ -351,8 +389,10 @@ Phases, in order; any failure raises and the script exits non-zero:
            one-element in-place op's median over 200 launches, beside the
            n = 1 and 512-bag times; each reduced-precision variant
            beside its f32 kernel, 50 launches each in turns, on the bf16
-           session's batch; flash at the prefill and the decode
-           shape, with ``scaled_dot_product_attention`` as its yardstick;
+           session's batch; flash at phase 4l's prefill and decode
+           shapes and at phase 4m's (deepseek's prefill and decode,
+           llama4's prefill: ``moe_*_launches`` in its row), with
+           ``scaled_dot_product_attention`` as its yardstick;
            bf16 flash runs on the tensor cores and is held to their bf16
            rate (989 TFLOP/s), its f32 bound printed beside it; cc_hop
            beside its warp-per-row kernel, 50 launches each in turns, on the
@@ -4990,6 +5030,784 @@ def train_phase(dev):
     return counted
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: the MoE LMs
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("deepseek-moe-16b", "llama4-maverick-400b-a17b")
+MOE_STEPS = 32               # greedy decode steps after the 8 x 2048 prefill
+MOE_BLOCKS = {"llama4-maverick-400b-a17b": 1}   # 1 of 24 blocks: ~37 GB
+MOE_TRAIN_ARCH = "deepseek-moe-16b"
+MOE_TRAIN_RESERVE = 16e9     # bytes kept beside 12 a parameter (bf16
+                             # weights and gradients, f32 moments) for the
+                             # step's temporaries and activations
+MOE_CLI_TIMEOUT_S = 300
+MOE_CLIS = (("deepseek-moe-16b", ["-m", "repro_torch.launch.train",
+                                  "--arch", "deepseek-moe-16b", "--reduce",
+                                  "--steps", "5"]),)
+
+
+@contextlib.contextmanager
+def capture_routing(store):
+    """Append the indices of every ``torch.topk`` call (the MoE routers':
+    nothing else on the LM path calls it) to ``store`` while it runs as
+    it is."""
+    import torch
+    real = torch.topk
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        store.append(out.indices)
+        return out
+
+    with mock.patch.object(torch, "topk", spy):
+        yield store
+
+
+@contextlib.contextmanager
+def force_routing(routes, own):
+    """Make each ``torch.topk`` call (the MoE routers') return the next of
+    ``routes``, an earlier run's indices, with this run's own
+    probabilities at them, as the tokens are teacher-forced; the indices
+    this run's router would have picked go to ``own``."""
+    import torch
+    real = torch.topk
+    forced = iter(routes)
+
+    def spy(probs, k, *a, **kw):
+        own.append(real(probs, k, *a, **kw).indices)
+        idx = next(forced)
+        return probs.gather(-1, idx), idx
+
+    with mock.patch.object(torch, "topk", spy):
+        yield own
+
+
+def routing_agreement(routes_a, routes_b, n_moe: int) -> list[float]:
+    """For each MoE layer, the share of (token, choice) routings of run a
+    that run b also made (the same expert among the token's top k), over
+    every pass the two runs made in the same order."""
+    hits, total = [0] * n_moe, [0] * n_moe
+    for i, (a, b) in enumerate(zip(routes_a, routes_b, strict=True)):
+        same = (a[:, :, None] == b[:, None, :]).any(dim=-1)
+        hits[i % n_moe] += int(same.sum())
+        total[i % n_moe] += same.numel()
+    return [h / t for h, t in zip(hits, total)]
+
+
+def free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def moe_serve(dev, arch):
+    """Phase 4m (a, b): ``arch`` at full width (llama4-maverick cut to
+    ``MOE_BLOCKS`` blocks), bf16, random weights drawn on the card: a
+    prefill of 8 x 2048 tokens, its cache copied into an 8 x 4096 one,
+    ``MOE_STEPS`` greedy decode steps, counted (one flash launch a layer
+    a pass, nothing else); a prefill and a decode step profiled; the same
+    passes through the plain versions, teacher-forced on the kernel
+    path's tokens (phase 4l's bands), and the routings of the two runs
+    compared layer by layer.  Returns the q/k/v of the first and last
+    prefill layers and of a decode step's layer 0, and the launches."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as tr
+    cfg = configs.get(arch).cfg
+    if arch in MOE_BLOCKS:
+        cfg = dataclasses.replace(
+            cfg, n_layers=MOE_BLOCKS[arch] * cfg.block_layers)
+    B, S, S_max = LM_BATCH, LM_PROMPT, LM_CACHE
+    n_moe = cfg.n_layers // cfg.moe_every
+    free_card()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = timed(lambda: tr.LM(cfg, seed=SEED, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe {arch}: {cfg.n_layers} of {configs.get(arch).cfg.n_layers} "
+        f"layers ({cfg.n_blocks} blocks of {cfg.block_layers}), d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.d_head}, {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
+        f"{cfg.d_ff_expert} + {cfg.n_shared} shared, vocab {cfg.vocab}, "
+        f"{n_params} parameters, {str(cfg.dtype)[6:]}, init {init_s} s; "
+        f"{held} bytes held by earlier phases")
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator()
+                            .manual_seed(SEED + 4)).to(dev)
+    # one short uncounted pass first: cuBLAS's and the allocator's
+    # first-call costs stay out of the times
+    _, c = tr.lm_prefill(model, prompts[:1, :64])
+    tr.lm_decode_step(model, prompts[:1, 0], c, 63)
+    torch.cuda.synchronize()
+    del c
+
+    # ---- counted: prefill, then MOE_STEPS greedy decode steps ------------
+    routes_k = []
+    _build.reset_launches()
+    with capture_routing(routes_k):
+        (logits, (kp, vp)), prefill_s = timed(lambda: tr.lm_prefill(
+            model, prompts))
+        cache = tr.init_cache(cfg, B, S_max, device=dev)
+        cache[0][..., :S, :] = kp
+        cache[1][..., :S, :] = vp
+        del kp, vp
+        fed, logits_k, step_s = [], [logits], []
+        tok = torch.argmax(logits, dim=-1)
+        for i in range(MOE_STEPS):
+            fed.append(tok)
+            (logits, _), s_ = timed(lambda: tr.lm_decode_step(
+                model, tok, cache, S + i))
+            step_s.append(s_)
+            logits_k.append(logits)
+            tok = torch.argmax(logits, dim=-1)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_med = statistics.median(step_s)
+    from repro_torch.models import moe
+    caps = (moe.capacity(B * S, cfg.top_k, cfg.n_experts,
+                         cfg.capacity_factor),
+            moe.capacity(B, cfg.top_k, cfg.n_experts, cfg.capacity_factor))
+    log(f"moe {arch} prefill: {B} x {S} tokens in {1e3 * prefill_s} ms = "
+        f"{B * S / prefill_s} tokens/s (expert capacity {caps[0]})")
+    log(f"moe {arch} decode: {MOE_STEPS} steps at batch {B} from position "
+        f"{S} of a {S_max}-slot cache: median {1e3 * step_med} ms per step "
+        f"= {B / step_med} tokens/s (mean {1e3 * statistics.mean(step_s)} "
+        f"ms, first {1e3 * step_s[0]} ms; expert capacity {caps[1]}, so "
+        f"{B * cfg.top_k} routed pairs a layer share {cfg.n_experts} "
+        f"slots: repro's semantics)")
+    log(f"moe {arch} launches: {launches} max_memory_allocated={peak} card: "
+        f"{smi_line()}")
+    want = cfg.n_layers * (1 + MOE_STEPS)
+    assert launches["flash"] == want, (launches, want)
+    assert sum(launches.values()) == want, launches
+    assert len(routes_k) == n_moe * (1 + MOE_STEPS), len(routes_k)
+    for lg in logits_k:
+        assert lg.shape == (B, cfg.vocab) and lg.dtype == cfg.dtype
+        assert bool(torch.isfinite(lg).all()), "non-finite MoE logits"
+
+    # ---- q/k/v of the path for phases 5 and 6 (uncounted) -----------------
+    with capture_attention({0: None}) as dec:
+        tr.lm_decode_step(model, tok, cache, S + MOE_STEPS)
+    with capture_attention({0: None, cfg.n_layers - 1: None}) as pre:
+        tr.lm_prefill(model, prompts)
+    torch.cuda.synchronize()
+
+    def own(q, k, v, kw):
+        return q, k.clone(), v.clone(), kw
+
+    out = {"prefill": [own(*pre[i]) for i in sorted(pre)],
+           "decode": own(*dec[0]), "launches": launches["flash"],
+           "cfg": cfg, "layers": sorted(pre)}
+    del pre, dec
+
+    # ---- profiles: one prefill, one decode step ----------------------------
+    profile_batch(f"moe {arch} prefill {B} x {S}",
+                  lambda: tr.lm_prefill(model, prompts), prefill_s)
+    profile_batch(f"moe {arch} decode step at position {S + MOE_STEPS + 1}",
+                  lambda: tr.lm_decode_step(model, tok, cache,
+                                            S + MOE_STEPS + 1), step_med)
+    del cache
+    free_card()
+
+    # ---- the same passes through the plain versions, teacher-forced --------
+    def plain_run(routing):
+        """The prefill and the fed tokens' steps through the plain
+        versions under ``routing``: (logits, prefill s, s a step)."""
+        _build.reset_launches()
+        with plain_path(), routing:
+            (logits, (kp, vp)), prefill_s = timed(
+                lambda: tr.lm_prefill(model, prompts))
+            pcache = tr.init_cache(cfg, B, S_max, device=dev)
+            pcache[0][..., :S, :] = kp
+            pcache[1][..., :S, :] = vp
+            del kp, vp
+            logits_p = [logits]
+            t0 = time.perf_counter()
+            for i, tok_i in enumerate(fed):
+                logits_p.append(tr.lm_decode_step(model, tok_i, pcache,
+                                                  S + i)[0])
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / MOE_STEPS
+        assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
+        return logits_p, prefill_s, step_s
+
+    def bands(logits_p):
+        errs = [rel_l2(a, b) for a, b in zip(logits_k, logits_p)]
+        agree = torch.cat([(torch.argmax(a, -1) == torch.argmax(b, -1))
+                           .float() for a, b in zip(logits_k, logits_p)])
+        return errs, agree
+
+    def token_ties(logits_p) -> list[tuple[float, float]]:
+        """(margin, noise) of each (sequence, step) pair whose greedy
+        tokens differ: the kernel run's logit of its token less its logit
+        of the plain run's token, beside the largest |logit difference|
+        of the two runs at that position."""
+        out = []
+        for a, b in zip(logits_k, logits_p):
+            a, b = a.float(), b.float()
+            ia, ib = a.argmax(-1), b.argmax(-1)
+            margin = (a.gather(-1, ia[:, None]) - a.gather(-1, ib[:, None])
+                      )[:, 0]
+            noise = (a - b).abs().amax(-1)
+            out += [(m, n_) for m, n_, same in zip(
+                margin.tolist(), noise.tolist(), (ia == ib).tolist())
+                if not same]
+        return out
+
+    # (1) free-running routers: a bf16 near-tie in a router flips a choice,
+    # and a flipped choice moves the token's state and, through attention,
+    # later tokens' and later layers' choices; printed, not held
+    routes_p = []
+    logits_p, plain_prefill_s, plain_step_s = plain_run(
+        capture_routing(routes_p))
+    errs, agree = bands(logits_p)
+    routed = routing_agreement(routes_k, routes_p, n_moe)
+    log(f"moe {arch} plain, its own routings: prefill {1e3 * plain_prefill_s}"
+        f" ms, {1e3 * plain_step_s} ms per step; last-position logits "
+        f"relative L2 error against the kernel path: prefill {errs[0]}, "
+        f"steps max {max(errs[1:])}; greedy tokens agree in "
+        f"{int(agree.sum())} of {agree.numel()} (sequence, step) pairs = "
+        f"{float(agree.mean())}")
+    log(f"moe {arch} routings agreeing between the kernel and plain runs, "
+        f"MoE layer by layer (prefill and every step): {routed}")
+    del logits_p, routes_p
+    # (2) the routings teacher-forced too, as the tokens are: the plain
+    # routers' own picks recorded beside the kernel run's.  Held to phase
+    # 4l's logit band.  Its token band (0.95) is printed; random weights
+    # leave deepseek's logits flat (median top-2 gap ~0.03 against a
+    # spread of ~0.2), so what is held is that every differing token is a
+    # near tie: its margin in the kernel run within twice the largest
+    # logit difference of the two runs at that position
+    own = []
+    logits_p, _, _ = plain_run(force_routing(routes_k, own))
+    errs, agree = bands(logits_p)
+    share = float(agree.mean())
+    ties = token_ties(logits_p)
+    own_routed = routing_agreement(routes_k, own, n_moe)
+    log(f"moe {arch} plain, the kernel run's routings forced: last-position "
+        f"logits relative L2 error against the kernel path: prefill "
+        f"{errs[0]}, steps max {max(errs[1:])} (limit 5e-2); greedy tokens "
+        f"agree in {int(agree.sum())} of {agree.numel()} (sequence, step) "
+        f"pairs = {share} (phase 4l's band 0.95: "
+        f"{'held' if share >= 0.95 else 'missed'}); the differing pairs' "
+        f"(margin, largest logit difference): {ties}; routings the plain "
+        f"routers would have picked themselves, layer by layer: "
+        f"{own_routed}")
+    assert max(errs) <= 5e-2, f"{arch} logits: kernel and plain paths part"
+    assert all(m <= 2 * n_ for m, n_ in ties), (
+        f"{arch} greedy tokens: a differing token is no near tie")
+    del model, logits_p, logits_k, routes_k, own
+    free_card()
+    return out
+
+
+def moe_param_split(cfg) -> tuple[int, int]:
+    """(parameters outside the layers, parameters a layer) of a config
+    whose blocks are one layer each."""
+    import dataclasses
+    one = dataclasses.replace(cfg, n_layers=1).param_count()
+    per = dataclasses.replace(cfg, n_layers=2).param_count() - one
+    return one - per, per
+
+
+def moe_train(dev):
+    """Phase 4m (c): deepseek-moe-16b at full width, cut to the most
+    layers whose step fits the card (12 bytes a parameter beside
+    ``MOE_TRAIN_RESERVE``), ``TRAIN_STEPS`` steps of ``launch.train``'s
+    step at its defaults (B 8, S 128, lr 3e-4, f32 AdamW moments, remat)
+    on its Zipf stream, counted: losses finite, every gradient leaf of
+    the first step (each block's router, experts and shared expert among
+    them) finite and not all zero, 2 flash launches a layer a step.
+    Returns the flash launches."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import optimizer
+    full = configs.get(MOE_TRAIN_ARCH).cfg
+    args = train.parse_args(["--arch", MOE_TRAIN_ARCH])
+    free_card()
+    free, total = torch.cuda.mem_get_info()
+    outside, per = moe_param_split(full)
+    n_layers = max(1, min(full.n_layers, int(
+        ((free - MOE_TRAIN_RESERVE) / 12 - outside) // per)))
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    log(f"train {MOE_TRAIN_ARCH}: cut to {n_layers} of {full.n_layers} "
+        f"layers: {cfg.param_count()} parameters ({outside} outside the "
+        f"layers, {per} a layer) x 12 bytes = {12 * cfg.param_count()} of "
+        f"{free} bytes free ({total} on the card), {MOE_TRAIN_RESERVE} kept "
+        f"for temporaries and activations")
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = timed(lambda: tr.LM(cfg, seed=args.seed, device=dev)
+                          .requires_grad_(True))
+    params = model.tree()
+    opt = optimizer.adamw_init(params)
+    _build.reset_launches()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        tokens = train.zipf_tokens(cfg.vocab, (args.batch, args.seq + 1),
+                                   args.seed, i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            loss, grads = train.value_and_grad(
+                tr.lm_loss, params, model, tokens[:, :-1], tokens[:, 1:])
+            n_leaves, n_blocks, bad = grad_blocks_ok(grads)
+            moe_leaves = sorted(grads["blocks"]["l0"]["moe"])
+            params, opt = optimizer.adamw_update(grads, opt, params, lr=3e-4)
+            del grads
+        else:
+            params, opt, loss = train.lm_step(model, params, opt, tokens)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train {MOE_TRAIN_ARCH} ({n_layers} layers, B {args.batch} S "
+        f"{args.seq}, init {init_s} s): losses {losses}; seconds per step "
+        f"{step_s}; first step's gradients: {n_leaves} leaves, {n_blocks} "
+        f"(leaf, block) slices finite and not all zero (MoE leaves "
+        f"{moe_leaves} in each block), failing {bad}")
+    log(f"train {MOE_TRAIN_ARCH} launches: {launches} max_memory_allocated="
+        f"{peak} card: {smi_line()}")
+    want = TRAIN_STEPS * 2 * n_layers          # forward + remat recompute
+    assert launches["flash"] == want, (launches, want)
+    assert sum(launches.values()) == want, launches
+    assert all(math.isfinite(x) for x in losses), losses
+    assert not bad, f"gradients missing or not finite: {bad}"
+    del model, params, opt, loss
+    free_card()
+    return launches["flash"]
+
+
+def moe_clis(dev):
+    """Phase 4m (d): ``launch.serve.serve_lm`` for both MoE archs at the
+    CLI's defaults on the card against the same call on the CPU (tokens
+    equal at >= 99% of positions), then ``launch.train --arch
+    deepseek-moe-16b --reduce --steps 5`` as a subprocess.  Returns the
+    flash launches of the two serve_lm calls."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_cli
+    total = 0
+    for arch in MOE_ARCHS:
+        spec = configs.get(arch)
+        args = serve_cli.parse_args(["--arch", arch])
+        _build.reset_launches()
+        toks, cli_s = timed(lambda: serve_cli.serve_lm(spec, args,
+                                                       device=dev))
+        cli_launches = dict(_build.LAUNCHES)
+        toks_cpu = serve_cli.serve_lm(spec, args, device="cpu")
+        same = int((toks == toks_cpu).sum())
+        log(f"serve_lm ({arch} reduced, {args.steps} steps x {args.batch}): "
+            f"{cli_s} s on the card; tokens equal to the CPU run's at {same} "
+            f"of {toks.numel()} positions; launches {cli_launches}")
+        assert toks.shape == (args.batch, args.steps)
+        assert same >= 0.99 * toks.numel(), f"serve_lm {arch}: card and CPU"
+        small = serve_cli.reduced_lm(spec)
+        assert cli_launches["flash"] == small.n_layers * (1 + args.steps)
+        assert sum(cli_launches.values()) == cli_launches["flash"]
+        total += cli_launches["flash"]
+    outs = run_together(MOE_CLIS, MOE_CLI_TIMEOUT_S, "moe train cli")
+    assert "done; final loss" in outs["deepseek-moe-16b"]
+    return total
+
+
+def moe_phase(dev):
+    """Phase 4m: both MoE LMs served, deepseek-moe-16b trained, the
+    CLIs."""
+    t_phase = time.perf_counter()
+    runs = {arch: moe_serve(dev, arch) for arch in MOE_ARCHS}
+    trained = moe_train(dev)
+    cli = moe_clis(dev)
+    log(f"moe phase: {time.perf_counter() - t_phase} s")
+    return {"runs": runs, "train_launches": trained, "cli_launches": cli}
+
+
+def flash_times(q, k, v, kw, chunk, flush) -> dict:
+    """flash at one shape of the path: kernel, plain version and
+    ``scaled_dot_product_attention`` (which the port never calls; the
+    decode step on the valid cache prefix, non-causal), each over
+    ``REPS`` launches, beside the bound (``flash_work``'s bytes and
+    operations, bf16 at the tensor cores' rate)."""
+    import torch
+    from repro_torch.kernels.flash import ops as fops
+    from repro_torch.kernels.flash import ref as fref
+    F = torch.nn.functional
+    kv = kw["kv_len"] or k.shape[2]
+    n_bytes, flops = flash_work(q, k, v, kw)
+    kw = {key: kw[key] for key in ("causal", "q_offset", "kv_len")}
+    ks, vs = k[:, :, :kv], v[:, :, :kv]
+    causal = q.shape[2] > 1
+    try:
+        F.scaled_dot_product_attention(q, ks, vs, is_causal=causal,
+                                       enable_gqa=True)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, ks, vs, is_causal=causal, enable_gqa=True)
+    except TypeError:
+        grp = q.shape[1] // k.shape[1]
+        ksx, vsx = (t.repeat_interleave(grp, 1) for t in (ks, vs))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, ksx, vsx, is_causal=causal)
+    bms, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S
+                       if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    return {"shape": [list(q.shape), list(k.shape)], "kv_len": kv,
+            "ms": cuda_ms(lambda: fops.attention(q, k, v, **kw), flush),
+            "plain_ms": cuda_ms(lambda: fref.chunked_attention(
+                q, k, v, chunk=chunk, **kw), flush),
+            "library_ms": cuda_ms(sdpa, flush), "bound_ms": bms,
+            "bound_by": by, "bytes": n_bytes, "ops": flops}
+
+
+def flash_work(q, k, v, kw) -> tuple[int, int]:
+    """(bytes, operations) of one flash call: q, the visible keys' k and
+    v, and out, once each; 4 Dh operations per (query, visible key) pair
+    (Q K^T and P V)."""
+    import torch
+    Bq, Hq, Sq, Dh = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    kv = min(kw.get("kv_len") or Skv, Skv)
+    pos = kw["q_offset"] + torch.arange(Sq)
+    seen = int(torch.clamp(torch.minimum(pos + 1, torch.tensor(kv))
+                           if kw["causal"] else torch.full((Sq,), kv),
+                           min=0).sum())
+    n_bytes = q.element_size() * (2 * Bq * Hq * Sq * Dh
+                                  + 2 * Bq * Hkv * kv * Dh)
+    return n_bytes, 4 * Dh * Bq * Hq * seen
+
+
+def moe_flash_times(moe_out, flush) -> dict:
+    """Phase 6's flash times at the MoE path's shapes: deepseek's prefill
+    (group 1) and decode step, llama4-maverick's prefill (group 5)."""
+    out = {}
+    for arch, run in moe_out["runs"].items():
+        tag = arch.split("-")[0]
+        chunk = run["cfg"].attn_chunk
+        out[f"{tag}_prefill"] = flash_times(*run["prefill"][0], chunk, flush)
+        if arch == "deepseek-moe-16b":
+            out[f"{tag}_decode"] = flash_times(*run["decode"], chunk, flush)
+    for label, t in out.items():
+        log(f"time flash at {label}: {t}, "
+            f"{math.ceil(t['ms'] / t['bound_ms'])}x the bound")
+    return out
+
+
+def check_flash_pair(q, k, v, *, chunk, ref_chunk, **kw):
+    """bf16 flash against its plain version directly, where the plain
+    version itself strays past ``check_flash``'s 2e-2 of the f32 version
+    (llama4-maverick's layers: v of ~1.3 a head element, and early rows
+    that average a few keys, meet its bf16-rounded scores): the kernel
+    within 2e-2 abs/rel of the f32 version, as ``check_flash`` holds it,
+    and within 4e-2 of the plain version, the two 2e-2 legs that
+    ``check_flash`` allows together.  The plain version's own distance
+    from the f32 version is reported, not held."""
+    import torch
+    from repro_torch.kernels.flash import ops, ref
+    out_k = ops.attention(q, k, v, **kw)
+    out_p = ref.chunked_attention(q, k, v, chunk=chunk, **kw)
+    want = ref.chunked_attention(q.float(), k.float(), v.float(),
+                                 chunk=ref_chunk, **kw)
+    assert out_k.dtype == q.dtype == torch.bfloat16
+    torch.testing.assert_close(out_k.float(), want, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out_k.float(), out_p.float(), rtol=4e-2,
+                               atol=4e-2)
+    plain = (out_p.float() - want).abs()
+    return {"max_abs_err": float((out_k.float() - want).abs().max()),
+            "against_plain": float((out_k.float() - out_p.float()).abs()
+                                   .max()),
+            "plain_max_abs_err": float(plain.max()),
+            "plain_past_2e-2": int((plain > 2e-2 + 2e-2 * want.abs())
+                                   .sum())}
+
+
+def moe_flash_checks(moe_out) -> float:
+    """Phase 5's flash checks on the MoE path: deepseek's first and last
+    prefill layers and a decode step's layer 0 (group 1, ``check_flash``),
+    llama4-maverick's two prefill layers (group 5, ``check_flash_pair``).
+    Returns the largest error against the f32 version."""
+    errs = []
+    for arch, run in moe_out["runs"].items():
+        cases = [(f"prefill layer {i}", qkv)
+                 for i, qkv in zip(run["layers"], run["prefill"])]
+        if arch == "deepseek-moe-16b":
+            cases.append(("decode step layer 0", run["decode"]))
+        check = check_flash if arch == "deepseek-moe-16b" else \
+            check_flash_pair
+        for label, (q, k, v, kw) in cases:
+            kw = {key: kw[key] for key in ("causal", "q_offset", "kv_len")}
+            res = check(q, k, v, chunk=run["cfg"].attn_chunk, ref_chunk=512,
+                        **kw)
+            log(f"full flash, {arch} {label} {tuple(q.shape)} x "
+                f"{tuple(k.shape)} (group {q.shape[1] // k.shape[1]}) "
+                f"{kw}: {res}")
+            errs.append(res["max_abs_err"])
+    return max(errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: the GAT
+# ---------------------------------------------------------------------------
+
+GNN_STEPS = 3
+GNN_RANKS = 4                # gloo ranks sharing the card for the check
+GNN_TIMEOUT_S = 600
+GNN_EDGE_SHARE = 0.9         # of the free memory, for ogb_products' step
+
+
+def gnn_small_graph(parts: int):
+    """full_graph_sm's random graph (numpy, from the seed): features
+    N(0, 1), edges whose destinations fall ``parts`` equal blocks of
+    nodes in turn (the sharded layout), labels uniform, half the nodes
+    masked in."""
+    import numpy as np
+    from repro_torch.configs import gat_cora
+    n, e, f, c = gat_cora.CELL_DIMS["full_graph_sm"]
+    rng = np.random.default_rng(SEED + 20)
+    feats = rng.standard_normal((n, f), dtype=np.float32)
+    src = rng.integers(0, n, e, dtype=np.int32)
+    blk, per = n // parts, e // parts
+    dst = np.concatenate([rng.integers(r * blk, (r + 1) * blk, per,
+                                       dtype=np.int32)
+                          for r in range(parts)])
+    labels = rng.integers(0, c, n, dtype=np.int32)
+    mask = rng.random(n) < 0.5
+    return feats, src, dst, labels, mask
+
+
+def ogb_edge_cut(free: int, n_nodes: int, n_edges: int, cfg):
+    """(j, edges, bytes): the least j for which a step on ogb_products'
+    edges cut to 1/2^j fits ``GNN_EDGE_SHARE`` of ``free`` bytes,
+    reckoned from the last layer's backward: four [E, heads, classes] f32
+    tensors (the gathered sources, the messages' gradient, its product
+    with the sources, the sources' gradient) and 16 [E, heads] f32
+    temporaries an edge, three [N, heads, classes] f32 tensors a node
+    (the gathered embeddings, their gradient, the output's).  At 1/32
+    this reckons 23.6 GB; a step there peaked at 22.3 GB on an H100."""
+    for j in range(12):
+        e = n_edges >> j
+        need = 4 * cfg.n_heads * (e * (4 * cfg.n_classes + 16)
+                                  + 3 * n_nodes * cfg.n_classes)
+        if need <= GNN_EDGE_SHARE * free:
+            return j, e, need
+    raise AssertionError("ogb_products: no edge cut fits")
+
+
+def gnn_cell_inputs(cell, cfg, dev):
+    """The cell's random graph at ``CELL_DIMS`` on ``dev``: (feats, src,
+    dst, labels, mask, note)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import gat_cora
+    from repro_torch.models import gnn
+    n, e, f, c = gat_cora.CELL_DIMS[cell]
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    note = {}
+    if cell == "full_graph_sm":
+        arrays = gnn_small_graph(GNN_RANKS)
+        return (*(torch.from_numpy(a).to(dev) for a in arrays), note)
+    if cell == "molecule":
+        # 128 graphs of 32 nodes (30 atoms + padding), 64 edges each
+        rng = np.random.default_rng(SEED + 22)
+        graph = np.repeat(np.arange(128, dtype=np.int32), e // 128) * 32
+        src = graph + rng.integers(0, 32, e, dtype=np.int32)
+        dst = graph + rng.integers(0, 32, e, dtype=np.int32)
+        feats = torch.randn(n, f, generator=g, device=dev)
+        labels = torch.randint(0, c, (n,), generator=g, device=dev,
+                               dtype=torch.int32)
+        mask = torch.rand(n, generator=g, device=dev) < 0.5
+        return (feats, torch.from_numpy(src).to(dev),
+                torch.from_numpy(dst).to(dev), labels, mask, note)
+    if cell == "minibatch_lg":
+        # Reddit-scale graph on the host, dst in order (each node's
+        # in-degree drawn first), then 1024 seeds sampled at 15-10
+        rng = np.random.default_rng(SEED + 23)
+        t0 = time.perf_counter()
+        counts = rng.multinomial(e, np.full(n, 1.0 / n))
+        dst = np.repeat(np.arange(n, dtype=np.int32), counts)
+        src = rng.integers(0, n, e, dtype=np.int32)
+        note["graph_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sampler = gnn.NeighborSampler(n, src, dst)
+        note["sampler_init_s"] = time.perf_counter() - t0
+        del src, dst
+        seeds = rng.choice(n, gat_cora.BATCH_NODES, replace=False)
+        t0 = time.perf_counter()
+        nodes, s_src, s_dst = sampler.sample(rng, seeds, gat_cora.FANOUTS)
+        note["sample_s"] = time.perf_counter() - t0
+        del sampler
+        nodes_t = torch.from_numpy(nodes).to(dev)
+        feats = torch.randn(n, f, generator=g, device=dev)[nodes_t]
+        labels = torch.randint(0, c, (n,), generator=g, device=dev,
+                               dtype=torch.int32)[nodes_t]
+        mask = torch.zeros(len(nodes), dtype=torch.bool, device=dev)
+        mask[:gat_cora.BATCH_NODES] = True
+        note.update(nodes=len(nodes), edges=len(s_src))
+        return (feats, torch.from_numpy(s_src).to(dev),
+                torch.from_numpy(s_dst).to(dev), labels, mask, note)
+    # ogb_products: every node, the edges cut to what fits
+    free, _ = torch.cuda.mem_get_info()
+    j, e_cut, need = ogb_edge_cut(free - n * f * 4, n, e, cfg)
+    note.update(edge_cut=f"1/{2 ** j}", edges=e_cut, reckoned_bytes=need,
+                free_bytes=free)
+    feats = torch.randn(n, f, generator=g, device=dev)
+    src = torch.randint(0, n, (e_cut,), generator=g, device=dev,
+                        dtype=torch.int32)
+    dst = torch.randint(0, n, (e_cut,), generator=g, device=dev,
+                        dtype=torch.int32)
+    labels = torch.randint(0, c, (n,), generator=g, device=dev,
+                           dtype=torch.int32)
+    mask = torch.rand(n, generator=g, device=dev) < 0.5
+    return feats, src, dst, labels, mask, note
+
+
+def gnn_params(cfg, dev):
+    """The GAT's parameters from the seed (drawn on the host, moved) and
+    their AdamW state."""
+    import torch
+    from repro_torch.models import gnn
+    from repro_torch.train import optimizer
+    params = [{k: t.to(dev) for k, t in layer.items()} for layer in
+              gnn.init_gat(torch.Generator().manual_seed(SEED), cfg)]
+    return params, optimizer.adamw_init(params)
+
+
+def gnn_rank(rank, col, dev):
+    """Phase 4g on one NCCL rank (``launch.mesh.spawn``): each gat-cora
+    cell's ``GNN_STEPS`` steps of ``launch.steps.gnn_train_step`` on its
+    random graph, counted; losses, seconds a step, peak memory."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = configs.get("gat-cora")
+    out = {}
+    for cell in spec.shapes:
+        cfg = spec.cell_cfg(cell)
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        feats, src, dst, labels, mask, note = gnn_cell_inputs(cell, cfg, dev)
+        params, opt = gnn_params(cfg, dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        _build.reset_launches()
+        losses, step_s = [], []
+        for _ in range(GNN_STEPS):
+            t0 = time.perf_counter()
+            params, opt, loss = steps.gnn_train_step(
+                params, opt, cfg, feats, src, dst, labels, mask, col)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        out[cell] = {"losses": losses, "step_s": step_s, "setup_s": setup_s,
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "launches": sum(_build.LAUNCHES.values()),
+                     "shape": (tuple(feats.shape), int(src.shape[0])),
+                     "quantized_gather": cfg.quantized_gather, **note}
+        del feats, src, dst, labels, mask, params, opt, loss
+    return out
+
+
+def gnn_shard_rank(rank, col, dev, inp):
+    """``gat_loss_local`` on this rank's rows and edges of full_graph_sm,
+    exact and quantized gathers."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import gnn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get("gat-cora").cell_cfg("full_graph_sm")
+    feats, src, dst, labels, mask = inp["graph"]
+    n_loc, e_loc = feats.shape[0] // col.n_shards, src.shape[0] // col.n_shards
+    rows, cut = slice(rank * n_loc, (rank + 1) * n_loc), slice(
+        rank * e_loc, (rank + 1) * e_loc)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        feats[rows], src[cut], dst[cut], labels[rows], mask[rows])]
+    params = [{k: torch.from_numpy(a).to(dev) for k, a in layer.items()}
+              for layer in inp["params"]]
+    with torch.no_grad():
+        return {q: float(gnn.gat_loss_local(
+            params, dataclasses.replace(cfg, quantized_gather=q), *args,
+            col)) for q in (False, True)}
+
+
+def gnn_phase(dev):
+    """Phase 4g: the GAT at each gat-cora cell on one NCCL rank
+    (``gnn_rank``), full_graph_sm's losses against the same steps on the
+    CPU, then ``gat_loss_local`` on full_graph_sm over ``GNN_RANKS`` gloo
+    ranks sharing the card against one process, exact and quantized."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import gnn
+    from repro_torch.runtime.collectives import NullCollectives
+    t_phase = time.perf_counter()
+    free_card()
+    t0 = time.perf_counter()
+    (one,) = mesh.spawn(gnn_rank, 1, "nccl", timeout=GNN_TIMEOUT_S)
+    log(f"gnn nccl x1: spawn+run {time.perf_counter() - t0} s")
+    for cell, r in one.items():
+        log(f"gnn {cell}: {r}")
+        assert all(math.isfinite(x) for x in r["losses"]), (cell, r)
+        assert r["launches"] == 0, (cell, r["launches"])
+    log(f"gnn card: {smi_line()}")
+
+    # full_graph_sm's steps on the CPU, one process
+    spec = configs.get("gat-cora")
+    cfg = spec.cell_cfg("full_graph_sm")
+    cpu = torch.device("cpu")
+    graph = gnn_small_graph(GNN_RANKS)
+    args = [torch.from_numpy(a) for a in graph]
+    params, opt = gnn_params(cfg, cpu)
+    init = [{k: t.detach().numpy().copy() for k, t in layer.items()}
+            for layer in params]
+    cpu_losses = []
+    for _ in range(GNN_STEPS):
+        params, opt, loss = steps.gnn_train_step(params, opt, cfg, *args,
+                                                 NullCollectives())
+        cpu_losses.append(float(loss))
+    card = one["full_graph_sm"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu_losses)]
+    log(f"gnn full_graph_sm losses: card {card}, CPU {cpu_losses}, "
+        f"relative differences {rel} (limit 1e-5)")
+    assert max(rel) <= 1e-5, "gnn full_graph_sm: card and CPU part"
+
+    # gat_loss_local over GNN_RANKS gloo ranks against one process
+    t0 = time.perf_counter()
+    outs = mesh.spawn(gnn_shard_rank, GNN_RANKS, "gloo",
+                      torch.device("cuda", dev.index or 0),
+                      args=({"graph": graph, "params": init},),
+                      timeout=GNN_TIMEOUT_S)
+    shard_s = time.perf_counter() - t0
+    dev_args = [t.to(dev) for t in args]
+    dev_params = [{k: torch.from_numpy(a).to(dev) for k, a in layer.items()}
+                  for layer in init]
+    with torch.no_grad():
+        whole = {q: float(gnn.gat_loss_local(
+            dev_params, dataclasses.replace(cfg, quantized_gather=q),
+            *dev_args, NullCollectives())) for q in (False, True)}
+    log(f"gnn gat_loss_local on {GNN_RANKS} gloo ranks sharing the card "
+        f"(spawn+run {shard_s} s): exact {[o[False] for o in outs]}, "
+        f"quantized {[o[True] for o in outs]}; one process: exact "
+        f"{whole[False]}, quantized {whole[True]}")
+    for o in outs:
+        for q in (False, True):
+            assert abs(o[q] - whole[q]) <= 1e-5 * abs(whole[q]), (q, o, whole)
+    drift = abs(whole[True] - whole[False]) / abs(whole[False])
+    log(f"gnn quantized against exact loss: {drift} (repro's limit 0.05)")
+    assert drift < 0.05, "gnn: the int8 gather moved the loss"
+    log(f"gnn phase: {time.perf_counter() - t_phase} s")
+
+
 def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
     """Beside the kernel line: cross on the serve_bulk layer-2 inputs
     (the wrapper's tensor route, its W split included) in turns with its
@@ -5208,6 +6026,12 @@ def main() -> int:
     # ---- phase 4t: training ---------------------------------------------------
     train_launches = train_phase(dev)
 
+    # ---- phase 4m: the MoE LMs ------------------------------------------------
+    moe = moe_phase(dev)
+
+    # ---- phase 4g: the GAT ------------------------------------------------------
+    gnn_phase(dev)
+
     # ---- phase 5: kernels against plain versions at full width --------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     sms = _build.sm_count(0)
@@ -5351,6 +6175,7 @@ def main() -> int:
         log(f"full flash, {label} {tuple(q.shape)} x {tuple(k.shape)} "
             f"{kw}: {res}")
         flash_errs.append(res["max_abs_err"])
+    flash_errs.append(moe_flash_checks(moe))
     errs["flash"] = {"max_abs_err": max(flash_errs)}
     for kname, res in errs.items():
         log(f"full {kname}: {res}")
@@ -5538,23 +6363,15 @@ def main() -> int:
     qp, kp, vp, kwp = lm["prefill"][0]
     qd, kd, vd, kwd = lm["decode"]
 
-    def flash_work(q, k, v, kw):
-        Bq, Hq, Sq, Dh = q.shape
-        Hkv, Skv = k.shape[1], k.shape[2]
-        kv = min(kw.get("kv_len") or Skv, Skv)
-        pos = kw["q_offset"] + torch.arange(Sq)
-        seen = int(torch.clamp(torch.minimum(pos + 1, torch.tensor(kv))
-                               if kw["causal"] else torch.full((Sq,), kv),
-                               min=0).sum())
-        n_bytes = q.element_size() * (2 * Bq * Hq * Sq * Dh
-                                      + 2 * Bq * Hkv * kv * Dh)
+    def flash_calls(q, k, v, kw):
+        n_bytes, flops = flash_work(q, k, v, kw)
         kw = {key: kw[key] for key in ("causal", "q_offset", "kv_len")}
         return (lambda: fops.attention(q, k, v, **kw),
                 lambda: fref.chunked_attention(q, k, v, chunk=chunk, **kw),
-                n_bytes, 4 * Dh * Bq * Hq * seen)
+                n_bytes, flops)
 
-    work["flash"] = flash_work(qp, kp, vp, kwp)
-    dec_work = flash_work(qd, kd, vd, kwd)
+    work["flash"] = flash_calls(qp, kp, vp, kwp)
+    dec_work = flash_calls(qd, kd, vd, kwd)
     # the yardstick: scaled_dot_product_attention, which the port never
     # calls; the decode step on the valid cache prefix, non-causal
     F = torch.nn.functional
@@ -5770,6 +6587,11 @@ def main() -> int:
              "library_ms_decode": cuda_ms(sdpa_dec, flush),
              "bound_ms_f32": bound_ms(*work["flash"][2:])[0],
              "library": f"scaled_dot_product_attention ({sdpa_note})"}
+    moe_runs = moe["runs"].values()
+    extra.update(moe_flash_times(moe, flush),
+                 moe_launches=sum(run["launches"] for run in moe_runs),
+                 moe_train_launches=moe["train_launches"],
+                 moe_cli_launches=moe["cli_launches"])
     by_name["flash"].update(extra)
     log(f"time flash at decode ({n_bytes} bytes, {flops} ops; the split-KV "
         f"variant, both products on the tensor cores): {extra}")

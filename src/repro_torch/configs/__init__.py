@@ -1,6 +1,17 @@
 """Architecture configs: importing the package registers the ported
-archs (the four recsys models and the three dense LMs); the paper's own
-bandit configuration is the plain module ``distclub_paper``.  The MoE
-LMs (deepseek-moe-16b, llama4-maverick) wait for the MoE slice."""
-from . import bert4rec, dcn_v2, llama3_8b, mind, qwen3_4b, sasrec, yi_34b  # noqa: F401
+archs (the four recsys models, the three dense LMs, the two MoE LMs and
+the GAT); the paper's own bandit configuration is the plain module
+``distclub_paper``."""
+from . import (  # noqa: F401
+    bert4rec,
+    dcn_v2,
+    deepseek_moe_16b,
+    gat_cora,
+    llama3_8b,
+    llama4_maverick_400b_a17b,
+    mind,
+    qwen3_4b,
+    sasrec,
+    yi_34b,
+)
 from .base import REGISTRY, ArchSpec, ShapeCell, all_cells, get  # noqa: F401

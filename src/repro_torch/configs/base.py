@@ -5,9 +5,11 @@ Every ported architecture registers an ``ArchSpec`` with its published
 configuration and its own shape set.  A *cell* = (arch, shape) names one
 unit of work; ``input_specs`` describes its inputs as
 ``{name: (shape, torch.dtype)}``, allocating nothing (``repro`` uses
-``jax.ShapeDtypeStruct``).  The four recsys archs and the three dense
-LMs register; the paper's own bandit configuration (``distclub_paper``)
-stays a plain module.
+``jax.ShapeDtypeStruct``), from the cell's config: ``cell_cfg`` applies
+the cell's ``cfg_overrides`` (gat-cora's per-graph feature and class
+dims).  The four recsys archs, the five LMs and the GNN register; the
+paper's own bandit configuration (``distclub_paper``) stays a plain
+module.
 """
 from __future__ import annotations
 
@@ -22,18 +24,23 @@ class ShapeCell:
     kind: str                      # "train" | "serve" | "decode"
     make_inputs: Callable[[Any], dict]  # cfg -> {name: (shape, dtype)}
     note: str = ""
+    cfg_overrides: tuple = ()      # (("d_feat", 100), ...) applied per cell
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                    # "recsys" | "lm"
+    family: str                    # "lm" | "gnn" | "recsys" | "bandit"
     cfg: Any
     shapes: dict[str, ShapeCell]
     source: str = ""
 
+    def cell_cfg(self, shape: str):
+        ov = dict(self.shapes[shape].cfg_overrides)
+        return dataclasses.replace(self.cfg, **ov) if ov else self.cfg
+
     def input_specs(self, shape: str) -> dict:
-        return self.shapes[shape].make_inputs(self.cfg)
+        return self.shapes[shape].make_inputs(self.cell_cfg(shape))
 
 
 REGISTRY: dict[str, ArchSpec] = {}

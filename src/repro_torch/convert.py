@@ -32,10 +32,13 @@ built from the reference's replay tables (``item_feats``, ``cand_ids``,
 ``lm_from_numpy`` take a ``repro`` model parameter tree with numpy leaves
 and return the port's module holding those weights: the module's
 parameters carry the tree's paths as names (``cross.0.W``,
-``blocks.ffn.1.b``, ``blocks.l0.attn.wq``), and each leaf must match its
-parameter's shape.  ``module.tree()`` gives a module's parameters back as
-``repro``'s tree, so a checkpoint of ``(module.tree(), opt_state)`` has
-``repro``'s keys.
+``blocks.ffn.1.b``, ``blocks.l0.attn.wq``, a MoE layer's
+``blocks.l1.moe.experts.gate``), and each leaf must match its
+parameter's shape.  ``module.tree()`` gives a module's parameters back
+as ``repro``'s tree, so a checkpoint of ``(module.tree(), opt_state)``
+has ``repro``'s keys.  ``gat_from_numpy`` takes ``repro``'s GAT
+parameter list and returns the port's, a list of ``{W, a_src, a_dst}``
+tensors.
 
 ``opt_state_from_numpy`` takes a ``repro`` optimizer state
 (``AdamWState``, ``AdafactorState`` or ``AdagradState``) whose leaves are
@@ -54,7 +57,7 @@ from .core import club, dccb
 from .core.catalog import Catalog
 from .core.types import (ClusterStats, DistCLUBState, GraphState,
                          LinUCBState)
-from .models import transformer
+from .models import gnn, transformer
 from .models.recsys import dcn_v2, mind, seqrec
 from .train import optimizer
 
@@ -212,8 +215,31 @@ def mind_from_numpy(params, cfg: mind.MINDConfig, device=None):
 
 def lm_from_numpy(params, cfg: transformer.LMConfig, device=None):
     """The port's ``LM`` from ``repro``'s ``init_lm`` tree (leaves stacked
-    [n_blocks, ...]), each leaf cast to its parameter's dtype."""
+    [n_blocks, ...]; a MoE layer's f32 router [n_blocks, d, E] and expert
+    leaves [n_blocks, E, ...]), each leaf cast to its parameter's
+    dtype."""
     return load_params(transformer.LM(cfg, device=device), params)
+
+
+def gat_from_numpy(params, cfg: gnn.GNNConfig, device=None) -> list[dict]:
+    """The port's GAT parameters from ``repro``'s ``init_gat`` list with
+    numpy leaves, each in ``cfg.dtype``; raises unless every layer's
+    leaves have the shapes ``cfg`` gives them."""
+    dev = resolve_device(device)
+    dims = gnn.layer_dims(cfg)
+    if len(params) != len(dims):
+        raise ValueError(f"{len(params)} layers, expected {len(dims)}")
+    out = []
+    for i, (layer, (d_in, dh)) in enumerate(zip(params, dims)):
+        want = {"W": (d_in, cfg.n_heads * dh), "a_src": (cfg.n_heads, dh),
+                "a_dst": (cfg.n_heads, dh)}
+        got = {k: np.asarray(v).shape for k, v in layer.items()}
+        if got != want:
+            raise ValueError(f"layer {i}: shapes {got}, expected {want}")
+        out.append({k: torch.from_numpy(
+            np.array(v, dtype=np.float32)).to(dev, cfg.dtype)
+            for k, v in layer.items()})
+    return out
 
 
 def _tree_from_numpy(tree, dev):

@@ -7,8 +7,9 @@ reduced scale: each request batch draws candidates from the catalog,
 embeds them as unit-norm bandit contexts and serves them through one
 session transaction.  Reports reward against the random policy and
 throughput.  ``--policy`` takes distclub, club, linucb or dccb.  For the
-dense LM archs (``--arch qwen3-4b``) it runs a reduced config: a prompt
-pass, then greedy decode steps against a KV cache.
+LM archs (``--arch qwen3-4b``, the MoE ``deepseek-moe-16b``) it runs a
+reduced config: a prompt pass, then greedy decode steps against a KV
+cache.
 """
 from __future__ import annotations
 

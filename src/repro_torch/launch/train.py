@@ -18,10 +18,14 @@ newest two kept, under ``--ckpt-dir``, by default
   * Recsys (``dcn-v2``, ``sasrec``, ``bert4rec``, ``mind``): Adagrad on
     ``repro``'s synthetic batches, drawn by ``recsys_batch``.
   * ``distclub-paper``: ``core.distclub.run`` for ``--steps`` epochs.
+  * ``gat-cora`` exits, as ``repro``'s does: its step is
+    ``launch.steps.gnn_train_step``, driven by tests and benchmarks.
 
 Examples:
     python -m repro_torch.launch.train --arch qwen3-4b --steps 3
     python -m repro_torch.launch.train --arch qwen3-4b --reduce --steps 50
+    python -m repro_torch.launch.train --arch deepseek-moe-16b --reduce \\
+        --steps 20
     python -m repro_torch.launch.train --arch sasrec --reduce --steps 100
     python -m repro_torch.launch.train --arch distclub-paper --reduce \\
         --steps 20
@@ -42,13 +46,6 @@ from ..configs.base import ArchSpec
 from ..train import optimizer
 from ..train.checkpoint import CheckpointManager
 from ..tree import tree_leaves, tree_map
-
-# ``repro``'s architectures that the port does not register: the paper's
-# bandit configuration is a plain module here; the GNN and the MoE LMs
-# come with later slices
-GNN_ARCHS = ("gat-cora",)
-MOE_ARCHS = ("deepseek-moe-16b", "llama4-maverick-400b-a17b")
-
 
 def _reduced_cfg(spec):
     if spec.family == "lm":
@@ -225,18 +222,11 @@ def train_recsys(spec, args):
 
 
 def get_spec(arch: str) -> ArchSpec:
-    """The registered spec, or the plain-module bandit configuration; the
-    MoE LMs raise as ``models.transformer.init_lm`` does for them."""
+    """The registered spec, or the plain-module bandit configuration."""
     if arch == "distclub-paper":
         from ..configs import distclub_paper
         return ArchSpec(arch_id=arch, family="bandit",
                         cfg=distclub_paper.CONFIG, shapes={})
-    if arch in GNN_ARCHS:
-        return ArchSpec(arch_id=arch, family="gnn", cfg=None, shapes={})
-    if arch in MOE_ARCHS:
-        raise NotImplementedError(
-            f"{arch} is a MoE config; models/moe.py is not ported yet: it "
-            "comes with the MoE slice")
     return configs.get(arch)
 
 

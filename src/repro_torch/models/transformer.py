@@ -1,12 +1,15 @@
-"""Decoder-only transformer LM, dense, with KV-cache decode
+"""Decoder-only transformer LM, dense and MoE, with KV-cache decode
 (``repro.models.transformer``).
 
 Parameters keep ``repro``'s tree: ``embed`` [V, d], ``blocks.l{i}.*``
 with every leaf stacked on a leading [n_blocks] axis (``ln1.scale``,
 ``attn.{wq,wk,wv,wo}``, ``attn.{q,k}_norm.scale`` under qk-norm,
 ``ln2.scale``, ``ffn.{gate,up,down}``), ``final_norm.scale``, ``lm_head``
-[d, V].  ``repro`` scans over the blocks; here a Python loop walks them
-through per-layer views of the stacked parameters.
+[d, V].  A MoE config's block is ``moe_every`` layers, the last of which
+has ``moe.{router,experts.{gate,up,down},shared.*}`` (``models.moe``) in
+place of ``ffn``, so its expert leaves are [n_blocks, E, ...].
+``repro`` scans over the blocks; here a Python loop walks them through
+per-layer views of the stacked parameters.
 
 Serving: ``lm_fwd``, ``lm_prefill`` (the prompt pass that fills the
 cache), ``init_cache`` and ``lm_decode_step``.  Training: ``lm_loss``,
@@ -16,8 +19,7 @@ with ``cfg.remat`` each block is recomputed in the backward pass
 Attention runs the flash kernel on the card (``models.attention``; its
 backward is that of ``chunked_attention``).  Where ``repro`` takes a
 traced scalar position, ``pos`` is a host int here; the cache is written
-in place.  MoE configs (``n_experts > 0``) raise: ``models/moe.py`` comes
-with its own slice.
+in place.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 import torch.utils.checkpoint
 
 from .. import resolve_device
-from . import attention, layers
+from . import attention, layers, moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,23 +101,40 @@ class LMConfig:
 # --- single layer ------------------------------------------------------------
 
 
-def _init_layer(gen: torch.Generator, cfg: LMConfig) -> dict:
+def _init_layer(gen: torch.Generator, cfg: LMConfig,
+                is_moe_layer: bool) -> dict:
     dev = gen.device
-    return {"ln1": layers.init_rms_norm(cfg.d_model, dev),
-            "attn": attention.init_attention(gen, cfg, cfg.dtype),
-            "ln2": layers.init_rms_norm(cfg.d_model, dev),
-            "ffn": layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype)}
+    p = {"ln1": layers.init_rms_norm(cfg.d_model, dev),
+         "attn": attention.init_attention(gen, cfg, cfg.dtype),
+         "ln2": layers.init_rms_norm(cfg.d_model, dev)}
+    if is_moe_layer:
+        p["moe"] = moe.init_moe(gen, cfg, cfg.dtype)
+    else:
+        p["ffn"] = layers.init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.dtype)
+    return p
 
 
-def _layer_fwd(p, cfg: LMConfig, x, *, positions, cache=None, cache_pos=0):
-    """One dense layer; ``p`` a mapping of one layer's parameters."""
+def _is_moe_layer(cfg: LMConfig, i: int) -> bool:
+    """Whether layer ``i`` of a block is its MoE layer (the last)."""
+    return cfg.is_moe and i == cfg.block_layers - 1
+
+
+def _layer_fwd(p, cfg: LMConfig, x, *, positions, cache=None, cache_pos=0,
+               is_moe_layer=False):
+    """One layer; ``p`` a mapping of one layer's parameters.  Returns
+    ``(x, cache, aux)``, aux an f32 scalar (0 for a dense layer)."""
     h, cache = attention.attention_fwd(
         p["attn"], cfg, layers.rms_norm(x, p["ln1"]["scale"]).to(x.dtype),
         positions=positions, cache=cache, cache_pos=cache_pos,
         attn_chunk=cfg.attn_chunk)
     x = x + h
     z = layers.rms_norm(x, p["ln2"]["scale"]).to(x.dtype)
-    return x + layers.swiglu(p["ffn"], z), cache
+    if is_moe_layer:
+        h, aux = moe.moe_fwd(p["moe"], cfg, z)
+    else:
+        h = layers.swiglu(p["ffn"], z)
+        aux = torch.zeros((), device=x.device)
+    return x + h, cache, aux
 
 
 # --- full model --------------------------------------------------------------
@@ -138,24 +157,24 @@ def _tree_set(dst, i: int, src) -> None:
 def init_lm(gen: torch.Generator, cfg: LMConfig) -> dict:
     """The parameter tree, drawn on the generator's device: the embedding,
     then block by block (each drawn, then copied into its slot of the
-    stacked leaves, so the stack never exists twice), then the head."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name} is a MoE config (n_experts={cfg.n_experts}); "
-            "models/moe.py is not ported yet: it comes with the MoE slice")
+    stacked leaves, so the stack never exists twice; a single block is
+    the stack, as a view), then the head."""
     dev = gen.device
     embed = (torch.randn(cfg.vocab, cfg.d_model, generator=gen, device=dev)
              * 0.02).to(cfg.dtype)
 
     def init_block():
-        return {f"l{i}": _init_layer(gen, cfg)
+        return {f"l{i}": _init_layer(gen, cfg, _is_moe_layer(cfg, i))
                 for i in range(cfg.block_layers)}
 
     first = init_block()
-    blocks = _tree_map(lambda t: torch.empty((cfg.n_blocks, *t.shape),
-                                             dtype=t.dtype, device=dev),
-                       first)
-    _tree_set(blocks, 0, first)
+    if cfg.n_blocks == 1:
+        blocks = _tree_map(lambda t: t[None], first)
+    else:
+        blocks = _tree_map(lambda t: torch.empty((cfg.n_blocks, *t.shape),
+                                                 dtype=t.dtype, device=dev),
+                           first)
+        _tree_set(blocks, 0, first)
     del first
     for i in range(1, cfg.n_blocks):
         _tree_set(blocks, i, init_block())
@@ -177,7 +196,7 @@ def _views(module, n: int) -> list[dict]:
 
 
 class LM(layers.Params):
-    """A dense decoder LM with random weights from ``seed``, on
+    """A decoder LM (dense or MoE) with random weights from ``seed``, on
     ``device`` (default cuda; raises without a card unless
     ``device="cpu"``)."""
 
@@ -225,25 +244,30 @@ def _head(model: LM, x):
 
 
 def lm_fwd(model: LM, tokens: torch.Tensor):
-    """tokens [B, S] -> (logits [B, S, V] in the model's dtype, aux loss 0
-    as an f32 scalar: dense layers have none)."""
+    """tokens [B, S] -> (logits [B, S, V] in the model's dtype, the MoE
+    layers' aux losses summed, an f32 scalar: 0 for a dense model)."""
     cfg = model.cfg
     x = model.embed[tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
 
     def block_fwd(x, block):
-        for p in block:
-            x, _ = _layer_fwd(p, cfg, x, positions=positions)
-        return x
+        aux = torch.zeros((), device=x.device)
+        for i, p in enumerate(block):
+            x, _, a = _layer_fwd(p, cfg, x, positions=positions,
+                                 is_moe_layer=_is_moe_layer(cfg, i))
+            aux = aux + a
+        return x, aux
 
     remat = cfg.remat and model.wants_grad()
+    aux = torch.zeros((), device=x.device)
     for block in model.layer_params():
         if remat:
-            x = torch.utils.checkpoint.checkpoint(block_fwd, x, block,
-                                                  use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(block_fwd, x, block,
+                                                     use_reentrant=False)
         else:
-            x = block_fwd(x, block)
-    return _head(model, x), torch.zeros((), device=x.device)
+            x, a = block_fwd(x, block)
+        aux = aux + a
+    return _head(model, x), aux
 
 
 def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor):
@@ -279,8 +303,9 @@ def lm_prefill(model: LM, tokens: torch.Tensor):
     kc, vc = init_cache(cfg, B, S, device=x.device)
     for b, block in enumerate(model.layer_params()):
         for i, p in enumerate(block):
-            x, _ = _layer_fwd(p, cfg, x, positions=positions,
-                              cache=(kc[b, i], vc[b, i]), cache_pos=0)
+            x, _, _ = _layer_fwd(p, cfg, x, positions=positions,
+                                 cache=(kc[b, i], vc[b, i]), cache_pos=0,
+                                 is_moe_layer=_is_moe_layer(cfg, i))
     return _head(model, x[:, -1:])[:, 0], (kc, vc)
 
 
@@ -294,6 +319,7 @@ def lm_decode_step(model: LM, token: torch.Tensor, cache, pos: int):
     kc, vc = cache
     for b, block in enumerate(model.layer_params()):
         for i, p in enumerate(block):
-            x, _ = _layer_fwd(p, cfg, x, positions=positions,
-                              cache=(kc[b, i], vc[b, i]), cache_pos=pos)
+            x, _, _ = _layer_fwd(p, cfg, x, positions=positions,
+                                 cache=(kc[b, i], vc[b, i]), cache_pos=pos,
+                                 is_moe_layer=_is_moe_layer(cfg, i))
     return _head(model, x)[:, 0], (kc, vc)

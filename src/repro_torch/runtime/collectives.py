@@ -2,7 +2,8 @@
 
 The DistCLUB stages need four primitives: ``axis_index()`` (which user
 shard am I), ``all_gather(x)`` over the user axis, ``psum(x)`` and
-``n_shards``; the sharded DCCB adds ``permute(x)``, its ring gossip.
+``n_shards``; the sharded DCCB adds ``permute(x)``, its ring gossip, and
+the sharded GAT ``psum_scatter(x)``, the backward of its feature gather.
 
   ``NullCollectives``  one process: every primitive is the identity.
   ``DistCollectives``  bound to a ``torch.distributed`` process group
@@ -14,7 +15,9 @@ shard am I), ``all_gather(x)`` over the user axis, ``psum(x)`` and
 counterpart of ``kernels/_build.LAUNCHES``), under the ring schedules:
 an all-gather sends this rank's piece to each of the ``S - 1`` others,
 an all-reduce ``2 (S - 1) / S`` of the tensor (reduce-scatter, then
-all-gather), a permute the whole tensor.  One process sends nothing.
+all-gather), a reduce-scatter ``(S - 1) / S`` (its key appears once
+one has run: only the sharded GAT's backward runs it), a permute the
+whole tensor.  One process sends nothing.
 A run prints it beside the modelled ``stages.stage2_comm_bytes``.
 
 gloo moves host memory only, and refuses CUDA tensors for some of these
@@ -50,6 +53,9 @@ class NullCollectives(NamedTuple):
         return x
 
     def psum(self, x):
+        return x
+
+    def psum_scatter(self, x):
         return x
 
 
@@ -89,6 +95,21 @@ class DistCollectives(NamedTuple):
         y = y.clone() if y is x else y
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
         return y.to(x.device)
+
+    def psum_scatter(self, x):
+        """This rank's rows of the sum over ranks, tiled on dim 0
+        (``jax.lax.psum_scatter(..., scatter_dimension=0, tiled=True)``):
+        ``x`` [S * n, ...] -> [n, ...].  A bf16 ``x`` is summed in f32
+        and rounded once, as ``repro``'s reduction rounds it."""
+        BYTES["psum_scatter"] = (BYTES.get("psum_scatter", 0) + x.nbytes
+                                 * (self.shards - 1) // self.shards)
+        src = self._stage(x.contiguous())
+        wide = src.float() if src.dtype == torch.bfloat16 else src
+        out = wide.new_empty((wide.shape[0] // self.shards,
+                              *wide.shape[1:]))
+        dist.reduce_scatter_tensor(out, wide, op=dist.ReduceOp.SUM,
+                                   group=self.group)
+        return out.to(device=x.device, dtype=x.dtype)
 
     def permute(self, x, shift: int = 1):
         """The ring exchange: rank ``r`` sends ``x`` to ``r + shift`` and

@@ -56,7 +56,10 @@ def test_package_imports_neither_jax_nor_repro():
                 "distributed.dccb_shard", "distributed.sharding",
                 "launch.mesh", "runtime.collectives", "train.checkpoint",
                 "serve.guardrails", "serve.faults", "serve.experiments",
-                "launch.faultrun", "launch.abrun"):
+                "launch.faultrun", "launch.abrun", "models.moe",
+                "models.gnn", "configs.deepseek_moe_16b",
+                "configs.llama4_maverick_400b_a17b", "configs.gat_cora",
+                "launch.steps"):
         assert f"repro_torch.{mod}" in names, mod
     for kind in ("synthetic", "drift", "catalog", "replay",
                  "default_synthetic"):
@@ -366,3 +369,33 @@ def test_state_round_trips_through_numpy():
         for a, b in zip(*(r if isinstance(r, tuple) else (r,)
                           for r in (rec_a, rec_b))):
             assert a.shape == b.shape and torch.equal(a, b)
+
+
+def test_gnn_and_moe_entry_points_need_a_device_without_cuda(monkeypatch):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train
+    from repro_torch.models import gnn, transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gnn.GNNConfig(d_feat=6, n_classes=3, n_heads=2, d_hidden=4)
+    params = [{k: t.numpy() for k, t in layer.items()}
+              for layer in gnn.init_gat(torch.Generator(), cfg)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.gat_from_numpy(params, cfg)
+    assert convert.gat_from_numpy(params, cfg, device="cpu")[0][
+        "W"].device.type == "cpu"
+    moe_cfg = dataclasses.replace(
+        configs.get("deepseek-moe-16b").cfg, n_layers=1, d_model=16,
+        n_heads=2, n_kv_heads=2, d_head=8, vocab=32, n_experts=4,
+        d_ff_expert=8, top_k=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.LM(moe_cfg)
+    args = serve_cli.parse_args(["--arch", "llama4-maverick-400b-a17b",
+                                 "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.serve_lm(configs.get(args.arch), args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "deepseek-moe-16b", "--reduce", "--steps",
+                    "1"])

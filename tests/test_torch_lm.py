@@ -362,15 +362,30 @@ def test_serve_lm_decodes_the_reference_tokens_on_the_cpu(capsys):
 
 
 def test_moe_configs_are_refused():
+    """Named for the slices before ``models/moe.py``, when MoE configs
+    raised; since it, nothing refuses them: a one-block MoE LM (a dense
+    layer, then a MoE layer) builds and runs forward with an aux loss,
+    and the serving CLI's reduced deepseek-moe-16b decodes on the CPU
+    (the MoE archs against ``repro``: tests/test_torch_lm_moe.py)."""
     cfg = tr.LMConfig(name="moe", n_layers=2, d_model=32, n_heads=2,
                       n_kv_heads=2, d_head=16, d_ff=64, vocab=64,
-                      n_experts=4, d_ff_expert=32, moe_every=2)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tr.LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tr.init_lm(torch.Generator(), cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve_cli.main(["--arch", "deepseek-moe-16b"])
+                      n_experts=4, d_ff_expert=32, moe_every=2,
+                      dtype=torch.float32)
+    model = tr.LM(cfg, device="cpu")
+    names = dict(model.named_parameters())
+    assert names["blocks.l1.moe.experts.gate"].shape == (1, 4, 32, 32)
+    assert "blocks.l0.ffn.gate" in names and "blocks.l1.ffn.gate" not in names
+    assert set(tr.init_lm(torch.Generator(), cfg)["blocks"]["l1"]) == {
+        "ln1", "attn", "ln2", "moe"}
+    logits, aux = tr.lm_fwd(model, torch.zeros(2, 8, dtype=torch.long))
+    assert logits.shape == (2, 8, 64) and float(aux) > 0
+    args = serve_cli.parse_args(["--arch", "deepseek-moe-16b", "--steps",
+                                 "4", "--batch", "2"])
+    toks = serve_cli.serve_lm(configs.get(args.arch), args, device="cpu")
+    assert toks.shape == (2, 4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve_cli.main(["--arch", "deepseek-moe-16b"])
 
 
 def test_lm_configs_are_the_reference_configs():

@@ -246,9 +246,11 @@ def test_registry_holds_the_four_recsys_archs_at_published_widths():
                     if spec.family == "recsys")
     assert recsys == ["bert4rec", "dcn-v2", "mind", "sasrec"]
     assert len([c for c in configs.all_cells() if c[0] in recsys]) == 16
-    # the rest of the registry is the dense LMs (tests/test_torch_lm.py)
+    # the rest of the registry is the LMs (tests/test_torch_lm.py,
+    # test_torch_lm_moe.py) and the GAT (tests/test_torch_gnn.py)
     assert sorted(set(configs.REGISTRY) - set(recsys)) == [
-        "llama3-8b", "qwen3-4b", "yi-34b"]
+        "deepseek-moe-16b", "gat-cora", "llama3-8b",
+        "llama4-maverick-400b-a17b", "qwen3-4b", "yi-34b"]
     dcn = configs.get("dcn-v2")
     assert dcn.cfg.d_interact == 429 and dcn.cfg.n_cross_layers == 3
     assert dcn.cfg.mlp_dims == (1024, 1024, 512)

@@ -95,7 +95,8 @@ def test_resume_is_bit_equal_to_an_unbroken_run(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("arch,steps", [
     ("sasrec", 2), ("bert4rec", 2), ("mind", 2), ("dcn-v2", 2),
-    ("distclub-paper", 1)])
+    ("distclub-paper", 1), ("deepseek-moe-16b", 2),
+    ("llama4-maverick-400b-a17b", 2)])
 def test_cli_families_run_reduced_on_the_cpu(arch, steps, capsys):
     train.main(["--arch", arch, "--reduce", "--steps", str(steps),
                 "--log-every", "1", "--device", "cpu"])
@@ -106,11 +107,16 @@ def test_cli_families_run_reduced_on_the_cpu(arch, steps, capsys):
         assert "step     0  loss" in out and "done; final loss" in out
 
 
-def test_cli_refuses_what_is_not_ported_and_needs_a_card():
+def test_cli_refuses_what_is_not_ported_and_needs_a_card(tmp_path, capsys):
+    """The GNN exits with ``repro``'s message; a MoE arch, refused
+    before the MoE slice, trains under ``--reduce``; without a card the
+    default device raises."""
     with pytest.raises(SystemExit, match="GNN"):
         train.main(["--arch", "gat-cora", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="MoE"):
-        train.main(["--arch", "deepseek-moe-16b", "--device", "cpu"])
+    train.main(["--arch", "deepseek-moe-16b", "--reduce", "--steps", "1",
+                "--batch", "2", "--seq", "16", "--device", "cpu",
+                "--ckpt-dir", str(tmp_path)])
+    assert "done; final loss" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(["--arch", "qwen3-4b", "--reduce", "--steps", "1"])
