@@ -330,6 +330,32 @@ Phases, in order; any failure raises and the script exits non-zero:
            launches a layer a step.  (d) ``serve_lm`` for both at the CLI's
            defaults against the CPU (>= 99% tokens equal), and
            ``launch.train --arch deepseek-moe-16b --reduce --steps 5``.
+4k. shard  the sharded LM decode (``distributed.decode_shard``; its
+           attention is ``torch.matmul`` and a flash-decoding merge, no
+           kernel: no sharded step may launch a counted one).  (a)
+           Qwen3-4B at full width and depth, bf16, random weights, on a
+           one-rank mesh (every axis of size 1; ``repro``'s rule puts it
+           in the f-sharded layout): a prefill of 8 x 2048 (flash), its
+           K/V in a 32768-slot cache (decode_32k's S_max; its batch of
+           128 cut to 8, 38.65 GB), 32 steps of ``lm_decode_step``
+           (counted: 36 + 36 x 32 flash launches) and of the sharded step
+           at each position on the same cache, teacher-forced on
+           ``lm_decode_step``'s greedy tokens (phase 4l's bands); ms a
+           step, profiles, peak memory, bytes sent, cache bytes read;
+           then the bf16 cache freed, the prompt's K/V quantized into an
+           int8 cache and the int8 step on the same tokens within 0.08
+           (max |d| / max |ref|) of the bf16 sharded step.  (b) four gloo
+           ranks sharing the card, mesh (data 2 x model 2), each drawing
+           Qwen3-4B at full width cut to 4 layers from the seed and
+           keeping its pieces: the standard (batch 8), int8 and tiny-batch
+           (batch 1: sequence over all four) layouts, 8 steps from a
+           2044-token prompt against 4096 slots (the writes cross the
+           2048-slot shard boundary of both layouts), each within 5e-2
+           relative L2 of the one-process sharded step and >= 95% tokens
+           equal.  (c) the same ranks, deepseek-moe-16b at full width cut
+           to 2 layers (dropless MoE, 32 experts a rank), the same band,
+           routings equal to one process's but for printed near ties
+           (router logits of the k-th and (k+1)-th experts within 0.02).
 4g. gnn    the GAT (``launch.steps.gnn_train_step``) at each gat-cora
            cell on one NCCL rank, 3 steps on random graphs at
            ``CELL_DIMS`` (minibatch_lg sampled by ``NeighborSampler`` from
@@ -5584,6 +5610,431 @@ def moe_flash_checks(moe_out) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: the sharded LM decode
+# ---------------------------------------------------------------------------
+
+DS_ARCH = "qwen3-4b"         # (a): full width and depth, one process
+DS_SLOTS = 32768             # decode_32k's S_max; its batch 128 cut to 8
+                             # (618 GB of bf16 cache at 128, 38.65 GB at 8)
+DS_STEPS = 32
+DS_INT8_BAND = 0.08          # repro's test: max |int8 - bf16| / max |bf16|
+DS_MESH = ((2, 2), ("data", "model"))   # (b, c): gloo ranks on the card
+DS_CUTS = (("qwen3-4b", 4), ("deepseek-moe-16b", 2))   # (arch, layers)
+DS_LAYOUTS = (("standard", 8, False), ("int8", 8, True), ("tiny", 1, False))
+DS_PROMPT = 2044             # 4 short of the 2048-slot shard boundary
+DS_RANK_SLOTS = 4096
+DS_RANK_STEPS = 8
+DS_REL = 5e-2                # ranks against one process: relative L2 of
+                             # each step's logits (phase 4l's band)
+DS_TOKENS = 0.95             # greedy tokens equal, pooled over a model
+DS_TIE = 0.02                # router logits of the k-th and (k+1)-th
+                             # experts closer than this: a near tie
+DS_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def ds_routes(store):
+    """Record each routing of the sharded step (``decode_shard._route``):
+    the experts chosen, sorted, and the gap between the router logits of
+    the k-th and (k+1)-th experts, a row each."""
+    import torch
+    from repro_torch.distributed import decode_shard
+    real = decode_shard._route
+
+    def spy(z, router, k):
+        gate, idx = real(z, router, k)
+        top = torch.topk(z.float() @ router, k + 1, dim=-1).values
+        store.append((idx.sort(-1).values.cpu(),
+                      (top[:, k - 1] - top[:, k]).cpu()))
+        return gate, idx
+
+    with mock.patch.object(decode_shard, "_route", spy):
+        yield store
+
+
+def ds_caches(cfg, kp, vp, slots, kv_quant, dev):
+    """Full caches of ``slots`` slots on ``dev`` holding the prompt's K/V
+    ``kp``/``vp`` [nb, bl, B, Hkv, S, Dh] in their first S slots, as int8
+    codes and f32 scales with ``kv_quant``."""
+    import torch
+    from repro_torch.distributed import decode_shard
+    nb, bl, B, Hkv, S, Dh = kp.shape
+    shape = (nb, bl, B, Hkv, slots, Dh)
+    if not kv_quant:
+        out = tuple(torch.zeros(shape, dtype=cfg.dtype, device=dev)
+                    for _ in range(2))
+        out[0][..., :S, :] = kp
+        out[1][..., :S, :] = vp
+        return out
+    out = (*(torch.zeros(shape, dtype=torch.int8, device=dev)
+             for _ in range(2)),
+           *(torch.zeros(shape[:-1], device=dev) for _ in range(2)))
+    for b in range(nb):           # a block at a time: f32 temporaries
+        for src, codes, scales in ((kp, out[0], out[2]),
+                                   (vp, out[1], out[3])):
+            c, s = decode_shard.quantize(src[b].to(dev))
+            codes[b, ..., :S, :] = c
+            scales[b, ..., :S] = s
+    return out
+
+
+def ds_one(dev):
+    """Phase 4k (a): Qwen3-4B at full width and depth, bf16, random
+    weights, on a one-rank mesh: a prefill of 8 x 2048 (flash), its K/V in
+    a 32768-slot cache, ``DS_STEPS`` steps of ``lm_decode_step`` (counted:
+    flash) and of the sharded step at each position on the same cache
+    (the sharded step rewrites its own slot), teacher-forced on
+    ``lm_decode_step``'s greedy tokens and held to phase 4l's bands; then,
+    the bf16 cache freed, the prompt's K/V quantized into an int8 cache
+    and the int8 step run on the same tokens, held to ``DS_INT8_BAND`` of
+    the bf16 sharded step.  No sharded step launches a counted kernel."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import decode_shard
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.runtime import collectives
+    cfg = configs.get(DS_ARCH).cfg
+    B, S, S_max = LM_BATCH, LM_PROMPT, DS_SLOTS
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    model = tr.LM(cfg, seed=SEED, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator()
+                            .manual_seed(SEED + 4)).to(dev)
+    one = mesh.make_mesh((1, 1), ("data", "model"))
+    ds = decode_shard.build_decode_step(one, cfg, B, S_max, device=dev)
+    log(f"shard decode (a) {DS_ARCH}: mesh {one.shape}, f-sharded "
+        f"{ds.fshard} (2 x {cfg.param_count()} parameters / tp 1 > 8e9), "
+        f"sequence over {ds.seq_axes}, batch {B} against {S_max} slots")
+    assert ds.fshard, "repro's rule puts Qwen3-4B at tp 1 in the f-sharded"
+
+    _build.reset_launches()
+    logits, (kp, vp) = tr.lm_prefill(model, prompts)
+    cache = tr.init_cache(cfg, B, S_max, device=dev)
+    cache[0][..., :S, :] = kp
+    cache[1][..., :S, :] = vp
+    params = ds.shard_params(model.tree())
+    local = ds.shard_caches(cache)
+    assert all(a.data_ptr() == c.data_ptr() for a, c in zip(local, cache))
+    # one uncounted step at the last slot first (masked until a step
+    # reaches it): the first-call costs stay out of the times
+    ds.step(params, prompts[:, 0], local, S_max - 1)
+    torch.cuda.synchronize()
+    fed, errs, agree, sharded, lm_s, sh_s = [], [], [], [], [], []
+    tok = torch.argmax(logits, dim=-1)
+    collectives.reset_bytes()
+    for i in range(DS_STEPS):
+        fed.append(tok)
+        (lg, _), s1 = timed(lambda: tr.lm_decode_step(model, tok, cache,
+                                                      S + i))
+        before = dict(_build.LAUNCHES)
+        (sg, _), s2 = timed(lambda: ds.step(params, tok, local, S + i))
+        assert dict(_build.LAUNCHES) == before, "a sharded step launched"
+        lm_s.append(s1)
+        sh_s.append(s2)
+        errs.append(rel_l2(sg, lg))
+        agree.append(torch.argmax(sg, -1) == torch.argmax(lg, -1))
+        sharded.append(sg)
+        tok = torch.argmax(lg, dim=-1)
+    sent = {k: v / DS_STEPS for k, v in collectives.BYTES.items()}
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    share = float(torch.cat(agree).float().mean())
+    lm_med, sh_med = statistics.median(lm_s), statistics.median(sh_s)
+    slot_bytes = 2 * cache[0][..., 0, :].nbytes       # K and V, one slot
+    weight_bytes = sum(p.nbytes for p in model.parameters()) \
+        - model.embed.nbytes
+    log(f"shard decode (a): {DS_STEPS} steps at batch {B} from position {S}:"
+        f" lm_decode_step median {1e3 * lm_med} ms, sharded step median "
+        f"{1e3 * sh_med} ms a step (means {1e3 * statistics.mean(lm_s)} / "
+        f"{1e3 * statistics.mean(sh_s)})")
+    log(f"shard decode (a) cache read a step: sharded {slot_bytes * S_max} "
+        f"bytes (all {S_max} slots), lm_decode_step {slot_bytes * (S + 1)}"
+        f"-{slot_bytes * (S + DS_STEPS)} (the live slots); weights "
+        f"{weight_bytes} bytes; bound "
+        f"{1e3 * (slot_bytes * S_max + weight_bytes) / HBM_BYTES_PER_S} ms "
+        f"at {HBM_BYTES_PER_S} B/s")
+    log(f"shard decode (a) against lm_decode_step: logits relative L2 max "
+        f"{max(errs)} mean {statistics.mean(errs)} (limit 5e-2); greedy "
+        f"tokens agree in {int(torch.cat(agree).sum())} of "
+        f"{torch.cat(agree).numel()} = {share} (limit 0.95); launches "
+        f"{launches} (flash: lm_decode_step's and the prefill's); bytes sent "
+        f"a step {sent}; max_memory_allocated={peak} card: {smi_line()}")
+    want = cfg.n_layers * (1 + DS_STEPS)
+    assert launches["flash"] == want, (launches, want)
+    assert sum(launches.values()) == want, launches
+    for lg in sharded:
+        assert lg.shape == (B, cfg.vocab) and lg.dtype == cfg.dtype
+        assert bool(torch.isfinite(lg).all()), "non-finite sharded logits"
+    assert max(errs) <= 5e-2, "sharded decode: logits part from the LM's"
+    assert share >= 0.95, "sharded decode: greedy tokens part"
+    profile_batch(f"shard decode (a) lm_decode_step at position "
+                  f"{S + DS_STEPS}", lambda: tr.lm_decode_step(
+                      model, tok, cache, S + DS_STEPS), lm_med)
+    profile_batch(f"shard decode (a) sharded step at position "
+                  f"{S + DS_STEPS}", lambda: ds.step(params, tok, local,
+                                                     S + DS_STEPS), sh_med)
+
+    # ---- int8: the bf16 cache freed first (both with the weights: 67 GB)
+    del local, cache, lg, sg, _
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    dsq = decode_shard.build_decode_step(one, cfg, B, S_max, kv_quant=True,
+                                         device=dev)
+    qlocal = dsq.shard_caches(ds_caches(cfg, kp, vp, S_max, True, dev))
+    del kp, vp
+    dsq.step(params, prompts[:, 0], qlocal, S_max - 1)   # uncounted
+    torch.cuda.synchronize()
+    qerr, q_s = [], []
+    for i, tok_i in enumerate(fed):
+        before = dict(_build.LAUNCHES)
+        (qg, _), s_ = timed(lambda: dsq.step(params, tok_i, qlocal, S + i))
+        assert dict(_build.LAUNCHES) == before, "an int8 step launched"
+        ref = sharded[i].float()
+        qerr.append(float((qg.float() - ref).abs().max() / ref.abs().max()))
+        q_s.append(s_)
+        assert bool(torch.isfinite(qg).all()), "non-finite int8 logits"
+    q_peak = torch.cuda.max_memory_allocated()
+    q_med = statistics.median(q_s)
+    q_slot = sum(c[..., 0, :].nbytes for c in qlocal[:2]) + sum(
+        s[..., 0].nbytes for s in qlocal[2:])
+    log(f"shard decode (a) int8 cache: median {1e3 * q_med} ms a step (mean "
+        f"{1e3 * statistics.mean(q_s)}); max |int8 - bf16| / max |bf16| "
+        f"of the logits: max {max(qerr)} mean {statistics.mean(qerr)} (limit "
+        f"{DS_INT8_BAND}); cache read a step {q_slot * S_max} bytes; "
+        f"max_memory_allocated={q_peak}")
+    assert max(qerr) < DS_INT8_BAND, "int8 cache: logits part from bf16's"
+    profile_batch(f"shard decode (a) int8 step at position {S + DS_STEPS}",
+                  lambda: dsq.step(params, tok, qlocal, S + DS_STEPS), q_med)
+    del qlocal, params, model, _
+    free_card()
+
+
+def ds_cut(arch, n_layers):
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch).cfg, n_layers=n_layers)
+
+
+def ds_layouts(cfg):
+    return DS_LAYOUTS if not cfg.is_moe else DS_LAYOUTS[:1]
+
+
+def ds_reference(dev, arch, n_layers) -> dict:
+    """One process at the cut: the model from the seed, the K/V of an 8 x
+    ``DS_PROMPT`` prompt (flash), and each layout's greedy run of the
+    sharded step on a one-rank mesh (the tokens it feeds, its logits and
+    routings)."""
+    import torch
+    from repro_torch.distributed import decode_shard
+    from repro_torch.launch import mesh
+    from repro_torch.models import transformer as tr
+    cfg = ds_cut(arch, n_layers)
+    model = tr.LM(cfg, seed=SEED, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, DS_PROMPT),
+                            generator=torch.Generator()
+                            .manual_seed(SEED + 5)).to(dev)
+    logits, (kp, vp) = tr.lm_prefill(model, prompts)
+    one = mesh.make_mesh((1, 1), DS_MESH[1])
+    runs = {}
+    for name, batch, q in ds_layouts(cfg):
+        ds = decode_shard.build_decode_step(one, cfg, batch, DS_RANK_SLOTS,
+                                            kv_quant=q, device=dev)
+        caches = ds.shard_caches(ds_caches(
+            cfg, kp[:, :, :batch], vp[:, :, :batch], DS_RANK_SLOTS, q, dev))
+        params = ds.shard_params(model.tree())
+        tok = torch.argmax(logits[:batch], dim=-1)
+        fed, outs, routes = [], [], []
+        with ds_routes(routes):
+            for i in range(DS_RANK_STEPS):
+                fed.append(tok)
+                lg, _ = ds.step(params, tok, caches, DS_PROMPT + i)
+                outs.append(lg.float().cpu())
+                tok = torch.argmax(lg, dim=-1)
+        runs[name] = {"fed": torch.stack(fed).cpu(),
+                      "logits": torch.stack(outs), "routes": routes}
+    return {"cfg": cfg, "k": kp.cpu(), "v": vp.cpu(), "runs": runs}
+
+
+def ds_rank(rank, col, dev, inp):
+    """Phase 4k (b, c), one of the ranks: for each cut, the model drawn
+    from the seed and cut to this rank's pieces, then each layout's steps
+    on the reference's tokens from its prompt's K/V."""
+    import torch
+    from repro_torch.distributed import decode_shard
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.runtime import collectives
+    m = mesh.make_mesh(*DS_MESH)
+    out = {}
+    for arch, n_layers in DS_CUTS:
+        part = inp[arch]
+        cfg = ds_cut(arch, n_layers)
+        steps = {name: decode_shard.build_decode_step(
+            m, cfg, batch, DS_RANK_SLOTS, kv_quant=q, device=dev)
+            for name, batch, q in ds_layouts(cfg)}
+        first = next(iter(steps.values()))
+        assert all(s.param_specs == first.param_specs
+                   for s in steps.values())
+        model = tr.LM(cfg, seed=SEED, device=dev)
+        params = first.shard_params(model.tree())
+        del model
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev)
+        for name, batch, q in ds_layouts(cfg):
+            ds = steps[name]
+            caches = ds.shard_caches(ds_caches(
+                cfg, part["k"][:, :, :batch], part["v"][:, :, :batch],
+                DS_RANK_SLOTS, q, "cpu"))
+            fed = part["fed"][name]
+            _build.reset_launches()
+            collectives.reset_bytes()
+            routes, outs, secs = [], [], []
+            with ds_routes(routes):
+                for i in range(DS_RANK_STEPS):
+                    tok = ds.shard_token(fed[i].to(dev))
+                    (lg, _), s_ = timed(lambda: ds.step(
+                        params, tok, caches, DS_PROMPT + i))
+                    outs.append(lg.float())      # numpy holds no bf16
+                    secs.append(s_)
+            out[f"{arch} {name}"] = {
+                "logits": torch.stack(outs), "secs": secs,
+                "bytes": dict(collectives.BYTES),
+                "launches": dict(_build.LAUNCHES), "routes": routes,
+                "held": held, "layout": (ds.seq_axes, tuple(ds.token_spec))}
+            del caches, _
+    return out
+
+
+def ds_check(label, cfg, batch, ref, outs, spec) -> tuple[int, int]:
+    """One layout of (b) or (c): the ranks' gathered logits against the
+    one-process run, step by step (``DS_REL``), with the sequences whose
+    routings part from the reference's left out: a sequence's first
+    differing routing (in step, then layer order) must be a near tie
+    (``DS_TIE``) and is printed; what follows from it in that sequence
+    is not compared.  Returns (greedy tokens equal, (sequence, step)
+    pairs compared)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh
+    m = mesh.mesh_spec(*DS_MESH)
+    full = sharding.assemble([o[label]["logits"] for o in outs],
+                             sharding.P(None, *spec.logits_spec), m)
+    want = ref["logits"]
+    assert full.shape == want.shape, (full.shape, want.shape)
+    flipped = set()
+    if cfg.is_moe:
+        per_step = len(ref["routes"]) // DS_RANK_STEPS    # MoE layers
+        model_ax = m.axis_names.index("model")
+        for r, o in enumerate(outs):
+            routes = o[label]["routes"]
+            assert len(routes) == len(ref["routes"])
+            coords = mesh.mesh_spec(*DS_MESH, rank=r).coords
+            if coords[model_ax]:
+                # "model" (the minor axis) replicates the routed tokens:
+                # the same experts as at model index 0
+                twin = outs[r - coords[model_ax]][label]["routes"]
+                assert all(np.array_equal(a[0], b[0])
+                           for a, b in zip(routes, twin)), (label, r)
+                continue
+            rows = sharding.shard(torch.arange(batch), spec.token_spec,
+                                  mesh.mesh_spec(*DS_MESH, rank=r))
+            for j, ((idx, _), (ref_idx, gap)) in enumerate(
+                    zip(routes, ref["routes"])):
+                for a, row in enumerate(rows.tolist()):
+                    if row in flipped or torch.equal(
+                            torch.as_tensor(idx[a]), ref_idx[row]):
+                        continue
+                    log(f"shard decode {label}: rank {r} {coords} step "
+                        f"{j // per_step} layer {j % per_step} sequence "
+                        f"{row}: experts {idx[a].tolist()} against "
+                        f"{ref_idx[row].tolist()}, the reference's k-th / "
+                        f"(k+1)-th router logit gap {float(gap[row])} "
+                        f"(near tie below {DS_TIE})")
+                    assert float(gap[row]) < DS_TIE, "a routing moved"
+                    flipped.add(row)
+    keep = [b for b in range(batch) if b not in flipped]
+    assert keep, f"{label}: every sequence's routing moved"
+    errs = [rel_l2(full[i, keep], want[i, keep]) for i in range(len(want))]
+    agree = full[:, keep].argmax(-1) == want[:, keep].argmax(-1)
+    secs = [statistics.median(o[label]["secs"]) for o in outs]
+    sent = [{k: v / DS_RANK_STEPS for k, v in o[label]["bytes"].items()}
+            for o in outs]
+    log(f"shard decode {label}: {len(outs)} ranks {DS_MESH}, seq over "
+        f"{spec.seq_axes}, token {tuple(spec.token_spec)}: logits relative "
+        f"L2 against one process max {max(errs)} mean "
+        f"{statistics.mean(errs)} (limit {DS_REL}); greedy tokens equal "
+        f"{int(agree.sum())} of {agree.numel()}; sequences left out for "
+        f"near-tie routings {sorted(flipped)}; ms a step by rank "
+        f"{[1e3 * s for s in secs]}; bytes sent a step by rank {sent}; "
+        f"memory held by rank {[o[label]['held'] for o in outs]}")
+    for o in outs:
+        assert not any(o[label]["launches"].values()), o[label]["launches"]
+        assert o[label]["layout"] == (spec.seq_axes,
+                                      tuple(spec.token_spec))
+    assert max(errs) <= DS_REL, f"{label}: the ranks part from one process"
+    return int(agree.sum()), agree.numel()
+
+
+def ds_ranks(dev):
+    """Phase 4k (b, c): ``DS_MESH`` over four gloo ranks sharing the card
+    (one spawn), each cut against the one-process sharded step in this
+    process: Qwen3-4B at full width cut to 4 layers in the standard, int8
+    and tiny-batch layouts, deepseek-moe-16b at full width cut to 2 layers
+    (dropless MoE, standard layout), ``DS_RANK_STEPS`` steps each from a
+    ``DS_PROMPT``-token prompt against ``DS_RANK_SLOTS`` slots, so the
+    writes cross the 2048-slot boundary of both layouts' shards."""
+    import torch
+    from repro_torch.distributed import decode_shard
+    from repro_torch.launch import mesh
+    free_card()
+    refs, inp = {}, {}
+    t0 = time.perf_counter()
+    for arch, n_layers in DS_CUTS:
+        refs[arch] = ds_reference(dev, arch, n_layers)
+        inp[arch] = {"k": refs[arch]["k"], "v": refs[arch]["v"],
+                     "fed": {name: run["fed"] for name, run
+                             in refs[arch]["runs"].items()}}
+        free_card()
+    log(f"shard decode (b, c): one-process runs {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    outs = mesh.spawn(ds_rank, DS_MESH[0][0] * DS_MESH[0][1], "gloo",
+                      torch.device("cuda", dev.index or 0), args=(inp,),
+                      timeout=DS_TIMEOUT_S)
+    log(f"shard decode (b, c): {len(outs)} gloo ranks, spawn+run "
+        f"{time.perf_counter() - t0} s")
+    spec_mesh = mesh.mesh_spec(*DS_MESH)
+    for arch, n_layers in DS_CUTS:
+        cfg = refs[arch]["cfg"]
+        equal = pairs = 0
+        for name, batch, q in ds_layouts(cfg):
+            spec = decode_shard.build_decode_step(
+                spec_mesh, cfg, batch, DS_RANK_SLOTS, kv_quant=q,
+                device="cpu")
+            e, p = ds_check(f"{arch} {name}", cfg, batch,
+                            refs[arch]["runs"][name], outs, spec)
+            equal, pairs = equal + e, pairs + p
+        log(f"shard decode {arch} ({n_layers} layers): greedy tokens equal "
+            f"{equal} of {pairs} = {equal / pairs} (limit {DS_TOKENS})")
+        assert equal >= DS_TOKENS * pairs, f"{arch}: greedy tokens part"
+
+
+def shard_decode_phase(dev):
+    """Phase 4k: the sharded LM decode, (a) in this process, (b, c) on
+    four gloo ranks."""
+    t_phase = time.perf_counter()
+    ds_one(dev)
+    log(f"shard decode (a): {time.perf_counter() - t_phase} s")
+    t0 = time.perf_counter()
+    ds_ranks(dev)
+    log(f"shard decode (b, c): {time.perf_counter() - t0} s")
+    log(f"shard decode phase: {time.perf_counter() - t_phase} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 4g: the GAT
 # ---------------------------------------------------------------------------
 
@@ -6061,6 +6512,9 @@ def main() -> int:
 
     # ---- phase 4m: the MoE LMs ------------------------------------------------
     moe = moe_phase(dev)
+
+    # ---- phase 4k: the sharded LM decode ----------------------------------------
+    shard_decode_phase(dev)
 
     # ---- phase 4g: the GAT ------------------------------------------------------
     gnn_phase(dev)

@@ -15,10 +15,25 @@ directory (no fixed TCP port, so concurrent callers never collide), runs
 with its tensors as numpy arrays.  Every rendezvous, collective and the
 join have a time limit; a rank that raises, or a join past its limit,
 fails the whole call.
+
+Named axes (``repro``'s ``("data", "model")`` and ``("pod", "data",
+"model")`` meshes): :class:`Mesh` lays the ranks out row-major over the
+axes, the first axis major, as JAX numbers ``axis_index`` over a tuple
+of axes.  ``mesh_spec`` describes a mesh and one rank's place in it
+without any process group (the cell builder's shapes); ``make_mesh``,
+called by every rank of a group, also binds the collectives of every
+axis and of every tuple of axes (in the mesh's order) to a group of its
+own.  A mesh of one rank gives ``NullCollectives`` on every axis.
+
+The H100 figures below stand where ``repro`` has TPU v5e ones; the
+roofline (``launch.roofline``) divides by them.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import itertools
+import math
 import shutil
 import tempfile
 import time
@@ -28,7 +43,139 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..runtime.collectives import DistCollectives, bind
+from ..distributed.sharding import axes_tuple, flat_axis_size
+from ..runtime.collectives import DistCollectives, NullCollectives, bind
+
+# H100 SXM5 80GB roofline constants, per card
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense bf16 tensor cores (data sheet)
+HBM_BW = 3.35e12              # B/s, HBM3 (data sheet)
+HBM_BYTES = 80 * 1024 ** 3    # 80 GB HBM3 (data sheet: five 16 GiB
+                              # stacks; torch reports 79.18 GiB usable)
+# The collective term's per-card rate.  ``repro``'s 16-wide "model" axis
+# spans two 8-card HGX nodes: inside a node each card has 450 GB/s a
+# direction over NVLink 4 and NVSwitch (900 GB/s both ways, data sheet),
+# but a ring over all 16 crosses the nodes, and each card's share of that
+# hop is its own 400 Gb/s NDR InfiniBand port (ConnectX-7, one a card in
+# the DGX H100 reference design), 50 GB/s a direction.  The slowest hop
+# sets a ring's pace, so the ring is bounded by the port.
+LINK_BW = 50e9                # B/s a direction, per card
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Named mesh axes of ``sizes`` ranks each, and this rank's place:
+    ranks are numbered row-major over the axes (the last axis minor).
+    ``groups`` maps each tuple of axes (in the mesh's order) of more than
+    one rank to the collectives bound to its group; a description made by
+    ``mesh_spec`` has none."""
+
+    axis_names: tuple
+    sizes: tuple
+    rank: int = 0
+    groups: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def n_ranks(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def coords(self) -> tuple:
+        """This rank's index on each axis."""
+        out, r = [], self.rank
+        for size in reversed(self.sizes):
+            out.append(r % size)
+            r //= size
+        return tuple(reversed(out))
+
+    def _order(self, axes) -> tuple:
+        axes = axes_tuple(axes)
+        pos = [self.axis_names.index(a) for a in axes]
+        if pos != sorted(set(pos)):
+            raise ValueError(f"axes {axes} are not distinct axes of "
+                             f"{self.axis_names} in the mesh's order")
+        return axes
+
+    def size(self, axes) -> int:
+        """The ranks along ``axes`` (one axis or a tuple) together."""
+        return flat_axis_size(self, self._order(axes))
+
+    def axis_index(self, axes) -> int:
+        """This rank's row-major index over ``axes`` (a host int)."""
+        coords = dict(zip(self.axis_names, self.coords))
+        idx = 0
+        for a in self._order(axes):
+            idx = idx * self.shape[a] + coords[a]
+        return idx
+
+    def col(self, axes):
+        """The collectives over ``axes``: ``NullCollectives`` where they
+        hold one rank, else those of their group."""
+        axes = self._order(axes)
+        if self.size(axes) == 1:
+            return NullCollectives()
+        if axes not in self.groups:
+            raise RuntimeError(f"mesh {self.shape} has no process group "
+                               f"for {axes}: build it with make_mesh")
+        return self.groups[axes]
+
+
+def mesh_spec(shape, axis_names, rank: int = 0) -> Mesh:
+    """A mesh of ``shape`` over ``axis_names`` seen from ``rank``, with no
+    process group."""
+    shape, axis_names = tuple(shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"shape {shape} against axes {axis_names}")
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} outside a mesh of {shape}")
+    return Mesh(axis_names, shape, rank)
+
+
+def make_mesh(shape, axis_names) -> Mesh:
+    """This rank's mesh of ``shape`` over ``axis_names``, on the world
+    group (whose size must be the mesh's), with a group bound for every
+    tuple of axes of more than one rank.  Every rank creates every
+    group, in the same order.  Without an initialised group a mesh of
+    one rank is returned as described."""
+    if not dist.is_initialized():
+        if math.prod(shape) != 1:
+            raise RuntimeError(f"a mesh of {tuple(shape)} needs an "
+                               "initialised process group")
+        return mesh_spec(shape, axis_names)
+    m = mesh_spec(shape, axis_names, dist.get_rank())
+    if dist.get_world_size() != m.n_ranks:
+        raise ValueError(f"a mesh of {m.shape} on a group of "
+                         f"{dist.get_world_size()} ranks")
+    groups = {}
+    names = m.axis_names
+    coords = [mesh_spec(m.sizes, names, r).coords for r in range(m.n_ranks)]
+    for k in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, k):
+            if m.size(axes) == 1:
+                continue
+            # one group for each setting of the other axes' coordinates
+            rest = [i for i, a in enumerate(names) if a not in axes]
+            slices = {}
+            for r, c in enumerate(coords):
+                slices.setdefault(tuple(c[i] for i in rest), []).append(r)
+            for ranks in slices.values():
+                group = dist.new_group(ranks)
+                if m.rank in ranks:
+                    groups[axes] = bind(group)
+    return Mesh(names, m.sizes, m.rank, groups)
+
+
+def batch_axes(mesh: Mesh) -> tuple:
+    """Axes a batch or user dim shards over (pure DP across pods)."""
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def all_axes(mesh: Mesh) -> tuple:
+    return tuple(mesh.axis_names)
 
 
 def init_group(backend: str, rank: int, world: int, init_method: str,

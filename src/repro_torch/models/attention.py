@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import P
 from ..kernels.flash import ops as flash_ops
 from ..kernels.flash.ref import chunked_attention  # noqa: F401
 from . import layers
@@ -35,6 +36,17 @@ def init_attention(gen: torch.Generator, cfg,
     if cfg.qk_norm:
         p["q_norm"] = layers.init_rms_norm(Dh, gen.device)
         p["k_norm"] = layers.init_rms_norm(Dh, gen.device)
+    return p
+
+
+def attention_specs(cfg) -> dict:
+    """Tensor-parallel specs: q/k/v columns and out-projection rows over
+    "model"."""
+    p = {"wq": P(None, "model"), "wk": P(None, "model"),
+         "wv": P(None, "model"), "wo": P("model", None)}
+    if cfg.qk_norm:
+        p["q_norm"] = layers.rms_norm_specs()
+        p["k_norm"] = layers.rms_norm_specs()
     return p
 
 

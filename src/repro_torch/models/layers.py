@@ -1,6 +1,7 @@
 """Shared model layers (``repro.models.layers``): initialisers, the relu
 MLP, layer norm, RMSNorm, rotary embeddings and SwiGLU, plus the
-parameter-tree module the models are built from.
+parameter-tree module the models are built from.  ``*_specs`` give a
+layer's partition specs (``distributed.sharding.P``), as ``repro``'s.
 
 Initialisers return plain tensors drawn from the caller's
 ``torch.Generator`` on that generator's device, from the same
@@ -17,6 +18,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..distributed.sharding import P
 
 
 class Params(nn.Module):
@@ -84,6 +87,10 @@ def init_rms_norm(d: int, device) -> dict:
     return {"scale": torch.ones(d, device=device)}
 
 
+def rms_norm_specs() -> dict:
+    return {"scale": P()}
+
+
 def init_layer_norm(d: int, device) -> dict:
     return {"scale": torch.ones(d, device=device),
             "bias": torch.zeros(d, device=device)}
@@ -125,6 +132,11 @@ def init_swiglu(gen: torch.Generator, d: int, f: int,
     return {"gate": dense_init(gen, d, f, dtype),
             "up": dense_init(gen, d, f, dtype),
             "down": dense_init(gen, f, d, dtype)}
+
+
+def swiglu_specs() -> dict:
+    return {"gate": P(None, "model"), "up": P(None, "model"),
+            "down": P("model", None)}
 
 
 def swiglu(params, x):

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import P
 from . import layers
 
 
@@ -49,6 +50,18 @@ def init_moe(gen: torch.Generator, cfg,
     p["experts"] = experts
     if cfg.n_shared > 0:
         p["shared"] = layers.init_swiglu(gen, d, f * cfg.n_shared, dtype)
+    return p
+
+
+def moe_specs(cfg) -> dict:
+    """Training layout: experts over "model" on the expert axis, ZeRO-3
+    over "data" on d_ff."""
+    p = {"router": P(),
+         "experts": {"gate": P("model", None, "data"),
+                     "up": P("model", None, "data"),
+                     "down": P("model", "data", None)}}
+    if cfg.n_shared > 0:
+        p["shared"] = layers.swiglu_specs()
     return p
 
 

@@ -11,6 +11,10 @@ place of ``ffn``, so its expert leaves are [n_blocks, E, ...].
 ``repro`` scans over the blocks; here a Python loop walks them through
 per-layer views of the stacked parameters.
 
+``lm_specs`` gives the tree's partition specs, as ``repro``'s (the
+sharded decode, ``distributed.decode_shard``, reads them), and
+``param_shapes`` its leaves' shapes and dtypes without allocating them.
+
 Serving: ``lm_fwd``, ``lm_prefill`` (the prompt pass that fills the
 cache), ``init_cache`` and ``lm_decode_step``.  Training: ``lm_loss``,
 on a model whose parameters were turned on with ``requires_grad_(True)``;
@@ -29,6 +33,7 @@ import torch
 import torch.utils.checkpoint
 
 from .. import resolve_device
+from ..distributed.sharding import P
 from . import attention, layers, moe
 
 
@@ -137,6 +142,17 @@ def _layer_fwd(p, cfg: LMConfig, x, *, positions, cache=None, cache_pos=0,
     return x + h, cache, aux
 
 
+def _layer_specs(cfg: LMConfig, is_moe_layer: bool) -> dict:
+    p = {"ln1": layers.rms_norm_specs(),
+         "attn": attention.attention_specs(cfg),
+         "ln2": layers.rms_norm_specs()}
+    if is_moe_layer:
+        p["moe"] = moe.moe_specs(cfg)
+    else:
+        p["ffn"] = layers.swiglu_specs()
+    return p
+
+
 # --- full model --------------------------------------------------------------
 
 
@@ -182,6 +198,60 @@ def init_lm(gen: torch.Generator, cfg: LMConfig) -> dict:
             "final_norm": layers.init_rms_norm(cfg.d_model, dev),
             "lm_head": layers.dense_init(gen, cfg.d_model, cfg.vocab,
                                          cfg.dtype)}
+
+
+def lm_specs(cfg: LMConfig) -> dict:
+    """The parameter tree's partition specs (training layout): each block
+    leaf gains a replicated leading [n_blocks] dim; the embedding rows
+    and the head's columns are split over "model" (vocab-sharded)."""
+    def add_layer_dim(tree):
+        if isinstance(tree, P):
+            return P(None, *tree)
+        return {k: add_layer_dim(v) for k, v in tree.items()}
+
+    blocks = {f"l{i}": add_layer_dim(_layer_specs(cfg, _is_moe_layer(cfg, i)))
+              for i in range(cfg.block_layers)}
+    return {"embed": P("model", None), "blocks": blocks,
+            "final_norm": layers.rms_norm_specs(),
+            "lm_head": P(None, "model")}
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """The parameter tree as ``(shape, dtype)`` leaves, allocating
+    nothing (``repro`` takes ``jax.eval_shape`` of ``init_lm``)."""
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    nb, f32, dt = cfg.n_blocks, torch.float32, cfg.dtype
+
+    def norm(n):
+        return {"scale": ((nb, n), f32)}
+
+    def swiglu(f):
+        return {"gate": ((nb, d, f), dt), "up": ((nb, d, f), dt),
+                "down": ((nb, f, d), dt)}
+
+    def layer(is_moe_layer):
+        attn = {"wq": ((nb, d, H * Dh), dt), "wk": ((nb, d, Hkv * Dh), dt),
+                "wv": ((nb, d, Hkv * Dh), dt), "wo": ((nb, H * Dh, d), dt)}
+        if cfg.qk_norm:
+            attn["q_norm"], attn["k_norm"] = norm(Dh), norm(Dh)
+        p = {"ln1": norm(d), "attn": attn, "ln2": norm(d)}
+        if not is_moe_layer:
+            p["ffn"] = swiglu(cfg.d_ff)
+            return p
+        E, fe = cfg.n_experts, cfg.d_ff_expert
+        p["moe"] = {"router": ((nb, d, E), f32),
+                    "experts": {"gate": ((nb, E, d, fe), dt),
+                                "up": ((nb, E, d, fe), dt),
+                                "down": ((nb, E, fe, d), dt)}}
+        if cfg.n_shared > 0:
+            p["moe"]["shared"] = swiglu(fe * cfg.n_shared)
+        return p
+
+    return {"embed": ((cfg.vocab, d), dt),
+            "blocks": {f"l{i}": layer(_is_moe_layer(cfg, i))
+                       for i in range(cfg.block_layers)},
+            "final_norm": {"scale": ((d,), f32)},
+            "lm_head": ((d, cfg.vocab), dt)}
 
 
 def _views(module, n: int) -> list[dict]:

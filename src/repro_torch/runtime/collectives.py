@@ -4,6 +4,10 @@ The DistCLUB stages need four primitives: ``axis_index()`` (which user
 shard am I), ``all_gather(x)`` over the user axis, ``psum(x)`` and
 ``n_shards``; the sharded DCCB adds ``permute(x)``, its ring gossip, and
 the sharded GAT ``psum_scatter(x)``, the backward of its feature gather.
+The sharded LM decode gathers on another dim, ``all_gather(x, axis=1)``
+(``jax.lax.all_gather(..., axis=1, tiled=True)``), and stacks the pieces
+on a new leading dim, ``all_gather(x, tiled=False)``; it binds one set
+of these per named mesh axis (``launch.mesh.Mesh``).
 
   ``NullCollectives``  one process: every primitive is the identity.
   ``DistCollectives``  bound to a ``torch.distributed`` process group
@@ -49,8 +53,8 @@ class NullCollectives(NamedTuple):
     def axis_index(self) -> int:
         return 0
 
-    def all_gather(self, x):
-        return x
+    def all_gather(self, x, axis: int = 0, tiled: bool = True):
+        return x if tiled else x.unsqueeze(axis)
 
     def psum(self, x):
         return x
@@ -79,22 +83,31 @@ class DistCollectives(NamedTuple):
     def _stage(self, x):
         return x.cpu() if self.host_staged and x.is_cuda else x
 
-    def all_gather(self, x):
-        """[S * n, ...]: every rank's ``x`` tiled on dim 0 in rank order."""
+    def all_gather(self, x, axis: int = 0, tiled: bool = True):
+        """Every rank's ``x`` in rank order, tiled on dim ``axis`` ([..., S
+        * n, ...]), or with ``tiled=False`` stacked on a new dim there
+        ([..., S, n, ...]), as ``jax.lax.all_gather(x, axis=, tiled=)``.
+        The wire carries dim 0 first: another dim is moved there and
+        back."""
+        if not tiled:
+            return self.all_gather(x.unsqueeze(axis), axis)
         BYTES["all_gather"] += x.nbytes * (self.shards - 1)
-        src = self._stage(x.contiguous())
+        src = self._stage(x.movedim(axis, 0).contiguous())
         out = src.new_empty((self.shards * src.shape[0], *src.shape[1:]))
         dist.all_gather_into_tensor(out, src, group=self.group)
-        return out.to(x.device)
+        return out.movedim(0, axis).to(x.device)
 
     def psum(self, x):
         """The sum over ranks, on a copy (the caller's tensor is left as
-        it was)."""
+        it was).  A bf16 ``x`` is summed in f32 and rounded once, as
+        ``psum_scatter`` sums it."""
         BYTES["psum"] += x.nbytes * 2 * (self.shards - 1) // self.shards
         y = self._stage(x)
+        if y.dtype == torch.bfloat16:
+            y = y.float()
         y = y.clone() if y is x else y
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
-        return y.to(x.device)
+        return y.to(device=x.device, dtype=x.dtype)
 
     def psum_scatter(self, x):
         """This rank's rows of the sum over ranks, tiled on dim 0

@@ -59,7 +59,8 @@ def test_package_imports_neither_jax_nor_repro():
                 "launch.faultrun", "launch.abrun", "models.moe",
                 "models.gnn", "configs.deepseek_moe_16b",
                 "configs.llama4_maverick_400b_a17b", "configs.gat_cora",
-                "launch.steps"):
+                "launch.steps", "distributed.decode_shard",
+                "launch.roofline"):
         assert f"repro_torch.{mod}" in names, mod
     for kind in ("synthetic", "drift", "catalog", "replay",
                  "default_synthetic"):
@@ -251,6 +252,29 @@ def test_mesh_refuses_more_nccl_ranks_than_cards(monkeypatch):
         torch.device("cuda", 0)] * 4
     with pytest.raises(ValueError, match="explicit device"):
         mesh.rank_devices(2, "gloo")
+
+
+def test_decode_entry_points_need_a_device_without_cuda(monkeypatch):
+    from repro_torch.distributed import decode_shard
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = transformer.LMConfig(n_layers=1, d_model=16, n_heads=2,
+                               n_kv_heads=1, d_head=8, d_ff=32, vocab=32)
+    one = mesh.make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode_shard.build_decode_step(one, cfg, 2, 8)
+    spec = mesh.mesh_spec((16, 16), ("data", "model"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.build_cell("qwen3-4b", "decode_32k", spec)
+    ds = decode_shard.build_decode_step(one, cfg, 2, 8, device="cpu")
+    model = transformer.LM(cfg, device="cpu")
+    assert ds.shard_params(model.tree())["embed"].device.type == "cpu"
+    # a description of a mesh binds no group: its step refuses to run
+    ds = decode_shard.build_decode_step(
+        mesh.mesh_spec((2, 2), ("data", "model")), cfg, 2, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="no process group"):
+        ds.step(None, torch.zeros(1, dtype=torch.int32), None, 0)
 
 
 def test_recsys_entry_points_need_a_device_without_cuda(monkeypatch):
