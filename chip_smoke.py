@@ -366,6 +366,33 @@ Phases, in order; any failure raises and the script exits non-zero:
            ``gat_loss_local`` on full_graph_sm over 4 gloo ranks sharing
            the card against one process, exact and int8 gathers (1e-5),
            the int8 loss within 5% of the exact one.
+4c. cells  the global-program cells (``launch.steps.build_cell``,
+           DTensor arguments) on one NCCL rank, a one-rank ``DeviceMesh``
+           in this process, each counted: (a) Qwen3-4B ``train_4k`` cut
+           to ``CELL_LM_LAYERS`` layers and one row of ``CELL_LM_SEQ`` in
+           each of its 8 microbatches, remat, 2 AdamW steps (exactly 768
+           flash launches), against the same steps under the plain
+           versions from the same seed: losses within 1e-4, the two
+           runs' updates at a cosine of at least 0.99, and a control
+           with attention on q, k, v rounded to e4m3 refused by that
+           band; (b) Qwen3-4B
+           ``prefill_32k`` at 8 x 2048 against ``lm_prefill`` on the same
+           weights (36 launches; phase 4l's band, bit-equality printed);
+           (c) DCN-v2 ``train_batch`` (65536 rows, one Adagrad step),
+           ``serve_p99``, ``serve_bulk`` and ``retrieval_cand`` (2^20
+           rows), 3 cross launches each, against their plain reruns
+           (logits within 2e-5 of their term scale, parameters 1e-5);
+           (d) ``online_20k`` on phase 4's environment against
+           ``distclub_shard``'s epoch (every field equal; choose,
+           rank1_update_inv, prune and cc_hop launched); (e)
+           deepseek-moe-16b train (16 microbatches of one 2048-token
+           row; held as (a), its reruns on the counted run's routings)
+           and prefill cut to 2 layers; (f) a GAT cell against
+           ``gnn_train_step`` (3 steps' losses 1e-5; parameters after
+           the first within 1e-5 but for at most 0.1% of them).
+           No multi-rank part:
+           gloo ranks sharing the card crash in a functional collective
+           on a CUDA tensor (``PERF.md`` section 7).
 5. full    each kernel against its plain version on the state that run
            left (and on the full first-epoch adjacency for prune, whose
            words on the learned graph must equal its words on the full
@@ -436,7 +463,8 @@ Phases, in order; any failure raises and the script exits non-zero:
            (the walk only where no warp tile holds more than it takes).
 
 Each row of the ``kernels`` JSON has the launches of the main path's
-run and of each phase's counted runs (``train_launches``: phase 4t's).
+run and of each phase's counted runs (``train_launches``: phase 4t's;
+``cells_launches``: phase 4c's).
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -6292,6 +6320,490 @@ def gnn_phase(dev):
     log(f"gnn phase: {time.perf_counter() - t_phase} s")
 
 
+# ---- phase 4c: the global-program cells of launch/steps.py ------------------
+
+CELL_LM_LAYERS = 24          # (a) Qwen3-4B train_4k: 24 of 36 layers (16
+                             # bytes a parameter: 51 GB; all 36: 71 GB)
+CELL_LM_SEQ = 2048           # train_4k's 256 x 4096 cut to one row of
+                             # 2048 a microbatch
+CELL_LM_STEPS = 2
+CELL_TRAIN_BAND = dict(loss=1e-4, cos=0.99)  # (a), (e) against the plain
+                             # rerun: losses' relative difference, the
+                             # updates' cosine; the control (attention on
+                             # q, k, v rounded to e4m3) must fall outside
+CELL_LM_BAND = 5e-2          # (b), (e): phase 4l's logits band
+CELL_MOE_LAYERS = 2          # (e) deepseek-moe-16b cut to 2 of 28 layers
+CELL_DCN_BAND = 2e-5         # (c): phase 4r's, of each logit's term scale
+CELL_DCN_PARAM_BAND = 1e-5   # (c) train: Adagrad at lr 1e-2 on the same
+                             # gradients up to the cross route's rounding
+CELL_GNN = "full_graph_sm"
+CELL_GNN_BAND = 1e-5         # (f) losses: the segment sums' index_add
+                             # order is unspecified (atomics on the card)
+CELL_GNN_PARAM_BAND = 1e-5   # (f) parameters after the first step, all
+CELL_GNN_PARTED = 1e-3       # but this share of them: AdamW's first step
+                             # is ~lr sign(g), so only a gradient within
+                             # the summation order's rounding of 0 or of
+                             # its eps parts the two (at most 1 of 95,536
+                             # elements, gnn_train_step against itself on
+                             # the CPU).  Later steps are printed, not
+                             # held: the first step's differences grow
+                             # through the forward (20% of the elements
+                             # past 1e-5 after 3 steps, the same test)
+
+
+def cut_spec(arch, n_layers, shape, inputs):
+    """``arch``'s spec with its config cut to ``n_layers`` and ``shape``'s
+    inputs replaced by ``inputs`` (``{name: (shape, dtype)}``)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.configs.base import ArchSpec, ShapeCell
+    spec = configs.get(arch)
+    cfg = spec.cfg if n_layers is None else dataclasses.replace(
+        spec.cfg, n_layers=n_layers)
+    kind = spec.shapes[shape].kind
+    return ArchSpec(arch, spec.family, cfg, {
+        shape: ShapeCell(kind, lambda c: inputs, spec.shapes[shape].note)})
+
+
+def full_host(tree):
+    """A DTensor tree's whole leaves on the host, by path."""
+    from repro_torch.convert import _flatten
+    return {k: v.full_tensor().detach().to("cpu", copy=True)
+            for k, v in _flatten(tree)}
+
+
+def counted_launches(counted, launches):
+    for k, v in launches.items():
+        if v:
+            counted[k] = counted.get(k, 0) + v
+
+
+def e4m3_attention(q, k, v, **kw):
+    """The train check's control: the plain attention on q, k and v
+    rounded to float8 e4m3 in the forward pass (straight through in the
+    backward), a lower-precision attention that ``CELL_TRAIN_BAND`` must
+    refuse."""
+    import torch
+    from repro_torch.kernels.flash import ref as fref
+
+    def rounded(t):
+        return t + (t.to(torch.float8_e4m3fn).to(t.dtype) - t).detach()
+
+    return fref.chunked_attention(rounded(q), rounded(k), rounded(v), **kw)
+
+
+def update_agreement(p0, got, ref, dev):
+    """Two runs' updates from ``p0`` (host trees by path), leaf by leaf on
+    the card: (cosine, share of elements whose signs part, parameters'
+    relative L2)."""
+    num = den_k = den_p = diff = norm = 0.0
+    flips = total = 0
+    for k, v0 in p0.items():
+        v0, gk, gp = (t.to(dev).double() for t in (v0, got[k], ref[k]))
+        uk, up = gk - v0, gp - v0
+        num += float((uk * up).sum())
+        den_k += float((uk * uk).sum())
+        den_p += float((up * up).sum())
+        flips += int(((uk > 0) != (up > 0)).sum())
+        total += uk.numel()
+        diff += float((gk - gp).pow(2).sum())
+        norm += float(gp.pow(2).sum())
+        del v0, gk, gp, uk, up
+    return (num / math.sqrt(den_k * den_p), flips / total,
+            math.sqrt(diff / norm))
+
+
+def cells_lm_train(m, dev, arch, n_layers, seq, counted):
+    """``train_4k`` of ``arch`` cut to ``n_layers`` and one row of ``seq``
+    tokens in each of its microbatches, ``CELL_LM_STEPS`` steps through
+    the cell, counted; the same steps again under ``plain_path()`` from
+    the same seed, the losses and the updates held to
+    ``CELL_TRAIN_BAND``, and a third time with ``e4m3_attention``, which
+    the band must refuse.  A MoE model's reruns take the counted run's
+    routings (``force_routing``), as phase 4m's do: a bf16 near tie in a
+    router would otherwise send a token to another expert."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.convert import _flatten
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash import ops as fops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import optimizer
+    B = configs.get(arch).cfg.microbatches
+    spec = cut_spec(arch, n_layers, "train_4k", {
+        "tokens": ((B, seq), torch.int32), "labels": ((B, seq), torch.int32)})
+    cfg = spec.cfg
+    cell = steps.build_lm_cell(spec, "train_4k", m)
+    tokens = [train.zipf_tokens(cfg.vocab, (B, seq + 1), SEED, i, dev)
+              for i in range(CELL_LM_STEPS)]
+    routes = []
+
+    def routing(first):
+        if not cfg.is_moe:
+            return contextlib.nullcontext()
+        return capture_routing(routes) if first else force_routing(routes,
+                                                                   [])
+
+    def run(count):
+        model = tr.LM(cfg, seed=SEED, device=dev)
+        params = model.tree()
+        p0 = ({k: v.detach().to("cpu", copy=True) for k, v in
+               _flatten(params)} if count else None)
+        p, o = cell.from_full((params, optimizer.adamw_init(params)))
+        del model, params
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses, step_s = [], []
+        with routing(count):
+            for t in tokens:
+                t0 = time.perf_counter()
+                p, o, loss = cell.step_fn(p, o, *cell.from_full(
+                    (t[:, :-1], t[:, 1:]), first=2))
+                losses.append(float(loss.full_tensor()))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        out = full_host(p)
+        del p, o, loss
+        free_card()
+        return losses, step_s, launches, peak, out, p0
+
+    losses, step_s, launches, peak, got, p0 = run(True)
+    want = CELL_LM_STEPS * cfg.microbatches * 2 * cfg.n_layers
+    log(f"cells {arch} train_4k ({cfg.n_layers} layers, {B} x {seq}, "
+        f"{cfg.microbatches} microbatches, remat {cfg.remat}): losses "
+        f"{losses}; seconds per step {step_s}; max_memory_allocated={peak}; "
+        f"launches {launches} (want flash {want})")
+    assert launches.get("flash") == want and sum(launches.values()) == want, \
+        (launches, want)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert all(torch.isfinite(v.float()).all() for v in got.values())
+    counted_launches(counted, launches)
+    with plain_path():
+        p_losses, p_step_s, p_launches, _, ref, _ = run(False)
+        assert not sum(p_launches.values()), p_launches
+        with mock.patch.object(fops, "attention", e4m3_attention):
+            c_losses, _, c_launches, _, ctl, _ = run(False)
+        assert not sum(c_launches.values()), c_launches
+    band = CELL_TRAIN_BAND
+    read = {}
+    for label, out, ls in (("kernel", got, losses), ("e4m3 control", ctl,
+                                                     c_losses)):
+        d_loss = max(abs(a - b) / abs(b) for a, b in zip(ls, p_losses))
+        cos, flips, p_rel = update_agreement(p0, out, ref, dev)
+        read[label] = dict(loss_rel=d_loss, cos=cos, flips=flips,
+                           param_rel=p_rel,
+                           held=d_loss <= band["loss"] and cos >= band["cos"])
+    del got, ref, ctl, p0
+    log(f"cells {arch} train_4k against the plain rerun (losses "
+        f"{p_losses}, seconds per step {p_step_s}; control losses "
+        f"{c_losses}): {read} (band: loss rel <= {band['loss']}, cosine >= "
+        f"{band['cos']})")
+    assert read["kernel"]["held"], read["kernel"]
+    assert not read["e4m3 control"]["held"], (
+        f"{arch}: the train band passes the e4m3 control")
+    return {"losses": losses, "step_s": step_s, "peak": peak, **read}
+
+
+def cells_lm_prefill(m, dev, arch, n_layers, counted):
+    """``prefill_32k`` of ``arch`` (cut to ``n_layers`` where given) at
+    phase 4l's 8 x 2048 through the cell, counted, against
+    ``lm_prefill`` on the same weights (one rank runs the same ops on the
+    same tensors: expected bit for bit; held to phase 4l's band)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    spec = cut_spec(arch, n_layers, "prefill_32k",
+                    {"tokens": ((LM_BATCH, LM_PROMPT), torch.int32)})
+    cfg = spec.cfg
+    model = tr.LM(cfg, seed=SEED, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                           device=dev, dtype=torch.int32)
+    cell = steps.build_lm_cell(spec, "prefill_32k", m)
+    args = cell.from_full((model.tree(), tokens))
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, (kc, vc) = cell.step_fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    logits, kc, vc = (t.full_tensor() for t in (logits, kc, vc))
+    with torch.no_grad():
+        ref, (rk, rv) = tr.lm_prefill(model, tokens)
+    exact = all(torch.equal(a, b) for a, b in ((logits, ref), (kc, rk),
+                                               (vc, rv)))
+    errs = [rel_l2(logits, ref), rel_l2(kc, rk), rel_l2(vc, rv)]
+    log(f"cells {arch} prefill_32k ({cfg.n_layers} layers, {LM_BATCH} x "
+        f"{LM_PROMPT}): {secs} s, max_memory_allocated={peak}, launches "
+        f"{launches}; against lm_prefill: bit-equal {exact}, rel L2 "
+        f"logits/k/v {errs} (band {CELL_LM_BAND})")
+    want = cfg.n_layers
+    assert launches.get("flash") == want and sum(launches.values()) == want, \
+        (launches, want)
+    assert max(errs) <= CELL_LM_BAND, errs
+    counted_launches(counted, launches)
+    del model, logits, kc, vc, ref, rk, rv, args
+    free_card()
+    return {"secs": secs, "peak": peak, "bit_equal": exact, "rel_l2": errs}
+
+
+def cells_dcn(m, dev, counted):
+    """DCN-v2 at its published config: ``train_batch`` (65536 rows, one
+    Adagrad step), ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``
+    (2^20 rows) through their cells, counted, each against the same cell
+    under ``plain_path()``: logits within ``CELL_DCN_BAND`` of each
+    logit's term scale, the train loss and parameters too."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import recsys_shapes as rs
+    from repro_torch.convert import _flatten
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import dcn_v2
+    from repro_torch.train import optimizer
+    spec = configs.get("dcn-v2")
+    cfg = spec.cfg
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    out = {}
+
+    def model():
+        return dcn_v2.DCNv2(cfg, seed=SEED, device=dev)
+
+    dense, sparse = dcn_traffic(g, cfg, rs.TRAIN_B, dev)
+    labels = (torch.rand(rs.TRAIN_B, generator=g, device=dev) < 0.3).float()
+    cell = steps.build_cell("dcn-v2", "train_batch", m)
+
+    def train_run():
+        params = model().tree()
+        args = cell.from_full((params, optimizer.adagrad_init(params), dense,
+                               sparse, labels))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        p, _, loss = cell.step_fn(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (float(loss.full_tensor()), {k: v.full_tensor() for k, v in
+                                            _flatten(p)},
+                dict(_build.LAUNCHES), secs)
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    loss, params, launches, secs = train_run()
+    peak = torch.cuda.max_memory_allocated()
+    counted_launches(counted, launches)
+    with plain_path():
+        p_loss, p_params, p_launches, _ = train_run()
+    assert not sum(p_launches.values()), p_launches
+    d_param = max(float((params[k] - p_params[k]).abs().max())
+                  for k in params)
+    log(f"cells dcn-v2 train_batch ({rs.TRAIN_B} rows): {secs} s, "
+        f"max_memory_allocated={peak}, launches {launches}; loss {loss} "
+        f"against plain {p_loss}; parameters max |diff| {d_param} (band "
+        f"{CELL_DCN_PARAM_BAND})")
+    assert launches.get("cross") == cfg.n_cross_layers, launches
+    assert abs(loss - p_loss) <= CELL_DCN_BAND * abs(p_loss), (loss, p_loss)
+    assert d_param <= CELL_DCN_PARAM_BAND, d_param
+    out["train_batch"] = {"secs": secs, "peak": peak, "loss": loss,
+                          "param_diff": d_param}
+    del params, p_params
+    free_card()
+
+    mdl = model()
+    for shape, rows in (("serve_p99", rs.P99_B), ("serve_bulk", rs.BULK_B),
+                        ("retrieval_cand", rs.N_CAND_RETR)):
+        cell = steps.build_cell("dcn-v2", shape, m)
+        d, s = dcn_traffic(g, cfg, rows, dev)
+        args = cell.from_full((mdl.tree(), d, s))
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        got = cell.step_fn(*args).full_tensor()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        counted_launches(counted, launches)
+        with plain_path():
+            ref = cell.step_fn(*args).full_tensor()
+            with torch.no_grad():
+                scale = dcn_term_scale(mdl, d, s)
+        err = float(((got - ref).abs() / scale).max())
+        log(f"cells dcn-v2 {shape} ({rows} rows): {secs} s, "
+            f"max_memory_allocated={peak}, launches {launches}; logits "
+            f"against plain: max |diff| / term scale {err} (band "
+            f"{CELL_DCN_BAND})")
+        assert launches.get("cross") == cfg.n_cross_layers, launches
+        assert err <= CELL_DCN_BAND, (shape, err)
+        out[shape] = {"secs": secs, "peak": peak, "err": err}
+        del d, s, args, got, ref, scale
+        free_card()
+    return out
+
+
+def cells_bandit(m, dev, theta, counted):
+    """``distclub-paper`` ``online_20k``: one epoch through the cell on
+    phase 4's environment, counted, against ``distclub_shard``'s epoch on
+    the same rank and environment (phase 4x's one-NCCL-rank runtime):
+    every field of the state, the metrics and the cluster count equal."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.core import env, env_ops
+    from repro_torch.distributed import distclub_shard
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    spec = configs.get("distclub-paper")
+    hyper = spec.cfg
+    ops = env_ops.synthetic_ops(env.SyntheticEnv(theta, hyper.n_candidates))
+    col = m.col(("data", "model"))
+    init, epoch = distclub_shard.make_runtime(
+        col, paper.N_USERS, paper.D_FEAT, hyper, ops, device=dev)
+    cell = steps.build_bandit_cell(spec, "online_20k", m, device=dev,
+                                   ops=ops)
+    args = cell.to_args((init(), torch.tensor([SEED, 0], device=dev)))
+    free_card()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state, metrics, n_clu = cell.step_fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    counted_launches(counted, launches)
+    ref, r_metrics, r_clu = epoch(init(), SEED, 0)
+    equal = {f: torch.equal(getattr(state, f).to_local(), getattr(ref, f))
+             for f in ref._fields}
+    equal["metrics"] = all(torch.equal(a, b) for a, b in zip(metrics,
+                                                            r_metrics))
+    log(f"cells distclub-paper online_20k: one epoch {secs} s, launches "
+        f"{launches}, clusters {int(n_clu)} (distclub_shard {int(r_clu)}); "
+        f"equal to distclub_shard's epoch: {equal}")
+    assert all(equal.values()) and int(n_clu) == int(r_clu), equal
+    for k in ("choose", "rank1_update_inv", "prune", "cc_hop"):
+        assert launches.get(k, 0) > 0, (k, launches)
+    return {"secs": secs, "clusters": int(n_clu)}
+
+
+def cells_gnn(m, dev):
+    """One GAT cell (``CELL_GNN``) through ``build_cell``, ``GNN_STEPS``
+    steps, against ``gnn_train_step`` on the same rank: losses within
+    ``CELL_GNN_BAND``; the parameters after the first step within
+    ``CELL_GNN_PARAM_BAND`` but for at most ``CELL_GNN_PARTED`` of them,
+    after the last printed."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.runtime.collectives import NullCollectives
+    spec = configs.get("gat-cora")
+    cfg = spec.cell_cfg(CELL_GNN)
+    feats, src, dst, labels, mask, _ = gnn_cell_inputs(CELL_GNN, cfg, dev)
+    cell = steps.build_cell("gat-cora", CELL_GNN, m)
+    params, opt = gnn_params(cfg, dev)
+    p, o, *graph = cell.from_full((params, opt, feats, src, dst, labels,
+                                   mask))
+    rp, ro = gnn_params(cfg, dev)
+
+    def apart(p, rp):
+        """(elements past the band, of how many, max |diff|)."""
+        parted = total = 0
+        d_max = 0.0
+        for la, lb in zip(p, rp):
+            for name, a in la.items():
+                d = (a.full_tensor() - lb[name]).detach().abs()
+                parted += int((d > CELL_GNN_PARAM_BAND).sum())
+                total += d.numel()
+                d_max = max(d_max, float(d.max()))
+        return parted, total, d_max
+
+    losses, ref, step_s, parts = [], [], [], []
+    for _ in range(GNN_STEPS):
+        t0 = time.perf_counter()
+        p, o, loss = cell.step_fn(p, o, *graph)
+        losses.append(float(loss.full_tensor()))
+        step_s.append(time.perf_counter() - t0)
+        rp, ro, rl = steps.gnn_train_step(rp, ro, cfg, feats, src, dst,
+                                          labels, mask, NullCollectives())
+        ref.append(float(rl))
+        parts.append(apart(p, rp))
+    d_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    log(f"cells gat-cora {CELL_GNN}: losses {losses} (gnn_train_step "
+        f"{ref}: rel {d_loss}, band {CELL_GNN_BAND}); parameters past "
+        f"{CELL_GNN_PARAM_BAND} after each step (parted, of, max |diff|): "
+        f"{parts} (after the first, limit {CELL_GNN_PARTED} of them); "
+        f"seconds per step {step_s}")
+    parted, total, _ = parts[0]
+    assert d_loss <= CELL_GNN_BAND, (losses, ref)
+    assert parted <= CELL_GNN_PARTED * total, parts
+    return {"losses": losses, "step_s": step_s}
+
+
+def cells_phase(dev, theta):
+    """Phase 4c: the global-program cells of ``launch.steps`` on one NCCL
+    rank (a one-rank ``DeviceMesh`` on ``cuda:0``, process group in this
+    process): (a) Qwen3-4B ``train_4k`` cut to ``CELL_LM_LAYERS`` layers
+    and 8 x ``CELL_LM_SEQ`` (one row a microbatch), remat,
+    AdamW, against its plain rerun; (b) Qwen3-4B ``prefill_32k`` at 8 x
+    2048, full depth, against ``lm_prefill``; (c) DCN-v2's four cells at
+    their published rows against their plain reruns; (d) ``online_20k``
+    against ``distclub_shard``; (e) deepseek-moe-16b's train and prefill
+    cut to ``CELL_MOE_LAYERS`` layers (the rank's expert block); (f) a GAT
+    cell against ``gnn_train_step``.  Returns the launches of the cells'
+    counted runs by kernel."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    free_card()
+    held = torch.cuda.memory_allocated()
+    counted = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cells_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        m = mesh_lib.make_mesh((1, 1), ("data", "model"), "cuda")
+        log(f"cells: one NCCL rank, mesh {m.shape}, device mesh "
+            f"{m.device_mesh}; {held} bytes held by earlier phases")
+        secs = {}
+        t0 = time.perf_counter()
+        cells_lm_train(m, dev, LM_ARCH, CELL_LM_LAYERS, CELL_LM_SEQ, counted)
+        secs["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cells_lm_prefill(m, dev, LM_ARCH, None, counted)
+        secs["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cells_dcn(m, dev, counted)
+        secs["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cells_bandit(m, dev, theta, counted)
+        secs["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cells_lm_train(m, dev, "deepseek-moe-16b", CELL_MOE_LAYERS,
+                       LM_PROMPT, counted)
+        cells_lm_prefill(m, dev, "deepseek-moe-16b", CELL_MOE_LAYERS,
+                         counted)
+        secs["e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cells_gnn(m, dev)
+        secs["f"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_card()
+    log(f"cells: launches {counted}; seconds by part {secs}; phase 4c "
+        f"{time.perf_counter() - t_phase} s; card: {smi_line()}")
+    return counted
+
+
 def recsys_extra_times(recsys, flush, x0b, xl1, c1, bags_p99):
     """Beside the kernel line: cross on the serve_bulk layer-2 inputs
     (the wrapper's tensor route, its W split included) in turns with its
@@ -6518,6 +7030,9 @@ def main() -> int:
 
     # ---- phase 4g: the GAT ------------------------------------------------------
     gnn_phase(dev)
+
+    # ---- phase 4c: the global-program cells on one NCCL rank ------------------
+    cells_launches = cells_phase(dev, e.theta)
 
     # ---- phase 5: kernels against plain versions at full width --------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -6892,6 +7407,7 @@ def main() -> int:
             "shard_launches": shard_launches[kname],
             "ops_launches": ops_launches[kname],
             "train_launches": train_launches.get(kname, 0),
+            "cells_launches": cells_launches.get(kname, 0),
         })
         log(f"time {kname}: kernel {ms} ms, plain {plain_ms} ms, "
             f"library {lib_ms} ms, bound {bms} ms ({by}; {n_bytes} bytes, "

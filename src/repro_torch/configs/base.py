@@ -7,9 +7,8 @@ unit of work; ``input_specs`` describes its inputs as
 ``{name: (shape, torch.dtype)}``, allocating nothing (``repro`` uses
 ``jax.ShapeDtypeStruct``), from the cell's config: ``cell_cfg`` applies
 the cell's ``cfg_overrides`` (gat-cora's per-graph feature and class
-dims).  The four recsys archs, the five LMs and the GNN register; the
-paper's own bandit configuration (``distclub_paper``) stays a plain
-module.
+dims).  The four recsys archs, the five LMs, the GNN and the paper's
+own bandit configuration (``distclub_paper``) register.
 """
 from __future__ import annotations
 
@@ -21,7 +20,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
-    kind: str                      # "train" | "serve" | "decode"
+    kind: str              # "train" | "serve" | "decode" | "bandit_epoch"
     make_inputs: Callable[[Any], dict]  # cfg -> {name: (shape, dtype)}
     note: str = ""
     cfg_overrides: tuple = ()      # (("d_feat", 100), ...) applied per cell

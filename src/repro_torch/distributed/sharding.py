@@ -9,16 +9,23 @@ past its entries are replicated.  ``shard`` cuts a full tensor to one
 rank's piece (the role of ``jax.device_put`` under a ``NamedSharding``),
 ``assemble`` puts the ranks' pieces back together (gathering to the
 host), ``shard_shape`` is a piece's shape.  ``map_specs`` walks a spec
-tree (nested dicts of specs) beside a tree of tensors.
+tree (nested dicts, lists and NamedTuples of specs) beside a tree of
+tensors.
 
-``repro``'s ``hint_mesh``, ``hint`` and ``zero_specs`` are not ported
-yet: the LM training cell, a GSPMD program, is their only caller, and
-they come with the GSPMD cells (ROADMAP queue 1, item 9d-2).
+The global-program cells (``launch.steps``) hold their arguments as
+DTensors on the mesh's ``DeviceMesh``: ``placements`` turns a spec into
+a DTensor's placements (``Partial`` on given axes for a gradient each
+rank summed over its own batch rows).  ``zero_specs`` adds "data"
+to a spec tree (the ZeRO layout of optimizer moments and gradient
+accumulators), and ``hint``, under ``hint_mesh``, redistributes a
+DTensor to a spec, where ``repro``'s puts a sharding constraint.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 
 import torch
 
@@ -103,10 +110,22 @@ def assemble(pieces: list, spec: P, mesh) -> torch.Tensor:
 
 
 def map_specs(fn, specs, tree, *rest):
-    """``fn(spec, leaf, *rest_leaves)`` over a spec tree and trees of the
-    same keys; raises where the keys differ."""
+    """``fn(spec, leaf, *rest_leaves)`` over a spec tree (nested dicts,
+    lists and NamedTuples of specs) and trees of the same keys; raises
+    where the keys differ."""
     if isinstance(specs, P):
         return fn(specs, tree, *rest)
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*(map_specs(fn, getattr(specs, f), getattr(
+            tree, f), *(getattr(r, f) for r in rest))
+            for f in specs._fields))
+    if isinstance(specs, list):
+        for t in (tree, *rest):
+            if not isinstance(t, (list, tuple)) or len(t) != len(specs):
+                raise ValueError(f"tree {type(t).__name__} against a list "
+                                 f"of {len(specs)} specs")
+        return [map_specs(fn, s, t, *(r[i] for r in rest))
+                for i, (s, t) in enumerate(zip(specs, tree))]
     for t in (tree, *rest):
         if not isinstance(t, dict) or set(t) != set(specs):
             got = sorted(t) if isinstance(t, dict) else type(t).__name__
@@ -115,3 +134,77 @@ def map_specs(fn, specs, tree, *rest):
     return {k: map_specs(fn, specs[k], tree[k], *(r[k] for r in rest))
             for k in specs}
 
+
+def zero_specs(spec_tree, shape_tree, data_size: int):
+    """ZeRO-shard a spec tree: add "data" on the largest still-replicated
+    dim that ``data_size`` divides, in every leaf whose spec does not
+    already name "data" (``repro``'s rule; the leaves of ``shape_tree``
+    are ``(shape, dtype)``).  Optimizer moments and gradient accumulators
+    take this layout: they carry no compute, so sharding them costs a
+    reduce-scatter and an all-gather a step."""
+    def one(spec, leaf):
+        shape = leaf[0]
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        if any("data" in axes_tuple(e) for e in entries):
+            return P(*entries)
+        best, best_dim = 0, -1
+        for i, e in enumerate(entries):
+            if e is None and shape[i] % data_size == 0 and shape[i] > best:
+                best, best_dim = shape[i], i
+        if best_dim >= 0:
+            entries[best_dim] = "data"
+        return P(*entries)
+
+    return map_specs(one, spec_tree, shape_tree)
+
+
+def placements(spec: P, device_mesh, partial=()) -> tuple:
+    """The DTensor placements of ``spec`` on ``device_mesh`` (its dims
+    named as the spec's axes): ``Shard(dim)`` on each mesh dim an entry
+    names, ``Partial()`` on the mesh dims of ``partial`` (axis names)
+    the spec leaves free, ``Replicate()`` elsewhere.  A tuple entry
+    splits its dim over its axes in the mesh's order, the first major,
+    as JAX and ``shard`` split it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = axes_tuple(entry)
+        pos = [names.index(a) for a in axes]
+        if pos != sorted(set(pos)):
+            raise ValueError(f"spec {spec}: axes {axes} are not in the "
+                             f"mesh's order {names}")
+        for i in pos:
+            out[i] = Shard(dim)
+    for a in partial:
+        i = names.index(a)
+        if out[i] == Replicate():
+            out[i] = Partial()
+    return tuple(out)
+
+
+_HINT = threading.local()
+
+
+@contextlib.contextmanager
+def hint_mesh(mesh):
+    """Make ``mesh`` the ambient mesh of ``hint`` inside the block."""
+    prev = getattr(_HINT, "mesh", None)
+    _HINT.mesh = mesh
+    try:
+        yield
+    finally:
+        _HINT.mesh = prev
+
+
+def hint(x, *entries):
+    """``x`` redistributed to ``P(*entries)`` when a hint mesh is active
+    and ``x`` is a DTensor; else ``x`` untouched (a rank's local tensor
+    already has its layout)."""
+    from torch.distributed.tensor import DTensor
+
+    if getattr(_HINT, "mesh", None) is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh,
+                          placements(P(*entries), x.device_mesh))

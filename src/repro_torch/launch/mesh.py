@@ -24,6 +24,11 @@ without any process group (the cell builder's shapes); ``make_mesh``,
 called by every rank of a group, also binds the collectives of every
 axis and of every tuple of axes (in the mesh's order) to a group of its
 own.  A mesh of one rank gives ``NullCollectives`` on every axis.
+``make_mesh`` also builds the ``DeviceMesh`` of the same named axes
+(``init_device_mesh``, which lays the ranks out row-major as
+``Mesh.coords`` does), on which the global-program cells hold their
+arguments as DTensors; ``make_production_mesh`` is ``repro``'s (16, 16)
+or (2, 16, 16) mesh on the world group.
 
 The H100 figures below stand where ``repro`` has TPU v5e ones; the
 roofline (``launch.roofline``) divides by them.
@@ -43,7 +48,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..distributed.sharding import axes_tuple, flat_axis_size
+from ..distributed.sharding import (P, axes_tuple, flat_axis_size,
+                                    placements)
 from ..runtime.collectives import DistCollectives, NullCollectives, bind
 
 # H100 SXM5 80GB roofline constants, per card
@@ -66,14 +72,17 @@ class Mesh:
     """Named mesh axes of ``sizes`` ranks each, and this rank's place:
     ranks are numbered row-major over the axes (the last axis minor).
     ``groups`` maps each tuple of axes (in the mesh's order) of more than
-    one rank to the collectives bound to its group; a description made by
-    ``mesh_spec`` has none."""
+    one rank to the collectives bound to its group, ``device_mesh`` is
+    the ``DeviceMesh`` of the same axes; a description made by
+    ``mesh_spec`` has neither."""
 
     axis_names: tuple
     sizes: tuple
     rank: int = 0
     groups: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
+    device_mesh: object = dataclasses.field(default=None, compare=False,
+                                            repr=False)
 
     @property
     def shape(self) -> dict:
@@ -123,6 +132,12 @@ class Mesh:
                                f"for {axes}: build it with make_mesh")
         return self.groups[axes]
 
+    def group(self, axes):
+        """The process group over ``axes``, or None where they hold one
+        rank."""
+        col = self.col(axes)
+        return None if isinstance(col, NullCollectives) else col.group
+
 
 def mesh_spec(shape, axis_names, rank: int = 0) -> Mesh:
     """A mesh of ``shape`` over ``axis_names`` seen from ``rank``, with no
@@ -135,13 +150,17 @@ def mesh_spec(shape, axis_names, rank: int = 0) -> Mesh:
     return Mesh(axis_names, shape, rank)
 
 
-def make_mesh(shape, axis_names) -> Mesh:
+def make_mesh(shape, axis_names, device_type=None) -> Mesh:
     """This rank's mesh of ``shape`` over ``axis_names``, on the world
     group (whose size must be the mesh's), with a group bound for every
-    tuple of axes of more than one rank.  Every rank creates every
-    group, in the same order.  Without an initialised group a mesh of
-    one rank is returned as described."""
+    tuple of axes of more than one rank and, given a ``device_type``
+    ("cuda" or "cpu"), the ``DeviceMesh`` of the same axes.  Every rank
+    creates every group, in the same order.  Without an initialised group
+    a mesh of one rank is returned as described."""
     if not dist.is_initialized():
+        if device_type is not None:
+            raise RuntimeError("a DeviceMesh needs an initialised process "
+                               "group")
         if math.prod(shape) != 1:
             raise RuntimeError(f"a mesh of {tuple(shape)} needs an "
                                "initialised process group")
@@ -166,7 +185,20 @@ def make_mesh(shape, axis_names) -> Mesh:
                 group = dist.new_group(ranks)
                 if m.rank in ranks:
                     groups[axes] = bind(group)
-    return Mesh(names, m.sizes, m.rank, groups)
+    dm = None
+    if device_type is not None:
+        from torch.distributed.device_mesh import init_device_mesh
+        dm = init_device_mesh(device_type, m.sizes, mesh_dim_names=names)
+    return Mesh(names, m.sizes, m.rank, groups, dm)
+
+
+def make_production_mesh(multi_pod: bool = False,
+                         device_type: str = "cuda") -> Mesh:
+    """``repro``'s production mesh on the world group: (16, 16) over
+    ("data", "model"), or (2, 16, 16) over ("pod", "data", "model")."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), device_type)
+    return make_mesh((16, 16), ("data", "model"), device_type)
 
 
 def batch_axes(mesh: Mesh) -> tuple:
@@ -176,6 +208,20 @@ def batch_axes(mesh: Mesh) -> tuple:
 
 def all_axes(mesh: Mesh) -> tuple:
     return tuple(mesh.axis_names)
+
+
+def resolve(mesh: Mesh, spec):
+    """The DTensor placements of ``spec`` on the mesh's ``DeviceMesh``
+    (``repro`` maps a logical spec onto the mesh unchanged)."""
+    return placements(spec, mesh.device_mesh)
+
+
+def batch_spec(mesh: Mesh, rank: int, sharded_dim: int = 0):
+    """A rank-``rank`` spec with dim ``sharded_dim`` over the batch
+    axes."""
+    entries = [None] * rank
+    entries[sharded_dim] = batch_axes(mesh)
+    return P(*entries)
 
 
 def init_group(backend: str, rank: int, world: int, init_method: str,

@@ -13,8 +13,8 @@ ring over ``repro``'s 16-wide "model" axis (two 8-card NVLink nodes).
 The numerators are ``repro``'s analytic workload model, ported with its
 arithmetic unchanged: exact matmul and byte counts from the config
 (``ana_*``).  A dry-run record (``hlo_*`` and memory fields) comes from
-the port's own dry run, which writes ``results/dryrun_torch``; until it
-exists that directory is empty and ``load_all`` returns nothing.
+the port's own dry run (``launch.dryrun``), whose records for every cell
+on both production meshes are kept under ``results/dryrun_torch``.
 
 MODEL_FLOPS = 6 N D (dense train) / 6 N_active D (MoE) / 2 N D (forward
 only): the useful-compute yardstick; ana_flops / MODEL_FLOPS shows the
@@ -211,23 +211,19 @@ def analyze(rec: dict) -> Terms:
     chips = 1
     for s in rec["mesh"]:
         chips *= s
-    if rec["arch"] == "distclub-paper":     # a plain module in the port
-        from ..configs import distclub_paper
-        model, ana, hbm, coll = _bandit_flops_bytes(distclub_paper.CONFIG,
-                                                    chips)
+    spec = configs.get(rec["arch"])
+    cfg = spec.cell_cfg(shape)
+    if spec.family == "bandit":
+        model, ana, hbm, coll = _bandit_flops_bytes(cfg, chips)
+    elif spec.family == "lm":
+        model, ana, hbm, coll = _lm_flops_bytes(cfg, shape, chips,
+                                                rec["multi_pod"])
+    elif spec.family == "gnn":
+        from ..configs.gat_cora import CELL_DIMS
+        model, ana, hbm, coll = _gnn_flops_bytes(cfg, shape, chips,
+                                                 CELL_DIMS[shape])
     else:
-        spec = configs.get(rec["arch"])
-        cfg = spec.cell_cfg(shape)
-        if spec.family == "lm":
-            model, ana, hbm, coll = _lm_flops_bytes(cfg, shape, chips,
-                                                    rec["multi_pod"])
-        elif spec.family == "gnn":
-            from ..configs.gat_cora import CELL_DIMS
-            model, ana, hbm, coll = _gnn_flops_bytes(cfg, shape, chips,
-                                                     CELL_DIMS[shape])
-        else:
-            model, ana, hbm, coll = _recsys_flops_bytes(spec, cfg, shape,
-                                                        chips)
+        model, ana, hbm, coll = _recsys_flops_bytes(spec, cfg, shape, chips)
     return Terms(
         arch=rec["arch"], shape=shape,
         mesh="x".join(str(s) for s in rec["mesh"]), chips=chips,

@@ -222,11 +222,7 @@ def train_recsys(spec, args):
 
 
 def get_spec(arch: str) -> ArchSpec:
-    """The registered spec, or the plain-module bandit configuration."""
-    if arch == "distclub-paper":
-        from ..configs import distclub_paper
-        return ArchSpec(arch_id=arch, family="bandit",
-                        cfg=distclub_paper.CONFIG, shapes={})
+    """The registered spec of ``arch``."""
     return configs.get(arch)
 
 

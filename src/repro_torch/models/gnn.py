@@ -20,10 +20,10 @@ are row blocks of the ranks; each rank holds the edges whose destination
 lies in its block, so every segment reduction stays local.  The one
 collective a layer is the all-gather of the node embeddings, on the
 collectives object ``col`` (``runtime.collectives``) where ``repro``
-names mesh axes.  Gradients follow ``repro``'s shard_map transposes: an
-all-gather's backward is the reduce-scatter of the cotangents, a psum's
-the psum; so a rank's gradient is its own, and ``launch.steps``
-averages them.
+names mesh axes.  Gradients follow ``repro``'s shard_map transposes
+(``distributed.spmd``'s ``gather`` and ``psum``): an all-gather's
+backward is the reduce-scatter of the cotangents, a psum's the psum; so
+a rank's gradient is its own, and ``launch.steps`` averages them.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed import spmd
 from . import layers
 
 
@@ -146,34 +147,6 @@ def gat_loss(params, cfg: GNNConfig, feats, src, dst, labels, mask):
 # --- sharded message passing -----------------------------------------------
 
 
-class _AllGather(torch.autograd.Function):
-    """``col.all_gather`` (tiled on dim 0); backward the reduce-scatter of
-    the cotangents, ``jax.lax.all_gather``'s transpose."""
-
-    @staticmethod
-    def forward(ctx, x, col):
-        ctx.col = col
-        return col.all_gather(x)
-
-    @staticmethod
-    def backward(ctx, ct):
-        return ctx.col.psum_scatter(ct), None
-
-
-class _Psum(torch.autograd.Function):
-    """``col.psum``; backward the psum of the cotangents, ``jax.lax.psum``'s
-    transpose under shard_map."""
-
-    @staticmethod
-    def forward(ctx, x, col):
-        ctx.col = col
-        return col.psum(x)
-
-    @staticmethod
-    def backward(ctx, ct):
-        return ctx.col.psum(ct), None
-
-
 def quantize_rows(h):
     """Per-row int8 codes of ``h`` [n, w] and their f32 scales [n, 1]:
     ``max(max |h| / 127, 1e-9)``, ``round`` half to even, clipped to
@@ -208,7 +181,7 @@ def gather_features(h, cfg: GNNConfig, col):
     per-row scales under ``cfg.quantized_gather``, else through bf16."""
     if cfg.quantized_gather:
         return _QuantizedGather.apply(h, col)
-    return _AllGather.apply(h.to(torch.bfloat16), col).float()
+    return spmd.gather(h.to(torch.bfloat16), 0, col).float()
 
 
 def gat_loss_local(params, cfg: GNNConfig, feats, src, dst, labels, mask,
@@ -229,7 +202,7 @@ def gat_loss_local(params, cfg: GNNConfig, feats, src, dst, labels, mask,
                                    last=i == cfg.n_layers - 1)
 
     num, den = _nll_terms(x_local, labels, mask)
-    return _Psum.apply(num, col) / torch.clamp(col.psum(den), min=1.0)
+    return spmd.psum(num, col) / torch.clamp(col.psum(den), min=1.0)
 
 
 # --- neighbor sampler (host side) ------------------------------------------

@@ -91,6 +91,10 @@ def rms_norm_specs() -> dict:
     return {"scale": P()}
 
 
+def layer_norm_specs() -> dict:
+    return {"scale": P(), "bias": P()}
+
+
 def init_layer_norm(d: int, device) -> dict:
     return {"scale": torch.ones(d, device=device),
             "bias": torch.zeros(d, device=device)}
@@ -151,6 +155,21 @@ def init_mlp(gen: torch.Generator, d_in: int, hidden: tuple[int, ...],
     dims = [d_in, *hidden] + ([d_out] if d_out is not None else [])
     return [{"w": dense_init(gen, a, b),
              "b": torch.zeros(b, device=gen.device)}
+            for a, b in zip(dims[:-1], dims[1:])]
+
+
+def mlp_specs(n_layers: int) -> list[dict]:
+    """Alternating column- and row-split layers over "model"."""
+    return [{"w": P(None, "model"), "b": P("model")} if i % 2 == 0
+            else {"w": P("model", None), "b": P()}
+            for i in range(n_layers)]
+
+
+def mlp_shapes(d_in: int, hidden: tuple[int, ...],
+               d_out: int | None = None) -> list[dict]:
+    """``init_mlp``'s leaves as ``(shape, dtype)``, allocating nothing."""
+    dims = [d_in, *hidden] + ([d_out] if d_out is not None else [])
+    return [{"w": ((a, b), torch.float32), "b": ((b,), torch.float32)}
             for a, b in zip(dims[:-1], dims[1:])]
 
 

@@ -17,6 +17,8 @@ import dataclasses
 import torch
 
 from ... import resolve_device
+from ...distributed import spmd
+from ...distributed.sharding import P
 from ...kernels.cross import ops as cross_ops
 from .. import layers
 from . import embedding
@@ -55,9 +57,33 @@ def init_dcn(gen: torch.Generator, cfg: DCNConfig) -> dict:
     return {"tables": tables, "cross": cross, "deep": deep, "final": final}
 
 
+def dcn_specs(cfg: DCNConfig) -> dict:
+    """``repro``'s layout: the cross W [429, 429] replicated (429 is not
+    16-divisible), the deep tower over "model", the tables row-sharded
+    per field."""
+    return {"tables": P(None, "model", None),
+            "cross": [{"W": P(), "b": P()}
+                      for _ in range(cfg.n_cross_layers)],
+            "deep": layers.mlp_specs(len(cfg.mlp_dims)),
+            "final": P()}
+
+
+def param_shapes(cfg: DCNConfig) -> dict:
+    """The parameter tree as ``(shape, dtype)`` leaves."""
+    d, f32 = cfg.d_interact, torch.float32
+    return {"tables": ((cfg.n_sparse, cfg.vocab_per_field, cfg.embed_dim),
+                       f32),
+            "cross": [{"W": ((d, d), f32), "b": ((d,), f32)}
+                      for _ in range(cfg.n_cross_layers)],
+            "deep": layers.mlp_shapes(d, cfg.mlp_dims),
+            "final": ((d + cfg.mlp_dims[-1], 1), f32)}
+
+
 class DCNv2(layers.Params):
     """DCN-v2 with random weights from ``seed``, on ``device`` (default
     cuda; raises without a card unless ``device="cpu"``)."""
+
+    ax = spmd.ONE_RANK      # the table's lookups (``embedding``)
 
     def __init__(self, cfg: DCNConfig = DCNConfig(), *, seed: int = 0,
                  device=None):
@@ -74,8 +100,9 @@ def interaction_input(model: DCNv2, dense_feats, sparse_ids):
     B = dense_feats.shape[0]
     fields = torch.arange(cfg.n_sparse, device=sparse_ids.device)
     # per-field gathers from the stacked [F, V, D] tables -> [B, F, D]
-    emb = model.tables[fields, embedding.wrap_ids(sparse_ids,
-                                                  cfg.vocab_per_field)]
+    emb = embedding.lookup_rows(lambda i: model.tables[fields, i],
+                                sparse_ids, cfg.vocab_per_field,
+                                model.tables.shape[1], model.ax)
     return torch.cat([dense_feats.to(cfg.dtype), emb.reshape(B, -1)], dim=-1)
 
 

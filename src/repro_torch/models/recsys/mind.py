@@ -21,6 +21,8 @@ import dataclasses
 import torch
 
 from ... import resolve_device
+from ...distributed import spmd
+from ...distributed.sharding import P
 from .. import layers
 from . import embedding
 
@@ -46,9 +48,21 @@ def init_mind(gen: torch.Generator, cfg: MINDConfig) -> dict:
     }
 
 
+def mind_specs(cfg: MINDConfig) -> dict:
+    return {"item_embed": embedding.table_specs(), "S": P()}
+
+
+def param_shapes(cfg: MINDConfig) -> dict:
+    """The parameter tree as ``(shape, dtype)`` leaves."""
+    d, f32 = cfg.embed_dim, torch.float32
+    return {"item_embed": ((cfg.n_items, d), f32), "S": ((d, d), f32)}
+
+
 class MIND(layers.Params):
     """MIND with random weights from ``seed``, on ``device`` (default
     cuda; raises without a card unless ``device="cpu"``)."""
+
+    ax = spmd.ONE_RANK      # the table's lookups (``embedding``)
 
     def __init__(self, cfg: MINDConfig = MINDConfig(), *, seed: int = 0,
                  device=None):
@@ -67,7 +81,7 @@ def interest_capsules(model: MIND, hist_ids):
     """hist_ids [B, L] -> interests [B, K, d] by dynamic routing; history
     slots with id <= 0 are pads."""
     cfg = model.cfg
-    e = embedding.lookup(model.item_embed, hist_ids)          # [B, L, d]
+    e = embedding.item_rows(model, hist_ids)                  # [B, L, d]
     u = e @ model.S                                           # [B, L, d]
     B, L, d = u.shape
     K = cfg.n_interests
@@ -105,8 +119,8 @@ def mind_loss(model: MIND, hist_ids, target_ids, gen=None,
     if negatives is None:
         negatives = embedding.draw_negatives(gen, cfg.n_negatives,
                                              cfg.n_items, interests.device)
-    pos_e = embedding.lookup(model.item_embed, target_ids)    # [B, d]
-    neg_e = embedding.lookup(model.item_embed, negatives)     # [N, d]
+    pos_e = embedding.item_rows(model, target_ids)            # [B, d]
+    neg_e = embedding.item_rows(model, negatives)             # [N, d]
     cand = torch.cat([pos_e[:, None, :],
                       neg_e.expand(hist_ids.shape[0], *neg_e.shape)], dim=1)
     logits = label_aware_scores(interests, cand, cfg.pow_p).float()
@@ -116,12 +130,12 @@ def mind_loss(model: MIND, hist_ids, target_ids, gen=None,
 def mind_serve(model: MIND, hist_ids, cand_ids):
     """hist [B, L], cand [B, C] -> scores [B, C] (max over interests)."""
     interests = interest_capsules(model, hist_ids)
-    ce = embedding.lookup(model.item_embed, cand_ids)         # [B, C, d]
+    ce = embedding.item_rows(model, cand_ids)                 # [B, C, d]
     return torch.einsum("bkd,bcd->bck", interests, ce).amax(dim=-1)
 
 
 def mind_retrieval(model: MIND, hist_ids, cand_ids):
     """One user against a candidate slab: hist [1, L], cand [N] -> [N]."""
     interests = interest_capsules(model, hist_ids)[0]         # [K, d]
-    ce = embedding.lookup(model.item_embed, cand_ids)         # [N, d]
+    ce = embedding.item_rows(model, cand_ids)                 # [N, d]
     return (ce @ interests.T).amax(dim=-1).float()

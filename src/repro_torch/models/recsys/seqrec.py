@@ -30,6 +30,8 @@ import dataclasses
 import torch
 
 from ... import resolve_device
+from ...distributed import spmd
+from ...distributed.sharding import P
 from .. import layers
 from ..attention import chunked_attention
 from . import embedding
@@ -75,9 +77,38 @@ def init_seqrec(gen: torch.Generator, cfg: SeqRecConfig) -> dict:
     }
 
 
+def seqrec_specs(cfg: SeqRecConfig) -> dict:
+    """``repro``'s layout: the tower (embed_dim 50-64, not 16-divisible)
+    replicated, the 2^20-row item table row-sharded; tower compute is
+    data-parallel."""
+    block = {"ln1": layers.layer_norm_specs(), "wqkv": P(), "wo": P(),
+             "ln2": layers.layer_norm_specs(),
+             "ffn": [{"w": P(), "b": P()}, {"w": P(), "b": P()}]}
+    return {"item_embed": embedding.table_specs(), "pos_embed": P(),
+            "blocks": block, "final_ln": layers.layer_norm_specs()}
+
+
+def param_shapes(cfg: SeqRecConfig) -> dict:
+    """The parameter tree as ``(shape, dtype)`` leaves."""
+    d, nb, f32 = cfg.embed_dim, cfg.n_blocks, torch.float32
+
+    def ln(stack=()):
+        return {"scale": ((*stack, d), f32), "bias": ((*stack, d), f32)}
+
+    block = {"ln1": ln((nb,)), "wqkv": ((nb, d, 3 * d), f32),
+             "wo": ((nb, d, d), f32), "ln2": ln((nb,)),
+             "ffn": [{"w": ((nb, d, 4 * d), f32), "b": ((nb, 4 * d), f32)},
+                     {"w": ((nb, 4 * d, d), f32), "b": ((nb, d), f32)}]}
+    return {"item_embed": ((cfg.n_items, d), f32),
+            "pos_embed": ((cfg.seq_len, d), f32), "blocks": block,
+            "final_ln": ln()}
+
+
 class SeqRec(layers.Params):
     """SASRec / BERT4Rec with random weights from ``seed``, on ``device``
     (default cuda; raises without a card unless ``device="cpu"``)."""
+
+    ax = spmd.ONE_RANK      # the table's lookups (``embedding``)
 
     def __init__(self, cfg: SeqRecConfig = SeqRecConfig(), *, seed: int = 0,
                  device=None):
@@ -104,7 +135,7 @@ def _block_fwd(p, i: int, cfg: SeqRecConfig, x):
 def user_states(model: SeqRec, item_ids):
     """item_ids [B, S] -> per-position user states [B, S, d]."""
     cfg = model.cfg
-    x = embedding.lookup(model.item_embed, item_ids) + model.pos_embed
+    x = embedding.item_rows(model, item_ids) + model.pos_embed
     for i in range(cfg.n_blocks):
         x = _block_fwd(model.blocks, i, cfg, x)
     return layers.layer_norm(x, model.final_ln.scale, model.final_ln.bias)
@@ -113,14 +144,14 @@ def user_states(model: SeqRec, item_ids):
 def score_candidates(model: SeqRec, item_ids, cand_ids):
     """item_ids [B, S], cand_ids [B, C] -> scores [B, C] (online serving)."""
     h = user_states(model, item_ids)[:, -1]                   # [B, d]
-    ce = embedding.lookup(model.item_embed, cand_ids)         # [B, C, d]
+    ce = embedding.item_rows(model, cand_ids)                 # [B, C, d]
     return torch.einsum("bd,bcd->bc", h, ce)
 
 
 def retrieval_scores(model: SeqRec, item_ids, cand_ids):
     """One user against a candidate slab: [1, S] x [N] -> [N] scores."""
     h = user_states(model, item_ids)[:, -1]                   # [1, d]
-    ce = embedding.lookup(model.item_embed, cand_ids)         # [N, d]
+    ce = embedding.item_rows(model, cand_ids)                 # [N, d]
     return (ce @ h[0]).float()
 
 
@@ -134,8 +165,8 @@ def sampled_softmax_loss(model: SeqRec, item_ids, targets, gen=None,
     if negatives is None:
         negatives = embedding.draw_negatives(gen, cfg.n_negatives,
                                              cfg.n_items, h.device)
-    pos_e = embedding.lookup(model.item_embed, targets)       # [B, S, d]
-    neg_e = embedding.lookup(model.item_embed, negatives)     # [N, d]
+    pos_e = embedding.item_rows(model, targets)               # [B, S, d]
+    neg_e = embedding.item_rows(model, negatives)             # [N, d]
     pos_logit = torch.sum(h * pos_e, dim=-1, keepdim=True)    # [B, S, 1]
     neg_logit = torch.einsum("bsd,nd->bsn", h, neg_e)         # [B, S, N]
     logits = torch.cat([pos_logit, neg_logit], dim=-1).float()

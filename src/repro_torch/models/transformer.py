@@ -19,11 +19,25 @@ Serving: ``lm_fwd``, ``lm_prefill`` (the prompt pass that fills the
 cache), ``init_cache`` and ``lm_decode_step``.  Training: ``lm_loss``,
 on a model whose parameters were turned on with ``requires_grad_(True)``;
 with ``cfg.remat`` each block is recomputed in the backward pass
-(``torch.utils.checkpoint``), as ``repro``'s ``jax.checkpoint`` does.
-Attention runs the flash kernel on the card (``models.attention``; its
-backward is that of ``chunked_attention``).  Where ``repro`` takes a
-traced scalar position, ``pos`` is a host int here; the cache is written
-in place.
+(``torch.utils.checkpoint``), as ``repro``'s ``jax.checkpoint`` does,
+its collectives with it.  Attention runs the flash kernel on the card
+(``models.attention``; its backward is that of ``chunked_attention``).
+Where ``repro`` takes a traced scalar position, ``pos`` is a host int
+here; the cache is written in place.
+
+``lm_fwd``, ``lm_loss`` and ``lm_prefill`` also run as one rank of a
+tensor-parallel mesh (``ax``, ``distributed.spmd.Axes``): the body of
+the LM train and prefill cells (``launch.steps``), on a model holding the
+rank's shards (``LM.of``).  The embedding's rows are split over "model"
+(each rank looks up the ids it holds, the rows summed over "model"), the
+head's columns too (a vocab-parallel cross-entropy: max, sum of
+exponentials and the label's logit reduced over "model"); attention and
+the MoE layer split as ``models.attention`` and ``models.moe`` say, the
+FFN's SwiGLU by columns then rows.  A rank's loss is its tokens' sum
+over the whole (micro)batch's, so the shares, and their gradients, sum to
+the global mean's; the batch's rows need not divide over the batch
+ranks (DTensor's uneven split).  On one rank every collective is the
+identity.
 """
 from __future__ import annotations
 
@@ -33,6 +47,7 @@ import torch
 import torch.utils.checkpoint
 
 from .. import resolve_device
+from ..distributed import spmd
 from ..distributed.sharding import P
 from . import attention, layers, moe
 
@@ -125,19 +140,23 @@ def _is_moe_layer(cfg: LMConfig, i: int) -> bool:
 
 
 def _layer_fwd(p, cfg: LMConfig, x, *, positions, cache=None, cache_pos=0,
-               is_moe_layer=False):
+               is_moe_layer=False, ax=spmd.ONE_RANK, rows=None,
+               prompt_kv=False):
     """One layer; ``p`` a mapping of one layer's parameters.  Returns
-    ``(x, cache, aux)``, aux an f32 scalar (0 for a dense layer)."""
+    ``(x, cache, aux)``, aux an f32 scalar (0 for a dense layer); with
+    ``prompt_kv`` the layer's ``(k, v)`` in the cache's place
+    (``attention.attention_fwd``)."""
     h, cache = attention.attention_fwd(
         p["attn"], cfg, layers.rms_norm(x, p["ln1"]["scale"]).to(x.dtype),
         positions=positions, cache=cache, cache_pos=cache_pos,
-        attn_chunk=cfg.attn_chunk)
+        attn_chunk=cfg.attn_chunk, ax=ax, prompt_kv=prompt_kv)
     x = x + h
     z = layers.rms_norm(x, p["ln2"]["scale"]).to(x.dtype)
     if is_moe_layer:
-        h, aux = moe.moe_fwd(p["moe"], cfg, z)
+        h, aux = moe.moe_fwd(p["moe"], cfg, z, ax, rows)
     else:
-        h = layers.swiglu(p["ffn"], z)
+        h = spmd.leave(layers.swiglu(p["ffn"], spmd.enter(z, ax.model)),
+                       ax.model)
         aux = torch.zeros((), device=x.device)
     return x + h, cache, aux
 
@@ -270,12 +289,22 @@ class LM(layers.Params):
     ``device`` (default cuda; raises without a card unless
     ``device="cpu"``)."""
 
+    _layer_views = None
+
     def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None):
         dev = resolve_device(device)
         super().__init__(init_lm(
             torch.Generator(device=dev).manual_seed(seed), cfg))
         self.cfg = cfg
-        self._layer_views = None
+
+    @classmethod
+    def of(cls, cfg: LMConfig, tree: dict) -> "LM":
+        """A model holding ``tree``'s tensors, drawing nothing: a rank's
+        shards in a cell (``launch.steps``)."""
+        model = cls.__new__(cls)
+        layers.Params.__init__(model, tree)
+        model.cfg = cfg
+        return model
 
     def _apply(self, fn, *args, **kwargs):
         self._layer_views = None      # .to() makes new parameters
@@ -308,23 +337,40 @@ class LM(layers.Params):
                 for b in range(self.cfg.n_blocks)]
 
 
-def _head(model: LM, x):
+def _embed(table, ids, ax: spmd.Axes):
+    """Rows of ``table`` for ``ids``; on a rank of ``ax`` the table is its
+    vocab rows [V / model, d] and the rows are summed over "model"."""
+    if ax.m == 1:
+        return table[ids]
+    vl = table.shape[0]
+    local = ids.long() - ax.r * vl
+    ok = (local >= 0) & (local < vl)
+    rows = table[local.clamp(0, vl - 1)]
+    return spmd.leave(rows.masked_fill(~ok[..., None], 0), ax.model)
+
+
+def _head(model: LM, x, ax: spmd.Axes):
+    """The logits (on a rank of ``ax``, its vocab columns)."""
     x = layers.rms_norm(x, model.final_norm.scale).to(x.dtype)
-    return x @ model.lm_head
+    return spmd.enter(x, ax.model) @ model.lm_head
 
 
-def lm_fwd(model: LM, tokens: torch.Tensor):
+def lm_fwd(model: LM, tokens: torch.Tensor, ax: spmd.Axes = spmd.ONE_RANK,
+           rows: int | None = None):
     """tokens [B, S] -> (logits [B, S, V] in the model's dtype, the MoE
-    layers' aux losses summed, an f32 scalar: 0 for a dense model)."""
+    layers' aux losses summed, an f32 scalar: 0 for a dense model).  On a
+    rank of ``ax``: its rows of a batch of ``rows`` rows, its vocab
+    columns of the logits."""
     cfg = model.cfg
-    x = model.embed[tokens]
+    x = _embed(model.embed, tokens, ax)
     positions = torch.arange(tokens.shape[1], device=x.device)
 
     def block_fwd(x, block):
         aux = torch.zeros((), device=x.device)
         for i, p in enumerate(block):
             x, _, a = _layer_fwd(p, cfg, x, positions=positions,
-                                 is_moe_layer=_is_moe_layer(cfg, i))
+                                 is_moe_layer=_is_moe_layer(cfg, i), ax=ax,
+                                 rows=rows)
             aux = aux + a
         return x, aux
 
@@ -337,17 +383,39 @@ def lm_fwd(model: LM, tokens: torch.Tensor):
         else:
             x, a = block_fwd(x, block)
         aux = aux + a
-    return _head(model, x), aux
+    return _head(model, x, ax), aux
 
 
-def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor):
+def _token_nll(logits, labels, ax: spmd.Axes):
+    """Per-token log-sum-exp of the f32 logits less the label's logit;
+    on a rank of ``ax``, over the vocab split over "model"."""
+    lf = logits.float()
+    if ax.m == 1:
+        lse = torch.logsumexp(lf, dim=-1)
+        return lse - torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    mx = spmd.pmax(lf.detach().amax(dim=-1), ax.model)
+    se = spmd.leave(torch.exp(lf - mx[..., None]).sum(dim=-1), ax.model)
+    lse = torch.log(se) + mx
+    vl = lf.shape[-1]
+    local = labels.long() - ax.r * vl
+    ok = (local >= 0) & (local < vl)
+    ll = torch.gather(lf, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    return lse - spmd.leave(ll * ok, ax.model)
+
+
+def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor,
+            ax: spmd.Axes = spmd.ONE_RANK, rows: int | None = None):
     """Mean next-token cross-entropy of the f32 logits (log-sum-exp less
-    the label's logit) plus 0.01 x the aux loss, as ``repro``'s."""
-    logits, aux = lm_fwd(model, tokens)
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.mean(lse - ll) + 0.01 * aux
+    the label's logit) plus 0.01 x the aux loss, as ``repro``'s.  On a
+    rank of ``ax``, ``tokens``/``labels`` [B_loc, S] are its rows of a
+    (micro)batch of ``rows`` rows and the value is its share: its
+    tokens' sum over all the batch's tokens, plus the aux term over the
+    batch ranks."""
+    B, S = tokens.shape
+    rows = B if rows is None else rows
+    logits, aux = lm_fwd(model, tokens, ax, rows)
+    nll = _token_nll(logits, labels, ax)
+    return nll.sum() / (rows * S) + 0.01 * aux / ax.nb
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
@@ -361,22 +429,31 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
             torch.zeros(shape, dtype=cfg.dtype, device=dev))
 
 
-def lm_prefill(model: LM, tokens: torch.Tensor):
+def lm_prefill(model: LM, tokens: torch.Tensor,
+               ax: spmd.Axes = spmd.ONE_RANK, rows: int | None = None):
     """Prompt pass that also builds the KV cache: tokens [B, S] ->
     (last-position logits [B, V], cache ([nb, bl, B, Hkv, S, Dh] k, same
-    v)).  Attention runs through the cache branch on a zero cache of the
-    prompt's length, as ``repro``'s does (so with ``kv_len = S``)."""
+    v)).  Attention runs as through a cache of the prompt's length (so
+    with ``kv_len = S``), as ``repro``'s does.  On a rank of ``ax``: its
+    rows of a batch of ``rows`` rows, its vocab columns of the logits
+    and its ``S / model`` positions of the caches (every kv head)."""
     cfg = model.cfg
     B, S = tokens.shape
-    x = model.embed[tokens]
+    x = _embed(model.embed, tokens, ax)
     positions = torch.arange(S, device=x.device)
-    kc, vc = init_cache(cfg, B, S, device=x.device)
+    sl = S // ax.m
+    shape = (cfg.n_blocks, cfg.block_layers, B, cfg.n_kv_heads, sl,
+             cfg.d_head)
+    kc = torch.empty(shape, dtype=cfg.dtype, device=x.device)
+    vc = torch.empty(shape, dtype=cfg.dtype, device=x.device)
     for b, block in enumerate(model.layer_params()):
         for i, p in enumerate(block):
-            x, _, _ = _layer_fwd(p, cfg, x, positions=positions,
-                                 cache=(kc[b, i], vc[b, i]), cache_pos=0,
-                                 is_moe_layer=_is_moe_layer(cfg, i))
-    return _head(model, x[:, -1:])[:, 0], (kc, vc)
+            x, (k, v), _ = _layer_fwd(p, cfg, x, positions=positions,
+                                      is_moe_layer=_is_moe_layer(cfg, i),
+                                      ax=ax, rows=rows, prompt_kv=True)
+            kc[b, i] = k[:, :, ax.r * sl:(ax.r + 1) * sl]
+            vc[b, i] = v[:, :, ax.r * sl:(ax.r + 1) * sl]
+    return _head(model, x[:, -1:], ax)[:, 0], (kc, vc)
 
 
 def lm_decode_step(model: LM, token: torch.Tensor, cache, pos: int):
@@ -392,4 +469,4 @@ def lm_decode_step(model: LM, token: torch.Tensor, cache, pos: int):
             x, _, _ = _layer_fwd(p, cfg, x, positions=positions,
                                  cache=(kc[b, i], vc[b, i]), cache_pos=pos,
                                  is_moe_layer=_is_moe_layer(cfg, i))
-    return _head(model, x)[:, 0], (kc, vc)
+    return _head(model, x, spmd.ONE_RANK)[:, 0], (kc, vc)

@@ -4,6 +4,8 @@ The DistCLUB stages need four primitives: ``axis_index()`` (which user
 shard am I), ``all_gather(x)`` over the user axis, ``psum(x)`` and
 ``n_shards``; the sharded DCCB adds ``permute(x)``, its ring gossip, and
 the sharded GAT ``psum_scatter(x)``, the backward of its feature gather.
+The LM's tensor-parallel body adds ``pmax(x)``; it and the GAT reach
+these through the differentiable wrappers of ``distributed.spmd``.
 The sharded LM decode gathers on another dim, ``all_gather(x, axis=1)``
 (``jax.lax.all_gather(..., axis=1, tiled=True)``), and stacks the pieces
 on a new leading dim, ``all_gather(x, tiled=False)``; it binds one set
@@ -59,7 +61,10 @@ class NullCollectives(NamedTuple):
     def psum(self, x):
         return x
 
-    def psum_scatter(self, x):
+    def psum_scatter(self, x, axis: int = 0):
+        return x
+
+    def pmax(self, x):
         return x
 
 
@@ -72,6 +77,8 @@ class DistCollectives(NamedTuple):
     rank: int
     shards: int
     host_staged: bool        # gloo: CUDA tensors go through host memory
+    wide: bool = True        # a bf16 sum in f32, rounded once (False: in
+                             # bf16, the LM's tensor-parallel sums)
 
     @property
     def n_shards(self) -> int:
@@ -97,32 +104,38 @@ class DistCollectives(NamedTuple):
         dist.all_gather_into_tensor(out, src, group=self.group)
         return out.movedim(0, axis).to(x.device)
 
+    def _widen(self, y):
+        return y.float() if self.wide and y.dtype == torch.bfloat16 else y
+
     def psum(self, x):
         """The sum over ranks, on a copy (the caller's tensor is left as
-        it was).  A bf16 ``x`` is summed in f32 and rounded once, as
-        ``psum_scatter`` sums it."""
+        it was).  A bf16 ``x`` is summed in f32 and rounded once (under
+        ``wide``), as ``psum_scatter`` sums it."""
         BYTES["psum"] += x.nbytes * 2 * (self.shards - 1) // self.shards
-        y = self._stage(x)
-        if y.dtype == torch.bfloat16:
-            y = y.float()
+        y = self._widen(self._stage(x))
         y = y.clone() if y is x else y
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
         return y.to(device=x.device, dtype=x.dtype)
 
-    def psum_scatter(self, x):
-        """This rank's rows of the sum over ranks, tiled on dim 0
-        (``jax.lax.psum_scatter(..., scatter_dimension=0, tiled=True)``):
-        ``x`` [S * n, ...] -> [n, ...].  A bf16 ``x`` is summed in f32
-        and rounded once, as ``repro``'s reduction rounds it."""
+    def psum_scatter(self, x, axis: int = 0):
+        """This rank's piece of the sum over ranks, tiled on dim ``axis``
+        (``jax.lax.psum_scatter(..., scatter_dimension=axis,
+        tiled=True)``): ``x`` [S * n, ...] -> [n, ...] on dim 0.  A bf16
+        ``x`` is summed in f32 and rounded once (under ``wide``), as
+        ``repro``'s reduction rounds it."""
         BYTES["psum_scatter"] = (BYTES.get("psum_scatter", 0) + x.nbytes
                                  * (self.shards - 1) // self.shards)
-        src = self._stage(x.contiguous())
-        wide = src.float() if src.dtype == torch.bfloat16 else src
-        out = wide.new_empty((wide.shape[0] // self.shards,
-                              *wide.shape[1:]))
-        dist.reduce_scatter_tensor(out, wide, op=dist.ReduceOp.SUM,
+        src = self._widen(self._stage(x.movedim(axis, 0).contiguous()))
+        out = src.new_empty((src.shape[0] // self.shards, *src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
                                    group=self.group)
-        return out.to(device=x.device, dtype=x.dtype)
+        return out.movedim(0, axis).to(device=x.device, dtype=x.dtype)
+
+    def pmax(self, x):
+        """The elementwise max over ranks, on a copy."""
+        y = self._stage(x).clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
+        return y.to(x.device)
 
     def permute(self, x, shift: int = 1):
         """The ring exchange: rank ``r`` sends ``x`` to ``r + shift`` and

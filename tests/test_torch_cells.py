@@ -3,10 +3,12 @@ model (``launch.roofline``) against ``repro``'s, without running a step.
 
 ``repro``'s side runs once, in a subprocess with 512 XLA host devices:
 it builds every LM decode cell's shardings on both production meshes
-(``build_decode_step``, nothing compiled) and reports each leaf's
-``NamedSharding.shard_shape``, and it evaluates its analytic roofline
-numerators at every registered cell.  This file imports neither JAX nor
-``repro``.
+(``build_decode_step``, nothing compiled) and every other cell's
+``CellBundle`` (abstract arguments and ``in_shardings``), and reports
+each leaf's ``NamedSharding.shard_shape``; it gives its spec trees
+(``zero_specs`` of each LM, the six recsys trees) and evaluates its
+analytic roofline numerators at every registered cell.  This file
+imports neither JAX nor ``repro``.
 
   shapes    for every registered LM arch x {decode_32k, long_500k} x the
             meshes (16, 16) and (2, 16, 16), with and without the int8
@@ -15,6 +17,16 @@ numerators at every registered cell.  This file imports neither JAX nor
             leaf, at the first and the last rank; this covers llama4's
             f-sharded layout and long_500k's replicated batch at full
             size;
+  cells     for every other cell of ``all_cells()`` on both meshes, every
+            argument's per-rank shape at the first and the last rank
+            equals ``repro``'s shard shape (leaf by pytree path; the
+            sequence models' train ``seed``, where ``repro`` takes a
+            PRNG key, is left out);
+  specs     ``zero_specs`` of every LM's ``lm_specs``, ``dcn_specs``,
+            ``seqrec_specs``, ``mind_specs``, ``table_specs``,
+            ``layer_norm_specs`` and ``mlp_specs`` entry for entry;
+            ``sharding.placements`` and ``shard`` cut the same piece on
+            every rank of a (2, 2, 2) mesh (a fake group of 8);
   roofline  the four ``_*_flops_bytes`` return ``repro``'s numerators
             exactly at every registered cell on both meshes, and
             ``Terms``' times are those numerators over the port's H100
@@ -46,7 +58,7 @@ from repro.launch import roofline
 from repro.models import transformer
 
 MESHES = %(MESHES)r
-out = {"shapes": {}, "roofline": {}}
+out = {"shapes": {}, "roofline": {}, "cells": {}, "specs": {}}
 for arch in %(LM_ARCHS)r:
     spec = configs.get(arch)
     params = jax.eval_shape(
@@ -71,6 +83,55 @@ for arch in %(LM_ARCHS)r:
                     full = cache if i < 2 else cache[:-1]
                     got[f"cache{i}"] = list(sh.shard_shape(full))
                 out["shapes"][f"{arch}|{shape}|{tag}|{q}"] = got
+from repro.launch import steps as rsteps
+from repro.distributed import sharding as rsh
+from repro.models import layers as rlayers
+from repro.models.recsys import dcn_v2, embedding, mind, seqrec
+
+def path_name(path):
+    out = []
+    for p in path:
+        out.append(str(getattr(p, "key", getattr(p, "idx",
+                                                 getattr(p, "name", p)))))
+    return ".".join(out)
+
+for tag, (dims, axes) in MESHES.items():
+    m = jax.make_mesh(dims, axes)
+    for arch, shape in configs.all_cells():
+        spec = configs.get(arch)
+        if spec.shapes[shape].kind == "decode":
+            continue
+        b = rsteps.build_cell(arch, shape, m)
+        got = {}
+        for i, (a, sh) in enumerate(zip(b.abstract_args, b.in_shardings)):
+            leaves = jax.tree_util.tree_flatten_with_path(a)[0]
+            shs = jax.tree.leaves(sh)
+            for (path, leaf), s_ in zip(leaves, shs):
+                got[f"{i}.{path_name(path)}"] = list(
+                    s_.shard_shape(leaf.shape))
+        out["cells"][f"{arch}|{shape}|{tag}"] = got
+
+def spec_tree(t):
+    return jax.tree.map(lambda s: [list(e) if isinstance(e, tuple) else e
+                                   for e in s], t,
+                        is_leaf=lambda x: isinstance(x, P))
+
+from jax.sharding import PartitionSpec as P
+for arch in %(LM_ARCHS)r:
+    spec = configs.get(arch)
+    params = jax.eval_shape(
+        lambda k: transformer.init_lm(k, spec.cfg),
+        jax.ShapeDtypeStruct((2,), jnp.uint32))
+    out["specs"]["zero|" + arch] = spec_tree(rsh.zero_specs(
+        transformer.lm_specs(spec.cfg), params, 16))
+out["specs"]["dcn"] = spec_tree(dcn_v2.dcn_specs(configs.get("dcn-v2").cfg))
+out["specs"]["seqrec"] = spec_tree(seqrec.seqrec_specs(
+    configs.get("sasrec").cfg))
+out["specs"]["mind"] = spec_tree(mind.mind_specs(configs.get("mind").cfg))
+out["specs"]["table"] = spec_tree(embedding.table_specs())
+out["specs"]["layer_norm"] = spec_tree(rlayers.layer_norm_specs())
+out["specs"]["mlp"] = spec_tree(rlayers.mlp_specs(3))
+
 for arch, shape in configs.all_cells():
     spec = configs.get(arch)
     cfg = spec.cell_cfg(shape)
@@ -134,11 +195,139 @@ def test_build_cell_shapes_are_repros_shard_shapes(shape, tag, reference):
 
 
 def test_build_cell_refuses_the_gspmd_cells():
+    """The cells ``build_cell`` once refused now build, as global programs
+    (their steps take DTensors); a decode cell's step takes local tensors,
+    and ``to_args`` refuses to wrap them."""
     m = mesh.mesh_spec((16, 16), ("data", "model"))
     for arch, shape in (("qwen3-4b", "train_4k"), ("qwen3-4b", "prefill_32k"),
                         ("dcn-v2", "serve_p99"), ("gat-cora", "molecule")):
-        with pytest.raises(NotImplementedError, match="9d-2"):
-            steps.build_cell(arch, shape, m, device="cpu")
+        cell = steps.build_cell(arch, shape, m, device="cpu")
+        assert cell.global_args and cell.mesh is m
+        assert len(cell.local_args) == len(cell.arg_specs)
+    with pytest.raises(ValueError, match="local tensors"):
+        steps.build_cell("qwen3-4b", "decode_32k", m, device="cpu").to_args(
+            ())
+
+
+def _paths(args) -> dict:
+    """``{"<arg>.<pytree path>": local shape}`` of a bundle's
+    ``local_args``, named as ``jax.tree_util`` names the paths."""
+    out = {}
+
+    def walk(x, name):
+        if isinstance(x, tuple) and len(x) == 2 \
+                and isinstance(x[1], torch.dtype):
+            out[name] = list(x[0])
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{name}.{k}" if not name.endswith(".") else
+                     name + str(k))
+        elif isinstance(x, tuple) and hasattr(x, "_fields"):
+            for f in x._fields:
+                walk(getattr(x, f), name + f if name.endswith(".") else
+                     f"{name}.{f}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, name + str(i) if name.endswith(".") else
+                     f"{name}.{i}")
+
+    for i, a in enumerate(args):
+        walk(a, f"{i}.")
+    return out
+
+
+GLOBAL_CELLS = [(a, s) for a, s in configs.all_cells()
+                if configs.get(a).shapes[s].kind != "decode"]
+
+
+@pytest.mark.parametrize("tag", list(MESHES))
+def test_every_cell_shape_is_repros_shard_shape(tag, reference):
+    dims, axes = MESHES[tag]
+    n = 1
+    for s in dims:
+        n *= s
+    assert {k for k in reference["cells"] if k.endswith("|" + tag)} == {
+        f"{a}|{s}|{tag}" for a, s in GLOBAL_CELLS}
+    for arch, shape in GLOBAL_CELLS:
+        want = reference["cells"][f"{arch}|{shape}|{tag}"]
+        seq_train = (configs.get(arch).family == "recsys" and arch != "dcn-v2"
+                     and shape == "train_batch")
+        if seq_train:       # repro's PRNG key against the port's seed
+            want = {k: v for k, v in want.items() if not k.startswith("4.")}
+        for rank in (0, n - 1):
+            cell = steps.build_cell(arch, shape,
+                                    mesh.mesh_spec(dims, axes, rank),
+                                    device="cpu")
+            got = _paths(cell.local_args)
+            if seq_train:
+                got = {k: v for k, v in got.items() if not k.startswith("4.")}
+            assert got == want, (arch, shape, tag, rank)
+
+
+def _spec_lists(tree):
+    from repro_torch.distributed.sharding import P
+    if isinstance(tree, P):
+        return [list(e) if isinstance(e, tuple) else e for e in tree]
+    if isinstance(tree, dict):
+        return {k: _spec_lists(v) for k, v in tree.items()}
+    return [_spec_lists(v) for v in tree]
+
+
+def test_spec_trees_are_repros(reference):
+    from repro_torch.distributed.sharding import zero_specs
+    from repro_torch.models import layers, transformer
+    from repro_torch.models.recsys import dcn_v2, embedding, mind, seqrec
+    want = reference["specs"]
+    for arch in LM_ARCHS:
+        cfg = configs.get(arch).cfg
+        got = zero_specs(transformer.lm_specs(cfg),
+                         transformer.param_shapes(cfg), 16)
+        assert _spec_lists(got) == want["zero|" + arch], arch
+    assert _spec_lists(dcn_v2.dcn_specs(configs.get("dcn-v2").cfg)) \
+        == want["dcn"]
+    assert _spec_lists(seqrec.seqrec_specs(configs.get("sasrec").cfg)) \
+        == want["seqrec"]
+    assert _spec_lists(mind.mind_specs(configs.get("mind").cfg)) \
+        == want["mind"]
+    assert _spec_lists(embedding.table_specs()) == want["table"]
+    assert _spec_lists(layers.layer_norm_specs()) == want["layer_norm"]
+    assert _spec_lists(layers.mlp_specs(3)) == want["mlp"]
+
+
+def test_placements_cut_what_shard_cuts():
+    """On every rank of a (2, 2, 2) mesh (a fake group of 8 in this
+    process), the DTensor placements of a spec select the piece
+    ``sharding.shard`` cuts, tuple entries included, and
+    ``init_device_mesh`` lays the ranks out as ``Mesh.coords`` does."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.sharding import P
+    dims, axes = (2, 2, 2), ("pod", "data", "model")
+    full = (8, 16, 16)
+    x = torch.arange(8 * 16 * 16).reshape(full)
+    specs = [P(), P("data"), P(("pod", "data"), None, "model"),
+             P(None, ("pod", "data", "model")), P("model", ("pod", "data"))]
+    for rank in range(8):
+        dist.init_process_group("fake", rank=rank, world_size=8,
+                                store=FakeStore())
+        try:
+            dm = init_device_mesh("cpu", dims, mesh_dim_names=axes)
+            desc = mesh.mesh_spec(dims, axes, rank)
+            assert tuple(dm.get_coordinate()) == desc.coords
+            for spec in specs:
+                shape, offset = compute_local_shape_and_global_offset(
+                    full, dm, sharding.placements(spec, dm))
+                want = x[tuple(slice(o, o + n)
+                               for o, n in zip(offset, shape))]
+                assert torch.equal(sharding.shard(x, spec, desc), want), (
+                    rank, spec)
+        finally:
+            dist.destroy_process_group()
 
 
 def test_roofline_numerators_are_repros(reference):

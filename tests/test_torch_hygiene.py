@@ -60,7 +60,9 @@ def test_package_imports_neither_jax_nor_repro():
                 "models.gnn", "configs.deepseek_moe_16b",
                 "configs.llama4_maverick_400b_a17b", "configs.gat_cora",
                 "launch.steps", "distributed.decode_shard",
-                "launch.roofline"):
+                "launch.roofline", "distributed.spmd",
+                "launch.dryrun", "launch.fitcheck",
+                "configs.distclub_paper"):
         assert f"repro_torch.{mod}" in names, mod
     for kind in ("synthetic", "drift", "catalog", "replay",
                  "default_synthetic"):

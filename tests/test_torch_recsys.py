@@ -247,9 +247,10 @@ def test_registry_holds_the_four_recsys_archs_at_published_widths():
     assert recsys == ["bert4rec", "dcn-v2", "mind", "sasrec"]
     assert len([c for c in configs.all_cells() if c[0] in recsys]) == 16
     # the rest of the registry is the LMs (tests/test_torch_lm.py,
-    # test_torch_lm_moe.py) and the GAT (tests/test_torch_gnn.py)
+    # test_torch_lm_moe.py), the GAT (tests/test_torch_gnn.py) and the
+    # paper's own bandit cell (tests/test_torch_gspmd_cells.py)
     assert sorted(set(configs.REGISTRY) - set(recsys)) == [
-        "deepseek-moe-16b", "gat-cora", "llama3-8b",
+        "deepseek-moe-16b", "distclub-paper", "gat-cora", "llama3-8b",
         "llama4-maverick-400b-a17b", "qwen3-4b", "yi-34b"]
     dcn = configs.get("dcn-v2")
     assert dcn.cfg.d_interact == 429 and dcn.cfg.n_cross_layers == 3
