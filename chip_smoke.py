@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
            (one ``nvcc`` per source, all at once), with the seconds taken;
            the registers and spill bytes ptxas reports for prune_kernel,
            topk_kernel, topk_pruned_kernel, ucb_kernel, ucb_block_kernel,
-           choose_tile_kernel (each width), cross_tc_kernel,
+           choose_tile_kernel (each width; ucb's and choose's also for a
+           bf16 Minv), cross_tc_kernel,
            cross_split_kernel and cc_hop_kernel (each load width; any
            spill fails); the count of HGMMA
            (wgmma) instructions in the flash and cross libraries' SASS
@@ -64,7 +65,19 @@ Phases, in order; any failure raises and the script exits non-zero:
            topk over bf16 and int8 banks at d = 1 ... 64, from a row
            whose bytes start off a 16-byte boundary and at N < k, and
            topk_pruned over quantized region catalogs at tiles 128, 384,
-           512 and 2048).
+           512 and 2048); the bf16-Minv variants (``small_minv_checks``),
+           each bit-equal to its f32 kernel on the widened Minv and within
+           its band of the plain version: choose and ucb at d = 1 ... 64,
+           K = 256 and 257, n = 2 x SMs and one more, serving's 256 x 64,
+           on Minv one row and one element off a 16-byte boundary (both
+           choose variants and both ucb variants forced where the tile
+           takes the shape); the M-ful update at the clones' shapes, n = 2
+           x SMs and one more, d = 33 and 64, one element off, CLUB's n = 1
+           row views and its variants bit-equal; topk over f32, bf16 and
+           int8 items at d = 1 ... 64, one row in, N < k; topk_pruned over
+           each kind's region catalog at tiles 128, 2048 and at d = 64, k =
+           128; an f16 Minv refused by all six wrappers with a TypeError,
+           nothing launched).
 4. main    ``repro_torch.core.distclub.run`` at the paper's full width
            (20480 users, d=25, K=20, 100 planted clusters,
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
@@ -208,6 +221,25 @@ Phases, in order; any failure raises and the script exits non-zero:
            batches of 64, 32 + 40 rounds), at most 0.01 each, and, not
            gated, for phase 4s's learned users and traffic against a
            random 2^18-item catalog and against the region catalog.
+   bf16 Minv  the engines on a bf16 Minv (``minv_phase``): phase 4's
+           learned state with Minv cast to bf16 (M, b f32) through 32
+           rounds of the bf16 preset's ``InteractBackend.choose`` and
+           ``update_lin`` and of ``ucb_scores`` at n = 20480, d = 25, K =
+           20 on phase 4's environment, the kernel's state carried
+           forward, counted (32 choose_bf16, ucb_bf16 and
+           rank1_update_bf16 launches, no f32 choose, ucb or
+           rank1_update); each round held, uncounted, to the f32 kernels
+           on the widened Minv (picks, x and scores bit for bit; Minv the
+           round-to-nearest-even of the f32 update's, M and b bit-equal)
+           and to the plain versions on the same inputs (``hold_choose``,
+           ``hold_rank1_bf16``); then one serving batch of the bf16
+           preset's ``RetrievalBackend.shortlist`` and
+           ``shortlist_pruned`` for phase 4s's first 256 users with the
+           bf16 session's Minv in bf16, over phase 4s's f32 bank and phase
+           4p's bf16 and int8 banks, counted (one launch of each of the
+           six topk*_minv_bf16* kernels, nothing else), each shortlist
+           the f32-Minv kernel's on the widened Minv bit for bit and
+           within ``check_topk``'s band of the plain version.
 4o. ops    the operations layer (``serve.guardrails``, ``serve.faults``,
            ``serve.experiments``) at serving's width: phase 4s's learned
            users, batches of 256, k_short 64, rings of 4096 with TTL 16.
@@ -409,7 +441,8 @@ Phases, in order; any failure raises and the script exits non-zero:
            shortlisted items, a block per user at 256 users; topk_pruned's
            skip ratio and its plain version's), cc_hop by ``check_cc_hop``
            on the learned graph (at the identity labels and at the run's)
-           and on the full graph, the reduced-precision variants
+           and on the full graph, the bf16-Minv variants (their errors
+           from phase 4p's held runs), the reduced-precision variants
            (``check_rank1_bf16``: within one bf16 ulp or 1e-5, masked
            rows bit-identical, both variants bit-equal on 2 x SMs + 1
            users; ``check_topk_quant`` and ``check_topk_pruned`` over
@@ -444,7 +477,10 @@ Phases, in order; any failure raises and the script exits non-zero:
            one-element in-place op's median over 200 launches, beside the
            n = 1 and 512-bag times; each reduced-precision variant
            beside its f32 kernel, 50 launches each in turns, on the bf16
-           session's batch; flash at phase 4l's prefill and decode
+           session's batch; each bf16-Minv variant (choose, ucb and the
+           M-ful update on phase 5's inputs with Minv in bf16, the top-K
+           six on phase 4p's bf16-Minv serving batch) beside its f32
+           kernel on the widened Minv, 50 launches each in turns; flash at phase 4l's prefill and decode
            shapes and at phase 4m's (deepseek's prefill and decode,
            llama4's prefill: ``moe_*_launches`` in its row), with
            ``scaled_dot_product_attention`` as its yardstick;
@@ -530,7 +566,22 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
                          "src/repro/kernels/topk/topk.py:229"),
     "topk_pruned_int8": ("src/repro_torch/csrc/topk.cu",
                          "src/repro/kernels/topk/topk.py:229"),
+    # the bf16-Minv variants (phase 4p, bf16 Minv)
+    "choose_bf16": ("src/repro_torch/csrc/choose.cu",
+                    "src/repro/kernels/interact/interact.py:80"),
+    "ucb_bf16": ("src/repro_torch/csrc/ucb.cu",
+                 "src/repro/kernels/ucb/ucb.py:59"),
+    "rank1_update_bf16": ("src/repro_torch/csrc/rank1.cu",
+                          "src/repro/kernels/rank1/rank1.py:102"),
+    **{f"topk{p}_minv_bf16{s}": (
+        "src/repro_torch/csrc/topk.cu",
+        "src/repro/kernels/topk/topk.py:" + ("229" if p else "114"))
+       for p in ("", "_pruned") for s in ("", "_bf16", "_int8")},
 }
+MINV_TOPK = tuple(f"topk{p}_minv_bf16{s}" for p in ("", "_pruned")
+                  for s in ("", "_bf16", "_int8"))
+MINV_KERNELS = ("choose_bf16", "ucb_bf16", "rank1_update_bf16", *MINV_TOPK)
+MINV_ROUNDS = 32             # phase 4p's lockstep engine rounds, bf16 Minv
 PRECISIONS = ("bf16", "int8")  # phase 4p's reduced-precision sessions
 FLIP_WARM = 32               # bench_precision.py's warm-up batches
 FLIP_BATCHES = 16            # counterfactual batches measured after it
@@ -636,14 +687,16 @@ def check_ucb(w, Minv, ctx, occ, alpha):
 
 
 def ucb_variant(w, Minv, ctx, occ, alpha, variant):
-    """ucb's kernel in the variant the caller names, past the wrapper."""
+    """ucb's kernel for Minv's dtype in the variant the caller names, past
+    the wrapper."""
     import torch
     from repro_torch.kernels import _build
+    from repro_torch.kernels.ucb import ops
     n, K, d = ctx.shape
     out = torch.empty(n, K, dtype=torch.float32, device=ctx.device)
-    _build.launch("ucb", w.data_ptr(), Minv.data_ptr(), ctx.data_ptr(),
-                  occ.data_ptr(), float(alpha), n, K, d, variant,
-                  out.data_ptr())
+    _build.launch(ops.KERNELS[Minv.dtype], w.data_ptr(), Minv.data_ptr(),
+                  ctx.data_ptr(), occ.data_ptr(), float(alpha), n, K, d,
+                  variant, out.data_ptr())
     return out
 
 
@@ -678,18 +731,20 @@ def check_ucb_variants(w, Minv, ctx, occ, alpha, u):
 
 
 def choose_variant(w, Minv, ctx, occ, alpha, variant):
-    """choose's kernel in the variant the caller names, past the wrapper
-    (the register tile with the wrapper's users a block)."""
+    """choose's kernel for Minv's dtype in the variant the caller names,
+    past the wrapper (the register tile with the wrapper's users a
+    block)."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.interact import ops
     n, K, d = ctx.shape
-    users = ops.geometry(n, K, d, _build.sm_count(ctx.device.index or 0))[1]
+    users = ops.geometry(n, K, d, _build.sm_count(ctx.device.index or 0),
+                         Minv.element_size())[1]
     choice = torch.empty(n, dtype=torch.int32, device=ctx.device)
     x = torch.empty(n, d, dtype=torch.float32, device=ctx.device)
-    _build.launch("choose", w.data_ptr(), Minv.data_ptr(), ctx.data_ptr(),
-                  occ.data_ptr(), float(alpha), n, K, d, variant,
-                  users if variant == ops.REGISTER_TILE else 4,
+    _build.launch(ops.KERNELS[Minv.dtype], w.data_ptr(), Minv.data_ptr(),
+                  ctx.data_ptr(), occ.data_ptr(), float(alpha), n, K, d,
+                  variant, users if variant == ops.REGISTER_TILE else 4,
                   choice.data_ptr(), x.data_ptr())
     return choice, x
 
@@ -1130,6 +1185,158 @@ def check_topk_quant(w, Minv, occ, items, live, scales, alpha, k):
     return res
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block leave the counts as they were: the
+    comparisons a counted run makes between its steps."""
+    from repro_torch.kernels import _build
+    counts = dict(_build.LAUNCHES)
+    try:
+        yield
+    finally:
+        _build.LAUNCHES.update(counts)
+
+
+def hold_choose(w, Minv, ctx, occ, alpha, choice, x, scores=None):
+    """A choose's outputs on a bf16 Minv (``choice``, ``x``; ucb's
+    ``scores`` where given) against the kernels for Minv's f32 widening
+    (exact), bit for bit, and against the plain versions on the same
+    inputs: ``check_choose``'s near-tie band for the pick, ``check_ucb``'s
+    for the scores; x is ctx[choice] and the scores' first-index argmax
+    is the pick."""
+    import torch
+    from repro_torch.kernels.interact import ops as iops
+    from repro_torch.kernels.ucb import ops as uops
+    from repro_torch.kernels.ucb import ref as uref
+    assert Minv.dtype == torch.bfloat16
+    c32, x32 = iops.choose(w, Minv.float(), ctx, occ, alpha)
+    assert torch.equal(choice, c32) and torch.equal(x, x32), (
+        "choose_bf16: not the f32 kernel's pick on the widened Minv")
+    plain = uref.ucb_scores_ref(w, Minv, ctx, occ, alpha)
+    assert torch.equal(x, torch.take_along_dim(
+        ctx, choice.long()[:, None, None], dim=1)[:, 0]), (
+        "choose_bf16: x is not ctx[choice]")
+    s_p = plain.max(dim=-1).values
+    s_k = torch.take_along_dim(plain, choice.long()[:, None], dim=1)[:, 0]
+    gap = s_p - s_k
+    assert bool((gap <= 1e-5 * torch.clamp_min(s_p.abs(), 1.0)).all()), (
+        "choose_bf16: choices differ beyond a near tie")
+    res = {"max_abs_err": float(gap.max()),
+           "near_ties": int((choice.long() != plain.argmax(-1)).sum())}
+    if scores is not None:
+        assert torch.equal(scores, uops.ucb_scores(w, Minv.float(), ctx, occ,
+                                                   alpha)), (
+            "ucb_bf16: not the f32 kernel's scores on the widened Minv")
+        err = (scores - plain).abs()
+        assert bool((err <= 1e-5 * (1 + plain.abs())).all()), (
+            "ucb_bf16: scores differ")
+        assert torch.equal(torch.argmax(scores, -1).to(torch.int32),
+                           choice), "ucb_bf16: argmax is not the pick"
+        res["ucb_max_abs_err"] = float(err.max())
+    return res
+
+
+def check_choose_bf16(w, Minv, ctx, occ, alpha):
+    """choose and ucb on a bf16 Minv through their wrappers, by
+    ``hold_choose``; then, where the register tile takes the shape (d <=
+    32, K <= 256), both choose variants and both ucb variants forced: the
+    same picks, bit for bit (``check_pick``)."""
+    from repro_torch.kernels.interact import ops as iops
+    from repro_torch.kernels.ucb import ops as uops
+    choice, x = iops.choose(w, Minv, ctx, occ, alpha)
+    res = hold_choose(w, Minv, ctx, occ, alpha, choice, x,
+                      uops.ucb_scores(w, Minv, ctx, occ, alpha))
+    _, K, d = ctx.shape
+    if d <= iops.TILE_MAX_D and -(-K // iops.TILE_TK) <= iops.TILE_THREADS:
+        res.update(check_pick(w, Minv, ctx, occ, alpha))
+    return res
+
+
+def hold_rank1_bf16(before, after, x, r, mask):
+    """An M-ful update on a bf16 Minv (``before`` = (M, Minv, b) as they
+    were, ``after`` as the kernel left them) against the f32 kernel on
+    Minv's widening: Minv the round-to-nearest-even of its result, M and
+    b bit-equal; and against the plain version on the same inputs: Minv
+    within one bf16 ulp or 1e-5 (``check_rank1_bf16``'s band), M and b
+    within rtol = atol = 1e-5; masked rows bit-identical."""
+    import torch
+    from repro_torch.kernels.rank1 import ops, ref
+    M, Minv, b = before
+    f32 = ops.rank1_update(M.clone(), Minv.float(), b.clone(), x, r, mask)
+    assert torch.equal(after[1], f32[1].bfloat16()), (
+        "rank1_update_bf16: Minv is not the f32 kernel's, rounded")
+    assert torch.equal(after[0], f32[0]) and torch.equal(after[2], f32[2]), (
+        "rank1_update_bf16: M or b is not the f32 kernel's")
+    plain = ref.rank1_update_ref(M.clone(), Minv.clone(), b.clone(), x, r,
+                                 mask)
+    ulps = bf16_ulps(after[1], plain[1])
+    gap = (after[1].float() - plain[1].float()).abs()
+    wide = ulps > 1
+    assert bool((gap[wide] <= 1e-5).all()), (
+        f"rank1_update_bf16: {int((wide & (gap > 1e-5)).sum())} elements "
+        "beyond one ulp and 1e-5")
+    for i in (0, 2):
+        torch.testing.assert_close(after[i], plain[i], rtol=1e-5, atol=1e-5)
+    off = ~mask
+    for a, t in zip(after, before):
+        assert torch.equal(a[off], t[off]), "rank1_update_bf16: masked row"
+    return {"max_abs_err": max(float(gap.max()), *(
+        float((after[i] - plain[i]).abs().max()) for i in (0, 2))),
+        "max_ulps": int(ulps.max()), "beyond_one_ulp": int(wide.sum())}
+
+
+def check_rank1_mful_bf16(M, Minv, b, x, r, mask):
+    """The M-ful update on a bf16 Minv through its wrapper, on copies, by
+    ``hold_rank1_bf16``; the kernel writes through the tensors it is
+    given."""
+    from repro_torch.kernels.rank1 import ops
+    given = (M.clone(), Minv.clone(), b.clone())
+    got = ops.rank1_update(*given, x, r, mask)
+    assert all(g is t for g, t in zip(got, given)), "rank1_update: copies"
+    return hold_rank1_bf16((M, Minv, b), got, x, r, mask)
+
+
+def check_topk_minv_bf16(w, Minv, occ, items, live, scales, alpha, k,
+                         got=None):
+    """The top-K over f32, bf16 or int8 items (int8 with ``scales``) with
+    the users' Minv in bf16: its shortlist (``got``, else a fresh launch)
+    and score bits the kernel's for Minv's f32 widening, and the kernel
+    against its plain version by ``check_topk_quant``."""
+    import torch
+    from repro_torch.kernels.topk import ops
+    assert Minv.dtype == torch.bfloat16
+    s, i = got if got is not None else ops.topk(w, Minv, occ, items, live,
+                                                alpha, k, scales=scales)
+    s32, i32 = ops.topk(w, Minv.float(), occ, items, live, alpha, k,
+                        scales=scales)
+    assert torch.equal(s, s32) and torch.equal(i, i32), (
+        "topk_minv_bf16: not the f32-Minv kernel's shortlist")
+    return check_topk_quant(w, Minv, occ, items, live, scales, alpha, k)
+
+
+def check_topk_pruned_minv_bf16(w, Minv, occ, cat, clusters, alpha, k,
+                                got=None):
+    """The pruned top-K with the users' Minv in bf16 over ``cat``'s bank:
+    its shortlist (``got``, else a fresh launch) the pruned kernel's for
+    Minv's f32 widening, bit for bit (the skips may differ), and
+    ``check_topk_pruned``'s checks on the bf16 Minv."""
+    import torch
+    from repro_torch.kernels.topk import ops, ref
+    assert Minv.dtype == torch.bfloat16
+    ss = clusters.scale_sorted if cat.serving.emb.dtype == torch.int8 \
+        else None
+    tb = ref.tile_bounds(w, Minv, occ, alpha, clusters.tile_mu,
+                         clusters.tile_r, clusters.tile_xn, clusters.tile_n)
+    args = (clusters.emb_sorted, clusters.live_sorted, clusters.perm, alpha,
+            k, tb)
+    s, i = got if got is not None else ops.topk_pruned(
+        w, Minv, occ, *args, scales=ss)[:2]
+    s32, i32, _, _ = ops.topk_pruned(w, Minv.float(), occ, *args, scales=ss)
+    assert torch.equal(s, s32) and torch.equal(i, i32), (
+        "topk_pruned_minv_bf16: not the f32-Minv kernel's shortlist")
+    return check_topk_pruned(w, Minv, occ, cat, clusters, alpha, k)
+
+
 def cc_hop_forced(adj, labels_self, labels_j, dense_min):
     """cc_hop's kernel with the dense threshold set by the caller (0:
     every word with a set bit takes the min over its 32 labels; 32: every
@@ -1470,6 +1677,7 @@ def small_checks(dev):
     small_cc_hop_checks(g, dev)
     small_topk_checks(g, dev, n, d, w, Minv, occ)
     small_quant_checks(g, dev, n, d, Minv, occ)
+    small_minv_checks(g, dev)
     small_recsys_checks(g, dev)
     small_flash_checks(g, dev)
 
@@ -1736,6 +1944,176 @@ def small_quant_checks(g, dev, n, d, Minv, occ):
                     assert res["skip"] > 0, "topk_pruned skipped no tile"
 
 
+def off_by_one(t):
+    """A copy of ``t`` whose data starts one element (2 bytes for bf16)
+    past a 16-byte boundary: a view into a flat buffer one longer."""
+    import torch
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def small_minv_checks(g, dev):
+    """The bf16-Minv variants on ragged shapes, each bit-equal to its f32
+    kernel on the widened Minv and within its band of the plain version:
+    choose and ucb at d = 1 ... 64 (the register tile and a block per user
+    up to d = 32, a warp per user above), K past the tile's threads a
+    user (256, 257), users on both sides of ucb's block-per-user limit
+    (2 x SMs, one more), serving's 256 x 64, and on Minv rows off a
+    16-byte boundary (a view one row in; a buffer one element in); the
+    M-ful update at the clones' shapes, on both sides of its
+    block-per-user limit and at d = 33 and 64, on a buffer one element
+    in, through CLUB's n = 1 row views at an odd user, its two variants
+    bit-equal; topk over f32, bf16 and int8 items at d = 1 ... 64, one
+    row in and N < k; topk_pruned over each kind's region catalog at
+    tiles 128 (skipping) and 2048 (slices), and at d = 64, k = 128; and an
+    f16 Minv refused by every wrapper with a ``TypeError``, nothing
+    launched."""
+    import torch
+    from repro_torch.core import catalog, itemclub
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.interact import ops as iops
+    from repro_torch.kernels.rank1 import ops as rops
+    from repro_torch.kernels.topk import ops as tops
+    from repro_torch.kernels.ucb import ops as uops
+    t_start = time.perf_counter()
+    sms = _build.sm_count(dev.index or 0)
+    nu = 2 * sms
+    for n, K, d in ((37, 20, 1), (37, 20, 5), (37, 7, 19), (37, 20, 25),
+                    (37, 20, 31), (37, 64, 32), (37, 20, 33), (20, 20, 64),
+                    (5, 256, 32), (5, 257, 32), (nu, 20, 25),
+                    (nu + 1, 20, 25), (SERVE_BATCH, K_SHORT, 25)):
+        w = 0.5 * torch.randn(n + 1, d, generator=g, device=dev)
+        Mb = spd_inverse(g, n + 1, d, dev).bfloat16()
+        ctx = unit(torch.randn(n + 1, K, d, generator=g, device=dev))
+        occ = torch.randint(0, 1000, (n + 1,), generator=g, device=dev,
+                            dtype=torch.int32)
+        res = check_choose_bf16(w[:n], Mb[:n], ctx[:n].contiguous(),
+                                occ[:n], 0.3)
+        # one row in: 2 d^2 bytes past the allocation (2 mod 16 at
+        # d = 19, 25); and a buffer one element in
+        res1 = check_choose_bf16(w[1:], Mb[1:], ctx[1:].contiguous(),
+                                 occ[1:], 0.3)
+        res2 = check_choose_bf16(w[:n], off_by_one(Mb[:n]),
+                                 ctx[:n].contiguous(), occ[:n], 0.3)
+        log(f"small choose/ucb bf16 Minv (n={n}, K={K}, d={d}): {res}; one "
+            f"row in: {res1}; one element in: {res2}")
+    for nr, dr in ((943, 19), (5045, 5), (nu, 25), (nu + 1, 25), (37, 33),
+                   (64, 64)):
+        Minv = spd_inverse(g, nr, dr, dev)
+        Mb = Minv.bfloat16()
+        M = torch.linalg.inv(Mb.float()).contiguous()
+        b = torch.randn(nr, dr, generator=g, device=dev)
+        x = unit(torch.randn(nr, dr, generator=g, device=dev))
+        r = (torch.rand(nr, generator=g, device=dev) < 0.5).float()
+        mask = torch.rand(nr, generator=g, device=dev) < 0.8
+        res = check_rank1_mful_bf16(M, Mb, b, x, r, mask)
+        res1 = check_rank1_mful_bf16(M, off_by_one(Mb), b, x, r, mask)
+        log(f"small rank1_update bf16 (n={nr}, d={dr}): {res}; one element "
+            f"in: {res1}")
+        if dr <= 32:     # CLUB's row view: a block per user
+            u = 7
+            live = torch.ones(1, dtype=torch.bool, device=dev)
+            rows = (M.clone(), Mb.clone(), b.clone())
+            before = tuple(t[u:u + 1].clone() for t in rows)
+            rops.rank1_update(*(t[u:u + 1] for t in rows), x[u:u + 1],
+                              r[u:u + 1], live)
+            res = hold_rank1_bf16(before, tuple(t[u:u + 1] for t in rows),
+                                  x[u:u + 1], r[u:u + 1], live)
+            keep = torch.arange(nr, device=dev) != u
+            assert all(torch.equal(a[keep], t[keep])
+                       for a, t in zip(rows, (M, Mb, b))), (
+                "rank1_update_bf16: the row view wrote other rows")
+            log(f"small rank1_update bf16 n=1 row view at user {u} (offset "
+                f"mod 16: {Mb[u:u + 1].data_ptr() % 16}): {res}")
+            if nr > nu:  # the whole state: a warp per user
+                res = check_rank1_variants(M, Mb, b, x[u:u + 1], r[u:u + 1],
+                                           u)
+                log(f"small rank1 bf16 variants, the row view against "
+                    f"n={nr}: {res}")
+    n = 37
+    occ = torch.randint(0, 1000, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    for prec in ("f32", *PRECISIONS):
+        for dd, kk, N in ((1, 13, 2000), (19, 64, 2003), (25, 64, 2047),
+                          (32, 64, 2049), (33, 64, 1999), (64, 128, 3001)):
+            w_d = 0.5 * torch.randn(n, dd, generator=g, device=dev)
+            bank = catalog.make_catalog(
+                unit(torch.randn(N, dd, generator=g, device=dev)),
+                precision=prec).serving
+            lv = (torch.rand(N, generator=g, device=dev) < 0.9).float()
+            sc = bank.scale if prec == "int8" else None
+            Mb = spd_inverse(g, n, dd, dev).bfloat16()
+            res = check_topk_minv_bf16(w_d, Mb, occ, bank.emb, lv, sc, 0.3,
+                                       kk)
+            res1 = check_topk_minv_bf16(
+                w_d, Mb, occ, bank.emb[1:], lv[1:],
+                None if sc is None else sc[1:], 0.3, kk)
+            res9 = check_topk_minv_bf16(
+                w_d, Mb, occ, bank.emb[:9], lv[:9],
+                None if sc is None else sc[:9], 0.3, kk)
+            log(f"small topk bf16 Minv, {prec} items d={dd} (n={n}, N={N}, "
+                f"k={kk}): {res}; one row in: {res1}; N=9: {res9}")
+        R, N2 = 8, 12288
+        for dk, nk, kk, tiles in ((25, 256, 13, (128, 2048)),
+                                  (64, 20, 128, (512,))):
+            cent = unit(torch.randn(R, dk, generator=g, device=dev))
+            reg = torch.randint(0, R, (N2,), generator=g, device=dev)
+            cat = catalog.make_catalog(
+                unit(cent[reg] + 0.01 * torch.randn(N2, dk, generator=g,
+                                                    device=dev)),
+                precision=prec)
+            w_reg = 0.8 * cent[torch.randint(0, R, (nk,), generator=g,
+                                             device=dev)]
+            Mb = spd_inverse(g, nk, dk, dev).bfloat16()
+            occ_reg = torch.randint(0, 1000, (nk,), generator=g, device=dev,
+                                    dtype=torch.int32)
+            for tile in tiles:
+                clusters = itemclub.build_clusters(cat, tile_items=tile,
+                                                   n_anchors=256)
+                res = check_topk_pruned_minv_bf16(w_reg, Mb, occ_reg, cat,
+                                                  clusters, 0.3, kk)
+                log(f"small topk_pruned bf16 Minv, {prec} items (n={nk}, "
+                    f"d={dk}, N={N2}, tile {tile}, k={kk}): {res}")
+                if tile == 128:
+                    assert res["skip"] > 0, "topk_pruned skipped no tile"
+    n, K, d, N = 8, 5, 4, 64
+    w = torch.randn(n, d, generator=g, device=dev)
+    Mh = spd_inverse(g, n, d, dev).half()
+    ctx = unit(torch.randn(n, K, d, generator=g, device=dev))
+    occ = torch.ones(n, dtype=torch.int32, device=dev)
+    x, r = ctx[:, 0].contiguous(), torch.ones(n, device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    items = unit(torch.randn(N, d, generator=g, device=dev))
+    live = torch.ones(N, device=dev)
+    ids = torch.arange(N, dtype=torch.int32, device=dev)
+    tb = torch.zeros(n, 4, device=dev)
+    M, b = torch.eye(d, device=dev).repeat(n, 1, 1), torch.zeros_like(w)
+    before = dict(_build.LAUNCHES)
+    refused = []
+    for name, call in (
+            ("choose", lambda: iops.choose(w, Mh, ctx, occ, 0.3)),
+            ("ucb_scores", lambda: uops.ucb_scores(w, Mh, ctx, occ, 0.3)),
+            ("rank1_update", lambda: rops.rank1_update(M, Mh, b, x, r,
+                                                       mask)),
+            ("rank1_update_inv", lambda: rops.rank1_update_inv(Mh, b, x, r,
+                                                               mask)),
+            ("topk", lambda: tops.topk(w, Mh, occ, items, live, 0.3, 8)),
+            ("topk_pruned", lambda: tops.topk_pruned(
+                w, Mh, occ, items, live, ids, 0.3, 8, tb))):
+        try:
+            call()
+        except TypeError:
+            refused.append(name)
+    torch.cuda.synchronize()
+    assert len(refused) == 6 and _build.LAUNCHES == before, (
+        f"an f16 Minv: only {refused} refused it")
+    log(f"small f16 Minv: refused with TypeError by {refused}, nothing "
+        f"launched")
+    log(f"small_minv_checks: {time.perf_counter() - t_start} s")
+
+
 def small_recsys_checks(g, dev):
     """cross on ragged shapes, both routes (the SIMT route's two tile
     shapes: B=5000 at d=429 takes the 128x64 tiles), and the W split
@@ -1865,6 +2243,8 @@ def spill_check() -> dict:
         if m is None:
             continue
         args = re.findall(r"Li(\d+)E", func)
+        if "bfloat16" in func:      # the instantiation for a bf16 Minv
+            args.append("bf16")
         label = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         seen[label] = (regs, st, ld)
         log(f"ptxas {label}: {regs} registers, {st} bytes spill stores, "
@@ -2690,6 +3070,157 @@ def precision_phase(dev, work, state, hyper, theta):
         assert rate <= FLIP_MAX, f"{p}: choice_flip_rate {rate}"
     out["total"] = total
     return out
+
+
+def minv_engine_rounds(state, ops, hyper, step0):
+    """Phase 4p, bf16 Minv, (a): phase 4's learned state with Minv cast to
+    bf16 (M, b f32) through ``MINV_ROUNDS`` rounds of the bf16 preset's
+    ``InteractBackend.choose`` and ``update_lin`` and of ``ucb_scores``
+    (the round's score matrix) on phase 4's environment (its contexts and
+    rewards from step ``step0`` on; a rotating eighth of the users sits
+    out each round), the kernel's state carried forward.  Each round is
+    held, uncounted, to the kernels on Minv's f32 widening (picks, x,
+    scores bit for bit; the update's Minv their rounding, M and b
+    bit-equal) and to the plain versions on the same inputs
+    (``hold_choose``, ``hold_rank1_bf16``).  Returns the launches, the
+    errors and the last round's inputs."""
+    import torch
+    from repro_torch.core import linucb
+    from repro_torch.core.backend import BackendConfig
+    from repro_torch.core.types import LinUCBState
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ucb import ops as uops
+    lin0 = state.lin
+    lin = LinUCBState(lin0.M.clone(), lin0.Minv.bfloat16(), lin0.b.clone(),
+                      lin0.occ.clone())
+    be = BackendConfig.create("bf16").interact()
+    n = lin.b.shape[0]
+    users = torch.arange(n, device=lin.b.device)
+    errs = {k: {"max_abs_err": 0.0, "near_ties": 0, "max_ulps": 0}
+            for k in ("choose_bf16", "ucb_bf16", "rank1_update_bf16")}
+    secs = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for t in range(MINV_ROUNDS):
+        step = step0 + t
+        t0 = time.perf_counter()
+        ctx = ops.contexts_fn(SEED, step, lin.occ)
+        w = linucb.user_vector(lin.Minv.float(), lin.b)
+        x, choice = be.choose(w, lin.Minv, ctx, lin.occ, hyper.alpha)
+        scores = uops.ucb_scores(w, lin.Minv, ctx, lin.occ, hyper.alpha)
+        r = ops.rewards_fn(SEED, step, lin.occ, ctx, choice)[0]
+        mask = (users + t) % 8 != 0
+        with uncounted():
+            res = hold_choose(w, lin.Minv, ctx, lin.occ, hyper.alpha, choice,
+                              x, scores)
+            before = tuple(a.clone() for a in lin[:3])
+        lin = be.update_lin(lin, x, r, mask)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        with uncounted():
+            upd = hold_rank1_bf16(before, lin[:3], x, r, mask)
+        for k, v in (("choose_bf16", res["max_abs_err"]),
+                     ("ucb_bf16", res["ucb_max_abs_err"]),
+                     ("rank1_update_bf16", upd["max_abs_err"])):
+            errs[k]["max_abs_err"] = max(errs[k]["max_abs_err"], v)
+        errs["choose_bf16"]["near_ties"] += res["near_ties"]
+        errs["rank1_update_bf16"]["max_ulps"] = max(
+            errs["rank1_update_bf16"]["max_ulps"], upd["max_ulps"])
+    launches = dict(_build.LAUNCHES)
+    assert lin.Minv.dtype == torch.bfloat16
+    for a in lin[:3]:
+        assert bool(torch.isfinite(a.float()).all()), "non-finite state"
+    for k in ("choose_bf16", "ucb_bf16", "rank1_update_bf16"):
+        assert launches[k] == MINV_ROUNDS, launches
+    for k in ("choose", "ucb", "rank1_update"):
+        assert launches[k] == 0, launches
+    return {"launches": launches, "errs": errs, "secs": secs,
+            "inputs": (w, lin, ctx, x, r, mask)}
+
+
+def minv_serving_batch(serving, sess_q, banks, alpha):
+    """Phase 4p, bf16 Minv, (b): one serving batch of the bf16 preset's
+    ``RetrievalBackend`` (``shortlist`` and ``shortlist_pruned``) for phase
+    4s's first 256 users with the bf16 session's statistics, Minv in bf16
+    (the session's own bits: its gathered rows are their exact widening),
+    over each bank of ``banks`` (f32, bf16, int8: ``(catalog,
+    clusters)``), counted; then, uncounted, each shortlist against the
+    kernels on Minv's f32 widening, bit for bit, and against the plain
+    versions (``check_topk_minv_bf16``, ``check_topk_pruned_minv_bf16``).
+    Returns the launches and the errors."""
+    import torch
+    from repro_torch.core.backend import BackendConfig
+    from repro_torch.kernels import _build
+    idx = serving.users[0].long()
+    w, M32, occ = sess_q.policy.gather_score(sess_q.state, idx)
+    Mb = M32.bfloat16()
+    assert torch.equal(Mb.float(), M32), "the gathered rows are not bf16's"
+    rb = BackendConfig.create("bf16").retrieval(K_SHORT)
+    got = {}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for kind, (cat, cl) in banks.items():
+        bank = cat.serving
+        quant = bank.emb.dtype == torch.int8
+        got[kind] = (
+            rb.shortlist(w, Mb, occ, bank.emb, bank.live, alpha,
+                         scales=bank.scale if quant else None),
+            rb.shortlist_pruned(w, Mb, occ, cl.emb_sorted, cl.live_sorted,
+                                cl.perm, cl.tile_mu, cl.tile_r, cl.tile_xn,
+                                cl.tile_n, alpha,
+                                scales_sorted=cl.scale_sorted if quant
+                                else None))
+    launches = dict(_build.LAUNCHES)
+    for k in MINV_TOPK:
+        assert launches[k] == 1, launches
+    assert not any(v for k, v in launches.items() if k not in MINV_TOPK), (
+        launches)
+    errs = {}
+    with uncounted():
+        for kind, (cat, cl) in banks.items():
+            bank = cat.serving
+            sfx = "" if kind == "f32" else f"_{kind}"
+            (s_u, i_u), (s_p, i_p, _, _) = got[kind]
+            errs[f"topk_minv_bf16{sfx}"] = check_topk_minv_bf16(
+                w, Mb, occ, bank.emb, bank.live,
+                bank.scale if kind == "int8" else None, alpha, K_SHORT,
+                got=(s_u, i_u))
+            errs[f"topk_pruned_minv_bf16{sfx}"] = \
+                check_topk_pruned_minv_bf16(w, Mb, occ, cat, cl, alpha,
+                                            K_SHORT, got=(s_p, i_p))
+    return {"launches": launches, "errs": errs, "users": (w, Mb, occ)}
+
+
+def minv_phase(dev, state, ops, hyper, serving, precision, item_clusters,
+               step0):
+    """Phase 4p, bf16 Minv: the engines on a bf16 Minv at full width
+    (``minv_engine_rounds``, n = 20480, d = 25, K = 20) and one serving
+    batch of the top-K over phase 4s's f32 and phase 4p's bf16 and int8
+    banks (``minv_serving_batch``); each counted on its own, every
+    launch through a bf16-Minv kernel.  Returns what phases 5 and 6
+    need."""
+    t0 = time.perf_counter()
+    rounds = minv_engine_rounds(state, ops, hyper, step0)
+    log(f"precision bf16 Minv engines: {MINV_ROUNDS} rounds in "
+        f"{time.perf_counter() - t0} s (with their checks), median round "
+        f"{1e3 * statistics.median(rounds['secs'])} ms; launches "
+        f"{ {k: v for k, v in rounds['launches'].items() if v} }; "
+        f"{rounds['errs']}")
+    banks = {"f32": (serving.catalog, item_clusters),
+             **{p: (precision["cats"][p], precision["clusters"][p])
+                for p in PRECISIONS}}
+    t0 = time.perf_counter()
+    batch = minv_serving_batch(serving, precision["sessions"]["bf16"], banks,
+                               hyper.alpha)
+    log(f"precision bf16 Minv serving batch: {time.perf_counter() - t0} s "
+        f"(with its checks); launches "
+        f"{ {k: v for k, v in batch['launches'].items() if v} }; "
+        f"{batch['errs']}")
+    launches = {k: rounds["launches"][k] + batch["launches"][k]
+                for k in rounds["launches"]}
+    return {"launches": launches, "errs": {**rounds["errs"],
+                                           **batch["errs"]},
+            "rounds": rounds, "batch": batch, "banks": banks}
 
 
 # ---------------------------------------------------------------------------
@@ -7008,6 +7539,8 @@ def main() -> int:
 
     # ---- phase 4p: reduced-precision serving and checkpointing -------------
     precision = precision_phase(dev, serving, state, hyper, e.theta)
+    minv = minv_phase(dev, state, ops, hyper, serving, precision,
+                      item_clusters, EPOCHS * 2 * R + 1)
 
     # ---- phase 4o: the operations layer -------------------------------------
     ops_launches = ops_phase(dev, serving, state, hyper, dccb_core,
@@ -7179,6 +7712,9 @@ def main() -> int:
         flash_errs.append(res["max_abs_err"])
     flash_errs.append(moe_flash_checks(moe))
     errs["flash"] = {"max_abs_err": max(flash_errs)}
+    # the bf16-Minv variants, held in phase 4p's counted runs (the engine
+    # rounds at full width, the serving batch over the three banks)
+    errs.update(minv["errs"])
     for kname, res in errs.items():
         log(f"full {kname}: {res}")
 
@@ -7277,6 +7813,76 @@ def main() -> int:
             lambda a=pargs_q, sq=ss_q: tref.topk_ref_pruned(*a, scales=sq),
             keep_q * (q_bytes + 4 * (N_live + B * tb_q.shape[1])),
             keep_q * q_ops)
+    # the bf16-Minv variants: choose, ucb and the M-ful update on phase 5's
+    # inputs with Minv cast to bf16 (2 d^2 bytes a user; the update on its
+    # own copies), the top-K six on phase 4p's bf16-Minv serving batch over
+    # each bank (the f32 bank's items at 4 bytes), pruned over each bank's
+    # own sorted layout; each beside its f32 kernel on the widened Minv
+    Mb_k = (M.clone(), Minv_bf.clone(), b.clone())
+    Mb_p = (M.clone(), Minv_bf.clone(), b.clone())
+    Mb_f = (M.clone(), Minv_bf.float(), b.clone())
+    Minv_wide = Minv_bf.float()
+    work.update({
+        "choose_bf16": (
+            lambda: iops.choose(w, Minv_bf, ctx, occ, hyper.alpha),
+            lambda: iref.choose_ref(w, Minv_bf, ctx, occ, hyper.alpha),
+            4 * (n * K * d + 2 * n * d + 2 * n) + 2 * n * d * d,
+            n * K * (4 * d + 2 * d * d + 6)),
+        "ucb_bf16": (
+            lambda: uops.ucb_scores(w, Minv_bf, ctx, occ, hyper.alpha),
+            lambda: uref.ucb_scores_ref(w, Minv_bf, ctx, occ, hyper.alpha),
+            4 * n * (K * d + d + 1 + K) + 2 * n * d * d,
+            n * K * (4 * d + 2 * d * d + 6)),
+        "rank1_update_bf16": (
+            lambda: rops.rank1_update(*Mb_k, x, r, mask),
+            lambda: rref.rank1_update_ref(*Mb_p, x, r, mask),
+            live * (12 * d * d + 4 * (3 * d + 1)) + n,
+            live * (7 * d * d + 4 * d + 2)),
+    })
+    minv_f32 = {
+        "choose_bf16": lambda: iops.choose(w, Minv_wide, ctx, occ,
+                                           hyper.alpha),
+        "ucb_bf16": lambda: uops.ucb_scores(w, Minv_wide, ctx, occ,
+                                            hyper.alpha),
+        "rank1_update_bf16": lambda: rops.rank1_update(*Mb_f, x, r, mask)}
+    w_b, Mb_b, occ_b = minv["batch"]["users"]
+    Mb_wide = Mb_b.float()
+    for kind, (cat_b, cl_b) in minv["banks"].items():
+        bank_b = cat_b.serving
+        sc_b = bank_b.scale if kind == "int8" else None
+        ss_b = cl_b.scale_sorted if kind == "int8" else None
+        sfx = "" if kind == "f32" else f"_{kind}"
+        Nb = bank_b.live.shape[0]
+        b_bytes = (4 * (B * d + B + Nb) + 2 * B * d * d
+                   + bank_b.emb.element_size() * Nb * d
+                   + (4 * Nb if sc_b is not None else 0) + 8 * B * K_SHORT)
+        b_ops = tk_ops + (Nb * d if sc_b is not None else 0)
+        tb_b = tref.tile_bounds(w_b, Mb_b, occ_b, hyper.alpha, cl_b.tile_mu,
+                                cl_b.tile_r, cl_b.tile_xn, cl_b.tile_n)
+        pa_b = (cl_b.emb_sorted, cl_b.live_sorted, cl_b.perm, hyper.alpha,
+                K_SHORT, tb_b)
+        e_p = errs[f"topk_pruned_minv_bf16{sfx}"]
+        keep_b = 1.0 - max(e_p["skip"], e_p["plain_skip"])
+        topk_args = (bank_b.emb, bank_b.live, hyper.alpha, K_SHORT)
+        work[f"topk_minv_bf16{sfx}"] = (
+            lambda a=topk_args, sq=sc_b: tops.topk(w_b, Mb_b, occ_b, *a,
+                                                   scales=sq),
+            lambda a=topk_args, sq=sc_b: tref.topk_ref(w_b, Mb_b, occ_b, *a,
+                                                       scales=sq),
+            b_bytes, b_ops)
+        work[f"topk_pruned_minv_bf16{sfx}"] = (
+            lambda a=pa_b, sq=ss_b: tops.topk_pruned(w_b, Mb_b, occ_b, *a,
+                                                     scales=sq),
+            lambda a=pa_b, sq=ss_b: tref.topk_ref_pruned(w_b, Mb_b, occ_b,
+                                                         *a, scales=sq),
+            keep_b * (b_bytes + 4 * (Nb + B * tb_b.shape[1])),
+            keep_b * b_ops)
+        minv_f32[f"topk_minv_bf16{sfx}"] = (
+            lambda a=topk_args, sq=sc_b: tops.topk(w_b, Mb_wide, occ_b, *a,
+                                                   scales=sq))
+        minv_f32[f"topk_pruned_minv_bf16{sfx}"] = (
+            lambda a=pa_b, sq=ss_b: tops.topk_pruned(w_b, Mb_wide, occ_b,
+                                                     *a, scales=sq))
     # cross: layer 2 of a serve_bulk batch (x0 and xl distinct inputs);
     # embedding_bag: the 262144 bags, pads' rows not counted (not read)
     Bb, dI = x0b.shape
@@ -7365,6 +7971,7 @@ def main() -> int:
     on_path.update({k: precision["total"][k] for k in (
         "rank1_update_inv_bf16", "topk_bf16", "topk_int8",
         "topk_pruned_bf16", "topk_pruned_int8")})
+    on_path.update({k: minv["launches"][k] for k in MINV_KERNELS})
     on_path.update(topk=serve_launches["topk"],
                    topk_pruned=serve_launches["topk_pruned"],
                    cross=recsys["launches"]["cross"],
@@ -7464,6 +8071,21 @@ def main() -> int:
         by_name[f"topk_{prec}"].update(
             {f"choice_flip_rate_{label}": rates[prec]
              for label, rates in precision["flip"].items()})
+    # each bf16-Minv variant beside its f32 kernel on the widened Minv (the
+    # same inputs otherwise), in turns
+    for v in MINV_KERNELS:
+        t = turn_ms({"f32": minv_f32[v], v: work[v][0]}, flush,
+                    reps=2 * REPS)
+        by_name[v].update(ms_turns=t[v], f32_ms_turns=t["f32"],
+                          ratio_to_f32=t[v] / t["f32"])
+        log(f"time {v} beside its f32 kernel on the widened Minv, "
+            f"{2 * REPS} launches each in turns: {t}")
+    for v in MINV_TOPK:
+        if "pruned" in v:
+            by_name[v].update(skip=errs[v]["skip"],
+                              plain_skip=errs[v]["plain_skip"])
+    by_name["rank1_update_bf16"]["max_ulps"] = errs["rank1_update_bf16"][
+        "max_ulps"]
     by_name["rank1_update_inv_bf16"]["max_ulps"] = errs[
         "rank1_update_inv_bf16"]["max_ulps"]
     # choose beside its warp variant (the design before the register tile)

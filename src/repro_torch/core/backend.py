@@ -22,7 +22,10 @@ engines pad nothing.
 ``repro.core.backend``: one resolved ``Precision`` builds every engine.
 Reduced precision changes what the tensors hold (a bf16 ``Minv``, bf16
 or int8 catalog banks with per-slot scales), and the kernels' wrappers
-pick their variant from the dtypes they are given.
+pick their variant from the dtypes they are given: every engine takes
+``Minv`` in f32 or bf16 (each kernel widens a bf16 ``Minv`` exactly as it
+loads it, and the updates round it back to nearest even), as
+``repro``'s pallas-kind engines hand a bf16 state to their kernels.
 """
 from __future__ import annotations
 
@@ -117,19 +120,22 @@ class InteractBackend(NamedTuple):
     """Fused-interaction engine; shapes come from the tensors."""
 
     def choose(self, w, Minv, contexts, occ, alpha):
-        """(x [n, d], choice [n] i32)."""
+        """(x [n, d], choice [n] i32); ``Minv`` f32 or bf16 (the pick of
+        its f32 widening)."""
         choice, x = interact_ops.choose(w, Minv, contexts, occ, alpha)
         return x, choice
 
     def update_inv(self, Minv, b, x, r, mask):
-        """(Minv', b'), updated in place on either device."""
+        """(Minv', b'), updated in place on either device; a bf16 ``Minv``
+        stays bf16."""
         return rank1_ops.rank1_update_inv(Minv, b, x, r, mask)
 
     def update_lin(self, lin: LinUCBState, x, r, mask) -> LinUCBState:
         """One masked interaction for every user of ``lin``: M, Minv and b
         in one kernel, then ``occ + mask``.  All four tensors are updated
         IN PLACE and returned; they may be one user's row views
-        (``lin.M[u:u+1]`` ...)."""
+        (``lin.M[u:u+1]`` ...).  ``lin.Minv`` may be bf16 (M and b f32): it
+        is updated in f32 and rounded back to nearest even, in place."""
         M, Minv, b = rank1_ops.rank1_update(lin.M, lin.Minv, lin.b, x, r,
                                             mask)
         return LinUCBState(M, Minv, b, lin.occ.add_(mask.to(torch.int32)))
@@ -180,7 +186,8 @@ class RetrievalBackend(NamedTuple):
         ``row0_items`` is the global id of the catalog slice's first row.
         Entries that hold no live item keep score -inf and id -1.
         ``items`` may be f32, bf16 or int8; int8 needs the per-slot
-        ``scales [N]`` f32."""
+        ``scales [N]`` f32.  ``Minv`` may be f32 or bf16 (the shortlist of
+        its f32 widening)."""
         s, i = topk_ops.topk(w, Minv, occ, items, live, alpha, self.K_short,
                              scales=scales)
         return s, torch.where(torch.isfinite(s), i + row0_items, -1)

@@ -57,6 +57,20 @@
 //
 // Both variants reduce over (score, k), an equal score taking the smaller
 // k.  Shapes are logical: no padding of K or d in device memory.
+//
+// bf16 Minv (choose_bf16_launch; Precision's state dtype, the bf16 case
+// of choose_pallas, which widens it in VMEM): both variants, Minv read as
+// bf16 and widened to f32 exactly (widen.cuh), so the FMA chains and the
+// pick are the f32 kernel's on the widened Minv, bit for bit.  The warp
+// variant widens as it stages Minv into its f32 region.  The register
+// tile stages the bf16 bytes themselves, half the f32 span's (a user's
+// block is 2 d^2 bytes, so only 2-byte aligned): 16-byte cp.async for
+// the body at the source's own offset mod 16, and plain 2-byte copies for
+// the at most 7 elements at each end (cp.async moves 4, 8 or 16 bytes);
+// the FMA loop widens each element as it reads it from shared memory, in
+// the same order.  Its Minv region is half as large (tile_bytes), so
+// geometry's users a block may grow.  The bound falls with Minv's bytes:
+// at n=20480, d=25, K=20, ~71 MB, ~21 us.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -64,6 +78,7 @@
 #include <math.h>
 
 #include "ucb_score.cuh"
+#include "widen.cuh"
 
 namespace {
 
@@ -77,48 +92,72 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src)
                : "memory");
 }
 
-// where the copy of src starts in a 16-byte aligned shared region (which
-// holds 3 floats more than the copy): src's offset past a 16-byte
-// boundary, so that both sides of every 16-byte copy are aligned
-__device__ __forceinline__ float* at_offset(float* region, const float* src) {
-  return region + ((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+// one element outside a span's 16-byte body: a 4-byte cp.async, or for a
+// bf16 (cp.async moves 4, 8 or 16 bytes) a plain copy, which the block's
+// barrier after cp.async.wait_all publishes as it does the async ones
+__device__ __forceinline__ void copy_one(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_one(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src) {
+  *dst = *src;
 }
 
-// issue the copy of n floats from src to dst = at_offset(region, src)
-__device__ __forceinline__ void stage(float* dst, const float* src, int n,
-                                      int t, int T) {
-  const int mis = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
-  const int head = min(n, (4 - mis) & 3);
-  const int body = (n - head) >> 2;
-  for (int e = t; e < head; e += T) cp_async4(dst + e, src + e);
-  for (int q = t; q < body; q += T)
-    cp_async16(dst + head + 4 * q, src + head + 4 * q);
-  for (int e = head + 4 * body + t; e < n; e += T) cp_async4(dst + e, src + e);
+// src's offset past a 16-byte boundary, in elements of T
+template <typename T>
+__device__ __forceinline__ int shift_of(const T* src) {
+  return (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+}
+
+// where the copy of src starts in a 16-byte aligned shared region (which
+// holds 16 / sizeof(T) - 1 elements more than the copy): at src's own
+// offset past a 16-byte boundary, so that both sides of every 16-byte
+// copy are aligned
+template <typename T>
+__device__ __forceinline__ T* at_offset(T* region, const T* src) {
+  return region + shift_of(src);
+}
+
+// issue the copy of n elements from src to dst = at_offset(region, src)
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int n, int t,
+                                      int T_) {
+  constexpr int kPer = 16 / sizeof(T);  // elements a 16-byte copy
+  const int head = min(n, (kPer - shift_of(src)) % kPer);
+  const int body = (n - head) / kPer;
+  for (int e = t; e < head; e += T_) copy_one(dst + e, src + e);
+  for (int q = t; q < body; q += T_)
+    cp_async16(dst + head + kPer * q, src + head + kPer * q);
+  for (int e = head + kPer * body + t; e < n; e += T_)
+    copy_one(dst + e, src + e);
 }
 
 __host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
 
-// floats of a register-tile block's shared memory: its users' Minv,
-// contexts, w and scores, each region 16-byte aligned with 3 floats of
-// room for the copy's shift
-__host__ __device__ inline size_t tile_floats(int users, int K, int d) {
-  return (size_t)round4(users * d * d + 3) +
-         round4(users * K * d + 3) + round4(users * d + 3) +
-         round4(users * K);
+// bytes of a shared region for n elements of T copied by stage: room for
+// the copy's shift (16 / sizeof(T) - 1 elements), whole 16-byte words
+template <typename T>
+__host__ __device__ constexpr size_t region_bytes(int n) {
+  return ((size_t)(n + 16 / sizeof(T) - 1) * sizeof(T) + 15) / 16 * 16;
+}
+
+// bytes of a register-tile block's shared memory: its users' Minv (in
+// its storage type S), contexts and w, each region 16-byte aligned with
+// room for the copy's shift, then the scores
+template <typename S>
+__host__ __device__ inline size_t tile_bytes(int users, int K, int d) {
+  return region_bytes<S>(users * d * d) + region_bytes<float>(users * K * d) +
+         region_bytes<float>(users * d) + 4 * (size_t)round4(users * K);
 }
 
 // the warp's first-index argmax from each lane's (best, best_k), where an
@@ -135,8 +174,9 @@ __device__ __forceinline__ int warp_first_max(float best, int best_k) {
   return best_k;
 }
 
+template <typename S>
 __global__ void choose_kernel(const float* __restrict__ w,
-                              const float* __restrict__ Minv,
+                              const S* __restrict__ Minv,
                               const float* __restrict__ ctx,
                               const int* __restrict__ occ, float alpha,
                               int n, int K, int d,
@@ -153,9 +193,9 @@ __global__ void choose_kernel(const float* __restrict__ w,
   float* m_s = smem + warp * (dd + d + Kd);
   float* w_s = m_s + dd;
   float* c_s = w_s + d;
-  const float* Mu = Minv + (size_t)u * dd;
+  const S* Mu = Minv + (size_t)u * dd;
   const float* cu = ctx + (size_t)u * Kd;
-  for (int i = lane; i < dd; i += 32) m_s[i] = Mu[i];
+  for (int i = lane; i < dd; i += 32) m_s[i] = widen(Mu[i]);
   for (int i = lane; i < d; i += 32) w_s[i] = w[(size_t)u * d + i];
   for (int i = lane; i < Kd; i += 32) c_s[i] = cu[i];
   __syncwarp();
@@ -192,10 +232,10 @@ __device__ __forceinline__ float combine(const float* c, const float* w_s,
   return __fadd_rn(est, bonus);
 }
 
-template <int D>
+template <int D, typename S>
 __global__ void __launch_bounds__(kTileThreads)
     choose_tile_kernel(const float* __restrict__ w,
-                       const float* __restrict__ Minv,
+                       const S* __restrict__ Minv,
                        const float* __restrict__ ctx,
                        const int* __restrict__ occ, float alpha, int n,
                        int K, int users, int* __restrict__ choice,
@@ -208,17 +248,18 @@ __global__ void __launch_bounds__(kTileThreads)
   const int Kd = K * d;
   const int u0 = blockIdx.x * users;
   const int nu = min(users, n - u0);
-  // regions: Minv | contexts | w | scores
-  float* m_r = smem;
-  float* c_r = m_r + round4(users * dd + 3);
-  float* w_r = c_r + round4(users * Kd + 3);
-  float* s_r = w_r + round4(users * d + 3);
+  // regions: Minv | contexts | w | scores, carved in floats from smem
+  // (a carve through a byte pointer ran the f32 tile slower on the card)
+  S* m_r = reinterpret_cast<S*>(smem);
+  float* c_r = smem + region_bytes<S>(users * dd) / sizeof(float);
+  float* w_r = c_r + region_bytes<float>(users * Kd) / sizeof(float);
+  float* s_r = w_r + region_bytes<float>(users * d) / sizeof(float);
 
   // every copy of the three spans in flight, then one wait
-  const float* sm = Minv + (size_t)u0 * dd;
+  const S* sm = Minv + (size_t)u0 * dd;
   const float* sc = ctx + (size_t)u0 * Kd;
   const float* sw = w + (size_t)u0 * d;
-  float* m_all = at_offset(m_r, sm);
+  S* m_all = at_offset(m_r, sm);
   float* c_all = at_offset(c_r, sc);
   float* w_all = at_offset(w_r, sw);
   stage(m_all, sm, nu * dd, t, T);
@@ -233,7 +274,7 @@ __global__ void __launch_bounds__(kTileThreads)
   const int uu = t / P;
   if (uu < nu) {
     const int kb = kTK * (t - uu * P);
-    const float* m_s = m_all + uu * dd;
+    const S* m_s = m_all + uu * dd;
     const float* cr[kTK];
 #pragma unroll
     for (int a = 0; a < kTK; ++a)
@@ -250,13 +291,13 @@ __global__ void __launch_bounds__(kTileThreads)
       for (int a = 0; a < kTK; ++a)
 #pragma unroll
         for (int q = 0; q < 4; ++q) cv[a][q] = cr[a][j + q];
-      const float* pm = m_s + j;
+      const S* pm = m_s + j;
 #pragma unroll
       for (int i = 0; i < D; ++i) {
-        const float* r = pm + i * d;
+        const S* r = pm + i * d;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float m = r[q];
+          const float m = widen(r[q]);
 #pragma unroll
           for (int a = 0; a < kTK; ++a)
             tt[a][i] = fmaf(m, cv[a][q], tt[a][i]);
@@ -269,7 +310,7 @@ __global__ void __launch_bounds__(kTileThreads)
       for (int a = 0; a < kTK; ++a) cv[a] = cr[a][j];
 #pragma unroll
       for (int i = 0; i < D; ++i) {
-        const float m = m_s[i * d + j];
+        const float m = widen(m_s[i * d + j]);
 #pragma unroll
         for (int a = 0; a < kTK; ++a) tt[a][i] = fmaf(m, cv[a], tt[a][i]);
       }
@@ -312,8 +353,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int D>
-int launch_tile(const float* w, const float* Minv, const float* ctx,
+template <int D, typename S>
+int launch_tile(const float* w, const S* Minv, const float* ctx,
                 const int* occ, float alpha, int n, int K, int d, int users,
                 int* choice, float* x, cudaStream_t stream) {
   if constexpr (D < kTileMaxD) {
@@ -321,23 +362,21 @@ int launch_tile(const float* w, const float* Minv, const float* ctx,
       return launch_tile<D + 1>(w, Minv, ctx, occ, alpha, n, K, d, users,
                                 choice, x, stream);
   }
-  const size_t smem = tile_floats(users, K, D) * sizeof(float);
-  cudaError_t e = allow_smem(choose_tile_kernel<D>, smem);
+  const size_t smem = tile_bytes<S>(users, K, D);
+  cudaError_t e = allow_smem(choose_tile_kernel<D, S>, smem);
   if (e != cudaSuccess) return (int)e;
   const int P = (K + kTK - 1) / kTK;
   const int threads = (users * P + 31) / 32 * 32;
   const int blocks = (n + users - 1) / users;
-  choose_tile_kernel<D><<<blocks, threads, smem, stream>>>(
+  choose_tile_kernel<D, S><<<blocks, threads, smem, stream>>>(
       w, Minv, ctx, occ, alpha, n, K, users, choice, x);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int choose_launch(const float* w, const float* Minv,
-                             const float* ctx, const int* occ, float alpha,
-                             int n, int K, int d, int variant, int users,
-                             int* choice, float* x, cudaStream_t stream) {
+template <typename S>
+int launch(const float* w, const S* Minv, const float* ctx, const int* occ,
+           float alpha, int n, int K, int d, int variant, int users,
+           int* choice, float* x, cudaStream_t stream) {
   if (variant == 1) {
     const int P = (K + kTK - 1) / kTK;
     if (d < 1 || d > kTileMaxD || users < 1 || users * P > kTileThreads)
@@ -347,11 +386,29 @@ extern "C" int choose_launch(const float* w, const float* Minv,
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)kWarps * (d * d + d + K * d) * sizeof(float);
-  cudaError_t e = allow_smem(choose_kernel, smem);
+  cudaError_t e = allow_smem(choose_kernel<S>, smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (n + kWarps - 1) / kWarps;
-  choose_kernel<<<blocks, 32 * kWarps, smem, stream>>>(w, Minv, ctx, occ,
-                                                        alpha, n, K, d,
-                                                        choice, x);
+  choose_kernel<S><<<blocks, 32 * kWarps, smem, stream>>>(
+      w, Minv, ctx, occ, alpha, n, K, d, choice, x);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int choose_launch(const float* w, const float* Minv,
+                             const float* ctx, const int* occ, float alpha,
+                             int n, int K, int d, int variant, int users,
+                             int* choice, float* x, cudaStream_t stream) {
+  return launch(w, Minv, ctx, occ, alpha, n, K, d, variant, users, choice, x,
+                stream);
+}
+
+extern "C" int choose_bf16_launch(const float* w, const __nv_bfloat16* Minv,
+                                  const float* ctx, const int* occ,
+                                  float alpha, int n, int K, int d,
+                                  int variant, int users, int* choice,
+                                  float* x, cudaStream_t stream) {
+  return launch(w, Minv, ctx, occ, alpha, n, K, d, variant, users, choice, x,
+                stream);
 }

@@ -48,19 +48,21 @@
 // Both round the division and subtraction as the plain version rounds
 // them (outer product, then / denom, then subtract; x_i x_j, then add).
 //
-// bf16 Minv (rank1_update_inv_bf16_launch; Precision's state dtype,
-// rank1_update_inv_pallas's bf16 case): the M-free update of both
-// variants with Minv stored in bf16.  Each element is widened to f32 as
+// bf16 Minv (rank1_update_inv_bf16_launch and rank1_update_bf16_launch;
+// Precision's state dtype, the bf16 case of rank1_update_inv_pallas and
+// of rank1_update_pallas): either update, in both variants, with Minv
+// stored in bf16 (M, b and x stay f32).  Each element is widened to f32 as
 // it is loaded (exact), the math runs in f32 in the order above, and
 // the new value is rounded to bf16 to nearest even (__float2bfloat16_rn,
 // as the plain version's f32 -> bf16 copy and repro's astype round).  A
 // user's block is 2 d^2 bytes (1250 at d = 25), so rows are only 2-byte
 // aligned: the copies move one element a lane, never assuming wider
-// alignment.  The bound halves with Minv's bytes: at n=20480, d=25, all
-// live, ~57 MB, ~17 us.
+// alignment.  The bound falls with Minv's bytes: at n=20480, d=25, all
+// live, ~57 MB, ~17 us (M-free) and ~160 MB, ~48 us (M-ful).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "widen.cuh"
 
 namespace {
 
@@ -68,22 +70,6 @@ constexpr int kWarps = 8;           // users a block, warp per user
 constexpr int kBlockThreads = 256;  // block per user
 constexpr int kBlockMaxD = 32;
 constexpr int kPerThread = kBlockMaxD * kBlockMaxD / kBlockThreads;
-
-// Minv's storage type to f32 and back (round to nearest even).
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename S>
-__device__ __forceinline__ S narrow(float v);
-template <>
-__device__ __forceinline__ float narrow<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // 1 + x.Minv x for one user, by one warp: lane i forms Mx_i = (Minv x)_i
 // into mx_s as an in-order FMA chain over j, and a shuffle tree sums the
@@ -268,4 +254,14 @@ extern "C" int rank1_update_launch(float* M, float* Minv, float* b,
                                    const unsigned char* mask, int n, int d,
                                    int variant, cudaStream_t stream) {
   return launch<float, true>(M, Minv, b, x, r, mask, n, d, variant, stream);
+}
+
+extern "C" int rank1_update_bf16_launch(float* M, __nv_bfloat16* Minv,
+                                        float* b, const float* x,
+                                        const float* r,
+                                        const unsigned char* mask, int n,
+                                        int d, int variant,
+                                        cudaStream_t stream) {
+  return launch<__nv_bfloat16, true>(M, Minv, b, x, r, mask, n, d, variant,
+                                     stream);
 }

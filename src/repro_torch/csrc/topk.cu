@@ -95,12 +95,26 @@
 // The bound stays the operations' (the dequant is d multiplies an item
 // per block of 8 users beside 2 d^2 FMAs a pair); the catalog's bytes
 // fall to a half (bf16) or about a quarter (int8).
+//
+// bf16 Minv (the topk_minv_bf16* and topk_pruned_minv_bf16* entries, each
+// over the three item kinds; Precision's state dtype, the bf16 case of
+// topk_pallas and topk_pruned_pallas, which widen it in VMEM): the
+// users' Minv is read once a block, by stage_users, which widens each
+// element (exact, widen.cuh) into the same f32 Ms tile.  Everything past
+// it is the f32 kernels' code on the same f32 values, so a shortlist and
+// its score bits are the f32-Minv kernel's on the widened Minv, and the
+// shared memory, the occupancy and the split plan do not change.  The
+// storage type is a launch argument (minv_bf16), not a template
+// parameter: stage_users is the one place that reads it, and a second
+// set of the twelve scoring instantiations would double the build for
+// code that is the same past it.  The bound stays the operations'.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "sqrt_rn.cuh"
+#include "widen.cuh"
 
 namespace {
 
@@ -260,9 +274,11 @@ __device__ __forceinline__ size_t user_of(const long long* order, int r) {
   return order ? (size_t)order[r] : (size_t)r;
 }
 
-// Stage the block's users (rows past n are zero) and empty their lists.
+// Stage the block's users (rows past n are zero; Minv, stored as S,
+// widened to f32) and empty their lists.
+template <typename S>
 __device__ void stage_users(const float* __restrict__ w,
-                            const float* __restrict__ Minv,
+                            const S* __restrict__ Minv,
                             const int* __restrict__ occ,
                             const long long* __restrict__ order, int n,
                             int d, int k, int u0, const Smem& s) {
@@ -270,7 +286,7 @@ __device__ void stage_users(const float* __restrict__ w,
   for (int e = threadIdx.x; e < kUsers * dd; e += kThreads) {
     const int u = e / dd, p = e - u * dd;
     s.Ms[p * kUsers + u] =
-        u0 + u < n ? Minv[user_of(order, u0 + u) * dd + p] : 0.f;
+        u0 + u < n ? widen(Minv[user_of(order, u0 + u) * dd + p]) : 0.f;
   }
   for (int e = threadIdx.x; e < kUsers * d; e += kThreads) {
     const int u = e / d, j = e - u * d;
@@ -286,6 +302,18 @@ __device__ void stage_users(const float* __restrict__ w,
     s.ls[e] = -INFINITY;
     s.li[e] = -1;
   }
+}
+
+// stage_users with Minv in its storage type: bf16 where minv_bf16, else f32
+__device__ __forceinline__ void stage_users_of(
+    const float* w, const void* Minv, int minv_bf16, const int* occ,
+    const long long* order, int n, int d, int k, int u0, const Smem& s) {
+  if (minv_bf16)
+    stage_users(w, static_cast<const __nv_bfloat16*>(Minv), occ, order, n, d,
+                k, u0, s);
+  else
+    stage_users(w, static_cast<const float*>(Minv), occ, order, n, d, k, u0,
+                s);
 }
 
 // n floats from src to dst (shared): 16-byte copies where both are
@@ -661,8 +689,9 @@ __device__ void write_lists(const Smem& s, const long long* order, int n,
 
 template <int DMAX, int TK, int ITEM>
 __global__ void __launch_bounds__(kThreads, 1)
-    topk_kernel(const float* __restrict__ w, const float* __restrict__ Minv,
-                const int* __restrict__ occ, const void* __restrict__ items,
+    topk_kernel(const float* __restrict__ w, const void* __restrict__ Minv,
+                int minv_bf16, const int* __restrict__ occ,
+                const void* __restrict__ items,
                 const float* __restrict__ live,
                 const float* __restrict__ scales, float alpha, int n, int N,
                 int d, int k, int S, float* __restrict__ out_s,
@@ -681,7 +710,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_commit();
   };
   if (split < n_chunks) stage(split, 0);
-  stage_users(w, Minv, occ, nullptr, n, d, k, u0, s);
+  stage_users_of(w, Minv, minv_bf16, occ, nullptr, n, d, k, u0, s);
   int lb = 0;
   for (int c = split; c < n_chunks; c += S) {
     cp_wait_all();
@@ -813,7 +842,7 @@ __device__ void pick_chunk(Walk& wk, Chunk& c, const Chunk& prev,
 template <int DMAX, int TK, int ITEM>
 __global__ void __launch_bounds__(kThreads, 1)
     topk_pruned_kernel(const float* __restrict__ w,
-                       const float* __restrict__ Minv,
+                       const void* __restrict__ Minv, int minv_bf16,
                        const int* __restrict__ occ,
                        const void* __restrict__ items,
                        const float* __restrict__ live,
@@ -873,7 +902,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
   next_chunk(0, false, 1);  // the first chunk: one tile, published floors
-  stage_users(w, Minv, occ, user_order, n, d, k, u0, s);
+  stage_users_of(w, Minv, minv_bf16, occ, user_order, n, d, k, u0, s);
   int lb = 0;
   for (bool first = true;; first = false) {
     cp_wait_all();
@@ -967,10 +996,10 @@ bool valid_shape(int d, int k) {
   return d >= 1 && d <= kMaxD && k >= 1 && k <= kMaxK;
 }
 
-using TopkFn = void (*)(const float*, const float*, const int*, const void*,
-                        const float*, const float*, float, int, int, int, int,
-                        int, float*, int*);
-using PrunedFn = void (*)(const float*, const float*, const int*,
+using TopkFn = void (*)(const float*, const void*, int, const int*,
+                        const void*, const float*, const float*, float, int,
+                        int, int, int, int, float*, int*);
+using PrunedFn = void (*)(const float*, const void*, int, const int*,
                           const void*, const float*, const int*,
                           const float*, const long long*, const float*,
                           const long long*, int*, float, int, int, int, int,
@@ -999,11 +1028,11 @@ size_t smem_bytes(int d, int k, bool pruned, int item) {
   return score_smem_bytes(d, k, items_per_thread(d), pruned, item);
 }
 
-int launch_topk(const float* w, const float* Minv, const int* occ,
-                const void* items, const float* live, const float* scales,
-                int item, float alpha, int n, int N, int d, int k, int S,
-                float* part_s, int* part_i, float* out_s, int* out_i,
-                cudaStream_t stream) {
+int launch_topk(const float* w, const void* Minv, int minv_bf16,
+                const int* occ, const void* items, const float* live,
+                const float* scales, int item, float alpha, int n, int N,
+                int d, int k, int S, float* part_s, int* part_i,
+                float* out_s, int* out_i, cudaStream_t stream) {
   const size_t bytes = smem_bytes(d, k, false, item);
   if (!valid_shape(d, k) || S < 1 || bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
@@ -1016,16 +1045,17 @@ int launch_topk(const float* w, const float* Minv, const int* occ,
   const TopkFn kernel = topk_fn(d, item);
   cudaError_t e;
   if ((e = allow_smem(kernel, bytes)) != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, bytes, stream>>>(w, Minv, occ, items, live, scales,
-                                            alpha, n, N, d, k, S, ls, li);
+  kernel<<<grid, kThreads, bytes, stream>>>(w, Minv, minv_bf16, occ, items,
+                                            live, scales, alpha, n, N, d, k,
+                                            S, ls, li);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (S > 1) return (int)merge(part_s, part_i, n, k, S, out_s, out_i, stream);
   return 0;
 }
 
-int launch_pruned(const float* w, const float* Minv, const int* occ,
-                  const void* items, const float* live, const int* ids,
-                  const float* scales, int item,
+int launch_pruned(const float* w, const void* Minv, int minv_bf16,
+                  const int* occ, const void* items, const float* live,
+                  const int* ids, const float* scales, int item,
                   const long long* user_order, const float* tb_walk,
                   const long long* tile_order, int* gfloor, float alpha,
                   int n, int T, int tile, int d, int k, int S, float* part_s,
@@ -1041,8 +1071,8 @@ int launch_pruned(const float* w, const float* Minv, const int* occ,
   cudaError_t e;
   if ((e = allow_smem(kernel, bytes)) != cudaSuccess) return (int)e;
   kernel<<<grid, kThreads, bytes, stream>>>(
-      w, Minv, occ, items, live, ids, scales, user_order, tb_walk, tile_order,
-      gfloor, alpha, n, T, tile, d, k, S, ls, li, skipped);
+      w, Minv, minv_bf16, occ, items, live, ids, scales, user_order, tb_walk,
+      tile_order, gfloor, alpha, n, T, tile, d, k, S, ls, li, skipped);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (S > 1) return (int)merge(part_s, part_i, n, k, S, out_s, out_i, stream);
   return 0;
@@ -1078,14 +1108,15 @@ extern "C" int topk_blocks_per_sm(int d, int k, int pruned, int item,
 // split the lists go straight to out_s/out_i; otherwise to part_s/part_i
 // ([splits, n, k], room for S) and then merged.  Items f32 (topk_launch),
 // bf16 (topk_bf16_launch) or int8 codes with their f32 scales
-// (topk_int8_launch).
+// (topk_int8_launch); the topk_minv_bf16 entries take the same three with
+// Minv in bf16.
 extern "C" int topk_launch(const float* w, const float* Minv, const int* occ,
                            const float* items, const float* live, float alpha,
                            int n, int N, int d, int k, int S, float* part_s,
                            int* part_i, float* out_s, int* out_i,
                            cudaStream_t stream) {
-  return launch_topk(w, Minv, occ, items, live, nullptr, 0, alpha, n, N, d,
-                     k, S, part_s, part_i, out_s, out_i, stream);
+  return launch_topk(w, Minv, 0, occ, items, live, nullptr, 0, alpha, n, N,
+                     d, k, S, part_s, part_i, out_s, out_i, stream);
 }
 
 extern "C" int topk_bf16_launch(const float* w, const float* Minv,
@@ -1094,8 +1125,8 @@ extern "C" int topk_bf16_launch(const float* w, const float* Minv,
                                 int d, int k, int S, float* part_s,
                                 int* part_i, float* out_s, int* out_i,
                                 cudaStream_t stream) {
-  return launch_topk(w, Minv, occ, items, live, nullptr, 1, alpha, n, N, d,
-                     k, S, part_s, part_i, out_s, out_i, stream);
+  return launch_topk(w, Minv, 0, occ, items, live, nullptr, 1, alpha, n, N,
+                     d, k, S, part_s, part_i, out_s, out_i, stream);
 }
 
 extern "C" int topk_int8_launch(const float* w, const float* Minv,
@@ -1105,8 +1136,38 @@ extern "C" int topk_int8_launch(const float* w, const float* Minv,
                                 int S, float* part_s, int* part_i,
                                 float* out_s, int* out_i,
                                 cudaStream_t stream) {
-  return launch_topk(w, Minv, occ, items, live, scales, 2, alpha, n, N, d, k,
-                     S, part_s, part_i, out_s, out_i, stream);
+  return launch_topk(w, Minv, 0, occ, items, live, scales, 2, alpha, n, N, d,
+                     k, S, part_s, part_i, out_s, out_i, stream);
+}
+
+extern "C" int topk_minv_bf16_launch(const float* w,
+                                     const __nv_bfloat16* Minv,
+                                     const int* occ, const float* items,
+                                     const float* live, float alpha, int n,
+                                     int N, int d, int k, int S,
+                                     float* part_s, int* part_i,
+                                     float* out_s, int* out_i,
+                                     cudaStream_t stream) {
+  return launch_topk(w, Minv, 1, occ, items, live, nullptr, 0, alpha, n, N,
+                     d, k, S, part_s, part_i, out_s, out_i, stream);
+}
+
+extern "C" int topk_minv_bf16_bf16_launch(
+    const float* w, const __nv_bfloat16* Minv, const int* occ,
+    const __nv_bfloat16* items, const float* live, float alpha, int n, int N,
+    int d, int k, int S, float* part_s, int* part_i, float* out_s,
+    int* out_i, cudaStream_t stream) {
+  return launch_topk(w, Minv, 1, occ, items, live, nullptr, 1, alpha, n, N,
+                     d, k, S, part_s, part_i, out_s, out_i, stream);
+}
+
+extern "C" int topk_minv_bf16_int8_launch(
+    const float* w, const __nv_bfloat16* Minv, const int* occ,
+    const signed char* items, const float* live, const float* scales,
+    float alpha, int n, int N, int d, int k, int S, float* part_s,
+    int* part_i, float* out_s, int* out_i, cudaStream_t stream) {
+  return launch_topk(w, Minv, 1, occ, items, live, scales, 2, alpha, n, N, d,
+                     k, S, part_s, part_i, out_s, out_i, stream);
 }
 
 // user_order [n] groups the users by 8 (block row r is user
@@ -1114,7 +1175,7 @@ extern "C" int topk_int8_launch(const float* w, const float* Minv,
 // [groups, T] is each group's visit order and tb_walk [groups, T, 8] its
 // users' tile bounds in that order; gfloor [groups * 8] (by block row)
 // holds the order-encoded -inf on entry; skipped [groups, S] receives the
-// skips.  Items as topk's three entries.
+// skips.  Items and Minv as topk's six entries.
 extern "C" int topk_pruned_launch(
     const float* w, const float* Minv, const int* occ, const float* items,
     const float* live, const int* ids, const long long* user_order,
@@ -1122,7 +1183,7 @@ extern "C" int topk_pruned_launch(
     int* gfloor, float alpha, int n, int T, int tile, int d, int k, int S,
     float* part_s, int* part_i, float* out_s, int* out_i, int* skipped,
     cudaStream_t stream) {
-  return launch_pruned(w, Minv, occ, items, live, ids, nullptr, 0,
+  return launch_pruned(w, Minv, 0, occ, items, live, ids, nullptr, 0,
                        user_order, tb_walk, tile_order, gfloor, alpha, n, T,
                        tile, d, k, S, part_s, part_i, out_s, out_i, skipped,
                        stream);
@@ -1135,7 +1196,7 @@ extern "C" int topk_pruned_bf16_launch(
     const long long* tile_order, int* gfloor, float alpha, int n, int T,
     int tile, int d, int k, int S, float* part_s, int* part_i, float* out_s,
     int* out_i, int* skipped, cudaStream_t stream) {
-  return launch_pruned(w, Minv, occ, items, live, ids, nullptr, 1,
+  return launch_pruned(w, Minv, 0, occ, items, live, ids, nullptr, 1,
                        user_order, tb_walk, tile_order, gfloor, alpha, n, T,
                        tile, d, k, S, part_s, part_i, out_s, out_i, skipped,
                        stream);
@@ -1148,7 +1209,46 @@ extern "C" int topk_pruned_int8_launch(
     const long long* tile_order, int* gfloor, float alpha, int n, int T,
     int tile, int d, int k, int S, float* part_s, int* part_i, float* out_s,
     int* out_i, int* skipped, cudaStream_t stream) {
-  return launch_pruned(w, Minv, occ, items, live, ids, scales, 2,
+  return launch_pruned(w, Minv, 0, occ, items, live, ids, scales, 2,
+                       user_order, tb_walk, tile_order, gfloor, alpha, n, T,
+                       tile, d, k, S, part_s, part_i, out_s, out_i, skipped,
+                       stream);
+}
+
+extern "C" int topk_pruned_minv_bf16_launch(
+    const float* w, const __nv_bfloat16* Minv, const int* occ,
+    const float* items, const float* live, const int* ids,
+    const long long* user_order, const float* tb_walk,
+    const long long* tile_order, int* gfloor, float alpha, int n, int T,
+    int tile, int d, int k, int S, float* part_s, int* part_i, float* out_s,
+    int* out_i, int* skipped, cudaStream_t stream) {
+  return launch_pruned(w, Minv, 1, occ, items, live, ids, nullptr, 0,
+                       user_order, tb_walk, tile_order, gfloor, alpha, n, T,
+                       tile, d, k, S, part_s, part_i, out_s, out_i, skipped,
+                       stream);
+}
+
+extern "C" int topk_pruned_minv_bf16_bf16_launch(
+    const float* w, const __nv_bfloat16* Minv, const int* occ,
+    const __nv_bfloat16* items, const float* live, const int* ids,
+    const long long* user_order, const float* tb_walk,
+    const long long* tile_order, int* gfloor, float alpha, int n, int T,
+    int tile, int d, int k, int S, float* part_s, int* part_i, float* out_s,
+    int* out_i, int* skipped, cudaStream_t stream) {
+  return launch_pruned(w, Minv, 1, occ, items, live, ids, nullptr, 1,
+                       user_order, tb_walk, tile_order, gfloor, alpha, n, T,
+                       tile, d, k, S, part_s, part_i, out_s, out_i, skipped,
+                       stream);
+}
+
+extern "C" int topk_pruned_minv_bf16_int8_launch(
+    const float* w, const __nv_bfloat16* Minv, const int* occ,
+    const signed char* items, const float* live, const int* ids,
+    const float* scales, const long long* user_order, const float* tb_walk,
+    const long long* tile_order, int* gfloor, float alpha, int n, int T,
+    int tile, int d, int k, int S, float* part_s, int* part_i, float* out_s,
+    int* out_i, int* skipped, cudaStream_t stream) {
+  return launch_pruned(w, Minv, 1, occ, items, live, ids, scales, 2,
                        user_order, tb_walk, tile_order, gfloor, alpha, n, T,
                        tile, d, k, S, part_s, part_i, out_s, out_i, skipped,
                        stream);

@@ -41,11 +41,21 @@
 // the warp variant has d^2 + d.  Loads are 4 bytes: CLUB's one-row view
 // of the cluster state starts at any multiple of d^2 floats, rarely 16-
 // byte aligned.  Shapes are logical: no padding of K or d.
+//
+// bf16 Minv (ucb_bf16_launch; Precision's state dtype, the bf16 case of
+// ucb_scores_pallas, whose dot_general promotes it to f32): both variants
+// with Minv read as bf16, one element a load (a user's block is 2 d^2
+// bytes, so only 2-byte aligned), and widened to f32 as it is stored to
+// shared memory (widen.cuh).  Shared memory, ucb_t and ucb_combine are
+// the f32 kernels', so the scores are bit for bit the f32 kernel's on the
+// widened Minv.  The bound falls with Minv's bytes: at n=20480, d=25,
+// K=20, ~70 MB, ~21 us.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "ucb_score.cuh"
+#include "widen.cuh"
 
 namespace {
 
@@ -55,8 +65,9 @@ constexpr int kBlockMaxD = 32;
 constexpr int kLoads = 8;           // loads a thread issues in one round
 constexpr size_t kMaxSmem = 232448;  // H100: 227 KB per block
 
+template <typename S>
 __global__ void ucb_kernel(const float* __restrict__ w,
-                           const float* __restrict__ Minv,
+                           const S* __restrict__ Minv,
                            const float* __restrict__ ctx,
                            const int* __restrict__ occ, float alpha, int n,
                            int K, int d, float* __restrict__ scores) {
@@ -71,9 +82,9 @@ __global__ void ucb_kernel(const float* __restrict__ w,
   float* m_s = smem + warp * (dd + d + Kd);
   float* w_s = m_s + dd;
   float* c_s = w_s + d;
-  const float* Mu = Minv + (size_t)u * dd;
+  const S* Mu = Minv + (size_t)u * dd;
   const float* cu = ctx + (size_t)u * Kd;
-  for (int i = lane; i < dd; i += 32) m_s[i] = Mu[i];
+  for (int i = lane; i < dd; i += 32) m_s[i] = widen(Mu[i]);
   for (int i = lane; i < d; i += 32) w_s[i] = w[(size_t)u * d + i];
   for (int i = lane; i < Kd; i += 32) c_s[i] = cu[i];
   __syncwarp();
@@ -84,9 +95,10 @@ __global__ void ucb_kernel(const float* __restrict__ w,
     su[k] = ucb_score(c_s + k * d, w_s, m_s, d, alpha, explore);
 }
 
+template <typename S>
 __global__ void __launch_bounds__(kBlockThreads)
     ucb_block_kernel(const float* __restrict__ w,
-                     const float* __restrict__ Minv,
+                     const S* __restrict__ Minv,
                      const float* __restrict__ ctx,
                      const int* __restrict__ occ, float alpha, int K, int d,
                      float* __restrict__ scores) {
@@ -100,7 +112,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   float* w_s = m_s + dd;
   float* c_s = w_s + d;
   float* t_s = c_s + Kd;
-  const float* Mu = Minv + (size_t)u * dd;
+  const S* Mu = Minv + (size_t)u * dd;
   const float* wu = w + (size_t)u * d;
   const float* cu = ctx + (size_t)u * Kd;
 
@@ -113,7 +125,7 @@ __global__ void __launch_bounds__(kBlockThreads)
     for (int q = 0; q < kLoads; ++q) {
       const int e = base + t + q * kBlockThreads;
       if (e < dd)
-        v[q] = Mu[e];
+        v[q] = widen(Mu[e]);
       else if (e < dd + d)
         v[q] = wu[e - dd];
       else if (e < total)
@@ -153,25 +165,40 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+template <typename S>
+int launch(const float* w, const S* Minv, const float* ctx, const int* occ,
+           float alpha, int n, int K, int d, int variant, float* scores,
+           cudaStream_t stream) {
+  cudaError_t e;
+  if (variant == 1) {
+    if (d > kBlockMaxD) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)(d * d + d + 2 * K * d) * sizeof(float);
+    if ((e = allow_smem(ucb_block_kernel<S>, smem)) != cudaSuccess)
+      return (int)e;
+    ucb_block_kernel<S><<<n, kBlockThreads, smem, stream>>>(
+        w, Minv, ctx, occ, alpha, K, d, scores);
+    return (int)cudaGetLastError();
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kWarps * (d * d + d + K * d) * sizeof(float);
+  if ((e = allow_smem(ucb_kernel<S>, smem)) != cudaSuccess) return (int)e;
+  const int blocks = (n + kWarps - 1) / kWarps;
+  ucb_kernel<S><<<blocks, 32 * kWarps, smem, stream>>>(w, Minv, ctx, occ,
+                                                       alpha, n, K, d, scores);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ucb_launch(const float* w, const float* Minv, const float* ctx,
                           const int* occ, float alpha, int n, int K, int d,
                           int variant, float* scores, cudaStream_t stream) {
-  cudaError_t e;
-  if (variant == 1) {
-    if (d > kBlockMaxD) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(d * d + d + 2 * K * d) * sizeof(float);
-    if ((e = allow_smem(ucb_block_kernel, smem)) != cudaSuccess) return (int)e;
-    ucb_block_kernel<<<n, kBlockThreads, smem, stream>>>(w, Minv, ctx, occ,
-                                                         alpha, K, d, scores);
-    return (int)cudaGetLastError();
-  }
-  if (variant != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kWarps * (d * d + d + K * d) * sizeof(float);
-  if ((e = allow_smem(ucb_kernel, smem)) != cudaSuccess) return (int)e;
-  const int blocks = (n + kWarps - 1) / kWarps;
-  ucb_kernel<<<blocks, 32 * kWarps, smem, stream>>>(w, Minv, ctx, occ, alpha,
-                                                    n, K, d, scores);
-  return (int)cudaGetLastError();
+  return launch(w, Minv, ctx, occ, alpha, n, K, d, variant, scores, stream);
+}
+
+extern "C" int ucb_bf16_launch(const float* w, const __nv_bfloat16* Minv,
+                               const float* ctx, const int* occ, float alpha,
+                               int n, int K, int d, int variant,
+                               float* scores, cudaStream_t stream) {
+  return launch(w, Minv, ctx, occ, alpha, n, K, d, variant, scores, stream);
 }

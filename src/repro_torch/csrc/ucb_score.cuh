@@ -15,6 +15,8 @@
 
 #include <math.h>
 
+#include "widen.cuh"
+
 __device__ __forceinline__ float ucb_explore(int occ) {
   return sqrtf(log1pf((float)occ));
 }

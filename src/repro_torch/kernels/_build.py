@@ -37,14 +37,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "choose": ("choose.cu", "choose_launch",
                [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "choose_bf16": ("choose.cu", "choose_bf16_launch",
+                    [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
     "rank1_update_inv": ("rank1.cu", "rank1_update_inv_launch",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "rank1_update_inv_bf16": ("rank1.cu", "rank1_update_inv_bf16_launch",
                               [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "rank1_update": ("rank1.cu", "rank1_update_launch",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "rank1_update_bf16": ("rank1.cu", "rank1_update_bf16_launch",
+                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "ucb": ("ucb.cu", "ucb_launch",
             [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P]),
+    "ucb_bf16": ("ucb.cu", "ucb_bf16_launch",
+                 [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P]),
     "prune": ("prune.cu", "prune_launch",
               [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
     "cc_hop": ("cc_hop.cu", "cc_hop_launch",
@@ -69,6 +75,27 @@ KERNELS = {
     "topk_pruned_int8": ("topk.cu", "topk_pruned_int8_launch",
                          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I,
                           _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "topk_minv_bf16": ("topk.cu", "topk_minv_bf16_launch",
+                       [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P,
+                        _P, _P, _P]),
+    "topk_minv_bf16_bf16": ("topk.cu", "topk_minv_bf16_bf16_launch",
+                            [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P,
+                             _P, _P, _P, _P]),
+    "topk_minv_bf16_int8": ("topk.cu", "topk_minv_bf16_int8_launch",
+                            [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
+                             _P, _P, _P, _P, _P]),
+    "topk_pruned_minv_bf16": (
+        "topk.cu", "topk_pruned_minv_bf16_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
+         _P, _P, _P, _P, _P, _P]),
+    "topk_pruned_minv_bf16_bf16": (
+        "topk.cu", "topk_pruned_minv_bf16_bf16_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
+         _P, _P, _P, _P, _P, _P]),
+    "topk_pruned_minv_bf16_int8": (
+        "topk.cu", "topk_pruned_minv_bf16_int8_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
+         _I, _P, _P, _P, _P, _P, _P]),
     "cross": ("cross.cu", "cross_launch",
               [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
     "cross_split": ("cross.cu", "cross_split_launch", [_P, _I, _P, _P]),
@@ -203,6 +230,16 @@ def check(t, name: str, dtype, shape: tuple, device) -> int:
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     return t.data_ptr()
+
+
+def minv_kernel(kernels: dict, Minv, op: str) -> str:
+    """The kernel of ``kernels`` (``{Minv dtype: name}``) for ``Minv``'s
+    dtype; ``TypeError`` for a dtype no kernel takes."""
+    name = kernels.get(Minv.dtype)
+    if name is None:
+        raise TypeError(f"Minv has dtype {Minv.dtype}; {op} takes "
+                        f"{list(kernels)}")
+    return name
 
 
 def launch(name: str, *args) -> None:

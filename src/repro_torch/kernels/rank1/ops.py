@@ -28,11 +28,12 @@ def _variant(t: torch.Tensor) -> int:
     return variant(n, d, _build.sm_count(t.device.index or 0))
 
 
-def _state_args(Minv, b, x, r, mask, minv_dtype=torch.float32):
+def _state_args(Minv, b, x, r, mask):
+    """The state's pointers; ``Minv`` in the dtype its kernel takes."""
     dev = Minv.device
     n, d = b.shape
     return [
-        _build.check(Minv, "Minv", minv_dtype, (n, d, d), dev),
+        _build.check(Minv, "Minv", Minv.dtype, (n, d, d), dev),
         _build.check(b, "b", torch.float32, (n, d), dev),
         _build.check(x, "x", torch.float32, (n, d), dev),
         _build.check(r, "r", torch.float32, (n,), dev),
@@ -48,9 +49,16 @@ def _on_cuda(name, t) -> bool:
     return True
 
 
+# each update's kernel for each dtype of Minv (M, b, x, r stay f32)
+KERNELS = {torch.float32: "rank1_update",
+           torch.bfloat16: "rank1_update_bf16"}
+INV_KERNELS = {torch.float32: "rank1_update_inv",
+               torch.bfloat16: "rank1_update_inv_bf16"}
+
+
 def rank1_update(
     M: torch.Tensor,      # [n, d, d] f32
-    Minv: torch.Tensor,   # [n, d, d] f32
+    Minv: torch.Tensor,   # [n, d, d] f32 or bf16
     b: torch.Tensor,      # [n, d] f32
     x: torch.Tensor,      # [n, d] f32
     r: torch.Tensor,      # [n] f32
@@ -60,21 +68,19 @@ def rank1_update(
 
     On either device ``M``, ``Minv`` and ``b`` are updated IN PLACE and
     returned.  They may be leading-dim slices of larger tensors (one
-    user's row ``M[u:u+1]``): the kernel writes through the views.
+    user's row ``M[u:u+1]``): the kernel writes through the views.  A
+    bf16 ``Minv`` is widened to f32 for the math and rounded back to
+    nearest even (``rank1_update_bf16`` on CUDA).
     """
     if not _on_cuda("rank1_update", Minv):
         return rank1_update_ref(M, Minv, b, x, r, mask)
+    name = _build.minv_kernel(KERNELS, Minv, "rank1_update")
     n, d = b.shape
     args = _state_args(Minv, b, x, r, mask)
     mp = _build.check(M, "M", torch.float32, (n, d, d), Minv.device)
     if n:
-        _build.launch("rank1_update", mp, *args, n, d, _variant(b))
+        _build.launch(name, mp, *args, n, d, _variant(b))
     return M, Minv, b
-
-
-# the M-free update's kernel for each dtype of Minv (b, x, r stay f32)
-INV_KERNELS = {torch.float32: "rank1_update_inv",
-               torch.bfloat16: "rank1_update_inv_bf16"}
 
 
 def rank1_update_inv(
@@ -93,11 +99,9 @@ def rank1_update_inv(
     """
     if not _on_cuda("rank1_update_inv", Minv):
         return rank1_update_inv_ref(Minv, b, x, r, mask)
-    if Minv.dtype not in INV_KERNELS:
-        raise TypeError(f"Minv has dtype {Minv.dtype}; rank1_update_inv "
-                        f"takes {list(INV_KERNELS)}")
+    name = _build.minv_kernel(INV_KERNELS, Minv, "rank1_update_inv")
     n, d = b.shape
-    args = _state_args(Minv, b, x, r, mask, Minv.dtype)
+    args = _state_args(Minv, b, x, r, mask)
     if n:
-        _build.launch(INV_KERNELS[Minv.dtype], *args, n, d, _variant(b))
+        _build.launch(name, *args, n, d, _variant(b))
     return Minv, b

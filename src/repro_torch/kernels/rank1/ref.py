@@ -19,12 +19,20 @@ def rank1_update_ref(
     ``b' = b + r m x``; a masked-out user (m = 0) is an identity update.
     ``M``, ``Minv`` and ``b`` are updated IN PLACE and returned, as the
     kernel does, so both devices share one aliasing contract.
+
+    ``Minv`` may be bf16 (``Precision.state_dtype``; ``M`` and ``b`` stay
+    f32): it is widened once, the math runs in f32 as for an f32
+    ``Minv``, and the result is rounded back to nearest even, as
+    :func:`rank1_update_inv_ref` does.
     """
     m = mask.to(x.dtype)
     xm = x * m[:, None]
-    Mx = torch.einsum("nij,nj->ni", Minv, xm)
+    M32 = Minv if Minv.dtype == torch.float32 else Minv.float()
+    Mx = torch.einsum("nij,nj->ni", M32, xm)
     denom = 1.0 + torch.einsum("ni,ni->n", xm, Mx)
-    Minv.sub_((Mx[:, :, None] * Mx[:, None, :]) / denom[:, None, None])
+    M32.sub_((Mx[:, :, None] * Mx[:, None, :]) / denom[:, None, None])
+    if M32 is not Minv:
+        Minv.copy_(M32)
     M.add_(xm[:, :, None] * xm[:, None, :])
     b.add_((r * m)[:, None] * x)
     return M, Minv, b

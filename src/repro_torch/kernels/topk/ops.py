@@ -4,11 +4,14 @@ are logical: the kernels mask ragged users, items and features, so
 nothing is padded.
 
 The catalog may be f32, bf16 or int8 with per-row f32 ``scales``
-(``Precision.catalog_dtype``); each dtype has its own kernel and launch
-count (``topk``, ``topk_bf16``, ``topk_int8`` and the ``topk_pruned``
-three), which dequantize on chip as ``ref.dequantize_rows`` does.
-``w``, ``Minv`` and ``occ`` stay f32: serving upcasts a bf16 ``Minv``
-when it gathers the rows."""
+(``Precision.catalog_dtype``), and ``Minv`` f32 or bf16
+(``Precision.state_dtype``); each pair of dtypes has its own kernel and
+launch count (``topk``, ``topk_bf16``, ``topk_int8``, the same three
+with ``minv_bf16`` after ``topk``, and the ``topk_pruned`` six), which
+dequantize the items on chip as ``ref.dequantize_rows`` does and widen a
+bf16 ``Minv`` (exactly) as they stage it.  ``w`` and ``occ`` stay f32
+and i32.  Serving upcasts a bf16 ``Minv`` when it gathers the rows, as
+``repro``'s policies do; the engines' callers may hand it over in bf16."""
 from __future__ import annotations
 
 import ctypes
@@ -30,6 +33,8 @@ _NEG_INF_ORDERED = -2139095041         # the kernel's int encoding of -inf
 # the item dtypes the kernels take, as csrc/topk.cu's ITEM template code
 ITEM_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SUFFIX = ("", "_bf16", "_int8")
+# the name's part for each dtype of Minv
+_MINV = {torch.float32: "", torch.bfloat16: "_minv_bf16"}
 
 
 def item_kind(items: torch.Tensor, scales) -> int:
@@ -39,9 +44,16 @@ def item_kind(items: torch.Tensor, scales) -> int:
     return ITEM_KINDS[items.dtype]
 
 
-def kernel_name(pruned: bool, kind: int) -> str:
-    """The ``_build`` name, and launch count, of a top-K kernel."""
-    return ("topk_pruned" if pruned else "topk") + _SUFFIX[kind]
+def kernel_name(pruned: bool, kind: int,
+                minv_dtype: torch.dtype = torch.float32) -> str:
+    """The ``_build`` name, and launch count, of the top-K kernel over
+    items of ``kind`` with ``Minv`` in ``minv_dtype``; ``TypeError`` for a
+    ``Minv`` dtype no kernel takes."""
+    if minv_dtype not in _MINV:
+        raise TypeError(f"Minv has dtype {minv_dtype}; the top-K kernels "
+                        f"take {list(_MINV)}")
+    return (("topk_pruned" if pruned else "topk") + _MINV[minv_dtype]
+            + _SUFFIX[kind])
 
 
 def _check_limits(d: int, k_short: int) -> None:
@@ -133,16 +145,18 @@ def _item_args(items, live, scales, kind, dev, N, d):
 
 
 def _common_args(w, Minv, occ, dev, n, d):
+    """The users' pointers; ``Minv`` in the dtype its kernel takes (the
+    caller has named the kernel by it)."""
     return [
         _build.check(w, "w", torch.float32, (n, d), dev),
-        _build.check(Minv, "Minv", torch.float32, (n, d, d), dev),
+        _build.check(Minv, "Minv", Minv.dtype, (n, d, d), dev),
         _build.check(occ, "occ", torch.int32, (n,), dev),
     ]
 
 
 def topk(
     w: torch.Tensor,        # [n, d] f32
-    Minv: torch.Tensor,     # [n, d, d] f32
+    Minv: torch.Tensor,     # [n, d, d] f32 or bf16
     occ: torch.Tensor,      # [n] i32
     items: torch.Tensor,    # [N, d] f32, bf16 or int8
     live: torch.Tensor,     # [N] f32
@@ -164,6 +178,7 @@ def topk(
     N = items.shape[0]
     _check_limits(d, k_short)
     kind = item_kind(items, scales)
+    name = kernel_name(False, kind, Minv.dtype)
     args = _common_args(w, Minv, occ, dev, n, d) + _item_args(
         items, live, scales, kind, dev, N, d)
     groups = -(-n // USERS_PER_BLOCK)
@@ -175,8 +190,7 @@ def topk(
                          device=dev)
     part_i = torch.empty(part_s.shape, dtype=torch.int32, device=dev)
     if n:
-        _build.launch(kernel_name(False, kind), *args, float(alpha), n, N,
-                      d, k_short, S,
+        _build.launch(name, *args, float(alpha), n, N, d, k_short, S,
                       part_s.data_ptr(), part_i.data_ptr(),
                       out_s.data_ptr(), out_i.data_ptr())
     return out_s, out_i
@@ -184,7 +198,7 @@ def topk(
 
 def topk_pruned(
     w: torch.Tensor,        # [n, d] f32
-    Minv: torch.Tensor,     # [n, d, d] f32
+    Minv: torch.Tensor,     # [n, d, d] f32 or bf16
     occ: torch.Tensor,      # [n] i32
     items: torch.Tensor,    # [N, d] f32/bf16/int8 cluster-sorted catalog
     live: torch.Tensor,     # [N] f32 in sorted order
@@ -261,6 +275,7 @@ def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb, *,
     order, tile_order, tb_walk = walk_plan(tb)
     groups = tile_order.shape[0]
     kind = item_kind(items, scales)
+    name = kernel_name(True, kind, Minv.dtype)
     _common_args(w, Minv, occ, dev, n, d)
     _item_args(items, live, scales, kind, dev, N, d)
     _build.check(ids, "ids", torch.int32, (N,), dev)
@@ -282,7 +297,7 @@ def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb, *,
             skipped.zero_()
             return
         gfloor.fill_(_NEG_INF_ORDERED)
-        _build.launch(kernel_name(True, kind), *(t.data_ptr() for t in (
+        _build.launch(name, *(t.data_ptr() for t in (
             w, Minv, occ)), *item_ptrs, *(t.data_ptr() for t in (
                 order, tb_walk, tile_order, gfloor)), float(alpha), n, T,
             tile, d, k_short, S,

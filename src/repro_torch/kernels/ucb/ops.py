@@ -13,6 +13,8 @@ WARP_PER_USER, BLOCK_PER_USER = 0, 1
 BLOCK_PER_USER_PER_SM = 2
 BLOCK_PER_USER_MAX_D = 32        # csrc/ucb.cu kBlockMaxD
 MAX_SMEM = 232448                # csrc/ucb.cu kMaxSmem
+# the kernel for each dtype of Minv (w, contexts and the scores stay f32)
+KERNELS = {torch.float32: "ucb", torch.bfloat16: "ucb_bf16"}
 
 
 def variant(n: int, K: int, d: int, sms: int) -> int:
@@ -31,29 +33,31 @@ def variant(n: int, K: int, d: int, sms: int) -> int:
 
 def ucb_scores(
     w: torch.Tensor,          # [n, d] f32
-    Minv: torch.Tensor,       # [n, d, d] f32
+    Minv: torch.Tensor,       # [n, d, d] f32 or bf16
     contexts: torch.Tensor,   # [n, K, d] f32
     occ: torch.Tensor,        # [n] i32
     alpha: float,
 ) -> torch.Tensor:
     """[n, K] f32 UCB scores.  Each candidate is scored by the loop the
     fused choose uses, so ``torch.argmax`` of a row picks what
-    ``kernels.interact.ops.choose`` picks."""
+    ``kernels.interact.ops.choose`` picks.  A bf16 ``Minv`` is widened
+    (exactly) as it is read: the scores are those of ``Minv.float()``."""
     dev = contexts.device
     if dev.type == "cpu":
         return ucb_scores_ref(w, Minv, contexts, occ, alpha)
     if dev.type != "cuda":
         raise ValueError(f"ucb_scores runs on cpu or cuda, not {dev}")
+    name = _build.minv_kernel(KERNELS, Minv, "ucb_scores")
     n, K, d = contexts.shape
     args = [
         _build.check(w, "w", torch.float32, (n, d), dev),
-        _build.check(Minv, "Minv", torch.float32, (n, d, d), dev),
+        _build.check(Minv, "Minv", Minv.dtype, (n, d, d), dev),
         _build.check(contexts, "contexts", torch.float32, (n, K, d), dev),
         _build.check(occ, "occ", torch.int32, (n,), dev),
     ]
     out = torch.empty(n, K, dtype=torch.float32, device=dev)
     if n and K:
-        _build.launch("ucb", *args, float(alpha), n, K, d,
+        _build.launch(name, *args, float(alpha), n, K, d,
                       variant(n, K, d, _build.sm_count(dev.index or 0)),
                       out.data_ptr())
     return out
