@@ -207,9 +207,11 @@ Phases, in order; any failure raises and the script exits non-zero:
            and an int8 session (``from_offline(..., precision=)``: bf16
            ``Minv``) against phase 4s's catalog quantized to each
            (``make_catalog(..., precision=)``), unpruned and pruned
-           (``build_clusters(512, 512)``), counted (16 topk_<p>, 16
-           topk_pruned_<p>, 32 rank1_update_inv_bf16 and 32 choose
-           launches, no f32 topk, topk_pruned or rank1_update_inv), the
+           (``build_clusters(512, 512)``), counted (16 topk_<p>_tc, 16
+           topk_pruned_<p>_tc, 32 rank1_update_inv_bf16 and 32 choose
+           launches, no chain top-K and no f32 topk, topk_pruned or
+           rank1_update_inv), the filter launches' own violation counts
+           0 (``topk.ops.FilterStats``), the
            pruned items equal to the unpruned ones in every batch; the
            same session batch by batch through the plain versions (items
            equal, or both within ``check_topk``'s band); the bf16
@@ -477,7 +479,11 @@ Phases, in order; any failure raises and the script exits non-zero:
            one-element in-place op's median over 200 launches, beside the
            n = 1 and 512-bag times; each reduced-precision variant
            beside its f32 kernel, 50 launches each in turns, on the bf16
-           session's batch; each bf16-Minv variant (choose, ucb and the
+           session's batch (the filter kernels also beside the chain
+           kernels they replace, and held to their own bound: the
+           product's d (d + 1) multiply-adds a row and piece at 989
+           TFLOP/s plus the rescored chains at 67, or the bytes; the
+           chain kernel's operations bound beside it); each bf16-Minv variant (choose, ucb and the
            M-ful update on phase 5's inputs with Minv in bf16, the top-K
            six on phase 4p's bf16-Minv serving batch) beside its f32
            kernel on the widened Minv, 50 launches each in turns; flash at phase 4l's prefill and decode
@@ -558,14 +564,17 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     # the reduced-precision variants (phase 4p)
     "rank1_update_inv_bf16": ("src/repro_torch/csrc/rank1.cu",
                               "src/repro/kernels/rank1/rank1.py:72"),
-    "topk_bf16": ("src/repro_torch/csrc/topk.cu",
-                  "src/repro/kernels/topk/topk.py:114"),
-    "topk_int8": ("src/repro_torch/csrc/topk.cu",
-                  "src/repro/kernels/topk/topk.py:114"),
-    "topk_pruned_bf16": ("src/repro_torch/csrc/topk.cu",
-                         "src/repro/kernels/topk/topk.py:229"),
-    "topk_pruned_int8": ("src/repro_torch/csrc/topk.cu",
-                         "src/repro/kernels/topk/topk.py:229"),
+    # bf16 and int8 items at d <= 32: the tensor-core filter kernels
+    # (their chain kernels, topk_bf16 ... topk_pruned_int8, are timed
+    # beside them in phase 6)
+    "topk_bf16_tc": ("src/repro_torch/csrc/topk_tc.cu",
+                     "src/repro/kernels/topk/topk.py:114"),
+    "topk_int8_tc": ("src/repro_torch/csrc/topk_tc.cu",
+                     "src/repro/kernels/topk/topk.py:114"),
+    "topk_pruned_bf16_tc": ("src/repro_torch/csrc/topk_tc.cu",
+                            "src/repro/kernels/topk/topk.py:229"),
+    "topk_pruned_int8_tc": ("src/repro_torch/csrc/topk_tc.cu",
+                            "src/repro/kernels/topk/topk.py:229"),
     # the bf16-Minv variants (phase 4p, bf16 Minv)
     "choose_bf16": ("src/repro_torch/csrc/choose.cu",
                     "src/repro/kernels/interact/interact.py:80"),
@@ -574,15 +583,22 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "rank1_update_bf16": ("src/repro_torch/csrc/rank1.cu",
                           "src/repro/kernels/rank1/rank1.py:102"),
     **{f"topk{p}_minv_bf16{s}": (
-        "src/repro_torch/csrc/topk.cu",
+        "src/repro_torch/csrc/topk" + ("_tc" if s else "") + ".cu",
         "src/repro/kernels/topk/topk.py:" + ("229" if p else "114"))
-       for p in ("", "_pruned") for s in ("", "_bf16", "_int8")},
+       for p in ("", "_pruned") for s in ("", "_bf16_tc", "_int8_tc")},
 }
+# each bank's suffix of the top-K kernels' names at serving's d = 25: the
+# f32 bank's chain kernels, the bf16 and int8 banks' filter kernels
+BANK_SFX = {"f32": "", "bf16": "_bf16_tc", "int8": "_int8_tc"}
 MINV_TOPK = tuple(f"topk{p}_minv_bf16{s}" for p in ("", "_pruned")
-                  for s in ("", "_bf16", "_int8"))
+                  for s in BANK_SFX.values())
 MINV_KERNELS = ("choose_bf16", "ucb_bf16", "rank1_update_bf16", *MINV_TOPK)
 MINV_ROUNDS = 32             # phase 4p's lockstep engine rounds, bf16 Minv
 PRECISIONS = ("bf16", "int8")  # phase 4p's reduced-precision sessions
+# phase 4p's median batch ms, unpruned and pruned, through the chain
+# kernels before the filter kernels served these banks (PERF.md section
+# 5), printed beside this run's
+CHAIN_BATCH_MS = {"bf16": (4.82, 8.03), "int8": (5.13, 8.57)}
 FLIP_WARM = 32               # bench_precision.py's warm-up batches
 FLIP_BATCHES = 16            # counterfactual batches measured after it
 FLIP_MAX = 0.01              # bench_precision.py's choice_flip_rate gate
@@ -1337,6 +1353,139 @@ def check_topk_pruned_minv_bf16(w, Minv, occ, cat, clusters, alpha, k,
     return check_topk_pruned(w, Minv, occ, cat, clusters, alpha, k)
 
 
+def check_topk_filter(w, Minv, occ, items, live, scales, alpha, k,
+                      got=None):
+    """A filter kernel (bf16 or int8 items at d <= 32, ``got`` or a
+    fresh launch) against the chain kernel it replaces (``chain=True``)
+    on the same inputs, scores and ids bit for bit; no violation; its
+    scores ``ucb_scores``' bits on the widened rows (the rescoring's
+    chain is a copy of csrc/ucb_score.cuh's, held to it here); then
+    against the plain version by ``check_topk``'s bands.  Returns the
+    error dict with the rescored share (pairs rescored over live pairs)
+    and the violations."""
+    import torch
+    from repro_torch.kernels.topk import ops, ref
+    from repro_torch.kernels.ucb import ops as uops
+    assert ops.route(ops.item_kind(items, scales), w.shape[1]) == ops.FILTER
+    with ops.FilterStats() as st:
+        s_t, i_t = ops.topk(w, Minv, occ, items, live, alpha, k,
+                            scales=scales)
+    if got is not None:
+        assert torch.equal(got[0], s_t) and torch.equal(got[1], i_t), (
+            "topk filter: not the launch's own shortlist")
+    s_c, i_c = ops.topk(w, Minv, occ, items, live, alpha, k, scales=scales,
+                        chain=True)
+    assert torch.equal(s_t, s_c) and torch.equal(i_t, i_c), (
+        "topk filter: not the chain kernel's shortlist")
+    rescored, viol = st.rescored, st.violations
+    assert viol == 0, f"topk filter: {viol} violations"
+    deq = ref.dequantize_rows(items, scales).contiguous()
+    held = i_t >= 0
+    s_u = uops.ucb_scores(w, Minv, deq[i_t.clamp_min(0).long()], occ, alpha)
+    assert torch.equal(s_t[held], s_u[held]), (
+        "topk filter: shortlist scores differ from ucb_scores")
+    plain = ref.topk_ref(w, Minv, occ, items, live, alpha, k, scales=scales)
+    res = check_topk(w, Minv, occ, deq, live, alpha, k, got=(s_t, i_t),
+                     plain=plain)
+    pairs = w.shape[0] * int((live > 0).sum())
+    res.update(rescored=rescored, violations=viol,
+               rescored_share=rescored / max(pairs, 1))
+    return res
+
+
+def check_topk_pruned_filter(w, Minv, occ, items_sorted, live_sorted,
+                             ids_sorted, scales_sorted, tb, alpha, k,
+                             unpruned):
+    """The pruned filter kernel against the pruned chain kernel on the
+    same sorted layout, and against ``unpruned`` (the unpruned filter
+    kernel's shortlist over the unsorted catalog), bit for bit; no
+    violation.  Returns the rescored share (over the live pairs) and
+    both skip ratios."""
+    import torch
+    from repro_torch.kernels.topk import ops
+    args = (w, Minv, occ, items_sorted, live_sorted, ids_sorted, alpha, k,
+            tb)
+    with ops.FilterStats() as st:
+        s_t, i_t, sk_t, tot = ops.topk_pruned(*args, scales=scales_sorted)
+    s_c, i_c, sk_c, _ = ops.topk_pruned(*args, scales=scales_sorted,
+                                        chain=True)
+    assert torch.equal(s_t, s_c) and torch.equal(i_t, i_c), (
+        "topk_pruned filter: not the chain kernel's shortlist")
+    assert torch.equal(s_t, unpruned[0]) and torch.equal(i_t, unpruned[1]), (
+        "topk_pruned filter: not the unpruned shortlist")
+    rescored, viol = st.rescored, st.violations
+    assert viol == 0, f"topk_pruned filter: {viol} violations"
+    pairs = w.shape[0] * int((live_sorted > 0).sum())
+    return {"rescored": rescored, "violations": viol,
+            "rescored_share": rescored / max(pairs, 1),
+            "skip": sk_t / tot, "chain_skip": sk_c / tot}
+
+
+def sorted_layout(w, Minv, occ, items, live, scales, alpha, tile, seed):
+    """A cluster-sorted layout of a raw bank for the pruned kernels: rows
+    ordered by a random projection, ``tile``-row tiles with their stats
+    and bounds.  Returns (items, live, ids, scales, tb), sorted."""
+    import torch
+    from repro_torch.kernels.topk import ref
+    dev = w.device
+    N, d = items.shape
+    deq = ref.dequantize_rows(items, scales)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    key = deq @ torch.randn(d, generator=g, device=dev)
+    perm = torch.argsort(key).to(torch.int32)
+    p = perm.long()
+    T = N // tile
+    et = deq[p].view(T, tile, d)
+    lt = live[p].view(T, tile)
+    cnt = lt.sum(1)
+    mu = (et * lt[..., None]).sum(1) / cnt.clamp_min(1)[:, None]
+    r = torch.where(lt > 0, torch.linalg.norm(et - mu[:, None], dim=-1),
+                    0.0).amax(1)
+    xn = torch.where(lt > 0, torch.linalg.norm(et, dim=-1), 0.0).amax(1)
+    tb = ref.tile_bounds(w, Minv, occ, alpha, mu, r, xn, cnt.to(torch.int32))
+    return (items[p].contiguous(), live[p].contiguous(), perm,
+            None if scales is None else scales[p].contiguous(), tb)
+
+
+def small_filter_checks(dev):
+    """The filter kernels on stress catalogs (``ref.stress_case``: many
+    pairs at a user's floor: copies of user 0's k-th item, rows one ulp
+    apart, rows where the bonus dominates, near-singular Minv from 400
+    rank-1 updates, zero, tiny and dead rows), n = 261 (not a multiple
+    of 8), N = 20037 (not a multiple of the chunk), k 1, 64 and 128, d 8,
+    25 (est from the product) and 32 (est from the features), bf16 and
+    int8 items, Minv in f32 and bf16: each entry bit-equal to the chain
+    kernel, no violation, within check_topk's bands of the plain
+    version; the pruned entries on a sorted layout (tiles of 511 rows)
+    bit-equal to the pruned chain kernel and to the unpruned shortlist."""
+    import torch
+    from repro_torch.kernels.topk import ops, ref
+    t0 = time.perf_counter()
+    n, N, tile = 261, 20037, 511
+    cases = [(25, 64), (25, 1), (25, 128), (32, 64), (8, 64)]
+    for ci, (dd, kk) in enumerate(cases):
+        for prec in PRECISIONS:
+            for minv in (torch.float32, torch.bfloat16):
+                case = ref.stress_case(SEED + 40 + ci, n, dd, N, kk, prec,
+                                       minv_dtype=minv)
+                w, M, occ, items, live, sc = (
+                    None if t is None else t.to(dev) for t in case)
+                res = check_topk_filter(w, M, occ, items, live, sc, 0.3, kk)
+                N2 = N - N % tile
+                got = ops.topk(w, M, occ, items[:N2], live[:N2], 0.3, kk,
+                               scales=None if sc is None else sc[:N2])
+                lay = sorted_layout(w, M, occ, items[:N2], live[:N2],
+                                    None if sc is None else sc[:N2], 0.3,
+                                    tile, SEED + ci)
+                resp = check_topk_pruned_filter(
+                    w, M, occ, lay[0], lay[1], lay[2], lay[3], lay[4], 0.3,
+                    kk, got)
+                log(f"small topk filter {prec} Minv {str(minv)[6:]} "
+                    f"(stress, n={n}, d={dd}, N={N}, k={kk}): {res}; "
+                    f"pruned (N={N2}, tile {tile}): {resp}")
+    log(f"small topk filter checks: {time.perf_counter() - t0} s")
+
+
 def cc_hop_forced(adj, labels_self, labels_j, dense_min):
     """cc_hop's kernel with the dense threshold set by the caller (0:
     every word with a set bit takes the min over its 32 labels; 32: every
@@ -1677,6 +1826,7 @@ def small_checks(dev):
     small_cc_hop_checks(g, dev)
     small_topk_checks(g, dev, n, d, w, Minv, occ)
     small_quant_checks(g, dev, n, d, Minv, occ)
+    small_filter_checks(dev)
     small_minv_checks(g, dev)
     small_recsys_checks(g, dev)
     small_flash_checks(g, dev)
@@ -2224,8 +2374,9 @@ def small_flash_checks(g, dev):
 
 
 SPILL_CHECKED = ("prune_kernel", "topk_kernel", "topk_pruned_kernel",
-                 "ucb_kernel", "ucb_block_kernel", "choose_tile_kernel",
-                 "cross_tc_kernel", "cross_split_kernel", "cc_hop_kernel")
+                 "topk_tc_kernel", "topk_pruned_tc_kernel", "ucb_kernel",
+                 "ucb_block_kernel", "choose_tile_kernel", "cross_tc_kernel",
+                 "cross_split_kernel", "cc_hop_kernel")
 
 
 def spill_check() -> dict:
@@ -2235,7 +2386,8 @@ def spill_check() -> dict:
     any of them spills."""
     from repro_torch.kernels import _build
     usage = {}
-    for lib in ("prune", "topk", "ucb", "choose", "cross", "cc_hop"):
+    for lib in ("prune", "topk", "topk_bf16_tc", "ucb", "choose", "cross",
+                "cc_hop"):
         usage.update(_build.ptxas_usage(_build.build_report(lib)))
     seen = {}
     for func, (regs, st, ld) in sorted(usage.items()):
@@ -2259,8 +2411,9 @@ def spill_check() -> dict:
 
 def sass_check() -> dict:
     """Count the HGMMA (wgmma) instructions in the SASS of the flash and
-    cross libraries (``cuobjdump -sass``); raise if either has none, or
-    if the retired ``flash_mma_kernel`` is still in flash's."""
+    cross libraries and the HMMA (mma.sync) ones of the top-K's filter
+    kernels (``cuobjdump -sass``); raise if any has none, or if the
+    retired ``flash_mma_kernel`` is still in flash's."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -2275,6 +2428,21 @@ def sass_check() -> dict:
         if name == "flash":
             assert "flash_mma_kernel" not in sass, (
                 "flash: flash_mma_kernel is built")
+    lib = _build.library_path(_build.KERNELS["topk_bf16_tc"][0])
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts["topk_tc"], func = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            func = m.group(1) if "_tc_kernel" in m.group(1) else None
+            if func:
+                counts["topk_tc"][func] = 0
+        elif func and "HMMA" in line:
+            counts["topk_tc"][func] += 1
+    log(f"sass {lib.name}: HMMA instructions of the filter kernels "
+        f"{counts['topk_tc']}")
+    assert len(counts["topk_tc"]) == 4 and all(counts["topk_tc"].values()), (
+        "topk: a filter kernel without HMMA")
     return counts
 
 
@@ -2979,6 +3147,7 @@ def precision_phase(dev, work, state, hyper, theta):
     import torch
     from repro_torch import serve
     from repro_torch.kernels import _build
+    from repro_torch.kernels.topk import ops as tops
     emb = work.catalog.serving.emb
     out = {"cats": {}, "clusters": {}, "sessions": {}, "launches": {}}
     total = dict.fromkeys(_build.LAUNCHES, 0)
@@ -2992,10 +3161,13 @@ def precision_phase(dev, work, state, hyper, theta):
         setup_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
-        sess_u, items_u, rr_u, secs_u, clu_u, _ = work.run(start=start,
-                                                           catalog=cat)
-        sess_p, items_p, rr_p, secs_p, clu_p, (sk, tot) = work.run(
-            clusters, start=start, catalog=cat)
+        # the filter launches' own counts: no violation on the path
+        with tops.FilterStats() as st_u:
+            sess_u, items_u, rr_u, secs_u, clu_u, _ = work.run(
+                start=start, catalog=cat)
+        with tops.FilterStats() as st_p:
+            sess_p, items_p, rr_p, secs_p, clu_p, (sk, tot) = work.run(
+                clusters, start=start, catalog=cat)
         launches = dict(_build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         same = [bool(torch.equal(a, b)) for a, b in zip(items_u, items_p)]
@@ -3010,14 +3182,31 @@ def precision_phase(dev, work, state, hyper, theta):
             f"{sum(bool(torch.equal(a, b)) for a, b in zip(items_u, work.items))}"
             f" of {SERVE_BATCHES} batches; max_memory_allocated={peak}")
         log(f"precision {prec} launches: {launches}")
+        pairs = SERVE_BATCHES * SERVE_BATCH * int((cat.serving.live > 0).sum())
+        log(f"precision {prec} filter on the path: unpruned rescored "
+            f"{st_u.rescored} pairs (share {st_u.rescored / pairs}), "
+            f"violations {st_u.violations}; pruned rescored {st_p.rescored}"
+            f" (share {st_p.rescored / pairs}), violations "
+            f"{st_p.violations}")
+        assert st_u.violations == 0 and st_p.violations == 0, (
+            f"{prec}: filter violations on the path")
+        assert st_u.rescored > 0 and st_p.rescored > 0
+        log(f"precision {prec} median batch ms beside the chain kernels' "
+            f"(PERF.md section 5): unpruned "
+            f"{1e3 * statistics.median(secs_u)} (chain: "
+            f"{CHAIN_BATCH_MS[prec][0]}), pruned "
+            f"{1e3 * statistics.median(secs_p)} (chain: "
+            f"{CHAIN_BATCH_MS[prec][1]})")
         assert all(same), f"{prec}: pruned and unpruned served other items"
         assert rr_u > 1.0, f"{prec}: serving does no better than random"
         assert len(clu_u) == 2 and clu_u == clu_p, (clu_u, clu_p)
         for t in (sess_u.state.Minv, sess_u.state.uMcinv, sess_u.state.b):
             assert bool(torch.isfinite(t.float()).all()), "non-finite state"
         assert sess_u.state.Minv.dtype == torch.bfloat16
-        assert launches[f"topk_{prec}"] == SERVE_BATCHES, launches
-        assert launches[f"topk_pruned_{prec}"] == SERVE_BATCHES, launches
+        assert launches[f"topk_{prec}_tc"] == SERVE_BATCHES, launches
+        assert launches[f"topk_pruned_{prec}_tc"] == SERVE_BATCHES, launches
+        assert not launches[f"topk_{prec}"], launches
+        assert not launches[f"topk_pruned_{prec}"], launches
         assert launches["rank1_update_inv_bf16"] == 2 * SERVE_BATCHES, (
             launches)
         assert launches["choose"] == 2 * SERVE_BATCHES, launches
@@ -3151,6 +3340,8 @@ def minv_serving_batch(serving, sess_q, banks, alpha):
     import torch
     from repro_torch.core.backend import BackendConfig
     from repro_torch.kernels import _build
+    from repro_torch.kernels.topk import ops as tops
+    from repro_torch.kernels.topk import ref as tref
     idx = serving.users[0].long()
     w, M32, occ = sess_q.policy.gather_score(sess_q.state, idx)
     Mb = M32.bfloat16()
@@ -3159,18 +3350,22 @@ def minv_serving_batch(serving, sess_q, banks, alpha):
     got = {}
     torch.cuda.synchronize()
     _build.reset_launches()
-    for kind, (cat, cl) in banks.items():
-        bank = cat.serving
-        quant = bank.emb.dtype == torch.int8
-        got[kind] = (
-            rb.shortlist(w, Mb, occ, bank.emb, bank.live, alpha,
-                         scales=bank.scale if quant else None),
-            rb.shortlist_pruned(w, Mb, occ, cl.emb_sorted, cl.live_sorted,
-                                cl.perm, cl.tile_mu, cl.tile_r, cl.tile_xn,
-                                cl.tile_n, alpha,
-                                scales_sorted=cl.scale_sorted if quant
-                                else None))
+    with tops.FilterStats() as st:
+        for kind, (cat, cl) in banks.items():
+            bank = cat.serving
+            quant = bank.emb.dtype == torch.int8
+            got[kind] = (
+                rb.shortlist(w, Mb, occ, bank.emb, bank.live, alpha,
+                             scales=bank.scale if quant else None),
+                rb.shortlist_pruned(
+                    w, Mb, occ, cl.emb_sorted, cl.live_sorted, cl.perm,
+                    cl.tile_mu, cl.tile_r, cl.tile_xn, cl.tile_n, alpha,
+                    scales_sorted=cl.scale_sorted if quant else None))
     launches = dict(_build.LAUNCHES)
+    log(f"precision bf16 Minv serving batch, filter on the path: rescored "
+        f"{st.rescored} pairs, violations {st.violations}")
+    assert st.violations == 0, "bf16 Minv: filter violations on the path"
+    assert st.rescored > 0
     for k in MINV_TOPK:
         assert launches[k] == 1, launches
     assert not any(v for k, v in launches.items() if k not in MINV_TOPK), (
@@ -3179,7 +3374,7 @@ def minv_serving_batch(serving, sess_q, banks, alpha):
     with uncounted():
         for kind, (cat, cl) in banks.items():
             bank = cat.serving
-            sfx = "" if kind == "f32" else f"_{kind}"
+            sfx = BANK_SFX[kind]
             (s_u, i_u), (s_p, i_p, _, _) = got[kind]
             errs[f"topk_minv_bf16{sfx}"] = check_topk_minv_bf16(
                 w, Mb, occ, bank.emb, bank.live,
@@ -3188,6 +3383,22 @@ def minv_serving_batch(serving, sess_q, banks, alpha):
             errs[f"topk_pruned_minv_bf16{sfx}"] = \
                 check_topk_pruned_minv_bf16(w, Mb, occ, cat, cl, alpha,
                                             K_SHORT, got=(s_p, i_p))
+            if kind != "f32":  # the filter kernels against the chain's
+                sc = bank.scale if kind == "int8" else None
+                ss = cl.scale_sorted if kind == "int8" else None
+                res = check_topk_filter(w, Mb, occ, bank.emb, bank.live, sc,
+                                        alpha, K_SHORT, got=(s_u, i_u))
+                tb = tref.tile_bounds(w, Mb, occ, alpha, cl.tile_mu,
+                                      cl.tile_r, cl.tile_xn, cl.tile_n)
+                resp = check_topk_pruned_filter(
+                    w, Mb, occ, cl.emb_sorted, cl.live_sorted, cl.perm, ss,
+                    tb, alpha, K_SHORT, (s_u, i_u))
+                for key, got_f in ((f"topk_minv_bf16{sfx}", res),
+                                   (f"topk_pruned_minv_bf16{sfx}", resp)):
+                    errs[key].update(
+                        rescored=got_f["rescored"],
+                        rescored_share=got_f["rescored_share"],
+                        violations=got_f["violations"])
     return {"launches": launches, "errs": errs, "users": (w, Mb, occ)}
 
 
@@ -7397,6 +7608,30 @@ def popcount(words):
     return int(gops.warp_tile_bits(words).sum())
 
 
+def filter_bound_ms(Minv, N: float, d: int, n_bytes: float,
+                    rescored: int) -> dict:
+    """The filter kernels' own bound (ms) on one H100, ``bound_ms`` of
+    their rows: the larger of the bytes at the memory rate and the
+    operations, which are the product at the bf16 tensor-core rate (d (d
+    + 1) multiply-adds, 2 flops each, of every user's Minv and w pieces,
+    one piece or two by the user's Minv, against each of the ``N`` rows
+    scored: the live rows, the visited share of them where pruned) plus
+    the rescored pairs' chains (2 d^2 + 4 d + 6 f32 operations each) at
+    the f32 rate; and its parts."""
+    M = Minv.float()
+    lo = (M - M.bfloat16().float()).bfloat16() != 0
+    pieces = M.shape[0] + int(lo.flatten(1).any(1).sum())  # over the users
+    prod = 2 * N * d * (d + 1) * pieces
+    parts = {"product_ms": 1e3 * prod / BF16_FLOPS_PER_S,
+             "rescore_ms": 1e3 * rescored * (2 * d * d + 4 * d + 6)
+             / F32_FLOPS_PER_S,
+             "bytes_ms": 1e3 * n_bytes / HBM_BYTES_PER_S}
+    ops_ms = parts["product_ms"] + parts["rescore_ms"]
+    return {"filter_bound_ms": max(ops_ms, parts["bytes_ms"]),
+            "filter_bound_by": ("bytes" if parts["bytes_ms"] >= ops_ms
+                                else "operations"), **parts}
+
+
 def bound_ms(n_bytes: float, flops: float,
              rate: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     t_mem = n_bytes / HBM_BYTES_PER_S
@@ -7677,11 +7912,30 @@ def main() -> int:
         bank_q = cat_q.serving
         quant[prec] = (bank_q, bank_q.scale if prec == "int8" else None,
                        precision["clusters"][prec])
-        errs[f"topk_{prec}"] = check_topk_quant(
+        errs[f"topk_{prec}_tc"] = check_topk_quant(
             w_q, M_q, occ_q, bank_q.emb, bank_q.live, quant[prec][1],
             hyper.alpha, K_SHORT)
-        errs[f"topk_pruned_{prec}"] = check_topk_pruned(
+        errs[f"topk_pruned_{prec}_tc"] = check_topk_pruned(
             w_q, M_q, occ_q, cat_q, quant[prec][2], hyper.alpha, K_SHORT)
+        # the filter kernels against the chain kernels on serving's batch
+        cl_q = quant[prec][2]
+        res = check_topk_filter(w_q, M_q, occ_q, bank_q.emb, bank_q.live,
+                                quant[prec][1], hyper.alpha, K_SHORT)
+        tb_q = tref.tile_bounds(w_q, M_q, occ_q, hyper.alpha, cl_q.tile_mu,
+                                cl_q.tile_r, cl_q.tile_xn, cl_q.tile_n)
+        resp = check_topk_pruned_filter(
+            w_q, M_q, occ_q, cl_q.emb_sorted, cl_q.live_sorted, cl_q.perm,
+            cl_q.scale_sorted if prec == "int8" else None, tb_q,
+            hyper.alpha, K_SHORT,
+            tops.topk(w_q, M_q, occ_q, bank_q.emb, bank_q.live, hyper.alpha,
+                      K_SHORT, scales=quant[prec][1]))
+        log(f"full topk filter {prec} against the chain kernels on "
+            f"serving's batch: {res}; pruned: {resp}")
+        for key, got in ((f"topk_{prec}_tc", res),
+                         (f"topk_pruned_{prec}_tc", resp)):
+            errs[key].update(rescored=got["rescored"],
+                             rescored_share=got["rescored_share"],
+                             violations=got["violations"])
     # DCN-v2's layers 1 and 2 on a serve_bulk batch; EmbeddingBag on the
     # bags of phase 4r
     x0b = recsys["x0_bulk"]
@@ -7782,6 +8036,7 @@ def main() -> int:
     # int8 scales; int8 adds a dequantizing multiply a feature)
     Minv_bw, b_bw = Minv_bf.clone(), b.clone()
     Minv_bp, b_bp = Minv_bf.clone(), b.clone()
+    chain, filter_bounds = {}, {}
     work["rank1_update_inv_bf16"] = (
         lambda: rops.rank1_update_inv(Minv_bw, b_bw, x, r, mask),
         lambda: rref.rank1_update_inv_ref(Minv_bp, b_bp, x, r, mask),
@@ -7798,9 +8053,9 @@ def main() -> int:
         pargs_q = (w_q, M_q, occ_q, cl_q.emb_sorted, cl_q.live_sorted,
                    cl_q.perm, hyper.alpha, K_SHORT, tb_q)
         ss_q = cl_q.scale_sorted if sc_q is not None else None
-        keep_q = 1.0 - max(errs[f"topk_pruned_{prec}"]["skip"],
-                           errs[f"topk_pruned_{prec}"]["plain_skip"])
-        work[f"topk_{prec}"] = (
+        keep_q = 1.0 - max(errs[f"topk_pruned_{prec}_tc"]["skip"],
+                           errs[f"topk_pruned_{prec}_tc"]["plain_skip"])
+        work[f"topk_{prec}_tc"] = (
             lambda bq=bank_q, sq=sc_q: tops.topk(
                 w_q, M_q, occ_q, bq.emb, bq.live, hyper.alpha, K_SHORT,
                 scales=sq),
@@ -7808,11 +8063,24 @@ def main() -> int:
                 w_q, M_q, occ_q, bq.emb, bq.live, hyper.alpha, K_SHORT,
                 scales=sq),
             q_bytes, q_ops)
-        work[f"topk_pruned_{prec}"] = (
+        work[f"topk_pruned_{prec}_tc"] = (
             lambda a=pargs_q, sq=ss_q: tops.topk_pruned(*a, scales=sq),
             lambda a=pargs_q, sq=ss_q: tref.topk_ref_pruned(*a, scales=sq),
             keep_q * (q_bytes + 4 * (N_live + B * tb_q.shape[1])),
             keep_q * q_ops)
+        # the chain kernels these replace at d <= 32, the yardstick timed
+        # in turns beside them
+        chain[f"topk_{prec}_tc"] = (
+            lambda bq=bank_q, sq=sc_q: tops.topk(
+                w_q, M_q, occ_q, bq.emb, bq.live, hyper.alpha, K_SHORT,
+                scales=sq, chain=True))
+        chain[f"topk_pruned_{prec}_tc"] = (
+            lambda a=pargs_q, sq=ss_q: tops.topk_pruned(
+                *a, scales=sq, chain=True))
+        for v, rows in ((f"topk_{prec}_tc", N_live),
+                        (f"topk_pruned_{prec}_tc", keep_q * N_live)):
+            filter_bounds[v] = filter_bound_ms(M_q, rows, d, work[v][2],
+                                               errs[v]["rescored"])
     # the bf16-Minv variants: choose, ucb and the M-ful update on phase 5's
     # inputs with Minv cast to bf16 (2 d^2 bytes a user; the update on its
     # own copies), the top-K six on phase 4p's bf16-Minv serving batch over
@@ -7851,7 +8119,7 @@ def main() -> int:
         bank_b = cat_b.serving
         sc_b = bank_b.scale if kind == "int8" else None
         ss_b = cl_b.scale_sorted if kind == "int8" else None
-        sfx = "" if kind == "f32" else f"_{kind}"
+        sfx = BANK_SFX[kind]
         Nb = bank_b.live.shape[0]
         b_bytes = (4 * (B * d + B + Nb) + 2 * B * d * d
                    + bank_b.emb.element_size() * Nb * d
@@ -7883,6 +8151,17 @@ def main() -> int:
         minv_f32[f"topk_pruned_minv_bf16{sfx}"] = (
             lambda a=pa_b, sq=ss_b: tops.topk_pruned(w_b, Mb_wide, occ_b,
                                                      *a, scales=sq))
+        if kind != "f32":
+            chain[f"topk_minv_bf16{sfx}"] = (
+                lambda a=topk_args, sq=sc_b: tops.topk(
+                    w_b, Mb_b, occ_b, *a, scales=sq, chain=True))
+            chain[f"topk_pruned_minv_bf16{sfx}"] = (
+                lambda a=pa_b, sq=ss_b: tops.topk_pruned(
+                    w_b, Mb_b, occ_b, *a, scales=sq, chain=True))
+            for v, rows in ((f"topk_minv_bf16{sfx}", Nb),
+                            (f"topk_pruned_minv_bf16{sfx}", keep_b * Nb)):
+                filter_bounds[v] = filter_bound_ms(Mb_b, rows, d, work[v][2],
+                                                   errs[v]["rescored"])
     # cross: layer 2 of a serve_bulk batch (x0 and xl distinct inputs);
     # embedding_bag: the 262144 bags, pads' rows not counted (not read)
     Bb, dI = x0b.shape
@@ -7969,8 +8248,8 @@ def main() -> int:
     rates = {"cross": TF32_FLOPS_PER_S}
     on_path.update(flash=lm["launches"])
     on_path.update({k: precision["total"][k] for k in (
-        "rank1_update_inv_bf16", "topk_bf16", "topk_int8",
-        "topk_pruned_bf16", "topk_pruned_int8")})
+        "rank1_update_inv_bf16", "topk_bf16_tc", "topk_int8_tc",
+        "topk_pruned_bf16_tc", "topk_pruned_int8_tc")})
     on_path.update({k: minv["launches"][k] for k in MINV_KERNELS})
     on_path.update(topk=serve_launches["topk"],
                    topk_pruned=serve_launches["topk_pruned"],
@@ -8000,6 +8279,13 @@ def main() -> int:
                       else None)
             bms, by = bound_ms(n_bytes, flops,
                                rates.get(kname, F32_FLOPS_PER_S))
+        # a filter kernel's bound is its own (filter_bound_ms); the chain
+        # kernel's operations bound, which both are read against, beside it
+        chain_bms = None
+        if kname in filter_bounds:
+            chain_bms = bms
+            bms = filter_bounds[kname]["filter_bound_ms"]
+            by = filter_bounds[kname]["filter_bound_by"]
         source, replaces = KERNEL_INFO[kname]
         rows.append({
             "name": kname, "route": "cuda", "source": source,
@@ -8007,6 +8293,7 @@ def main() -> int:
             "max_abs_err": errs[kname]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms,
+            **({} if chain_bms is None else {"chain_bound_ms": chain_bms}),
             "near_ties": errs[kname].get("near_ties", 0),
             "serve_launches": serve_launches[kname],
             "baseline_launches": on_baselines[kname],
@@ -8052,38 +8339,63 @@ def main() -> int:
             item_clusters.live_sorted, item_clusters.perm, hyper.alpha,
             K_SHORT, tb_f),
         "rank1_update_inv": work["rank1_update_inv"][0]}
-    for base, variants in (("topk", ("topk_bf16", "topk_int8")),
-                           ("topk_pruned", ("topk_pruned_bf16",
-                                            "topk_pruned_int8")),
+    # (the filter kernels also beside the chain kernels they replace at d
+    # <= 32, on the same inputs: "<name>:chain")
+    for base, variants in (("topk", ("topk_bf16_tc", "topk_int8_tc")),
+                           ("topk_pruned", ("topk_pruned_bf16_tc",
+                                            "topk_pruned_int8_tc")),
                            ("rank1_update_inv", ("rank1_update_inv_bf16",))):
         t = turn_ms({"f32": f32_turns[base],
-                     **{v: work[v][0] for v in variants}}, flush,
-                    reps=2 * REPS)
+                     **{v: work[v][0] for v in variants},
+                     **{f"{v}:chain": chain[v] for v in variants
+                        if v in chain}}, flush, reps=2 * REPS)
         for v in variants:
             by_name[v].update(ms_turns=t[v], f32_ms_turns=t["f32"],
                               ratio_to_f32=t[v] / t["f32"])
+            if v in chain:
+                by_name[v].update(chain_ms_turns=t[f"{v}:chain"],
+                                  ratio_to_chain=t[v] / t[f"{v}:chain"])
         log(f"time {base} beside its variants, {2 * REPS} launches each in "
             f"turns, on the bf16 session's batch: {t}")
     for prec in PRECISIONS:
-        by_name[f"topk_pruned_{prec}"].update(
-            skip=errs[f"topk_pruned_{prec}"]["skip"],
-            plain_skip=errs[f"topk_pruned_{prec}"]["plain_skip"])
-        by_name[f"topk_{prec}"].update(
+        by_name[f"topk_pruned_{prec}_tc"].update(
+            skip=errs[f"topk_pruned_{prec}_tc"]["skip"],
+            plain_skip=errs[f"topk_pruned_{prec}_tc"]["plain_skip"])
+        by_name[f"topk_{prec}_tc"].update(
             {f"choice_flip_rate_{label}": rates[prec]
              for label, rates in precision["flip"].items()})
     # each bf16-Minv variant beside its f32 kernel on the widened Minv (the
-    # same inputs otherwise), in turns
+    # same inputs otherwise), in turns; the filter ones also beside the
+    # chain kernel with the bf16 Minv
     for v in MINV_KERNELS:
-        t = turn_ms({"f32": minv_f32[v], v: work[v][0]}, flush,
+        t = turn_ms({"f32": minv_f32[v], v: work[v][0],
+                     **({"chain": chain[v]} if v in chain else {})}, flush,
                     reps=2 * REPS)
         by_name[v].update(ms_turns=t[v], f32_ms_turns=t["f32"],
                           ratio_to_f32=t[v] / t["f32"])
+        if v in chain:
+            by_name[v].update(chain_ms_turns=t["chain"],
+                              ratio_to_chain=t[v] / t["chain"])
         log(f"time {v} beside its f32 kernel on the widened Minv, "
             f"{2 * REPS} launches each in turns: {t}")
     for v in MINV_TOPK:
         if "pruned" in v:
             by_name[v].update(skip=errs[v]["skip"],
                               plain_skip=errs[v]["plain_skip"])
+    # the filter rows: the chain kernel alone, the rescored pairs, the
+    # violations (0) and the filter's own bound beside the operations bound
+    for v, fb in filter_bounds.items():
+        by_name[v].update(fb, chain_ms=cuda_ms(chain[v], flush),
+                          rescored=errs[v]["rescored"],
+                          rescored_share=errs[v]["rescored_share"],
+                          violations=errs[v]["violations"])
+        log(f"time {v} (the filter) alone {by_name[v]['ms']} ms, its chain "
+            f"kernel alone {by_name[v]['chain_ms']} ms; rescored "
+            f"{errs[v]['rescored']} pairs (share "
+            f"{errs[v]['rescored_share']}), violations "
+            f"{errs[v]['violations']}; bound (the filter's own) "
+            f"{by_name[v]['bound_ms']} ms: {fb}; the chain kernel's "
+            f"operations bound {by_name[v]['chain_bound_ms']} ms")
     by_name["rank1_update_bf16"]["max_ulps"] = errs["rank1_update_bf16"][
         "max_ulps"]
     by_name["rank1_update_inv_bf16"]["max_ulps"] = errs[

@@ -96,6 +96,17 @@ KERNELS = {
         "topk.cu", "topk_pruned_minv_bf16_int8_launch",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
          _I, _P, _P, _P, _P, _P, _P]),
+    # the tensor-core filter kernels (bf16 and int8 items, d <= 32): the
+    # chain kernels' arguments, then fstats before the stream
+    **{f"topk{m}{i}_tc": ("topk_tc.cu", f"topk{m}{i}_tc_launch",
+                          [_P, _P, _P, _P, _P] + [_P] * (i == "_int8")
+                          + [_F, _I, _I, _I, _I, _I] + [_P] * 6)
+       for m in ("", "_minv_bf16") for i in ("_bf16", "_int8")},
+    **{f"topk_pruned{m}{i}_tc": (
+        "topk_tc.cu", f"topk_pruned{m}{i}_tc_launch",
+        [_P] * (10 + (i == "_int8")) + [_F, _I, _I, _I, _I, _I, _I]
+        + [_P] * 7)
+       for m in ("", "_minv_bf16") for i in ("_bf16", "_int8")},
     "cross": ("cross.cu", "cross_launch",
               [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
     "cross_split": ("cross.cu", "cross_split_launch", [_P, _I, _P, _P]),

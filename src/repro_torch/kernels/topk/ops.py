@@ -1,7 +1,7 @@
 """Device dispatch for the streaming top-K: plain versions for CPU
-tensors, the CUDA kernels (``csrc/topk.cu``) for CUDA tensors.  Shapes
-are logical: the kernels mask ragged users, items and features, so
-nothing is padded.
+tensors, the CUDA kernels (``csrc/topk.cu``, ``csrc/topk_tc.cu``) for
+CUDA tensors.  Shapes are logical: the kernels mask ragged users, items
+and features, so nothing is padded.
 
 The catalog may be f32, bf16 or int8 with per-row f32 ``scales``
 (``Precision.catalog_dtype``), and ``Minv`` f32 or bf16
@@ -11,9 +11,26 @@ with ``minv_bf16`` after ``topk``, and the ``topk_pruned`` six), which
 dequantize the items on chip as ``ref.dequantize_rows`` does and widen a
 bf16 ``Minv`` (exactly) as they stage it.  ``w`` and ``occ`` stay f32
 and i32.  Serving upcasts a bf16 ``Minv`` when it gathers the rows, as
-``repro``'s policies do; the engines' callers may hand it over in bf16."""
+``repro``'s policies do; the engines' callers may hand it over in bf16.
+
+:func:`route` picks the kernels: bf16 and int8 items up to ``d = 32`` go
+to the filter kernels (``FILTER``: the same names with ``_tc`` at the
+end), which bound every score by a tensor-core product and rescore by
+the exact chain only the pairs that can reach a user's floor, so their
+shortlist is the chain kernels' bit for bit; f32 items and ``d > 32`` go
+to the chain kernels (``CHAIN``), which score every pair.  ``chain=True``
+launches the chain kernels where the filter kernels would serve: the
+yardstick they are timed and checked against, not a fallback.
+
+Each filter launch counts the pairs it rescored and its violations: a
+violation is a rescored pair whose exact score exceeds its bound, which
+the bound's derivation says never happens.  The count sees only the
+pairs that passed the filter; a pair the filter wrongly dropped shows as
+a shortlist other than the chain kernel's.  :class:`FilterStats` sums
+the counts of the launches made inside its block."""
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -28,6 +45,8 @@ USERS_PER_BLOCK = 8                    # csrc/topk.cu kUsers
 THREADS = 256                          # csrc/topk.cu kThreads
 SMALL_D = 32                           # csrc/topk.cu kSmallD
 MAX_TILES = 32                         # csrc/topk.cu kMaxTiles
+TC_ROWS = 512                          # csrc/topk_tc.cu kTcRows
+CHAIN, FILTER = "chain", "filter"      # the two routes
 _NEG_INF_ORDERED = -2139095041         # the kernel's int encoding of -inf
 
 # the item dtypes the kernels take, as csrc/topk.cu's ITEM template code
@@ -44,16 +63,27 @@ def item_kind(items: torch.Tensor, scales) -> int:
     return ITEM_KINDS[items.dtype]
 
 
+def route(kind: int, d: int) -> str:
+    """The kernels that serve items of ``kind`` at width ``d``: ``FILTER``
+    (csrc/topk_tc.cu's tensor-core filter kernels) for bf16 and int8 items
+    up to ``SMALL_D``, ``CHAIN`` (every pair scored by the chain) for f32
+    items and wider rows."""
+    return FILTER if kind in (1, 2) and d <= SMALL_D else CHAIN
+
+
 def kernel_name(pruned: bool, kind: int,
-                minv_dtype: torch.dtype = torch.float32) -> str:
+                minv_dtype: torch.dtype = torch.float32,
+                route: str = CHAIN) -> str:
     """The ``_build`` name, and launch count, of the top-K kernel over
-    items of ``kind`` with ``Minv`` in ``minv_dtype``; ``TypeError`` for a
-    ``Minv`` dtype no kernel takes."""
+    items of ``kind`` with ``Minv`` in ``minv_dtype`` on ``route``;
+    ``TypeError`` for a ``Minv`` dtype no kernel takes."""
     if minv_dtype not in _MINV:
         raise TypeError(f"Minv has dtype {minv_dtype}; the top-K kernels "
                         f"take {list(_MINV)}")
+    if route not in (CHAIN, FILTER):
+        raise ValueError(f"unknown top-K route {route!r}")
     return (("topk_pruned" if pruned else "topk") + _MINV[minv_dtype]
-            + _SUFFIX[kind])
+            + _SUFFIX[kind] + ("_tc" if route == FILTER else ""))
 
 
 def _check_limits(d: int, k_short: int) -> None:
@@ -65,25 +95,27 @@ def _check_limits(d: int, k_short: int) -> None:
 
 
 def chunk_items(d: int) -> int:
-    """Catalog rows either kernel's block scores per chunk: four a thread
-    up to d = 32 (their features in 128 registers), one above."""
+    """Catalog rows either chain kernel's block scores per chunk: four a
+    thread up to d = 32 (their features in 128 registers), one above.
+    The filter kernels' chunk is ``TC_ROWS``."""
     return THREADS * (4 if d <= SMALL_D else 1)
 
 
-def tiles_per_chunk(tile: int, d: int) -> int:
-    """Tiles of ``tile`` rows the pruned kernel gathers into one chunk
-    (csrc/topk.cu ``tiles_per_chunk``): as many whole tiles as fit in
-    :func:`chunk_items` rows, at most ``MAX_TILES``; a tile longer than a
-    chunk streams a chunk-long slice at a time, one tile a chunk."""
-    return max(1, min(MAX_TILES, chunk_items(d) // tile))
+def tiles_per_chunk(tile: int, d: int, rows: int | None = None) -> int:
+    """Tiles of ``tile`` rows the pruned kernel gathers into one chunk of
+    ``rows`` (:func:`chunk_items` where not given; csrc/topk.cu
+    ``tiles_per_chunk``): as many whole tiles as fit, at most
+    ``MAX_TILES``; a tile longer than a chunk streams a chunk-long slice
+    at a time, one tile a chunk."""
+    return max(1, min(MAX_TILES, (rows or chunk_items(d)) // tile))
 
 
-def pruned_chunks(T: int, tile: int, d: int) -> int:
+def pruned_chunks(T: int, tile: int, d: int, rows: int | None = None) -> int:
     """The pruned kernel's work for :func:`launch_plan`: the chunks of
     whole tiles a group's ``T`` tiles make (each split walks every S-th
     tile of its group's order, ``tiles_per_chunk`` to a chunk after a
     first chunk of one tile), before any skip."""
-    return -(-T // tiles_per_chunk(tile, d))
+    return -(-T // tiles_per_chunk(tile, d, rows))
 
 
 def launch_plan(groups: int, work: int, sms: int, per_sm: int) -> int:
@@ -108,12 +140,13 @@ def launch_plan(groups: int, work: int, sms: int, per_sm: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _slots(device_index: int, d: int, k_short: int, pruned: bool,
-           kind: int) -> tuple[int, int]:
+           kind: int, filt: bool) -> tuple[int, int]:
     """(SMs, resident blocks per SM) of the kernel that serves (d,
     k_short) over items of ``kind`` on the device: ``topk_blocks_per_sm``
-    in csrc/topk.cu, the occupancy API, queried once per device and
-    shape."""
-    fn = _build.load("topk").topk_blocks_per_sm
+    in csrc/topk.cu (``topk_tc_blocks_per_sm`` in csrc/topk_tc.cu where
+    ``filt``), the occupancy API, queried once per device and shape."""
+    fn = (_build.load("topk_bf16_tc").topk_tc_blocks_per_sm
+          if filt else _build.load("topk").topk_blocks_per_sm)
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
@@ -128,10 +161,50 @@ def _slots(device_index: int, d: int, k_short: int, pruned: bool,
 
 
 def _splits(dev, groups: int, work: int, d: int, k_short: int,
-            pruned: bool, kind: int) -> int:
+            pruned: bool, kind: int, filt: bool) -> int:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return launch_plan(groups, work, *_slots(index, d, k_short, pruned,
-                                             kind))
+                                             kind, filt))
+
+
+def _fstats(groups: int, S: int, dev) -> torch.Tensor:
+    """The filter kernels' counts, a (rescored, violations) pair for each
+    warp of each block."""
+    return torch.empty(groups, S, USERS_PER_BLOCK, 2, dtype=torch.int32,
+                       device=dev)
+
+
+_SINKS: list[list[torch.Tensor]] = []   # the open FilterStats blocks'
+
+
+def _record(fstats) -> None:
+    """A filter launch's counts into every open :class:`FilterStats`
+    (one small reduction on the card while one is open, none else)."""
+    if _SINKS:
+        counts = fstats.view(-1, 2).sum(0, dtype=torch.int64)
+        for sink in _SINKS:
+            sink.append(counts)
+
+
+class FilterStats(contextlib.AbstractContextManager):
+    """The pairs rescored and the violations (module docstring) of every
+    filter launch made inside ``with FilterStats() as st:``, in
+    ``st.rescored`` and ``st.violations`` after the block."""
+
+    def __init__(self):
+        self._counts: list[torch.Tensor] = []
+        self.rescored = self.violations = 0
+
+    def __enter__(self):
+        _SINKS.append(self._counts)
+        return self
+
+    def __exit__(self, *exc):
+        _SINKS.remove(self._counts)
+        if self._counts:
+            r, v = torch.stack(self._counts).sum(0).tolist()
+            self.rescored, self.violations = int(r), int(v)
+        return None
 
 
 def _item_args(items, live, scales, kind, dev, N, d):
@@ -164,10 +237,12 @@ def topk(
     k_short: int,
     *,
     scales: torch.Tensor | None = None,   # [N] f32, int8 items only
+    chain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(scores [n, k_short] f32, ids [n, k_short] i32) by (score desc, id
     asc); entries that hold no live item have score -inf.  Scores are
-    taken on the dequantized items (``ref.dequantize_rows``)."""
+    taken on the dequantized items (``ref.dequantize_rows``).  ``chain``:
+    the module's docstring (the card only)."""
     dev = w.device
     if dev.type == "cpu":
         return topk_ref(w, Minv, occ, items, live, alpha, k_short,
@@ -178,21 +253,26 @@ def topk(
     N = items.shape[0]
     _check_limits(d, k_short)
     kind = item_kind(items, scales)
-    name = kernel_name(False, kind, Minv.dtype)
+    filt = not chain and route(kind, d) == FILTER
+    name = kernel_name(False, kind, Minv.dtype, FILTER if filt else CHAIN)
     args = _common_args(w, Minv, occ, dev, n, d) + _item_args(
         items, live, scales, kind, dev, N, d)
     groups = -(-n // USERS_PER_BLOCK)
-    S = _splits(dev, groups, -(-N // chunk_items(d)), d, k_short, False,
-                kind)
+    S = _splits(dev, groups, -(-N // (TC_ROWS if filt else chunk_items(d))),
+                d, k_short, False, kind, filt)
     out_s = torch.empty(n, k_short, dtype=torch.float32, device=dev)
     out_i = torch.empty(n, k_short, dtype=torch.int32, device=dev)
     part_s = torch.empty(S if S > 1 else 0, n, k_short, dtype=torch.float32,
                          device=dev)
     part_i = torch.empty(part_s.shape, dtype=torch.int32, device=dev)
+    fstats = _fstats(groups, S, dev) if filt else None
     if n:
         _build.launch(name, *args, float(alpha), n, N, d, k_short, S,
                       part_s.data_ptr(), part_i.data_ptr(),
-                      out_s.data_ptr(), out_i.data_ptr())
+                      out_s.data_ptr(), out_i.data_ptr(),
+                      *([] if fstats is None else [fstats.data_ptr()]))
+        if filt:
+            _record(fstats)
     return out_s, out_i
 
 
@@ -208,6 +288,7 @@ def topk_pruned(
     tb: torch.Tensor,       # [n, T] tile bounds; tile = N // T
     *,
     scales: torch.Tensor | None = None,   # [N] f32 sorted, int8 only
+    chain: bool = False,
 ):
     """Cluster-pruned top-K: (scores, ids, tiles_skipped, tile_visits)
     with the shortlist bit-equal to :func:`topk`'s over the unsorted
@@ -218,7 +299,8 @@ def topk_pruned(
     (:func:`tiles_per_chunk`; a split's first chunk is one tile, scanned
     before the next is picked, so that its floors exist) and stages the
     next while it scores one.  The skip count depends on the timing of the floors the kernel's
-    splits share, the shortlist does not."""
+    splits share, the shortlist does not.  ``chain``: the module's
+    docstring (the card only)."""
     dev = w.device
     if dev.type == "cpu":
         return topk_ref_pruned(w, Minv, occ, items, live, ids, alpha,
@@ -226,7 +308,7 @@ def topk_pruned(
     if dev.type != "cuda":
         raise ValueError(f"topk_pruned runs on cpu or cuda, not {dev}")
     launch, finish = pruned_launch(w, Minv, occ, items, live, ids, alpha,
-                                   k_short, tb, scales=scales)
+                                   k_short, tb, scales=scales, chain=chain)
     launch()
     return finish()
 
@@ -255,7 +337,7 @@ def walk_plan(tb: torch.Tensor):
 
 
 def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb, *,
-                  scales=None):
+                  scales=None, chain=False):
     """The CUDA side of :func:`topk_pruned`, in two steps: everything up
     to the kernel's launch, then ``(launch, finish)``: ``launch()`` runs
     the kernel (and the merge), ``finish()`` returns what
@@ -275,12 +357,14 @@ def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb, *,
     order, tile_order, tb_walk = walk_plan(tb)
     groups = tile_order.shape[0]
     kind = item_kind(items, scales)
-    name = kernel_name(True, kind, Minv.dtype)
+    filt = not chain and route(kind, d) == FILTER
+    name = kernel_name(True, kind, Minv.dtype, FILTER if filt else CHAIN)
     _common_args(w, Minv, occ, dev, n, d)
     _item_args(items, live, scales, kind, dev, N, d)
     _build.check(ids, "ids", torch.int32, (N,), dev)
-    S = _splits(dev, groups, pruned_chunks(T, tile, d), d, k_short, True,
-                kind)
+    S = _splits(dev, groups,
+                pruned_chunks(T, tile, d, TC_ROWS if filt else None), d,
+                k_short, True, kind, filt)
     item_ptrs = [t.data_ptr() for t in (items, live, ids)] + (
         [scales.data_ptr()] if kind == 2 else [])
     gfloor = torch.empty(groups * USERS_PER_BLOCK, dtype=torch.int32,
@@ -291,6 +375,7 @@ def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb, *,
                          device=dev)
     part_i = torch.empty(part_s.shape, dtype=torch.int32, device=dev)
     skipped = torch.empty(groups, S, dtype=torch.int32, device=dev)
+    fstats = _fstats(groups, S, dev) if filt else None
 
     def launch():
         if not n:
@@ -302,7 +387,10 @@ def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb, *,
                 order, tb_walk, tile_order, gfloor)), float(alpha), n, T,
             tile, d, k_short, S,
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), skipped.data_ptr())
+            out_i.data_ptr(), skipped.data_ptr(),
+            *([] if fstats is None else [fstats.data_ptr()]))
+        if filt:
+            _record(fstats)
 
     def finish():
         return out_s, out_i, int(skipped.sum()), groups * T

@@ -259,3 +259,325 @@ def topk_ref_pruned(
     s = run_s.reshape(npad, k_short)[:n][inv]
     i = run_i.reshape(npad, k_short)[:n][inv]
     return s, i, skipped, T * nb
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core filter of csrc/topk_tc.cu (bf16 and int8 items, d <= 32): a
+# plain model for the tests (the split, E, the bound and the pass test)
+# ---------------------------------------------------------------------------
+
+Q_REL = 2.0 ** -12        # csrc/topk_tc.cu kQRel
+E_REL = 2.0 ** -15        # kERel: est from the features (d > 30)
+E_REL_TC = 2.0 ** -12     # kERelTc: est from the product (d <= 30)
+ABS = 2.0 ** -100         # kAbs
+HUGE = 2.0 ** 60          # kHuge
+FILTER_ROWS = 512         # kTcRows
+# the derived relative errors (csrc/topk_tc.cu's header, d <= 32): |q~ -
+# quad| <= Q_EPS s^2 A, |e~ - est| <= E_EPS(_TC) s sum |a_j| |w_j|
+Q_EPS = 2.81e-5
+E_EPS, E_EPS_TC = 2.63e-6, 2.56e-5
+ORDERS = ("forward", "reversed", "pairwise", "truncate")
+
+
+def _f64(t):
+    return t.to(torch.float64)
+
+
+def _up(x):
+    """The least f32 >= each f64 value of ``x``."""
+    y = x.to(torch.float32)
+    return torch.where(_f64(y) < x, torch.nextafter(y, y.new_full(
+        (), float("inf"))), y)
+
+
+def _down(x):
+    """The greatest f32 <= each f64 value of ``x``."""
+    y = x.to(torch.float32)
+    return torch.where(_f64(y) > x, torch.nextafter(y, y.new_full(
+        (), float("-inf"))), y)
+
+
+def fmaf_ref(a, b, c):
+    """fmaf(a, b, c) of f32 tensors, exactly (one rounding of a b + c):
+    the product is exact in f64, TwoSum gives the sum's exact error, and
+    rounding the f64 sum to odd before rounding it to f32 gives the
+    correctly rounded result (53 >= 24 + 2 bits)."""
+    p = _f64(a) * _f64(b)
+    cc = _f64(c)
+    s = p + cc
+    bb = s - p
+    err = (p - (s - bb)) + (cc - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, s.new_full((), float("inf")),
+                         s.new_full((), float("-inf")))
+    s = torch.where((err != 0) & even & torch.isfinite(s),
+                    torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def chain_ref(Minv, w, x):
+    """(quad, est) [n, m] of csrc/ucb_score.cuh's chains on the widened
+    rows ``x [n, m, d]``: t_i = fmaf over j from 0, quad and est fmaf over
+    i from 0, in f32, exactly as the kernels run them."""
+    n, m, d = x.shape
+    M = Minv.float()
+    quad = x.new_zeros(n, m)
+    est = x.new_zeros(n, m)
+    for i in range(d):
+        t = x.new_zeros(n, m)
+        for j in range(d):
+            t = fmaf_ref(M[:, i, j, None].expand(n, m), x[:, :, j], t)
+        quad = fmaf_ref(x[:, :, i], t, quad)
+        est = fmaf_ref(x[:, :, i], w[:, i, None].expand(n, m), est)
+    return quad, est
+
+
+def minv_pieces(Minv):
+    """The filter's split of Minv (f32 values of bf16 pieces): hi =
+    bf16(M), lo = bf16(M - hi); M - hi is exact in f32, and a bf16 Minv
+    has lo = 0."""
+    M = Minv.float()
+    hi = M.bfloat16().float()
+    return hi, (M - hi).bfloat16().float()
+
+
+def _trunc32(x):
+    """Each f64 value of ``x`` truncated toward zero to f32."""
+    return torch.where(x >= 0, _down(x), _up(x))
+
+
+def _block_truncate(terms):
+    """A sum over the last dim in 16-term steps as the header's model of
+    the tensor cores has it: each step aligns its 16 products and the
+    accumulator to the largest and truncates them to 24 bits, then
+    truncates the sum to f32."""
+    acc = terms.new_zeros(terms.shape[:-1], dtype=torch.float32)
+    for k0 in range(0, terms.shape[-1], 16):
+        blk = torch.cat([acc[..., None], terms[..., k0:k0 + 16]], -1)
+        b64 = _f64(blk)
+        big = b64.abs().amax(-1, keepdim=True)
+        e = torch.floor(torch.log2(torch.where(big > 0, big,
+                                               big.new_ones(()))))
+        ulp = torch.exp2(e - 23)
+        acc = _trunc32((torch.trunc(b64 / ulp) * ulp).sum(-1))
+    return acc
+
+
+def tc_sum(terms, order="forward"):
+    """The f32 sum over the last dim of ``terms`` (exact products), in one
+    of ``ORDERS``: forward, reversed, a pairwise tree (round to nearest),
+    or the truncating 16-term steps of :func:`_block_truncate`."""
+    if order == "truncate":
+        return _block_truncate(terms)
+    if order == "pairwise":
+        t = terms.float()
+        while t.shape[-1] > 1:
+            if t.shape[-1] % 2:
+                t = torch.cat([t, t.new_zeros(*t.shape[:-1], 1)], -1)
+            t = t[..., 0::2] + t[..., 1::2]
+        return t[..., 0]
+    idx = range(terms.shape[-1])
+    if order == "reversed":
+        idx = reversed(idx)
+    acc = terms.new_zeros(terms.shape[:-1], dtype=torch.float32)
+    for j in idx:
+        acc = acc + terms[..., j]
+    return acc
+
+
+def _lane_dot(a, v):
+    """The epilogue's sum over 32 features of a v [..., 32]: lane t takes
+    features 8 nt + 2t + {0, 1} (nt = 0 .. 3) by FMA from 0, then (t0 +
+    t2) + (t1 + t3), as the shuffles combine them."""
+    p = []
+    for t in range(4):
+        acc = a.new_zeros(a.shape[:-1])
+        for nt in range(4):
+            for e in range(2):
+                i = 8 * nt + 2 * t + e
+                acc = fmaf_ref(a[..., i], v[..., i], acc)
+        p.append(acc)
+    return (p[0] + p[2]) + (p[1] + p[3])
+
+
+def filter_ref(w, Minv, occ, items, alpha, *, scales=None,
+               order="forward"):
+    """The filter kernels' per-pair values for every user and item:
+    ``q`` (q~), ``e`` (e~), ``E``, ``E_est`` and ``ub`` [n, N], with the
+    product's sums taken in ``order``.  ``items`` bf16, or int8 codes
+    with ``scales``; d <= 32.  The bounds are those of csrc/topk_tc.cu's
+    header (csrc/topk_tc.cu), computed in f64 and rounded up: never
+    larger than the
+    kernel's, which rounds up at every step."""
+    check_items(items, scales)
+    n, d = w.shape
+    N = items.shape[0]
+    if d > 32 or items.dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError("the filter takes bf16 or int8 items at d <= 32")
+    a = torch.zeros(N, 32)
+    a[:, :d] = items.float()                         # codes or bf16 values
+    s = scales.float() if scales is not None else torch.ones(N)
+    hi, lo = minv_pieces(Minv)
+    hi = torch.nn.functional.pad(hi, (0, 32 - d, 0, 32 - d))
+    lo = torch.nn.functional.pad(lo, (0, 32 - d, 0, 32 - d))
+    wf = w.float()
+    est_tc = d <= 30
+    if est_tc:                 # w's pieces in columns 30 and 31
+        whi = wf.bfloat16().float()
+        hi[:, 30, :d] = whi
+        hi[:, 31, :d] = (wf - whi).bfloat16().float()
+    two = (lo != 0).flatten(1).any(1)
+    q = torch.empty(n, N)
+    e = torch.empty(n, N)
+    for u in range(n):
+        # terms [N, i, j]: the hi piece's K = 32, then lo's
+        th = a[:, None, :] * hi[u][None]
+        terms = torch.cat([th, a[:, None, :] * lo[u][None]], -1) \
+            if two[u] else th
+        T = tc_sum(terms, order)                     # [N, 32]
+        q[u] = _lane_dot(a, T)
+        if est_tc:
+            e[u] = T[:, 30] + T[:, 31]
+        else:
+            wv = torch.zeros(32)
+            wv[:d] = wf[u]
+            e[u] = _lane_dot(a, wv.expand(N, 32))
+    if scales is not None:
+        q = (s * s)[None] * q
+        e = s[None] * e
+    # the bounds' factors, rounded up
+    n2 = _up((_f64(a) ** 2).sum(1))
+    en = _up(torch.sqrt(_f64(n2)))
+    en2 = n2
+    if scales is not None:
+        sa = _f64(s.abs())
+        en2 = _up(sa * sa * _f64(n2))
+        en = _up(sa * _f64(en))
+    sub = ((a != 0) & (a.abs() < 2.0 ** -126)).any(1)
+    en2 = torch.where((en2 < HUGE) & ~sub, en2, en2.new_full((), float(
+        "inf")))
+    M = Minv.float()
+    F = _up(torch.sqrt(_f64(M).pow(2).flatten(1).sum(1)))
+    W = _up(torch.sqrt(_f64(wf).pow(2).sum(1)))
+    inf = float("inf")
+    cM = torch.where(F < HUGE, _up(Q_REL * _f64(F) + ABS), F.new_full(
+        (), inf))
+    cW = torch.where(W < HUGE, _up((E_REL_TC if est_tc else E_REL)
+                                   * _f64(W) + ABS), W.new_full((), inf))
+    E = _up(_f64(cM)[:, None] * _f64(en2)[None] + ABS)
+    E_est = _up(_f64(cW)[:, None] * _f64(en)[None] + ABS)
+    ex = torch.sqrt(torch.log1p(occ.float()))
+    eu = _f64(e) + _f64(E_est)
+    if alpha >= 0:
+        b = torch.sqrt(torch.clamp_min(_f64(q) + _f64(E), 0.0))
+    else:
+        b = torch.sqrt(torch.clamp_min(_f64(q) - _f64(E), 0.0))
+    ub = _up(eu + alpha * b * _f64(ex)[:, None])
+    bad = ~torch.isfinite(q) | ~torch.isfinite(e)
+    ub = torch.where(bad, ub.new_full((), float("nan")), ub)
+    return {"q": q, "e": e, "E": E, "E_est": E_est, "ub": ub}
+
+
+def filter_stream_ref(w, Minv, occ, items, live, alpha, k_short, *,
+                      scales=None, chunk=FILTER_ROWS, order="forward"):
+    """The filter kernels' stream in plain PyTorch: chunks of ``chunk``
+    rows; a live pair is rescored (by :func:`ucb_scores_ref`, the plain
+    version's score) where ``!(ub < floor)``, the floor being the k-th
+    entry of the user's list before the chunk; the rest of the chunk is
+    left out.  Returns ``(scores, ids, rescored, violations)``: the
+    shortlist is :func:`topk_ref`'s with ``item_block=chunk`` bit for
+    bit, since no pair left out can enter; a violation is a rescored pair
+    whose score exceeds its ub."""
+    n, d = w.shape
+    N = items.shape[0]
+    f = filter_ref(w, Minv, occ, items, alpha, scales=scales, order=order)
+    run_s = w.new_full((n, k_short), NEG_INF)
+    run_i = torch.full((n, k_short), -1, dtype=torch.int32)
+    rescored = violations = 0
+    for t0 in range(0, N, chunk):
+        x = dequantize_rows(items[t0:t0 + chunk],
+                            None if scales is None else scales[t0:t0 + chunk])
+        s = _scores(w, Minv, occ, x, live[t0:t0 + chunk], alpha)
+        ub = f["ub"][:, t0:t0 + chunk]
+        passed = (live[t0:t0 + chunk] > 0)[None] & ~(
+            ub < run_s[:, k_short - 1:])
+        rescored += int(passed.sum())
+        violations += int((passed & (s > ub)).sum())
+        s = torch.where(passed, s, s.new_full((), NEG_INF))
+        ids = torch.arange(t0, t0 + x.shape[0], dtype=torch.int32)
+        run_s, run_i = select_topk(torch.cat([run_s, s], 1),
+                                   torch.cat([run_i, ids.expand(n, -1)], 1),
+                                   k_short)
+    return run_s, run_i, rescored, violations
+
+
+def quantize_rows(x, kind):
+    """f32 rows as a bank of ``kind`` ("bf16" or "int8"): (items,
+    scales or None); int8 codes are round(x / s) with s = max |x_j| /
+    127 a row (1 for a zero row)."""
+    if kind == "bf16":
+        return x.bfloat16(), None
+    s = x.abs().amax(1) / 127
+    s = torch.where(s > 0, s, s.new_ones(()))
+    codes = torch.round(x / s[:, None]).clamp(-127, 127).to(torch.int8)
+    return codes, s.float()
+
+
+def stress_case(seed, n, d, N, k_short, kind, *,
+                minv_dtype=torch.float32):
+    """A catalog built so that many pairs sit at a user's floor, for the
+    filter's tests and chip_smoke.py's checks (CPU tensors, from
+    ``seed``): users with near-singular Minv from hundreds of rank-1
+    updates along a few directions beside fresh ones; unit rows, rows of
+    tiny norm, rows scaled 8x along a fresh direction (the bonus
+    dominates), zero rows, dead rows; user 0's k-th item copied many
+    times, and its best item copied with one feature (bf16) or the scale
+    (int8) one ulp apart.  Returns (w, Minv, occ, items, live, scales)."""
+    g = torch.Generator().manual_seed(seed)
+    dirs = torch.randn(3, d, generator=g, dtype=torch.float64)
+    Ms = []
+    for u in range(n):
+        if u % 3 == 2:                    # a fresh user
+            Ms.append(torch.eye(d, dtype=torch.float64)
+                      * (1 + u % 5) / 5)
+            continue
+        X = dirs[torch.randint(0, 3, (400,), generator=g)] + 0.05 * \
+            torch.randn(400, d, generator=g, dtype=torch.float64)
+        Ms.append(torch.linalg.inv(torch.eye(d, dtype=torch.float64)
+                                   + X.T @ X))
+    Minv = torch.stack(Ms).float()
+    w = (torch.randn(n, d, generator=g) * 0.3
+         + dirs[torch.randint(0, 3, (n,), generator=g)].float() * 0.2)
+    occ = torch.randint(0, 500, (n,), generator=g, dtype=torch.int32)
+    x = torch.randn(N, d, generator=g)
+    x = x / x.norm(dim=1, keepdim=True)
+    kinds = torch.randint(0, 20, (N,), generator=g)
+    x[kinds == 0] *= 1e-3                                   # tiny rows
+    fresh = torch.randn(d, generator=g)
+    x[kinds == 1] = 8 * fresh / fresh.norm()                # bonus rows
+    x[kinds == 2] = 0.0                                     # zero rows
+    live = (torch.rand(N, generator=g) > 0.2).float()
+    items, scales = quantize_rows(x, kind)
+    Mq = Minv.to(minv_dtype)
+    deq = dequantize_rows(items, scales)
+    s0 = ucb_scores_ref(w[:1], Mq[:1], deq[None], occ[:1], 0.3)[0]
+    s0 = torch.where(live > 0, s0, s0.new_full((), NEG_INF))
+    order = torch.argsort(s0, descending=True, stable=True)
+    kth, best = order[min(k_short, N) - 1], order[0]
+    dup = torch.randperm(N, generator=g)[:max(8, N // 8)]
+    items[dup] = items[kth].clone()
+    if scales is not None:
+        scales[dup] = scales[kth].clone()
+    near = torch.randperm(N, generator=g)[:16]
+    items[near] = items[best].clone()
+    if kind == "bf16":
+        bits = items[near].view(torch.int16)
+        bits[:, 0] += torch.where(torch.arange(16) % 2 == 0, 1, -1).to(
+            torch.int16)
+        items[near] = bits.view(torch.bfloat16)
+    else:
+        up = torch.nextafter(scales[best], scales.new_full((), 1e9))
+        scales[near] = torch.where(torch.arange(16) % 2 == 0, up,
+                                   scales[best].clone())
+    live[dup[:4]] = 0.0
+    return w, Mq, occ, items.contiguous(), live, scales
