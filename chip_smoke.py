@@ -2,6 +2,9 @@
 """Smoke run of the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py            # the whole check, one card
+    python3 chip_smoke.py --parent DIR   # choose built by _build from
+                                         # DIR's csrc beside this
+                                         # checkout's, in turns
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -10,20 +13,27 @@ Phases, in order; any failure raises and the script exits non-zero:
            (one ``nvcc`` per source, all at once), with the seconds taken;
            the registers and spill bytes ptxas reports for prune_kernel,
            topk_kernel, topk_pruned_kernel, ucb_kernel, ucb_block_kernel,
-           choose_tile_kernel (each width; ucb's and choose's also for a
-           bf16 Minv), cross_tc_kernel,
+           ucb_tile_kernel, choose_tile_kernel, rank1_span_kernel (each
+           width; each also for a bf16 Minv), cross_tc_kernel,
            cross_split_kernel and cc_hop_kernel (each load width; any
            spill fails); the count of HGMMA
            (wgmma) instructions in the flash and cross libraries' SASS
            (``cuobjdump -sass``), neither of which may be 0.
 3. small   each kernel against its plain PyTorch version on ragged small
-           shapes (choose's two variants and ucb's two, each forced past
+           shapes (choose's two variants and ucb's three, each forced past
            its wrapper, at 37 users (K = 7, d = 19; K = 64, d = 25 and
            32), 256 users (K = 64, d = 25 and 32: serving's shortlist) and
            on duplicate candidates: both choose variants pick the same
            candidates and copy the same x, bit for bit, no duplicate beats
-           its first copy, and either ucb variant's first-index argmax is
-           that pick; at the paper clones' shapes (phase 4d: n = 943,
+           its first copy, the three ucb variants' scores are bit-equal
+           and their first-index argmax is that pick; ucb's register tile
+           (``tile_cases``) and the M-free update's staged span
+           (``span_cases``, against the warp and block variants and the
+           plain version, masked rows bit-identical) at n = 20485 and 2 x
+           SMs + 5, d = 8, 16, 19, 25 and 32 with a rotating eighth
+           masked, d = 1, 2 and 3 with every other user masked and with
+           one in eight live, on views that start at users 1, 3 and 7,
+           f32 and bf16 Minv; at the paper clones' shapes (phase 4d: n = 943,
            1816, 1888, 5045; K = 20; d = 5, 19, 25) the same on slates
            gathered from a 2047-item table with a duplicate in each, half
            the rows' best item the duplicated one, rank1_update_inv, and
@@ -436,7 +446,10 @@ Phases, in order; any failure raises and the script exits non-zero:
            the state and on the serving batch's shortlist (256 x 64); ucb and
            rank1_update also at CLUB's n = 1 on its state's rows, and
            both rank-1 kernels there bit-equal to the whole state's
-           warp-per-user variant with only that user live; ucb there
+           variant (the M-ful warp per user, the M-free staged span) with
+           only that user live; the staged span on the state, f32 and
+           bf16 (``check_rank1_span``), and choose and ucb on its bf16
+           Minv, each variant forced; ucb there
            bit-equal to its warp-per-user variant forced on the row), the
            two top-K kernels on one serving batch's users at full width
            (topk's shortlist scores ``torch.equal`` to ``ucb_scores`` of the
@@ -489,7 +502,15 @@ Phases, in order; any failure raises and the script exits non-zero:
            kernel on the widened Minv, 50 launches each in turns; flash at phase 4l's prefill and decode
            shapes and at phase 4m's (deepseek's prefill and decode,
            llama4's prefill: ``moe_*_launches`` in its row), with
-           ``scaled_dot_product_attention`` as its yardstick;
+           ``scaled_dot_product_attention`` as its yardstick; ucb and
+           ucb_bf16 beside their warp variant and choose on the same
+           inputs, rank1_update_inv and its bf16 twin (the staged span, a
+           block a group) beside the warp variant, choose_bf16 beside its
+           warp variant, 50 launches each in turns, the ucb and rank-1
+           sets also held (a spin kernel ahead of the start event keeps
+           the host's dispatch out of the timed window); rank1_update_inv
+           and its bf16 twin at serving's 256 users (a block per user),
+           held, 200 launches;
            bf16 flash runs on the tensor cores and is held to their bf16
            rate (989 TFLOP/s), its f32 bound printed beside it; cc_hop
            beside its warp-per-row kernel, 50 launches each in turns, on the
@@ -704,25 +725,28 @@ def check_ucb(w, Minv, ctx, occ, alpha):
 
 def ucb_variant(w, Minv, ctx, occ, alpha, variant):
     """ucb's kernel for Minv's dtype in the variant the caller names, past
-    the wrapper."""
+    the wrapper (the register tile with the wrapper's users a block)."""
     import torch
     from repro_torch.kernels import _build
+    from repro_torch.kernels.interact import ops as iops
     from repro_torch.kernels.ucb import ops
     n, K, d = ctx.shape
+    users = iops.geometry(n, K, d, _build.sm_count(ctx.device.index or 0),
+                          Minv.element_size())[1]
     out = torch.empty(n, K, dtype=torch.float32, device=ctx.device)
     _build.launch(ops.KERNELS[Minv.dtype], w.data_ptr(), Minv.data_ptr(),
                   ctx.data_ptr(), occ.data_ptr(), float(alpha), n, K, d,
-                  variant, out.data_ptr())
+                  variant, users, out.data_ptr())
     return out
 
 
 def check_ucb_variants(w, Minv, ctx, occ, alpha, u):
-    """ucb's two variants on the same rows, bit for bit: the most users
+    """ucb's three variants on the same rows, bit for bit: the most users
     that take a block each on this card (``BLOCK_PER_USER_PER_SM`` an SM)
-    as a leading view against the whole state of one user more (a warp
-    per user), and user ``u``'s row view (n = 1, a block per user)
-    against the same; each also by ``check_ucb``'s bands and argmax
-    rule."""
+    as a leading view against the whole state of one user more (the
+    register tile, d <= 32), the whole state forced to a warp per user,
+    and user ``u``'s row view (n = 1, a block per user) against the same;
+    each also by ``check_ucb``'s bands and argmax rule."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.ucb import ops
@@ -730,12 +754,15 @@ def check_ucb_variants(w, Minv, ctx, occ, alpha, u):
     sms = _build.sm_count(ctx.device.index or 0)
     nt = ops.BLOCK_PER_USER_PER_SM * sms
     assert n == nt + 1 and ops.variant(nt, K, d, sms) == ops.BLOCK_PER_USER
-    assert ops.variant(n, K, d, sms) == ops.WARP_PER_USER
+    assert ops.variant(n, K, d, sms) == ops.REGISTER_TILE
     assert ops.variant(1, K, d, sms) == ops.BLOCK_PER_USER
     whole = ops.ucb_scores(w, Minv, ctx, occ, alpha)
     head = ops.ucb_scores(w[:nt], Minv[:nt], ctx[:nt], occ[:nt], alpha)
     row = (w[u:u + 1], Minv[u:u + 1], ctx[u:u + 1], occ[u:u + 1])
     assert torch.equal(head, whole[:nt]), "ucb: the variants differ"
+    assert torch.equal(ucb_variant(w, Minv, ctx, occ, alpha,
+                                   ops.WARP_PER_USER), whole), (
+        "ucb: the tile differs from the warp per user")
     assert torch.equal(ops.ucb_scores(*row, alpha), whole[u:u + 1]), (
         "ucb: the row view differs from the whole state")
     err = max(check_ucb(w, Minv, ctx, occ, alpha)["max_abs_err"],
@@ -766,25 +793,37 @@ def choose_variant(w, Minv, ctx, occ, alpha, variant):
 
 
 def check_pick(w, Minv, ctx, occ, alpha):
-    """choose's two variants and ucb's two, each forced past its wrapper
-    on the same inputs (d <= 32, which all four take): the two choose
-    variants pick the same candidates and copy the same x, bit for bit,
-    and the first-index argmax of either ucb variant's scores is that
-    pick (all four run ucb_score.cuh's chains in its order)."""
+    """choose's two variants and ucb's three, each forced past its
+    wrapper on the same inputs (d <= 32 and K <= 256, which all five
+    take): the two choose variants pick the same candidates and copy the
+    same x, bit for bit; the three ucb variants give the same scores, bit
+    for bit, within ``check_ucb``'s band of ``ucb_scores_ref``, and their
+    first-index argmax is that pick (all five run ucb_score.cuh's chains
+    in its order; choose's tile and ucb's are one body, ucb_tile.cuh)."""
     import torch
     from repro_torch.kernels.interact import ops as iops
     from repro_torch.kernels.ucb import ops as uops
+    from repro_torch.kernels.ucb import ref as uref
     c_w, x_w = choose_variant(w, Minv, ctx, occ, alpha, iops.WARP_PER_USER)
     c_t, x_t = choose_variant(w, Minv, ctx, occ, alpha, iops.REGISTER_TILE)
     assert torch.equal(c_w, c_t) and torch.equal(x_w, x_t), (
         f"choose: the variants differ for {int((c_w != c_t).sum())} users")
-    for v in (uops.WARP_PER_USER, uops.BLOCK_PER_USER):
-        first = torch.argmax(ucb_variant(w, Minv, ctx, occ, alpha, v),
-                             dim=-1).to(torch.int32)
+    tile = ucb_variant(w, Minv, ctx, occ, alpha, uops.REGISTER_TILE)
+    plain = uref.ucb_scores_ref(w, Minv, ctx, occ, alpha)
+    err = (tile - plain).abs()
+    assert bool((err <= 1e-5 * (1 + plain.abs())).all()), (
+        "ucb tile: scores differ from the plain version")
+    for v in (uops.WARP_PER_USER, uops.BLOCK_PER_USER, uops.REGISTER_TILE):
+        scores = (tile if v == uops.REGISTER_TILE
+                  else ucb_variant(w, Minv, ctx, occ, alpha, v))
+        assert torch.equal(scores, tile), (
+            f"ucb variant {v}: scores differ from the tile's")
+        first = torch.argmax(scores, dim=-1).to(torch.int32)
         assert torch.equal(first, c_t), (
             f"ucb variant {v}: argmax differs from choose's pick for "
             f"{int((first != c_t).sum())} users")
-    return {"pick_bit_equal": True, "users": int(c_t.shape[0])}
+    return {"pick_bit_equal": True, "ucb_bit_equal": True,
+            "users": int(c_t.shape[0]), "ucb_max_abs_err": float(err.max())}
 
 
 def check_duplicates(w, Minv, ids, table, occ, alpha):
@@ -848,10 +887,12 @@ def check_rank1_row_view(M, Minv, b, x, r, u):
 
 
 def check_rank1_variants(M, Minv, b, x, r, u):
-    """Both rank-1 kernels' two variants on one user's row, bit for bit:
-    user ``u``'s row views (n = 1: a block per user) against the whole
-    state with only ``u`` live (more users than a block per user takes: a
-    warp per user); every other row bit-identical to the input."""
+    """Both rank-1 kernels' variants on one user's row, bit for bit: user
+    ``u``'s row views (n = 1: a block per user) against the whole state
+    with only ``u`` live (more users than a block per user takes: a warp
+    per user for the M-ful update, the staged span for the M-free one,
+    every other user masked); every other row bit-identical to the
+    input."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.rank1 import ops
@@ -859,6 +900,8 @@ def check_rank1_variants(M, Minv, b, x, r, u):
     sms = _build.sm_count(b.device.index or 0)
     assert ops.variant(1, d, sms) == ops.BLOCK_PER_USER
     assert ops.variant(n, d, sms) == ops.WARP_PER_USER
+    assert ops.inv_variant(n, d, sms,
+                           Minv.element_size()) == ops.STAGED_SPAN
     live = torch.ones(1, dtype=torch.bool, device=b.device)
     only_u = torch.zeros(n, dtype=torch.bool, device=b.device)
     only_u[u] = True
@@ -880,9 +923,10 @@ def check_rank1_variants(M, Minv, b, x, r, u):
 
 def check_rank1_threshold(M, Minv, b, x, r, mask):
     """A state of one user past the block-per-user limit: all of it (a
-    warp per user) and its first users as a leading view (a block per
-    user) within 1e-5 of the plain version and bit-equal on the rows they
-    share, the view leaving the last row as it was; for both kernels."""
+    warp per user for the M-ful update, the staged span for the M-free
+    one) and its first users as a leading view (a block per user) within
+    1e-5 of the plain version and bit-equal on the rows they share, the
+    view leaving the last row as it was; for both kernels."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.rank1 import ops
@@ -891,6 +935,7 @@ def check_rank1_threshold(M, Minv, b, x, r, mask):
     nt = ops.BLOCK_PER_USER_PER_SM * sms
     assert n == nt + 1 and ops.variant(nt, d, sms) == ops.BLOCK_PER_USER
     assert ops.variant(n, d, sms) == ops.WARP_PER_USER
+    assert ops.inv_variant(n, d, sms) == ops.STAGED_SPAN
     err = 0.0
     for m in (nt, n):
         err = max(err, check_rank1_mful(M[:m], Minv[:m], b[:m], x[:m],
@@ -908,6 +953,118 @@ def check_rank1_threshold(M, Minv, b, x, r, mask):
             assert torch.equal(a[:nt], c[:nt]), f"{name}: the variants differ"
             assert torch.equal(a[nt:], t[nt:]), f"{name}: the view spilled"
     return {"max_abs_err": err, "bit_equal": True}
+
+
+def rank1_inv_variant(Minv, b, x, r, mask, variant):
+    """The M-free update's kernel for Minv's dtype in the variant the
+    caller names, past the wrapper, in place."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rank1 import ops
+    n, d = b.shape
+    _build.launch(ops.INV_KERNELS[Minv.dtype], Minv.data_ptr(), b.data_ptr(),
+                  x.data_ptr(), r.data_ptr(), mask.data_ptr(), n, d, variant)
+    return Minv, b
+
+
+def check_rank1_span(Minv, b, x, r, mask):
+    """The M-free update's staged span (Minv f32 or bf16, views that may
+    start at any user) against its other variants on copies, bit for
+    bit: the wrapper's pick (the span, a block a group) against the warp
+    per user, and its first 2 x SMs users as a leading view (a block per
+    user).  Masked users' rows (Minv and b) bit-identical to the input,
+    and the span against the plain version: f32 within rtol = atol =
+    1e-5 (``check_rank1``), bf16 within one ulp or 1e-5
+    (``check_rank1_bf16``)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rank1 import ops
+    n, d = b.shape
+    sms = _build.sm_count(b.device.index or 0)
+    assert ops.inv_variant(n, d, sms,
+                           Minv.element_size()) == ops.STAGED_SPAN
+    pick = ops.rank1_update_inv(Minv.clone(), b.clone(), x, r, mask)
+    warp = rank1_inv_variant(Minv.clone(), b.clone(), x, r, mask,
+                             ops.WARP_PER_USER)
+    assert torch.equal(warp[0], pick[0]) and torch.equal(warp[1], pick[1]), (
+        "rank1 span: differs from the warp variant")
+    nt = min(n, ops.BLOCK_PER_USER_PER_SM * sms)
+    head = ops.rank1_update_inv(Minv[:nt].clone(), b[:nt].clone(), x[:nt],
+                                r[:nt], mask[:nt])
+    assert torch.equal(head[0], pick[0][:nt]) and torch.equal(
+        head[1], pick[1][:nt]), "rank1 span: differs from the block variant"
+    off = ~mask
+    assert torch.equal(pick[0][off], Minv[off]) and torch.equal(
+        pick[1][off], b[off]), "rank1 span: a masked user's row moved"
+    assert not torch.equal(pick[0][mask], Minv[mask]), (
+        "rank1 span: no live user's row moved")
+    check = check_rank1_bf16 if Minv.dtype == torch.bfloat16 else check_rank1
+    res = check(Minv, b, x, r, mask)
+    return {**res, "bit_equal": True, "groups": -(-n // ops.SPAN_USERS),
+            "offset_mod16": Minv.data_ptr() % 16}
+
+
+def span_cases(g, dev):
+    """The staged span on ragged and unaligned spans: n = 20485 and 2 x
+    SMs + 5 (neither a multiple of a group's users) at d = 8, 16, 19, 25
+    and 32 (a user's block 16-byte aligned at 8, 16 and 32, not at 19 and
+    25) with a rotating eighth of the users masked off, and at d = 1, 2
+    and 3 (where one 16-byte word holds up to 4 users' blocks in f32 and
+    8 in bf16) with every other user masked and with one user in eight
+    live; each as a view that starts at user 1, 3 and 7 of its buffer;
+    Minv f32 and bf16."""
+    import torch
+    from repro_torch.kernels import _build
+    sms = _build.sm_count(dev.index or 0)
+    out = {}
+    masks = {"eighth_off": lambda u: u % 8 != 0,
+             "alternate": lambda u: u % 2 == 0,
+             "eighth_live": lambda u: u % 8 == 0}
+    for n in (20485, 2 * sms + 5):
+        for d in (1, 2, 3, 8, 16, 19, 25, 32):
+            Minv = spd_inverse(g, n + 7, d, dev)
+            b = torch.randn(n + 7, d, generator=g, device=dev)
+            x = unit(torch.randn(n + 7, d, generator=g, device=dev))
+            r = (torch.rand(n + 7, generator=g, device=dev) < 0.5).float()
+            kinds = ("eighth_off",) if d > 3 else ("alternate", "eighth_live")
+            for start in (1, 3, 7):
+                sl = slice(start, start + n)
+                for kind in kinds:
+                    mask = masks[kind](torch.arange(n, device=dev) + start)
+                    for M_ in (Minv, Minv.bfloat16()):
+                        res = check_rank1_span(M_[sl], b[sl], x[sl], r[sl],
+                                               mask)
+                        out[(n, d, start, kind, str(M_.dtype))] = res[
+                            "max_abs_err"]
+                        log(f"rank1 span (n={n}, d={d}, from user {start}, "
+                            f"mask {kind}, {M_.dtype}): {res}")
+    return out
+
+
+def tile_cases(g, dev):
+    """ucb's register tile on ragged and unaligned spans: n = 20485 and 2
+    x SMs + 5 at d = 8, 16, 19, 25 and 32, K = 20, as views that start at
+    user 1, 3 and 7 of their buffers: the three ucb variants and both
+    choose variants forced (``check_pick``), f32 and bf16 Minv (bf16 also
+    bit-equal to the f32 kernels on the widened Minv, ``hold_choose``)."""
+    import torch
+    from repro_torch.kernels import _build
+    sms = _build.sm_count(dev.index or 0)
+    for n in (20485, 2 * sms + 5):
+        for d in (8, 16, 19, 25, 32):
+            m = n + 7
+            w = 0.5 * torch.randn(m, d, generator=g, device=dev)
+            Minv = spd_inverse(g, m, d, dev)
+            ctx = unit(torch.randn(m, 20, d, generator=g, device=dev))
+            occ = torch.randint(0, 1000, (m,), generator=g, device=dev,
+                                dtype=torch.int32)
+            for start in (1, 3, 7):
+                sl = slice(start, start + n)
+                args = (w[sl], Minv[sl], ctx[sl], occ[sl])
+                res = check_pick(*args, 0.3)
+                res_b = check_choose_bf16(w[sl], Minv.bfloat16()[sl],
+                                          ctx[sl], occ[sl], 0.3)
+                log(f"ucb tile (n={n}, d={d}, from user {start}): f32 "
+                    f"{res}; bf16 {res_b}")
 
 
 def check_prune(adj, v_i, cb_i, v_j, cb_j, gamma):
@@ -1153,27 +1310,31 @@ def check_rank1_bf16(Minv, b, x, r, mask):
 
 
 def check_rank1_bf16_variants(Minv, b, x, r, mask):
-    """The bf16 update's two variants on the same rows, bit for bit: the
-    first 2 x SMs users as a leading view (a block per user) against the
-    whole state (a warp per user, ``n`` past that limit); the rows past
-    the view as they were."""
+    """The bf16 update's three variants on the same rows, bit for bit:
+    the first 2 x SMs users as a leading view (a block per user) against
+    the whole state (the staged span, ``n`` past that limit) and the
+    whole state forced to a warp per user; the rows past the view as
+    they were."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.rank1 import ops
     n, d = b.shape
     sms = _build.sm_count(b.device.index or 0)
     nt = ops.BLOCK_PER_USER_PER_SM * sms
-    assert ops.variant(nt, d, sms) == ops.BLOCK_PER_USER
-    assert ops.variant(n, d, sms) == ops.WARP_PER_USER
+    assert ops.inv_variant(nt, d, sms) == ops.BLOCK_PER_USER
+    assert ops.inv_variant(n, d, sms, 2) == ops.STAGED_SPAN
     head = (Minv.clone(), b.clone())
     whole = (Minv.clone(), b.clone())
+    warp = (Minv.clone(), b.clone())
     ops.rank1_update_inv(head[0][:nt], head[1][:nt], x[:nt], r[:nt],
                          mask[:nt])
     ops.rank1_update_inv(*whole, x, r, mask)
-    for a, c, t in zip(head, whole, (Minv, b)):
+    rank1_inv_variant(*warp, x, r, mask, ops.WARP_PER_USER)
+    for a, c, t, wv in zip(head, whole, (Minv, b), warp):
         assert torch.equal(a[:nt], c[:nt]), "rank1 bf16: the variants differ"
         assert torch.equal(a[nt:], t[nt:]), "rank1 bf16: the view spilled"
-    return {"bit_equal": True, "block_rows": nt, "warp_rows": n}
+        assert torch.equal(c, wv), "rank1 bf16: the span differs from warp"
+    return {"bit_equal": True, "block_rows": nt, "span_rows": n}
 
 
 def check_topk_quant(w, Minv, occ, items, live, scales, alpha, k):
@@ -1761,6 +1922,10 @@ def small_checks(dev):
     log(f"small ucb variants at n={nv - 1} and n={nv}, and user 7's row "
         f"view (d={dv}, K=20): "
         f"{check_ucb_variants(w_v, Minv_v, ctx_v.contiguous(), occ_v, 0.3, 7)}")
+    t_new = time.perf_counter()
+    tile_cases(g, dev)
+    span_cases(g, dev)
+    log(f"ucb tile and rank1 span cases: {time.perf_counter() - t_new} s")
 
     ng = 33
     dense = torch.rand(ng, ng, generator=g, device=dev) < 0.7
@@ -2375,19 +2540,21 @@ def small_flash_checks(g, dev):
 
 SPILL_CHECKED = ("prune_kernel", "topk_kernel", "topk_pruned_kernel",
                  "topk_tc_kernel", "topk_pruned_tc_kernel", "ucb_kernel",
-                 "ucb_block_kernel", "choose_tile_kernel", "cross_tc_kernel",
+                 "ucb_block_kernel", "ucb_tile_kernel", "choose_tile_kernel",
+                 "rank1_span_kernel", "cross_tc_kernel",
                  "cross_split_kernel", "cc_hop_kernel")
 
 
 def spill_check() -> dict:
-    """Registers and spills of the prune, top-K, ucb, choose (register
-    tile, each width), cross (tensor route and W split) and cc_hop (each
-    load width) kernels, from the ptxas report of their builds; raise if
-    any of them spills."""
+    """Registers and spills of the prune, top-K, ucb (and its register
+    tile), choose (register tile), the M-free update's staged span (each
+    width), cross (tensor route and W split) and cc_hop (each load width)
+    kernels, from the ptxas report of their builds; raise if any of them
+    spills."""
     from repro_torch.kernels import _build
     usage = {}
-    for lib in ("prune", "topk", "topk_bf16_tc", "ucb", "choose", "cross",
-                "cc_hop"):
+    for lib in ("prune", "topk", "topk_bf16_tc", "ucb", "choose",
+                "rank1_update_inv", "cross", "cc_hop"):
         usage.update(_build.ptxas_usage(_build.build_report(lib)))
     seen = {}
     for func, (regs, st, ld) in sorted(usage.items()):
@@ -2505,33 +2672,42 @@ def compare_paths(kernel, plain, n: int) -> None:
         "clusters per epoch: paths disagree")
 
 
-def cuda_ms(fn, flush, reps=REPS, warmup=3) -> float:
+def cuda_ms(fn, flush, reps=REPS, warmup=3, hold=False) -> float:
     """Median milliseconds of ``fn`` over ``reps`` launches (CUDA events),
     the L2 cache flushed before each."""
-    return statistics.median(cuda_times(fn, flush, reps, warmup))
+    return statistics.median(cuda_times(fn, flush, reps, warmup, hold))
 
 
-def turn_ms(fns: dict, flush, reps=TURN_REPS) -> dict:
+def turn_ms(fns: dict, flush, reps=TURN_REPS, hold=False) -> dict:
     """Median milliseconds of each of ``fns`` over ``reps`` launches
     (``cuda_times``), taken in turns: each in order, ``reps / 2`` launches,
     then each again, so that a drift of the card touches all alike."""
     times = {key: [] for key in fns}
     for _ in range(2):
         for key, fn in fns.items():
-            times[key] += cuda_times(fn, flush, reps // 2)
+            times[key] += cuda_times(fn, flush, reps // 2, hold=hold)
     return {key: statistics.median(t) for key, t in times.items()}
 
 
-def cuda_times(fn, flush, reps, warmup=3) -> list[float]:
+HOLD_CYCLES = 2_000_000          # ~1 ms of the card's clock
+
+
+def cuda_times(fn, flush, reps, warmup=3, hold=False) -> list[float]:
     """Milliseconds of each of ``reps`` launches of ``fn`` (CUDA events),
     the L2 cache flushed before each: ``flush`` is a 256 MB tensor that
-    is zeroed, or a callable (``read_flush``)."""
+    is zeroed, or a callable (``read_flush``).  ``hold``: a spin kernel of
+    ``HOLD_CYCLES`` runs between the flush and the start event, so that
+    the host has queued ``fn``'s launch before the start event fires and
+    its Python and dispatch stay outside the timed window (without it a
+    host slower than the flush shows in the reading)."""
     import torch
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush() if callable(flush) else flush.zero_()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -6811,7 +6987,12 @@ def shard_decode_phase(dev):
 GNN_STEPS = 3
 GNN_RANKS = 4                # gloo ranks sharing the card for the check
 GNN_TIMEOUT_S = 600
-GNN_EDGE_SHARE = 0.9         # of the free memory, for ogb_products' step
+# of the free memory, for ogb_products' step: the reckoning below counts
+# the step's tensors, not the caching allocator's reserve, which held 9.64
+# GiB unallocated when a 1/8 cut (reckoned 61.5 GB, under 0.9 of the
+# free memory) ran out of memory on an H100; at 0.8 the cut stays 1/16
+# there, as the main process holds ~14 GiB
+GNN_EDGE_SHARE = 0.8
 
 
 def gnn_small_graph(parts: int):
@@ -7640,12 +7821,97 @@ def bound_ms(n_bytes: float, flops: float,
                                      else "operations")
 
 
+def parent_choose_turns(parent: str) -> int:
+    """``python3 chip_smoke.py --parent DIR``: choose (rows 1 and 1b)
+    built by ``_build`` from ``DIR/src/repro_torch/csrc`` (another
+    checkout, such as the parent commit unpacked by ``git archive``)
+    beside this checkout's, at the offline shape (n=20480, d=25, K=20) on
+    a random state, Minv f32 and bf16: the picks and x bit-equal, and
+    each side timed in turns (parent, change, change, parent;
+    ``TURN_REPS`` launches a side, the L2 flushed before each); the ptxas
+    registers and spills of both builds' ``choose_tile_kernel<25, *>``.
+    Runs nothing else; prints the card, one JSON line of the times, and
+    exits 0."""
+    import torch
+    from repro_torch.configs import distclub_paper as paper
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.interact import ops as iops
+    log(smi_line())
+    csrc = Path(parent).resolve() / "src" / "repro_torch" / "csrc"
+    _build.build_all(["choose"], csrc)
+    _build.build_all(["choose"])
+    regs = {}
+    for side, report in (("parent", _build.build_report("choose", csrc)),
+                         ("change", _build.build_report("choose"))):
+        for func, use in _build.ptxas_usage(report).items():
+            if "choose_tile_kernel" in func and "Li25E" in func:
+                key = "bf16" if "bfloat16" in func else "f32"
+                regs[f"{side}_{key}"] = use
+    log(f"ptxas choose_tile_kernel<25, *> (registers, spill stores, spill "
+        f"loads): {regs}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    n, d, K = paper.N_USERS, paper.D_FEAT, paper.CONFIG.n_candidates
+    alpha = paper.CONFIG.alpha
+    w = 0.5 * torch.randn(n, d, generator=g, device=dev)
+    Minv = spd_inverse(g, n, d, dev)
+    ctx = unit(torch.randn(n, K, d, generator=g, device=dev)).contiguous()
+    occ = torch.randint(0, 1000, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    sms = _build.sm_count(0)
+    res = {}
+    for name, M_ in (("choose", Minv), ("choose_bf16", Minv.bfloat16())):
+        variant, users = iops.geometry(n, K, d, sms, M_.element_size())
+        entry = _build.KERNELS[name][1]
+        parent_fn = getattr(_build.load(name, csrc), entry)
+        outs = {side: (torch.empty(n, dtype=torch.int32, device=dev),
+                       torch.empty(n, d, device=dev))
+                for side in ("parent", "change")}
+
+        def args(side, M_=M_, variant=variant, users=users):
+            c, x = outs[side]
+            return (w.data_ptr(), M_.data_ptr(), ctx.data_ptr(),
+                    occ.data_ptr(), float(alpha), n, K, d, variant, users,
+                    c.data_ptr(), x.data_ptr())
+
+        def parent_call(args=args, fn=parent_fn):
+            err = fn(*args("parent"),
+                     torch.cuda.current_stream().cuda_stream)
+            assert err == 0, f"parent choose: CUDA error {err}"
+
+        def change_call(args=args, name=name):
+            _build.launch(name, *args("change"))
+
+        parent_call()
+        change_call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs["parent"],
+                                                     outs["change"])), (
+            f"{name}: the parent's pick differs")
+        times = {"parent": [], "change": []}
+        for side in ("parent", "change", "change", "parent"):
+            call = parent_call if side == "parent" else change_call
+            times[side] += cuda_times(call, flush, TURN_REPS // 2)
+        res[name] = {f"{side}_ms_turns": statistics.median(t)
+                     for side, t in times.items()}
+        res[name].update(variant=variant, users=users, bit_equal=True)
+        log(f"time {name} (n={n}, d={d}, K={K}), the parent's build beside "
+            f"this checkout's, {TURN_REPS} launches each in turns: "
+            f"{res[name]}")
+    print(json.dumps({"parent_turns": res, "ptxas": regs,
+                      "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    if "--parent" in sys.argv:
+        return parent_choose_turns(sys.argv[sys.argv.index("--parent") + 1])
 
     # ---- phase 1: device ---------------------------------------------------
     log(smi_line())
@@ -7816,6 +8082,9 @@ def main() -> int:
     r = (torch.rand(n, generator=g, device=dev) < 0.5).float()
     mask = 0 < state.u_rounds
     errs["rank1_update_inv"] = check_rank1(Minv, b, x, r, mask)
+    log(f"full rank1_update_inv, the staged span against the warp and "
+        f"block variants (n={n}, live {int(mask.sum())}): "
+        f"{check_rank1_span(Minv, b, x, r, mask)}")
     # the baselines' two kernels at full width on the same inputs (the
     # M-ful update with the run's M = inv(Minv)), then at CLUB's n = 1:
     # the next CLUB interaction's user, its cluster's row and its own rows
@@ -7901,6 +8170,12 @@ def main() -> int:
     # session's statistics
     Minv_bf = Minv.bfloat16()
     errs["rank1_update_inv_bf16"] = check_rank1_bf16(Minv_bf, b, x, r, mask)
+    log(f"full rank1_update_inv bf16, the staged span against the warp "
+        f"and block variants: "
+        f"{check_rank1_span(Minv_bf, b, x, r, mask)}")
+    log(f"full choose and ucb on the bf16 Minv (ucb variant "
+        f"{uops.variant(n, K, d, sms, 2)}), each variant forced: "
+        f"{check_choose_bf16(w, Minv_bf, ctx, occ, hyper.alpha)}")
     nv = 2 * sms + 1
     log(f"full rank1_update_inv bf16, both variants on {nv} users: "
         f"{check_rank1_bf16_variants(Minv_bf[:nv], b[:nv], x[:nv], r[:nv], mask[:nv])}")
@@ -8417,6 +8692,73 @@ def main() -> int:
         by_name["choose"].update(extra)
         log(f"time choose beside its warp variant, {2 * REPS} launches "
             f"each in turns, {tuple(cargs[2].shape)}: {extra}")
+    # choose_bf16 beside its warp variant likewise, at the offline shape
+    t = turn_ms({
+        "ms": lambda: iops.choose(w, Minv_bf, ctx, occ, hyper.alpha),
+        "warp_ms": lambda: choose_variant(w, Minv_bf, ctx, occ, hyper.alpha,
+                                          iops.WARP_PER_USER)},
+        flush, reps=2 * REPS)
+    by_name["choose_bf16"].update({f"{key}_turns": v for key, v in t.items()})
+    log(f"time choose_bf16 beside its warp variant, {2 * REPS} launches "
+        f"each in turns: {t}")
+    # the redesigned rows beside the variants they replace, in turns, at
+    # n=20480 on phase 5's inputs (Minv f32, and cast to bf16): ucb's
+    # register tile beside its warp per user and beside choose (the same
+    # tile and the same inputs); the M-free update's staged span beside
+    # the warp per user, each on its own copies.  Each set twice: as every
+    # other row is timed, and held (``cuda_times``: the host's dispatch
+    # outside the timed window)
+    for kname, M_ in (("ucb", Minv), ("ucb_bf16", Minv_bf)):
+        fns = {
+            "ms": lambda M_=M_: uops.ucb_scores(w, M_, ctx, occ, hyper.alpha),
+            "warp_ms": lambda M_=M_: ucb_variant(w, M_, ctx, occ,
+                                                 hyper.alpha,
+                                                 uops.WARP_PER_USER),
+            "choose_ms": lambda M_=M_: iops.choose(w, M_, ctx, occ,
+                                                   hyper.alpha)}
+        t = turn_ms(fns, flush, reps=2 * REPS)
+        th = turn_ms(fns, flush, reps=2 * REPS, hold=True)
+        by_name[kname].update({f"{key}_turns": v for key, v in t.items()},
+                              **{f"{key}_held_turns": v
+                                 for key, v in th.items()},
+                              variant=uops.variant(n, K, d, sms,
+                                                   M_.element_size()))
+        log(f"time {kname} beside its warp variant and choose, {2 * REPS} "
+            f"launches each in turns: {t}; held: {th}")
+    for kname, M_ in (("rank1_update_inv", Minv),
+                      ("rank1_update_inv_bf16", Minv_bf)):
+        own = {key: (M_.clone(), b.clone()) for key in ("ms", "warp_ms")}
+        fns = {
+            "ms": lambda o=own["ms"]: rops.rank1_update_inv(*o, x, r, mask),
+            "warp_ms": lambda o=own["warp_ms"]: rank1_inv_variant(
+                *o, x, r, mask, rops.WARP_PER_USER)}
+        t = turn_ms(fns, flush, reps=2 * REPS)
+        th = turn_ms(fns, flush, reps=2 * REPS, hold=True)
+        by_name[kname].update({f"{key}_turns": v for key, v in t.items()},
+                              **{f"{key}_held_turns": v
+                                 for key, v in th.items()},
+                              variant=rops.inv_variant(n, d, sms,
+                                                       M_.element_size()),
+                              span_blocks=-(-n // rops.SPAN_USERS))
+        log(f"time {kname} beside its warp variant, {2 * REPS} launches "
+            f"each in turns: {t}; held: {th}")
+        # serving's n = 256 (a block per user): the shape of phase 4p's
+        # bf16 launches, on the first 256 users' rows; held, since the
+        # kernel (~5 us) is shorter than the host's dispatch
+        m = SERVE_BATCH
+        live_m = int(mask[:m].sum())
+        own_m = (M_[:m].clone(), b[:m].clone())
+        ms_m = cuda_ms(lambda: rops.rank1_update_inv(
+            *own_m, x[:m], r[:m], mask[:m]), flush, reps=TURN_REPS,
+            hold=True)
+        bms_m, by_m = bound_ms(
+            live_m * (2 * M_.element_size() * d * d + 4 * (3 * d + 1)) + m,
+            live_m * (5 * d * d + 4 * d + 2))
+        v_m = rops.inv_variant(m, d, sms, M_.element_size())
+        by_name[kname].update(ms_n256_held=ms_m, bound_ms_n256=bms_m,
+                              variant_n256=v_m)
+        log(f"time {kname} at serving's n={m} (variant {v_m}), held, "
+            f"{TURN_REPS} launches: {ms_m} ms, bound {bms_m} ms ({by_m})")
     by_name["cross"]["bound_ms_f32"] = bound_ms(
         work["cross"][2], 2 * Bb * dI * dI + 3 * Bb * dI)[0]
     # cc_hop in turns with its warp-per-row kernel: on the learned graph,

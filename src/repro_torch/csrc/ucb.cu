@@ -16,14 +16,29 @@
 // 2.6e4 operations, ~1.4 ns; the launch itself (~5 us) is the cost, and
 // then the chain of dependent steps a score takes.
 //
-// Two variants; the wrapper picks one (kernels/ucb/ops.py, variant) and
-// passes it to the launch as an int.  Both score every candidate with the
-// FMA chains of ucb_score.cuh (ucb_t, then ucb_combine), the chains
-// choose.cu runs, so the first-index argmax of a row is bit for bit
-// choose's pick, identical candidate rows score identically, and the two
-// variants give the same bits for the same row.
+// Three variants; the wrapper picks one (kernels/ucb/ops.py, variant)
+// and passes it, with the users a block of the register tile, to the
+// launch as ints.  All score every candidate with the FMA chains of
+// ucb_score.cuh (ucb_t, then ucb_combine), the chains choose.cu runs, so
+// the first-index argmax of a row is bit for bit choose's pick, identical
+// candidate rows score identically, and the variants give the same bits
+// for the same row.
 //
-// Warp per user (variant 0), four users per block, for many users, as
+// Register tile (variant 2), d <= 32 where kernels/interact/ops.py
+// geometry takes the shape (a user's ceil(K / 2) threads within a block
+// of 128): choose's tile itself (ucb_tile.cuh), with the scores written
+// out instead of reduced to an argmax.  A block takes geometry's users
+// a block, stages their Minv, contexts and w as three spans with every
+// 16-byte cp.async in flight before one wait, and scores them on the
+// 2 x d register tile, (2 + d) / (2 d) shared loads an FMA (0.54 at d =
+// 25) where the warp variant's lane issues 2.  The block's users x K
+// scores are one contiguous span of the output: the block writes it from
+// shared memory with coalesced stores.  The warp variant spent its time
+// on those shared loads (d^2 + d dependent FMAs a lane, only K = 20 of
+// 32 lanes working), not on the bytes.
+//
+// Warp per user (variant 0), four users per block, for the shapes
+// neither other variant takes (d > 32, K past the tile's threads), as
 // choose.cu: the warp stages its user's Minv, w and the K x d context
 // block in shared memory with coalesced loads; lane k scores candidates
 // k, k + 32, ... with ucb_score, d^2 + d dependent FMAs each.  Lanes
@@ -43,18 +58,19 @@
 // byte aligned.  Shapes are logical: no padding of K or d.
 //
 // bf16 Minv (ucb_bf16_launch; Precision's state dtype, the bf16 case of
-// ucb_scores_pallas, whose dot_general promotes it to f32): both variants
-// with Minv read as bf16, one element a load (a user's block is 2 d^2
-// bytes, so only 2-byte aligned), and widened to f32 as it is stored to
-// shared memory (widen.cuh).  Shared memory, ucb_t and ucb_combine are
-// the f32 kernels', so the scores are bit for bit the f32 kernel's on the
-// widened Minv.  The bound falls with Minv's bytes: at n=20480, d=25,
-// K=20, ~70 MB, ~21 us.
+// ucb_scores_pallas, whose dot_general promotes it to f32): every variant
+// with Minv read as bf16 and widened to f32 exactly (widen.cuh), so the
+// scores are bit for bit the f32 kernel's on the widened Minv.  The warp
+// and block variants read one element a load (a user's block is 2 d^2
+// bytes, so only 2-byte aligned) and widen it as they store it to shared
+// memory; the tile stages the bf16 bytes and widens as it reads.  The
+// bound falls with Minv's bytes: at n=20480, d=25, K=20, ~70 MB, ~21 us.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "ucb_score.cuh"
+#include "ucb_tile.cuh"
 #include "widen.cuh"
 
 namespace {
@@ -63,7 +79,6 @@ constexpr int kWarps = 4;           // users a block, warp per user
 constexpr int kBlockThreads = 256;  // block per user
 constexpr int kBlockMaxD = 32;
 constexpr int kLoads = 8;           // loads a thread issues in one round
-constexpr size_t kMaxSmem = 232448;  // H100: 227 KB per block
 
 template <typename S>
 __global__ void ucb_kernel(const float* __restrict__ w,
@@ -156,20 +171,54 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+// choose's register tile, its scores written out: the block's users x K
+// scores are one contiguous span of the output
+template <int D, typename S>
+__global__ void __launch_bounds__(kTileThreads)
+    ucb_tile_kernel(const float* __restrict__ w, const S* __restrict__ Minv,
+                    const float* __restrict__ ctx,
+                    const int* __restrict__ occ, float alpha, int n, int K,
+                    int users, float* __restrict__ scores) {
+  extern __shared__ __align__(16) float smem[];
+  const TileSpans<S> sp = tile_stage<D, S>(smem, w, Minv, ctx, n, K, users);
+  tile_scores<D, S>(sp, occ, alpha, K);
+  __syncthreads();
+  float* out = scores + (size_t)sp.u0 * K;
+  for (int e = threadIdx.x; e < sp.nu * K; e += blockDim.x) out[e] = sp.s[e];
+}
+
+template <int D, typename S>
+int launch_tile(const float* w, const S* Minv, const float* ctx,
+                const int* occ, float alpha, int n, int K, int d, int users,
+                float* scores, cudaStream_t stream) {
+  if constexpr (D < kTileMaxD) {
+    if (d != D)   // one instantiation for each d <= kTileMaxD
+      return launch_tile<D + 1>(w, Minv, ctx, occ, alpha, n, K, d, users,
+                                scores, stream);
+  }
+  const size_t smem = tile_bytes<S>(users, K, D);
+  cudaError_t e = allow_smem(ucb_tile_kernel<D, S>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int P = (K + kTK - 1) / kTK;
+  const int threads = (users * P + 31) / 32 * 32;
+  const int blocks = (n + users - 1) / users;
+  ucb_tile_kernel<D, S><<<blocks, threads, smem, stream>>>(
+      w, Minv, ctx, occ, alpha, n, K, users, scores);
+  return (int)cudaGetLastError();
 }
 
 template <typename S>
 int launch(const float* w, const S* Minv, const float* ctx, const int* occ,
-           float alpha, int n, int K, int d, int variant, float* scores,
-           cudaStream_t stream) {
+           float alpha, int n, int K, int d, int variant, int users,
+           float* scores, cudaStream_t stream) {
   cudaError_t e;
+  if (variant == 2) {
+    const int P = (K + kTK - 1) / kTK;
+    if (d < 1 || d > kTileMaxD || users < 1 || users * P > kTileThreads)
+      return (int)cudaErrorInvalidValue;
+    return launch_tile<1>(w, Minv, ctx, occ, alpha, n, K, d, users, scores,
+                          stream);
+  }
   if (variant == 1) {
     if (d > kBlockMaxD) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)(d * d + d + 2 * K * d) * sizeof(float);
@@ -192,13 +241,16 @@ int launch(const float* w, const S* Minv, const float* ctx, const int* occ,
 
 extern "C" int ucb_launch(const float* w, const float* Minv, const float* ctx,
                           const int* occ, float alpha, int n, int K, int d,
-                          int variant, float* scores, cudaStream_t stream) {
-  return launch(w, Minv, ctx, occ, alpha, n, K, d, variant, scores, stream);
+                          int variant, int users, float* scores,
+                          cudaStream_t stream) {
+  return launch(w, Minv, ctx, occ, alpha, n, K, d, variant, users, scores,
+                stream);
 }
 
 extern "C" int ucb_bf16_launch(const float* w, const __nv_bfloat16* Minv,
                                const float* ctx, const int* occ, float alpha,
-                               int n, int K, int d, int variant,
+                               int n, int K, int d, int variant, int users,
                                float* scores, cudaStream_t stream) {
-  return launch(w, Minv, ctx, occ, alpha, n, K, d, variant, scores, stream);
+  return launch(w, Minv, ctx, occ, alpha, n, K, d, variant, users, scores,
+                stream);
 }

@@ -48,9 +48,9 @@ KERNELS = {
     "rank1_update_bf16": ("rank1.cu", "rank1_update_bf16_launch",
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "ucb": ("ucb.cu", "ucb_launch",
-            [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P]),
+            [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P]),
     "ucb_bf16": ("ucb.cu", "ucb_bf16_launch",
-                 [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P]),
+                 [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P]),
     "prune": ("prune.cu", "prune_launch",
               [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
     "cc_hop": ("cc_hop.cu", "cc_hop_launch",
@@ -119,6 +119,11 @@ KERNELS = {
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
+# the card's shared memory, as the kernels' launch plans count it
+MAX_SMEM = 232448                # a block's at most: csrc/stage.cuh kMaxSmem
+SM_SMEM = 233472                 # an H100 SM's
+BLOCK_RESERVED = 1024            # what the card keeps for each block
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -141,17 +146,19 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, csrc: Path = CSRC) -> Path:
     """The source's library, named by a hash of the source and of every
-    shared header in ``csrc`` (a source may include any of them)."""
-    h = hashlib.sha256((CSRC / source).read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    shared header in ``csrc`` (a source may include any of them); ``csrc``
+    another checkout's sources, to compare a kernel with its earlier
+    version."""
+    h = hashlib.sha256((csrc / source).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 
 
-def build_all(names=None) -> dict[str, str]:
+def build_all(names=None, csrc: Path = CSRC) -> dict[str, str]:
     """Compile every (or the named) kernel that is not built yet, one
     ``nvcc`` per source (kernels that share a source share its build),
     all started together.  Returns ``{name: ptxas report}`` for the
@@ -163,12 +170,12 @@ def build_all(names=None) -> dict[str, str]:
     sources = set()
     for name in names:
         source = KERNELS[name][0]
-        out = library_path(source)
+        out = library_path(source, csrc)
         if out.exists() or source in sources:
             continue
         sources.add(source)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -202,24 +209,25 @@ def ptxas_usage(report: str) -> dict[str, tuple[int, int, int]]:
     return usage
 
 
-def build_report(name: str) -> str:
+def build_report(name: str, csrc: Path = CSRC) -> str:
     """The ptxas report kept from the build of the kernel's library."""
-    return library_path(KERNELS[name][0]).with_suffix(".log").read_text()
+    return library_path(KERNELS[name][0], csrc).with_suffix(
+        ".log").read_text()
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """The kernel's library, built on first use, with argtypes set."""
-    lib = _loaded.get(name)
+    lib = _loaded.get((name, csrc))
     if lib is None:
         source, entry, argtypes = KERNELS[name]
-        path = library_path(source)
+        path = library_path(source, csrc)
         if not path.exists():
-            build_all([name])
+            build_all([name], csrc)
         lib = ctypes.CDLL(str(path))
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = lib
+        _loaded[(name, csrc)] = lib
     return lib
 
 

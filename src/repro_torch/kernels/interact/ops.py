@@ -5,15 +5,13 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .._build import BLOCK_RESERVED, MAX_SMEM, SM_SMEM
 from .ref import choose_ref
 
 WARP_PER_USER, REGISTER_TILE = 0, 1
 TILE_MAX_D = 32                  # csrc/choose.cu kTileMaxD
 TILE_THREADS = 128               # csrc/choose.cu kTileThreads
 TILE_TK = 2                      # csrc/choose.cu kTK: candidates a thread
-MAX_SMEM = 232448                # csrc/choose.cu kMaxSmem
-SM_SMEM = 233472                 # an H100 SM's shared memory
-BLOCK_RESERVED = 1024            # shared memory the card keeps a block
 TILE_BLOCKS_PER_SM = 4           # blocks that must fit an SM at once
 USERS_PER_SM = 2                 # n below this many users an SM: a block
                                  # per user, so that every SM works

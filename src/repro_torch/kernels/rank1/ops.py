@@ -7,17 +7,32 @@ import torch
 from .. import _build
 from .ref import rank1_update_inv_ref, rank1_update_ref
 
-WARP_PER_USER, BLOCK_PER_USER = 0, 1
+WARP_PER_USER, BLOCK_PER_USER, STAGED_SPAN = 0, 1, 2
 BLOCK_PER_USER_PER_SM = 2        # a block per user: at most two an SM
 BLOCK_PER_USER_MAX_D = 32        # a user's d^2 elements, <= 4 a thread
+SPAN_MAX_D = 32                  # csrc/rank1.cu kSpanMaxD
+SPAN_USERS = 8                   # users a block: csrc/rank1.cu kSpanWarps
+SPAN_BLOCKS_PER_SM = 6           # csrc/rank1.cu kSpanMinBlocks
+
+
+def span_smem(d: int, minv_bytes: int = 4) -> int:
+    """Bytes of shared memory a staged-span block takes: its group of
+    ``SPAN_USERS`` users' Minv (``minv_bytes`` an element), x and b, each
+    region padded to 16 bytes with room for the copy's shift, then Mx, r
+    and the mask of each user, as ``csrc/rank1.cu`` ``span_bytes`` counts
+    them."""
+    def region(count, size):
+        return ((count + 16 // size - 1) * size + 15) // 16 * 16
+    return (region(SPAN_USERS * d * d, minv_bytes)
+            + 2 * region(SPAN_USERS * d, 4) + 4 * SPAN_USERS * 34)
 
 
 def variant(n: int, d: int, sms: int) -> int:
-    """The kernel variant for ``n`` users of dimension ``d`` on a card of
-    ``sms`` SMs: a block per user (its 256 threads load the user's whole
-    state in one round) for at most two blocks on each SM and ``d <=
-    32``, else a warp per user.  Both give the same bits for the same
-    row."""
+    """The M-ful update's kernel variant for ``n`` users of dimension
+    ``d`` on a card of ``sms`` SMs: a block per user (its 256 threads
+    load the user's whole state in one round) for at most two blocks on
+    each SM and ``d <= 32``; else a warp per user.  Both give the same
+    bits for the same row."""
     if n <= BLOCK_PER_USER_PER_SM * sms and d <= BLOCK_PER_USER_MAX_D:
         return BLOCK_PER_USER
     return WARP_PER_USER
@@ -26,6 +41,19 @@ def variant(n: int, d: int, sms: int) -> int:
 def _variant(t: torch.Tensor) -> int:
     n, d = t.shape
     return variant(n, d, _build.sm_count(t.device.index or 0))
+
+
+def inv_variant(n: int, d: int, sms: int, minv_bytes: int = 4) -> int:
+    """The M-free update's kernel variant: the block per user where
+    ``variant`` takes it; else the staged span (a block for each group of
+    ``SPAN_USERS`` consecutive users, copied and written back in 16-byte
+    words) at ``d <= 32``, where a block's spans fit its shared memory;
+    else a warp per user.  All give the same bits for the same row."""
+    v = variant(n, d, sms)
+    if (v == WARP_PER_USER and d <= SPAN_MAX_D
+            and span_smem(d, minv_bytes) <= _build.MAX_SMEM):
+        return STAGED_SPAN
+    return v
 
 
 def _state_args(Minv, b, x, r, mask):
@@ -103,5 +131,7 @@ def rank1_update_inv(
     n, d = b.shape
     args = _state_args(Minv, b, x, r, mask)
     if n:
-        _build.launch(name, *args, n, d, _variant(b))
+        sms = _build.sm_count(Minv.device.index or 0)
+        _build.launch(name, *args, n, d,
+                      inv_variant(n, d, sms, Minv.element_size()))
     return Minv, b

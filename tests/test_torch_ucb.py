@@ -68,41 +68,91 @@ def test_argmax_of_scores_is_the_fused_choice(n, K, d):
 @pytest.mark.parametrize("n,K,d,sms,want", [
     (1, 20, 25, 132, ops.BLOCK_PER_USER),   # CLUB's call
     (264, 20, 25, 132, ops.BLOCK_PER_USER),  # two blocks on each of 132 SMs
-    (265, 20, 25, 132, ops.WARP_PER_USER),
+    (265, 20, 25, 132, ops.REGISTER_TILE),
     (228, 20, 25, 114, ops.BLOCK_PER_USER),  # and of 114
-    (229, 20, 25, 114, ops.WARP_PER_USER),
+    (229, 20, 25, 114, ops.REGISTER_TILE),
     (1, 20, 32, 132, ops.BLOCK_PER_USER),
     (1, 20, 33, 132, ops.WARP_PER_USER),
     (264, 20, 32, 132, ops.BLOCK_PER_USER),
+    (265, 20, 32, 132, ops.REGISTER_TILE),
     (265, 20, 33, 132, ops.WARP_PER_USER),
     (256, 64, 25, 132, ops.BLOCK_PER_USER),  # topk's shortlist check
-    (256, 64, 25, 114, ops.WARP_PER_USER),
+    (256, 64, 25, 114, ops.REGISTER_TILE),
     (1, 891, 32, 132, ops.BLOCK_PER_USER),  # the block's shared memory: full
     (1, 892, 32, 132, ops.WARP_PER_USER),
+    (20480, 20, 25, 132, ops.REGISTER_TILE),  # rows 8 and 8b's shape
+    (20480, 20, 25, 114, ops.REGISTER_TILE),
+    (265, 256, 32, 132, ops.REGISTER_TILE),  # 128 threads a user: the edge
+    (265, 257, 32, 132, ops.WARP_PER_USER),
 ])
 def test_variant_at_its_limits(n, K, d, sms, want):
     """A block per user up to two users an SM, d = 32 and the block's
     shared memory (Minv, w, contexts and t-values: 4 (d^2 + d + 2 K d)
-    bytes); a warp per user past any of them."""
+    bytes); past any of them choose's register tile where
+    ``interact.ops.geometry`` takes the shape (d <= 32, ceil(K / 2)
+    threads a user within a block of 128); a warp per user past that."""
     assert ops.variant(n, K, d, sms) == want
 
 
-def _cu_constant(name, kind="int"):
-    """A constant of csrc/ucb.cu, read from its source text."""
+@pytest.mark.parametrize("n,K,d", [(265, 20, 25), (20480, 20, 25),
+                                   (20480, 20, 32), (300, 7, 19),
+                                   (300, 256, 32), (5000, 1, 1)])
+@pytest.mark.parametrize("minv_bytes", [4, 2])
+def test_tile_takes_chooses_geometry(n, K, d, minv_bytes):
+    """Past the block per user, ucb takes the tile wherever choose's
+    ``interact.ops.geometry`` does (for Minv's element size), with its
+    users a block; their shared memory (``interact.ops.tile_smem``, the
+    scores region included) fits the budget of four blocks an SM."""
+    for sms in (132, 114):
+        assert ops.variant(n, K, d, sms, minv_bytes) == ops.REGISTER_TILE
+        kind, users = interact_ops.geometry(n, K, d, sms, minv_bytes)
+        assert kind == interact_ops.REGISTER_TILE
+        smem = interact_ops.tile_smem(users, K, d, minv_bytes)
+        assert smem <= ops.MAX_SMEM
+        if users > 1:
+            assert interact_ops.TILE_BLOCKS_PER_SM * (
+                smem + interact_ops.BLOCK_RESERVED) <= interact_ops.SM_SMEM
+
+
+def test_tile_threads_bind_before_its_shared_memory():
+    """At the tile's largest d, a user's 128 threads (K = 256) take far
+    less than a block's shared memory, so the threads are the edge: the
+    tile at K = 256, the warp per user at 257."""
+    assert interact_ops.tile_smem(1, 256, 32) < ops.MAX_SMEM
+    assert interact_ops.tile_smem(1, 256, 32, 2) < ops.MAX_SMEM
+    assert ops.variant(265, 256, 32, 132, 2) == ops.REGISTER_TILE
+    assert ops.variant(265, 257, 32, 132, 2) == ops.WARP_PER_USER
+
+
+def _cu_constant(name, kind="int", source="ucb.cu"):
+    """A constant of a kernel source, read from its text."""
     import re
-    text = (_build.CSRC / "ucb.cu").read_text()
+    text = (_build.CSRC / source).read_text()
     return int(re.search(rf"constexpr {kind} {name} = (\d+);",
                          text).group(1))
 
 
 def test_wrapper_constants_match_the_kernel_source():
-    """The wrapper's copies of csrc/ucb.cu's constants, and the launch's
-    variant numbers."""
+    """The wrapper's copies of csrc/ucb.cu's constants, of the tile's in
+    csrc/ucb_tile.cuh (which choose.cu shares) and of csrc/stage.cuh's,
+    and the launch's variant numbers in both launches."""
     assert ops.BLOCK_PER_USER_MAX_D == _cu_constant("kBlockMaxD")
-    assert ops.MAX_SMEM == _cu_constant("kMaxSmem", "size_t")
+    assert ops.MAX_SMEM == _cu_constant("kMaxSmem", "size_t", "stage.cuh")
     assert _cu_constant("kBlockThreads") == 256
+    assert interact_ops.TILE_MAX_D == _cu_constant("kTileMaxD",
+                                                   source="ucb_tile.cuh")
+    assert interact_ops.TILE_THREADS == _cu_constant("kTileThreads",
+                                                     source="ucb_tile.cuh")
+    assert interact_ops.TILE_TK == _cu_constant("kTK", source="ucb_tile.cuh")
+    for source in ("ucb.cu", "choose.cu"):
+        assert '#include "ucb_tile.cuh"' in (_build.CSRC / source).read_text()
     text = (_build.CSRC / "ucb.cu").read_text()
-    assert "if (variant == 1) {" in text and "if (variant != 0)" in text
-    assert (ops.WARP_PER_USER, ops.BLOCK_PER_USER) == (0, 1)
-    # the launch takes the variant after (n, K, d)
-    assert _build.KERNELS["ucb"][2][5:9] == [_build._I] * 4
+    assert ("if (variant == 2) {" in text and "if (variant == 1) {" in text
+            and "if (variant != 0)" in text)
+    assert text.count("return launch(w, Minv, ctx, occ, alpha, n, K, d, "
+                      "variant, users, scores,") == 2
+    assert (ops.WARP_PER_USER, ops.BLOCK_PER_USER, ops.REGISTER_TILE) == (
+        0, 1, 2)
+    # the launch takes the variant and the tile's users after (n, K, d)
+    assert _build.KERNELS["ucb"][2][5:10] == [_build._I] * 5
+    assert _build.KERNELS["ucb_bf16"][2] == _build.KERNELS["ucb"][2]
