@@ -12,13 +12,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build   every CUDA kernel of the main path from ``src/repro_torch/csrc``
            (one ``nvcc`` per source, all at once), with the seconds taken;
            the registers and spill bytes ptxas reports for prune_kernel,
-           topk_kernel, topk_pruned_kernel, ucb_kernel, ucb_block_kernel,
-           ucb_tile_kernel, choose_tile_kernel, rank1_span_kernel (each
-           width; each also for a bf16 Minv), cross_tc_kernel,
-           cross_split_kernel and cc_hop_kernel (each load width; any
-           spill fails); the count of HGMMA
+           topk_kernel, topk_pruned_kernel, topk_tc_kernel and
+           topk_pruned_tc_kernel (f32, bf16 and int8 items), ucb_kernel,
+           ucb_block_kernel, ucb_tile_kernel, choose_tile_kernel,
+           rank1_span_kernel (each width; each also for a bf16 Minv),
+           cross_tc_kernel, cross_split_kernel and cc_hop_kernel (each
+           load width; any spill fails); the count of HGMMA
            (wgmma) instructions in the flash and cross libraries' SASS
-           (``cuobjdump -sass``), neither of which may be 0.
+           (``cuobjdump -sass``), neither of which may be 0, and of HMMA
+           (mma.sync) ones in each of the six top-K filter kernels.
 3. small   each kernel against its plain PyTorch version on ragged small
            shapes (choose's two variants and ucb's three, each forced past
            its wrapper, at 37 users (K = 7, d = 19; K = 64, d = 25 and
@@ -87,7 +89,10 @@ Phases, in order; any failure raises and the script exits non-zero:
            int8 items at d = 1 ... 64, one row in, N < k; topk_pruned over
            each kind's region catalog at tiles 128, 2048 and at d = 64, k =
            128; an f16 Minv refused by all six wrappers with a TypeError,
-           nothing launched).
+           nothing launched); the top-K filter kernels on stress catalogs
+           (``small_filter_checks``: bf16 and int8 items with Minv f32 and
+           bf16, f32 items with a bf16 Minv, also at d = 1-3), each
+           bit-equal to the chain kernel, no violation.
 4. main    ``repro_torch.core.distclub.run`` at the paper's full width
            (20480 users, d=25, K=20, 100 planted clusters,
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
@@ -249,9 +254,12 @@ Phases, in order; any failure raises and the script exits non-zero:
            ``shortlist_pruned`` for phase 4s's first 256 users with the
            bf16 session's Minv in bf16, over phase 4s's f32 bank and phase
            4p's bf16 and int8 banks, counted (one launch of each of the
-           six topk*_minv_bf16* kernels, nothing else), each shortlist
-           the f32-Minv kernel's on the widened Minv bit for bit and
-           within ``check_topk``'s band of the plain version.
+           six topk*_minv_bf16*_tc filter kernels, nothing else), each
+           shortlist the f32-Minv kernel's on the widened Minv bit for bit
+           and within ``check_topk``'s band of the plain version, the
+           chain kernel's (``chain=True``) bit for bit with its scores
+           ``ucb_scores``' bits, no violation, the rescored share
+           printed.
 4o. ops    the operations layer (``serve.guardrails``, ``serve.faults``,
            ``serve.experiments``) at serving's width: phase 4s's learned
            users, batches of 256, k_short 64, rings of 4096 with TTL 16.
@@ -587,7 +595,7 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
                               "src/repro/kernels/rank1/rank1.py:72"),
     # bf16 and int8 items at d <= 32: the tensor-core filter kernels
     # (their chain kernels, topk_bf16 ... topk_pruned_int8, are timed
-    # beside them in phase 6)
+    # beside them in phase 6; so are topk_minv_bf16 ... below)
     "topk_bf16_tc": ("src/repro_torch/csrc/topk_tc.cu",
                      "src/repro/kernels/topk/topk.py:114"),
     "topk_int8_tc": ("src/repro_torch/csrc/topk_tc.cu",
@@ -604,13 +612,14 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "rank1_update_bf16": ("src/repro_torch/csrc/rank1.cu",
                           "src/repro/kernels/rank1/rank1.py:102"),
     **{f"topk{p}_minv_bf16{s}": (
-        "src/repro_torch/csrc/topk" + ("_tc" if s else "") + ".cu",
+        "src/repro_torch/csrc/topk_tc.cu",
         "src/repro/kernels/topk/topk.py:" + ("229" if p else "114"))
-       for p in ("", "_pruned") for s in ("", "_bf16_tc", "_int8_tc")},
+       for p in ("", "_pruned") for s in ("_tc", "_bf16_tc", "_int8_tc")},
 }
-# each bank's suffix of the top-K kernels' names at serving's d = 25: the
-# f32 bank's chain kernels, the bf16 and int8 banks' filter kernels
-BANK_SFX = {"f32": "", "bf16": "_bf16_tc", "int8": "_int8_tc"}
+# each bank's suffix of the bf16-Minv top-K kernels' names at serving's d
+# = 25: the filter kernels over every bank (the f32 bank's items split
+# into two bf16 pieces)
+BANK_SFX = {"f32": "_tc", "bf16": "_bf16_tc", "int8": "_int8_tc"}
 MINV_TOPK = tuple(f"topk{p}_minv_bf16{s}" for p in ("", "_pruned")
                   for s in BANK_SFX.values())
 MINV_KERNELS = ("choose_bf16", "ucb_bf16", "rank1_update_bf16", *MINV_TOPK)
@@ -1516,8 +1525,9 @@ def check_topk_pruned_minv_bf16(w, Minv, occ, cat, clusters, alpha, k,
 
 def check_topk_filter(w, Minv, occ, items, live, scales, alpha, k,
                       got=None):
-    """A filter kernel (bf16 or int8 items at d <= 32, ``got`` or a
-    fresh launch) against the chain kernel it replaces (``chain=True``)
+    """A filter kernel (bf16 or int8 items, or f32 items with a bf16
+    Minv, at d <= 32, ``got`` or a fresh launch) against the chain
+    kernel it replaces (``chain=True``)
     on the same inputs, scores and ids bit for bit; no violation; its
     scores ``ucb_scores``' bits on the widened rows (the rescoring's
     chain is a copy of csrc/ucb_score.cuh's, held to it here); then
@@ -1527,7 +1537,8 @@ def check_topk_filter(w, Minv, occ, items, live, scales, alpha, k,
     import torch
     from repro_torch.kernels.topk import ops, ref
     from repro_torch.kernels.ucb import ops as uops
-    assert ops.route(ops.item_kind(items, scales), w.shape[1]) == ops.FILTER
+    assert ops.route(ops.item_kind(items, scales), w.shape[1],
+                     Minv.dtype) == ops.FILTER
     with ops.FilterStats() as st:
         s_t, i_t = ops.topk(w, Minv, occ, items, live, alpha, k,
                             scales=scales)
@@ -1615,8 +1626,10 @@ def small_filter_checks(dev):
     rank-1 updates, zero, tiny and dead rows), n = 261 (not a multiple
     of 8), N = 20037 (not a multiple of the chunk), k 1, 64 and 128, d 8,
     25 (est from the product) and 32 (est from the features), bf16 and
-    int8 items, Minv in f32 and bf16: each entry bit-equal to the chain
-    kernel, no violation, within check_topk's bands of the plain
+    int8 items with Minv in f32 and bf16, and f32 items with a bf16 Minv
+    (rows also split-stressed: lo pieces zero, an ulp, subnormal, large
+    rows), those also at d = 1, 2 and 3: each entry bit-equal to the
+    chain kernel, no violation, within check_topk's bands of the plain
     version; the pruned entries on a sorted layout (tiles of 511 rows)
     bit-equal to the pruned chain kernel and to the unpruned shortlist."""
     import torch
@@ -1624,9 +1637,14 @@ def small_filter_checks(dev):
     t0 = time.perf_counter()
     n, N, tile = 261, 20037, 511
     cases = [(25, 64), (25, 1), (25, 128), (32, 64), (8, 64)]
-    for ci, (dd, kk) in enumerate(cases):
-        for prec in PRECISIONS:
-            for minv in (torch.float32, torch.bfloat16):
+    f32_cases = [(1, 64), (2, 16), (3, 128)]   # the f32 bank's too
+    for ci, (dd, kk) in enumerate(cases + f32_cases):
+        for prec in ("f32", *PRECISIONS):
+            if prec != "f32" and (dd, kk) in f32_cases:
+                continue
+            minvs = ((torch.bfloat16,) if prec == "f32"
+                     else (torch.float32, torch.bfloat16))
+            for minv in minvs:
                 case = ref.stress_case(SEED + 40 + ci, n, dd, N, kk, prec,
                                        minv_dtype=minv)
                 w, M, occ, items, live, sc = (
@@ -2608,7 +2626,8 @@ def sass_check() -> dict:
             counts["topk_tc"][func] += 1
     log(f"sass {lib.name}: HMMA instructions of the filter kernels "
         f"{counts['topk_tc']}")
-    assert len(counts["topk_tc"]) == 4 and all(counts["topk_tc"].values()), (
+    # bf16, int8 and f32 items, unpruned and pruned
+    assert len(counts["topk_tc"]) == 6 and all(counts["topk_tc"].values()), (
         "topk: a filter kernel without HMMA")
     return counts
 
@@ -3509,10 +3528,13 @@ def minv_serving_batch(serving, sess_q, banks, alpha):
     4s's first 256 users with the bf16 session's statistics, Minv in bf16
     (the session's own bits: its gathered rows are their exact widening),
     over each bank of ``banks`` (f32, bf16, int8: ``(catalog,
-    clusters)``), counted; then, uncounted, each shortlist against the
-    kernels on Minv's f32 widening, bit for bit, and against the plain
-    versions (``check_topk_minv_bf16``, ``check_topk_pruned_minv_bf16``).
-    Returns the launches and the errors."""
+    clusters)``), counted, every launch a filter kernel; then, uncounted,
+    each shortlist against the kernels on Minv's f32 widening, bit for
+    bit, and against the plain versions (``check_topk_minv_bf16``,
+    ``check_topk_pruned_minv_bf16``), and against the chain kernels with
+    the bf16 Minv (``check_topk_filter``, ``check_topk_pruned_filter``:
+    no violation, the rescored share).  Returns the launches and the
+    errors."""
     import torch
     from repro_torch.core.backend import BackendConfig
     from repro_torch.kernels import _build
@@ -3559,22 +3581,23 @@ def minv_serving_batch(serving, sess_q, banks, alpha):
             errs[f"topk_pruned_minv_bf16{sfx}"] = \
                 check_topk_pruned_minv_bf16(w, Mb, occ, cat, cl, alpha,
                                             K_SHORT, got=(s_p, i_p))
-            if kind != "f32":  # the filter kernels against the chain's
-                sc = bank.scale if kind == "int8" else None
-                ss = cl.scale_sorted if kind == "int8" else None
-                res = check_topk_filter(w, Mb, occ, bank.emb, bank.live, sc,
-                                        alpha, K_SHORT, got=(s_u, i_u))
-                tb = tref.tile_bounds(w, Mb, occ, alpha, cl.tile_mu,
-                                      cl.tile_r, cl.tile_xn, cl.tile_n)
-                resp = check_topk_pruned_filter(
-                    w, Mb, occ, cl.emb_sorted, cl.live_sorted, cl.perm, ss,
-                    tb, alpha, K_SHORT, (s_u, i_u))
-                for key, got_f in ((f"topk_minv_bf16{sfx}", res),
-                                   (f"topk_pruned_minv_bf16{sfx}", resp)):
-                    errs[key].update(
-                        rescored=got_f["rescored"],
-                        rescored_share=got_f["rescored_share"],
-                        violations=got_f["violations"])
+            # the filter kernels against the chain's
+            sc = bank.scale if kind == "int8" else None
+            ss = cl.scale_sorted if kind == "int8" else None
+            res = check_topk_filter(w, Mb, occ, bank.emb, bank.live, sc,
+                                    alpha, K_SHORT, got=(s_u, i_u))
+            tb = tref.tile_bounds(w, Mb, occ, alpha, cl.tile_mu, cl.tile_r,
+                                  cl.tile_xn, cl.tile_n)
+            resp = check_topk_pruned_filter(
+                w, Mb, occ, cl.emb_sorted, cl.live_sorted, cl.perm, ss, tb,
+                alpha, K_SHORT, (s_u, i_u))
+            for key, got_f in ((f"topk_minv_bf16{sfx}", res),
+                               (f"topk_pruned_minv_bf16{sfx}", resp)):
+                errs[key].update(rescored=got_f["rescored"],
+                                 rescored_share=got_f["rescored_share"],
+                                 violations=got_f["violations"])
+            log(f"precision bf16 Minv, {kind} bank, the filter kernels "
+                f"against the chain kernels: {res}; pruned: {resp}")
     return {"launches": launches, "errs": errs, "users": (w, Mb, occ)}
 
 
@@ -7790,19 +7813,20 @@ def popcount(words):
 
 
 def filter_bound_ms(Minv, N: float, d: int, n_bytes: float,
-                    rescored: int) -> dict:
+                    rescored: int, item_pieces: int = 1) -> dict:
     """The filter kernels' own bound (ms) on one H100, ``bound_ms`` of
     their rows: the larger of the bytes at the memory rate and the
     operations, which are the product at the bf16 tensor-core rate (d (d
     + 1) multiply-adds, 2 flops each, of every user's Minv and w pieces,
-    one piece or two by the user's Minv, against each of the ``N`` rows
-    scored: the live rows, the visited share of them where pruned) plus
-    the rescored pairs' chains (2 d^2 + 4 d + 6 f32 operations each) at
-    the f32 rate; and its parts."""
+    one piece or two by the user's Minv, times the items' pieces, two for
+    f32 items, against each of the ``N`` rows scored: the live rows, the
+    visited share of them where pruned) plus the rescored pairs' chains
+    (2 d^2 + 4 d + 6 f32 operations each) at the f32 rate; and its
+    parts."""
     M = Minv.float()
     lo = (M - M.bfloat16().float()).bfloat16() != 0
     pieces = M.shape[0] + int(lo.flatten(1).any(1).sum())  # over the users
-    prod = 2 * N * d * (d + 1) * pieces
+    prod = 2 * N * d * (d + 1) * pieces * item_pieces
     parts = {"product_ms": 1e3 * prod / BF16_FLOPS_PER_S,
              "rescore_ms": 1e3 * rescored * (2 * d * d + 4 * d + 6)
              / F32_FLOPS_PER_S,
@@ -8426,17 +8450,19 @@ def main() -> int:
         minv_f32[f"topk_pruned_minv_bf16{sfx}"] = (
             lambda a=pa_b, sq=ss_b: tops.topk_pruned(w_b, Mb_wide, occ_b,
                                                      *a, scales=sq))
-        if kind != "f32":
-            chain[f"topk_minv_bf16{sfx}"] = (
-                lambda a=topk_args, sq=sc_b: tops.topk(
-                    w_b, Mb_b, occ_b, *a, scales=sq, chain=True))
-            chain[f"topk_pruned_minv_bf16{sfx}"] = (
-                lambda a=pa_b, sq=ss_b: tops.topk_pruned(
-                    w_b, Mb_b, occ_b, *a, scales=sq, chain=True))
-            for v, rows in ((f"topk_minv_bf16{sfx}", Nb),
-                            (f"topk_pruned_minv_bf16{sfx}", keep_b * Nb)):
-                filter_bounds[v] = filter_bound_ms(Mb_b, rows, d, work[v][2],
-                                                   errs[v]["rescored"])
+        # the chain kernels with the bf16 Minv, which the filter kernels
+        # replace on every bank (the f32 bank's items in two pieces)
+        chain[f"topk_minv_bf16{sfx}"] = (
+            lambda a=topk_args, sq=sc_b: tops.topk(
+                w_b, Mb_b, occ_b, *a, scales=sq, chain=True))
+        chain[f"topk_pruned_minv_bf16{sfx}"] = (
+            lambda a=pa_b, sq=ss_b: tops.topk_pruned(
+                w_b, Mb_b, occ_b, *a, scales=sq, chain=True))
+        for v, rows in ((f"topk_minv_bf16{sfx}", Nb),
+                        (f"topk_pruned_minv_bf16{sfx}", keep_b * Nb)):
+            filter_bounds[v] = filter_bound_ms(
+                Mb_b, rows, d, work[v][2], errs[v]["rescored"],
+                item_pieces=2 if kind == "f32" else 1)
     # cross: layer 2 of a serve_bulk batch (x0 and xl distinct inputs);
     # embedding_bag: the 262144 bags, pads' rows not counted (not read)
     Bb, dI = x0b.shape

@@ -1,9 +1,10 @@
-// Streaming UCB top-K over bf16 and int8 catalogs at d <= 32, unpruned
-// and cluster-pruned: the filter kernels (the retrieval engine of
-// reduced-precision catalog serving).
+// Streaming UCB top-K over bf16 and int8 catalogs, and over f32 catalogs
+// for a bf16 Minv, at d <= 32, unpruned and cluster-pruned: the filter
+// kernels (the retrieval engine of reduced-precision catalog serving).
 //
 // Replaces: src/repro/kernels/topk/topk.py, topk_pallas (:114) and
-//           topk_pruned_pallas (:229), for bf16 and int8 items at d <= 32
+//           topk_pruned_pallas (:229), for bf16 and int8 items, and for
+//           f32 items with a bf16 Minv (:73, :75, :195, :197), at d <= 32
 //           (topk.cu's chain kernels serve the rest and stand beside these
 //           as their yardstick).
 //
@@ -11,8 +12,9 @@
 // csrc/ucb_score.cuh in their order, and the same (score desc, id asc)
 // lists), bit for bit; what differs is which pairs reach the chains.
 //
-// Filter (topk_tc_kernel and topk_pruned_tc_kernel behind the eight
-// *_tc_launch entries, Minv f32 or bf16; topk_pallas's and
+// Filter (topk_tc_kernel and topk_pruned_tc_kernel behind the ten
+// *_tc_launch entries: bf16 and int8 items with Minv f32 or bf16, f32
+// items with Minv bf16; topk_pallas's and
 // topk_pruned_pallas's bodies score on the matrix unit, and here the
 // tensor cores only bound the scores).  A tensor-core
 // product gives each (user, item) pair an upper bound UB of the chain's
@@ -33,7 +35,8 @@
 //   (exact), 32 features a row (zeros past d), 64 bytes with their 16-byte
 //   words swizzled so that ldmatrix reads 8 rows in 32 banks; beside it
 //   each row's en2 >= |x|^2 and en >= |x| (x = s a, s the int8 scale, 1
-//   for bf16), rounded up.
+//   for bf16), rounded up.  f32 rows are split into two A tiles
+//   (repack_split, "f32 items" below).
 // - Each warp holds its user's B operand in registers, loaded once a
 //   block: B[j][i] = M[i][j] (M = Minv in f32, widened where bf16) as the
 //   m16n8k16 fragments of 4 n-tiles x 2 k-steps, split into pieces hi =
@@ -55,7 +58,8 @@
 //   pair of tiles), times s^2 for int8; est from columns 30 and 31 (or 8
 //   FMAs and the same shuffles where d > 30), times s; then UB:
 //     E = kQRel F en2 + kAbs (en2 + 1),   E_est = c W en + kAbs (en + 1)
-//     (c = kERelTc where est comes from the product, else kERel)
+//     (c = kERelTc where est comes from the product or the items are
+//     f32, else kERel)
 //     UB = (e~ + E_est) + alpha sqrt(q~ + E) ex       (alpha >= 0)
 //     UB = (e~ + E_est) + alpha sqrt(max(q~ - E, 0)) ex (alpha < 0)
 //   every operation rounded up (the root: sqrt_up / sqrt_down, the
@@ -91,6 +95,28 @@
 // - One block an SM: about 166-179 KB of shared memory at d = 25 (the
 //   ring takes 78 KB); chip_smoke.py prints the ptxas lines.
 //
+// f32 items (a bf16 Minv only: f32 Minv over f32 items would need the
+// products hi.Mhi, hi.Mlo and lo.Mhi, and stays on the chain kernels).
+// - Repack (repack_split): each f32 row x becomes two A tiles, ahi =
+//   bf16(x) and alo = bf16(x - ahi): x - ahi is exact in f32, |x - ahi -
+//   alo| <= 2^-16 |x| featurewise, and a = ahi + alo is exact in f32 (a
+//   multiple of ulp(x) no larger than (1 + 2^-16) |x|).  en2 and en come
+//   from x itself.  A row with a nonzero |x_j| below 2^-102 goes to the
+//   chain (en2 = inf): from there down x_j - ahi_j, a multiple of
+//   ulp(x_j), may be nonzero below 2^-126, where the residual is not
+//   relative (a piece subnormal or 0); above it every piece is normal.
+//   So does a row whose split overflows (|x|^2 is then past kHuge).
+// - Product: T = ahi M + alo M, the two A tiles against the one B piece
+//   of the bf16 Minv, 2 mma a tile step (an f32 Minv over bf16 items costs
+//   as much); the epilogue multiplies by a, summed from the two
+//   fragments, which share the accumulator's column map.
+// - Ring: the f32 row (128 bytes) would not fit beside the second A tile
+//   and the f32 chunk, so the ring keeps (UB, id, the row's position in
+//   the catalog) and the rescore reads the row from global memory (about
+//   1% of pairs are rescored, rows staged a few chunks before).  Shared
+//   memory at d = 25: 171 KB pruned at k = 128 (the two A tiles 64 KB,
+//   the f32 chunk 50 KB, the ring 12 KB); at d = 32, 197 KB.
+//
 // E, derived.  u = 2^-24, g_n = n u / (1 - n u), d <= 32; a is the row the
 // filter multiplies (bf16 features or int8 codes), s its scale (1 for
 // bf16), x the chain's widened row (x_j = a_j, or fl(a_j s) = s a_j (1 +
@@ -118,12 +144,31 @@
 //  |a_j| |w_j| <= |a| |w|.  A row with s^2 |a|^2 >= 2^60, or a user with
 //  |M|_F or |w| >= 2^60 (or NaN), gets E = inf and passes every pair;
 //  below them no partial of either computation overflows, so the bounds
-//  hold.  kernels/topk/ref.py filter_ref is this derivation in torch.
+//  hold.
+//  f32 items (a bf16 Minv: term 3 is 0, as are 2 and the s^2; A here is
+//  sum_ij |x_i| |M_ij| |x_j| <= |x|^2 |M|_F, a = ahi + alo, |a_j| <= (1 +
+//  2^-16) |x_j|, |ahi_j| + |alo_j| <= p |x_j| with p = 1 + 2^-7 + 2^-16):
+//  1. The chain: 3.82e-6 A.
+//  6. The item split: |Q(x) - Q(a)| = |2 dx' M x - dx' M dx| (dx = x - a)
+//     <= (2 2^-16 + 2^-32) A: 3.05e-5.
+//  4. The accumulation, four steps (two A pieces x K = 32): 68 2^-23
+//     sum_i |a_i| sum_j (|ahi_j| + |alo_j|) |M_ij| <= 68 2^-23 (1 +
+//     2^-16) p A: 8.17e-6.
+//  5. The epilogue on a (its sum of the two pieces exact): g_10 (1 +
+//     2^-16) p (1 + 1e-5) A: 6.0e-7.
+//  So |q~ - quad| <= 4.32e-5 A; kQRel is 5.7 times that.  est: from the
+//  tensor cores, the item split 2^-16, w's split 2^-16 (1 + 2^-16), the
+//  accumulation over both A pieces 68 2^-23 p^2, the chain g_d, 3u: 4.09e-5
+//  of sum |x_j| |w_j| (kERelTc, 6.0 times); on the CUDA cores 2^-16 +
+//  g_10 (1 + 2^-16) + g_d = 1.78e-5, for which kERel would be 1.7 times
+//  only: f32 items take kERelTc there too (13.7 times).
+//  kernels/topk/ref.py filter_ref is this derivation in torch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "sqrt_rn.cuh"
 #include "widen.cuh"
@@ -146,7 +191,8 @@ constexpr int kMaxTiles = 32;   // tiles a pruned chunk gathers: a lane each
 namespace {
 
 // ---------------------------------------------------------------------------
-// The filter kernels: bf16 and int8 items at d <= kSmallD (header, "Filter")
+// The filter kernels: bf16 and int8 items, and f32 items with a bf16
+// Minv, at d <= kSmallD (header, "Filter" and "f32 items")
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRows = 512;       // chunk rows of the filter kernels
@@ -159,8 +205,9 @@ constexpr float kERelTc = 0x1p-12f;  // and from the tensor cores (d <= 30)
 constexpr float kAbs = 0x1p-100f;  // E's and E_est's absolute terms
 constexpr float kHuge = 0x1p60f;   // a norm from here on passes every pair
 
-// A queued candidate: its row (bf16 features or int8 codes as bf16, 64
-// bytes), its upper bound, its id and its int8 scale.
+// A queued candidate: its upper bound, its id and its int8 scale (f32
+// items: the bits of its row's position in the catalog, from which the
+// rescore reads the row); bf16 and int8 rows (64 bytes) queue beside it.
 struct Cand {
   float ub;
   int id;
@@ -168,15 +215,19 @@ struct Cand {
 };
 
 // The filter kernels' own regions: the chunk's A operand (bf16, 32
-// features a row, 64 bytes, its four 16-byte words swizzled by row), the
-// rows' norm bounds, and each warp's ring of candidates, which outlives
-// the chunk: a candidate's row is copied in with it.
+// features a row, 64 bytes, its four 16-byte words swizzled by row; f32
+// items: two, the hi and lo pieces), the rows' norm bounds, and each
+// warp's ring of candidates, which outlives the chunk: a bf16 or int8
+// candidate's row is copied in with it, an f32 one is read again from
+// the catalog.
 struct Tc {
   __nv_bfloat16* xa;  // [kTcRows][32]
+  __nv_bfloat16* xl;  // [kTcRows][32] f32 items: the lo pieces
   float2* rn;         // [kTcRows] (en2, en): bounds on |x|^2 and |x|
-  uint4* qx;          // [kUsers][kQueue][4] the queued rows
+  uint4* qx;          // [kUsers][kQueue][4] the queued rows (not f32)
   Cand* qc;           // [kUsers][kQueue]
   float2* ms;         // [kUsers][32] merge32's scratch
+  const float* rows;  // f32 items: the catalog, which the rescore reads
   int DP;             // Minv's and w's padded row: d rounded up to 4
 };
 
@@ -185,8 +236,9 @@ __host__ __device__ inline int padded_d(int d) { return (d + 3) & ~3; }
 __host__ __device__ inline size_t tc_smem_bytes(int d, int k, bool pruned,
                                                 int item) {
   const size_t CH = kTcRows, DP = padded_d(d);
-  return CH * 32 * sizeof(__nv_bfloat16) +
-         (size_t)kUsers * kQueue * (4 * sizeof(uint4) + sizeof(Cand)) +
+  return CH * 32 * sizeof(__nv_bfloat16) * (item == 0 ? 2 : 1) +
+         (size_t)kUsers * kQueue *
+             ((item == 0 ? 0 : 4 * sizeof(uint4)) + sizeof(Cand)) +
          sizeof(float2) * kUsers * 32 +
          sizeof(float) * (kUsers * d * DP + kUsers * DP + kUsers) +
          sizeof(float2) * CH +
@@ -204,8 +256,15 @@ __device__ Smem carve_tc(float* base, int d, int k, bool pruned, int item,
   const int CH = kTcRows;
   tc.DP = padded_d(d);
   tc.xa = reinterpret_cast<__nv_bfloat16*>(base);
-  tc.qx = reinterpret_cast<uint4*>(tc.xa + CH * 32);
-  tc.qc = reinterpret_cast<Cand*>(tc.qx + kUsers * kQueue * 4);
+  if (item == 0) {  // the lo tile, and no rows in the ring
+    tc.xl = tc.xa + CH * 32;
+    tc.qx = nullptr;
+    tc.qc = reinterpret_cast<Cand*>(tc.xl + CH * 32);
+  } else {
+    tc.xl = nullptr;
+    tc.qx = reinterpret_cast<uint4*>(tc.xa + CH * 32);
+    tc.qc = reinterpret_cast<Cand*>(tc.qx + kUsers * kQueue * 4);
+  }
   tc.ms = reinterpret_cast<float2*>(tc.qc + kUsers * kQueue);
   Smem s;
   s.Ms = reinterpret_cast<float*>(tc.ms + kUsers * 32);
@@ -292,6 +351,11 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
                                           __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  uint32_t u;
+  memcpy(&u, &v, sizeof u);
+  return u;
 }
 __device__ __forceinline__ float bf_lo(uint32_t v) {
   return __uint_as_float(v << 16);
@@ -391,8 +455,10 @@ struct Filt {
 // Lane (g, t) = (lane / 4, lane % 4) holds, for n-tile nt and k-step ks,
 // B[j][i] = M[i][j] at i = 8 nt + g, j = 16 ks + 2t + {0, 1, 8, 9}: the
 // m16n8k16 B fragment, every (i, j) of the 32 x 32 once over the warp.
+// ``f32_items``: E_est takes kERelTc whichever way est comes (header).
 __device__ __forceinline__ void filt_setup(const Smem& s, int d, int DP,
-                                           int u, int lane, Filt& f) {
+                                           int u, int lane, bool f32_items,
+                                           Filt& f) {
   const int g = lane >> 2, t = lane & 3;
   const float* M = s.Ms + u * d * DP;
   float f2 = 0.f;
@@ -443,7 +509,9 @@ __device__ __forceinline__ void filt_setup(const Smem& s, int d, int DP,
     }
   f.cM = F < kHuge ? __fadd_ru(__fmul_ru(kQRel, F), kAbs) : INFINITY;
   f.est_tc = d <= 30;
-  f.cW = W < kHuge ? __fadd_ru(__fmul_ru(f.est_tc ? kERelTc : kERel, W),
+  f.cW = W < kHuge ? __fadd_ru(__fmul_ru(f.est_tc || f32_items ? kERelTc
+                                                               : kERel,
+                                         W),
                                kAbs)
                    : INFINITY;
   f.ex = s.ex[u];
@@ -531,6 +599,62 @@ __device__ __forceinline__ void repack(const Smem& s, const Tc& tc, int d,
         en = __fmul_ru(sa, en);
       }
       if (!(en2 < kHuge) || sub[q]) en2 = INFINITY;
+    }
+    sts_f2(rn + 8 * r, make_float2(en2, en));
+  }
+}
+
+// The chunk's f32 rows [0, cnt), staged at stride stride_of(d), into the
+// two A tiles (header, "f32 items"): ahi = bf16(x) into xa, alo = bf16(x
+// - ahi) into xl (x - ahi exact in f32), two features a conversion,
+// zeros past d and past cnt, with en2 >= |x|^2 and en >= |x| of x
+// itself, each rounded up, and en2 = inf where the row passes every pair
+// (a norm past kHuge, a non-finite feature, a nonzero |x_j| below
+// 2^-102).  A thread's row is read as 32 floats from its start, without
+// a branch on d: the reads past the row stay in shared memory and are
+// masked to 0.
+__device__ __forceinline__ void repack_split(const Smem& s, const Tc& tc,
+                                             int d, int cnt) {
+  constexpr int RT = kTcRows / kThreads;  // rows a thread
+  const int XS = stride_of(d);
+  const uint32_t xs = smem_u32(s.xs), xa = smem_u32(tc.xa),
+                 xl = smem_u32(tc.xl), rn = smem_u32(tc.rn);
+#pragma unroll
+  for (int q = 0; q < RT; ++q) {
+    const int r = threadIdx.x + q * kThreads;
+    float x[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) x[j] = lds_f32(xs + 4 * (r * XS + j));
+    uint32_t vh[16], vl[16];
+    float n2 = 0.f;
+    uint32_t least = 0xffffffffu;  // the least |x_j| bits - 1 (0: the most)
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+      const float x0 = 2 * p < d && r < cnt ? x[2 * p] : 0.f;
+      const float x1 = 2 * p + 1 < d && r < cnt ? x[2 * p + 1] : 0.f;
+      vh[p] = bf2_bits(__floats2bfloat162_rn(x0, x1));
+      // x - ahi, exact; then its bf16 rounding, the lo pieces
+      vl[p] = bf2_bits(
+          __floats2bfloat162_rn(x0 - bf_lo(vh[p]), x1 - bf_hi(vh[p])));
+      n2 = __fmaf_ru(x0, x0, n2);
+      n2 = __fmaf_ru(x1, x1, n2);
+      least = min(least, (__float_as_uint(x0) & 0x7fffffffu) - 1u);
+      least = min(least, (__float_as_uint(x1) & 0x7fffffffu) - 1u);
+    }
+    // a nonzero |x_j| below 2^-102 (bits 0x0c800000): x_j - ahi_j may be
+    // nonzero below 2^-126, where the split's residual is not relative
+    const bool sub = least < 0x0c800000u - 1u;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      sts_u4(xa + xa_word(r, c),
+             make_uint4(vh[4 * c], vh[4 * c + 1], vh[4 * c + 2], vh[4 * c + 3]));
+      sts_u4(xl + xa_word(r, c),
+             make_uint4(vl[4 * c], vl[4 * c + 1], vl[4 * c + 2], vl[4 * c + 3]));
+    }
+    float en2 = 0.f, en = 0.f;
+    if (r < cnt) {
+      en = sqrt_up(n2);
+      en2 = !(n2 < kHuge) || sub ? INFINITY : n2;
     }
     sts_f2(rn + 8 * r, make_float2(en2, en));
   }
@@ -644,7 +768,8 @@ __device__ __forceinline__ void merge32(float* ls, int* li, int k,
 // take the row by pointer; chip_smoke.py's check_topk_filter holds the
 // copy to ucb_scores bit for bit.  Eight rows of Minv at a time: their t
 // chains are independent.  A pair whose exact score exceeds its upper
-// bound counts as a violation.
+// bound counts as a violation.  f32 items: the lane reads its row from
+// the catalog (tc.rows, at the position the ring keeps).
 template <int ITEM>
 __device__ __forceinline__ void rescore(const Smem& s, const Tc& tc, int d,
                                      int k, float alpha, float ex,
@@ -655,16 +780,22 @@ __device__ __forceinline__ void rescore(const Smem& s, const Tc& tc, int d,
   const uint32_t ca = smem_u32(tc.qc + warp * kQueue + pos);
   const Cand cd{lds_f32(ca), __float_as_int(lds_f32(ca + 4)),
                 lds_f32(ca + 8)};
-  const uint32_t row = smem_u32(tc.qx + (warp * kQueue + pos) * 4);
   float x[32];
+  if constexpr (ITEM == 0) {
+    const float* xr = tc.rows + (size_t)__float_as_int(cd.sc) * d;
 #pragma unroll
-  for (int w4 = 0; w4 < 4; ++w4) {
-    const uint4 v = lds_u4(row + 16 * w4);
-    const uint32_t vv[4] = {v.x, v.y, v.z, v.w};
+    for (int j = 0; j < 32; ++j) x[j] = j < d ? __ldg(xr + j) : 0.f;
+  } else {
+    const uint32_t row = smem_u32(tc.qx + (warp * kQueue + pos) * 4);
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      x[8 * w4 + 2 * p] = bf_lo(vv[p]);
-      x[8 * w4 + 2 * p + 1] = bf_hi(vv[p]);
+    for (int w4 = 0; w4 < 4; ++w4) {
+      const uint4 v = lds_u4(row + 16 * w4);
+      const uint32_t vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        x[8 * w4 + 2 * p] = bf_lo(vv[p]);
+        x[8 * w4 + 2 * p + 1] = bf_hi(vv[p]);
+      }
     }
   }
   if constexpr (ITEM == 2) {
@@ -728,7 +859,10 @@ struct Ring {
 // the product on the tensor cores, the bound in the epilogue; the rows
 // that pass join the warp's ring with their row, which is rescored 32 at
 // a time once it holds 64.  ``pub``: the published floor (pruned; -inf
-// otherwise).  ``id_of(r)``: row r's item id.
+// otherwise).  ``id_of(r)``: row r's item id; ``pos_of(r)``: f32 items,
+// its position in the catalog (the ring keeps it in the scale's place).
+// f32 items take the product on both A tiles (hi, then lo) and the
+// epilogue's features as the sum of the two fragments' (exact).
 //
 // The epilogue takes the tiles two at a time: lane (g, t) sums its
 // features' share of q for rows g and g + 8 of both, and two rounds of
@@ -736,19 +870,21 @@ struct Ring {
 // tile t / 2, row g + 8 (t % 2).  est comes from the accumulator's
 // columns 30 and 31 (w's hi and lo pieces, at lane t = 3) where d <= 30,
 // else from the lane's features as q's share is.
-template <int ITEM, typename IdOf>
+template <int ITEM, typename IdOf, typename PosOf>
 __device__ __forceinline__ void filter_chunk(const Smem& s, const Tc& tc,
                                              const Filt& f, int d, int k,
                                              int cnt, int lb, float pub,
                                              float alpha, IdOf id_of,
-                                             Ring& q, int warp, int lane) {
+                                             PosOf pos_of, Ring& q, int warp,
+                                             int lane) {
   static_assert(kTcTiles % 2 == 0, "tiles go two at a time");
   const int g = lane >> 2, t = lane & 3;
   const bool hi_tile = t >= 2, hi_row = t & 1;
   const float* ls = s.ls + warp * k;
   const uint32_t qc = smem_u32(tc.qc + warp * kQueue);
-  const uint32_t qx = smem_u32(tc.qx + warp * kQueue * 4);
+  const uint32_t qx = ITEM == 0 ? 0u : smem_u32(tc.qx + warp * kQueue * 4);
   const uint32_t xa = smem_u32(tc.xa), rns = smem_u32(tc.rn);
+  const uint32_t xl = ITEM == 0 ? smem_u32(tc.xl) : 0u;
   const uint32_t lvs = smem_u32(s.lv + lb * kTcRows);
   const uint32_t scs = smem_u32(s.sc + lb * kTcRows);
   float bar = fmaxf(ls[k - 1], pub);  // the floor a pair must reach
@@ -757,13 +893,17 @@ __device__ __forceinline__ void filter_chunk(const Smem& s, const Tc& tc,
     // kTcRows is a multiple of 16 kTcTiles: the step's tiles lie in the
     // A tile (zero rows past cnt)
     uint32_t a[kTcTiles][2][4];
+    uint32_t al[ITEM == 0 ? kTcTiles : 1][2][4];  // f32 items: lo pieces
     float acc[kTcTiles][4][4];
 #pragma unroll
     for (int tt = 0; tt < kTcTiles; ++tt) {
       const int lrow = (rt0 + tt) * 16 + (lane & 15);
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
-        ldsm_x4(a[tt][ks], xa + xa_word(lrow, 2 * ks + (lane >> 4)));
+      for (int ks = 0; ks < 2; ++ks) {
+        const int word = xa_word(lrow, 2 * ks + (lane >> 4));
+        ldsm_x4(a[tt][ks], xa + word);
+        if constexpr (ITEM == 0) ldsm_x4(al[tt][ks], xl + word);
+      }
     }
     // the lane's rows (one a pair of tiles): bounds, live flags, scales
     constexpr int P = kTcTiles / 2;
@@ -784,8 +924,9 @@ __device__ __forceinline__ void filter_chunk(const Smem& s, const Tc& tc,
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[tt][nt][e] = 0.f;
-    // the product: hi piece, then lo where Minv has one (the accumulator
-    // of each (tile, n-tile) takes its k-steps in order)
+    // the product: hi piece, then lo where Minv has one, or (f32 items,
+    // a bf16 Minv) the items' lo piece against Minv's one (the
+    // accumulator of each (tile, n-tile) takes its k-steps in order)
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
@@ -793,7 +934,15 @@ __device__ __forceinline__ void filter_chunk(const Smem& s, const Tc& tc,
 #pragma unroll
         for (int tt = 0; tt < kTcTiles; ++tt)
           mma_bf16(acc[tt][nt], a[tt][ks], f.bh[nt][ks]);
-    if (f.two) {
+    if constexpr (ITEM == 0) {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int tt = 0; tt < kTcTiles; ++tt)
+            mma_bf16(acc[tt][nt], al[tt][ks], f.bh[nt][ks]);
+    } else if (f.two) {
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
@@ -818,15 +967,25 @@ __device__ __forceinline__ void filter_chunk(const Smem& s, const Tc& tc,
         for (int nt = 0; nt < 4; ++nt) {
           const uint32_t ag = a[tt][nt >> 1][2 * (nt & 1)];
           const uint32_t ah = a[tt][nt >> 1][2 * (nt & 1) + 1];
-          qg = fmaf(bf_lo(ag), acc[tt][nt][0], qg);
-          qg = fmaf(bf_hi(ag), acc[tt][nt][1], qg);
-          qh = fmaf(bf_lo(ah), acc[tt][nt][2], qh);
-          qh = fmaf(bf_hi(ah), acc[tt][nt][3], qh);
+          float g0 = bf_lo(ag), g1 = bf_hi(ag), h0 = bf_lo(ah),
+                h1 = bf_hi(ah);
+          if constexpr (ITEM == 0) {  // a = ahi + alo, exact
+            const uint32_t lg = al[tt][nt >> 1][2 * (nt & 1)];
+            const uint32_t lh = al[tt][nt >> 1][2 * (nt & 1) + 1];
+            g0 += bf_lo(lg);
+            g1 += bf_hi(lg);
+            h0 += bf_lo(lh);
+            h1 += bf_hi(lh);
+          }
+          qg = fmaf(g0, acc[tt][nt][0], qg);
+          qg = fmaf(g1, acc[tt][nt][1], qg);
+          qh = fmaf(h0, acc[tt][nt][2], qh);
+          qh = fmaf(h1, acc[tt][nt][3], qh);
           if (!f.est_tc) {
-            eg = fmaf(bf_lo(ag), f.wv[nt][0], eg);
-            eg = fmaf(bf_hi(ag), f.wv[nt][1], eg);
-            eh = fmaf(bf_lo(ah), f.wv[nt][0], eh);
-            eh = fmaf(bf_hi(ah), f.wv[nt][1], eh);
+            eg = fmaf(g0, f.wv[nt][0], eg);
+            eg = fmaf(g1, f.wv[nt][1], eg);
+            eh = fmaf(h0, f.wv[nt][0], eh);
+            eh = fmaf(h1, f.wv[nt][1], eh);
           }
         }
         if (f.est_tc) {  // columns 30 and 31 at t = 3: w's hi + lo
@@ -881,10 +1040,14 @@ __device__ __forceinline__ void filter_chunk(const Smem& s, const Tc& tc,
         const uint32_t ca = qc + sizeof(Cand) * p;
         sts_u32(ca, __float_as_uint(ub[pp]));
         sts_u32(ca + 4, (uint32_t)id_of(row[pp]));
-        sts_u32(ca + 8, __float_as_uint(sc[pp]));
+        if constexpr (ITEM == 0) {
+          sts_u32(ca + 8, (uint32_t)pos_of(row[pp]));
+        } else {
+          sts_u32(ca + 8, __float_as_uint(sc[pp]));
 #pragma unroll
-        for (int w4 = 0; w4 < 4; ++w4)
-          sts_u4(qx + 64 * p + 16 * w4, lds_u4(xa + xa_word(row[pp], w4)));
+          for (int w4 = 0; w4 < 4; ++w4)
+            sts_u4(qx + 64 * p + 16 * w4, lds_u4(xa + xa_word(row[pp], w4)));
+        }
       }
       q.tail += __popc(m);
     }
@@ -943,6 +1106,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int CH = kTcRows;
   Tc tc;
   const Smem s = carve_tc(smem, d, k, false, ITEM, tc);
+  tc.rows = ITEM == 0 ? static_cast<const float*>(items) : nullptr;
   const int u0 = blockIdx.x * kUsers, split = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_chunks = (N + CH - 1) / CH;
@@ -957,7 +1121,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   const bool mine = u0 + warp < n;
   Filt f;
-  if (mine) filt_setup(s, d, tc.DP, warp, lane, f);
+  if (mine) filt_setup(s, d, tc.DP, warp, lane, ITEM == 0, f);
   Ring q{0, 0, 0, 0};
   int lb = 0;
   for (int c = split; c < n_chunks; c += S) {
@@ -965,16 +1129,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();  // chunk c has arrived; the last chunk is filtered
     const size_t first = (size_t)c * CH;
     const int cnt = min(CH, N - (int)first);
-    const T* src = static_cast<const T*>(items) + first * d;
-    repack<ITEM>(s, tc, d, cnt, lb, [&](int r) {
-        return region_at(s, 0, src) + (size_t)r * d * sizeof(T);
-      });
+    if constexpr (ITEM == 0) {
+      repack_split(s, tc, d, cnt);
+    } else {
+      const T* src = static_cast<const T*>(items) + first * d;
+      repack<ITEM>(s, tc, d, cnt, lb, [&](int r) {
+          return region_at(s, 0, src) + (size_t)r * d * sizeof(T);
+        });
+    }
     __syncthreads();  // the A tile is ready, the chunk buffer free
     if (c + S < n_chunks) stage(c + S, lb ^ 1);
     if (mine) {
-      filter_chunk<ITEM>(s, tc, f, d, k, cnt, lb, -INFINITY, alpha,
-                         [&](int r) { return (int)(first + r); }, q, warp,
-                         lane);
+      const auto at = [&](int r) { return (int)(first + r); };
+      filter_chunk<ITEM>(s, tc, f, d, k, cnt, lb, -INFINITY, alpha, at, at,
+                         q, warp, lane);
       if (((c - split) / S) % kTcFlush == kTcFlush - 1)
         flush_ring<ITEM>(s, tc, f, d, k, -INFINITY, alpha, q, warp, lane);
     }
@@ -1007,6 +1175,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int CH = kTcRows;
   Tc tc;
   const Smem s = carve_tc(smem, d, k, true, ITEM, tc);
+  tc.rows = ITEM == 0 ? static_cast<const float*>(items) : nullptr;
   Walk& wk = *s.walk;
   const int g = blockIdx.x, split = blockIdx.y;
   const int u0 = g * kUsers;
@@ -1051,7 +1220,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   const bool mine = u0 + warp < n;
   Filt f;
-  if (mine) filt_setup(s, d, tc.DP, warp, lane, f);
+  if (mine) filt_setup(s, d, tc.DP, warp, lane, ITEM == 0, f);
   Ring q{0, 0, 0, 0};
   int lb = 0, n_chunks = 0;
   for (bool first = true;; first = false) {
@@ -1059,20 +1228,30 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();  // chunk lb has arrived; the last chunk is filtered
     const Chunk& c = wk.chunk[lb];
     if (c.n_tiles == 0) break;
-    repack<ITEM>(s, tc, d, rows(c), lb, [&](int r) {
-      int qt = r / tile;  // 0 where tile > CH: one tile's slice
-      if (qt >= c.n_tiles) qt = 0;
-      return region_at(s, qt * R, src_of(c, qt)) +
-             (size_t)(r - qt * tile) * d * sizeof(Item);
-    });
+    if constexpr (ITEM == 0) {
+      repack_split(s, tc, d, rows(c));
+    } else {
+      repack<ITEM>(s, tc, d, rows(c), lb, [&](int r) {
+        int qt = r / tile;  // 0 where tile > CH: one tile's slice
+        if (qt >= c.n_tiles) qt = 0;
+        return region_at(s, qt * R, src_of(c, qt)) +
+               (size_t)(r - qt * tile) * d * sizeof(Item);
+      });
+    }
     if (first)
       __syncthreads();  // the A tile is ready
     else
       next_chunk(lb ^ 1, true, TPC);  // floors before c's filter
     if (mine) {
       const int* id_s = s.id + lb * CH;
-      filter_chunk<ITEM>(s, tc, f, d, k, rows(c), lb, wk.pub[warp], alpha,
-                         [&](int r) { return id_s[r]; }, q, warp, lane);
+      filter_chunk<ITEM>(
+          s, tc, f, d, k, rows(c), lb, wk.pub[warp], alpha,
+          [&](int r) { return id_s[r]; },
+          [&](int r) {  // the row's position in the sorted catalog
+            const int qt = SPT > 1 ? 0 : r / tile;
+            return c.tiles[qt] * tile + c.slice * CH + (r - qt * tile);
+          },
+          q, warp, lane);
       // the first chunk's candidates are all rescored before its floor is
       // published and the second chunk is picked against it; later, every
       // warp empties its ring every kTcFlush chunks, all in the same chunk
@@ -1097,9 +1276,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 bool valid_tc(int d, int k, int item) {
-  return d >= 1 && d <= kSmallD && k >= 1 && k <= kMaxK &&
-         (item == 1 || item == 2);
+  return d >= 1 && d <= kSmallD && k >= 1 && k <= kMaxK && item >= 0 &&
+         item <= 2;
 }
+
+// f32 items only with a bf16 Minv (header, "f32 items")
+bool valid_minv(int item, int minv_bf16) { return item != 0 || minv_bf16; }
 
 using TcFn = void (*)(const float*, const void*, int, const int*,
                       const void*, const float*, const float*, float, int,
@@ -1111,10 +1293,14 @@ using PrunedTcFn = void (*)(const float*, const void*, int, const int*,
                             int, int, int, float*, int*, int*, int*);
 
 TcFn tc_fn(int item) {
-  return item == 1 ? topk_tc_kernel<1> : topk_tc_kernel<2>;
+  return item == 0   ? topk_tc_kernel<0>
+         : item == 1 ? topk_tc_kernel<1>
+                     : topk_tc_kernel<2>;
 }
 PrunedTcFn pruned_tc_fn(int item) {
-  return item == 1 ? topk_pruned_tc_kernel<1> : topk_pruned_tc_kernel<2>;
+  return item == 0   ? topk_pruned_tc_kernel<0>
+         : item == 1 ? topk_pruned_tc_kernel<1>
+                     : topk_pruned_tc_kernel<2>;
 }
 
 int launch_topk_tc(const float* w, const void* Minv, int minv_bf16,
@@ -1124,7 +1310,8 @@ int launch_topk_tc(const float* w, const void* Minv, int minv_bf16,
                    float* out_s, int* out_i, int* fstats,
                    cudaStream_t stream) {
   const size_t bytes = tc_smem_bytes(d, k, false, item);
-  if (!valid_tc(d, k, item) || S < 1 || bytes > kMaxSmem)
+  if (!valid_tc(d, k, item) || !valid_minv(item, minv_bf16) || S < 1 ||
+      bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kUsers - 1) / kUsers, S);
   float* ls = S == 1 ? out_s : part_s;
@@ -1149,7 +1336,8 @@ int launch_pruned_tc(const float* w, const void* Minv, int minv_bf16,
                      float* part_s, int* part_i, float* out_s, int* out_i,
                      int* skipped, int* fstats, cudaStream_t stream) {
   const size_t bytes = tc_smem_bytes(d, k, true, item);
-  if (!valid_tc(d, k, item) || S < 1 || tile < 1 || bytes > kMaxSmem)
+  if (!valid_tc(d, k, item) || !valid_minv(item, minv_bf16) || S < 1 ||
+      tile < 1 || bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kUsers - 1) / kUsers, S);
   float* ls = S == 1 ? out_s : part_s;
@@ -1168,10 +1356,12 @@ int launch_pruned_tc(const float* w, const void* Minv, int minv_bf16,
 
 }  // namespace
 
-// The filter kernels (bf16 and int8 items at d <= 32; the header's
-// "Filter"): the entries above with Minv f32 or bf16, plus fstats
-// [groups, S, 8, 2] i32, which receives each warp's rescored pairs and
-// violations.  A shape they do not take is refused (cudaErrorInvalidValue).
+// The filter kernels (bf16 and int8 items, and f32 items with a bf16
+// Minv, at d <= 32; the header's "Filter"): the chain kernels' entries
+// with Minv f32 or bf16, plus fstats [groups, S, 8, 2] i32, which
+// receives each warp's rescored pairs and violations.  A shape they do
+// not take is refused (cudaErrorInvalidValue), as is an f32 Minv over
+// f32 items, which no entry passes.
 extern "C" int topk_tc_blocks_per_sm(int d, int k, int pruned, int item,
                                      int* blocks) {
   const size_t bytes = tc_smem_bytes(d, k, pruned, item);
@@ -1212,6 +1402,16 @@ extern "C" int topk_int8_tc_launch(const float* w, const float* Minv,
                                    float* out_s, int* out_i, int* fstats,
                                    cudaStream_t stream) {
   return launch_topk_tc(w, Minv, 0, occ, items, live, scales, 2, alpha, n,
+                        N, d, k, S, part_s, part_i, out_s, out_i, fstats,
+                        stream);
+}
+
+extern "C" int topk_minv_bf16_tc_launch(
+    const float* w, const __nv_bfloat16* Minv, const int* occ,
+    const float* items, const float* live, float alpha, int n, int N, int d,
+    int k, int S, float* part_s, int* part_i, float* out_s, int* out_i,
+    int* fstats, cudaStream_t stream) {
+  return launch_topk_tc(w, Minv, 1, occ, items, live, nullptr, 0, alpha, n,
                         N, d, k, S, part_s, part_i, out_s, out_i, fstats,
                         stream);
 }
@@ -1258,6 +1458,19 @@ extern "C" int topk_pruned_int8_tc_launch(
     int tile, int d, int k, int S, float* part_s, int* part_i, float* out_s,
     int* out_i, int* skipped, int* fstats, cudaStream_t stream) {
   return launch_pruned_tc(w, Minv, 0, occ, items, live, ids, scales, 2,
+                          user_order, tb_walk, tile_order, gfloor, alpha, n,
+                          T, tile, d, k, S, part_s, part_i, out_s, out_i,
+                          skipped, fstats, stream);
+}
+
+extern "C" int topk_pruned_minv_bf16_tc_launch(
+    const float* w, const __nv_bfloat16* Minv, const int* occ,
+    const float* items, const float* live, const int* ids,
+    const long long* user_order, const float* tb_walk,
+    const long long* tile_order, int* gfloor, float alpha, int n, int T,
+    int tile, int d, int k, int S, float* part_s, int* part_i, float* out_s,
+    int* out_i, int* skipped, int* fstats, cudaStream_t stream) {
+  return launch_pruned_tc(w, Minv, 1, occ, items, live, ids, nullptr, 0,
                           user_order, tb_walk, tile_order, gfloor, alpha, n,
                           T, tile, d, k, S, part_s, part_i, out_s, out_i,
                           skipped, fstats, stream);

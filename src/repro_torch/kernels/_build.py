@@ -32,8 +32,12 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 
-# kernel name -> (source, C entry point, argtypes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the (Minv, items) name parts of the top-K filter kernels: bf16 and int8
+# items with Minv f32 or bf16, f32 items with Minv bf16
+_TC_KINDS = [(m, i) for m in ("", "_minv_bf16") for i in ("_bf16", "_int8")
+             ] + [("_minv_bf16", "")]
+# kernel name -> (source, C entry point, argtypes)
 KERNELS = {
     "choose": ("choose.cu", "choose_launch",
                [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
@@ -96,17 +100,18 @@ KERNELS = {
         "topk.cu", "topk_pruned_minv_bf16_int8_launch",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
          _I, _P, _P, _P, _P, _P, _P]),
-    # the tensor-core filter kernels (bf16 and int8 items, d <= 32): the
-    # chain kernels' arguments, then fstats before the stream
+    # the tensor-core filter kernels (bf16 and int8 items, and f32 items
+    # with a bf16 Minv, d <= 32): the chain kernels' arguments, then
+    # fstats before the stream
     **{f"topk{m}{i}_tc": ("topk_tc.cu", f"topk{m}{i}_tc_launch",
                           [_P, _P, _P, _P, _P] + [_P] * (i == "_int8")
                           + [_F, _I, _I, _I, _I, _I] + [_P] * 6)
-       for m in ("", "_minv_bf16") for i in ("_bf16", "_int8")},
+       for m, i in _TC_KINDS},
     **{f"topk_pruned{m}{i}_tc": (
         "topk_tc.cu", f"topk_pruned{m}{i}_tc_launch",
         [_P] * (10 + (i == "_int8")) + [_F, _I, _I, _I, _I, _I, _I]
         + [_P] * 7)
-       for m in ("", "_minv_bf16") for i in ("_bf16", "_int8")},
+       for m, i in _TC_KINDS},
     "cross": ("cross.cu", "cross_launch",
               [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
     "cross_split": ("cross.cu", "cross_split_launch", [_P, _I, _P, _P]),

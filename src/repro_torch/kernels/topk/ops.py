@@ -13,12 +13,13 @@ bf16 ``Minv`` (exactly) as they stage it.  ``w`` and ``occ`` stay f32
 and i32.  Serving upcasts a bf16 ``Minv`` when it gathers the rows, as
 ``repro``'s policies do; the engines' callers may hand it over in bf16.
 
-:func:`route` picks the kernels: bf16 and int8 items up to ``d = 32`` go
-to the filter kernels (``FILTER``: the same names with ``_tc`` at the
-end), which bound every score by a tensor-core product and rescore by
-the exact chain only the pairs that can reach a user's floor, so their
-shortlist is the chain kernels' bit for bit; f32 items and ``d > 32`` go
-to the chain kernels (``CHAIN``), which score every pair.  ``chain=True``
+:func:`route` picks the kernels: bf16 and int8 items, and f32 items with
+a bf16 ``Minv``, up to ``d = 32`` go to the filter kernels (``FILTER``:
+the same names with ``_tc`` at the end), which bound every score by a
+tensor-core product and rescore by the exact chain only the pairs that
+can reach a user's floor, so their shortlist is the chain kernels' bit
+for bit; f32 items with an f32 ``Minv`` and ``d > 32`` go to the chain
+kernels (``CHAIN``), which score every pair.  ``chain=True``
 launches the chain kernels where the filter kernels would serve: the
 yardstick they are timed and checked against, not a fallback.
 
@@ -63,12 +64,15 @@ def item_kind(items: torch.Tensor, scales) -> int:
     return ITEM_KINDS[items.dtype]
 
 
-def route(kind: int, d: int) -> str:
-    """The kernels that serve items of ``kind`` at width ``d``: ``FILTER``
-    (csrc/topk_tc.cu's tensor-core filter kernels) for bf16 and int8 items
-    up to ``SMALL_D``, ``CHAIN`` (every pair scored by the chain) for f32
-    items and wider rows."""
-    return FILTER if kind in (1, 2) and d <= SMALL_D else CHAIN
+def route(kind: int, d: int, minv_dtype: torch.dtype = torch.float32) -> str:
+    """The kernels that serve items of ``kind`` at width ``d`` with
+    ``Minv`` in ``minv_dtype``: ``FILTER`` (csrc/topk_tc.cu's tensor-core
+    filter kernels) for bf16 and int8 items, and f32 items with a bf16
+    ``Minv`` (split into two bf16 pieces), up to ``SMALL_D``; ``CHAIN``
+    (every pair scored by the chain) for f32 items with an f32 ``Minv``
+    and for wider rows."""
+    filt = kind in (1, 2) or (kind == 0 and minv_dtype == torch.bfloat16)
+    return FILTER if filt and d <= SMALL_D else CHAIN
 
 
 def kernel_name(pruned: bool, kind: int,
@@ -253,7 +257,7 @@ def topk(
     N = items.shape[0]
     _check_limits(d, k_short)
     kind = item_kind(items, scales)
-    filt = not chain and route(kind, d) == FILTER
+    filt = not chain and route(kind, d, Minv.dtype) == FILTER
     name = kernel_name(False, kind, Minv.dtype, FILTER if filt else CHAIN)
     args = _common_args(w, Minv, occ, dev, n, d) + _item_args(
         items, live, scales, kind, dev, N, d)
@@ -357,7 +361,7 @@ def pruned_launch(w, Minv, occ, items, live, ids, alpha, k_short, tb, *,
     order, tile_order, tb_walk = walk_plan(tb)
     groups = tile_order.shape[0]
     kind = item_kind(items, scales)
-    filt = not chain and route(kind, d) == FILTER
+    filt = not chain and route(kind, d, Minv.dtype) == FILTER
     name = kernel_name(True, kind, Minv.dtype, FILTER if filt else CHAIN)
     _common_args(w, Minv, occ, dev, n, d)
     _item_args(items, live, scales, kind, dev, N, d)

@@ -262,8 +262,9 @@ def topk_ref_pruned(
 
 
 # ---------------------------------------------------------------------------
-# the tensor-core filter of csrc/topk_tc.cu (bf16 and int8 items, d <= 32): a
-# plain model for the tests (the split, E, the bound and the pass test)
+# the tensor-core filter of csrc/topk_tc.cu (bf16 and int8 items, and f32
+# items with a bf16 Minv, d <= 32): a plain model for the tests (the
+# splits, E, the bound and the pass test)
 # ---------------------------------------------------------------------------
 
 Q_REL = 2.0 ** -12        # csrc/topk_tc.cu kQRel
@@ -276,6 +277,11 @@ FILTER_ROWS = 512         # kTcRows
 # quad| <= Q_EPS s^2 A, |e~ - est| <= E_EPS(_TC) s sum |a_j| |w_j|
 Q_EPS = 2.81e-5
 E_EPS, E_EPS_TC = 2.63e-6, 2.56e-5
+# f32 items on a bf16 Minv (the header's "f32 items"): |q~ - quad| <=
+# Q_EPS_F32 A(x), |e~ - est| <= E_EPS(_TC)_F32 sum |x_j| |w_j|; their
+# E_est takes E_REL_TC on both ways of forming est
+Q_EPS_F32 = 4.32e-5
+E_EPS_F32, E_EPS_TC_F32 = 1.78e-5, 4.09e-5
 ORDERS = ("forward", "reversed", "pairwise", "truncate")
 
 
@@ -330,6 +336,14 @@ def chain_ref(Minv, w, x):
         quad = fmaf_ref(x[:, :, i], t, quad)
         est = fmaf_ref(x[:, :, i], w[:, i, None].expand(n, m), est)
     return quad, est
+
+
+def item_pieces(x):
+    """The filter's split of f32 rows (f32 values of bf16 pieces): ahi =
+    bf16(x), alo = bf16(x - ahi); x - ahi is exact in f32, and ahi + alo
+    is exact in f32, within 2^-16 |x| of x featurewise."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
 
 
 def minv_pieces(Minv):
@@ -404,18 +418,26 @@ def filter_ref(w, Minv, occ, items, alpha, *, scales=None,
                order="forward"):
     """The filter kernels' per-pair values for every user and item:
     ``q`` (q~), ``e`` (e~), ``E``, ``E_est`` and ``ub`` [n, N], with the
-    product's sums taken in ``order``.  ``items`` bf16, or int8 codes
-    with ``scales``; d <= 32.  The bounds are those of csrc/topk_tc.cu's
-    header (csrc/topk_tc.cu), computed in f64 and rounded up: never
-    larger than the
-    kernel's, which rounds up at every step."""
+    product's sums taken in ``order``.  ``items`` bf16, int8 codes with
+    ``scales``, or f32 with a bf16 ``Minv`` (the rows split into two bf16
+    pieces, both multiplied, the epilogue on their sum); d <= 32.  The
+    bounds are those of csrc/topk_tc.cu's header, computed in f64 and
+    rounded up: never larger than the kernel's, which rounds up at every
+    step."""
     check_items(items, scales)
     n, d = w.shape
     N = items.shape[0]
-    if d > 32 or items.dtype not in (torch.bfloat16, torch.int8):
-        raise ValueError("the filter takes bf16 or int8 items at d <= 32")
-    a = torch.zeros(N, 32)
-    a[:, :d] = items.float()                         # codes or bf16 values
+    f32 = items.dtype == torch.float32
+    if d > 32 or (f32 and Minv.dtype != torch.bfloat16):
+        raise ValueError("the filter takes bf16 or int8 items, or f32 items "
+                         "with a bf16 Minv, at d <= 32")
+    x = torch.zeros(N, 32)
+    x[:, :d] = items.float()                 # codes, bf16 or f32 values
+    if f32:                                  # the A side's two pieces
+        ahi, alo = item_pieces(x)
+        a = ahi + alo                        # exact in f32
+    else:
+        a = x
     s = scales.float() if scales is not None else torch.ones(N)
     hi, lo = minv_pieces(Minv)
     hi = torch.nn.functional.pad(hi, (0, 32 - d, 0, 32 - d))
@@ -430,10 +452,15 @@ def filter_ref(w, Minv, occ, items, alpha, *, scales=None,
     q = torch.empty(n, N)
     e = torch.empty(n, N)
     for u in range(n):
-        # terms [N, i, j]: the hi piece's K = 32, then lo's
-        th = a[:, None, :] * hi[u][None]
-        terms = torch.cat([th, a[:, None, :] * lo[u][None]], -1) \
-            if two[u] else th
+        # terms [N, i, j]: the hi piece's K = 32, then lo's (f32 items:
+        # the items' pieces against Minv's one)
+        if f32:
+            terms = torch.cat([ahi[:, None, :] * hi[u][None],
+                               alo[:, None, :] * hi[u][None]], -1)
+        else:
+            th = a[:, None, :] * hi[u][None]
+            terms = torch.cat([th, a[:, None, :] * lo[u][None]], -1) \
+                if two[u] else th
         T = tc_sum(terms, order)                     # [N, 32]
         q[u] = _lane_dot(a, T)
         if est_tc:
@@ -445,15 +472,18 @@ def filter_ref(w, Minv, occ, items, alpha, *, scales=None,
     if scales is not None:
         q = (s * s)[None] * q
         e = s[None] * e
-    # the bounds' factors, rounded up
-    n2 = _up((_f64(a) ** 2).sum(1))
+    # the bounds' factors, rounded up (f32 items: of x itself)
+    n2 = _up((_f64(x) ** 2).sum(1))
     en = _up(torch.sqrt(_f64(n2)))
     en2 = n2
     if scales is not None:
         sa = _f64(s.abs())
         en2 = _up(sa * sa * _f64(n2))
         en = _up(sa * _f64(en))
-    sub = ((a != 0) & (a.abs() < 2.0 ** -126)).any(1)
+    # a subnormal feature; f32 items: one below 2^-102, whose x - ahi may
+    # be nonzero below 2^-126, where the residual is not relative
+    tiny = 2.0 ** -102 if f32 else 2.0 ** -126
+    sub = ((x != 0) & (x.abs() < tiny)).any(1)
     en2 = torch.where((en2 < HUGE) & ~sub, en2, en2.new_full((), float(
         "inf")))
     M = Minv.float()
@@ -462,7 +492,7 @@ def filter_ref(w, Minv, occ, items, alpha, *, scales=None,
     inf = float("inf")
     cM = torch.where(F < HUGE, _up(Q_REL * _f64(F) + ABS), F.new_full(
         (), inf))
-    cW = torch.where(W < HUGE, _up((E_REL_TC if est_tc else E_REL)
+    cW = torch.where(W < HUGE, _up((E_REL_TC if est_tc or f32 else E_REL)
                                    * _f64(W) + ABS), W.new_full((), inf))
     E = _up(_f64(cM)[:, None] * _f64(en2)[None] + ABS)
     E_est = _up(_f64(cW)[:, None] * _f64(en)[None] + ABS)
@@ -512,9 +542,11 @@ def filter_stream_ref(w, Minv, occ, items, live, alpha, k_short, *,
 
 
 def quantize_rows(x, kind):
-    """f32 rows as a bank of ``kind`` ("bf16" or "int8"): (items,
+    """f32 rows as a bank of ``kind`` ("f32", "bf16" or "int8"): (items,
     scales or None); int8 codes are round(x / s) with s = max |x_j| /
     127 a row (1 for a zero row)."""
+    if kind == "f32":
+        return x.clone(), None
     if kind == "bf16":
         return x.bfloat16(), None
     s = x.abs().amax(1) / 127
@@ -527,12 +559,16 @@ def stress_case(seed, n, d, N, k_short, kind, *,
                 minv_dtype=torch.float32):
     """A catalog built so that many pairs sit at a user's floor, for the
     filter's tests and chip_smoke.py's checks (CPU tensors, from
-    ``seed``): users with near-singular Minv from hundreds of rank-1
-    updates along a few directions beside fresh ones; unit rows, rows of
-    tiny norm, rows scaled 8x along a fresh direction (the bonus
-    dominates), zero rows, dead rows; user 0's k-th item copied many
-    times, and its best item copied with one feature (bf16) or the scale
-    (int8) one ulp apart.  Returns (w, Minv, occ, items, live, scales)."""
+    ``seed``; ``kind`` "f32", "bf16" or "int8"): users with near-singular
+    Minv from hundreds of rank-1 updates along a few directions beside
+    fresh ones; unit rows, rows of tiny norm, rows scaled 8x along a
+    fresh direction (the bonus dominates), zero rows, dead rows; user 0's
+    k-th item copied many times, and its best item copied with one
+    feature (bf16, f32) or the scale (int8) one ulp apart.  f32 rows also
+    stress the items' split: rows whose lo piece is zero (bf16 values),
+    an ulp of x (a bf16 value one ulp up), subnormal or zero where x -
+    ahi is not (features near 2^-120), rows with f32-subnormal features,
+    and rows scaled 2^10.  Returns (w, Minv, occ, items, live, scales)."""
     g = torch.Generator().manual_seed(seed)
     dirs = torch.randn(3, d, generator=g, dtype=torch.float64)
     Ms = []
@@ -556,6 +592,13 @@ def stress_case(seed, n, d, N, k_short, kind, *,
     fresh = torch.randn(d, generator=g)
     x[kinds == 1] = 8 * fresh / fresh.norm()                # bonus rows
     x[kinds == 2] = 0.0                                     # zero rows
+    if kind == "f32":
+        x[kinds == 3] = x[kinds == 3].bfloat16().float()    # lo = 0
+        lo1 = x[kinds == 4].bfloat16().float()              # lo = ulp(x)
+        x[kinds == 4] = torch.nextafter(lo1, 2 * lo1)
+        x[kinds == 5] *= 2.0 ** -118                        # lo subnormal
+        x[kinds == 6] *= 1e-39                              # x subnormal
+        x[kinds == 7] *= 2.0 ** 10                          # large rows
     live = (torch.rand(N, generator=g) > 0.2).float()
     items, scales = quantize_rows(x, kind)
     Mq = Minv.to(minv_dtype)
@@ -570,11 +613,11 @@ def stress_case(seed, n, d, N, k_short, kind, *,
         scales[dup] = scales[kth].clone()
     near = torch.randperm(N, generator=g)[:16]
     items[near] = items[best].clone()
-    if kind == "bf16":
-        bits = items[near].view(torch.int16)
-        bits[:, 0] += torch.where(torch.arange(16) % 2 == 0, 1, -1).to(
-            torch.int16)
-        items[near] = bits.view(torch.bfloat16)
+    if kind in ("f32", "bf16"):
+        ib = torch.int32 if kind == "f32" else torch.int16
+        bits = items[near].view(ib)
+        bits[:, 0] += torch.where(torch.arange(16) % 2 == 0, 1, -1).to(ib)
+        items[near] = bits.view(items.dtype)
     else:
         up = torch.nextafter(scales[best], scales.new_full((), 1e9))
         scales[near] = torch.where(torch.arange(16) % 2 == 0, up,
