@@ -17,10 +17,11 @@ Phases, in order; any failure raises and the script exits non-zero:
            ucb_block_kernel, ucb_tile_kernel, choose_tile_kernel,
            rank1_span_kernel (each width; each also for a bf16 Minv),
            cross_tc_kernel, cross_split_kernel and cc_hop_kernel (each
-           load width; any spill fails); the count of HGMMA
-           (wgmma) instructions in the flash and cross libraries' SASS
-           (``cuobjdump -sass``), neither of which may be 0, and of HMMA
-           (mma.sync) ones in each of the six top-K filter kernels.
+           load width) and choose_tc_kernel (each width; any spill
+           fails); the count of HGMMA (wgmma) instructions in the flash
+           and cross libraries' SASS (``cuobjdump -sass``), neither of
+           which may be 0, and of HMMA (mma.sync) ones in each of the six
+           top-K filter kernels and in choose_tc_kernel at each width.
 3. small   each kernel against its plain PyTorch version on ragged small
            shapes (choose's two variants and ucb's three, each forced past
            its wrapper, at 37 users (K = 7, d = 19; K = 64, d = 25 and
@@ -92,7 +93,14 @@ Phases, in order; any failure raises and the script exits non-zero:
            nothing launched); the top-K filter kernels on stress catalogs
            (``small_filter_checks``: bf16 and int8 items with Minv f32 and
            bf16, f32 items with a bf16 Minv, also at d = 1-3), each
-           bit-equal to the chain kernel, no violation.
+           bit-equal to the chain kernel, no violation; the choose filter
+           (``small_choose_filter_checks``: ``interact.ref
+           .choose_stress_case`` at n = 261 and from user 3, d = 1, 2, 25,
+           30, 31, 32, K = 1, 2, 17, 20, 64, alpha 0.3, -0.4, 0; also in
+           ``check_pick`` wherever a bf16 Minv takes it) bit-equal to the
+           bf16 register tile and to the f32 tile on the widened Minv (x
+           where the tile's own x is ctx[its pick]: a NaN score leaves
+           the tile's lanes apart, counted), no violation.
 4. main    ``repro_torch.core.distclub.run`` at the paper's full width
            (20480 users, d=25, K=20, 100 planted clusters,
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
@@ -243,9 +251,12 @@ Phases, in order; any failure raises and the script exits non-zero:
            rounds of the bf16 preset's ``InteractBackend.choose`` and
            ``update_lin`` and of ``ucb_scores`` at n = 20480, d = 25, K =
            20 on phase 4's environment, the kernel's state carried
-           forward, counted (32 choose_bf16, ucb_bf16 and
-           rank1_update_bf16 launches, no f32 choose, ucb or
-           rank1_update); each round held, uncounted, to the f32 kernels
+           forward, counted (32 choose_bf16_tc: the route takes the
+           choose filter there; 32 ucb_bf16 and rank1_update_bf16
+           launches, no choose_bf16 and no f32 choose, ucb or
+           rank1_update), the filter's rescored pairs and violations (0)
+           printed; each round held, uncounted, to both register tiles
+           (``check_choose_filter``) and to the f32 kernels
            on the widened Minv (picks, x and scores bit for bit; Minv the
            round-to-nearest-even of the f32 update's, M and b bit-equal)
            and to the plain versions on the same inputs (``hold_choose``,
@@ -513,9 +524,13 @@ Phases, in order; any failure raises and the script exits non-zero:
            ``scaled_dot_product_attention`` as its yardstick; ucb and
            ucb_bf16 beside their warp variant and choose on the same
            inputs, rank1_update_inv and its bf16 twin (the staged span, a
-           block a group) beside the warp variant, choose_bf16 beside its
-           warp variant, 50 launches each in turns, the ucb and rank-1
-           sets also held (a spin kernel ahead of the start event keeps
+           block a group) beside the warp variant, row 1b as ``choose``
+           routes it (choose_bf16_tc, the filter, with its own bound:
+           ``filter_bound_ms``, two context pieces) beside the bf16
+           register tile (choose_bf16), the f32 tile on the widened Minv
+           and the warp variant, 50 launches each in turns, the ucb,
+           rank-1 and choose sets also held (row 1b also held after a
+           read-only flush) (a spin kernel ahead of the start event keeps
            the host's dispatch out of the timed window); rank1_update_inv
            and its bf16 twin at serving's 256 users (a block per user),
            held, 200 launches;
@@ -607,6 +622,10 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     # the bf16-Minv variants (phase 4p, bf16 Minv)
     "choose_bf16": ("src/repro_torch/csrc/choose.cu",
                     "src/repro/kernels/interact/interact.py:80"),
+    # on a bf16 Minv at d <= 32, K <= 64: the tensor-core filter (the
+    # register tile, choose_bf16, beside it in phase 6)
+    "choose_bf16_tc": ("src/repro_torch/csrc/choose_tc.cu",
+                       "src/repro/kernels/interact/interact.py:80"),
     "ucb_bf16": ("src/repro_torch/csrc/ucb.cu",
                  "src/repro/kernels/ucb/ucb.py:59"),
     "rank1_update_bf16": ("src/repro_torch/csrc/rank1.cu",
@@ -622,7 +641,8 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
 BANK_SFX = {"f32": "_tc", "bf16": "_bf16_tc", "int8": "_int8_tc"}
 MINV_TOPK = tuple(f"topk{p}_minv_bf16{s}" for p in ("", "_pruned")
                   for s in BANK_SFX.values())
-MINV_KERNELS = ("choose_bf16", "ucb_bf16", "rank1_update_bf16", *MINV_TOPK)
+MINV_KERNELS = ("choose_bf16", "choose_bf16_tc", "ucb_bf16",
+                "rank1_update_bf16", *MINV_TOPK)
 MINV_ROUNDS = 32             # phase 4p's lockstep engine rounds, bf16 Minv
 PRECISIONS = ("bf16", "int8")  # phase 4p's reduced-precision sessions
 # phase 4p's median batch ms, unpruned and pruned, through the chain
@@ -831,8 +851,91 @@ def check_pick(w, Minv, ctx, occ, alpha):
         assert torch.equal(first, c_t), (
             f"ucb variant {v}: argmax differs from choose's pick for "
             f"{int((first != c_t).sum())} users")
-    return {"pick_bit_equal": True, "ucb_bit_equal": True,
-            "users": int(c_t.shape[0]), "ucb_max_abs_err": float(err.max())}
+    res = {"pick_bit_equal": True, "ucb_bit_equal": True,
+           "users": int(c_t.shape[0]), "ucb_max_abs_err": float(err.max())}
+    n, K, d = ctx.shape
+    if iops.route(d, K, Minv.dtype) == iops.FILTER:
+        res["filter"] = check_choose_filter(w, Minv, ctx, occ, alpha)
+    return res
+
+
+def check_choose_filter(w, Minv, ctx, occ, alpha):
+    """The choose filter (``interact.ops.choose_tc``: a bf16 Minv, d <= 32,
+    K <= 64) against the bf16 register tile and the f32 tile on
+    ``Minv.float()``, both forced (``choose_variant``), on the same
+    inputs: the picks bit for bit; the filter's x ctx[its pick] bit for
+    bit, and the tiles' x wherever the tiles' own x is ctx[their pick].
+    Where a user's score is NaN the tile's lanes keep different picks
+    (warp_first_max) and its x mixes their rows, or reads past its
+    candidates at K = 1: those users are counted (``tile_x_faults``) and
+    must have a non-finite score.  No violation.  Returns the rescored
+    pairs and their share of all pairs."""
+    import torch
+    from repro_torch.kernels.interact import ops as iops
+    from repro_torch.kernels.topk import ops as tops
+    from repro_torch.kernels.ucb import ref as uref
+    with tops.FilterStats() as st:
+        c_f, x_f = iops.choose_tc(w, Minv, ctx, occ, alpha)
+    c_t, x_t = choose_variant(w, Minv, ctx, occ, alpha, iops.REGISTER_TILE)
+    c_w, x_w = choose_variant(w, Minv.float(), ctx, occ, alpha,
+                              iops.REGISTER_TILE)
+    assert torch.equal(c_f, c_t) and torch.equal(c_f, c_w), (
+        f"choose filter: picks differ from the tiles' for "
+        f"{int(((c_f != c_t) | (c_f != c_w)).sum())} users")
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    def row(c):
+        return torch.take_along_dim(ctx, c.long()[:, None, None],
+                                    dim=1)[:, 0]
+    assert torch.equal(bits(x_f), bits(row(c_f))), (
+        "choose filter: x is not ctx[choice]")
+    sound = ((bits(x_t) == bits(row(c_t))).all(1)
+             & (bits(x_w) == bits(row(c_w))).all(1))
+    same = ((bits(x_f) == bits(x_t)).all(1)
+            & (bits(x_f) == bits(x_w)).all(1))
+    assert bool(same[sound].all()), "choose filter: x differs from the tiles'"
+    faults = ~sound
+    if bool(faults.any()):
+        s = uref.ucb_scores_ref(w[faults], Minv[faults], ctx[faults],
+                                occ[faults], alpha)
+        assert bool((~torch.isfinite(s)).any(1).all()), (
+            "choose tile: x is not ctx[choice] for a user with finite scores")
+    assert st.violations == 0, f"choose filter: {st.violations} violations"
+    n, K, _ = ctx.shape
+    return {"bit_equal": True, "rescored": st.rescored,
+            "violations": st.violations,
+            "rescored_share": st.rescored / max(n * K, 1),
+            "tile_x_faults": int(faults.sum())}
+
+
+def small_choose_filter_checks(dev):
+    """The choose filter on ``interact.ref.choose_stress_case`` inputs
+    (learned and fresh bf16 Minv; copies of one row and rows one ulp
+    apart, tiny, zero, large and bonus-dominated rows, rows whose lo piece
+    is zero or an ulp, a feature of 2^-110, NaN and inf rows, occ 0) at n =
+    261 and on the views from user 3 (Minv 2 d^2 bytes a user in), d = 1,
+    2, 25, 30, 31 and 32, K = 1, 2, 17, 20 and 64, alpha 0.3, -0.4 and 0,
+    each by ``check_choose_filter``."""
+    from repro_torch.kernels.interact import ref as iref
+    t0 = time.perf_counter()
+    for d in (1, 2, 25, 30, 31, 32):
+        for K in (1, 2, 17, 20, 64):
+            case = iref.choose_stress_case(SEED + 100 * d + K, 261, K, d)
+            w, M, ctx, occ = (t.to(dev) for t in case)
+            res = []
+            for alpha in (0.3, -0.4, 0.0):
+                for sl in (slice(None), slice(3, None)):
+                    res.append(check_choose_filter(w[sl], M[sl], ctx[sl],
+                                                   occ[sl], alpha))
+            shares = [r["rescored_share"] for r in res]
+            log(f"small choose filter (stress, n=261 and from user 3, d={d}, "
+                f"K={K}, alpha 0.3 / -0.4 / 0): bit-equal to both tiles, "
+                f"violations 0, rescored share {min(shares):.4f}-"
+                f"{max(shares):.4f}, tile x faults (NaN scores) "
+                f"{[r['tile_x_faults'] for r in res]}")
+    log(f"small choose filter checks: {time.perf_counter() - t0} s")
 
 
 def check_duplicates(w, Minv, ids, table, occ, alpha):
@@ -2010,6 +2113,7 @@ def small_checks(dev):
     small_topk_checks(g, dev, n, d, w, Minv, occ)
     small_quant_checks(g, dev, n, d, Minv, occ)
     small_filter_checks(dev)
+    small_choose_filter_checks(dev)
     small_minv_checks(g, dev)
     small_recsys_checks(g, dev)
     small_flash_checks(g, dev)
@@ -2560,19 +2664,19 @@ SPILL_CHECKED = ("prune_kernel", "topk_kernel", "topk_pruned_kernel",
                  "topk_tc_kernel", "topk_pruned_tc_kernel", "ucb_kernel",
                  "ucb_block_kernel", "ucb_tile_kernel", "choose_tile_kernel",
                  "rank1_span_kernel", "cross_tc_kernel",
-                 "cross_split_kernel", "cc_hop_kernel")
+                 "cross_split_kernel", "cc_hop_kernel", "choose_tc_kernel")
 
 
 def spill_check() -> dict:
     """Registers and spills of the prune, top-K, ucb (and its register
-    tile), choose (register tile), the M-free update's staged span (each
-    width), cross (tensor route and W split) and cc_hop (each load width)
-    kernels, from the ptxas report of their builds; raise if any of them
-    spills."""
+    tile), choose (register tile, and the filter at every width), the
+    M-free update's staged span (each width), cross (tensor route and W
+    split) and cc_hop (each load width) kernels, from the ptxas report of
+    their builds; raise if any of them spills."""
     from repro_torch.kernels import _build
     usage = {}
     for lib in ("prune", "topk", "topk_bf16_tc", "ucb", "choose",
-                "rank1_update_inv", "cross", "cc_hop"):
+                "choose_bf16_tc", "rank1_update_inv", "cross", "cc_hop"):
         usage.update(_build.ptxas_usage(_build.build_report(lib)))
     seen = {}
     for func, (regs, st, ld) in sorted(usage.items()):
@@ -2629,6 +2733,22 @@ def sass_check() -> dict:
     # bf16, int8 and f32 items, unpruned and pruned
     assert len(counts["topk_tc"]) == 6 and all(counts["topk_tc"].values()), (
         "topk: a filter kernel without HMMA")
+    lib = _build.library_path(_build.KERNELS["choose_bf16_tc"][0])
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts["choose_tc"], func = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            func = (m.group(1) if "choose_tc_kernel" in m.group(1)
+                    else None)
+            if func:
+                counts["choose_tc"][func] = 0
+        elif func and "HMMA" in line:
+            counts["choose_tc"][func] += 1
+    log(f"sass {lib.name}: HMMA instructions of choose_tc_kernel<1 ... 32> "
+        f"{sorted(counts['choose_tc'].values())}")
+    assert len(counts["choose_tc"]) == 32 and all(
+        counts["choose_tc"].values()), "choose: a filter kernel without HMMA"
     return counts
 
 
@@ -3466,13 +3586,19 @@ def minv_engine_rounds(state, ops, hyper, step0):
     held, uncounted, to the kernels on Minv's f32 widening (picks, x,
     scores bit for bit; the update's Minv their rounding, M and b
     bit-equal) and to the plain versions on the same inputs
-    (``hold_choose``, ``hold_rank1_bf16``).  Returns the launches, the
-    errors and the last round's inputs."""
+    (``hold_choose``, ``hold_rank1_bf16``); the choose on this path is
+    the filter (``interact.ops.route``: d = 25, K = 20), also held each
+    round to both register tiles (``check_choose_filter``), its rescored
+    pairs and violations (0) summed over the counted rounds.  Returns the
+    launches, the errors, the filter's counts and the last round's
+    inputs."""
     import torch
     from repro_torch.core import linucb
     from repro_torch.core.backend import BackendConfig
     from repro_torch.core.types import LinUCBState
     from repro_torch.kernels import _build
+    from repro_torch.kernels.interact import ops as iops
+    from repro_torch.kernels.topk import ops as tops
     from repro_torch.kernels.ucb import ops as uops
     lin0 = state.lin
     lin = LinUCBState(lin0.M.clone(), lin0.Minv.bfloat16(), lin0.b.clone(),
@@ -3481,8 +3607,10 @@ def minv_engine_rounds(state, ops, hyper, step0):
     n = lin.b.shape[0]
     users = torch.arange(n, device=lin.b.device)
     errs = {k: {"max_abs_err": 0.0, "near_ties": 0, "max_ulps": 0}
-            for k in ("choose_bf16", "ucb_bf16", "rank1_update_bf16")}
+            for k in ("choose_bf16", "choose_bf16_tc", "ucb_bf16",
+                      "rank1_update_bf16")}
     secs = []
+    path = {"rescored": 0, "violations": 0, "pairs": 0, "tile_x_faults": 0}
     torch.cuda.synchronize()
     _build.reset_launches()
     for t in range(MINV_ROUNDS):
@@ -3490,13 +3618,21 @@ def minv_engine_rounds(state, ops, hyper, step0):
         t0 = time.perf_counter()
         ctx = ops.contexts_fn(SEED, step, lin.occ)
         w = linucb.user_vector(lin.Minv.float(), lin.b)
-        x, choice = be.choose(w, lin.Minv, ctx, lin.occ, hyper.alpha)
+        with tops.FilterStats() as st:
+            x, choice = be.choose(w, lin.Minv, ctx, lin.occ, hyper.alpha)
+        path["rescored"] += st.rescored
+        path["violations"] += st.violations
+        path["pairs"] += ctx.shape[0] * ctx.shape[1]
         scores = uops.ucb_scores(w, lin.Minv, ctx, lin.occ, hyper.alpha)
         r = ops.rewards_fn(SEED, step, lin.occ, ctx, choice)[0]
         mask = (users + t) % 8 != 0
         with uncounted():
             res = hold_choose(w, lin.Minv, ctx, lin.occ, hyper.alpha, choice,
                               x, scores)
+            if iops.route(ctx.shape[2], ctx.shape[1],
+                          lin.Minv.dtype) == iops.FILTER:
+                path["tile_x_faults"] += check_choose_filter(
+                    w, lin.Minv, ctx, lin.occ, hyper.alpha)["tile_x_faults"]
             before = tuple(a.clone() for a in lin[:3])
         lin = be.update_lin(lin, x, r, mask)
         torch.cuda.synchronize()
@@ -3504,20 +3640,32 @@ def minv_engine_rounds(state, ops, hyper, step0):
         with uncounted():
             upd = hold_rank1_bf16(before, lin[:3], x, r, mask)
         for k, v in (("choose_bf16", res["max_abs_err"]),
+                     ("choose_bf16_tc", res["max_abs_err"]),
                      ("ucb_bf16", res["ucb_max_abs_err"]),
                      ("rank1_update_bf16", upd["max_abs_err"])):
             errs[k]["max_abs_err"] = max(errs[k]["max_abs_err"], v)
         errs["choose_bf16"]["near_ties"] += res["near_ties"]
+        errs["choose_bf16_tc"]["near_ties"] += res["near_ties"]
         errs["rank1_update_bf16"]["max_ulps"] = max(
             errs["rank1_update_bf16"]["max_ulps"], upd["max_ulps"])
     launches = dict(_build.LAUNCHES)
     assert lin.Minv.dtype == torch.bfloat16
     for a in lin[:3]:
         assert bool(torch.isfinite(a.float()).all()), "non-finite state"
-    for k in ("choose_bf16", "ucb_bf16", "rank1_update_bf16"):
+    K, d = ctx.shape[1], ctx.shape[2]
+    on = ("choose_bf16_tc" if iops.route(d, K, torch.bfloat16) == iops.FILTER
+          else "choose_bf16")
+    for k in (on, "ucb_bf16", "rank1_update_bf16"):
         assert launches[k] == MINV_ROUNDS, launches
-    for k in ("choose", "ucb", "rank1_update"):
+    for k in ("choose", "ucb", "rank1_update",
+              ({"choose_bf16", "choose_bf16_tc"} - {on}).pop()):
         assert launches[k] == 0, launches
+    assert path["violations"] == 0, f"choose filter: {path} on the path"
+    errs["choose_bf16_tc"].update(
+        rescored=path["rescored"], violations=path["violations"],
+        rescored_share=path["rescored"] / max(path["pairs"], 1))
+    log(f"precision bf16 Minv engines: choose through {on}; the filter on "
+        f"the path {path}")
     return {"launches": launches, "errs": errs, "secs": secs,
             "inputs": (w, lin, ctx, x, r, mask)}
 
@@ -8389,12 +8537,18 @@ def main() -> int:
     Mb_p = (M.clone(), Minv_bf.clone(), b.clone())
     Mb_f = (M.clone(), Minv_bf.float(), b.clone())
     Minv_wide = Minv_bf.float()
+    cb_bytes = 4 * (n * K * d + 2 * n * d + 2 * n) + 2 * n * d * d
     work.update({
+        # the register tile, forced: the route takes the filter here
         "choose_bf16": (
-            lambda: iops.choose(w, Minv_bf, ctx, occ, hyper.alpha),
+            lambda: choose_variant(w, Minv_bf, ctx, occ, hyper.alpha,
+                                   iops.REGISTER_TILE),
             lambda: iref.choose_ref(w, Minv_bf, ctx, occ, hyper.alpha),
-            4 * (n * K * d + 2 * n * d + 2 * n) + 2 * n * d * d,
-            n * K * (4 * d + 2 * d * d + 6)),
+            cb_bytes, n * K * (4 * d + 2 * d * d + 6)),
+        "choose_bf16_tc": (
+            lambda: iops.choose_tc(w, Minv_bf, ctx, occ, hyper.alpha),
+            lambda: iref.choose_ref(w, Minv_bf, ctx, occ, hyper.alpha),
+            cb_bytes, n * K * (4 * d + 2 * d * d + 6)),
         "ucb_bf16": (
             lambda: uops.ucb_scores(w, Minv_bf, ctx, occ, hyper.alpha),
             lambda: uref.ucb_scores_ref(w, Minv_bf, ctx, occ, hyper.alpha),
@@ -8406,9 +8560,25 @@ def main() -> int:
             live * (12 * d * d + 4 * (3 * d + 1)) + n,
             live * (7 * d * d + 4 * d + 2)),
     })
+    # the filter's own bound: its product (the contexts' two pieces
+    # against the one piece of Minv, d (d + 1) multiply-adds a row and
+    # piece) at the bf16 rate and the chains this input rescores
+    with tops.FilterStats() as fst:
+        iops.choose_tc(w, Minv_bf, ctx, occ, hyper.alpha)
+    filter_bounds["choose_bf16_tc"] = filter_bound_ms(
+        Minv_bf, K, d, cb_bytes, fst.rescored, item_pieces=2)
+    errs["choose_bf16_tc"].update(rescored=fst.rescored,
+                                  violations=fst.violations,
+                                  rescored_share=fst.rescored / (n * K))
+    assert fst.violations == 0, "choose filter: violations in phase 6"
+    chain["choose_bf16_tc"] = work["choose_bf16"][0]
     minv_f32 = {
-        "choose_bf16": lambda: iops.choose(w, Minv_wide, ctx, occ,
-                                           hyper.alpha),
+        "choose_bf16": lambda: choose_variant(w, Minv_wide, ctx, occ,
+                                              hyper.alpha,
+                                              iops.REGISTER_TILE),
+        "choose_bf16_tc": lambda: choose_variant(w, Minv_wide, ctx, occ,
+                                                 hyper.alpha,
+                                                 iops.REGISTER_TILE),
         "ucb_bf16": lambda: uops.ucb_scores(w, Minv_wide, ctx, occ,
                                             hyper.alpha),
         "rank1_update_bf16": lambda: rops.rank1_update(*Mb_f, x, r, mask)}
@@ -8718,15 +8888,37 @@ def main() -> int:
         by_name["choose"].update(extra)
         log(f"time choose beside its warp variant, {2 * REPS} launches "
             f"each in turns, {tuple(cargs[2].shape)}: {extra}")
-    # choose_bf16 beside its warp variant likewise, at the offline shape
-    t = turn_ms({
-        "ms": lambda: iops.choose(w, Minv_bf, ctx, occ, hyper.alpha),
+    # row 1b at the offline shape, as ``choose`` routes it (the filter),
+    # beside the bf16 register tile, the f32 tile on the widened Minv and
+    # the warp variant, in turns and held
+    fns = {
+        "filter_ms": lambda: iops.choose(w, Minv_bf, ctx, occ, hyper.alpha),
+        "tile_ms": work["choose_bf16"][0],
+        "f32_ms": minv_f32["choose_bf16"],
         "warp_ms": lambda: choose_variant(w, Minv_bf, ctx, occ, hyper.alpha,
-                                          iops.WARP_PER_USER)},
-        flush, reps=2 * REPS)
-    by_name["choose_bf16"].update({f"{key}_turns": v for key, v in t.items()})
-    log(f"time choose_bf16 beside its warp variant, {2 * REPS} launches "
-        f"each in turns: {t}")
+                                          iops.WARP_PER_USER)}
+    t = turn_ms(fns, flush, reps=2 * REPS)
+    th = turn_ms(fns, flush, reps=2 * REPS, hold=True)
+    # and held after a flush that leaves L2 clean: the zero_ flush's 50 MB
+    # of dirty lines are written back while the kernel reads
+    tr = turn_ms(fns, read_flush(flush), reps=2 * REPS, hold=True)
+    routed = ("choose_bf16_tc" if iops.route(d, K, torch.bfloat16)
+              == iops.FILTER else "choose_bf16")
+    for kname in ("choose_bf16", "choose_bf16_tc"):
+        by_name[kname].update({f"row1b_{key}_turns": v
+                               for key, v in t.items()},
+                              **{f"row1b_{key}_held_turns": v
+                                 for key, v in th.items()},
+                              **{f"row1b_{key}_read_flush_held_turns": v
+                                 for key, v in tr.items()},
+                              routed=kname == routed)
+    log(f"time choose on the bf16 Minv (routed: {routed}) beside the bf16 "
+        f"register tile, the f32 tile on the widened Minv and the warp "
+        f"variant, {2 * REPS} launches each in turns: {t}; held: {th}; "
+        f"held after a read-only flush: {tr}; filter / tile "
+        f"{t['filter_ms'] / t['tile_ms']}, held "
+        f"{th['filter_ms'] / th['tile_ms']}, read-only flush "
+        f"{tr['filter_ms'] / tr['tile_ms']}")
     # the redesigned rows beside the variants they replace, in turns, at
     # n=20480 on phase 5's inputs (Minv f32, and cast to bf16): ucb's
     # register tile beside its warp per user and beside choose (the same
@@ -8740,8 +8932,8 @@ def main() -> int:
             "warp_ms": lambda M_=M_: ucb_variant(w, M_, ctx, occ,
                                                  hyper.alpha,
                                                  uops.WARP_PER_USER),
-            "choose_ms": lambda M_=M_: iops.choose(w, M_, ctx, occ,
-                                                   hyper.alpha)}
+            "choose_ms": lambda M_=M_: choose_variant(
+                w, M_, ctx, occ, hyper.alpha, iops.REGISTER_TILE)}
         t = turn_ms(fns, flush, reps=2 * REPS)
         th = turn_ms(fns, flush, reps=2 * REPS, hold=True)
         by_name[kname].update({f"{key}_turns": v for key, v in t.items()},

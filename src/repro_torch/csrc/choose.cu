@@ -53,7 +53,16 @@
 // tile stages the bf16 bytes and widens as it reads (ucb_tile.cuh).  Its
 // Minv region is half as large (tile_bytes), so geometry's users a block
 // may grow.  The bound falls with Minv's bytes: at n=20480, d=25, K=20,
-// ~71 MB, ~21 us.
+// ~71 MB, ~21 us.  kernels/interact/ops.py route sends a bf16 Minv at d
+// <= 32 and K <= 64 to csrc/choose_tc.cu's tensor-core filter, which
+// picks what the register tile picks; these variants serve a bf16 Minv
+// elsewhere and stand beside the filter as its yardstick.
+//
+// Both variants' reductions leave the lanes apart where a score is NaN
+// (NaN compares false both ways in warp_first_max), and each lane copies
+// x from its own pick: x then mixes candidates' rows, or, at K = 1, is
+// read past the user's candidates; choice (lane 0's) is the pick.
+// choose_tc.cu copies x through lane 0's pick (ROADMAP.md, queue 3).
 
 #include <cuda_runtime.h>
 #include <climits>

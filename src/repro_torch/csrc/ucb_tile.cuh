@@ -32,7 +32,10 @@
 // 2-byte copies for the at most 7 elements at each end; the FMA loop
 // widens each element as it reads it from shared memory (widen.cuh), in
 // the same order, so the scores are the f32 tile's on the widened Minv.
-// Its Minv region is half as large (tile_bytes).
+// Its Minv region is half as large (tile_bytes).  choose on a bf16 Minv
+// at d <= 32 and K <= 64 takes csrc/choose_tc.cu's tensor-core filter
+// instead (kernels/interact/ops.py route); ucb's scores and every other
+// choose stay on this tile.
 #pragma once
 
 #include <math.h>

@@ -43,6 +43,10 @@ KERNELS = {
                [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
     "choose_bf16": ("choose.cu", "choose_bf16_launch",
                     [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P]),
+    # the tensor-core filter on a bf16 Minv (d <= 32, K <= 64): the grid
+    # before the outputs, fstats after them
+    "choose_bf16_tc": ("choose_tc.cu", "choose_bf16_tc_launch",
+                       [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P]),
     "rank1_update_inv": ("rank1.cu", "rank1_update_inv_launch",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "rank1_update_inv_bf16": ("rank1.cu", "rank1_update_inv_bf16_launch",
