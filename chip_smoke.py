@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py            # the whole check, one card
-    python3 chip_smoke.py --parent DIR   # choose built by _build from
-                                         # DIR's csrc beside this
-                                         # checkout's, in turns
+    python3 chip_smoke.py --parent DIR   # choose and top-K built by
+                                         # _build from DIR's csrc beside
+                                         # this checkout's, in turns
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -93,14 +93,26 @@ Phases, in order; any failure raises and the script exits non-zero:
            nothing launched); the top-K filter kernels on stress catalogs
            (``small_filter_checks``: bf16 and int8 items with Minv f32 and
            bf16, f32 items with a bf16 Minv, also at d = 1-3), each
-           bit-equal to the chain kernel, no violation; the choose filter
-           (``small_choose_filter_checks``: ``interact.ref
-           .choose_stress_case`` at n = 261 and from user 3, d = 1, 2, 25,
-           30, 31, 32, K = 1, 2, 17, 20, 64, alpha 0.3, -0.4, 0; also in
-           ``check_pick`` wherever a bf16 Minv takes it) bit-equal to the
-           bf16 register tile and to the f32 tile on the widened Minv (x
-           where the tile's own x is ctx[its pick]: a NaN score leaves
-           the tile's lanes apart, counted), no violation.
+           bit-equal to the chain kernel, no violation; every top-K
+           kernel on non-finite scores (``small_nonfinite_topk_checks``:
+           ``ref.stress_case(nonfinite=...)``, NaN-Minv users, rows of
+           2^70 scoring +inf, -inf or NaN, a NaN on a dead slot, live NaN
+           and inf rows; f32, bf16 and int8 items on an f32 and a bf16
+           Minv, d = 25 and 40, pruned and unpruned, alpha 0.3 and -0.4)
+           bit-equal to its chain kernel and held to the plain version
+           (``hold_topk_plain``: the same users (NaN, INT_MAX), +inf
+           entries exact), the pruned ones on ``sound_bounds``; the choose
+           filter (``small_choose_filter_checks``: ``interact.ref
+           .choose_stress_case`` and its ``nonfinite`` users at n = 261
+           and from user 3, d = 1, 2, 25, 30, 31, 32, K = 1, 2, 17, 20,
+           64, alpha 0.3, -0.4, 0; also in ``check_pick`` wherever a bf16
+           Minv takes it) bit-equal to the bf16 register tile and warp
+           variant and to the f32 ones on the widened Minv, every x
+           ctx[its pick] (``tile_x_faults`` 0), the pick the plain
+           argmax's (``hold_plain_pick``: exact where a score is NaN or
+           +inf), no violation; ucb's three variants on non-finite
+           scores and its argmax at n = 1 held to the plain argmax
+           (``check_ucb_nonfinite``).
 4. main    ``repro_torch.core.distclub.run`` at the paper's full width
            (20480 users, d=25, K=20, 100 planted clusters,
            ``distclub_paper.CONFIG``) for 2 epochs, with the kernel launch
@@ -255,8 +267,9 @@ Phases, in order; any failure raises and the script exits non-zero:
            choose filter there; 32 ucb_bf16 and rank1_update_bf16
            launches, no choose_bf16 and no f32 choose, ucb or
            rank1_update), the filter's rescored pairs and violations (0)
-           printed; each round held, uncounted, to both register tiles
-           (``check_choose_filter``) and to the f32 kernels
+           printed; each round held, uncounted, to the tiles and warp
+           variants and the plain argmax (``check_choose_filter``) and to
+           the f32 kernels
            on the widened Minv (picks, x and scores bit for bit; Minv the
            round-to-nearest-even of the f32 update's, M and b bit-equal)
            and to the plain versions on the same inputs (``hold_choose``,
@@ -506,19 +519,20 @@ Phases, in order; any failure raises and the script exits non-zero:
            launches each, in turns (both also beside their warp-per-user
            variant on the same row); topk_pruned, its launch alone (the
            wrapper's walk plan done once) and topk over 50 launches each
-           in turns; embedding_bag and
+           in turns, held; embedding_bag and
            F.embedding_bag at 512 bags likewise; the launch floor, a
            one-element in-place op's median over 200 launches, beside the
            n = 1 and 512-bag times; each reduced-precision variant
-           beside its f32 kernel, 50 launches each in turns, on the bf16
-           session's batch (the filter kernels also beside the chain
+           beside its f32 kernel, 50 launches each in turns, held, on the
+           bf16 session's batch (the filter kernels also beside the chain
            kernels they replace, and held to their own bound: the
            product's d (d + 1) multiply-adds a row and piece at 989
            TFLOP/s plus the rescored chains at 67, or the bytes; the
            chain kernel's operations bound beside it); each bf16-Minv variant (choose, ucb and the
            M-ful update on phase 5's inputs with Minv in bf16, the top-K
            six on phase 4p's bf16-Minv serving batch) beside its f32
-           kernel on the widened Minv, 50 launches each in turns; flash at phase 4l's prefill and decode
+           kernel on the widened Minv, 50 launches each in turns, held;
+           flash at phase 4l's prefill and decode
            shapes and at phase 4m's (deepseek's prefill and decode,
            llama4's prefill: ``moe_*_launches`` in its row), with
            ``scaled_dot_product_attention`` as its yardstick; ucb and
@@ -577,6 +591,7 @@ TF32_FLOPS_PER_S = 494.7e12  # H100 SXM data sheet, TF32 dense tensor cores
 EPOCHS = 2
 SEED = 0
 REPS = 25
+INT_MAX = 2**31 - 1          # the ids of a top-K list with a NaN score
 TURN_REPS = 200              # launches of each, in turns: n = 1 kernels
                              # and 512 bags against their yardsticks
 
@@ -859,83 +874,181 @@ def check_pick(w, Minv, ctx, occ, alpha):
     return res
 
 
+def score_terms(w, Minv, ctx, occ, alpha):
+    """[n, K] |est| + |bonus| of each candidate's score (plain products):
+    the scale of its rounding error, where est and a negative bonus
+    cancel."""
+    import torch
+    c = ctx.float()
+    est = (c * w[:, None]).sum(-1)
+    quad = torch.einsum("nkd,nde,nke->nk", c, Minv.float(), c)
+    ex = torch.sqrt(torch.log1p(occ.float()))[:, None]
+    return est.abs() + abs(alpha) * torch.sqrt(quad.clamp_min(0.0)) * ex
+
+
+def hold_plain_pick(choice, w, Minv, ctx, occ, alpha):
+    """A kernel's pick against ``torch.argmax`` of ``ucb_scores_ref`` on
+    the same inputs (``repro``'s ``jnp.argmax``: the first NaN, else the
+    first maximum): equal on every user with a NaN or +inf score, where
+    no rounding can move it; elsewhere equal but for near ties (the plain
+    scores of the two picks within 1e-5 (1 + their terms' scale,
+    ``score_terms``): the kernels fuse each multiply-add, the plain
+    version rounds twice).  Returns (users with a NaN or +inf score,
+    picks that differ at a near tie)."""
+    import torch
+    from repro_torch.kernels.ucb import ref as uref
+    s = uref.ucb_scores_ref(w, Minv, ctx, occ, alpha)
+    p = torch.argmax(s, dim=1)
+    c = choice.long()
+    exact = torch.isnan(s).any(1) | (s == math.inf).any(1)
+    same = c == p
+    assert bool(same[exact].all()), (
+        f"choose: {int((~same[exact]).sum())} picks differ from the plain "
+        "argmax on users with a NaN or +inf score")
+    sp = s.gather(1, p[:, None])[:, 0]
+    sc = s.gather(1, c[:, None])[:, 0]
+    terms = score_terms(w, Minv, ctx, occ, alpha)
+    scale = torch.maximum(terms.gather(1, p[:, None])[:, 0],
+                          terms.gather(1, c[:, None])[:, 0])
+    near = (torch.isfinite(sp) & torch.isfinite(sc)
+            & ((sp - sc).abs() <= 1e-5 * (1 + scale)))
+    assert bool((same | near).all()), (
+        f"choose: {int((~(same | near)).sum())} picks differ from the plain "
+        "argmax beyond a near tie")
+    return int(exact.sum()), int((~same).sum())
+
+
 def check_choose_filter(w, Minv, ctx, occ, alpha):
     """The choose filter (``interact.ops.choose_tc``: a bf16 Minv, d <= 32,
-    K <= 64) against the bf16 register tile and the f32 tile on
-    ``Minv.float()``, both forced (``choose_variant``), on the same
-    inputs: the picks bit for bit; the filter's x ctx[its pick] bit for
-    bit, and the tiles' x wherever the tiles' own x is ctx[their pick].
-    Where a user's score is NaN the tile's lanes keep different picks
-    (warp_first_max) and its x mixes their rows, or reads past its
-    candidates at K = 1: those users are counted (``tile_x_faults``) and
-    must have a non-finite score.  No violation.  Returns the rescored
-    pairs and their share of all pairs."""
+    K <= 64) against the bf16 register tile and warp variant and the f32
+    tile and warp variant on ``Minv.float()``, each forced
+    (``choose_variant``), on the same inputs: the picks bit for bit, and
+    each x ctx[its pick] bit for bit (``tile_x_faults``, the users where
+    one is not: 0, asserted); the pick against the plain argmax
+    (``hold_plain_pick``: exact on users with a NaN or +inf score).  No
+    violation.  Returns the rescored pairs and their share of all pairs,
+    and the plain pick's counts."""
     import torch
     from repro_torch.kernels.interact import ops as iops
     from repro_torch.kernels.topk import ops as tops
-    from repro_torch.kernels.ucb import ref as uref
     with tops.FilterStats() as st:
         c_f, x_f = iops.choose_tc(w, Minv, ctx, occ, alpha)
-    c_t, x_t = choose_variant(w, Minv, ctx, occ, alpha, iops.REGISTER_TILE)
-    c_w, x_w = choose_variant(w, Minv.float(), ctx, occ, alpha,
-                              iops.REGISTER_TILE)
-    assert torch.equal(c_f, c_t) and torch.equal(c_f, c_w), (
-        f"choose filter: picks differ from the tiles' for "
-        f"{int(((c_f != c_t) | (c_f != c_w)).sum())} users")
+    Mf = Minv.float()
+    outs = {"filter": (c_f, x_f)}
+    for label, M_ in (("", Minv), ("_f32", Mf)):
+        for vname, v in (("tile", iops.REGISTER_TILE),
+                         ("warp", iops.WARP_PER_USER)):
+            outs[vname + label] = choose_variant(w, M_, ctx, occ, alpha, v)
+    for label, (c, _) in outs.items():
+        assert torch.equal(c, c_f), (
+            f"choose filter: {label}'s picks differ for "
+            f"{int((c != c_f).sum())} users")
 
     def bits(t):
         return t.view(torch.int32)
 
-    def row(c):
-        return torch.take_along_dim(ctx, c.long()[:, None, None],
-                                    dim=1)[:, 0]
-    assert torch.equal(bits(x_f), bits(row(c_f))), (
-        "choose filter: x is not ctx[choice]")
-    sound = ((bits(x_t) == bits(row(c_t))).all(1)
-             & (bits(x_w) == bits(row(c_w))).all(1))
-    same = ((bits(x_f) == bits(x_t)).all(1)
-            & (bits(x_f) == bits(x_w)).all(1))
-    assert bool(same[sound].all()), "choose filter: x differs from the tiles'"
-    faults = ~sound
-    if bool(faults.any()):
-        s = uref.ucb_scores_ref(w[faults], Minv[faults], ctx[faults],
-                                occ[faults], alpha)
-        assert bool((~torch.isfinite(s)).any(1).all()), (
-            "choose tile: x is not ctx[choice] for a user with finite scores")
+    row = bits(torch.take_along_dim(ctx, c_f.long()[:, None, None],
+                                    dim=1)[:, 0])
+    faults = torch.zeros_like(c_f, dtype=torch.bool)
+    for c, x in outs.values():
+        faults |= (bits(x) != row).any(1)
+    assert not bool(faults.any()), (
+        f"choose: x is not ctx[choice] for {int(faults.sum())} users")
+    exact, near = hold_plain_pick(c_f, w, Minv, ctx, occ, alpha)
     assert st.violations == 0, f"choose filter: {st.violations} violations"
     n, K, _ = ctx.shape
     return {"bit_equal": True, "rescored": st.rescored,
             "violations": st.violations,
             "rescored_share": st.rescored / max(n * K, 1),
-            "tile_x_faults": int(faults.sum())}
+            "tile_x_faults": int(faults.sum()), "plain_exact_users": exact,
+            "plain_near_ties": near}
 
 
 def small_choose_filter_checks(dev):
     """The choose filter on ``interact.ref.choose_stress_case`` inputs
     (learned and fresh bf16 Minv; copies of one row and rows one ulp
     apart, tiny, zero, large and bonus-dominated rows, rows whose lo piece
-    is zero or an ulp, a feature of 2^-110, NaN and inf rows, occ 0) at n =
-    261 and on the views from user 3 (Minv 2 d^2 bytes a user in), d = 1,
-    2, 25, 30, 31 and 32, K = 1, 2, 17, 20 and 64, alpha 0.3, -0.4 and 0,
-    each by ``check_choose_filter``."""
+    is zero or an ulp, a feature of 2^-110, NaN and inf rows, occ 0), and
+    on its ``nonfinite`` users (NaN in Minv or w, rows of 2^70 whose
+    scores are +inf, -inf or NaN, all of a user's rows so), at n = 261 and
+    on the views from user 3 (Minv 2 d^2 bytes a user in), d = 1, 2, 25,
+    30, 31 and 32, K = 1, 2, 17, 20 and 64, alpha 0.3, -0.4 and 0, each
+    by ``check_choose_filter``: bit-equal to the four tile and warp
+    kernels, x ctx[choice] everywhere, the plain argmax's pick."""
     from repro_torch.kernels.interact import ref as iref
     t0 = time.perf_counter()
     for d in (1, 2, 25, 30, 31, 32):
         for K in (1, 2, 17, 20, 64):
-            case = iref.choose_stress_case(SEED + 100 * d + K, 261, K, d)
-            w, M, ctx, occ = (t.to(dev) for t in case)
-            res = []
-            for alpha in (0.3, -0.4, 0.0):
-                for sl in (slice(None), slice(3, None)):
-                    res.append(check_choose_filter(w[sl], M[sl], ctx[sl],
-                                                   occ[sl], alpha))
-            shares = [r["rescored_share"] for r in res]
-            log(f"small choose filter (stress, n=261 and from user 3, d={d}, "
-                f"K={K}, alpha 0.3 / -0.4 / 0): bit-equal to both tiles, "
-                f"violations 0, rescored share {min(shares):.4f}-"
-                f"{max(shares):.4f}, tile x faults (NaN scores) "
-                f"{[r['tile_x_faults'] for r in res]}")
+            for nonfinite in (False, True):
+                case = iref.choose_stress_case(SEED + 100 * d + K, 261, K, d,
+                                               nonfinite=nonfinite)
+                w, M, ctx, occ = (t.to(dev) for t in case)
+                res = []
+                for alpha in (0.3, -0.4, 0.0):
+                    for sl in (slice(None), slice(3, None)):
+                        res.append(check_choose_filter(
+                            w[sl], M[sl], ctx[sl], occ[sl], alpha))
+                shares = [r["rescored_share"] for r in res]
+                tag = ", non-finite users" if nonfinite else ""
+                log(f"small choose filter (stress{tag}, "
+                    f"n=261 and from user 3, d={d}, K={K}, alpha 0.3 / -0.4 "
+                    f"/ 0): bit-equal to the tiles and warp variants, x "
+                    f"ctx[choice], violations 0, rescored share "
+                    f"{min(shares):.4f}-{max(shares):.4f}, tile x faults "
+                    f"{[r['tile_x_faults'] for r in res]}, users held "
+                    f"exactly to the plain argmax (NaN or +inf) "
+                    f"{[r['plain_exact_users'] for r in res]}, near ties "
+                    f"{[r['plain_near_ties'] for r in res]}")
     log(f"small choose filter checks: {time.perf_counter() - t0} s")
+
+
+def check_ucb_nonfinite(dev):
+    """ucb on non-finite scores (``choose_stress_case(nonfinite=True)``
+    at n = 261, d = 25, K = 20, f32 and bf16 Minv, alpha 0.3, -0.4 and
+    0): its three variants forced on the whole state, NaN where one
+    another's scores are NaN and bit-equal elsewhere, NaN exactly where
+    ``ucb_scores_ref`` is, and their argmax choose's pick; then CLUB's
+    n = 1 (a block per user) on the row of every user with a non-finite
+    score and of every eighth other: argmax held to the plain argmax
+    (``hold_plain_pick``).  Returns the rows checked at n = 1."""
+    import torch
+    from repro_torch.kernels.interact import ops as iops
+    from repro_torch.kernels.interact import ref as iref
+    from repro_torch.kernels.ucb import ops as uops
+    from repro_torch.kernels.ucb import ref as uref
+    case = iref.choose_stress_case(SEED + 7, 261, 20, 25, nonfinite=True)
+    w, M32, ctx, occ = (t.to(dev) for t in case)
+    rows = 0
+    for M in (M32.float(), M32):
+        for alpha in (0.3, -0.4, 0.0):
+            plain = uref.ucb_scores_ref(w, M, ctx, occ, alpha)
+            nan = torch.isnan(plain)
+            c, _ = choose_variant(w, M, ctx, occ, alpha, iops.REGISTER_TILE)
+            for v in (uops.WARP_PER_USER, uops.BLOCK_PER_USER,
+                      uops.REGISTER_TILE):
+                s = ucb_variant(w, M, ctx, occ, alpha, v)
+                assert torch.equal(torch.isnan(s), nan), (
+                    f"ucb variant {v}: NaN where the plain version is not")
+                assert torch.equal(torch.argmax(s, dim=1).to(torch.int32),
+                                   c), f"ucb variant {v}: not choose's pick"
+                if v == uops.WARP_PER_USER:
+                    first = s
+                assert torch.equal(s[~nan].view(torch.int32),
+                                   first[~nan].view(torch.int32)), (
+                    f"ucb variant {v}: scores differ from the warp's")
+            bad = ~torch.isfinite(plain).all(1)
+            bad[::8] = True
+            for u in torch.nonzero(bad)[:, 0].tolist():
+                row = (w[u:u + 1], M[u:u + 1], ctx[u:u + 1], occ[u:u + 1])
+                s1 = uops.ucb_scores(*row, alpha)
+                assert torch.equal(torch.isnan(s1), nan[u:u + 1])
+                hold_plain_pick(torch.argmax(s1, dim=1), *row, alpha)
+                rows += 1
+    log(f"ucb on non-finite scores (n=261, d=25, K=20, f32 and bf16 Minv, "
+        f"alpha 0.3 / -0.4 / 0): the three variants NaN where the plain "
+        f"version is, bit-equal elsewhere, argmax choose's pick; {rows} "
+        f"rows at n = 1 held to the plain argmax")
+    return rows
 
 
 def check_duplicates(w, Minv, ids, table, occ, alpha):
@@ -1768,6 +1881,161 @@ def small_filter_checks(dev):
     log(f"small topk filter checks: {time.perf_counter() - t0} s")
 
 
+def lists_equal(a, b) -> bool:
+    """Two shortlists ``(scores, ids, ...)`` bit for bit, every NaN score
+    equal to every other (its payload aside)."""
+    import torch
+    (sa, ia), (sb, ib) = a[:2], b[:2]
+    nan = torch.isnan(sa)
+    return (torch.equal(ia, ib) and torch.equal(nan, torch.isnan(sb))
+            and torch.equal(sa[~nan].view(torch.int32),
+                            sb[~nan].view(torch.int32)))
+
+
+def hold_topk_plain(got, plain, w, Minv, occ, deq, live, alpha, k):
+    """A top-K kernel's shortlist against its plain version's on inputs
+    with non-finite scores: the same users poisoned (a NaN score on a live
+    item: (NaN, INT_MAX) in every slot, ``select_topk``'s fixed point), on
+    both sides; for every other user the same finite pattern, the entries
+    that are not finite (+inf, the -inf tails) equal in score and id, and
+    the finite scores at each position within 1e-5 (1 + the terms' scale,
+    ``score_terms``), ids equal but for near ties (the plain score of the
+    kernel's item within that band of the plain score there).  Returns
+    the largest error, the near ties and the poisoned users."""
+    import torch
+    from repro_torch.kernels.ucb import ref as uref
+    (s_k, i_k), (s_p, i_p) = got[:2], plain[:2]
+    bad = torch.isnan(s_p).any(1)
+    assert torch.equal(torch.isnan(s_k).any(1), bad), (
+        "topk: NaN users differ from the plain version's")
+    for s, i in ((s_k, i_k), (s_p, i_p)):
+        assert bool(torch.isnan(s[bad]).all()), "topk: a NaN row not all NaN"
+        assert bool((i[bad] == INT_MAX).all()), "topk: a NaN row's ids"
+    ok = ~bad
+    w, Minv, occ = w[ok], Minv[ok], occ[ok]
+    s_k, i_k, s_p, i_p = s_k[ok], i_k[ok], s_p[ok], i_p[ok]
+    fin = torch.isfinite(s_p)
+    assert torch.equal(fin, torch.isfinite(s_k)), "topk: finite pattern"
+    assert torch.equal(i_k[~fin], i_p[~fin]) and torch.equal(
+        s_k[~fin], s_p[~fin]), "topk: the non-finite entries differ"
+    x_p = deq[i_p.clamp_min(0).long()]
+    tol = 1e-5 * (1 + score_terms(w, Minv, x_p, occ, alpha))
+    err = torch.where(fin, (s_k - s_p).abs(), torch.zeros_like(s_p))
+    assert bool((err <= tol).all()), "topk: scores differ"
+    diff = (i_k != i_p) & fin
+    if bool(diff.any()):
+        s_of_k = uref.ucb_scores_ref(w, Minv, deq[i_k.clamp_min(0).long()],
+                                     occ, alpha)
+        assert bool(((s_of_k - s_p).abs() <= tol)[diff].all()), (
+            "topk: ids differ beyond near ties")
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "near_ties": int(diff.sum()), "nan_users": int(bad.sum())}
+
+
+def sound_bounds(tb, w, Minv, occ, deq_sorted, live_sorted, alpha,
+                 chunk=64):
+    """``tb`` with NaN where a tile holds a live pair whose score is not
+    finite: ``tile_bounds`` bounds finite scores only (a pair that
+    overflows to +inf, or is NaN through alpha inf 0, sits above any
+    finite bound), and a NaN bound is never skipped.  The scores' NaN and
+    inf pattern by batched products (their rounding moves no pattern
+    here: the stress rows overflow by 2^100)."""
+    import torch
+    n, T = tb.shape
+    N, d = deq_sorted.shape
+    out = tb.clone()
+    X = deq_sorted.float()
+    ex = torch.sqrt(torch.log1p(occ.float()))
+    for u0 in range(0, n, chunk):
+        u1 = min(n, u0 + chunk)
+        t = torch.matmul(X[None], Minv[u0:u1].float().transpose(1, 2))
+        quad = (t * X[None]).sum(-1)
+        est = (X @ w[u0:u1].T).T
+        s = est + alpha * torch.sqrt(torch.clamp_min(quad, 0.0)) * ex[
+            u0:u1, None]
+        odd = (~torch.isfinite(s) & (s != -math.inf)
+               & (live_sorted > 0)[None]).view(u1 - u0, T, N // T).any(2)
+        out[u0:u1][odd] = math.nan
+    return out
+
+
+def small_nonfinite_topk_checks(dev):
+    """Every top-K kernel on ``ref.stress_case(nonfinite=...)`` catalogs
+    (NaN in every 16th user's Minv from 3, occ 0 for every 7th, three
+    live rows of 2^70 whose scores are +inf, -inf or NaN, a NaN on a
+    dead slot; "items" also a live NaN and a live inf row, which poison
+    every user), n = 261, N = 6151 (6144 sorted in 12 tiles for the
+    pruned kernels), f32, bf16 and int8 items on an f32 and a bf16 Minv,
+    d = 25 (k 64: the filter kernels where the route takes them) and d =
+    40 (k 32: the chain kernels), alpha 0.3 and -0.4: each entry
+    bit-equal to the chain kernel (``chain=True``), no violation; held to
+    ``topk_ref`` (``hold_topk_plain``); the pruned entries, on
+    ``sound_bounds``, bit-equal to the pruned chain kernel and to the
+    unpruned kernel over the same rows, and held to ``topk_ref_pruned``
+    on the same bounds.  Returns the cases checked."""
+    import torch
+    from repro_torch.kernels.topk import ops, ref
+    t0 = time.perf_counter()
+    n, N, tile = 261, 6151, 512
+    N2 = N - N % tile
+    kinds = [("f32", torch.float32), ("f32", torch.bfloat16),
+             ("bf16", torch.float32), ("bf16", torch.bfloat16),
+             ("int8", torch.float32), ("int8", torch.bfloat16)]
+    cases = 0
+    for which in ("users", "items"):
+        for ci, (prec, minv) in enumerate(kinds):
+            for dd, kk in ((25, 64), (40, 32)):
+                case = ref.stress_case(SEED + 80 + ci, n, dd, N, kk, prec,
+                                       minv_dtype=minv, nonfinite=which)
+                w, M, occ, items, live, sc = (
+                    None if t is None else t.to(dev) for t in case)
+                deq = ref.dequantize_rows(items, sc)
+                route = ops.route(ops.item_kind(items, sc), dd, M.dtype)
+                for alpha in (0.3, -0.4):
+                    with ops.FilterStats() as st:
+                        got = ops.topk(w, M, occ, items, live, alpha, kk,
+                                       scales=sc)
+                    chain = ops.topk(w, M, occ, items, live, alpha, kk,
+                                     scales=sc, chain=True)
+                    assert lists_equal(got, chain), (
+                        f"topk {prec}/{minv}: not the chain kernel's")
+                    assert st.violations == 0, st.violations
+                    plain = ref.topk_ref(w, M, occ, items, live, alpha, kk,
+                                         scales=sc)
+                    res = hold_topk_plain(got, plain, w, M, occ, deq, live,
+                                          alpha, kk)
+                    sub = (None if sc is None else sc[:N2])
+                    lay = sorted_layout(w, M, occ, items[:N2], live[:N2],
+                                        sub, alpha, tile, SEED + ci)
+                    ids = lay[2].long()
+                    tb = sound_bounds(lay[4], w, M, occ, deq[:N2][ids],
+                                      lay[1], alpha)
+                    args = (w, M, occ, lay[0], lay[1], lay[2], alpha, kk,
+                            tb)
+                    with ops.FilterStats() as stp:
+                        gp = ops.topk_pruned(*args, scales=lay[3])
+                    cp = ops.topk_pruned(*args, scales=lay[3], chain=True)
+                    un = ops.topk(w, M, occ, items[:N2], live[:N2], alpha,
+                                  kk, scales=sub)
+                    assert lists_equal(gp, cp), "topk_pruned: not the chain's"
+                    assert lists_equal(gp, un), "topk_pruned: not unpruned"
+                    assert stp.violations == 0, stp.violations
+                    pp = ref.topk_ref_pruned(*args, scales=lay[3])
+                    resp = hold_topk_plain(gp, pp, w, M, occ, deq[:N2],
+                                           live[:N2], alpha, kk)
+                    cases += 1
+                    log(f"small topk non-finite ({which}, {prec} items, "
+                        f"Minv {str(minv)[6:]}, d={dd}, k={kk}, alpha "
+                        f"{alpha}, {route}): bit-equal to the chain kernel, "
+                        f"violations 0, plain {res}; pruned (N={N2}, tile "
+                        f"{tile}, skip {int(gp[2])} of {int(gp[3])}) "
+                        f"bit-equal to the pruned chain and the unpruned "
+                        f"kernel, plain {resp}")
+    log(f"small topk non-finite checks: {cases} cases, "
+        f"{time.perf_counter() - t0} s")
+    return cases
+
+
 def cc_hop_forced(adj, labels_self, labels_j, dense_min):
     """cc_hop's kernel with the dense threshold set by the caller (0:
     every word with a set bit takes the min over its 32 labels; 32: every
@@ -2113,7 +2381,9 @@ def small_checks(dev):
     small_topk_checks(g, dev, n, d, w, Minv, occ)
     small_quant_checks(g, dev, n, d, Minv, occ)
     small_filter_checks(dev)
+    small_nonfinite_topk_checks(dev)
     small_choose_filter_checks(dev)
+    check_ucb_nonfinite(dev)
     small_minv_checks(g, dev)
     small_recsys_checks(g, dev)
     small_flash_checks(g, dev)
@@ -7993,34 +8263,62 @@ def bound_ms(n_bytes: float, flops: float,
                                      else "operations")
 
 
-def parent_choose_turns(parent: str) -> int:
-    """``python3 chip_smoke.py --parent DIR``: choose (rows 1 and 1b)
-    built by ``_build`` from ``DIR/src/repro_torch/csrc`` (another
-    checkout, such as the parent commit unpacked by ``git archive``)
-    beside this checkout's, at the offline shape (n=20480, d=25, K=20) on
-    a random state, Minv f32 and bf16: the picks and x bit-equal, and
-    each side timed in turns (parent, change, change, parent;
-    ``TURN_REPS`` launches a side, the L2 flushed before each); the ptxas
-    registers and spills of both builds' ``choose_tile_kernel<25, *>``.
-    Runs nothing else; prints the card, one JSON line of the times, and
-    exits 0."""
+@contextlib.contextmanager
+def built_from(csrc):
+    """Every kernel launched inside loads from ``csrc``'s build (another
+    checkout's sources): ``_build.load`` pointed there, the wrappers
+    unchanged."""
+    from repro_torch.kernels import _build
+    own = _build.load
+    with mock.patch.object(_build, "load",
+                           lambda name, c=csrc: own(name, c)):
+        yield
+
+
+PARENT_TOPK = ("topk", "topk_bf16_tc", "topk_int8_tc", "topk_minv_bf16_tc")
+
+
+def parent_turns(parent: str) -> int:
+    """``python3 chip_smoke.py --parent DIR``: choose (rows 1 and 1b) and
+    the top-K kernels (rows 5-6c) built by ``_build`` from
+    ``DIR/src/repro_torch/csrc`` (another checkout, such as the parent
+    commit unpacked by ``git archive``) beside this checkout's, through
+    the same wrappers (``built_from``), on random finite inputs: choose at
+    the offline shape (n=20480, d=25, K=20), the f32 register tile, the
+    bf16 tile and the filter on a bf16 Minv; top-K at serving's (256
+    users, 2^18 items, d=25, k_short=64): f32 items (row 5, the chain
+    kernel), bf16 and int8 items (5b, the filter), f32 items on a bf16
+    Minv (5c), and each pruned over a sorted layout of 512-row tiles (6,
+    6b, 6c).  Each pair's outputs bit-equal; each side timed held in
+    turns (parent, change, change, parent; ``TURN_REPS`` launches a side,
+    the L2 flushed before each); the ptxas registers and spills of both
+    builds' choose and top-K kernels at d = 25.  Runs nothing else; prints
+    the card, one JSON line of the times, and exits 0."""
     import torch
     from repro_torch.configs import distclub_paper as paper
     from repro_torch.kernels import _build
     from repro_torch.kernels.interact import ops as iops
+    from repro_torch.kernels.topk import ops as tops
+    from repro_torch.kernels.topk import ref as tref
     log(smi_line())
     csrc = Path(parent).resolve() / "src" / "repro_torch" / "csrc"
-    _build.build_all(["choose"], csrc)
-    _build.build_all(["choose"])
+    names = ["choose", "choose_bf16_tc", "topk", "topk_bf16_tc"]
+    _build.build_all(names, csrc)
+    _build.build_all(names)
     regs = {}
-    for side, report in (("parent", _build.build_report("choose", csrc)),
-                         ("change", _build.build_report("choose"))):
-        for func, use in _build.ptxas_usage(report).items():
-            if "choose_tile_kernel" in func and "Li25E" in func:
-                key = "bf16" if "bfloat16" in func else "f32"
-                regs[f"{side}_{key}"] = use
-    log(f"ptxas choose_tile_kernel<25, *> (registers, spill stores, spill "
-        f"loads): {regs}")
+    for side, c in (("parent", csrc), ("change", _build.CSRC)):
+        for name in names:
+            for func, use in _build.ptxas_usage(
+                    _build.build_report(name, c)).items():
+                if ("Li25E" in func or "topk" in func) and "merge" not in func:
+                    # the unnamed namespace's name carries the source's hash
+                    key = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", func)
+                    regs.setdefault(side, {})[key] = use
+    differ = sorted(f for f in regs["change"]
+                    if regs["parent"].get(f) != regs["change"][f])
+    log(f"ptxas (registers, spill stores, spill loads), the functions whose "
+        f"use differs from the parent's: "
+        f"{ {f: (regs['parent'].get(f), regs['change'][f]) for f in differ} }")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     n, d, K = paper.N_USERS, paper.D_FEAT, paper.CONFIG.n_candidates
@@ -8030,48 +8328,60 @@ def parent_choose_turns(parent: str) -> int:
     ctx = unit(torch.randn(n, K, d, generator=g, device=dev)).contiguous()
     occ = torch.randint(0, 1000, (n,), generator=g, device=dev,
                         dtype=torch.int32)
+    Mb = Minv.bfloat16()
+    rows = {
+        "choose": lambda: choose_variant(w, Minv, ctx, occ, alpha,
+                                         iops.REGISTER_TILE),
+        "choose_bf16": lambda: choose_variant(w, Mb, ctx, occ, alpha,
+                                              iops.REGISTER_TILE),
+        "choose_bf16_tc": lambda: iops.choose_tc(w, Mb, ctx, occ, alpha)}
+    ns, N = SERVE_BATCH, 2**18
+    w_s = 0.5 * torch.randn(ns, d, generator=g, device=dev)
+    M_s = spd_inverse(g, ns, d, dev)
+    occ_s = torch.randint(1, 1000, (ns,), generator=g, device=dev,
+                          dtype=torch.int32)
+    x = unit(torch.randn(N, d, generator=g, device=dev))
+    live = (torch.rand(N, generator=g, device=dev) > 0.1).float()
+    banks = {"topk": (x, None, M_s), "topk_minv_bf16_tc": (x, None,
+                                                           M_s.bfloat16())}
+    for prec in PRECISIONS:
+        banks[f"topk_{prec}_tc"] = (*tref.quantize_rows(x, prec), M_s)
+    for name, (items, sc, M_) in banks.items():
+        lay = sorted_layout(w_s, M_, occ_s, items, live, sc, alpha, 512,
+                            SEED)
+        rows[name] = (lambda items=items, sc=sc, M_=M_: tops.topk(
+            w_s, M_, occ_s, items, live, alpha, K_SHORT, scales=sc))
+        rows[name.replace("topk", "topk_pruned", 1)] = (
+            lambda lay=lay, M_=M_: tops.topk_pruned(
+                w_s, M_, occ_s, lay[0], lay[1], lay[2], alpha, K_SHORT,
+                lay[4], scales=lay[3]))
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    sms = _build.sm_count(0)
     res = {}
-    for name, M_ in (("choose", Minv), ("choose_bf16", Minv.bfloat16())):
-        variant, users = iops.geometry(n, K, d, sms, M_.element_size())
-        entry = _build.KERNELS[name][1]
-        parent_fn = getattr(_build.load(name, csrc), entry)
-        outs = {side: (torch.empty(n, dtype=torch.int32, device=dev),
-                       torch.empty(n, d, device=dev))
-                for side in ("parent", "change")}
-
-        def args(side, M_=M_, variant=variant, users=users):
-            c, x = outs[side]
-            return (w.data_ptr(), M_.data_ptr(), ctx.data_ptr(),
-                    occ.data_ptr(), float(alpha), n, K, d, variant, users,
-                    c.data_ptr(), x.data_ptr())
-
-        def parent_call(args=args, fn=parent_fn):
-            err = fn(*args("parent"),
-                     torch.cuda.current_stream().cuda_stream)
-            assert err == 0, f"parent choose: CUDA error {err}"
-
-        def change_call(args=args, name=name):
-            _build.launch(name, *args("change"))
-
-        parent_call()
-        change_call()
+    for name, call in rows.items():
+        def parent_call(call=call):
+            with built_from(csrc):
+                return call()
+        before = dict(_build.LAUNCHES)
+        a, b = parent_call(), call()
         torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(outs["parent"],
-                                                     outs["change"])), (
-            f"{name}: the parent's pick differs")
+        launched = [k for k, v in _build.LAUNCHES.items() if v != before[k]]
+        assert all(torch.equal(u, v) for u, v in zip(a[:2], b[:2])), (
+            f"{name}: the parent's output differs")
         times = {"parent": [], "change": []}
         for side in ("parent", "change", "change", "parent"):
-            call = parent_call if side == "parent" else change_call
-            times[side] += cuda_times(call, flush, TURN_REPS // 2)
+            fn = parent_call if side == "parent" else call
+            times[side] += cuda_times(fn, flush, TURN_REPS // 2, hold=True)
         res[name] = {f"{side}_ms_turns": statistics.median(t)
                      for side, t in times.items()}
-        res[name].update(variant=variant, users=users, bit_equal=True)
-        log(f"time {name} (n={n}, d={d}, K={K}), the parent's build beside "
-            f"this checkout's, {TURN_REPS} launches each in turns: "
-            f"{res[name]}")
-    print(json.dumps({"parent_turns": res, "ptxas": regs,
+        res[name].update(ratio=res[name]["change_ms_turns"]
+                         / res[name]["parent_ms_turns"], kernels=launched,
+                         bit_equal=True)
+        log(f"time {name}, the parent's build beside this checkout's, "
+            f"{TURN_REPS} launches each, held, in turns: {res[name]}")
+    print(json.dumps({"parent_turns": res,
+                      "ptxas_differ": {f: [regs["parent"].get(f),
+                                           regs["change"][f]]
+                                       for f in differ},
                       "device": torch.cuda.get_device_name(0)}))
     return 0
 
@@ -8083,7 +8393,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if "--parent" in sys.argv:
-        return parent_choose_turns(sys.argv[sys.argv.index("--parent") + 1])
+        return parent_turns(sys.argv[sys.argv.index("--parent") + 1])
 
     # ---- phase 1: device ---------------------------------------------------
     log(smi_line())
@@ -8784,14 +9094,16 @@ def main() -> int:
     kernel_only, _ = tops.pruned_launch(*pruned_args)
     turns = turn_ms({"topk": work["topk"][0],
                      "pruned": work["topk_pruned"][0],
-                     "launch": kernel_only}, flush, reps=2 * REPS)
+                     "launch": kernel_only}, flush, reps=2 * REPS,
+                    hold=True)
     extra = {f"ms_{key}_turns": t for key, t in turns.items()}
     extra.update(ratio_to_topk=turns["pruned"] / turns["topk"],
                  launch_ratio_to_topk=turns["launch"] / turns["topk"],
                  **{key: errs["topk_pruned"][key] for key in (
                      "skip", "plain_skip")})
     by_name["topk_pruned"].update(extra)
-    log(f"time topk_pruned beside topk, {2 * REPS} launches each in turns: "
+    log(f"time topk_pruned beside topk, {2 * REPS} launches each in turns, "
+        f"held: "
         f"{extra}")
     # each reduced-precision variant beside its f32 kernel, in turns, on
     # the same users and statistics (the bf16 session's batch of phase 5):
@@ -8819,7 +9131,7 @@ def main() -> int:
         t = turn_ms({"f32": f32_turns[base],
                      **{v: work[v][0] for v in variants},
                      **{f"{v}:chain": chain[v] for v in variants
-                        if v in chain}}, flush, reps=2 * REPS)
+                        if v in chain}}, flush, reps=2 * REPS, hold=True)
         for v in variants:
             by_name[v].update(ms_turns=t[v], f32_ms_turns=t["f32"],
                               ratio_to_f32=t[v] / t["f32"])
@@ -8827,7 +9139,7 @@ def main() -> int:
                 by_name[v].update(chain_ms_turns=t[f"{v}:chain"],
                                   ratio_to_chain=t[v] / t[f"{v}:chain"])
         log(f"time {base} beside its variants, {2 * REPS} launches each in "
-            f"turns, on the bf16 session's batch: {t}")
+            f"turns, held, on the bf16 session's batch: {t}")
     for prec in PRECISIONS:
         by_name[f"topk_pruned_{prec}_tc"].update(
             skip=errs[f"topk_pruned_{prec}_tc"]["skip"],
@@ -8841,14 +9153,14 @@ def main() -> int:
     for v in MINV_KERNELS:
         t = turn_ms({"f32": minv_f32[v], v: work[v][0],
                      **({"chain": chain[v]} if v in chain else {})}, flush,
-                    reps=2 * REPS)
+                    reps=2 * REPS, hold=True)
         by_name[v].update(ms_turns=t[v], f32_ms_turns=t["f32"],
                           ratio_to_f32=t[v] / t["f32"])
         if v in chain:
             by_name[v].update(chain_ms_turns=t["chain"],
                               ratio_to_chain=t[v] / t["chain"])
         log(f"time {v} beside its f32 kernel on the widened Minv, "
-            f"{2 * REPS} launches each in turns: {t}")
+            f"{2 * REPS} launches each in turns, held: {t}")
     for v in MINV_TOPK:
         if "pruned" in v:
             by_name[v].update(skip=errs[v]["skip"],

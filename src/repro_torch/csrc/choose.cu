@@ -58,11 +58,17 @@
 // picks what the register tile picks; these variants serve a bf16 Minv
 // elsewhere and stand beside the filter as its yardstick.
 //
-// Both variants' reductions leave the lanes apart where a score is NaN
-// (NaN compares false both ways in warp_first_max), and each lane copies
-// x from its own pick: x then mixes candidates' rows, or, at K = 1, is
-// read past the user's candidates; choice (lane 0's) is the pick.
-// choose_tc.cu copies x through lane 0's pick (ROADMAP.md, queue 3).
+// Non-finite scores (repro's jnp.maximum and jnp.argmax): a NaN quad
+// gives a NaN score (ucb_score.cuh quad_floor), and the pick is argmax's:
+// the first NaN index if any score of the user is NaN, else the first
+// index of the maximum, so -inf ties keep the first index and an all
+// -inf user picks 0.  Both variants' lanes keep their (key, k) in that
+// order (ucb_score.cuh pick_key) and warp_first_max, the one
+// reduction of choose.cu and choose_tc.cu, leaves every lane the same
+// pick, so x is ctx[choice] copied through the pick the warp agreed on.
+// x is ctx[choice] also where repro's one-hot gather would spread a NaN
+// of a candidate that was not picked (0 times inf or NaN): repro's own
+// docstring defines x so (ROADMAP.md, queue 3, a departure kept).
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -76,20 +82,6 @@
 namespace {
 
 constexpr int kWarps = 4;            // warp per user: users a block
-
-// the warp's first-index argmax from each lane's (best, best_k), where an
-// equal score keeps the smaller k; every lane gets it
-__device__ __forceinline__ int warp_first_max(float best, int best_k) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-    const int ok = __shfl_xor_sync(0xffffffffu, best_k, off);
-    if (ob > best || (ob == best && ok < best_k)) {
-      best = ob;
-      best_k = ok;
-    }
-  }
-  return best_k;
-}
 
 template <typename S>
 __global__ void choose_kernel(const float* __restrict__ w,
@@ -118,12 +110,13 @@ __global__ void choose_kernel(const float* __restrict__ w,
   __syncwarp();
 
   const float explore = ucb_explore(occ[u]);
-  float best = -INFINITY;
+  int best = INT_MIN;  // below every key
   int best_k = INT_MAX;
   for (int k = lane; k < K; k += 32) {
-    const float s = ucb_score(c_s + k * d, w_s, m_s, d, alpha, explore);
-    if (best_k == INT_MAX || s > best) {  // k rises: ties keep the first
-      best = s;
+    const int key = pick_key(
+        ucb_score(c_s + k * d, w_s, m_s, d, alpha, explore));
+    if (key > best) {  // k rises: ties keep the first, NaNs the first NaN
+      best = key;
       best_k = k;
     }
   }
@@ -153,11 +146,12 @@ __global__ void __launch_bounds__(kTileThreads)
   const int lane = t % 32;
   for (int v = warp; v < sp.nu; v += T / 32) {
     const float* sv = sp.s + v * K;
-    float best = -INFINITY;
+    int best = INT_MIN;
     int best_k = INT_MAX;
     for (int k = lane; k < K; k += 32) {
-      if (best_k == INT_MAX || sv[k] > best) {  // as the warp variant
-        best = sv[k];
+      const int key = pick_key(sv[k]);
+      if (key > best) {  // as the warp variant
+        best = key;
         best_k = k;
       }
     }

@@ -109,10 +109,15 @@
 // below its LB is a violation; each warp counts its rescored pairs and
 // violations into fstats.  Survivor e sits on lane e % 32, which folds it
 // into its (best, best_k) as the register tile's reduction does, then
-// warp_first_max: for a user that kept all K this is the tile's own
-// reduction, so ties, -inf and NaN fall out as there; for the others
-// every score is finite and the first-index argmax over the survivors is
-// the tile's pick.  x is copied from the staged row.  A block syncs once
+// warp_first_max (ucb_score.cuh, choose.cu's): for a user that kept all K
+// this is the tile's own reduction, so ties, -inf and NaN fall out as
+// there (the first NaN index if a score is NaN: repro's jnp.argmax); for
+// the others every score is finite and the first-index argmax over the
+// survivors is the tile's pick.  A score can be NaN only where some
+// bound is not finite or |M|_F or |w| is past kHuge (a NaN or inf in
+// ctx, Minv, w or occ's factor, or an overflow past them), and then the
+// user keeps all K.  Every lane ends with the same pick, and x is copied
+// from its staged row.  A block syncs once
 // a group, to hand over a stage; its warps rescore and reduce on their
 // own.  (Rescoring every survivor, the lone ones too, added ~0.016 ms a
 // launch on the card: PERF.md section 6, PR 35.)
@@ -133,6 +138,7 @@
 
 #include "sqrt_rn.cuh"
 #include "stage.cuh"
+#include "ucb_score.cuh"
 
 namespace {
 
@@ -266,20 +272,6 @@ __device__ __forceinline__ float warp_sum_ru(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = __fadd_ru(v, __shfl_xor_sync(kFull, v, o));
   return v;
-}
-
-// csrc/choose.cu's: the warp's first-index argmax from each lane's
-// (best, best_k), an equal score keeping the smaller k
-__device__ __forceinline__ int warp_first_max(float best, int best_k) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_xor_sync(kFull, best, off);
-    const int ok = __shfl_xor_sync(kFull, best_k, off);
-    if (ob > best || (ob == best && ok < best_k)) {
-      best = ob;
-      best_k = ok;
-    }
-  }
-  return best_k;
 }
 
 // Sums of a quad's four lanes for rows g, g + 8 of two tiles (v[tile][row
@@ -603,7 +595,7 @@ __device__ __forceinline__ void filter_user(const Spans& sp, int v,
   const bool s1 = live[1] && (all || !(ubv[1] < mlb));
   const unsigned b0 = __ballot_sync(kFull, s0), b1 = __ballot_sync(kFull, s1);
   const int c0 = __popc(b0), cnt = c0 + __popc(b1);
-  float best = -INFINITY;
+  int best = INT_MIN;  // the lane's pick_key, below every key
   int best_k = INT_MAX;
   if (cnt == 1) {
     // the winner survives, so a lone survivor is the pick (and the
@@ -651,9 +643,10 @@ __device__ __forceinline__ void filter_user(const Spans& sp, int v,
           quad = fmaf(c[i], tv[i], quad);
         }
         score = __fadd_rn(
-            est, __fmul_rn(__fmul_rn(alpha, sqrtf(fmaxf(quad, 0.f))), ex));
-        if (best_k == INT_MAX || score > best) {  // k rises
-          best = score;
+            est, __fmul_rn(__fmul_rn(alpha, sqrtf(quad_floor(quad))), ex));
+        const int key = pick_key(score);
+        if (key > best) {  // k rises
+          best = key;
           best_k = en.k;
         }
       }
@@ -663,9 +656,8 @@ __device__ __forceinline__ void filter_user(const Spans& sp, int v,
       __syncwarp();  // the next round's t, the next user's list
     }
   }
-  // lane 0's pick for every lane (warp_first_max leaves the lanes apart
-  // where a score is NaN)
-  if (cnt > 1) best_k = __shfl_sync(kFull, warp_first_max(best, best_k), 0);
+  // every lane gets the same pick (a lone survivor's is every lane's)
+  if (cnt > 1) best_k = warp_first_max(best, best_k);
   if (valid) {
     if (lane == 0) choice[u] = best_k;
     const float* cb = sp.c + (v * K + best_k) * D;

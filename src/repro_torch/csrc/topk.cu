@@ -8,7 +8,10 @@
 //   s[u,i] = x_i.w_u + alpha sqrt(max(x_i Minv_u x_i, 0)) sqrt(log1p(occ_u))
 // and keeps each user's k best by (score desc, id asc); dead items never
 // enter, an underfull list holds (-inf, -1).  The [n, N] score matrix never
-// reaches device memory.
+// reaches device memory.  A NaN quad stays NaN under the max (quad_floor,
+// ucb_score.cuh), and a user with a NaN score on any live item gets
+// (NaN, INT_MAX) in every slot, repro's select_topk fixed point
+// (topk_shared.cuh: the scan poisons the user's list).
 //
 // Bound on an H100: operations.  Per (user, live item) pair the score is
 // 2d^2 + 4d + 6 f32 operations against d floats of the item read once per
@@ -123,6 +126,7 @@
 #include <math.h>
 
 #include "sqrt_rn.cuh"
+#include "ucb_score.cuh"
 #include "widen.cuh"
 
 namespace {
@@ -360,7 +364,7 @@ __device__ __forceinline__ void score_items(const Smem& s,
 #pragma unroll
     for (int q = 0; q < TK; ++q) {
       const float bonus = __fmul_rn(
-          __fmul_rn(alpha, sqrt_rn(fmaxf(quad[u][q], 0.f))), s.ex[u]);
+          __fmul_rn(alpha, sqrt_rn(quad_floor(quad[u][q]))), s.ex[u]);
       s.ss[u * CH + threadIdx.x + q * kThreads] = __fadd_rn(est[u][q], bonus);
     }
 }
@@ -371,7 +375,8 @@ __device__ __forceinline__ void score_items(const Smem& s,
 // step against the list's floor, and (pruned) against ``pub``, the
 // best k-th score another split has published: an item strictly below
 // it cannot be in the final list.  A step where none passes costs two
-// float4 loads.
+// float4 loads.  A live item that scored NaN passes the test (an
+// unordered compare) and poisons the list in the step's rare path.
 __device__ void scan_chunk(const Smem& s, int buf, int cnt, bool with_ids,
                            size_t pos0, float pub, int k, int CH, int warp,
                            int lane) {
@@ -397,10 +402,14 @@ __device__ void scan_chunk(const Smem& s, int buf, int cnt, bool with_ids,
     for (int e = 0; e < 4; ++e) {
       id[e] = with_ids ? ide[e] : (int)(pos0 + c0 + e);
       cand[e] = c0 + e < cnt && lve[e] > 0.f && !(sc[e] < pub) &&
-                beats(sc[e], id[e], fs, fi);
+                beats_or_nan(sc[e], id[e], fs, fi);
       any |= cand[e];
     }
     if (__any_sync(kFull, any)) {
+      bool nan = false;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) nan |= cand[e] && isnan(sc[e]);
+      if (__any_sync(kFull, nan)) poison(ls, li, k, lane);
 #pragma unroll
       for (int e = 0; e < 4; ++e) offer(ls, li, k, cand[e], sc[e], id[e], lane);
     }

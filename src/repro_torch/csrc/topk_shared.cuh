@@ -6,14 +6,63 @@
 // split lists.  Each source includes it once, after it has defined
 // kUsers, kThreads, kMaxK, kFull and kMaxTiles in an unnamed namespace,
 // so that each builds into a library of its own.
+//
+// A NaN score (repro's select_topk: max is NaN, and no entry equals it, so
+// every slot of the user's list becomes (NaN, INT_MAX) and stays so
+// through later tiles and the merge of shards): the warp that scans a
+// user's live pairs poisons the user's list when one scores NaN (the
+// chain kernels' scan_chunk passes a NaN by beats_or_nan, whose test of
+// a number costs what beats' does, and marks the list in its rare path;
+// the filter kernels' rescore: a NaN pair always reaches the rescore,
+// topk_tc.cu's header);
+// write_lists writes a poisoned list as (NaN, INT_MAX) in all k slots,
+// and merge_kernel so a user any of whose split lists holds a NaN.  Dead
+// pairs are never tested, so a NaN on a dead slot changes nothing, and a
+// user with no NaN gets the list it got before.
+//
+// The pruned kernels' skip test relies on NaN comparing false: a tile is
+// kept where !(tb < floor), so a NaN bound is always scored.  Floors are
+// never NaN: a list's k-th score is a number or +-inf, and f2o and
+// atomicMax publish it in order.  A poisoned user's floor is +inf: its
+// own result is fixed, and a skip only drops pairs strictly below every
+// user's floor, so no other user's list moves.  (repro's
+// topk_ref_pruned keeps a poisoned user's tiles, its NaN floor failing
+// the test: the skip counts differ, the lists do not.)
 #pragma once
 
 #include <cuda_runtime.h>
+#include <climits>
+#include <math.h>
 
 namespace {
 
 __device__ __forceinline__ bool beats(float as, int ai, float bs, int bi) {
   return as > bs || (as == bs && ai < bi);
+}
+
+// beats, or ``as`` is NaN (an unordered compare, one instruction as ``>``
+// is): the scan's test, so that a NaN reaches the scan's rare path at no
+// cost to the test of a number.  ``bs`` is a list's k-th score, never NaN.
+__device__ __forceinline__ bool beats_or_nan(float as, int ai, float bs,
+                                             int bi) {
+  return !(as <= bs) || (as == bs && ai < bi);
+}
+
+// A poisoned list (a live pair of its user scored NaN) holds (+inf, -1)
+// in its k-th slot, which no list holds otherwise (-1 marks an empty,
+// -inf slot): no pair beats it, a scan passes only a NaN, and its floor,
+// +inf once published, lets every split skip the user's tiles.
+__device__ __forceinline__ void poison(float* ls, int* li, int k,
+                                       int lane) {
+  if (lane == 0) {
+    ls[k - 1] = INFINITY;
+    li[k - 1] = -1;
+  }
+  __syncwarp();
+}
+__device__ __forceinline__ bool poisoned(const float* ls, const int* li,
+                                         int k) {
+  return ls[k - 1] == INFINITY && li[k - 1] == -1;
 }
 
 // Order-preserving int encoding of a float (for atomicMax on floors).
@@ -295,16 +344,18 @@ __device__ __forceinline__ void offer(float* ls, int* li, int k, bool cand,
   }
 }
 
-// The block's lists into rows [split, user] (the users' own rows).
+// The block's lists into rows [split, user] (the users' own rows); a
+// poisoned list as (NaN, INT_MAX) in every slot.
 __device__ void write_lists(const Smem& s, const long long* order, int n,
                             int k, int u0, int split, float* out_s,
                             int* out_i) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (u0 + warp >= n) return;
+  const bool bad = poisoned(s.ls + warp * k, s.li + warp * k, k);
   const size_t row = ((size_t)split * n + user_of(order, u0 + warp)) * k;
   for (int j = lane; j < k; j += 32) {
-    out_s[row + j] = s.ls[warp * k + j];
-    out_i[row + j] = s.li[warp * k + j];
+    out_s[row + j] = bad ? NAN : s.ls[warp * k + j];
+    out_i[row + j] = bad ? INT_MAX : s.li[warp * k + j];
   }
 }
 
@@ -413,7 +464,8 @@ __device__ void pick_chunk(Walk& wk, Chunk& c, const Chunk& prev,
   }
 }
 
-// Fold S partial lists per user ([S, n, k]) into the final [n, k].
+// Fold S partial lists per user ([S, n, k]) into the final [n, k]; a user
+// any of whose lists is poisoned gets (NaN, INT_MAX).
 __global__ void __launch_bounds__(kThreads)
     merge_kernel(const float* __restrict__ part_s,
                  const int* __restrict__ part_i, int n, int k, int S,
@@ -431,6 +483,7 @@ __global__ void __launch_bounds__(kThreads)
     my_i[j] = -1;
   }
   __syncwarp();
+  bool nan = false;
   for (int sp = 0; sp < S; ++sp) {
     const size_t row = ((size_t)sp * n + u) * k;
     for (int base = 0; base < k; base += 32) {
@@ -441,14 +494,16 @@ __global__ void __launch_bounds__(kThreads)
       if (j < k) {
         sc = part_s[row + j];
         id = part_i[row + j];
+        nan |= isnan(sc);
         cand = beats(sc, id, my_s[k - 1], my_i[k - 1]);
       }
       offer(my_s, my_i, k, cand, sc, id, lane);
     }
   }
+  const bool bad = __any_sync(kFull, nan);
   for (int j = lane; j < k; j += 32) {
-    out_s[(size_t)u * k + j] = my_s[j];
-    out_i[(size_t)u * k + j] = my_i[j];
+    out_s[(size_t)u * k + j] = bad ? NAN : my_s[j];
+    out_i[(size_t)u * k + j] = bad ? INT_MAX : my_i[j];
   }
 }
 

@@ -68,7 +68,14 @@
 //   chain's score is the round-to-nearest of the same monotone function
 //   of (quad, est), so score <= UB whenever |q~ - quad| <= E and |e~ -
 //   est| <= E_est.  A non-finite q~ or e~ makes UB NaN, and a pair with
-//   UB NaN passes.
+//   UB NaN passes.  So does a pair whose chain score is NaN: a NaN or
+//   inf in the row, its scale, Minv or w makes q~ or e~ non-finite, and
+//   finite inputs overflow the chain only past kHuge, where E (or E_est)
+//   is inf and UB inf or NaN at alpha >= 0; at alpha < 0 such a pair
+//   passes where q~ overflows with quad (not within q~'s error of
+//   FLT_MAX).  The rescore of a NaN score poisons the user's list, which
+//   ends as repro's select_topk fixed point (NaN, INT_MAX)
+//   (topk_shared.cuh).
 // - A live pair passes if !(UB < floor): floor the k-th entry of the
 //   warp's list (pruned: the larger of it and the published floor, as the
 //   skip test), read after each round of rescoring.  A passing pair joins
@@ -171,6 +178,7 @@
 #include <string.h>
 
 #include "sqrt_rn.cuh"
+#include "ucb_score.cuh"
 #include "widen.cuh"
 
 namespace {
@@ -837,12 +845,14 @@ __device__ __forceinline__ void rescore(const Smem& s, const Tc& tc, int d,
     est = fmaf(x[j], lds_f32(wu + 4 * j), est);
   }
   const float score = __fadd_rn(
-      est, __fmul_rn(__fmul_rn(alpha, sqrt_rn(fmaxf(quad, 0.f))), ex));
+      est, __fmul_rn(__fmul_rn(alpha, sqrt_rn(quad_floor(quad))), ex));
   const bool valid = lane < m;
   rescored += m;
   viol += __popc(__ballot_sync(kFull, valid && score > cd.ub));
   float* ls = s.ls + warp * k;
   int* li = s.li + warp * k;
+  // the ring holds live pairs only: a NaN poisons the list
+  if (__any_sync(kFull, valid && isnan(score))) poison(ls, li, k, lane);
   const bool cand = valid && !(score < pub) &&
                     beats(score, cd.id, ls[k - 1], li[k - 1]);
   merge32(ls, li, k, cand, score, cd.id, tc.ms + warp * 32, lane);

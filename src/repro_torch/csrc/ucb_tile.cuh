@@ -74,7 +74,7 @@ __device__ __forceinline__ float combine(const float* c, const float* w_s,
     quad = fmaf(c[i], t[i], quad);
   }
   const float bonus =
-      __fmul_rn(__fmul_rn(alpha, sqrtf(fmaxf(quad, 0.f))), explore);
+      __fmul_rn(__fmul_rn(alpha, sqrtf(quad_floor(quad))), explore);
   return __fadd_rn(est, bonus);
 }
 

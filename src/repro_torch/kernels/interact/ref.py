@@ -114,7 +114,7 @@ def choose_filter_ref(w, Minv, contexts, occ, alpha, *, order="forward"):
             "survive": survive, "all_survive": all_survive}
 
 
-def choose_stress_case(seed, n, K, d):
+def choose_stress_case(seed, n, K, d, *, nonfinite=False):
     """Inputs that sit candidates at or near a user's best score, for the
     filter's tests and chip_smoke.py's checks (CPU tensors, from
     ``seed``): ``topk.ref.stress_case``'s learned (near-singular) and
@@ -124,7 +124,11 @@ def choose_stress_case(seed, n, K, d):
     fresh direction), (4) bf16-exact rows (lo piece 0) and rows one ulp
     above them, (5) one row with a feature of 2^-110 (the user keeps all
     K), (6) rows scaled 2^10, (7) a NaN row (odd users) or an inf row;
-    occ 0 for every fifth user.  Returns (w, Minv, ctx, occ)."""
+    occ 0 for every fifth user.  ``nonfinite`` adds, by user u % 16: (3)
+    a NaN in Minv, (5) a NaN in w, (9) two one-hot rows of 2^70 (quad
+    overflows: +inf at alpha > 0, -inf below, NaN at alpha 0), (11) the
+    same at occ 0 (alpha inf 0: NaN), (13) every row one-hot 2^70.
+    Returns (w, Minv, ctx, occ)."""
     from ..topk.ref import stress_case
     w, Minv, occ, _, _, _ = stress_case(seed, n, d, 32, 1, "f32",
                                         minv_dtype=torch.bfloat16)
@@ -160,4 +164,16 @@ def choose_stress_case(seed, n, K, d):
             xu[pick[0], -1] = float("nan") if u % 2 else float("inf")
     occ = occ.clone()
     occ[::5] = 0
+    if nonfinite:
+        w, Minv = w.clone(), Minv.clone()
+        big = 2.0 ** 70
+        Minv[3::16, 0, d - 1] = float("nan")
+        w[5::16, 0] = float("nan")
+        for u0, rows in ((9, {min(1, K - 1), K - 1}), (11, {0, K - 1}),
+                         (13, range(K))):
+            for k in rows:
+                x[u0::16, k] = 0.0
+                x[u0::16, k, k % d] = big
+        occ[11::16] = 0
+        occ[9::16] = occ[9::16].clamp_min(1)
     return w, Minv, x.contiguous(), occ

@@ -8,6 +8,12 @@ Semantics (shared with the kernels and with ``repro.kernels.topk``):
                   (score desc, item id asc); dead items (``live == 0``)
                   score -inf and can only fill an underfull shortlist.
 
+A NaN score on a live item takes the user's whole shortlist, as in
+``repro``: its ``select_topk`` finds no entry equal to a NaN maximum, so
+every slot becomes ``(NaN, INT_MAX)``, and the running list carries that
+through every later tile and the merge of shards (:func:`select_topk`).
+A dead item scores -inf before selection, so a NaN there changes nothing.
+
 Every (user, item) pair is scored by :func:`ucb_scores_ref` of
 ``kernels/ucb/ref.py``: fixed-order loops of elementwise products
 over ``d``, never a matrix product, whose rounding may depend on where a
@@ -38,6 +44,7 @@ import torch
 from ..ucb.ref import ucb_scores_ref
 
 NEG_INF = float("-inf")
+INT_MAX = 2**31 - 1        # the id of every slot of a user with a NaN score
 
 # users per row block of the pruned plain version: a block skips a tile
 # only when all its users agree (``repro``'s default, so skip counts match)
@@ -79,7 +86,9 @@ def select_topk(buf_s: torch.Tensor, buf_i: torch.Tensor, k: int):
     ``-0.0`` and ``0.0`` tie and the smaller id wins; once the finite
     entries run out, every remaining slot holds -inf and the row's
     smallest id (the reference marks each pick -inf, so by then every
-    entry ties at -inf).  The result depends only on the
+    entry ties at -inf).  A row with a NaN anywhere in its buffer gives
+    ``(NaN, INT_MAX)`` in every slot: the reference's maximum is NaN,
+    which no entry equals.  The result depends only on the
     (score, id) values, never on the buffer order (ids are unique among
     a row's finite entries, and ``W >= k``).  Returns
     ``(scores [n, k], ids [n, k])``."""
@@ -93,7 +102,17 @@ def select_topk(buf_s: torch.Tensor, buf_i: torch.Tensor, k: int):
     s, i = torch.gather(s, 1, by_s), torch.gather(i, 1, by_s)
     s, i = s[:, :k], i[:, :k].to(torch.int32)
     smallest = buf_i.min(dim=1, keepdim=True).values.to(torch.int32)
-    return s, torch.where(s == NEG_INF, smallest.expand_as(i), i)
+    i = torch.where(s == NEG_INF, smallest.expand_as(i), i)
+    return nan_rows(s, i)
+
+
+def nan_rows(s: torch.Tensor, i: torch.Tensor):
+    """``repro``'s ``select_topk`` fixed point on a row with a NaN score:
+    every slot of it becomes ``(NaN, INT_MAX)``; the other rows are
+    returned as they are."""
+    bad = torch.isnan(s).any(dim=1, keepdim=True)
+    return (torch.where(bad, s.new_full((), float("nan")), s),
+            torch.where(bad, i.new_full((), INT_MAX), i))
 
 
 def _scores(w, Minv, widen_occ, x, live, alpha):
@@ -162,11 +181,18 @@ def tile_bounds(
     so ``tb = w.mu + |w| r + alpha sqrt(log1p(occ)) min(...) + BOUND_SLACK``
     dominates ``score[u, i]`` for every live ``i`` of the tile.  Zero-live
     tiles bound to -inf.  Bounds need no fixed order: the slack covers
-    their rounding."""
+    their rounding.  A user whose Minv is not finite (every score NaN)
+    bounds every live tile by NaN, which no floor skips; ``torch``'s
+    eigvalsh would raise there, and ``repro``'s returns NaN or LAPACK's
+    partial values."""
     n, d = w.shape
     T = tile_mu.shape[0]
     Minv = Minv.float()
-    lmax = torch.linalg.eigvalsh(Minv)[:, -1]
+    fin = torch.isfinite(Minv).flatten(1).all(1)
+    eye = torch.eye(d, dtype=Minv.dtype, device=Minv.device)
+    lmax = torch.linalg.eigvalsh(torch.where(fin[:, None, None], Minv,
+                                             eye))[:, -1]
+    lmax = torch.where(fin, lmax, lmax.new_full((), float("nan")))
     sl = torch.sqrt(torch.clamp_min(lmax, 0.0))
     est = w @ tile_mu.T + torch.linalg.norm(w, dim=1)[:, None] * tile_r[None]
     G = (tile_mu[:, None, :] * tile_mu[:, :, None]).reshape(T, d * d)
@@ -556,7 +582,7 @@ def quantize_rows(x, kind):
 
 
 def stress_case(seed, n, d, N, k_short, kind, *,
-                minv_dtype=torch.float32):
+                minv_dtype=torch.float32, nonfinite=None):
     """A catalog built so that many pairs sit at a user's floor, for the
     filter's tests and chip_smoke.py's checks (CPU tensors, from
     ``seed``; ``kind`` "f32", "bf16" or "int8"): users with near-singular
@@ -568,7 +594,14 @@ def stress_case(seed, n, d, N, k_short, kind, *,
     stress the items' split: rows whose lo piece is zero (bf16 values),
     an ulp of x (a bf16 value one ulp up), subnormal or zero where x -
     ahi is not (features near 2^-120), rows with f32-subnormal features,
-    and rows scaled 2^10.  Returns (w, Minv, occ, items, live, scales)."""
+    and rows scaled 2^10.  ``nonfinite`` "users" adds non-finite scores
+    after those draws: a NaN in the Minv of every 16th user from user 3,
+    occ 0 for every 7th user, three live one-hot rows of 2^70 (quad
+    overflows: +inf at alpha > 0, -inf below, NaN at occ 0 or alpha 0)
+    and a NaN on a dead slot (int8: its scale); "items" also a live row
+    with a NaN feature and one with an inf feature (int8: NaN and inf
+    scales), which make every user's score NaN somewhere.  Returns (w,
+    Minv, occ, items, live, scales)."""
     g = torch.Generator().manual_seed(seed)
     dirs = torch.randn(3, d, generator=g, dtype=torch.float64)
     Ms = []
@@ -623,4 +656,41 @@ def stress_case(seed, n, d, N, k_short, kind, *,
         scales[near] = torch.where(torch.arange(16) % 2 == 0, up,
                                    scales[best].clone())
     live[dup[:4]] = 0.0
+    if nonfinite is not None:
+        Mq, occ, items, live, scales = _nonfinite(
+            g, nonfinite, Mq, occ, items, live, scales, kind)
     return w, Mq, occ, items.contiguous(), live, scales
+
+
+def _nonfinite(g, which, Minv, occ, items, live, scales, kind):
+    """stress_case's non-finite additions (its docstring), drawn from
+    ``g`` after everything else."""
+    if which not in ("users", "items"):
+        raise ValueError(f"nonfinite is 'users' or 'items', not {which!r}")
+    d, N = items.shape[1], items.shape[0]
+    Minv, occ, items, live = (t.clone() for t in (Minv, occ, items, live))
+    nan, inf = float("nan"), float("inf")
+    Minv[3::16, 0, d - 1] = nan
+    occ[::7] = 0
+    rows = torch.randperm(N, generator=g)
+    big, dead = rows[:3], rows[3]
+    items[big] = 0
+    cols = big % d
+    live[big] = 1.0
+    live[dead] = 0.0
+    if kind == "int8":
+        scales = scales.clone()
+        items[big, cols] = 127
+        scales[big] = 2.0 ** 70 / 127
+        scales[dead] = nan
+    else:
+        items[big, cols] = 2.0 ** 70
+        items[dead, 0] = nan
+    if which == "items":
+        live[rows[4:6]] = 1.0
+        if kind == "int8":
+            scales[rows[4]], scales[rows[5]] = nan, inf
+        else:
+            items[rows[4], d - 1] = nan
+            items[rows[5], 0] = inf
+    return Minv, occ, items, live, scales

@@ -91,7 +91,7 @@ from .. import resolve_device
 from ..core import itemclub
 from ..core.backend import BackendConfig
 from ..core.types import BanditHyper, Metrics
-from ..kernels.topk.ref import select_topk
+from ..kernels.topk.ref import nan_rows, select_topk
 from ..runtime.collectives import NullCollectives
 from . import pending as pending_mod
 from . import policies as pol
@@ -237,10 +237,12 @@ def _request_rows(policy, col, state, user_ids):
 
 def _merge_shortlists(col, sc, ids):
     """The ranks' ``[B, k]`` shortlists merged into the one-process
-    shortlist with the kernel's own selection routine (one rank's list is
-    already in (score desc, id asc) order)."""
+    shortlist with the kernel's own selection routine.  One rank's list
+    is already in (score desc, id asc) order, so its merge only takes
+    ``select_topk``'s NaN fixed point: a user with a NaN score gets id
+    ``INT_MAX`` in every slot, as ``repro``'s merge gives it."""
     if col.n_shards == 1:
-        return sc, ids
+        return nan_rows(sc, ids)
     B, k = sc.shape
     sc, ids = (col.all_gather(t).view(-1, B, k).transpose(0, 1)
                .reshape(B, -1) for t in (sc, ids))

@@ -38,25 +38,38 @@ def _chain_scores(w, Minv, ctx, occ, alpha):
     return est + bonus, quad, est
 
 
+def _pick_beats(s, k, bs, bk):
+    """Whether (s, k) comes first in csrc/ucb_score.cuh pick_key's order:
+    a NaN before every number, then the larger score, then the smaller
+    k."""
+    sn, bn = s != s, bs != bs
+    if sn or bn:
+        return sn and (not bn or k < bk)
+    return s > bs or (s == bs and k < bk)
+
+
 def _tile_reduce(scores, ks):
     """csrc/choose.cu's reduction of one user's (score, k) list: lane l
     takes entries l, l + 32, ... (an entry replaces its best if the lane
-    has none or its score is larger), then warp_first_max; lane 0's k."""
+    has none or it comes first by pick_key's order), then
+    warp_first_max, which leaves every lane the same k; lane 0's."""
     best = [float("-inf")] * 32
     best_k = [INT_MAX] * 32
     for pos, (s, k) in enumerate(zip(scores, ks)):
         lane = pos % 32
-        if best_k[lane] == INT_MAX or s > best[lane]:
+        if best_k[lane] == INT_MAX or _pick_beats(s, k, best[lane],
+                                                  best_k[lane]):
             best[lane], best_k[lane] = s, k
     off = 16
     while off:
         nb, nk = list(best), list(best_k)
         for lane in range(32):
             ob, ok = best[lane ^ off], best_k[lane ^ off]
-            if ob > best[lane] or (ob == best[lane] and ok < best_k[lane]):
+            if _pick_beats(ob, ok, best[lane], best_k[lane]):
                 nb[lane], nk[lane] = ob, ok
         best, best_k = nb, nk
         off >>= 1
+    assert len(set(best_k)) == 1
     return best_k[0]
 
 
