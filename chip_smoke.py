@@ -465,7 +465,12 @@ Phases, in order; any failure raises and the script exits non-zero:
            row; held as (a), its reruns on the counted run's routings)
            and prefill cut to 2 layers; (f) a GAT cell against
            ``gnn_train_step`` (3 steps' losses 1e-5; parameters after
-           the first within 1e-5 but for at most 0.1% of them).
+           the first within 1e-5 but for at most 0.1% of them).  Then
+           (a)'s one step and (b) once more under the dry run's
+           live-bytes model (``launch.dryrun.Counter``) on the card's
+           tensors: the model's peak bytes above the arguments beside
+           ``torch.cuda.max_memory_allocated()`` less what was allocated
+           before the call (reset before it), and their ratio.
            No multi-rank part:
            gloo ranks sharing the card crash in a functional collective
            on a CUDA tensor (``PERF.md`` section 7).
@@ -8108,6 +8113,88 @@ def cells_gnn(m, dev):
     return {"losses": losses, "step_s": step_s}
 
 
+def cells_model_check(m, dev):
+    """The dry run's live-bytes model against the card's allocator: one
+    step of (a)'s ``train_4k`` and (b)'s ``prefill_32k`` through their
+    cells under ``launch.dryrun.Counter`` (this rank's local ops, every
+    argument's storage tracked before the call), each printed as the
+    model's peak bytes above the arguments, the allocator's peak above
+    what was allocated before the call, and the model's over the
+    allocator's; the allocator's peak again for the same call run first
+    without the counter.  Nothing is held to a band: the ratios say how
+    far the dry run's fit verdicts (``launch.fitcheck``'s peak) can be
+    trusted."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, steps, train
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import optimizer
+    out = {}
+
+    def measure(label, step, args):
+        card = {}
+        for counted in (False, True):
+            free_card()
+            counter = dryrun.Counter()
+            # the arguments' local tensors live through the call: a
+            # storage leaves the model when its last tracked tensor dies
+            held = [dryrun._local(t) for t in dryrun._tensors(args)]
+            for t in held:
+                counter.track(t)
+            base_model = counter.peak = counter.live
+            base_card = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with counter if counted else contextlib.nullcontext():
+                res = step(*args)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            card[counted] = torch.cuda.max_memory_allocated() - base_card
+            del held, res
+        model = counter.peak - base_model
+        out[label] = {"model_bytes": model, "card_bytes": card[True],
+                      "ratio": model / card[True],
+                      "card_bytes_uncounted": card[False],
+                      "ratio_uncounted": model / card[False], "secs": secs}
+        log(f"cells model against the card, {LM_ARCH} {label}: dry-run "
+            f"model peak {model} bytes above the arguments, "
+            f"max_memory_allocated {card[True]} bytes above the "
+            f"{base_card} allocated before; model / card {model / card[True]}"
+            f"; the same call without the counter {card[False]} bytes "
+            f"(model / that {model / card[False]}); {secs} s under the "
+            f"counter")
+        assert model > 0 and card[True] > 0 and card[False] > 0, out[label]
+
+    n_mb = configs.get(LM_ARCH).cfg.microbatches     # one row each, as (a)
+    tspec = cut_spec(LM_ARCH, CELL_LM_LAYERS, "train_4k", {
+        "tokens": ((n_mb, CELL_LM_SEQ), torch.int32),
+        "labels": ((n_mb, CELL_LM_SEQ), torch.int32)})
+    cell = steps.build_lm_cell(tspec, "train_4k", m)
+    model = tr.LM(tspec.cfg, seed=SEED, device=dev)
+    params = model.tree()
+    p, o = cell.from_full((params, optimizer.adamw_init(params)))
+    del model, params
+    t = train.zipf_tokens(tspec.cfg.vocab, (n_mb, CELL_LM_SEQ + 1), SEED, 0,
+                          dev)
+    args = (p, o, *cell.from_full((t[:, :-1], t[:, 1:]), first=2))
+    measure("train_4k", cell.step_fn, args)
+    del args, p, o, t
+    free_card()
+
+    pspec = cut_spec(LM_ARCH, None, "prefill_32k",
+                     {"tokens": ((LM_BATCH, LM_PROMPT), torch.int32)})
+    model = tr.LM(pspec.cfg, seed=SEED, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    tokens = torch.randint(0, pspec.cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev, dtype=torch.int32)
+    cell = steps.build_lm_cell(pspec, "prefill_32k", m)
+    args = cell.from_full((model.tree(), tokens))
+    measure("prefill_32k", cell.step_fn, args)
+    del args, model, tokens
+    free_card()
+    return out
+
+
 def cells_phase(dev, theta):
     """Phase 4c: the global-program cells of ``launch.steps`` on one NCCL
     rank (a one-rank ``DeviceMesh`` on ``cuda:0``, process group in this
@@ -8144,6 +8231,9 @@ def cells_phase(dev, theta):
         t0 = time.perf_counter()
         cells_lm_prefill(m, dev, LM_ARCH, None, counted)
         secs["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cells_model_check(m, dev)
+        secs["model"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         cells_dcn(m, dev, counted)
         secs["c"] = time.perf_counter() - t0

@@ -75,6 +75,13 @@ def lm_specs_fshard(cfg: LMConfig) -> dict:
     return specs
 
 
+def fsharded(cfg: LMConfig, tp: int) -> bool:
+    """``repro``'s rule for the f-sharded layout (decode, and the prefill
+    cell): the bf16 weights over ``tp`` "model" ranks past 8e9 bytes a
+    rank, the size it was set for on a 16 GiB chip."""
+    return cfg.param_count() * 2 / tp > 8e9
+
+
 def cache_spec(ba) -> P:
     return P(None, None, ba or None, None, "model", None)
 
@@ -196,7 +203,7 @@ def build_decode_step(mesh, cfg: LMConfig, batch: int, s_max: int,
     """
     dev = resolve_device(device)
     tp = mesh.shape["model"]
-    fshard = cfg.param_count() * 2 / tp > 8e9
+    fshard = fsharded(cfg, tp)
     if fshard:
         ba = ("pod",) if ("pod" in mesh.axis_names
                           and batch % mesh.shape["pod"] == 0) else ()

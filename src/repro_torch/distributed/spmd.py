@@ -22,7 +22,9 @@ shares add up (``repro``'s shard_map transposes):
 
   ``psum``    all-reduce forward and backward;
   ``gather``  all-gather forward, reduce-scatter backward (also a
-              weight split over "data", gathered where it is used).
+              weight split over "data", gathered where it is used);
+  ``shift``   a ring exchange forward, the reverse exchange backward (a
+              neighbour's columns of a weight, used where they are).
 
 ``pmax`` and ``gather_nograd`` carry no gradient.
 """
@@ -130,6 +132,17 @@ class _Gather(torch.autograd.Function):
         return ctx.col.psum_scatter(g, ctx.dim), None, None
 
 
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s, col):
+        ctx.s, ctx.col = s, col
+        return col.permute(x, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.col.permute(g, -ctx.s), None, None
+
+
 def enter(x, col):
     return x if col.n_shards == 1 else _Enter.apply(x, col)
 
@@ -145,6 +158,11 @@ def psum(x, col):
 def gather(x, dim: int, col):
     """Every rank's ``x`` in rank order, tiled on ``dim``."""
     return x if col.n_shards == 1 else _Gather.apply(x, dim % x.dim(), col)
+
+
+def shift(x, s: int, col):
+    """Rank ``r - s``'s ``x`` on rank ``r`` (mod the ranks)."""
+    return x if col.n_shards == 1 else _Shift.apply(x, s, col)
 
 
 def gather_nograd(x, dim: int, col):

@@ -8,7 +8,8 @@ nothing) as one rank of ``launch.mesh.make_production_mesh``, builds the
 cell with ``launch.steps.build_cell``, and runs its step on fake tensors
 of the rank's local shapes (``FakeTensorMode``: shapes and dtypes, no
 memory) under a dispatch mode that sees every op the rank's body runs,
-below DTensor, on local tensors:
+below DTensor, on local tensors (not the fake global tensors on which
+DTensor derives an op's output shapes):
 
   flops_per_device    matmul FLOPs (``torch.utils.flop_counter``'s
                       formulas) of this rank's local ops;
@@ -67,19 +68,18 @@ _DONATED = {"train": (0, 1), "bandit_epoch": (0,)}
 
 
 def _tensors(tree) -> list:
-    out = []
-
-    def walk(x):
+    """The tensors of a tree of dicts, lists and tuples, in order.  No
+    nested function: one that calls itself is a reference cycle, which
+    would hold the op's tensors until the cyclic collector ran."""
+    out, todo = [], [tree]
+    while todo:
+        x = todo.pop()
         if isinstance(x, torch.Tensor):
             out.append(x)
         elif isinstance(x, dict):
-            for v in x.values():
-                walk(v)
+            todo.extend(reversed(list(x.values())))
         elif isinstance(x, (list, tuple)):
-            for v in x:
-                walk(v)
-
-    walk(tree)
+            todo.extend(reversed(x))
     return out
 
 
@@ -121,6 +121,34 @@ class Counter(TorchDispatchMode):
         self._count = {}       # storage -> live tensors on it
         self._size = {}
         self._tracked = set()  # ids of tracked tensors
+        self._shadow = 0       # > 0 inside DTensor's shape propagation
+        self._restore = None
+
+    def __enter__(self):
+        # DTensor derives an op's output shapes by running it on fake
+        # tensors of the global shapes: no memory, no work on a card
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator as prop
+
+        name = "_propagate_tensor_meta_non_cached"
+        orig = prop.__dict__.get(name)
+        if orig is not None:
+            def shadow(*args, **kwargs):
+                self._shadow += 1
+                try:
+                    return orig(*args, **kwargs)
+                finally:
+                    self._shadow -= 1
+
+            setattr(prop, name, shadow)
+            self._restore = (prop, name, orig)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        if self._restore is not None:
+            setattr(*self._restore)
+            self._restore = None
+        return super().__exit__(*exc)
 
     def track(self, t) -> None:
         if id(t) in self._tracked:
@@ -149,6 +177,8 @@ class Counter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **kwargs)
+        if self._shadow:
+            return out
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
         name = func.name()

@@ -28,8 +28,8 @@ on each rank's local shards, where ``repro`` lets GSPMD partition it:
                3e-4 (f32 moments), on the parameters redistributed to the
                ZeRO layout and back;
   LM prefill   ``transformer.lm_prefill`` on the rank, in the decode
-               layout, or the f-sharded
-               one where ``2 x params / model > 8e9``; logits on
+               layout, or the f-sharded one where
+               ``decode_shard.fsharded``; logits on
                ``P(batch, "model")``, caches on ``decode_shard.cache_spec``;
   recsys       the batch data-parallel, the row-split tables looked up
                row-parallel over "model" (``models.recsys.embedding``:
@@ -301,7 +301,7 @@ def _lm_train(spec, shape, mesh, cfg, inputs):
 
 def _lm_prefill(spec, shape, mesh, cfg, inputs):
     ba = batch_axes(mesh)
-    fshard = cfg.param_count() * 2 / mesh.shape["model"] > 8e9
+    fshard = decode_shard.fsharded(cfg, mesh.shape["model"])
     p_specs = (decode_shard.lm_specs_fshard(cfg) if fshard
                else decode_shard.decode_param_specs(cfg))
     shapes = transformer.param_shapes(cfg)

@@ -21,9 +21,14 @@ columns (heads) and the output projection's rows over "model", its
 products summed (Megatron-LM's layout, which GSPMD derives from the same
 specs).  Where the heads do not split evenly the rank gathers what it
 needs (``heads_layout``): "local" (both q and kv heads split),
-"kv_gathered" (kv heads gathered, each rank keeping those its q heads
-read), "replicated" (q, k and v gathered, every head computed, the
-output's local columns kept).
+"kv_gathered" (q heads split; kv heads gathered, each rank keeping those
+its q heads read), "wq_gathered" (q heads straddle the ranks' columns:
+the rank computes only the q heads its own columns of ``wq`` overlap,
+``rank_heads``, with the columns of a straddling head fetched from the
+neighbour that holds them (``_rank_wq``), and the kv heads those read;
+the output's own columns kept).  So a rank computes at most
+ceil(H / m) + 1 heads, and a head split across two ranks is computed on
+both.
 """
 from __future__ import annotations
 
@@ -63,15 +68,49 @@ def attention_specs(cfg) -> dict:
 
 def heads_layout(cfg, m: int) -> str:
     """How a rank of ``m`` on "model" holds the heads: "local",
-    "kv_gathered" or "replicated" (see the module's docstring)."""
-    H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    if H % m == 0:
-        if Hkv % m == 0:
-            return "local"
-        hl, g = H // m, H // Hkv
-        if g % hl == 0 or hl % g == 0:
-            return "kv_gathered"
-    return "replicated"
+    "kv_gathered" or "wq_gathered" (see the module's docstring)."""
+    if cfg.n_heads % m:
+        return "wq_gathered"
+    return "kv_gathered" if cfg.n_kv_heads % m else "local"
+
+
+def rank_heads(cfg, m: int, r: int) -> tuple:
+    """``((lo, hi), (klo, khi))``: the q heads ``[lo, hi)`` that rank
+    ``r`` of ``m`` computes (those its ``H Dh / m`` columns of ``wq``
+    overlap) and the kv heads ``[klo, khi)`` they read."""
+    H, Dh = cfg.n_heads, cfg.d_head
+    c = H * Dh // m
+    lo, hi = r * c // Dh, -(-(r + 1) * c // Dh)
+    g = H // cfg.n_kv_heads
+    return (lo, hi), (lo // g, (hi - 1) // g + 1)
+
+
+def _paired_kv(t, heads, g: int):
+    """The kv heads of ``t`` [B, Hkv, S, Dh] that a rank's q heads read
+    (``heads``, ``rank_heads``' pair), as the flash kernel pairs them
+    (local q head ``j`` with kv head ``j // group``): a slice where the q
+    heads read one kv head or cover whole groups, else one kv head for
+    each q head."""
+    (lo, hi), (klo, khi) = heads
+    if khi - klo == 1 or (lo % g == 0 and hi % g == 0):
+        return t[:, klo:khi]
+    return t[:, torch.arange(lo, hi, device=t.device) // g]
+
+
+def _rank_wq(wq, Dh: int, heads: tuple, ax: spmd.Axes):
+    """The columns of ``wq`` for the q heads ``[lo, hi)`` (``heads``) that
+    rank ``ax.r`` computes: its own ``c`` columns and, from each
+    neighbour, its ``Dh`` columns next to them, of which those of the
+    head the two ranks share are kept; every rank's columns where a head
+    spans more than two ranks (``c < Dh``)."""
+    (lo, hi), c = heads, wq.shape[-1]
+    if c < Dh:
+        return spmd.gather(wq, -1, ax.model)[:, lo * Dh:hi * Dh]
+    left = spmd.shift(wq[:, c - Dh:], 1, ax.model)
+    right = spmd.shift(wq[:, :Dh], -1, ax.model)
+    start = ax.r * c - Dh
+    return torch.cat([left, wq, right], -1)[:, lo * Dh - start:
+                                               hi * Dh - start]
 
 
 def _heads(t, B, S, Dh):
@@ -97,14 +136,17 @@ def attention_fwd(
     every kv head, for the caller's cache, and attention runs as through
     a cache of the prompt's length (``kv_len = S``)."""
     B, S, _ = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    H, Dh = cfg.n_heads, cfg.d_head
     mode = heads_layout(cfg, ax.m)
+    heads = rank_heads(cfg, ax.m, ax.r)
+    lo, hi = heads[0]
     x = spmd.enter(x, ax.model)
-    q = x @ params["wq"]
+    wq = params["wq"]
+    if mode == "wq_gathered":
+        wq = _rank_wq(wq, Dh, heads[0], ax)
+    q = x @ wq
     k = x @ params["wk"]
     v = x @ params["wv"]
-    if mode == "replicated":
-        q = spmd.gather(q, -1, ax.model)
     if mode != "local":
         k = spmd.gather(k, -1, ax.model)
         v = spmd.gather(v, -1, ax.model)
@@ -135,14 +177,13 @@ def attention_fwd(
                      spmd.gather_nograd(v, 1, ax.model)) \
                 if mode == "local" else (k, v)
             kw["kv_len"] = S
-        if mode == "kv_gathered":
-            hl, g = H // ax.m, H // Hkv
-            lo, hi = ax.r * hl // g, ((ax.r + 1) * hl - 1) // g + 1
-            k, v = k[:, lo:hi], v[:, lo:hi]
+        if mode != "local":
+            g = H // cfg.n_kv_heads
+            k, v = _paired_kv(k, heads, g), _paired_kv(v, heads, g)
         out = flash_ops.attention(q, k.contiguous(), v.contiguous(),
                                   q_offset=0, **kw)
     out = out.transpose(1, 2).reshape(B, S, out.shape[1] * Dh)
-    if mode == "replicated":
-        cols = H * Dh // ax.m
-        out = out[..., ax.r * cols:(ax.r + 1) * cols]
+    if mode == "wq_gathered":
+        c = H * Dh // ax.m
+        out = out[..., ax.r * c - lo * Dh:(ax.r + 1) * c - lo * Dh]
     return spmd.leave(out @ params["wo"], ax.model), cache

@@ -4,8 +4,9 @@ The DistCLUB stages need four primitives: ``axis_index()`` (which user
 shard am I), ``all_gather(x)`` over the user axis, ``psum(x)`` and
 ``n_shards``; the sharded DCCB adds ``permute(x)``, its ring gossip, and
 the sharded GAT ``psum_scatter(x)``, the backward of its feature gather.
-The LM's tensor-parallel body adds ``pmax(x)``; it and the GAT reach
-these through the differentiable wrappers of ``distributed.spmd``.
+The LM's tensor-parallel body adds ``pmax(x)``, and ``permute(x)`` for
+a neighbour's columns of ``wq``; it and the GAT reach these through the
+differentiable wrappers of ``distributed.spmd``.
 The sharded LM decode gathers on another dim, ``all_gather(x, axis=1)``
 (``jax.lax.all_gather(..., axis=1, tiled=True)``), and stacks the pieces
 on a new leading dim, ``all_gather(x, tiled=False)``; it binds one set
@@ -147,6 +148,9 @@ class DistCollectives(NamedTuple):
         out = torch.empty_like(src)
         peer = (self.rank + shift) % self.shards
         back = (self.rank - shift) % self.shards
+        if self.group is not None:      # point to point takes world ranks
+            peer, back = (dist.get_global_rank(self.group, r)
+                          for r in (peer, back))
         for work in dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, src, peer, group=self.group),
                 dist.P2POp(dist.irecv, out, back, group=self.group)]):

@@ -17,8 +17,13 @@ each argument (``NamedSharding.shard_shape`` x itemsize).
               reads them;
   fitcheck    resident = arguments + max(0, outputs - aliased) against
               the budget, on records made up here: the table, the count
-              and the exit code, over and under.
+              and the exit code, over and under;
+  counter     ``Counter`` sees a DTensor op's local pieces, not the fake
+              global tensors DTensor derives its shapes on, and lets an
+              op's tensors go when the caller drops them (no reference
+              cycle that waits for the collector).
 """
+import gc
 import json
 from unittest import mock
 
@@ -179,3 +184,47 @@ def test_fitcheck_arithmetic_and_exit(over, tmp_path, capsys):
     assert f"{1 if over else 2}/2 with their peak temporaries" in text
     assert [r[:3] for r in fitcheck.rows("pod1", budget * gib, tmp_path)] \
         == [("a", "train", 50 * gib), ("b", "serve", 85 * gib)]
+
+
+def test_counter_sees_local_pieces_only():
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.distributed.sharding import P
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import _dt
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", rank=3, world_size=16, store=FakeStore())
+    try:
+        m = mesh_lib.make_mesh((4, 4), ("data", "model"), "cpu")
+        spec, full = P(None, "model", "data", None), (2, 8, 32, 64)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            a, g = (_dt(torch.zeros(2, 2, 8, 64), spec, full, m)
+                    for _ in range(2))
+            counter = dryrun.Counter()
+            with counter:
+                a.add_(g)
+                b = a * 2
+        # a's piece (written in place) and b's; a global tensor is 16x one
+        piece = 2 * 2 * 8 * 64 * 4
+        assert counter.peak == 2 * piece, counter.peak
+        assert b.to_local().shape == (2, 2, 8, 64)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_counter_releases_without_the_collector():
+    x = torch.ones(256, 256)
+    counter = dryrun.Counter()
+    gc.disable()
+    try:
+        with counter:
+            for _ in range(3):
+                y = torch.cat([x, x]) * 2
+                del y
+        assert counter.live == 0 and counter.peak == 2 * 2 * x.nbytes
+    finally:
+        gc.enable()

@@ -18,8 +18,9 @@ level.
 
   LM        a dense and a MoE config (E 4, top-2, a shared expert: the
             capacity dispatch, queue positions over the whole
-            microbatch) and two whose heads do not split over "model"
-            (1 kv head; 6 q and 3 kv heads), ``train_4k`` (2
+            microbatch) and three whose heads do not split over "model"
+            (1 kv head; 6 q and 3 kv heads; 3 q heads and 1 kv head,
+            1.5 q heads a rank), ``train_4k`` (2
             microbatches, remat, AdamW; the MoE config also in 8
             microbatches of one row, which one of the two data ranks
             holds) and
@@ -59,14 +60,19 @@ DENSE = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_head=8,
 MOE = dict(DENSE, n_experts=4, top_k=2, n_shared=1, d_ff_expert=32,
            moe_every=2)
 # heads that do not split evenly over "model" (2): the kv heads gathered
-# (``attention.heads_layout`` "kv_gathered"), then every head ("replicated")
+# (``attention.heads_layout`` "kv_gathered"; 6 q heads over 3 kv heads,
+# each rank's 3 q heads reading parts of 2), then q heads that straddle
+# the ranks' columns ("wq_gathered": 1.5 heads a rank, 3 q heads to a kv
+# head)
 KVG = dict(DENSE, n_kv_heads=1)
 REP = dict(DENSE, n_heads=6, n_kv_heads=3)
+CROSS = dict(DENSE, n_heads=3, n_kv_heads=1)
 # one row a microbatch over 2 data ranks: one rank holds none
 UNEVEN = dict(MOE, microbatches=8)
 # the LM configs by file: this one's, and tests/test_torch_gspmd_layouts.py's
 LM_PARTS = {"lm": (("dense", DENSE), ("moe", MOE)),
-            "layouts": (("kvg", KVG), ("rep", REP), ("uneven", UNEVEN))}
+            "layouts": (("kvg", KVG), ("rep", REP), ("cross", CROSS),
+                        ("uneven", UNEVEN))}
 DCN = dict(n_sparse=3, vocab_per_field=64, embed_dim=4, mlp_dims=(16, 16, 8))
 SEQ = dict(n_items=128, embed_dim=8, n_blocks=2, n_heads=2, seq_len=6,
            n_negatives=7)
@@ -449,7 +455,7 @@ def ports(reference):
 
 
 ADAMW = dict(lr=3e-4, weight_decay=0.01)    # the LM train cells' AdamW
-ADAMW_CASES = ("dense", "moe", "kvg", "rep", "uneven")
+ADAMW_CASES = ("dense", "moe", "kvg", "rep", "cross", "uneven")
 KNEE = 0.99
 
 

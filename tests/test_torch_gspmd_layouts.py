@@ -1,7 +1,9 @@
 """The LM cells' other layouts against ``repro``'s jitted cells on 4 XLA
 host devices, through the harness of ``tests/test_torch_gspmd_cells.py``
 (see there): heads that do not split over "model" (one kv head, gathered;
-6 q and 3 kv heads, computed whole), and a MoE ``train_4k`` in 8
+6 q and 3 kv heads, each rank's q heads reading parts of two kv heads; 3
+q heads, 1.5 a rank, a head split across the two ranks and computed on
+both), and a MoE ``train_4k`` in 8
 microbatches of one row, which one of the two data ranks holds (the
 capacity queue over uneven pieces); a file of its own, so that the
 halves run side by side."""
@@ -15,6 +17,7 @@ import test_torch_gspmd_cells as harness  # noqa: E402
 CASES = {
     "lm_kv_gathered": ("kvg.train", "kvg.prefill"),
     "lm_heads_replicated": ("rep.train", "rep.prefill"),
+    "lm_heads_crossing": ("cross.train", "cross.prefill"),
     "lm_moe_uneven_microbatches": ("uneven.train",),
 }
 
